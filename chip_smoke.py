@@ -4,23 +4,43 @@ Usage (from the root of a checkout):  python3 chip_smoke.py
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: name, power limit, torch and CUDA versions;
-  2. build: both CUDA kernels from csrc/ with nvcc (sm_90a);
+  2. build: the four CUDA libraries from csrc/ with nvcc (sm_90a), one nvcc
+     each, all started together;
   3. the direction-flux kernel against its plain PyTorch version on the
-     512x512x64 supercell state (3 tracers), x/y/z in f32 and f64, plus a
-     small wall/open case; max error and kernel/plain times;
+     512x512x64 supercell state, x/y/z in f32 and f64: the Kessler state (3
+     tracers) plus a small wall/open case, and the P3 state (9 tracers, 14
+     variables) with mixed-regime hydrometeors; max error and kernel/plain
+     times;
   4. the Kessler kernel against its plain version with rainsplit > 1;
-  5. the slice: community_benchmark.run_benchmark on the 512x512x64 f32
-     ord-5 Kessler supercell, with every kernel's launch count, a clean
+  5. the Kessler slice: community_benchmark.run_benchmark on the 512x512x64
+     f32 ord-5 supercell, with its kernels' launch counts, a clean
      validate(), Mcellups and peak memory; plus the 50x1x20 f64 maxw
      trajectory against the JAX package's golden values and a 16x8x10 f64
      slice against the port's own CPU run;
   6. the reference's 1024x1024x100 community benchmark for 3 steps;
   7. the canonical 2-D supercell experiment with its heartbeat and NetCDF
-     (written to chip_smoke_out/).
+     (written to chip_smoke_out/);
+  8. the three P3 lookup kernels against their plain versions at 512x512x64
+     cells, at every column count K of the P3 path, on index sets from
+     seeded physical inputs that reach the tables' clip ranges;
+  9. the P3 per-cell kernel's three phases against their plain versions on
+     the inputs one P3 step hands them, on the seeded mixed-regime
+     512x512x64 state, f32 and f64;
+  10. the P3 slice: run_benchmark(build=supercell_p3.build) at 512x512x64
+     f32, 10 steps from the supercell init, with every P3-path kernel's
+     launch count, a clean validate(), Mcellups and peak memory, and the
+     host synchronizations of one step (torch.cuda sync debug mode);
+  11. the same for 3 steps with every cell seeded (bench.py's all-active
+     P3 case), so every presence gate fires;
+  12. a 16x8x10 f64 P3 slice with seeded hydrometeor layers and part3
+     diagnostics, card against the port's CPU run, 3 steps;
+  13. the 2-D supercell_p3 experiment with p3_diagnostics, heartbeat and
+     NetCDF (chip_smoke_out/).
 
 Tolerance of a kernel against its plain version: max|kernel - plain| over
 max|plain| of each output below 1e-12 in f64 and 1e-5 in f32 (the JAX
 suite's own f32 bound between its paths, tests/test_pallas.py:260,311).
+A slice on the card against the port's CPU run: 1e-7 of each field's scale.
 
 The next-to-last line of output is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.  Needs torch.cuda; exits non-zero without it.
@@ -35,6 +55,8 @@ import os
 import subprocess
 import sys
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -103,22 +125,37 @@ def phase_device():
     return name
 
 
+LIBRARIES = ("direction_fluxes", "kessler", "p3_lookup", "p3_cellwise")
+
+
 def phase_build():
     from miniweatherml_tpu_torch import cuda_build
-    for name in ("direction_fluxes", "kessler"):
-        t0 = time.perf_counter()
-        cuda_build.load_library(name)
-        print(f"[2] built {name}: {time.perf_counter() - t0:.2f} s "
-              f"(nvcc {cuda_build.build_seconds.get(name, 0.0):.2f} s)",
-              flush=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(cuda_build.load_library, LIBRARIES))
+    for name in LIBRARIES:
+        print(f"[2] built {name}: nvcc "
+              f"{cuda_build.build_seconds.get(name, 0.0):.2f} s", flush=True)
+    print(f"[2] all builds: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def phase_direction_fluxes():
+def _p3_mixed_build(cfg, device):
+    """The supercell_p3 chain on the seeded mixed-regime state."""
+    from miniweatherml_tpu_torch.experiments import supercell_p3
+    state, mods, dycore = supercell_p3.build(cfg, device)
+    return supercell_p3.seed_mixed_regimes(state), mods, dycore
+
+
+def phase_direction_fluxes(chain="kessler"):
+    """The flux kernel on the chain's 512x512x64 state; the Kessler chain
+    also runs the small wall/open box."""
     from miniweatherml_tpu_torch.experiments.supercell_example import build
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
         IDU, IDV, IDW, direction_fluxes, direction_fluxes_plain)
     from miniweatherml_tpu_torch.ops.stencil import BC_OPEN, BC_WALL
 
+    if chain != "kessler":
+        build = _p3_mixed_build
     rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
     for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
         state, _, dycore = build(_bench_cfg(512, 512, 64, 1, dtype), "cuda")
@@ -139,7 +176,8 @@ def phase_direction_fluxes():
             del ref, got
             ms = _time_ms(lambda: direction_fluxes(*args))
             pms = _time_ms(lambda: direction_fluxes_plain(*args), reps=3)
-            print(f"[3] direction_fluxes {dtype} axis {axis} bc {bc}: "
+            print(f"[3] direction_fluxes {chain} nvar {prim.shape[0]} "
+                  f"{dtype} axis {axis} bc {bc}: "
                   f"max abs err {max(e[0] for e in errs):.3e}, rel "
                   f"{rel:.3e} (tol {tol:g}); kernel {ms:.3f} ms, plain "
                   f"{pms:.3f} ms", flush=True)
@@ -151,6 +189,10 @@ def phase_direction_fluxes():
                                          max(e[0] for e in errs))
                 rec["ms"] += ms
                 rec["plain_ms"] += pms
+        if chain != "kessler":
+            del state, prim, hy, dycore
+            torch.cuda.empty_cache()
+            continue
         # the boundary conditions the supercell does not use: a small
         # open/wall box in every direction
         small = prim[:, :, :12, :10, :14].contiguous()
@@ -221,11 +263,19 @@ def phase_kessler():
     return rec
 
 
-def _counters():
+def _counters(chain):
+    """The launch counters of the kernels on a chain's path."""
     from miniweatherml_tpu_torch.ops.direction_fluxes import direction_fluxes
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
+    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as lk
     from miniweatherml_tpu_torch.physics.kessler_cuda import kessler_subcycle
+    if chain == "kessler":
+        return {"direction_fluxes": direction_fluxes,
+                "kessler_subcycle": kessler_subcycle}
     return {"direction_fluxes": direction_fluxes,
-            "kessler_subcycle": kessler_subcycle}
+            "interp_ice": lk.interp_ice, "interp_collect": lk.interp_collect,
+            "interp_rain": lk.interp_rain, "p3_part1": cw.p3_part1,
+            "p3_update": cw.p3_update, "p3_wrapper": cw.p3_wrapper}
 
 
 def _check_state(tag, state):
@@ -239,14 +289,17 @@ def _check_state(tag, state):
     return maxw
 
 
-def _run_cell(tag, cfg, card):
+def _run_cell(tag, cfg, card, chain="kessler", build=None):
+    """run_benchmark on the chain's path with its launch counters set to 0
+    just before and read just after."""
     from miniweatherml_tpu_torch.experiments.community_benchmark import (
         run_benchmark)
-    counters = _counters()
+    counters = _counters(chain)
+    kw = {} if build is None else {"build": build}
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    state, res = run_benchmark(cfg, "cuda", quiet=True)
+    state, res = run_benchmark(cfg, "cuda", quiet=True, **kw)
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     maxw = _check_state(tag, state)
@@ -261,7 +314,7 @@ def _run_cell(tag, cfg, card):
           f"{launches}; validate() clean  [{card}]", flush=True)
     del state
     torch.cuda.empty_cache()
-    return launches
+    return launches, res, peak
 
 
 def _golden_maxw():
@@ -327,6 +380,205 @@ def phase_heartbeat():
           f"{prefix}.nc", flush=True)
 
 
+# -- P3 -----------------------------------------------------------------------
+
+# (label, 1-based ice columns) of every ice lookup on the P3 path
+# (physics/p3.py: part2 rates, sedimentation, part3, part3 with diagnostics)
+ICE_CALLS = (("part2", (7, 8, 4, 2, 3, 5, 10)), ("sed", (2, 1, 7, 8)),
+             ("part3", (7, 8)), ("part3_diag", (7, 8, 2, 6, 9, 11, 12)))
+RAIN_CALLS = (("revap", ("revap",)), ("sed", ("vm", "vn")))
+
+
+def _p3_lookup_inputs(n, dtype, seed=13):
+    """Index sets for n cells from the index finders, on seeded physical
+    inputs that reach past the tables (every clip range is hit)."""
+    from miniweatherml_tpu_torch.physics import p3_tables as PT
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+    qi = 10.0 ** rng.uniform(-15, -1, n)
+    idx = PT.ice_table_indices(t(qi), t(10.0 ** rng.uniform(-3, 10, n)),
+                               t(qi * rng.uniform(0.0, 1.2, n)),
+                               t(rng.uniform(0.0, 1000.0, n)))
+    jr = PT.rain_collection_index(t(10.0 ** rng.uniform(-15, -1, n)),
+                                  t(10.0 ** rng.uniform(-3, 8, n)))
+    rs = PT.rain_size_index(t(10.0 ** rng.uniform(-7, -1, n)))
+    return idx, jr, rs
+
+
+def phase_p3_lookups():
+    """Each lookup kernel at every K of the path, 512x512x64 cells."""
+    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as LK
+    from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
+
+    tables = load_p3_tables()
+    n = 512 * 512 * 64
+    recs = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+            for k in ("interp_ice", "interp_collect", "interp_rain")}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        dev = tables.to("cuda", dtype)
+        idx, jr, rs = _p3_lookup_inputs(n, dtype)
+        present = torch.tensor(True, device="cuda")
+        calls = [("interp_ice", label, LK.interp_ice, LK.interp_ice_plain,
+                  (dev.ice_cols(cols), *idx)) for label, cols in ICE_CALLS]
+        calls.append(("interp_collect", "part2", LK.interp_collect,
+                      LK.interp_collect_plain,
+                      (dev.collect_cols((2, 1)), *idx, *jr)))
+        calls += [("interp_rain", label, LK.interp_rain, LK.interp_rain_plain,
+                   (dev.rain_rows(rows), *rs)) for label, rows in RAIN_CALLS]
+        for name, label, kern, plain, args in calls:
+            ref = plain(*args, present=present)
+            got = kern(*args, present=present)
+            torch.cuda.synchronize()
+            err, rel = _rel(ref, got)
+            del ref, got
+            ms = _time_ms(lambda: kern(*args, present=present))
+            pms = _time_ms(lambda: plain(*args, present=present), reps=3)
+            print(f"[8] {name} {label} K={args[0].shape[0]} {dtype}: max abs "
+                  f"err {err:.3e}, rel {rel:.3e} (tol {tol:g}); kernel "
+                  f"{ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+            if not rel <= tol:
+                raise AssertionError(f"{name} {label} {dtype}: rel {rel:.3e}")
+            if dtype == torch.float32:
+                r = recs[name]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                if r["ms"] == 0.0:  # the first call site of the family
+                    r["ms"], r["plain_ms"] = ms, pms
+        off = LK.interp_ice(dev.ice_cols((2,)), *idx,
+                            present=torch.tensor(False, device="cuda"))
+        if off.any():
+            raise AssertionError("interp_ice wrote values with present=False")
+        del idx, jr, rs, calls
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_p3_cellwise():
+    """The three phases of the per-cell kernel against their plain versions
+    on the inputs one P3 step hands them (captured at the shared launcher),
+    mixed-regime 512x512x64 state."""
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
+
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    launch = cw._launch
+    for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
+        state, mods, dycore = _p3_mixed_build(
+            _bench_cfg(512, 512, 64, 1, dtype), "cuda")
+        seen = {}
+
+        def spy(phase, predict_nc, arrays, dt=0.0):
+            seen[phase] = (predict_nc, arrays, dt)
+            return launch(phase, predict_nc, arrays, dt)
+        cw._launch = spy
+        try:
+            mods[1](state, dycore.compute_time_step(state))
+        finally:
+            cw._launch = launch
+        del state, mods, dycore
+        if set(seen) != {"part1", "update", "wrapper"}:
+            raise AssertionError(f"P3 step launched phases {sorted(seen)}")
+        for phase, (pnc, arrays, dt) in sorted(seen.items()):
+            ref = cw.plain_phase(phase, pnc, arrays, dt)
+            got = launch(phase, pnc, arrays, dt)
+            torch.cuda.synchronize()
+            errs = [_rel(a, b) for a, b in zip(ref, got)]
+            err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            del ref, got
+            ms = _time_ms(lambda: launch(phase, pnc, arrays, dt))
+            pms = _time_ms(lambda: cw.plain_phase(phase, pnc, arrays, dt),
+                           reps=3)
+            print(f"[9] p3_cellwise {phase} ({len(arrays)} in) {dtype}: max "
+                  f"abs err {err:.3e}, rel {rel:.3e} (tol {tol:g}); kernel "
+                  f"{ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+            if not rel <= tol:
+                raise AssertionError(f"p3 {phase} {dtype}: rel {rel:.3e}")
+            if dtype == "float32":
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                rec["ms"] += ms
+                rec["plain_ms"] += pms
+        del seen
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _p3_active_build(cfg, device):
+    """The supercell_p3 chain with bench.py's all-cells-active seeds."""
+    from miniweatherml_tpu_torch.experiments import supercell_p3
+    state, mods, dycore = supercell_p3.build(cfg, device)
+    return supercell_p3.seed_all_active(state), mods, dycore
+
+
+def _host_syncs(build, cfg):
+    """Synchronizing operations in one step after a warm step, as counted by
+    torch.cuda's sync debug mode."""
+    state, mods, dycore = build(cfg, "cuda")
+    dt = dycore.compute_time_step(state)
+    for m in mods:
+        state = m(state, dt)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for m in mods:
+                state = m(state, dt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def phase_p3_references():
+    """16x8x10 f64 P3 slice with seeded layers and part3 diagnostics: card
+    against CPU."""
+    from miniweatherml_tpu_torch.experiments import supercell_p3
+
+    cfg = _supercell_cfg(16, 8, 10, 40000.0, 40000.0, 16000.0, 100.0,
+                         "float64")
+    cfg.extras["p3_diagnostics"] = True
+    outs = []
+    for device in ("cpu", "cuda"):
+        state, mods, dycore = supercell_p3.build(cfg, device)
+        state = supercell_p3.seed_layers(state)
+        dt = dycore.compute_time_step(state)
+        for _ in range(3):
+            for m in mods:
+                state = m(state, dt)
+        outs.append(state)
+    if float(outs[1]["ice"].max()) <= 0.0:
+        raise AssertionError("P3 reference slice holds no ice")
+    worst = max(_rel(outs[0][k], outs[1][k].cpu())[1] for k in outs[0].fields)
+    print(f"[12] 16x8x10 f64 3-step P3 slice, card vs CPU: worst error over "
+          f"field scale {worst:.3e} (tol 1e-7)", flush=True)
+    if not worst <= 1e-7:
+        raise AssertionError(f"P3 card vs CPU slice: {worst:.3e}")
+
+
+def phase_p3_heartbeat():
+    from miniweatherml_tpu_torch.experiments import supercell_p3
+    from miniweatherml_tpu_torch.physics.p3 import MicrophysicsP3
+    from scipy.io import netcdf_file
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    prefix = os.path.join(OUT_DIR, "chip_smoke_supercell_p3")
+    cfg = _supercell_cfg(100, 1, 40, 100000.0, 100000.0, 20000.0, 50.0,
+                         "float32", out_freq=25.0, out_prefix=prefix)
+    cfg.extras["p3_diagnostics"] = True
+    state = supercell_p3.run(cfg, "cuda")
+    maxw = _check_state("13", state)
+    with netcdf_file(prefix + ".nc", "r", mmap=False) as nc:
+        missing = [k for k in MicrophysicsP3.DIAG_FIELDS
+                   if k not in nc.variables]
+        nt = nc.variables["t"].shape[0]
+    if missing or nt != 3:
+        raise AssertionError(f"P3 NetCDF: missing {missing}, {nt} records")
+    dbz = state["equiv_reflectivity"]
+    print(f"[13] supercell_p3 100x1x40 f32 with diagnostics: maxw "
+          f"{maxw:.6e}, dBZ in [{float(dbz.min()):.2f}, "
+          f"{float(dbz.max()):.2f}], wrote {prefix}.nc", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -337,9 +589,12 @@ def main() -> int:
     name = phase_device()
     card = _card()
     phase_build()
-    k_a = phase_direction_fluxes()
+    k_a8 = phase_direction_fluxes()
+    k_a = phase_direction_fluxes("p3")  # the JSON line's times: 14 variables
+    k_a["max_abs_err"] = max(k_a["max_abs_err"], k_a8["max_abs_err"])
     k_b = phase_kessler()
-    launches = _run_cell("5", _bench_cfg(512, 512, 64, 10, "float32"), card)
+    l_kessler = _run_cell("5", _bench_cfg(512, 512, 64, 10, "float32"),
+                          card)[0]
     phase_references()
     # inputs/community_benchmark_1024.yaml (819.2 x 819.2 x 20 km), 3 steps
     dt = 0.6 * 200.0 / 430.0
@@ -348,16 +603,52 @@ def main() -> int:
               card)
     phase_heartbeat()
 
+    from miniweatherml_tpu_torch.experiments import supercell_example
+    from miniweatherml_tpu_torch.experiments import supercell_p3
+    k_lk = phase_p3_lookups()
+    k_cw = phase_p3_cellwise()
+    l_p3 = _run_cell("10", _bench_cfg(512, 512, 64, 10, "float32"), card,
+                     chain="p3", build=supercell_p3.build)[0]
+    _run_cell("11", _bench_cfg(512, 512, 64, 3, "float32"), card,
+              chain="p3", build=_p3_active_build)
+    small = _bench_cfg(128, 128, 64, 2, "float32")
+    print(f"[10] host synchronizations in one step at 128x128x64: P3 chain "
+          f"{_host_syncs(supercell_p3.build, small)}, all-active P3 "
+          f"{_host_syncs(_p3_active_build, small)}; Kessler chain "
+          f"{_host_syncs(supercell_example.build, small)}", flush=True)
+    phase_p3_references()
+    phase_p3_heartbeat()
+
     kernels = [
         {"name": "direction_fluxes", "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/direction_fluxes.cu",
          "replaces": "miniweatherml_tpu/ops/pallas_recon.py:536, "
                      "miniweatherml_tpu/ops/pallas_recon.py:941",
-         "launches": launches["direction_fluxes"], **k_a},
+         "launches": l_p3["direction_fluxes"], **k_a},
         {"name": "kessler_subcycle", "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/kessler.cu",
          "replaces": "miniweatherml_tpu/physics/kessler_pallas.py:128",
-         "launches": launches["kessler_subcycle"], **k_b},
+         "launches": l_kessler["kessler_subcycle"], **k_b},
+        {"name": "p3_interp_ice", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/p3_lookup.cu",
+         "replaces": "miniweatherml_tpu/physics/p3_pallas_lookup.py:155, "
+                     "miniweatherml_tpu/physics/p3_pallas_lookup.py:292",
+         "launches": l_p3["interp_ice"], **k_lk["interp_ice"]},
+        {"name": "p3_interp_collect", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/p3_lookup.cu",
+         "replaces": "miniweatherml_tpu/physics/p3_pallas_lookup.py:155, "
+                     "miniweatherml_tpu/physics/p3_pallas_lookup.py:292",
+         "launches": l_p3["interp_collect"], **k_lk["interp_collect"]},
+        {"name": "p3_interp_rain", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/p3_lookup.cu",
+         "replaces": "miniweatherml_tpu/physics/p3_pallas_lookup.py:155, "
+                     "miniweatherml_tpu/physics/p3_pallas_lookup.py:486",
+         "launches": l_p3["interp_rain"], **k_lk["interp_rain"]},
+        {"name": "p3_cellwise", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/p3_cellwise.cu",
+         "replaces": "miniweatherml_tpu/ops/elementwise.py:101",
+         "launches": (l_p3["p3_part1"] + l_p3["p3_update"]
+                      + l_p3["p3_wrapper"]), **k_cw},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

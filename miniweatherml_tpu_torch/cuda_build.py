@@ -18,7 +18,7 @@ import subprocess
 import threading
 import time
 
-__all__ = ["load_library", "build_seconds", "NVCC_FLAGS"]
+__all__ = ["load_library", "build_seconds", "NVCC_FLAGS", "on_cuda"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()           # guards _name_locks
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
 
@@ -52,8 +53,11 @@ def _sources(name: str) -> list[str]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+    Different names may build concurrently (one nvcc each, from threads)."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -77,3 +81,13 @@ def load_library(name: str) -> ctypes.CDLL:
             os.replace(tmp, so)
         _libs[name] = ctypes.CDLL(so)
         return _libs[name]
+
+
+def on_cuda(t) -> bool:
+    """Whether a wrapper handed ``t`` launches its kernel (a CUDA tensor)
+    or runs its plain version (a CPU tensor); other devices raise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True

@@ -15,19 +15,20 @@ import sys
 import torch
 
 from ..config import SimConfig, load_config
+from . import supercell_example
 from .driver import Timers, default_device, run_main_loop
-from .supercell_example import build
 
 __all__ = ["main", "run_benchmark"]
 
 
 def run_benchmark(config: SimConfig, device: str | torch.device,
-                  quiet: bool = False):
+                  quiet: bool = False, build=supercell_example.build):
     """Run the chain for ``config.sim_time``; returns (state, result) where
     result holds the step count, the timed seconds and Mcellups (cells x
-    steps / s / 1e6).  One step on a copy of the state runs first and is
-    discarded, so one-time costs (kernel builds, allocator growth) stay
-    outside the timer."""
+    steps / s / 1e6).  ``build(config, device) -> (state, step_modules,
+    dycore)`` makes the chain (default: the Kessler supercell).  One step
+    on a copy of the state runs first and is discarded, so one-time costs
+    (kernel builds, allocator growth) stay outside the timer."""
     state, mods, dycore = build(config, device)
     g = config.grid
     dt = (dycore.compute_time_step(state) if config.dt_phys <= 0.0

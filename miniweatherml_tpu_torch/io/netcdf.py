@@ -22,9 +22,14 @@ class StateWriter:
     """Snapshot writer mirroring the reference output() variable layout.
     Writes ensemble member ``iens`` (0, like the reference, dynamics...h:2034)."""
 
-    def __init__(self, path_prefix: str, state: CouplerState, iens: int = 0):
+    def __init__(self, path_prefix: str, state: CouplerState, iens: int = 0,
+                 extra_vars: tuple = ()):
+        """``extra_vars``: further registered (nens, nz, ny, nx) fields to
+        write beyond the reference's state + tracer layout, e.g. the P3
+        diagnostic fields."""
         self.iens = iens
-        self.varnames = list(_STATE_VARS) + list(state.meta.tracer_names)
+        self.varnames = (list(_STATE_VARS) + list(state.meta.tracer_names)
+                         + list(extra_vars))
         g = state.grid
         self.path = (path_prefix if path_prefix.endswith(".nc")
                      else path_prefix + ".nc")

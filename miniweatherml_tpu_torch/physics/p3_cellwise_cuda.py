@@ -1,0 +1,130 @@
+"""The P3 scheme's per-cell phases: one fused CUDA kernel each, and their
+plain versions.
+
+``p3_part1`` (13 fields in, 21 out), ``p3_update`` (dt + 45 fields in, 10
+out) and ``p3_wrapper`` (13 fields in, 14 out) run the plain functions of
+``p3.py`` (``_p3_part1_cellwise``, ``_p3_update_cellwise``,
+``_p3_wrapper_inputs_cellwise``, re-exported here as ``part1_plain``,
+``update_plain`` and ``wrapper_plain``) on CPU tensors.  On CUDA tensors
+each launches the matching phase of ``csrc/p3_cellwise.cu``, the port of the
+Pallas kernel ``miniweatherml_tpu/ops/elementwise.py::fused_cellwise``: one
+thread per cell reads the cell's inputs once and writes its outputs once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..cuda_build import load_library, on_cuda
+from .p3 import (_p3_part1_cellwise as part1_plain,
+                 _p3_update_cellwise as update_plain,
+                 _p3_wrapper_inputs_cellwise as wrapper_plain)
+
+__all__ = ["p3_part1", "p3_update", "p3_wrapper", "plain_phase",
+           "part1_plain", "update_plain", "wrapper_plain"]
+
+# phase ids of csrc/p3_cellwise.cu: (phase, do_predict_nc) -> id
+_PHASE_ID = {("part1", False): 0, ("part1", True): 1, ("update", False): 2,
+             ("update", True): 3, ("wrapper", False): 4}
+_N_OUT = {"part1": 21, "update": 10, "wrapper": 14}
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = load_library("p3_cellwise")
+        P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_double)
+        PP = ctypes.POINTER(ctypes.c_void_p)
+        for name in ("p3_cellwise_f32", "p3_cellwise_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [I, PP, I, PP, I, L, D, P]
+            fn.restype = I
+        lib.p3_cellwise_error_string.argtypes = [I]
+        lib.p3_cellwise_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _launch(phase, predict_nc, arrays, dt=0.0):
+    """Run one phase's kernel on same-shape contiguous CUDA tensors."""
+    a0 = arrays[0]
+    if a0.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dtype {a0.dtype} is not float32/float64")
+    for i, a in enumerate(arrays):
+        if (a.device != a0.device or a.dtype != a0.dtype
+                or a.shape != a0.shape or not a.is_contiguous()):
+            raise ValueError(f"p3 {phase}: input {i} must be a contiguous "
+                             f"{a0.dtype} tensor of shape {tuple(a0.shape)} "
+                             f"on {a0.device}, got {a.dtype} "
+                             f"{tuple(a.shape)} on {a.device}")
+    outs = [torch.empty_like(a0) for _ in range(_N_OUT[phase])]
+    ins = (ctypes.c_void_p * len(arrays))(*(a.data_ptr() for a in arrays))
+    outp = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+    lib = _library()
+    fn = (lib.p3_cellwise_f32 if a0.dtype == torch.float32
+          else lib.p3_cellwise_f64)
+    stream = torch.cuda.current_stream(a0.device).cuda_stream
+    rc = fn(_PHASE_ID[(phase, predict_nc)], ins, len(arrays), outp,
+            len(outs), a0.numel(), float(dt), stream)
+    if rc != 0:
+        raise RuntimeError(f"p3 {phase} kernel launch failed: "
+                           + lib.p3_cellwise_error_string(rc).decode())
+    return tuple(outs)
+
+
+def plain_phase(phase: str, predict_nc: bool, arrays, dt=0.0):
+    """The plain version of one phase on its kernel's argument list."""
+    if phase == "part1":
+        return part1_plain(*arrays, do_predict_nc=predict_nc)
+    if phase == "update":
+        return update_plain(dt, *arrays, do_predict_nc=predict_nc)
+    return wrapper_plain(*arrays)
+
+
+def _run(phase, predict_nc, arrays, dt=0.0):
+    """The phase's kernel on CUDA tensors, its plain version on CPU ones;
+    returns (outputs, whether the kernel ran)."""
+    if not on_cuda(arrays[0]):
+        return plain_phase(phase, predict_nc, arrays, dt), False
+    return _launch(phase, bool(predict_nc), arrays, dt), True
+
+
+def p3_part1(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres, rho, *,
+             do_predict_nc: bool):
+    """part1 + in-cloud values + pre-process DSD writebacks (see
+    ``p3._p3_part1_cellwise`` for inputs and outputs)."""
+    out, launched = _run("part1", do_predict_nc, (
+        qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres, rho))
+    p3_part1.launches += launched
+    return out
+
+
+def p3_update(dt, *arrays, do_predict_nc: bool):
+    """Conservation rescaling, prognostic update and end-of-part2 clip on
+    the 45 fields of ``p3._p3_update_cellwise``; ``dt`` is a number."""
+    if len(arrays) != 45:
+        raise ValueError(f"p3_update takes 45 fields, got {len(arrays)}")
+    out, launched = _run("update", do_predict_nc, arrays, dt)
+    p3_update.launches += launched
+    return out
+
+
+def p3_wrapper(rho_d, temp, rho_c, rho_nc, rho_r, rho_nr, rho_i, rho_ni,
+               rho_m, rho_bm, rho_v, qv_prev_f, t_prev_f):
+    """The wrapper's per-cell inputs with the saturation Newton (see
+    ``p3._p3_wrapper_inputs_cellwise``)."""
+    out, launched = _run("wrapper", False, (
+        rho_d, temp, rho_c, rho_nc, rho_r, rho_nr, rho_i, rho_ni, rho_m,
+        rho_bm, rho_v, qv_prev_f, t_prev_f))
+    p3_wrapper.launches += launched
+    return out
+
+
+p3_part1.launches = 0
+p3_update.launches = 0
+p3_wrapper.launches = 0

@@ -1,0 +1,192 @@
+"""The P3 table lookups: CUDA kernels and their plain versions.
+
+``interp_ice`` (trilinear, ice table), ``interp_collect`` (quadrilinear of
+log10 values, then 10**, ice-rain collection table) and ``interp_rain``
+(linear, generated rain rows) each take a table packed K-major and
+contiguous (``p3_tables.DeviceTables``), one index set and an optional
+0-d bool ``present``, and return a (K, *cells) tensor; where ``present`` is
+False every value is zero.  On a CUDA tensor each launches its kernel in
+``csrc/p3_lookup.cu`` (the port of the Pallas kernels
+``miniweatherml_tpu/physics/p3_pallas_lookup.py::interp_{ice,collect,rain}_pallas``
+and ``interp_{ice,collect,rain}_lane``), with ``present`` read on the
+device; on a CPU tensor it runs its ``*_plain`` version, which does the
+corner sums in the same order as the JAX package's ``interp_*``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..cuda_build import load_library, on_cuda
+
+__all__ = ["interp_ice", "interp_collect", "interp_rain", "interp_ice_plain",
+           "interp_collect_plain", "interp_rain_plain"]
+
+_ICE_SHAPE = (5, 4, 50)          # (densize, rimsize, isize)
+_COLLECT_SHAPE = (5, 4, 50, 30)  # ... x rcollsize
+
+
+def _gate(out, present):
+    if present is None:
+        return out
+    return torch.where(present, out, 0.0)
+
+
+def _lerp(a, b, f):
+    return a + f * (b - a)
+
+
+def interp_ice_plain(table, i0, fi, ii0, fii, jj0, fjj, present=None):
+    """Plain version of ``interp_ice``."""
+    i0, ii0, jj0 = i0.long(), ii0.long(), jj0.long()
+
+    def lin_i(jj, ii):
+        return _lerp(table[:, jj, ii, i0], table[:, jj, ii, i0 + 1], fi)
+
+    def lin_ii(jj):
+        return _lerp(lin_i(jj, ii0), lin_i(jj, ii0 + 1), fii)
+
+    return _gate(_lerp(lin_ii(jj0), lin_ii(jj0 + 1), fjj), present)
+
+
+def interp_collect_plain(table, i0, fi, ii0, fii, jj0, fjj, j0, fj,
+                         present=None):
+    """Plain version of ``interp_collect``."""
+    i0, ii0, jj0, j0 = i0.long(), ii0.long(), jj0.long(), j0.long()
+
+    def lin_j(jj, ii, i):
+        return _lerp(table[:, jj, ii, i, j0], table[:, jj, ii, i, j0 + 1], fj)
+
+    def lin_i(jj, ii):
+        return _lerp(lin_j(jj, ii, i0), lin_j(jj, ii, i0 + 1), fi)
+
+    def lin_ii(jj):
+        return _lerp(lin_i(jj, ii0), lin_i(jj, ii0 + 1), fii)
+
+    v = _lerp(lin_ii(jj0), lin_ii(jj0 + 1), fjj)
+    return _gate(torch.pow(10.0, v), present)
+
+
+def interp_rain_plain(rows, i0, fi, present=None):
+    """Plain version of ``interp_rain``; i0 is clipped to [0, size - 2]."""
+    i0 = torch.clamp(i0.long(), 0, rows.shape[1] - 2)
+    return _gate(_lerp(rows[:, i0], rows[:, i0 + 1], fi), present)
+
+
+def _bind(lib):
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for t in ("f32", "f64"):
+        getattr(lib, f"p3_interp_ice_{t}").argtypes = [P, I] + [P] * 8 + [L, P]
+        getattr(lib, f"p3_interp_collect_{t}").argtypes = ([P, I] + [P] * 10
+                                                           + [L, P])
+        getattr(lib, f"p3_interp_rain_{t}").argtypes = [P, I, I] + [P] * 4 + [
+            L, P]
+        for k in ("ice", "collect", "rain"):
+            getattr(lib, f"p3_interp_{k}_{t}").restype = I
+    lib.p3_lookup_error_string.argtypes = [I]
+    lib.p3_lookup_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        _lib = _bind(load_library("p3_lookup"))
+    return _lib
+
+
+def _check(table, tshape, fracs, idxs, present):
+    """Validate a CUDA call's arguments; returns (K, cells shape)."""
+    f0 = fracs[0]
+    if f0.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dtype {f0.dtype} is not float32/float64")
+    if (table.device != f0.device or table.dtype != f0.dtype
+            or table.dim() != 1 + len(tshape) or tuple(table.shape[1:]) != tshape
+            or not table.is_contiguous()):
+        raise ValueError(f"table must be a contiguous {f0.dtype} tensor of "
+                         f"shape (K, {', '.join(map(str, tshape))}) on "
+                         f"{f0.device}, got {table.dtype} "
+                         f"{tuple(table.shape)} on {table.device}")
+    for t in fracs:
+        if (t.device != f0.device or t.dtype != f0.dtype
+                or t.shape != f0.shape or not t.is_contiguous()):
+            raise ValueError("fractions must be contiguous tensors of one "
+                             "shape and dtype on one device")
+    for t in idxs:
+        if (t.device != f0.device or t.dtype != torch.int32
+                or t.shape != f0.shape or not t.is_contiguous()):
+            raise ValueError("indices must be contiguous int32 tensors of "
+                             "the fractions' shape on their device")
+    if present is not None and (present.device != f0.device
+                                or present.dtype != torch.bool
+                                or present.numel() != 1):
+        raise ValueError("present must be one bool on the fields' device")
+    return table.shape[0], tuple(f0.shape)
+
+
+def _launch(kind, table, args, present, K, shape, dtype, device,
+            extra_ints=()):
+    out = torch.empty((K, *shape), dtype=dtype, device=device)
+    lib = _library()
+    fn = getattr(lib, f"p3_interp_{kind}_"
+                 + ("f32" if dtype == torch.float32 else "f64"))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(table.data_ptr(), K, *extra_ints, *(a.data_ptr() for a in args),
+            present.data_ptr() if present is not None else None,
+            out.data_ptr(), out[0].numel(), stream)
+    if rc != 0:
+        raise RuntimeError(f"p3 {kind} lookup kernel launch failed: "
+                           + lib.p3_lookup_error_string(rc).decode())
+    return out
+
+
+def interp_ice(table, i0, fi, ii0, fii, jj0, fjj, present=None):
+    """Trilinear ice-table lookup.  ``table``: (K, 5, 4, 50); indices int32,
+    fractions float, all of one shape.  Returns (K, *cells)."""
+    if not on_cuda(fi):
+        return interp_ice_plain(table, i0, fi, ii0, fii, jj0, fjj, present)
+    K, shape = _check(table, _ICE_SHAPE, (fi, fii, fjj), (i0, ii0, jj0),
+                      present)
+    out = _launch("ice", table, (i0, fi, ii0, fii, jj0, fjj), present, K,
+                  shape, fi.dtype, fi.device)
+    interp_ice.launches += 1
+    return out
+
+
+def interp_collect(table, i0, fi, ii0, fii, jj0, fjj, j0, fj, present=None):
+    """Quadrilinear ice-rain collection lookup, 10** of the interpolated
+    log10 values.  ``table``: (K, 5, 4, 50, 30).  Returns (K, *cells)."""
+    if not on_cuda(fi):
+        return interp_collect_plain(table, i0, fi, ii0, fii, jj0, fjj, j0, fj,
+                                    present)
+    K, shape = _check(table, _COLLECT_SHAPE, (fi, fii, fjj, fj),
+                      (i0, ii0, jj0, j0), present)
+    out = _launch("collect", table, (i0, fi, ii0, fii, jj0, fjj, j0, fj),
+                  present, K, shape, fi.dtype, fi.device)
+    interp_collect.launches += 1
+    return out
+
+
+def interp_rain(rows, i0, fi, present=None):
+    """Linear lookup into K rain rows.  ``rows``: (K, size >= 2).  Returns
+    (K, *cells)."""
+    if not on_cuda(fi):
+        return interp_rain_plain(rows, i0, fi, present)
+    if rows.dim() != 2 or rows.shape[1] < 2:
+        raise ValueError(f"rows must be (K, size >= 2), got "
+                         f"{tuple(rows.shape)}")
+    K, shape = _check(rows, (rows.shape[1],), (fi,), (i0,), present)
+    out = _launch("rain", rows, (i0, fi), present, K, shape, fi.dtype,
+                  fi.device, extra_ints=(rows.shape[1],))
+    interp_rain.launches += 1
+    return out
+
+
+interp_ice.launches = 0
+interp_collect.launches = 0
+interp_rain.launches = 0

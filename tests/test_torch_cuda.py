@@ -141,3 +141,158 @@ def test_slice_on_card_matches_cpu(cuda_device):
         b = states[1][name].cpu().numpy()
         np.testing.assert_allclose(b, a, rtol=1e-9,
                                    atol=1e-7 * np.abs(a).max(), err_msg=name)
+
+
+# -- P3: table lookups and the per-cell phases -------------------------------
+
+def _lookup_inputs(n, dtype, device, seed):
+    """Index sets from the index finders on physical inputs that span past
+    the tables (so the clip ranges are hit)."""
+    from miniweatherml_tpu_torch.physics import p3_tables as PT
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    qi = 10.0 ** rng.uniform(-15, -1, n)
+    idx = PT.ice_table_indices(t(qi), t(10.0 ** rng.uniform(-3, 10, n)),
+                               t(qi * rng.uniform(0, 1.2, n)),
+                               t(rng.uniform(0, 1000, n)))
+    jr = PT.rain_collection_index(t(10.0 ** rng.uniform(-15, -1, n)),
+                                  t(10.0 ** rng.uniform(-3, 8, n)))
+    rs = PT.rain_size_index(t(10.0 ** rng.uniform(-7, -1, n)))
+    return idx, jr, rs
+
+
+@pytest.mark.parametrize("n", [1, 255, 4097])
+def test_p3_lookup_kernels_match_plain(n, cuda_device):
+    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as LK
+    from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
+
+    tables = load_p3_tables()
+    for dtype in (torch.float64, torch.float32):
+        dev = tables.to(cuda_device, dtype)
+        idx, jr, rs = _lookup_inputs(n, dtype, cuda_device, n)
+        calls = {
+            "ice": (LK.interp_ice, LK.interp_ice_plain,
+                    (dev.ice_cols((7, 8, 4, 2, 3, 5, 10)), *idx)),
+            "collect": (LK.interp_collect, LK.interp_collect_plain,
+                        (dev.collect_cols((2, 1)), *idx, *jr)),
+            "rain": (LK.interp_rain, LK.interp_rain_plain,
+                     (dev.rain_rows(("vm", "vn", "revap")), *rs))}
+        for kind, (kern, plain, args) in calls.items():
+            for present in (None, True, False):
+                p = (None if present is None
+                     else torch.tensor(present, device=cuda_device))
+                n0 = kern.launches
+                got = kern(*args, present=p)
+                assert kern.launches == n0 + 1
+                want = plain(*args, present=p)
+                assert got.shape == want.shape and got.dtype == dtype
+                if present is False:
+                    assert not got.any(), kind
+                else:
+                    assert _rel(want, got) <= TOL[dtype], (kind, dtype)
+
+
+def test_p3_lookup_rejects_bad_input(cuda_device):
+    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as LK
+    from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
+
+    dev = load_p3_tables().to(cuda_device, torch.float32)
+    idx, _, rs = _lookup_inputs(64, torch.float32, cuda_device, 1)
+    table = dev.ice_cols((2,))
+    with pytest.raises(ValueError, match="int32"):
+        LK.interp_ice(table, idx[0].long(), *idx[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        LK.interp_ice(table, idx[0], idx[1].reshape(8, 8).t(), *idx[2:])
+    with pytest.raises(ValueError, match="table"):
+        LK.interp_ice(table.double(), *idx)
+    with pytest.raises(ValueError, match="present"):
+        LK.interp_rain(dev.rain_rows(("vm",)), *rs,
+                       present=torch.tensor(1.0, device=cuda_device))
+
+
+def _p3_state(dtype, device, nx=20, ny=3, nz=16):
+    """A small supercell_p3 state with the mixed-regime seeds."""
+    from miniweatherml_tpu_torch.experiments import supercell_p3
+    cfg = config_from_dict(dict(
+        sim_time=10.0, nx_glob=nx, ny_glob=ny, nz=nz, xlen=40000.0,
+        ylen=40000.0, zlen=16000.0, init_data="supercell", dtype=dtype))
+    state, mods, dycore = supercell_p3.build(cfg, device)
+    return supercell_p3.seed_mixed_regimes(state), mods
+
+
+def test_p3_cellwise_kernels_match_plain(cuda_device, monkeypatch):
+    """Each phase's kernel against its plain version on the inputs one P3
+    step hands it (20x3x16 = 960 cells: not a multiple of the block)."""
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
+
+    launch = CW._launch
+    for dtype in ("float64", "float32"):
+        state, mods = _p3_state(dtype, cuda_device)
+        seen = {}
+
+        def spy(phase, predict_nc, arrays, dt=0.0):
+            got = launch(phase, predict_nc, arrays, dt)
+            seen[phase] = (got, CW.plain_phase(phase, predict_nc, arrays,
+                                               dt))
+            return got
+        monkeypatch.setattr(CW, "_launch", spy)
+        n0 = [f.launches for f in (CW.p3_part1, CW.p3_update, CW.p3_wrapper)]
+        mods[1](state, 2.0)
+        monkeypatch.undo()
+        assert [f.launches for f in (CW.p3_part1, CW.p3_update,
+                                     CW.p3_wrapper)] == [k + 1 for k in n0]
+        assert set(seen) == {"part1", "update", "wrapper"}
+        for name, (got, want) in seen.items():
+            assert len(got) == len(want)
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                scale = max(w.abs().max().item(), 1e-300)
+                assert (g - w).abs().max().item() / scale <= TOL[g.dtype], (
+                    name, i, dtype)
+
+
+def test_p3_cellwise_rejects_bad_input(cuda_device):
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
+
+    x = torch.ones((2, 3, 4, 5), device=cuda_device)
+    args = [x] * 13
+    with pytest.raises(ValueError, match="contiguous"):
+        CW.p3_wrapper(*args[:-1], x.transpose(2, 3))
+    with pytest.raises(TypeError):
+        CW.p3_wrapper(*[x.half()] * 13)
+    with pytest.raises(ValueError, match="45 fields"):
+        CW.p3_update(1.0, *[x] * 44, do_predict_nc=False)
+
+
+def test_p3_slice_on_card_matches_cpu(cuda_device):
+    """The P3 chain through all its kernels against the port's CPU run:
+    16x8x10 supercell_p3 f64 with smooth hydrometeor layers and part3
+    diagnostics, 3 steps; rtol 1e-9 plus 1e-7 of each field's scale."""
+    from miniweatherml_tpu_torch.experiments import supercell_p3
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
+    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as LK
+
+    cfg = config_from_dict(dict(
+        sim_time=100.0, nx_glob=16, ny_glob=8, nz=10, xlen=40000.0,
+        ylen=40000.0, zlen=16000.0, init_data="supercell", dtype="float64",
+        p3_diagnostics=True))
+    counters = (LK.interp_ice, LK.interp_collect, LK.interp_rain,
+                CW.p3_part1, CW.p3_update, CW.p3_wrapper)
+    states = []
+    for device in ("cpu", cuda_device):
+        state, mods, dycore = supercell_p3.build(cfg, device)
+        state = supercell_p3.seed_layers(state)
+        dt = dycore.compute_time_step(state)
+        n0 = [c.launches for c in counters]
+        for _ in range(3):
+            for m in mods:
+                state = m(state, dt)
+        states.append(state)
+    assert all(c.launches > k for c, k in zip(counters, n0))
+    for name, a in states[0].fields.items():
+        a = a.numpy()
+        b = states[1][name].cpu().numpy()
+        np.testing.assert_allclose(b, a, rtol=1e-9,
+                                   atol=1e-7 * np.abs(a).max(), err_msg=name)

@@ -268,8 +268,13 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'miniweatherml_tpu']\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
+        "print(' '.join(m for m in sys.modules if m.startswith(p.__name__)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 20
+    mods = set(out.stdout.split())
+    assert len(mods) >= 25
+    pkg = "miniweatherml_tpu_torch."
+    assert {pkg + m for m in (
+        "physics.p3", "physics.p3_tables", "physics.p3_lookup_cuda",
+        "physics.p3_cellwise_cuda", "experiments.supercell_p3")} <= mods
