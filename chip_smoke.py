@@ -4,13 +4,19 @@ Usage (from the root of a checkout):  python3 chip_smoke.py
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: name, power limit, torch and CUDA versions;
-  2. build: the four CUDA libraries from csrc/ with nvcc (sm_90a), one nvcc
+  2. build: the five CUDA libraries from csrc/ with nvcc (sm_90a), one nvcc
      each, all started together;
-  3. the direction-flux kernel against its plain PyTorch version on the
-     512x512x64 supercell state, x/y/z in f32 and f64: the Kessler state (3
-     tracers) plus a small wall/open case, and the P3 state (9 tracers, 14
-     variables) with mixed-regime hydrometeors; max error and kernel/plain
-     times;
+  3. the direction-flux kernel against its plain PyTorch version, x/y/z in
+     f32 and f64, on each chain's state at its cell's width: the 512x512x64
+     supercell with Kessler (3 tracers) plus a small wall/open case, the P3
+     state (9 tracers, 14 variables) with mixed-regime hydrometeors, and the
+     400x400x60x2 city with a cross-flow (1 tracer, 6 variables, periodic x
+     and y, wall z); max error and kernel/plain times;
+  14. (run inside 3, on the tracer faces each state gave) the FCT kernels
+     against their plain versions: the multiplier, and the scaled
+     divergence along x, z and y, first / accumulating / with the stage
+     update with and without the second base, a mixed positive mask, f32
+     and f64;
   4. the Kessler kernel against its plain version with rainsplit > 1;
   5. the Kessler slice: community_benchmark.run_benchmark on the 512x512x64
      f32 ord-5 supercell, with its kernels' launch counts, a clean
@@ -35,12 +41,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
   12. a 16x8x10 f64 P3 slice with seeded hydrometeor layers and part3
      diagnostics, card against the port's CPU run, 3 steps;
   13. the 2-D supercell_p3 experiment with p3_diagnostics, heartbeat and
-     NetCDF (chip_smoke_out/).
+     NetCDF (chip_smoke_out/);
+  15. the city slice: run_benchmark(build=simple_city.build_chain) at
+     inputs/input_city.yaml's 400x400x60 grid with nens 2, f32, 10 steps,
+     with the dycore kernels' launch counts (9 flux, 3 multiplier and 9
+     scaled-divergence launches per step, checked in every cell), a clean
+     validate(), Mcellups, peak memory, and the time averages written to
+     chip_smoke_out/;
+  16. small f64 building and city slices (one step), card against the
+     port's CPU run at 1e-9 of each field's scale;
+  17. restart: 2 steps, checkpoint, 2 more against 4 straight, bit for bit.
 
 Tolerance of a kernel against its plain version: max|kernel - plain| over
 max|plain| of each output below 1e-12 in f64 and 1e-5 in f32 (the JAX
 suite's own f32 bound between its paths, tests/test_pallas.py:260,311).
-A slice on the card against the port's CPU run: 1e-7 of each field's scale.
+A slice on the card against the port's CPU run: 1e-7 of each field's scale
+(1e-9 for the one-step building and city slices, phase 16).
 
 The next-to-last line of output is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.  Needs torch.cuda; exits non-zero without it.
@@ -125,7 +141,7 @@ def phase_device():
     return name
 
 
-LIBRARIES = ("direction_fluxes", "kessler", "p3_lookup", "p3_cellwise")
+LIBRARIES = ("direction_fluxes", "kessler", "p3_lookup", "p3_cellwise", "fct")
 
 
 def phase_build():
@@ -146,25 +162,37 @@ def _p3_mixed_build(cfg, device):
     return supercell_p3.seed_mixed_regimes(state), mods, dycore
 
 
-def phase_direction_fluxes(chain="kessler"):
-    """The flux kernel on the chain's 512x512x64 state; the Kessler chain
-    also runs the small wall/open box."""
+def _flux_state(chain, dtype):
+    """(state, modules, dycore) of a chain at its cell's width on the card:
+    the 512x512x64 supercell (Kessler or mixed-regime P3), or
+    inputs/input_city.yaml's 400x400x60 grid with nens 2 and the cross-flow."""
     from miniweatherml_tpu_torch.experiments.supercell_example import build
+    if chain == "city":
+        return _crossflow_build(_city_cfg("city", 400, 400, 60, 2, dtype,
+                                          steps=1), "cuda")
+    if chain == "p3":
+        build = _p3_mixed_build
+    return build(_bench_cfg(512, 512, 64, 1, dtype), "cuda")
+
+
+def phase_direction_fluxes(fct_recs, chain="kessler"):
+    """The flux kernel on the chain's state at its cell's width, then the
+    FCT kernels on the tracer faces it gave; the Kessler chain also runs the
+    small wall/open box."""
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
         IDU, IDV, IDW, direction_fluxes, direction_fluxes_plain)
     from miniweatherml_tpu_torch.ops.stencil import BC_OPEN, BC_WALL
 
-    if chain != "kessler":
-        build = _p3_mixed_build
     rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
     for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
-        state, _, dycore = build(_bench_cfg(512, 512, 64, 1, dtype), "cuda")
+        state, _, dycore = _flux_state(chain, dtype)
         prim = _prim(state, dycore)
         g, c = state.grid, dycore._consts(state)
         hy = dycore._hy(state)
         dirs = ((-1, g.nx, c.bc_x, IDU, g.dx, hy[0], hy[1]),
                 (-2, g.ny, c.bc_y, IDV, g.dy, hy[0], hy[1]),
                 (-3, g.nz, c.bc_z, IDW, g.dz, hy[2], hy[3]))
+        faces = {}
         for axis, n, bc, nid, d, hr, ht in dirs:
             args = (prim, axis, n, bc, nid, c.C0, c.gamma, hr, ht,
                     dycore.mats, 0.0, 1.0 / d)
@@ -173,6 +201,7 @@ def phase_direction_fluxes(chain="kessler"):
             torch.cuda.synchronize()
             errs = [_rel(a, b) for a, b in zip(ref, got)]
             rel = max(e[1] for e in errs)
+            faces[axis] = got[1]
             del ref, got
             ms = _time_ms(lambda: direction_fluxes(*args))
             pms = _time_ms(lambda: direction_fluxes_plain(*args), reps=3)
@@ -189,6 +218,8 @@ def phase_direction_fluxes(chain="kessler"):
                                          max(e[0] for e in errs))
                 rec["ms"] += ms
                 rec["plain_ms"] += pms
+        phase_fct(chain, dtype, tol, state, dycore, faces, fct_recs)
+        del faces
         if chain != "kessler":
             del state, prim, hy, dycore
             torch.cuda.empty_cache()
@@ -214,6 +245,89 @@ def phase_direction_fluxes(chain="kessler"):
         del state, prim, hy, dycore
         torch.cuda.empty_cache()
     return rec
+
+
+FCT_FORMS = ("first", "accumulate", "rk_tr1", "rk_no_tr1")
+# The forms one right-hand side of the 3-D path runs: x first, z
+# accumulating, y accumulating with the stage update (stages 2 and 3).
+FCT_PATH = {-1: "first", -3: "accumulate", -2: "rk_tr1"}
+
+
+def phase_fct(chain, dtype, tol, state, dycore, faces, recs):
+    """The FCT kernels against their plain versions on the tracer faces the
+    flux kernel gave for the chain's state, with a mixed positive mask: the
+    multiplier at the stage's dt and at 100 dt (so that many cells are
+    limited), then the scaled divergence along x, z and y in every form.
+    Times are per call; the path's forms add up to one right-hand side."""
+    from miniweatherml_tpu_torch.ops import fct
+
+    g = state.grid
+    tr = state.tracer_stack().contiguous()
+    ntr = tr.shape[0]
+    positive = tuple(i % 3 != 1 for i in range(ntr))
+    dt = dycore.compute_time_step(state)
+    f32 = dtype == "float32"
+    for scale in (1.0, 100.0):
+        args = (tr, positive, faces[-1], faces[-2], faces[-3], scale * dt,
+                g.dx, g.dy, g.dz)
+        ref = fct.fct_mult_plain(*args)
+        mult = fct.fct_mult(*args)
+        torch.cuda.synchronize()
+        err, rel = _rel(ref, mult)
+        limited = (mult < 1.0).double().mean().item()
+        del ref
+        ms = _time_ms(lambda: fct.fct_mult(*args))
+        pms = _time_ms(lambda: fct.fct_mult_plain(*args), reps=3)
+        print(f"[14] fct_mult {chain} ntr {ntr} {dtype} dt x{scale:g}: max "
+              f"abs err {err:.3e}, rel {rel:.3e} (tol {tol:g}), {limited:.2e} "
+              f"of values limited; kernel {ms:.3f} ms, plain {pms:.3f} ms",
+              flush=True)
+        if not rel <= tol:
+            raise AssertionError(f"fct_mult {chain} {dtype}: rel {rel:.3e}")
+        if f32:
+            r = recs["fct_mult"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if chain == "p3" and scale == 1.0:
+                r["ms"], r["plain_ms"] = ms, pms
+    t_prev = fct.fct_scale_div_plain(faces[-1], mult, None, -1, g.nx,
+                                     1.0 / g.dx)
+    tr1 = tr.flip(-1).contiguous()
+    for axis, n, d in ((-1, g.nx, g.dx), (-3, g.nz, g.dz), (-2, g.ny, g.dy)):
+        for form in FCT_FORMS:
+            rk = None
+            if form.startswith("rk"):
+                rk = (0.75, 0.25, 0.25 * dt, tr,
+                      tr1 if form == "rk_tr1" else None, positive)
+
+            def call(fn, prev=None if form == "first" else t_prev):
+                p = None if prev is None else prev.clone()
+                return fn(faces[axis], mult, p, axis, n, 1.0 / d, rk=rk)
+            ref = call(fct.fct_scale_div_plain)
+            got = call(fct.fct_scale_div)
+            torch.cuda.synchronize()
+            err, rel = _rel(ref, got)
+            del ref, got
+            line = (f"[14] fct_scale_div {chain} ntr {ntr} {dtype} axis "
+                    f"{axis} {form}: max abs err {err:.3e}, rel {rel:.3e} "
+                    f"(tol {tol:g})")
+            if FCT_PATH[axis] == form:
+                buf = None if form == "first" else t_prev.clone()
+                ms = _time_ms(lambda: fct.fct_scale_div(
+                    faces[axis], mult, buf, axis, n, 1.0 / d, rk=rk))
+                pms = _time_ms(lambda: fct.fct_scale_div_plain(
+                    faces[axis], mult, buf, axis, n, 1.0 / d, rk=rk), reps=3)
+                line += f"; kernel {ms:.3f} ms, plain {pms:.3f} ms"
+                if f32 and chain == "p3":
+                    recs["fct_scale_div"]["ms"] += ms
+                    recs["fct_scale_div"]["plain_ms"] += pms
+            print(line, flush=True)
+            if not rel <= tol:
+                raise AssertionError(f"fct_scale_div {chain} {dtype} axis "
+                                     f"{axis} {form}: rel {rel:.3e}")
+            if f32:
+                r = recs["fct_scale_div"]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+    del tr, tr1, mult, t_prev
 
 
 def phase_kessler():
@@ -268,11 +382,15 @@ def _counters(chain):
     from miniweatherml_tpu_torch.ops.direction_fluxes import direction_fluxes
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
     from miniweatherml_tpu_torch.physics import p3_lookup_cuda as lk
+    from miniweatherml_tpu_torch.ops.fct import fct_mult, fct_scale_div
     from miniweatherml_tpu_torch.physics.kessler_cuda import kessler_subcycle
+    dycore = {"direction_fluxes": direction_fluxes, "fct_mult": fct_mult,
+              "fct_scale_div": fct_scale_div}
+    if chain == "city":
+        return dycore
     if chain == "kessler":
-        return {"direction_fluxes": direction_fluxes,
-                "kessler_subcycle": kessler_subcycle}
-    return {"direction_fluxes": direction_fluxes,
+        return {**dycore, "kessler_subcycle": kessler_subcycle}
+    return {**dycore,
             "interp_ice": lk.interp_ice, "interp_collect": lk.interp_collect,
             "interp_rain": lk.interp_rain, "p3_part1": cw.p3_part1,
             "p3_update": cw.p3_update, "p3_wrapper": cw.p3_wrapper}
@@ -289,9 +407,11 @@ def _check_state(tag, state):
     return maxw
 
 
-def _run_cell(tag, cfg, card, chain="kessler", build=None):
+def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None):
     """run_benchmark on the chain's path with its launch counters set to 0
-    just before and read just after."""
+    just before and read just after; ``finish(state)`` runs on the final
+    state.  Every step (and the discarded warm-up step) at one CFL cycle
+    runs 9 flux, 3 multiplier and 9 scaled-divergence launches."""
     from miniweatherml_tpu_torch.experiments.community_benchmark import (
         run_benchmark)
     counters = _counters(chain)
@@ -306,8 +426,16 @@ def _run_cell(tag, cfg, card, chain="kessler", build=None):
     if min(launches.values()) < 1:
         raise AssertionError(f"{tag}: a kernel of the path never launched: "
                              f"{launches}")
+    per_step = {"direction_fluxes": 9, "fct_mult": 3, "fct_scale_div": 9}
+    if any(launches[k] != v * (res["steps"] + 1) for k, v in per_step.items()):
+        raise AssertionError(f"{tag}: dycore launches {launches} for "
+                             f"{res['steps']} + 1 steps")
+    if finish is not None:
+        finish(state)
     g = cfg.grid
-    print(f"[{tag}] {g.nx}x{g.ny}x{g.nz} {cfg.dtype}: {res['steps']} steps in "
+    ens = f"x{g.nens}" if g.nens > 1 else ""
+    print(f"[{tag}] {g.nx}x{g.ny}x{g.nz}{ens} {cfg.dtype}: {res['steps']} "
+          f"steps in "
           f"{res['elapsed_s']:.3f} s = {res['mcellups']:.3f} Mcellups, "
           f"{1e3 * res['elapsed_s'] / max(res['steps'], 1):.1f} ms/step; peak "
           f"memory {peak / 2**30:.2f} GiB; maxw {maxw:.6e}; launches "
@@ -579,6 +707,93 @@ def phase_p3_heartbeat():
           f"{float(dbz.max()):.2f}], wrote {prefix}.nc", flush=True)
 
 
+# -- city / building ------------------------------------------------------------
+
+def _city_cfg(case, nx, ny, nz, nens, dtype, steps=None, dt_phys=0.0):
+    """inputs/input_city.yaml (or input_building.yaml) on an nx x ny x nz
+    grid; ``steps`` CFL steps, or ``steps`` steps of ``dt_phys``."""
+    from miniweatherml_tpu_torch.config import config_from_dict
+    zlen = 300.0 if case == "city" else 500.0
+    dt = dt_phys or 0.6 * min(2000.0 / nx, 2000.0 / ny, zlen / nz) / 430.0
+    return config_from_dict(dict(
+        sim_time=steps * dt * (1.0 if dt_phys else 1.0 - 1e-9), nens=nens,
+        nx_glob=nx, ny_glob=ny, nz=nz, xlen=2000.0, ylen=2000.0, zlen=zlen,
+        init_data=case, out_prefix=os.path.join(OUT_DIR, "chip_smoke_city"),
+        dt_phys=dt_phys, out_freq=-1.0, enable_gravity=False, dtype=dtype))
+
+
+def _crossflow_build(cfg, device):
+    """The city / building chain with a uniform v = 2, w = 0.5 m/s: from v =
+    w = 0 the Riemann solver's upwind choice beside the buildings is decided
+    by round-off (tests/test_torch_dycore.py::crossflow), so card and CPU
+    are compared off that tie."""
+    from miniweatherml_tpu_torch.experiments import simple_city
+    state, mods, dycore = simple_city.build_chain(cfg, device)
+    return state.replace_fields(vvel=torch.full_like(state["vvel"], 2.0),
+                                wvel=torch.full_like(state["wvel"], 0.5)
+                                ), mods, dycore
+
+
+def phase_city_references():
+    """Small f64 building and city slices of the simple_city chain with a
+    cross-flow, card against the port's CPU run, one step each, at 1e-9 of
+    each field's scale.  Only one step is bounded: beside a building the
+    flow varies by ~1e-7 of its speed, where the WENO smoothness indicators
+    (quadratic forms of the raw values, ops/weno_fused.py) are a few
+    rounding quanta of u^2, so a one-ulp input difference changes the
+    stencil weights by whole factors.  The CPU alone, with every field
+    perturbed by 1e-15, differs by ~1e-9 of wvel's scale after one step
+    and ~1e-7 after two."""
+    for case, shape in (("building", (48, 16, 16, 1)),
+                        ("city", (64, 64, 12, 2))):
+        cfg = _city_cfg(case, *shape, "float64", steps=1)
+        outs = []
+        for device in ("cpu", "cuda"):
+            state, mods, dycore = _crossflow_build(cfg, device)
+            dt = dycore.compute_time_step(state)
+            for m in mods:
+                state = m(state, dt)
+            outs.append(state)
+        if not float(outs[1]["immersed_proportion"].max()) == 1.0:
+            raise AssertionError(f"{case} slice has no immersed cells")
+        worst = max(_rel(outs[0][k], outs[1][k].cpu())[1]
+                    for k in outs[0].fields)
+        print(f"[16] {'x'.join(map(str, shape))} f64 1-step {case} slice, "
+              f"card vs CPU: worst error over field scale {worst:.3e} "
+              "(tol 1e-9)", flush=True)
+        if not worst <= 1e-9:
+            raise AssertionError(f"{case} card vs CPU slice: {worst:.3e}")
+
+
+def phase_restart():
+    """2 steps, a checkpoint, a restart from it on the card and 2 more steps
+    against 4 straight steps: every field equal, bit for bit."""
+    from miniweatherml_tpu_torch.experiments import simple_city
+    from miniweatherml_tpu_torch.experiments.driver import run_main_loop
+    from miniweatherml_tpu_torch.io.checkpoint import load_checkpoint
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "chip_smoke_restart.npz")
+    dt = 2.0 ** -6
+    cfg4 = _city_cfg("city", 64, 64, 12, 2, "float32", steps=4, dt_phys=dt)
+    cfg2 = _city_cfg("city", 64, 64, 12, 2, "float32", steps=2, dt_phys=dt)
+    state, mods, dycore = simple_city.build_chain(cfg4, "cuda")
+    straight = run_main_loop(state.clone(), cfg4, mods, dycore, quiet=True)
+    run_main_loop(state, cfg2, mods, dycore, quiet=True,
+                  checkpoint_freq=2 * dt, checkpoint_path=path)
+    restored, etime = load_checkpoint(path, "cuda")
+    resumed = run_main_loop(restored, cfg4, mods, dycore, quiet=True,
+                            etime0=etime)
+    differ = [k for k in straight.fields
+              if not torch.equal(straight[k], resumed[k])]
+    print(f"[17] restart 64x64x12x2 f32 city chain: 2 steps + checkpoint at "
+          f"etime {etime:g} + 2 steps against 4 straight: "
+          f"{len(straight.fields) - len(differ)} of {len(straight.fields)} "
+          "fields equal", flush=True)
+    if differ or etime != 2 * dt or resumed.device.type != "cuda":
+        raise AssertionError(f"restart differs in {differ} (etime {etime})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -589,9 +804,14 @@ def main() -> int:
     name = phase_device()
     card = _card()
     phase_build()
-    k_a8 = phase_direction_fluxes()
-    k_a = phase_direction_fluxes("p3")  # the JSON line's times: 14 variables
-    k_a["max_abs_err"] = max(k_a["max_abs_err"], k_a8["max_abs_err"])
+    k_fct = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+             for k in ("fct_mult", "fct_scale_div")}
+    k_a8 = phase_direction_fluxes(k_fct)
+    # the JSON line's times: 14 variables, 9 tracers
+    k_a = phase_direction_fluxes(k_fct, "p3")
+    k_a6 = phase_direction_fluxes(k_fct, "city")
+    k_a["max_abs_err"] = max(k_a["max_abs_err"], k_a8["max_abs_err"],
+                             k_a6["max_abs_err"])
     k_b = phase_kessler()
     l_kessler = _run_cell("5", _bench_cfg(512, 512, 64, 10, "float32"),
                           card)[0]
@@ -618,6 +838,20 @@ def main() -> int:
           f"{_host_syncs(supercell_example.build, small)}", flush=True)
     phase_p3_references()
     phase_p3_heartbeat()
+
+    from miniweatherml_tpu_torch.experiments import simple_city
+    from miniweatherml_tpu_torch.physics.time_averager import TimeAverager
+    avg_path = os.path.join(OUT_DIR, "chip_smoke_city_time_averaged.nc")
+
+    def finalize(state):
+        TimeAverager().finalize(state, avg_path)
+        print(f"[15] wrote {avg_path}", flush=True)
+    # inputs/input_city.yaml's grid and ensemble, 10 steps
+    l_city = _run_cell("15", _city_cfg("city", 400, 400, 60, 2, "float32",
+                                       steps=10), card, chain="city",
+                       build=simple_city.build_chain, finish=finalize)[0]
+    phase_city_references()
+    phase_restart()
 
     kernels = [
         {"name": "direction_fluxes", "route": "cuda",
@@ -649,6 +883,16 @@ def main() -> int:
          "replaces": "miniweatherml_tpu/ops/elementwise.py:101",
          "launches": (l_p3["p3_part1"] + l_p3["p3_update"]
                       + l_p3["p3_wrapper"]), **k_cw},
+        {"name": "fct_scale_div", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/fct.cu",
+         "replaces": "miniweatherml_tpu/ops/pallas_recon.py:1084, "
+                     "miniweatherml_tpu/ops/pallas_recon.py:1151",
+         "launches": l_city["fct_scale_div"], **k_fct["fct_scale_div"]},
+        {"name": "fct_mult", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/fct.cu",
+         "replaces": "miniweatherml_tpu/dycore/euler.py:880-889 (an XLA "
+                     "fusion, not a Pallas kernel)",
+         "launches": l_city["fct_mult"], **k_fct["fct_mult"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

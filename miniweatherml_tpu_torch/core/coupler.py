@@ -261,18 +261,11 @@ class CouplerState:
             **{n: tr[i] for i, n in enumerate(self.meta.tracer_names)})
 
     def validate(self) -> dict[str, str]:
-        """Host-side NaN/Inf/positivity validation; returns {field: problem}
-        (reference DataManager.h:385-483)."""
-        problems: dict[str, str] = {}
-        positive_names = {t.name for t in self.meta.tracers if t.positive}
-        for name, arr in self.fields.items():
-            if bool(torch.isnan(arr).any()):
-                problems[name] = "nan"
-            elif bool(torch.isinf(arr).any()):
-                problems[name] = "inf"
-            elif name in positive_names and bool((arr < 0).any()):
-                problems[name] = "negative"
-        return problems
+        """NaN/Inf/positivity validation (reference DataManager.h:385-483);
+        returns {field: problems}, e.g. "nan" or "inf+negative", read from
+        the device in one transfer (``core/validate.py``)."""
+        from .validate import check_flags, validation_flags
+        return check_flags(validation_flags(self))
 
     def clone(self) -> "CouplerState":
         """Copy whose tensors are independent of this state's."""

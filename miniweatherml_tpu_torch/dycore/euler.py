@@ -9,8 +9,12 @@ background-state splitting, gravity, Coriolis, and immersed boundaries.
 
 Each direction's reconstruction + Riemann solve + state divergence is one
 call of ``ops/direction_fluxes.direction_fluxes`` (a CUDA kernel on the
-card); FCT, the tracer divergence, the sources and the RK stages are plain
-tensor code.  WENO weights are exact.
+card).  FCT and the tracer divergence go through ``ops/fct`` (two more CUDA
+kernels on the card): the multiplier once per right-hand side, then one
+scaled divergence per direction -- x, z, y -- accumulating into one tracer
+buffer, the last of which also does the SSPRK3 tracer stage update and the
+positivity clamp (as the JAX package's ``_fct_div_pallas``).  The sources
+and the state's RK stages are plain tensor code.  WENO weights are exact.
 
 State variable order matches the reference (dynamics...h:34-38):
 idR, idU, idV, idW, idT = rho', rho*u, rho*v, rho*w, (rho*theta)'.
@@ -21,12 +25,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 
 import torch
 
 from ..core.coupler import CouplerState
-from ..ops.direction_fluxes import (IDR, IDT, IDU, IDV, IDW, div,
+from ..ops.direction_fluxes import (IDR, IDT, IDU, IDV, IDW,
                                     direction_fluxes)
+from ..ops.fct import fct_mult, fct_scale_div, per_tracer
 from ..ops.weno import weno_matrices
 
 __all__ = ["Dycore", "IDR", "IDU", "IDV", "IDW", "IDT"]
@@ -39,24 +45,12 @@ _MAXWAVE = 350.0 + 80.0
 _CFL = 0.6
 
 
-def _per_tracer(x, flags, fn):
-    """``fn`` applied to the tracers of ``x`` (leading axis) whose flag is
-    set, the others kept.  The flags are registry metadata on the host, so
-    no mask tensor (and no host-to-device copy, which would wait for the
-    device) is needed."""
-    if all(flags):
-        return fn(x)
-    if not any(flags):
-        return x
-    return torch.stack([fn(x[i]) if f else x[i] for i, f in enumerate(flags)])
-
-
 def _tracer_mass(state, tr):
     """Sum of the tracers that add mass (the registry's ``adds_mass``)."""
     adds = [t.adds_mass for t in state.meta.tracers]
     if all(adds):
         return torch.sum(tr, dim=0)
-    return torch.sum(_per_tracer(tr, [not a for a in adds], torch.zeros_like),
+    return torch.sum(per_tracer(tr, [not a for a in adds], torch.zeros_like),
                      dim=0)
 
 
@@ -124,16 +118,17 @@ class Dycore:
             if name not in state:
                 state = state.register_field(name)
 
-        # Test case dispatch (reference dynamics...h:1306-1310); city and
-        # building are not ported yet.
+        # Test case dispatch (reference dynamics...h:1306-1310).
         init_data = state.get_option("init_data", "supercell")
-        if init_data == "thermal":
-            state, s_dyn, tr_dyn = init_cases.init_thermal(state)
-        elif init_data == "supercell":
-            state, s_dyn, tr_dyn = init_cases.init_supercell(state,
-                                                             ord=self.ord)
-        else:
+        case = {
+            "thermal": init_cases.init_thermal,
+            "supercell": partial(init_cases.init_supercell, ord=self.ord),
+            "city": init_cases.init_city,
+            "building": init_cases.init_building,
+        }.get(init_data)
+        if case is None:
             raise ValueError(f"invalid init_data {init_data!r}")
+        state, s_dyn, tr_dyn = case(state)
 
         return state.replace_fields(
             **self._dyn_to_coupler_fields(state, s_dyn, tr_dyn))
@@ -221,26 +216,23 @@ class Dycore:
 
     def _ssprk3(self, grid, consts, hy, immersed, positive, s, tr, dt):
         """Three-stage SSPRK3 with per-stage tracer positivity clamp
-        (reference dynamics...h:110-175; FCT dt per stage 1, 1/4, 2/3)."""
-        def tend(s_, tr_, dt_):
+        (reference dynamics...h:110-175; FCT dt per stage 1, 1/4, 2/3).  The
+        tracer stage update runs in the last FCT pass, which hands back the
+        stage's tracers: stage k's (c0, c1, cdt) are those of the state's
+        update beside it."""
+        def tend(s_, tr_, dt_, rk):
             return self._tendencies(grid, consts, hy, immersed, positive,
-                                    s_, tr_, dt_)
+                                    s_, tr_, dt_, rk)
 
-        def clamp(tr_new):
-            return _per_tracer(tr_new, positive,
-                               lambda t: torch.clamp(t, min=0.0))
-
-        st, tt = tend(s, tr, dt)
+        st, t1 = tend(s, tr, dt, (1.0, 0.0, dt, tr, None))
         s1 = s + dt * st
-        t1 = clamp(tr + dt * tt)
 
-        st, tt = tend(s1, t1, dt / 4.0)
+        st, t2 = tend(s1, t1, dt / 4.0, (0.75, 0.25, 0.25 * dt, tr, t1))
         s2 = 0.75 * s + 0.25 * s1 + 0.25 * dt * st
-        t2 = clamp(0.75 * tr + 0.25 * t1 + 0.25 * dt * tt)
 
-        st, tt = tend(s2, t2, 2.0 * dt / 3.0)
+        st, t3 = tend(s2, t2, 2.0 * dt / 3.0,
+                      (1.0 / 3.0, 2.0 / 3.0, (2.0 / 3.0) * dt, tr, t2))
         s3 = (1.0 / 3.0) * s + (2.0 / 3.0) * s2 + (2.0 / 3.0) * dt * st
-        t3 = clamp((1.0 / 3.0) * tr + (2.0 / 3.0) * t2 + (2.0 / 3.0) * dt * tt)
         return s3, t3
 
     def _direction(self, consts, hy, prim, axis, n, bc, normal_id, d):
@@ -251,54 +243,29 @@ class Dycore:
                                 consts.gamma, hy_r, hy_t, self.mats,
                                 self.cutoff, 1.0 / d)
 
-    def _fct_mult(self, grid, tr, positive, Fx, Fy, Fz, dt):
-        """Per-cell FCT multiplier (the ``mult`` of dynamics...h:498-509):
-        1 where the cell's outgoing tracer mass fits its available mass,
-        mass_avail/mass_out where it would overdraw."""
-        dx, dy, dz = grid.dx, grid.dy, grid.dz
-        vol = dx * dy * dz
-        mass_avail = torch.clamp(tr, min=0.0) * vol
-        fo_x = (torch.clamp(Fx.narrow(_AX_X, 1, grid.nx), min=0.0)
-                - torch.clamp(Fx.narrow(_AX_X, 0, grid.nx), max=0.0)) / dx
-        fo_z = (torch.clamp(Fz.narrow(_AX_Z, 1, grid.nz), min=0.0)
-                - torch.clamp(Fz.narrow(_AX_Z, 0, grid.nz), max=0.0)) / dz
+    def _fct(self, grid, tr, positive, Fx, Fy, Fz, dt, rk):
+        """Flux-corrected transport and the tracer divergence
+        (dynamics...h:498-516), followed by the tracer stage update: the
+        multiplier once, then the scaled divergence of x (first), z and y
+        (accumulating into one buffer), the last with the ``rk`` epilogue.
+        On periodic axes the seam faces 0 and n are two copies scaled
+        independently, as in the reference."""
+        mult = fct_mult(tr, positive, Fx, Fy, Fz, dt, grid.dx, grid.dy,
+                        grid.dz)
+        rk = (*rk, positive)
+        t = fct_scale_div(Fx, mult, None, _AX_X, grid.nx, 1.0 / grid.dx)
+        t = fct_scale_div(Fz, mult, t, _AX_Z, grid.nz, 1.0 / grid.dz,
+                          rk=rk if Fy is None else None)
         if Fy is not None:
-            fo_y = (torch.clamp(Fy.narrow(_AX_Y, 1, grid.ny), min=0.0)
-                    - torch.clamp(Fy.narrow(_AX_Y, 0, grid.ny), max=0.0)) / dy
-        else:
-            fo_y = 0.0
-        mass_out = (fo_x + fo_y + fo_z) * dt * vol
-        need = mass_out > mass_avail
-        tiny = 1e-300 if tr.dtype == torch.float64 else 1e-30
-        mult = torch.where(need, mass_avail / torch.clamp(mass_out, min=tiny),
-                           1.0)
-        return _per_tracer(mult, [not p for p in positive], torch.ones_like)
+            t = fct_scale_div(Fy, mult, t, _AX_Y, grid.ny, 1.0 / grid.dy,
+                              rk=rk)
+        return t
 
-    def _fct_scale_dir(self, mult, F, axis):
-        """Apply the FCT multiplier to one direction's (n+1)-face array from
-        the upwind (outflow) side; the faces beyond the domain see 1."""
-        ones_shape = list(mult.shape)
-        ones_shape[axis] = 1
-        ones = torch.ones(ones_shape, dtype=mult.dtype, device=mult.device)
-        mult_left = torch.cat([ones, mult], dim=axis)    # face f <- cell f-1
-        mult_right = torch.cat([mult, ones], dim=axis)   # face f <- cell f
-        return F * torch.where(F > 0, mult_left,
-                               torch.where(F < 0, mult_right, 1.0))
-
-    def _fct(self, grid, tr, positive, Fx, Fy, Fz, dt):
-        """Flux-corrected transport (dynamics...h:498-516): a per-cell
-        multiplier applied to each face from the upwind side.  On periodic
-        axes the seam faces 0 and n are two copies scaled independently, as
-        in the reference."""
-        mult = self._fct_mult(grid, tr, positive, Fx, Fy, Fz, dt)
-        Fx = self._fct_scale_dir(mult, Fx, _AX_X)
-        Fz = self._fct_scale_dir(mult, Fz, _AX_Z)
-        if Fy is not None:
-            Fy = self._fct_scale_dir(mult, Fy, _AX_Y)
-        return Fx, Fy, Fz
-
-    def _tendencies(self, grid, consts, hy, immersed, positive, s, tr, dt):
-        """One semi-discrete RHS evaluation (dynamics...h:204-552)."""
+    def _tendencies(self, grid, consts, hy, immersed, positive, s, tr, dt,
+                    rk):
+        """One semi-discrete RHS evaluation (dynamics...h:204-552).  Returns
+        the state tendency and the stage's updated tracers (``rk`` = (c0, c1,
+        cdt, tr0, tr1 | None), see ``ops/fct.fct_scale_div``)."""
         hyc = hy[0][:, :, None, None]
         full_r = s[IDR] + hyc
         sim2d = grid.sim2d
@@ -319,11 +286,8 @@ class Dycore:
                                        consts.bc_y, IDV, grid.dy)
         del prim
 
-        TFx, TFy, TFz = self._fct(grid, tr, positive, TFx, TFy, TFz, dt)
-        t_tend = (div(TFx, _AX_X, grid.nx, 1.0 / grid.dx)
-                  + div(TFz, _AX_Z, grid.nz, 1.0 / grid.dz))
-        if not sim2d:
-            t_tend = t_tend + div(TFy, _AX_Y, grid.ny, 1.0 / grid.dy)
+        t_new = self._fct(grid, tr, positive, TFx, TFy, TFz, dt, rk)
+        del TFx, TFy, TFz
 
         s_tend = SDx + SDz
         if not sim2d:
@@ -345,4 +309,4 @@ class Dycore:
             imm_tend = fac * s
             prop = immersed[None]
             s_tend = prop * imm_tend + (1.0 - prop) * s_tend
-        return s_tend, t_tend
+        return s_tend, t_new

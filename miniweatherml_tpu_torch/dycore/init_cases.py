@@ -1,10 +1,11 @@
-"""Test-case initial conditions: thermal and supercell.
+"""Test-case initial conditions: thermal, supercell, city and building.
 
-Port of the thermal and supercell halves of
-``miniweatherml_tpu/dycore/init_cases.py`` (reference
+Port of ``miniweatherml_tpu/dycore/init_cases.py`` (reference
 dynamics_euler_stratified_wenofv.h:1085-1193 analytic profiles, :1338-1419
-thermal, :1687-1887 supercell).  Quadrature runs in float64 numpy on the
-host; the results are cast to the model dtype on the state's device.
+thermal, :1421-1652 city and building, :1687-1887 supercell).  Quadrature
+runs in float64 numpy on the host; the results are cast to the model dtype
+on the state's device.  The city and building cases build their
+immersed-boundary mask with numpy and move it to the device once.
 
 Every supercell integrand depends only on z, so the reference's ord^3-point
 3-D quadrature collapses exactly to 1-D z profiles.  Those profiles are built
@@ -18,6 +19,9 @@ state/tracer tensors (nvar, nens, nz, ny, nx) in perturbation form.
 
 from __future__ import annotations
 
+import os
+import warnings
+
 import numpy as np
 import torch
 
@@ -26,7 +30,8 @@ from ..ops.direction_fluxes import IDR, IDT, IDU, NUM_STATE
 from ..ops.gll import gauss_legendre_points_weights, gll_points, gll_weights
 from ..ops.stencil import BC_PERIODIC, BC_WALL
 
-__all__ = ["init_thermal", "init_supercell"]
+__all__ = ["init_thermal", "init_supercell", "init_city",
+           "init_building"]
 
 
 # ---------------------------------------------------------------------------
@@ -286,3 +291,142 @@ def init_supercell(state: CouplerState, ord: int = 5):
 
     state = _store_hy(state, hr_c, hrt_c, hr_e, hrt_e)
     return state, s, tr
+
+
+# ---------------------------------------------------------------------------
+# city / building (reference dynamics...h:1421-1652)
+# ---------------------------------------------------------------------------
+
+# The reference's building heights, shipped with the JAX package.
+CITY_HEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                            "..", "miniweatherml_tpu", "assets",
+                            "city_heights_mt19937_17.npy")
+
+
+def _hydro_theta_profiles(state: CouplerState, nq: int):
+    """Cell-average + edge hydrostatic profiles for the constant-theta
+    background via nq-point GLL quadrature in z (dynamics...h:1396-1419)."""
+    g = state.grid
+    p = _phys(state)
+    qp, qw = gll_points(nq), gll_weights(nq)
+    k = np.arange(g.nz)
+    zq = (k[:, None] + 0.5) * g.dz + qp[None, :] * g.dz
+    hr_q, ht_q = hydro_const_theta(zq, p["grav"], p["C0"], p["cp_d"], p["p0"],
+                                   p["gamma"], p["R_d"])
+    hr_c = (hr_q * qw).sum(1)
+    hrt_c = (hr_q * ht_q * qw).sum(1)
+    ze = np.arange(g.nz + 1) * g.dz
+    hr_e, ht_e = hydro_const_theta(ze, p["grav"], p["C0"], p["cp_d"], p["p0"],
+                                   p["gamma"], p["R_d"])
+    return hr_c, hrt_c, hr_e, hr_e * ht_e
+
+
+def _uniform_flow_profiles(state: CouplerState, nq: int = 9):
+    """rho/theta profiles for city/building: hydro-const-theta if gravity on,
+    else uniform rho=1.15, theta=300 (dynamics...h:1475-1547)."""
+    g = state.grid
+    if state.get_option("enable_gravity", True):
+        return _hydro_theta_profiles(state, nq)
+    return (np.full(g.nz, 1.15), np.full(g.nz, 1.15 * 300.0),
+            np.full(g.nz + 1, 1.15), np.full(g.nz + 1, 1.15 * 300.0))
+
+
+def _uniform_flow_state(state: CouplerState, hr_c):
+    """State for u=20 uniform flow in hydrostatic balance: the quadrature
+    averages of (rho - hr) and (rho theta - hr ht) vanish; rho*u averages to
+    hr_c * 20 (a z-only integrand, broadcast on the device)."""
+    s, tr = _zero_dyn(state)
+    s[IDU] = _column(state, hr_c * 20.0)
+    return s, tr
+
+
+def _city_height_stream(n: int) -> np.ndarray:
+    """First ``n`` building-height draws of the reference's RNG
+    (dynamics...h:1441-1452: std::mt19937{17} + std::normal_distribution
+    {60, 10}), read from the JAX package's asset (numpy's normal draws
+    differ from libstdc++'s, so the realized stream ships as data)."""
+    stream = np.load(CITY_HEIGHTS)
+    if n > stream.size:
+        raise ValueError(
+            f"city config needs {n} building heights but the shipped "
+            f"mt19937(17) stream has {stream.size}; regenerate the asset "
+            "with a longer run of the reference RNG expression")
+    return stream[:n]
+
+
+def _immersed_case(state: CouplerState, imm: np.ndarray):
+    """Shared tail of city/building: the (nz, ny, nx) mask as the
+    ``immersed_proportion`` field (one host-to-device copy), the uniform
+    flow and its hydrostatic background."""
+    hr_c, hrt_c, hr_e, hrt_e = _uniform_flow_profiles(state, nq=9)
+    s, tr = _uniform_flow_state(state, hr_c)
+    state = _store_hy(state, hr_c, hrt_c, hr_e, hrt_e)
+    mask = _to_device(state, imm.astype(np.float64))
+    state = state.replace_fields(immersed_proportion=mask[None].expand(
+        state.grid.field_shape).contiguous())
+    return state, s, tr
+
+
+def init_city(state: CouplerState):
+    """Random downtown of buildings (reference dynamics...h:1421-1547).
+
+    Building heights ~ N(60, 10) from the reference's exact MT19937(17) +
+    std::normal_distribution stream (``_city_height_stream``), consumed
+    row-major like the reference's (j, i) loop.
+    """
+    state = state.set_options(bc_x=BC_PERIODIC, bc_y=BC_PERIODIC, bc_z=BC_WALL,
+                              use_immersed_boundaries=True)
+    g = state.grid
+
+    building_length = 30
+    cells_per_building = max(int(round(building_length / g.dx)), 1)
+    buildings_pad = 20
+    nblocks_x = (int(g.xlen) // building_length - 2 * buildings_pad) // 3
+    nblocks_y = (int(g.ylen) // building_length - 2 * buildings_pad) // 9
+    if nblocks_x <= 0 or nblocks_y <= 0:
+        # The reference's building loops place nothing when the block
+        # counts come out non-positive; small domains run building-free.
+        warnings.warn(
+            "city domain smaller than the building grid (~1.3 km/side "
+            f"needed, got {g.xlen} x {g.ylen} m); proceeding with no "
+            "buildings like the reference's zero-iteration loops "
+            "(reference city domain: 2000 x 2000 m, input_city.yaml)")
+        nblocks_x = max(nblocks_x, 0)
+        nblocks_y = max(nblocks_y, 0)
+    nbuildings_x = nblocks_x * 3
+    nbuildings_y = nblocks_y * 9
+
+    i = np.arange(g.nx)
+    j = np.arange(g.ny)
+    k = np.arange(g.nz)
+    if nbuildings_x > 0 and nbuildings_y > 0:
+        heights = _city_height_stream(nbuildings_y * nbuildings_x).reshape(
+            nbuildings_y, nbuildings_x)
+        inorm = i // cells_per_building - buildings_pad
+        jnorm = j // cells_per_building - buildings_pad
+        in_x = (inorm >= 0) & (inorm < nbuildings_x) & (inorm % 3 < 2)
+        in_y = (jnorm >= 0) & (jnorm < nbuildings_y) & (jnorm % 9 < 8)
+        jj, ii = np.meshgrid(np.clip(jnorm, 0, nbuildings_y - 1),
+                             np.clip(inorm, 0, nbuildings_x - 1),
+                             indexing="ij")
+        hmap = np.where(in_y[:, None] & in_x[None, :], heights[jj, ii], -1.0)
+    else:
+        hmap = np.full((g.ny, g.nx), -1.0)
+    kmax = np.ceil(hmap / g.dz)  # immersed when k <= ceil(h/dz)
+    imm = (k[:, None, None] <= kmax[None, :, :]) & (hmap[None] >= 0.0)
+    return _immersed_case(state, imm)
+
+
+def init_building(state: CouplerState):
+    """Single box building (reference dynamics...h:1549-1652)."""
+    state = state.set_options(bc_x=BC_PERIODIC, bc_y=BC_PERIODIC, bc_z=BC_WALL,
+                              use_immersed_boundaries=True)
+    g = state.grid
+    x0, y0 = 0.3 * g.nx, 0.5 * g.ny
+    xr = yr = 0.05 * g.ny
+    i = np.arange(g.nx)
+    j = np.arange(g.ny)
+    k = np.arange(g.nz)
+    box = (np.abs(i[None, :] - x0) <= xr) & (np.abs(j[:, None] - y0) <= yr)
+    imm = box[None, :, :] & (k[:, None, None] <= 0.2 * g.nz)
+    return _immersed_case(state, imm)

@@ -18,6 +18,7 @@ import torch
 
 from ..config import SimConfig
 from ..core.coupler import CouplerState, make_coupler_state
+from ..io.checkpoint import save_checkpoint
 from ..io.netcdf import StateWriter
 
 __all__ = ["setup_state", "run_main_loop", "Timers", "default_device"]
@@ -80,17 +81,26 @@ def run_main_loop(
     timers: Timers | None = None,
     on_step: Callable[[CouplerState, float, float], None] | None = None,
     quiet: bool = False,
+    etime0: float = 0.0,
+    checkpoint_freq: float = -1.0,
+    checkpoint_path: str = "",
     validate: bool = False,
 ) -> CouplerState:
     """The reference main loop (driver.cpp:64-80) with heartbeat + output.
-    ``on_step(state, dtphys, etime)`` runs after every step."""
+    ``on_step(state, dtphys, etime)`` runs after every step.  A restarted
+    run starts at ``etime0`` (its output and checkpoint counters continue
+    from there); with ``checkpoint_freq > 0`` the state is saved to
+    ``checkpoint_path`` every ``checkpoint_freq`` simulated seconds.
+    ``validate`` checks every field for NaN / Inf / negative tracers after
+    each step (one host read) and raises on a problem."""
     timers = timers or Timers(state.device)
-    etime = 0.0
+    etime = etime0
     dtphys_in = config.dt_phys
     out_freq = config.out_freq
-    num_out = 0
+    num_out = int(etime0 / out_freq) if out_freq > 0 else 0
+    num_chk = int(etime0 / checkpoint_freq) if checkpoint_freq > 0 else 0
 
-    if writer is not None and out_freq >= 0.0:
+    if writer is not None and out_freq >= 0.0 and etime0 == 0.0:
         writer.write(state, 0.0)
 
     timers.start("simulation_loop")
@@ -118,5 +128,9 @@ def run_main_loop(
                 # heartbeat format mirrors dynamics...h:193-195
                 print(f"Etime , dtphys, maxw: {etime:10.6e} , "
                       f"{dtphys:10.6e} , {maxw:10.6e}", flush=True)
+        if (checkpoint_freq > 0.0 and checkpoint_path
+                and etime / checkpoint_freq >= num_chk + 1):
+            save_checkpoint(checkpoint_path, state, etime)
+            num_chk += 1
     timers.stop("simulation_loop")
     return state

@@ -17,6 +17,7 @@ import torch
 from ..config import SimConfig, load_config
 from ..core.coupler import CouplerState
 from ..dycore.euler import Dycore
+from ..io.checkpoint import load_checkpoint
 from ..io.netcdf import StateWriter
 from ..physics.column_nudging import ColumnNudger
 from ..physics.kessler import MicrophysicsKessler
@@ -54,16 +55,38 @@ def build(config: SimConfig, device: str | torch.device):
     return state, step_modules, dycore
 
 
+def _restart_options(config: SimConfig, state: CouplerState,
+                     device: str | torch.device):
+    """The YAML's checkpoint / restart keys, as the JAX package's
+    ``supercell_example.main`` reads them: ``restart_file`` (resume from a
+    ``.npz`` checkpoint, replacing ``state``) and ``checkpoint_freq`` (write
+    ``<out_prefix>_chkpt.npz`` every N simulated seconds).  Returns (state,
+    keyword arguments of ``run_main_loop``)."""
+    etime0 = 0.0
+    if config.extras.get("restart_file"):
+        state, etime0 = load_checkpoint(str(config.extras["restart_file"]),
+                                        device)
+        print(f"restarted from {config.extras['restart_file']} at "
+              f"etime={etime0:g}")
+    return state, dict(
+        etime0=etime0,
+        checkpoint_freq=float(config.extras.get("checkpoint_freq", -1.0)),
+        checkpoint_path=config.out_prefix + "_chkpt.npz",
+        validate=bool(config.extras.get("validate", False)))
+
+
 def run(config: SimConfig, device: str | torch.device) -> CouplerState:
     """Build and run the experiment, with NetCDF output when
-    ``out_freq >= 0``; prints the heartbeat and the timers."""
+    ``out_freq >= 0`` and the checkpoint / restart keys of
+    ``_restart_options``; prints the heartbeat and the timers."""
     state, mods, dycore = build(config, device)
+    state, loop_kw = _restart_options(config, state, device)
     writer = StateWriter(config.out_prefix, state) if config.out_freq >= 0 \
         else None
     timers = Timers(device)
     timers.start("main")
     state = run_main_loop(state, config, mods, dycore, writer, timers,
-                          validate=bool(config.extras.get("validate", False)))
+                          **loop_kw)
     timers.stop("main")
     if writer:
         writer.close()

@@ -1,0 +1,273 @@
+"""Flux-corrected transport of the tracers: the per-cell multiplier and the
+scaled tracer divergence of one direction.
+
+The dycore computes the multiplier once per right-hand side with
+``fct_mult`` and then calls ``fct_scale_div`` for x (first), z (accumulating)
+and y (accumulating, with the SSPRK3 tracer stage update); in 2-D, z is last
+and carries the update.  On a CUDA tensor both launch the kernels of
+``csrc/fct.cu``: ``fct_scale_div`` is the port of the Pallas kernels
+``fct_scale_div_pallas`` and ``fct_scale_div_pallas_sub`` of
+``miniweatherml_tpu/ops/pallas_recon.py``, ``fct_mult`` of the XLA fusion that
+forms the multiplier (``miniweatherml_tpu/dycore/euler.py``,
+``Dycore._fct_div_pallas``).  On a CPU tensor they run ``fct_scale_div_plain``
+and ``fct_mult_plain``, the plain PyTorch versions, which compute the same
+IEEE operations in the same order (dynamics...h:498-516).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["fct_mult", "fct_mult_plain", "fct_scale_div",
+           "fct_scale_div_plain", "per_tracer"]
+
+# Field axis of each direction on (ntr, nens, nz, ny, nx).
+_AX_X, _AX_Y, _AX_Z = -1, -2, -3
+
+
+def per_tracer(x, flags, fn):
+    """``fn`` applied to the tracers of ``x`` (leading axis) whose flag is
+    set, the others kept.  The flags are registry metadata on the host, so
+    no mask tensor (and no host-to-device copy, which would wait for the
+    device) is needed."""
+    if all(flags):
+        return fn(x)
+    if not any(flags):
+        return x
+    return torch.stack([fn(x[i]) if f else x[i] for i, f in enumerate(flags)])
+
+
+def _div(a, d: float):
+    """a / d through a 0-d tensor: on the GPU ``tensor / number`` would
+    multiply by a rounded reciprocal."""
+    return torch.div(a, a.new_full((), d))
+
+
+def _outflow(F, axis, n, d):
+    """Outgoing flux density of each cell along one direction:
+    (max(F[f+1], 0) - min(F[f], 0)) / d."""
+    return _div(torch.clamp(F.narrow(axis, 1, n), min=0.0)
+                - torch.clamp(F.narrow(axis, 0, n), max=0.0), d)
+
+
+def fct_mult_plain(tr, positive, Fx, Fy, Fz, dt, dx, dy, dz):
+    """Plain PyTorch version of ``fct_mult`` (same arguments)."""
+    nz, ny, nx = tr.shape[-3:]
+    vol = dx * dy * dz
+    mass_avail = torch.clamp(tr, min=0.0) * vol
+    fo_x = _outflow(Fx, _AX_X, nx, dx)
+    fo_z = _outflow(Fz, _AX_Z, nz, dz)
+    fo_y = 0.0 if Fy is None else _outflow(Fy, _AX_Y, ny, dy)
+    mass_out = (fo_x + fo_y + fo_z) * dt * vol
+    need = mass_out > mass_avail
+    tiny = 1e-300 if tr.dtype == torch.float64 else 1e-30
+    mult = torch.where(need, mass_avail / torch.clamp(mass_out, min=tiny),
+                       1.0)
+    return per_tracer(mult, [not p for p in positive], torch.ones_like)
+
+
+def fct_scale_div_plain(F, mult, t_prev, axis, n, dxi, rk=None):
+    """Plain PyTorch version of ``fct_scale_div`` (same arguments; writes
+    into ``t_prev`` likewise)."""
+    Flo = F.narrow(axis, 0, n)
+    Fhi = F.narrow(axis, 1, n)
+    one_shape = list(mult.shape)
+    one_shape[axis] = 1
+    one = torch.ones(one_shape, dtype=mult.dtype, device=mult.device)
+    m_prev = torch.cat([one, mult.narrow(axis, 0, n - 1)], dim=axis)
+    m_next = torch.cat([mult.narrow(axis, 1, n - 1), one], dim=axis)
+    fs_lo = Flo * torch.where(Flo > 0, m_prev, torch.where(Flo < 0, mult, 1.0))
+    fs_hi = Fhi * torch.where(Fhi > 0, mult, torch.where(Fhi < 0, m_next, 1.0))
+    acc = (fs_lo - fs_hi) * dxi
+    if t_prev is not None:
+        acc = t_prev + acc
+    if rk is not None:
+        c0, c1, cdt, tr0, tr1, positive = rk
+        v = c0 * tr0
+        if tr1 is not None:
+            v = v + c1 * tr1
+        v = v + cdt * acc
+        acc = per_tracer(v, positive, lambda t: torch.clamp(t, min=0.0))
+    if t_prev is None:
+        return acc
+    return t_prev.copy_(acc)
+
+
+def _bind(lib):
+    P, I, L, U, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_uint64, ctypes.c_double)
+    for name in ("fct_scale_div_f32", "fct_scale_div_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [P] * 6 + [L, I, L, L, U, D, D, D, D, P]
+        fn.restype = I
+    for name in ("fct_mult_f32", "fct_mult_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [P] * 5 + [I, I, I, I, I, U] + [D] * 5 + [P]
+        fn.restype = I
+    lib.fct_error_string.argtypes = [I]
+    lib.fct_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from ..cuda_build import load_library
+        _lib = _bind(load_library("fct"))
+    return _lib
+
+
+def _check(name, t, like, shape):
+    if t.device != like.device:
+        raise ValueError(f"{name} is on device {t.device}, expected "
+                         f"{like.device}")
+    if t.dtype != like.dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {like.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _mask(positive, ntr: int) -> int:
+    """The positive flags as a 64-bit mask, bit t for tracer t."""
+    if len(positive) != ntr:
+        raise ValueError(f"{len(positive)} positive flags for {ntr} tracers")
+    if ntr > 64:
+        raise ValueError(f"the FCT kernels take at most 64 tracers, got {ntr}")
+    return sum(1 << i for i, p in enumerate(positive) if p)
+
+
+def _cuda_operand(x):
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dtype {x.dtype} is not float32/float64")
+    if x.dim() != 5:
+        raise ValueError(f"expected (ntr, nens, nz, ny, nx), got "
+                         f"{tuple(x.shape)}")
+
+
+def fct_mult(tr, positive, Fx, Fy, Fz, dt, dx, dy, dz):
+    """Per-cell FCT multiplier (the ``mult`` of dynamics...h:498-509): 1
+    where a cell's outgoing tracer mass over ``dt`` fits its available
+    mass, mass_avail / mass_out where it would overdraw; 1 for the tracers
+    whose ``positive`` flag is unset.
+
+    Args:
+      tr: (ntr, nens, nz, ny, nx) tracer masses, contiguous.
+      positive: ntr host booleans (the registry's flags).
+      Fx, Fy, Fz: unscaled tracer faces, (n + 1) along their direction;
+        ``Fy`` is None in 2-D.
+      dt: the stage's time step; dx, dy, dz: cell widths.
+
+    Returns the multiplier, shaped like ``tr``.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel.
+    """
+    if tr.device.type == "cpu":
+        return fct_mult_plain(tr, positive, Fx, Fy, Fz, dt, dx, dy, dz)
+    _cuda_operand(tr)
+    ntr, nens, nz, ny, nx = tr.shape
+    _check("tr", tr, tr, tr.shape)
+    _check("Fx", Fx, tr, (ntr, nens, nz, ny, nx + 1))
+    _check("Fz", Fz, tr, (ntr, nens, nz + 1, ny, nx))
+    if Fy is not None:
+        _check("Fy", Fy, tr, (ntr, nens, nz, ny + 1, nx))
+    mask = _mask(positive, ntr)
+    mult = torch.empty_like(tr)
+    lib = _library()
+    fn = lib.fct_mult_f32 if tr.dtype == torch.float32 else lib.fct_mult_f64
+    stream = torch.cuda.current_stream(tr.device).cuda_stream
+    rc = fn(tr.data_ptr(), Fx.data_ptr(),
+            None if Fy is None else Fy.data_ptr(), Fz.data_ptr(),
+            mult.data_ptr(), ntr, nens, nz, ny, nx, mask, float(dt),
+            float(dx), float(dy), float(dz), float(dx * dy * dz), stream)
+    if rc != 0:
+        raise RuntimeError("fct_mult kernel launch failed: "
+                           + lib.fct_error_string(rc).decode())
+    fct_mult.launches += 1
+    return mult
+
+
+fct_mult.launches = 0
+
+
+def fct_scale_div(F, mult, t_prev, axis, n, dxi, rk=None):
+    """FCT face scaling and tracer-flux divergence of one direction
+    (dynamics...h:509-516), accumulated onto the previous directions'.
+
+    Each face is scaled by its upwind cell's multiplier -- cell f-1 where
+    F > 0, cell f where F < 0, 1 beyond either end of the axis -- and
+    ``acc = (fs_lo - fs_hi) * dxi``, plus ``t_prev`` when given.
+
+    Args:
+      F: (ntr, nens, nz, ny, nx) faces with ``n + 1`` entries along ``axis``.
+      mult: (ntr, nens, nz, ny, nx) multiplier from ``fct_mult``.
+      t_prev: the running tracer tendency (cell-shaped) or None.  When given
+        the result is written into it IN PLACE and it is returned, as the
+        JAX kernel donates that buffer to its output.
+      axis: -1 (x), -2 (y) or -3 (z); ``n``: cells along it; ``dxi``: 1 / d.
+      rk: None, or (c0, c1, cdt, tr0, tr1 | None, positive) for the SSPRK3
+        tracer stage update of the last direction: v = c0*tr0 [+ c1*tr1] +
+        cdt*acc, clamped at 0 for the tracers flagged positive.  The
+        coefficients are host numbers; ``positive`` host booleans.
+
+    Returns the tendency (or the updated tracers with ``rk``).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel.
+    """
+    if F.device.type == "cpu":
+        return fct_scale_div_plain(F, mult, t_prev, axis, n, dxi, rk)
+    _cuda_operand(mult)
+    if axis not in (_AX_X, _AX_Y, _AX_Z) or mult.shape[axis] != n or n < 1:
+        raise ValueError(f"axis {axis} / n {n} do not match "
+                         f"{tuple(mult.shape)}")
+    ntr, nens, nz, ny, nx = mult.shape
+    _check("mult", mult, mult, mult.shape)
+    fshape = list(mult.shape)
+    fshape[axis] += 1
+    _check("F", F, mult, fshape)
+    if t_prev is not None:
+        _check("t_prev", t_prev, mult, mult.shape)
+        out = t_prev
+    else:
+        out = torch.empty_like(mult)
+    c0 = c1 = cdt = 0.0
+    tr0 = tr1 = None
+    mask = 0
+    if rk is not None:
+        c0, c1, cdt, tr0, tr1, positive = rk
+        _check("tr0", tr0, mult, mult.shape)
+        if tr1 is not None:
+            _check("tr1", tr1, mult, mult.shape)
+        mask = _mask(positive, ntr)
+    # (outer, n, inner) view of one direction, and outer indices per tracer
+    if axis == _AX_X:
+        outer, inner = ntr * nens * nz * ny, 1
+    elif axis == _AX_Y:
+        outer, inner = ntr * nens * nz, nx
+    else:
+        outer, inner = ntr * nens, ny * nx
+    lib = _library()
+    fn = (lib.fct_scale_div_f32 if mult.dtype == torch.float32
+          else lib.fct_scale_div_f64)
+    stream = torch.cuda.current_stream(mult.device).cuda_stream
+    rc = fn(F.data_ptr(), mult.data_ptr(),
+            None if t_prev is None else t_prev.data_ptr(),
+            None if tr0 is None else tr0.data_ptr(),
+            None if tr1 is None else tr1.data_ptr(), out.data_ptr(),
+            outer, n, inner, outer // ntr, mask, float(c0), float(c1),
+            float(cdt), float(dxi), stream)
+    if rc != 0:
+        raise RuntimeError("fct_scale_div kernel launch failed: "
+                           + lib.fct_error_string(rc).decode())
+    fct_scale_div.launches += 1
+    return out
+
+
+fct_scale_div.launches = 0

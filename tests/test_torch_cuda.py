@@ -266,6 +266,134 @@ def test_p3_cellwise_rejects_bad_input(cuda_device):
         CW.p3_update(1.0, *[x] * 44, do_predict_nc=False)
 
 
+# -- FCT: the multiplier and the scaled tracer divergence --------------------
+
+FCT_POSITIVE = (True, False, True, True, False)
+
+
+def _fct_inputs(shape, dtype, device, rng):
+    """Tracers, faces of both signs with zeros (so every branch of the
+    upwind choice is taken), a running tendency and stage bases that go
+    negative after the update."""
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    def faces(axis):
+        fshape = list(shape)
+        fshape[axis] += 1
+        F = rng.standard_normal(fshape)
+        F[rng.random(fshape) < 0.1] = 0.0
+        return t(F)
+    tr = t(rng.uniform(-1e-4, 1e-2, shape))
+    return (tr, {a: faces(a) for a in (-1, -2, -3)},
+            t(rng.standard_normal(shape)), t(rng.uniform(-0.2, 1.0, shape)),
+            t(rng.uniform(-0.2, 1.0, shape)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fct_kernels_match_plain(dtype, cuda_device):
+    """fct_mult in 3-D and 2-D, and fct_scale_div along x, y and z in the
+    forms the dycore uses (first, accumulating, the stage update with and
+    without the second base), mixed positive flags, on a ragged shape."""
+    from miniweatherml_tpu_torch.ops import fct
+
+    rng = np.random.default_rng(11)
+    shape = (len(FCT_POSITIVE), 2, 7, 9, 70)
+    tr, F, t_prev, tr0, tr1 = _fct_inputs(shape, dtype, cuda_device, rng)
+    for Fy in (F[-2], None):
+        trm = tr if Fy is not None else tr[:, :, :, :1].contiguous()
+        Fx = F[-1] if Fy is not None else F[-1][:, :, :, :1].contiguous()
+        Fz = F[-3] if Fy is not None else F[-3][:, :, :, :1].contiguous()
+        args = (trm, FCT_POSITIVE, Fx, Fy, Fz, 0.37, 5.0, 4.0, 2.5)
+        n0 = fct.fct_mult.launches
+        got = fct.fct_mult(*args)
+        assert fct.fct_mult.launches == n0 + 1
+        want = fct.fct_mult_plain(*args)
+        assert got.shape == want.shape and (want < 1.0).any()
+        assert _rel(want, got) <= TOL[dtype]
+    mult = fct.fct_mult(tr, FCT_POSITIVE, F[-1], F[-2], F[-3], 0.37, 5.0,
+                        4.0, 2.5)
+    for axis in (-1, -2, -3):
+        n = shape[axis]
+        for form in ("first", "accumulate", "rk_tr1", "rk_no_tr1"):
+            rk = None
+            if form.startswith("rk"):
+                rk = (0.75, 0.25, 0.1, tr0, tr1 if form == "rk_tr1" else None,
+                      FCT_POSITIVE)
+            prev = None if form == "first" else t_prev
+            outs = []
+            for fn in (fct.fct_scale_div_plain, fct.fct_scale_div):
+                p = None if prev is None else prev.clone()
+                n0 = fct.fct_scale_div.launches
+                out = fn(F[axis], mult, p, axis, n, 0.25, rk=rk)
+                if p is not None:
+                    assert out is p
+                outs.append(out)
+            assert fct.fct_scale_div.launches == n0 + 1
+            want, got = outs
+            assert _rel(want, got) <= TOL[dtype], (axis, form)
+            if rk is not None:
+                assert got[0].min() == 0.0 and got[1].min() < 0.0
+
+
+def test_fct_rejects_bad_input(cuda_device):
+    from miniweatherml_tpu_torch.ops import fct
+
+    rng = np.random.default_rng(2)
+    shape = (len(FCT_POSITIVE), 1, 4, 6, 8)
+    tr, F, t_prev, _, _ = _fct_inputs(shape, torch.float32, cuda_device, rng)
+    with pytest.raises(ValueError, match="contiguous"):
+        fct.fct_scale_div(F[-1], tr.transpose(3, 4).contiguous().transpose(
+            3, 4), None, -1, 8, 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        fct.fct_scale_div(F[-2], tr, None, -1, 8, 1.0)
+    with pytest.raises(TypeError):
+        fct.fct_scale_div(F[-1], tr, t_prev.double(), -1, 8, 1.0)
+    with pytest.raises(ValueError, match="device"):
+        fct.fct_scale_div(F[-1], tr, t_prev.cpu(), -1, 8, 1.0)
+    with pytest.raises(ValueError, match="flags"):
+        fct.fct_mult(tr, FCT_POSITIVE[:2], F[-1], F[-2], F[-3], 1.0, 1.0,
+                     1.0, 1.0)
+    many = torch.zeros((65, 1, 2, 2, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="64 tracers"):
+        fct.fct_mult(many, (True,) * 65, torch.zeros((65, 1, 2, 2, 3),
+                                                     device=cuda_device),
+                     None, torch.zeros((65, 1, 3, 2, 2), device=cuda_device),
+                     1.0, 1.0, 1.0, 1.0)
+
+
+def test_city_step_launches_its_kernels(cuda_device):
+    """One step of the simple_city chain on the card goes through the flux
+    and FCT kernels (9 + 3 + 9 launches at one CFL cycle) and matches the
+    port's CPU run (f64, uniform cross-flow as in tests/test_torch_city.py,
+    rtol 1e-9 plus 1e-7 of each field's scale)."""
+    from miniweatherml_tpu_torch.experiments import simple_city
+    from miniweatherml_tpu_torch.ops import fct
+
+    cfg = config_from_dict(dict(
+        sim_time=1.0, nens=2, nx_glob=64, ny_glob=64, nz=12, xlen=2000.0,
+        ylen=2000.0, zlen=300.0, init_data="city", enable_gravity=False,
+        dtype="float64"))
+    counters = (direction_fluxes, fct.fct_mult, fct.fct_scale_div)
+    states = []
+    for device in ("cpu", cuda_device):
+        state, mods, dycore = simple_city.build_chain(cfg, device)
+        state = state.replace_fields(vvel=torch.full_like(state["vvel"], 2.0),
+                                     wvel=torch.full_like(state["wvel"], 0.5))
+        dt = dycore.compute_time_step(state)
+        n0 = [c.launches for c in counters]
+        for m in mods:
+            state = m(state, dt)
+        states.append(state)
+    assert [c.launches - k for c, k in zip(counters, n0)] == [9, 3, 9]
+    assert float(states[1]["immersed_proportion"].max()) == 1.0
+    for name, a in states[0].fields.items():
+        a = a.numpy()
+        b = states[1][name].cpu().numpy()
+        np.testing.assert_allclose(b, a, rtol=1e-9,
+                                   atol=1e-7 * np.abs(a).max(), err_msg=name)
+
+
 def test_p3_slice_on_card_matches_cpu(cuda_device):
     """The P3 chain through all its kernels against the port's CPU run:
     16x8x10 supercell_p3 f64 with smooth hydrometeor layers and part3
