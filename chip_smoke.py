@@ -5,13 +5,16 @@ Usage (from the root of a checkout):  python3 chip_smoke.py
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: name, power limit, torch and CUDA versions;
   2. build: the five CUDA libraries from csrc/ with nvcc (sm_90a), one nvcc
-     each, all started together;
+     each, all started together; the registers, spills and shared memory
+     of the flux kernel's instantiations (from its ptxas report);
   3. the direction-flux kernel against its plain PyTorch version, x/y/z in
      f32 and f64, on each chain's state at its cell's width: the 512x512x64
      supercell with Kessler (3 tracers) plus a small wall/open case, the P3
      state (9 tracers, 14 variables) with mixed-regime hydrometeors, and the
      400x400x60x2 city with a cross-flow (1 tracer, 6 variables, periodic x
-     and y, wall z); max error and kernel/plain times;
+     and y, wall z); equal bit for bit (torch.equal), with kernel and plain
+     times, the bound (bytes and operations from the shapes against the
+     card's published rates) and the share of it;
   14. (run inside 3, on the tracer faces each state gave) the FCT kernels
      against their plain versions: the multiplier, and the scaled
      divergence along x, z and y, first / accumulating / with the stage
@@ -54,7 +57,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 Tolerance of a kernel against its plain version: max|kernel - plain| over
 max|plain| of each output below 1e-12 in f64 and 1e-5 in f32 (the JAX
-suite's own f32 bound between its paths, tests/test_pallas.py:260,311).
+suite's own f32 bound between its paths, tests/test_pallas.py:260,311);
+the direction-flux kernel must also equal its plain version bit for bit.
 A slice on the card against the port's CPU run: 1e-7 of each field's scale
 (1e-9 for the one-step building and city slices, phase 16).
 
@@ -108,6 +112,113 @@ def _time_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+# The card's published rates (H100 SXM data sheet, 700 W): HBM bytes/s and
+# non-tensor-core FLOP/s per type.
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
+
+def _dtype_name(t) -> str:
+    return str(t).replace("torch.", "")
+
+
+def _nbytes(*objs) -> int:
+    """Bytes of every tensor in ``objs`` (nested tuples, lists and dicts):
+    each input read once, each output written once."""
+    tot = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            tot += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            tot += _nbytes(*o)
+        elif isinstance(o, dict):
+            tot += _nbytes(*o.values())
+    return tot
+
+
+def _bound(nbytes, ops, dtype) -> tuple[float, str]:
+    """(least time in ms, "bytes" or "operations"): the larger of the bytes
+    over the HBM rate and the operations over the type's peak."""
+    t_b = 1e3 * nbytes / HBM_BYTES_S
+    t_o = 1e3 * ops / PEAK_FLOPS[_dtype_name(dtype)]
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _limiter_ops(ord_: int) -> int:
+    """Floating-point operations of one variable's WENO edges in one cell,
+    counted from the limiter's shape (ops/weno_fused.py, csrc weno_edges):
+    3 per smoothness term (two multiplies, one add), 2K per normalisation
+    (K - 1 adds, a division, K multiplies), 3K for the weights (multiply,
+    add, division), and 2 per edge coefficient plus 2 per candidate for
+    each of the two edges."""
+    from miniweatherml_tpu_torch.ops.weno_fused import substencils
+    sup = substencils(ord_)
+    K = len(sup)
+    tv = sum(w * (w + 1) // 2 for _, w in sup)
+    return 3 * tv + 2 * K + 3 * K + 2 * K + 2 * sum(2 * w + 2 for _, w in sup)
+
+
+def _flux_work(prim, axis, ord_) -> tuple[int, int]:
+    """(bytes, operations) one direction_fluxes call needs: it reads the
+    nvar variables and the two background profiles once and writes the 5
+    state divergences and the ntr tracer faces (n + 1 per line); it forms
+    WENO edges of n + 2 cells per line for every variable, solves n + 1
+    faces (~25 operations, pow counted as one, plus 4 per tracer) and
+    takes 5 differences and scalings per cell."""
+    nvar = prim.shape[0]
+    ntr = nvar - 5
+    cells = prim[0].numel()
+    n = prim.shape[axis]
+    lines = cells // n
+    nlev = prim.shape[2] + (1 if axis == -3 else 0)
+    item = prim.element_size()
+    nbytes = item * (nvar * cells + 5 * cells + ntr * lines * (n + 1)
+                     + 2 * prim.shape[1] * nlev)
+    ops = (nvar * _limiter_ops(ord_) * lines * (n + 2)
+           + (25 + 4 * ntr) * lines * (n + 1) + 10 * cells)
+    return nbytes, ops
+
+
+def _ptxas_report(name: str):
+    """(kernel, registers, spill store bytes, spill load bytes, stack bytes,
+    shared bytes) of each entry function in _build/<name>.ptxas.txt."""
+    import re
+    path = os.path.join(ROOT, "miniweatherml_tpu_torch", "_build",
+                        f"{name}.ptxas.txt")
+    rows, cur, frame = [], None, (0, 0, 0)
+    with open(path) as f:
+        for ln in f:
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                cur = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m:
+                frame = tuple(int(x) for x in m.groups())
+                continue
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and cur:
+                sm = re.search(r"(\d+) bytes smem", ln)
+                rows.append((cur, int(m.group(1)), frame[1], frame[2],
+                             frame[0], int(sm.group(1)) if sm else 0))
+                cur, frame = None, (0, 0, 0)
+    return rows
+
+
+def _flux_instance(mangled: str):
+    """(kind, ord, type, tracer bound) of a direction_fluxes entry function,
+    or None."""
+    import re
+    m = re.search(r"(fluxes_x|fluxes_strided)ILi(\d+)E([fd])Li(\d+)E",
+                  mangled)
+    if not m:
+        return None
+    kind = "x" if m.group(1) == "fluxes_x" else "y/z"
+    dtype = "float32" if m.group(3) == "f" else "float64"
+    return kind, int(m.group(2)), dtype, int(m.group(4))
+
+
 def _supercell_cfg(nx, ny, nz, xlen, ylen, zlen, sim_time, dtype,
                    out_freq=-1.0, out_prefix="chip_smoke"):
     from miniweatherml_tpu_torch.config import config_from_dict
@@ -153,6 +264,25 @@ def phase_build():
         print(f"[2] built {name}: nvcc "
               f"{cuda_build.build_seconds.get(name, 0.0):.2f} s", flush=True)
     print(f"[2] all builds: {time.perf_counter() - t0:.2f} s", flush=True)
+    # registers, spills and shared memory of the flux kernel's
+    # instantiations; the paths run ord 5 with tracer bounds 3 (Kessler),
+    # 9 (P3) and 1 (city)
+    worst = None
+    for mangled, regs, st, ld, stack, smem in _ptxas_report(
+            "direction_fluxes"):
+        inst = _flux_instance(mangled)
+        if inst is None:
+            raise AssertionError(f"unexpected entry function {mangled}")
+        kind, ord_, dtype, ntrb = inst
+        if ord_ == 5:
+            print(f"[2] direction_fluxes {kind} ord 5 {dtype} tracers <= "
+                  f"{ntrb}: {regs} registers, {st} B spill stores, {ld} B "
+                  f"spill loads, {stack} B stack, {smem} B shared", flush=True)
+        if worst is None or (st, regs) > (worst[1], worst[0]):
+            worst = (regs, st, ld, inst)
+    print(f"[2] direction_fluxes, most spilled of all orders: {worst[0]} "
+          f"registers, {worst[1]} B spill stores, {worst[2]} B spill loads "
+          f"({worst[3]})", flush=True)
 
 
 def _p3_mixed_build(cfg, device):
@@ -183,17 +313,17 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
         IDU, IDV, IDW, direction_fluxes, direction_fluxes_plain)
     from miniweatherml_tpu_torch.ops.stencil import BC_OPEN, BC_WALL
 
-    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
         state, _, dycore = _flux_state(chain, dtype)
         prim = _prim(state, dycore)
         g, c = state.grid, dycore._consts(state)
         hy = dycore._hy(state)
-        dirs = ((-1, g.nx, c.bc_x, IDU, g.dx, hy[0], hy[1]),
-                (-2, g.ny, c.bc_y, IDV, g.dy, hy[0], hy[1]),
-                (-3, g.nz, c.bc_z, IDW, g.dz, hy[2], hy[3]))
+        dirs = (("x", -1, g.nx, c.bc_x, IDU, g.dx, hy[0], hy[1]),
+                ("y", -2, g.ny, c.bc_y, IDV, g.dy, hy[0], hy[1]),
+                ("z", -3, g.nz, c.bc_z, IDW, g.dz, hy[2], hy[3]))
         faces = {}
-        for axis, n, bc, nid, d, hr, ht in dirs:
+        for name, axis, n, bc, nid, d, hr, ht in dirs:
             args = (prim, axis, n, bc, nid, c.C0, c.gamma, hr, ht,
                     dycore.mats, 0.0, 1.0 / d)
             ref = direction_fluxes_plain(*args)
@@ -201,23 +331,31 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
             torch.cuda.synchronize()
             errs = [_rel(a, b) for a, b in zip(ref, got)]
             rel = max(e[1] for e in errs)
+            same = all(torch.equal(a, b) for a, b in zip(ref, got))
             faces[axis] = got[1]
             del ref, got
             ms = _time_ms(lambda: direction_fluxes(*args))
             pms = _time_ms(lambda: direction_fluxes_plain(*args), reps=3)
+            nbytes, ops = _flux_work(prim, axis, dycore.mats.ord)
+            bms, by = _bound(nbytes, ops, dtype)
             print(f"[3] direction_fluxes {chain} nvar {prim.shape[0]} "
-                  f"{dtype} axis {axis} bc {bc}: "
-                  f"max abs err {max(e[0] for e in errs):.3e}, rel "
-                  f"{rel:.3e} (tol {tol:g}); kernel {ms:.3f} ms, plain "
-                  f"{pms:.3f} ms", flush=True)
-            if not rel <= tol:
-                raise AssertionError(f"direction_fluxes {dtype} axis {axis}: "
-                                     f"rel err {rel:.3e} > {tol:g}")
+                  f"{dtype} {name} (axis {axis}, bc {bc}): bitwise "
+                  f"{'equal' if same else 'DIFFERENT'}, max abs err "
+                  f"{max(e[0] for e in errs):.3e}, rel {rel:.3e}; kernel "
+                  f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
+                  f"({by}: {nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP), "
+                  f"{bms / ms:.1%} of the bound  [{_card()}]", flush=True)
+            if not (same and rel <= tol):
+                raise AssertionError(f"direction_fluxes {chain} {dtype} "
+                                     f"axis {axis}: not bitwise equal "
+                                     f"(rel err {rel:.3e})")
             if dtype == "float32":
                 rec["max_abs_err"] = max(rec["max_abs_err"],
                                          max(e[0] for e in errs))
                 rec["ms"] += ms
                 rec["plain_ms"] += pms
+                rec["bound_ms"] += bms
+                rec["bound_by"] = by
         phase_fct(chain, dtype, tol, state, dycore, faces, fct_recs)
         del faces
         if chain != "kessler":
@@ -237,9 +375,11 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
                 ref = direction_fluxes_plain(*args)
                 got = direction_fluxes(*args)
                 rel = max(_rel(a, b)[1] for a, b in zip(ref, got))
+                same = all(torch.equal(a, b) for a, b in zip(ref, got))
                 print(f"[3] direction_fluxes {dtype} small axis {axis} bc "
-                      f"{bc}: rel {rel:.3e}", flush=True)
-                if not rel <= tol:
+                      f"{bc}: bitwise {'equal' if same else 'DIFFERENT'}, "
+                      f"rel {rel:.3e}", flush=True)
+                if not (same and rel <= tol):
                     raise AssertionError(f"direction_fluxes small {dtype} "
                                          f"axis {axis} bc {bc}: {rel:.3e}")
         del state, prim, hy, dycore
@@ -274,6 +414,7 @@ def phase_fct(chain, dtype, tol, state, dycore, faces, recs):
         mult = fct.fct_mult(*args)
         torch.cuda.synchronize()
         err, rel = _rel(ref, mult)
+        nbytes = _nbytes(args, mult)
         limited = (mult < 1.0).double().mean().item()
         del ref
         ms = _time_ms(lambda: fct.fct_mult(*args))
@@ -288,7 +429,9 @@ def phase_fct(chain, dtype, tol, state, dycore, faces, recs):
             r = recs["fct_mult"]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if chain == "p3" and scale == 1.0:
-                r["ms"], r["plain_ms"] = ms, pms
+                # ~20 operations per tracer value (csrc/fct.cu fct_mult)
+                bms, by = _bound(nbytes, 20 * tr.numel(), dtype)
+                r.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
     t_prev = fct.fct_scale_div_plain(faces[-1], mult, None, -1, g.nx,
                                      1.0 / g.dx)
     tr1 = tr.flip(-1).contiguous()
@@ -318,8 +461,18 @@ def phase_fct(chain, dtype, tol, state, dycore, faces, recs):
                     faces[axis], mult, buf, axis, n, 1.0 / d, rk=rk), reps=3)
                 line += f"; kernel {ms:.3f} ms, plain {pms:.3f} ms"
                 if f32 and chain == "p3":
-                    recs["fct_scale_div"]["ms"] += ms
-                    recs["fct_scale_div"]["plain_ms"] += pms
+                    # ~15 operations per tracer value (csrc/fct.cu); the
+                    # output is the running buffer, read and written
+                    out_b = _nbytes(tr)
+                    bms, by = _bound(
+                        _nbytes(faces[axis], mult, rk) + out_b
+                        + (0 if buf is None else out_b), 15 * tr.numel(),
+                        dtype)
+                    r = recs["fct_scale_div"]
+                    r["ms"] += ms
+                    r["plain_ms"] += pms
+                    r["bound_ms"] = r.get("bound_ms", 0.0) + bms
+                    r["bound_by"] = by
             print(line, flush=True)
             if not rel <= tol:
                 raise AssertionError(f"fct_scale_div {chain} {dtype} axis "
@@ -338,6 +491,8 @@ def phase_kessler():
     rng = np.random.default_rng(7)
     rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
     nens, nz, ny, nx = 1, 64, 512, 512
+    # ~80 operations per cell and rain sub-step (csrc/kessler.cu, pow, exp
+    # and sqrt counted as one)
     dz, dt = 200.0, 30.0
     z = (np.arange(nz) + 0.5) * dz
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
@@ -360,6 +515,7 @@ def phase_kessler():
         torch.cuda.synchronize()
         errs = [_rel(a, b) for a, b in zip(ref, got)]
         rel = max(e[1] for e in errs)
+        nbytes = _nbytes(args, got)
         del ref, got
         ms = _time_ms(lambda: kessler_subcycle(*args))
         pms = _time_ms(lambda: kessler_subcycle_plain(*args), reps=3)
@@ -372,8 +528,9 @@ def phase_kessler():
         if not rel <= tol:
             raise AssertionError(f"kessler {dtype}: rel err {rel:.3e} > {tol:g}")
         if dtype == torch.float32:
+            bms, by = _bound(nbytes, 80 * nsub * th.numel(), dtype)
             rec.update(max_abs_err=max(e[0] for e in errs), ms=ms,
-                       plain_ms=pms)
+                       plain_ms=pms, bound_ms=bms, bound_by=by)
     return rec
 
 
@@ -560,6 +717,7 @@ def phase_p3_lookups():
             got = kern(*args, present=present)
             torch.cuda.synchronize()
             err, rel = _rel(ref, got)
+            nbytes = _nbytes(args, got)
             del ref, got
             ms = _time_ms(lambda: kern(*args, present=present))
             pms = _time_ms(lambda: plain(*args, present=present), reps=3)
@@ -572,7 +730,10 @@ def phase_p3_lookups():
                 r = recs[name]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 if r["ms"] == 0.0:  # the first call site of the family
-                    r["ms"], r["plain_ms"] = ms, pms
+                    # ~40 operations per cell and column (index clamps,
+                    # weights, the multilinear blend; csrc/p3_lookup.cu)
+                    bms, by = _bound(nbytes, 40 * args[0].shape[0] * n, dtype)
+                    r.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
         off = LK.interp_ice(dev.ice_cols((2,)), *idx,
                             present=torch.tensor(False, device="cuda"))
         if off.any():
@@ -588,7 +749,11 @@ def phase_p3_cellwise():
     mixed-regime 512x512x64 state."""
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
 
-    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    # operations per cell of each phase, read from csrc/p3_cellwise.cu
+    # (arithmetic of the phase body and the helpers it calls; exp, log,
+    # pow, tanh counted as one)
+    cell_ops = {"part1": 150, "update": 500, "wrapper": 60}
     launch = cw._launch
     for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
         state, mods, dycore = _p3_mixed_build(
@@ -612,6 +777,8 @@ def phase_p3_cellwise():
             torch.cuda.synchronize()
             errs = [_rel(a, b) for a, b in zip(ref, got)]
             err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            nbytes = _nbytes(arrays, got)
+            cells = got[0].numel()
             del ref, got
             ms = _time_ms(lambda: launch(phase, pnc, arrays, dt))
             pms = _time_ms(lambda: cw.plain_phase(phase, pnc, arrays, dt),
@@ -622,9 +789,12 @@ def phase_p3_cellwise():
             if not rel <= tol:
                 raise AssertionError(f"p3 {phase} {dtype}: rel {rel:.3e}")
             if dtype == "float32":
+                bms, by = _bound(nbytes, cell_ops[phase] * cells, dtype)
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 rec["ms"] += ms
                 rec["plain_ms"] += pms
+                rec["bound_ms"] += bms
+                rec["bound_by"] = by
         del seen
         torch.cuda.empty_cache()
     return rec
@@ -806,6 +976,7 @@ def main() -> int:
     phase_build()
     k_fct = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
              for k in ("fct_mult", "fct_scale_div")}
+    # no single PyTorch call computes any of these kernels' functions
     k_a8 = phase_direction_fluxes(k_fct)
     # the JSON line's times: 14 variables, 9 tracers
     k_a = phase_direction_fluxes(k_fct, "p3")
@@ -894,8 +1065,17 @@ def main() -> int:
                      "fusion, not a Pallas kernel)",
          "launches": l_city["fct_mult"], **k_fct["fct_mult"]},
     ]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for k in kernels:
+        # no single PyTorch call computes any of these kernels' functions
+        k["library_ms"] = None
+        missing = [key for key in keys if key not in k]
+        if missing:
+            raise AssertionError(f"{k['name']}: no {missing} measured")
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": [{key: k[key] for key in keys}
+                                  for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

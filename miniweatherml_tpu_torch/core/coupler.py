@@ -275,9 +275,10 @@ class CouplerState:
 
 
 def make_coupler_state(grid: Grid, dtype: str = "float32",
-                       options: Mapping[str, OptionValue] | None = None,
-                       device: str | torch.device = "cpu") -> CouplerState:
-    """Create an empty coupler state for a grid on ``device``
+                       options: Mapping[str, OptionValue] | None = None, *,
+                       device: str | torch.device) -> CouplerState:
+    """Create an empty coupler state for a grid on ``device`` (required: the
+    port has no default device)
     (``distribute_mpi_and_allocate_coupled_state``, coupler.h:110-214,
     without the MPI decomposition)."""
     torch_dtype(dtype)
@@ -292,8 +293,8 @@ def state_to_numpy(state: CouplerState) -> dict[str, np.ndarray]:
 
 
 def state_from_numpy(fields: Mapping[str, np.ndarray], grid, options,
-                     tracers, dtype: str = "float64",
-                     device: str | torch.device = "cpu") -> CouplerState:
+                     tracers, dtype: str = "float64", *,
+                     device: str | torch.device) -> CouplerState:
     """Build a port state from host arrays plus the metadata that goes with
     them.  ``grid`` and each entry of ``tracers`` may come from either
     package (they are read by attribute), so a JAX ``CouplerState`` carries

@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU megakernels of miniweatherml_tpu/ops/pallas_recon.py:
 // direction_fluxes_pallas (x, stencil on the last axis, pallas_call at :536)
 // and direction_fluxes_pallas_sub (y and z, stencil on axis -2, pallas_call
-// at :941).  One stride-parameterised kernel serves all three directions.
+// at :941).
 //
 // Math (the JAX XLA path, dycore/euler.py:475-613 plus div):
 //   halo fill (periodic wrap; wall/open edge copy, wall zeroes the normal
@@ -14,20 +14,50 @@
 //   wall/open face overwrite -> upwind Riemann solve -> state divergence
 //   -(F[f+1] - F[f]) * div_scale, and the unscaled tracer faces.
 //
-// What bounds it on the H100: bytes.  Per cell it reads nvar values and
-// writes 5 + ntr, against a few hundred flops of limiter arithmetic per
-// variable; the state faces would add 2 x 5 values of traffic per face if
-// they went to device memory, so they never do (as on the TPU).
-// Design: a block owns a tile of TL lines x S cells along the direction.  It
-// stages S + 2 + 2*hs cells of every variable (halo filled by the BC rule)
-// in shared memory with coalesced loads, reconstructs the S + 2 cells whose
-// edges its S + 1 faces need into shared memory, solves the faces (state
-// fluxes stay in shared memory, tracer faces go out), then writes the cell
-// divergence.  For x (unit stride) the lines are rows and threads walk the
-// row; for y and z the lines are neighbouring x positions, so a warp reads
-// consecutive addresses while the tile walks the strided direction.
-// Simple first: no TMA or async copies; the halo cells of a tile are read
-// again by the neighbouring tile (through L2).
+// What bounds it on the H100: operations.  The limiter costs about 200
+// floating-point operations per variable per cell (ord 5: 33 smoothness
+// terms, two normalisations, four weights with IEEE divisions, 2 x 14 edge
+// terms), against one value read per variable and one written per output;
+// bytes come second (~0.32 ms per call at 512x512x64 with 8 variables).
+// Every result equals the plain PyTorch version bit for bit: each add,
+// subtract and multiply is a round-to-nearest intrinsic (never contracted
+// into an FMA), divisions are IEEE, terms come in the plain version's order,
+// and the file builds with contraction on only so that pow rounds as
+// PyTorch's own pow kernel does.  Without FMAs the floor is about twice the
+// operation bound.  Tensor cores do not apply: the limiter is nonlinear per
+// cell, its linear parts are 3- to 9-wide dot products, and each result
+// must round as the plain f32/f64 arithmetic does.
+//
+// Design (issue-bound, so the instruction count comes first):
+//  * The limiter tables of each order (ops/weno_fused.py::weno_coef_table,
+//    the table's doubles cast to the type) live in __constant__ memory and
+//    are indexed by compile-time offsets after unrolling, so every
+//    coefficient is a constant-bank operand of its multiply: no loads.
+//  * Order, type, direction kind (x: unit stride; y/z: strided) and a bound
+//    on the tracer count (1, 3 or 9; the tracer loop is unrolled and
+//    guarded) are template parameters; tile sizes are compile-time
+//    constants; the grid is (line tiles, planes, segments) for y/z and (x
+//    tiles, rows, planes) for x, so the background profile's index is
+//    plane * hps + face * has and no index needs a runtime division.  The
+//    periodic wrap and edge copy run only for cells outside the axis.
+//  * y and z: a block is one warp; each thread owns one line (neighbouring
+//    threads own neighbouring x positions, so every load and store of a
+//    warp is one contiguous line) and marches along the direction through
+//    a segment of SEG cells.  It keeps an ord-wide register window per
+//    variable, the previous cell's right edges and the previous face's
+//    state fluxes in registers, loads each variable's next value one step
+//    ahead, and writes the divergence and the tracer faces directly: no
+//    shared memory, and only the ord - 1 cells before a segment and the one
+//    after it are read twice.
+//  * x (unit stride): a lane per line would make every store of a warp
+//    touch 32 rows (measured 2-3x slower than y/z), so instead a warp owns
+//    30 consecutive cells of one row: lane i forms the edges of cell
+//    x0 - 1 + i from a stencil gathered with warp shuffles out of two
+//    coalesced loads per variable, takes its left neighbour's right edges
+//    and its right neighbour's face fluxes by shuffle, and writes its
+//    cell's divergence and its left face.  No shared memory, no
+//    synchronisation, and 32/30 of the limiter work.
+//  * No asynchronous copies or TMA: the loads are not where the time goes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,10 +66,38 @@ namespace {
 
 constexpr int IDR = 0, IDU = 1, IDV = 2, IDW = 3, IDT = 4, NS = 5;
 constexpr int BC_PERIODIC = 0, BC_WALL = 2;
-constexpr int THREADS = 256;
+constexpr int WARP = 32;       // threads per block: one warp
+constexpr int SEG = 64;        // cells a thread marches per segment
+constexpr int COEF_MAX = 104;  // longest limiter table (ord 9: 103 values)
+constexpr int NTR_MAX = 9;
+
+__constant__ float c_coef_f32[4][COEF_MAX];
+__constant__ double c_coef_f64[4][COEF_MAX];
+
+template <typename T>
+__device__ __forceinline__ T coef(int slot, int i);
+template <>
+__device__ __forceinline__ float coef<float>(int slot, int i) {
+  return c_coef_f32[slot][i];
+}
+template <>
+__device__ __forceinline__ double coef<double>(int slot, int i) {
+  return c_coef_f64[slot][i];
+}
 
 __device__ __forceinline__ float tpow(float a, float b) { return powf(a, b); }
 __device__ __forceinline__ double tpow(double a, double b) { return pow(a, b); }
+
+// Every add, subtract and multiply of the arithmetic below rounds on its
+// own (round-to-nearest intrinsics, never contracted into an FMA), as the
+// plain PyTorch version's separate kernels do; the file itself builds with
+// contraction on so that pow rounds as PyTorch's own pow kernel does.
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 
 // Support of each candidate polynomial inside the ord-wide stencil and the
 // layout of the coefficient table (ops/weno_fused.py::weno_coef_table).
@@ -47,6 +105,7 @@ template <int ORD>
 struct Limiter {
   static constexpr int K = ORD == 3 ? 3 : 4;
   static constexpr int HS = (ORD - 1) / 2;
+  static constexpr int SLOT = (ORD - 3) / 2;
   __host__ __device__ static constexpr int start(int k) {
     return ORD == 3 ? (k == 1 ? 1 : 0) : (k == 3 ? 0 : HS - 2 + k);
   }
@@ -60,15 +119,16 @@ struct Limiter {
     return k == 0 ? tv_off(K) : edge_off(k - 1) + 2 * width(k - 1);
   }
   static constexpr int IDL_OFF = edge_off(K);
+  static constexpr int SIZE = IDL_OFF + K;
 };
+static_assert(Limiter<9>::SIZE <= COEF_MAX, "coefficient table too long");
 
 // Limited left/right edge values of one cell from its ord-wide stencil.
 template <int ORD, typename T>
-__device__ __forceinline__ void weno_edges(const T (&s)[ORD],
-                                           const T* __restrict__ cf, T cutoff,
+__device__ __forceinline__ void weno_edges(const T (&s)[ORD], T cutoff,
                                            T& left, T& right) {
   using L = Limiter<ORD>;
-  constexpr int K = L::K;
+  constexpr int K = L::K, SLOT = L::SLOT;
   const T eps = T(1e-20);
   T tv[K];
 #pragma unroll
@@ -79,21 +139,23 @@ __device__ __forceinline__ void weno_edges(const T (&s)[ORD],
 #pragma unroll
     for (int i = 0; i < w; ++i)
 #pragma unroll
-      for (int j = i; j < w; ++j) acc = acc + cf[o++] * s[st + i] * s[st + j];
+      for (int j = i; j < w; ++j)
+        acc = add(acc, mul(mul(coef<T>(SLOT, o++), s[st + i]), s[st + j]));
     tv[k] = acc;
   }
   auto convexify = [&](T (&v)[K]) {
     T tot = v[0];
 #pragma unroll
-    for (int k = 1; k < K; ++k) tot = tot + v[k];
+    for (int k = 1; k < K; ++k) tot = add(tot, v[k]);
     const T inv = tot > eps ? T(1) / tot : T(1);
 #pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = v[k] * inv;
+    for (int k = 0; k < K; ++k) v[k] = mul(v[k], inv);
   };
   convexify(tv);
   T w[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) w[k] = cf[L::IDL_OFF + k] / (tv[k] * tv[k] + eps);
+  for (int k = 0; k < K; ++k)
+    w[k] = coef<T>(SLOT, L::IDL_OFF + k) / add(mul(tv[k], tv[k]), eps);
   convexify(w);
   if (cutoff > T(0)) {
 #pragma unroll
@@ -109,253 +171,418 @@ __device__ __forceinline__ void weno_edges(const T (&s)[ORD],
       const int o = L::edge_off(k) + e * wd;
       T ek = T(0);
 #pragma unroll
-      for (int i = 0; i < wd; ++i) ek = ek + cf[o + i] * s[st + i];
-      acc = acc + w[k] * ek;
+      for (int i = 0; i < wd; ++i) ek = add(ek, mul(coef<T>(SLOT, o + i), s[st + i]));
+      acc = add(acc, mul(w[k], ek));
     }
     if (e == 0) left = acc; else right = acc;
   }
 }
 
-struct Dir {
-  int nvar, outer, n, inner;  // one variable viewed as (outer, n, inner)
-  int hy_div, hy_so, hy_sa;   // background index (o / hy_div) * hy_so + a * hy_sa
-  int bc, normal_id;
-  int S, TL;                  // cells per tile along the direction, lines per tile
-  int ntile_inner;            // tiles across `inner` (y/z) per outer index
+// One direction's view of the arrays: a value is
+// base[v * vstride + plane * pstride + cell * astride + line * lstride];
+// the tracer faces likewise with the t* strides (n + 1 faces per line).
+struct Geom {
+  int64_t vstride, pstride, astride, lstride;
+  int64_t tvstride, tpstride, tastride, tlstride;
+  int n, nlines, ntr;
+  int hps, has;  // background index: plane * hps + face * has
+  int bc, nid;
 };
 
-template <int ORD, typename T>
-__global__ void __launch_bounds__(THREADS)
-direction_fluxes_kernel(const T* __restrict__ prim, const T* __restrict__ hyr,
-                        const T* __restrict__ hyt, const T* __restrict__ cf,
-                        T* __restrict__ sdiv, T* __restrict__ tf, const Dir d,
-                        const T C0, const T gamma, const T cutoff,
-                        const T div_scale) {
-  constexpr int HS = (ORD - 1) / 2;
+// Value of variable v at cell a (any integer) of the line at `line`, with
+// the boundary rule for cells outside [0, n).
+template <typename T>
+__device__ __forceinline__ T load_bc(const T* __restrict__ line,
+                                     const Geom& g, int v, int a) {
+  if (a < 0 || a >= g.n) {
+    if (g.bc == BC_PERIODIC) {
+      a %= g.n;
+      if (a < 0) a += g.n;
+    } else {
+      if (g.bc == BC_WALL && v == g.nid) return T(0);
+      a = a < 0 ? 0 : g.n - 1;
+    }
+  }
+  return line[v * g.vstride + a * g.astride];
+}
+
+// Upwind flux of one face from the limits on its two sides (the right
+// edges `a` of the cell before it, the left edges `b` of the cell after):
+// densitize with the hydrostatic background, overwrite at open/wall
+// boundaries, and solve the acoustic/advective upwind Riemann problem.
+// Keeps what the tracer faces need.
+template <typename T>
+struct Face {
+  T F[NS];
+  T rL, rR, ru_upw, r_upw;
+  bool useL, lo, hi;
+};
+
+template <typename T>
+__device__ __forceinline__ void riemann(const T (&a)[NS], const T (&b)[NS],
+                                        T hr, T ht, int f, const Geom& g,
+                                        T C0, T gamma, Face<T>& o) {
   const T CS = T(350);
-  extern __shared__ unsigned char smem_raw[];
-  T* const sm = reinterpret_cast<T*>(smem_raw);
-  const int S = d.S, TL = d.TL, nvar = d.nvar;
-  const int Sp = S + 2 + 2 * HS;  // staged cells (a0-1-HS .. a0+S+HS)
-  const int Se = S + 2;           // reconstructed cells (a0-1 .. a0+S)
-  const bool xmode = d.inner == 1;
-  T* const sin = sm;                      // nvar x Sp x TL; later the fluxes
-  T* const eL = sm + nvar * Sp * TL;      // nvar x Se x TL
-  T* const eR = eL + nvar * Se * TL;      // nvar x Se x TL
-
-  const int a0 = blockIdx.y * S;
-  const int Sv = min(S, d.n - a0);        // cells owned by this tile
-  int o0, i0;
-  if (xmode) {
-    o0 = blockIdx.x * TL;
-    i0 = 0;
-  } else {
-    o0 = blockIdx.x / d.ntile_inner;
-    i0 = (blockIdx.x % d.ntile_inner) * TL;
+  const int nid = g.nid;
+  o.rL = add(a[IDR], hr);
+  o.rR = add(b[IDR], hr);
+  T SL[NS], SR[NS];
+  SL[IDR] = o.rL;
+  SR[IDR] = o.rR;
+#pragma unroll
+  for (int v = IDU; v <= IDW; ++v) {
+    SL[v] = mul(a[v], o.rL);
+    SR[v] = mul(b[v], o.rR);
   }
-  const int64_t vstride = (int64_t)d.outer * d.n * d.inner;
-  // Shared layout keeps the fast thread index on unit stride: [v][l][c] for
-  // x, [v][c][l] for y/z.
-  auto sidx = [&](int v, int c, int l, int ncell) -> int {
-    return xmode ? (v * TL + l) * ncell + c : (v * ncell + c) * TL + l;
-  };
-  auto split = [&](int t, int ncell, int& v, int& c, int& l) {
-    if (xmode) {
-      c = t % ncell;
-      const int r = t / ncell;
-      l = r % TL;
-      v = r / TL;
-    } else {
-      l = t % TL;
-      const int r = t / TL;
-      c = r % ncell;
-      v = r / ncell;
-    }
-  };
-  auto line = [&](int l, int& o, int& i) -> bool {
-    o = xmode ? o0 + l : o0;
-    i = xmode ? 0 : i0 + l;
-    return xmode ? o < d.outer : i < d.inner;
-  };
-
-  // 1. stage the tile with its halo, applying the boundary rule
-  for (int t = threadIdx.x; t < nvar * Sp * TL; t += blockDim.x) {
-    int v, c, l, o, i;
-    split(t, Sp, v, c, l);
-    T val = T(0);
-    if (line(l, o, i)) {
-      int g = a0 - 1 - HS + c;
-      bool zero = false;
-      if (g < 0 || g >= d.n) {
-        if (d.bc == BC_PERIODIC) {
-          g %= d.n;
-          if (g < 0) g += d.n;
-        } else {
-          zero = d.bc == BC_WALL && v == d.normal_id;
-          g = g < 0 ? 0 : d.n - 1;
-        }
-      }
-      if (!zero) val = prim[v * vstride + ((int64_t)o * d.n + g) * d.inner + i];
-    }
-    sin[sidx(v, c, l, Sp)] = val;
-  }
-  __syncthreads();
-
-  // 2. WENO edges of the cells a0-1 .. a0+Sv
-  for (int t = threadIdx.x; t < nvar * Se * TL; t += blockDim.x) {
-    int v, c, l;
-    split(t, Se, v, c, l);
-    if (c > Sv + 1) continue;
-    T s[ORD];
+  SL[IDT] = add(a[IDT], ht);
+  SR[IDT] = add(b[IDT], ht);
+  o.lo = g.bc != BC_PERIODIC && f == 0;
+  o.hi = g.bc != BC_PERIODIC && f == g.n;
 #pragma unroll
-    for (int q = 0; q < ORD; ++q) s[q] = sin[sidx(v, c + q, l, Sp)];
-    T left, right;
-    weno_edges<ORD, T>(s, cf, cutoff, left, right);
-    eL[sidx(v, c, l, Se)] = left;
-    eR[sidx(v, c, l, Se)] = right;
-  }
-  __syncthreads();
-
-  // 3. faces a0 .. a0+Sv: BCs, Riemann; state fluxes to shared memory,
-  //    tracer faces to device memory
-  T* const Fs = sin;
-  const int nf = Sv + 1;
-  const int nid = d.normal_id;
-  for (int t = threadIdx.x; t < nf * TL; t += blockDim.x) {
-    int f, l, o, i;
-    if (xmode) {
-      f = t % nf;
-      l = t / nf;
-    } else {
-      l = t % TL;
-      f = t / TL;
-    }
-    if (!line(l, o, i)) continue;
-    const int a = a0 + f;
-    const int h = (o / d.hy_div) * d.hy_so + a * d.hy_sa;
-    const T hr = hyr[h], ht = hyt[h];
-    const T rL = eR[sidx(IDR, f, l, Se)] + hr;      // right edge of cell a-1
-    const T rR = eL[sidx(IDR, f + 1, l, Se)] + hr;  // left edge of cell a
-    T SL[NS], SR[NS];
-    SL[IDR] = rL;
-    SR[IDR] = rR;
-#pragma unroll
-    for (int v = IDU; v <= IDW; ++v) {
-      SL[v] = eR[sidx(v, f, l, Se)] * rL;
-      SR[v] = eL[sidx(v, f + 1, l, Se)] * rR;
-    }
-    SL[IDT] = eR[sidx(IDT, f, l, Se)] + ht;
-    SR[IDT] = eL[sidx(IDT, f + 1, l, Se)] + ht;
-    const bool lo = d.bc != BC_PERIODIC && a == 0;
-    const bool hi = d.bc != BC_PERIODIC && a == d.n;
-#pragma unroll
-    for (int v = 0; v < NS; ++v) {
-      if (lo) SL[v] = SR[v];
-      if (hi) SR[v] = SL[v];
-      if (d.bc == BC_WALL && (lo || hi) && v == nid) {
-        SL[v] = T(0);
-        SR[v] = T(0);
-      }
-    }
-    T ruL = T(0), ruR = T(0);
-#pragma unroll
-    for (int v = IDU; v <= IDW; ++v)
-      if (v == nid) {
-        ruL = SL[v];
-        ruR = SR[v];
-      }
-    const T pL = C0 * tpow(SL[IDT], gamma);
-    const T pR = C0 * tpow(SR[IDT], gamma);
-    const T w1 = T(0.5) * (pR - CS * ruR);
-    const T w2 = T(0.5) * (pL + CS * ruL);
-    const T p_upw = w1 + w2;
-    const T ru_upw = (w2 - w1) / CS;
-    const bool useL = (ruL + ruR) > T(0);
-    const T r_upw = useL ? SL[IDR] : SR[IDR];
-#pragma unroll
-    for (int v = 0; v < NS; ++v) {
-      T fl = ru_upw * (useL ? SL[v] : SR[v]) / r_upw;
-      if (v == IDR) fl = ru_upw;
-      if (v == nid) fl = fl + p_upw;
-      Fs[sidx(v, f, l, S + 1)] = fl;
-    }
-    // each tile writes its own faces; the last tile also writes face n
-    if (f < Sv || a == d.n) {
-      for (int q = 0; q < nvar - NS; ++q) {
-        T tL = eR[sidx(NS + q, f, l, Se)] * rL;
-        T tR = eL[sidx(NS + q, f + 1, l, Se)] * rR;
-        if (lo) tL = tR;
-        if (hi) tR = tL;
-        tf[(((int64_t)q * d.outer + o) * (d.n + 1) + a) * d.inner + i] =
-            ru_upw * (useL ? tL : tR) / r_upw;
-      }
+  for (int v = 0; v < NS; ++v) {
+    if (o.lo) SL[v] = SR[v];
+    if (o.hi) SR[v] = SL[v];
+    if (g.bc == BC_WALL && (o.lo || o.hi) && v == nid) {
+      SL[v] = T(0);
+      SR[v] = T(0);
     }
   }
-  __syncthreads();
-
-  // 4. state divergence of the tile's cells
-  for (int t = threadIdx.x; t < NS * Sv * TL; t += blockDim.x) {
-    int v, c, l, o, i;
-    split(t, Sv, v, c, l);
-    if (!line(l, o, i)) continue;
-    const T fr = Fs[sidx(v, c + 1, l, S + 1)];
-    const T fl = Fs[sidx(v, c, l, S + 1)];
-    sdiv[v * vstride + ((int64_t)o * d.n + a0 + c) * d.inner + i] =
-        -(fr - fl) * div_scale;
+  T ruL = T(0), ruR = T(0);
+#pragma unroll
+  for (int v = IDU; v <= IDW; ++v)
+    if (v == nid) {
+      ruL = SL[v];
+      ruR = SR[v];
+    }
+  const T pL = mul(C0, tpow(SL[IDT], gamma));
+  const T pR = mul(C0, tpow(SR[IDT], gamma));
+  const T w1 = mul(T(0.5), sub(pR, mul(CS, ruR)));
+  const T w2 = mul(T(0.5), add(pL, mul(CS, ruL)));
+  const T p_upw = add(w1, w2);
+  o.ru_upw = sub(w2, w1) / CS;
+  o.useL = add(ruL, ruR) > T(0);
+  o.r_upw = o.useL ? SL[IDR] : SR[IDR];
+#pragma unroll
+  for (int v = 0; v < NS; ++v) {
+    T fl = mul(o.ru_upw, o.useL ? SL[v] : SR[v]) / o.r_upw;
+    if (v == IDR) fl = o.ru_upw;
+    if (v == nid) fl = add(fl, p_upw);
+    o.F[v] = fl;
   }
 }
 
-template <int ORD, typename T>
-cudaError_t launch_ord(const T* prim, const T* hyr, const T* hyt, const T* cf,
-                       T* sdiv, T* tf, Dir d, T C0, T gamma, T cutoff,
-                       T div_scale, cudaStream_t stream) {
-  constexpr int HS = (ORD - 1) / 2;
-  if (d.inner == 1) {  // x: 4 rows x 64 cells
-    d.S = 64;
-    d.TL = 4;
-    d.ntile_inner = 1;
-  } else {             // y, z: 16 x-neighbours x 16 cells
-    d.S = 16;
-    d.TL = 16;
-    d.ntile_inner = (d.inner + d.TL - 1) / d.TL;
+// A tracer's face value from the limits beside the face.
+template <typename T>
+__device__ __forceinline__ T tracer_face(const Face<T>& o, T left_cell_right,
+                                         T right_cell_left) {
+  T tL = mul(left_cell_right, o.rL);
+  T tR = mul(right_cell_left, o.rR);
+  if (o.lo) tL = tR;
+  if (o.hi) tR = tL;
+  return mul(o.ru_upw, o.useL ? tL : tR) / o.r_upw;
+}
+
+// -(F[f+1] - F[f]) * div_scale
+template <typename T>
+__device__ __forceinline__ T divergence(T fr, T fl, T ds) {
+  return mul(-sub(fr, fl), ds);
+}
+
+// ---------------------------------------------------------------- y and z
+// Values come straight from device memory (coalesced across the warp's
+// neighbouring x positions).  Each variable's next value is loaded one
+// step ahead into a register, so a step's loads are in flight while the
+// previous step computes.
+template <int ORD, typename T, int NV>
+struct StridedSource {
+  static constexpr int HS = (ORD - 1) / 2;
+  const T* __restrict__ line;
+  const Geom& g;
+  T pre[NV];
+  __device__ __forceinline__ T load(int v, int a) const {
+    return a < g.n ? line[v * g.vstride + a * g.astride]
+                   : load_bc(line, g, v, a);
   }
-  const int Sp = d.S + 2 + 2 * HS, Se = d.S + 2;
-  const size_t smem = sizeof(T) * (size_t)d.nvar * d.TL * (Sp + 2 * Se);
-  const int64_t ntiles = d.inner == 1
-                             ? ((int64_t)d.outer + d.TL - 1) / d.TL
-                             : (int64_t)d.outer * d.ntile_inner;
-  const int nseg = (d.n + d.S - 1) / d.S;
-  if (ntiles > 2147483647LL || nseg > 65535) return cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      direction_fluxes_kernel<ORD, T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  direction_fluxes_kernel<ORD, T>
-      <<<dim3((unsigned)ntiles, nseg), THREADS, smem, stream>>>(
-          prim, hyr, hyt, cf, sdiv, tf, d, C0, gamma, cutoff, div_scale);
+  // variable v's stencil of cell c, at the segment's first step; the load
+  // of the next step's value goes out with it
+  __device__ __forceinline__ void prime(T (&s)[ORD], int v, int c) {
+#pragma unroll
+    for (int q = 0; q < ORD; ++q) s[q] = load_bc(line, g, v, c - HS + q);
+    pre[v] = load(v, c + 1 + HS);
+  }
+  // shift variable v's stencil on to cell c
+  __device__ __forceinline__ void slide(T (&s)[ORD], int v, int c) {
+#pragma unroll
+    for (int q = 0; q < ORD - 1; ++q) s[q] = s[q + 1];
+    s[ORD - 1] = pre[v];
+    pre[v] = load(v, c + 1 + HS);
+  }
+};
+
+// One line's segment: cells a0 .. a1 - 1 get their divergence, faces
+// a0 .. a1 - 1 (and face n in the last segment) their tracer values.  Step
+// c forms the edges of cell c; from c = a0 on it also solves face c.
+template <int ORD, typename T, int NTRB>
+__device__ __forceinline__ void march(StridedSource<ORD, T, NS + NTRB>& src,
+                                      const Geom& g,
+                                      const T* __restrict__ hyr,
+                                      const T* __restrict__ hyt,
+                                      T* __restrict__ sdiv,
+                                      T* __restrict__ tf, int p,
+                                      int64_t obase, int64_t tbase, int a0,
+                                      int a1, T C0, T gamma, T cutoff, T ds) {
+  constexpr int NV = NS + NTRB;
+  const int ntr = g.ntr;
+  T w[NV][ORD];  // stencil of the current cell
+  T eR[NV];      // right edges of the previous cell
+  T Fp[NS];      // state fluxes of the previous face
+
+#pragma unroll 1
+  for (int c = a0 - 1; c <= a1; ++c) {
+    const bool first = c < a0;
+    // the state variables' edges of cell c
+    T eL[NS], eRc[NS];
+#pragma unroll
+    for (int v = 0; v < NS; ++v) {
+      if (first)
+        src.prime(w[v], v, c);
+      else
+        src.slide(w[v], v, c);
+      weno_edges<ORD, T>(w[v], cutoff, eL[v], eRc[v]);
+    }
+    Face<T> o;
+    if (!first) {
+      const int h = p * g.hps + c * g.has;
+      T eRs[NS];
+#pragma unroll
+      for (int v = 0; v < NS; ++v) eRs[v] = eR[v];
+      riemann(eRs, eL, hyr[h], hyt[h], c, g, C0, gamma, o);
+      if (c > a0) {  // divergence of cell c-1
+        const int64_t at = obase + (int64_t)(c - 1) * g.astride;
+#pragma unroll
+        for (int v = 0; v < NS; ++v)
+          sdiv[at + v * g.vstride] = divergence(o.F[v], Fp[v], ds);
+      }
+#pragma unroll
+      for (int v = 0; v < NS; ++v) Fp[v] = o.F[v];
+    }
+    // tracers: edges of cell c, then face c (each segment writes its own
+    // faces; the last one also face n)
+    const bool wface = !first && (c < a1 || c == g.n);
+    const int64_t at = tbase + (int64_t)c * g.tastride;
+#pragma unroll
+    for (int q = 0; q < NTRB; ++q) {
+      if (q < ntr) {
+        if (first)
+          src.prime(w[NS + q], NS + q, c);
+        else
+          src.slide(w[NS + q], NS + q, c);
+        T left, right;
+        weno_edges<ORD, T>(w[NS + q], cutoff, left, right);
+        if (wface) tf[at + q * g.tvstride] = tracer_face(o, eR[NS + q], left);
+        eR[NS + q] = right;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < NS; ++v) eR[v] = eRc[v];
+  }
+}
+
+// Blocks (warps) per SM the registers must allow, y/z: 16 (128 registers)
+// in f32 (with 9 tracers some of the windows spill, which costs less than
+// fewer warps), 8 (255) in f64.
+template <typename T>
+constexpr int min_blocks_strided() { return sizeof(T) == 8 ? 8 : 16; }
+
+template <int ORD, typename T, int NTRB>
+__global__ void __launch_bounds__(WARP, min_blocks_strided<T>())
+fluxes_strided(const T* __restrict__ prim, const T* __restrict__ hyr,
+               const T* __restrict__ hyt, T* __restrict__ sdiv,
+               T* __restrict__ tf, const Geom g, const T C0, const T gamma,
+               const T cutoff, const T ds) {
+  const int l = blockIdx.x * WARP + threadIdx.x;
+  if (l >= g.nlines) return;
+  const int p = blockIdx.y, a0 = blockIdx.z * SEG;
+  const int a1 = min(a0 + SEG, g.n);
+  const int64_t obase = p * g.pstride + l * g.lstride;
+  StridedSource<ORD, T, NS + NTRB> src{prim + obase, g, {}};
+  march<ORD, T, NTRB>(src, g, hyr, hyt, sdiv, tf, p, obase,
+                      p * g.tpstride + l * g.tlstride, a0, a1, C0, gamma,
+                      cutoff, ds);
+}
+
+// ---------------------------------------------------------------------- x
+// A warp owns XT = 30 consecutive cells of one row; lane i forms the edges
+// of cell x0 - 1 + i from a stencil gathered with warp shuffles out of two
+// coalesced loads per variable, solves the face on its left (edges of the
+// neighbour by shuffle), and writes the divergence of its cell (the next
+// face's fluxes by shuffle).  Loads and stores of a warp are contiguous
+// along the row, and no register or shared memory carries between steps.
+constexpr int XT = WARP - 2;
+constexpr int XROWS = 4;  // rows (warps) per block
+constexpr unsigned FULL = 0xffffffffu;
+
+// x: blocks of 4 warps per SM, 8 in f32 (64 registers), 3 in f64 (170).
+template <typename T>
+constexpr int min_blocks_x() { return sizeof(T) == 8 ? 3 : 8; }
+
+template <int ORD, typename T>
+__device__ __forceinline__ void row_stencil(const T* __restrict__ row,
+                                            const Geom& g, int v, int base,
+                                            bool inside, int lane,
+                                            T (&s)[ORD]) {
+  constexpr int HS = (ORD - 1) / 2;
+  const T A = inside ? row[v * g.vstride + base + lane]
+                     : load_bc(row, g, v, base + lane);
+  T B = T(0);
+  if (lane < 2 * HS)
+    B = inside ? row[v * g.vstride + base + WARP + lane]
+               : load_bc(row, g, v, base + WARP + lane);
+#pragma unroll
+  for (int q = 0; q < ORD; ++q) {
+    const T fa = __shfl_sync(FULL, A, (lane + q) & (WARP - 1));
+    const T fb = __shfl_sync(FULL, B, (lane + q) & (WARP - 1));
+    s[q] = lane + q < WARP ? fa : fb;
+  }
+}
+
+template <int ORD, typename T, int NTRB>
+__global__ void __launch_bounds__(WARP * XROWS, min_blocks_x<T>())
+fluxes_x(const T* __restrict__ prim, const T* __restrict__ hyr,
+         const T* __restrict__ hyt, T* __restrict__ sdiv,
+         T* __restrict__ tf, const Geom g, const T C0, const T gamma,
+         const T cutoff, const T ds) {
+  constexpr int HS = (ORD - 1) / 2;
+  const int lane = threadIdx.x;
+  const int l = blockIdx.y * XROWS + threadIdx.y;
+  if (l >= g.nlines) return;  // whole warps only
+  const int p = blockIdx.z, x0 = blockIdx.x * XT;
+  const int64_t rowoff = p * g.pstride + l * g.lstride;
+  const int64_t trow = p * g.tpstride + l * g.tlstride;
+  const T* row = prim + rowoff;
+  const int base = x0 - 1 - HS;  // first cell of lane 0's stencil
+  const bool inside = base >= 0 && base + WARP + 2 * HS <= g.n;
+  const int c = x0 - 1 + lane;   // this lane's cell; face c is on its left
+  const int h = p * g.hps;
+  const T hr = hyr[h], ht = hyt[h];
+
+  T eL[NS], eRl[NS];
+#pragma unroll
+  for (int v = 0; v < NS; ++v) {
+    T s[ORD], eR;
+    row_stencil<ORD, T>(row, g, v, base, inside, lane, s);
+    weno_edges<ORD, T>(s, cutoff, eL[v], eR);
+    eRl[v] = __shfl_up_sync(FULL, eR, 1);  // right edge of cell c-1
+  }
+  Face<T> o;
+  riemann(eRl, eL, hr, ht, c, g, C0, gamma, o);  // lane 0's is unused
+  const bool own = lane >= 1 && lane <= XT && c < g.n;
+#pragma unroll
+  for (int v = 0; v < NS; ++v) {
+    const T fr = __shfl_down_sync(FULL, o.F[v], 1);
+    if (own) sdiv[rowoff + v * g.vstride + c] = divergence(fr, o.F[v], ds);
+  }
+  const bool wface = lane >= 1 && ((lane <= XT && c < g.n) || c == g.n);
+#pragma unroll
+  for (int q = 0; q < NTRB; ++q) {
+    if (q < g.ntr) {
+      T s[ORD], left, right;
+      row_stencil<ORD, T>(row, g, NS + q, base, inside, lane, s);
+      weno_edges<ORD, T>(s, cutoff, left, right);
+      const T rl = __shfl_up_sync(FULL, right, 1);
+      if (wface) tf[trow + q * g.tvstride + c] = tracer_face(o, rl, left);
+    }
+  }
+}
+
+template <int ORD, typename T, int NTRB>
+cudaError_t launch_ntr(int axis, int planes, cudaStream_t s, const T* prim,
+                       const T* hyr, const T* hyt, T* sdiv, T* tf,
+                       const Geom& g, T C0, T gamma, T cutoff, T ds) {
+  if (axis == 0) {
+    const dim3 grid((g.n + XT - 1) / XT, (g.nlines + XROWS - 1) / XROWS,
+                    planes);
+    fluxes_x<ORD, T, NTRB><<<grid, dim3(WARP, XROWS), 0, s>>>(
+        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds);
+  } else {
+    const dim3 grid((g.nlines + WARP - 1) / WARP, planes,
+                    (g.n + SEG - 1) / SEG);
+    fluxes_strided<ORD, T, NTRB><<<grid, WARP, 0, s>>>(
+        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds);
+  }
   return cudaGetLastError();
 }
 
+template <int ORD, typename T>
+cudaError_t launch_ord(int axis, int planes, cudaStream_t s, const T* prim,
+                       const T* hyr, const T* hyt, T* sdiv, T* tf,
+                       const Geom& g, T C0, T gamma, T cutoff, T ds) {
+  if (g.ntr <= 1)
+    return launch_ntr<ORD, T, 1>(axis, planes, s, prim, hyr, hyt, sdiv, tf,
+                                 g, C0, gamma, cutoff, ds);
+  if (g.ntr <= 3)
+    return launch_ntr<ORD, T, 3>(axis, planes, s, prim, hyr, hyt, sdiv, tf,
+                                 g, C0, gamma, cutoff, ds);
+  return launch_ntr<ORD, T, NTR_MAX>(axis, planes, s, prim, hyr, hyt, sdiv,
+                                     tf, g, C0, gamma, cutoff, ds);
+}
+
+// axis 0 = x, 1 = y, 2 = z on (nvar, nens, nz, ny, nx) arrays
 template <typename T>
-int launch(const void* prim, const void* hyr, const void* hyt,
-           const void* coef, void* sdiv, void* tf, int nvar, int outer, int n,
-           int inner, int hy_div, int hy_so, int hy_sa, int bc, int normal_id,
-           int ord, double C0, double gamma, double cutoff, double div_scale,
-           void* stream) {
-  Dir d{nvar, outer, n, inner, hy_div, hy_so, hy_sa, bc, normal_id, 0, 0, 0};
+int launch(const void* prim, const void* hyr, const void* hyt, void* sdiv,
+           void* tf, int axis, int nvar, int nens, int nz, int ny, int nx,
+           int bc, int normal_id, int ord, double C0, double gamma,
+           double cutoff, double div_scale, void* stream) {
+  const int ntr = nvar - NS;
+  if (ntr < 0 || ntr > NTR_MAX || axis < 0 || axis > 2 || nens < 1 ||
+      nz < 1 || ny < 1 || nx < 1)
+    return cudaErrorInvalidValue;
+  const int64_t cells = (int64_t)nens * nz * ny * nx;
+  Geom g{};
+  g.vstride = cells;
+  g.ntr = ntr;
+  g.bc = bc;
+  g.nid = normal_id;
+  int planes;
+  if (axis == 0) {
+    planes = nens * nz;
+    g.n = nx, g.nlines = ny;
+    g.pstride = (int64_t)ny * nx, g.astride = 1, g.lstride = nx;
+    g.tpstride = (int64_t)ny * (nx + 1), g.tastride = 1, g.tlstride = nx + 1;
+    g.hps = 1, g.has = 0;
+  } else if (axis == 1) {
+    planes = nens * nz;
+    g.n = ny, g.nlines = nx;
+    g.pstride = (int64_t)ny * nx, g.astride = nx, g.lstride = 1;
+    g.tpstride = (int64_t)(ny + 1) * nx, g.tastride = nx, g.tlstride = 1;
+    g.hps = 1, g.has = 0;
+  } else {
+    planes = nens;
+    g.n = nz, g.nlines = ny * nx;
+    g.pstride = (int64_t)nz * ny * nx, g.astride = (int64_t)ny * nx;
+    g.lstride = 1;
+    g.tpstride = (int64_t)(nz + 1) * ny * nx, g.tastride = (int64_t)ny * nx;
+    g.tlstride = 1;
+    g.hps = nz + 1, g.has = 1;
+  }
+  g.tvstride = g.tpstride * planes;
+  const int64_t ltiles = ((int64_t)g.nlines + WARP - 1) / WARP;
+  const bool fits = axis == 0 ? (g.nlines + XROWS - 1) / XROWS <= 65535
+                              : ltiles <= 2147483647LL &&
+                                    (g.n + SEG - 1) / SEG <= 65535;
+  if (!fits || planes > 65535) return cudaErrorInvalidConfiguration;
+  auto s = static_cast<cudaStream_t>(stream);
   auto p = static_cast<const T*>(prim);
   auto hr = static_cast<const T*>(hyr);
   auto ht = static_cast<const T*>(hyt);
-  auto cf = static_cast<const T*>(coef);
   auto sd = static_cast<T*>(sdiv);
   auto tfp = static_cast<T*>(tf);
-  auto s = static_cast<cudaStream_t>(stream);
   const T c0 = (T)C0, ga = (T)gamma, co = (T)cutoff, ds = (T)div_scale;
   switch (ord) {
-    case 3: return launch_ord<3, T>(p, hr, ht, cf, sd, tfp, d, c0, ga, co, ds, s);
-    case 5: return launch_ord<5, T>(p, hr, ht, cf, sd, tfp, d, c0, ga, co, ds, s);
-    case 7: return launch_ord<7, T>(p, hr, ht, cf, sd, tfp, d, c0, ga, co, ds, s);
-    case 9: return launch_ord<9, T>(p, hr, ht, cf, sd, tfp, d, c0, ga, co, ds, s);
+    case 3: return launch_ord<3, T>(axis, planes, s, p, hr, ht, sd, tfp, g, c0, ga, co, ds);
+    case 5: return launch_ord<5, T>(axis, planes, s, p, hr, ht, sd, tfp, g, c0, ga, co, ds);
+    case 7: return launch_ord<7, T>(axis, planes, s, p, hr, ht, sd, tfp, g, c0, ga, co, ds);
+    case 9: return launch_ord<9, T>(axis, planes, s, p, hr, ht, sd, tfp, g, c0, ga, co, ds);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -364,26 +591,39 @@ int launch(const void* prim, const void* hyr, const void* hyt,
 
 extern "C" {
 
+// Copy the limiter table of one order (weno_coef_table's float64 values)
+// into constant memory on the current device, as f64 and cast to f32.
+int direction_fluxes_set_coef(int ord, const double* table, int n) {
+  if ((ord != 3 && ord != 5 && ord != 7 && ord != 9) || n < 1 || n > COEF_MAX)
+    return cudaErrorInvalidValue;
+  const int slot = (ord - 3) / 2;
+  float f[COEF_MAX];
+  for (int i = 0; i < n; ++i) f[i] = (float)table[i];
+  cudaError_t err = cudaMemcpyToSymbol(c_coef_f64, table, n * sizeof(double),
+                                       slot * COEF_MAX * sizeof(double));
+  if (err != cudaSuccess) return err;
+  return cudaMemcpyToSymbol(c_coef_f32, f, n * sizeof(float),
+                            slot * COEF_MAX * sizeof(float));
+}
+
 int direction_fluxes_f32(const void* prim, const void* hyr, const void* hyt,
-                         const void* coef, void* sdiv, void* tf, int nvar,
-                         int outer, int n, int inner, int hy_div, int hy_so,
-                         int hy_sa, int bc, int normal_id, int ord, double C0,
-                         double gamma, double cutoff, double div_scale,
-                         void* stream) {
-  return launch<float>(prim, hyr, hyt, coef, sdiv, tf, nvar, outer, n, inner,
-                       hy_div, hy_so, hy_sa, bc, normal_id, ord, C0, gamma,
-                       cutoff, div_scale, stream);
+                         void* sdiv, void* tf, int axis, int nvar, int nens,
+                         int nz, int ny, int nx, int bc, int normal_id,
+                         int ord, double C0, double gamma, double cutoff,
+                         double div_scale, void* stream) {
+  return launch<float>(prim, hyr, hyt, sdiv, tf, axis, nvar, nens, nz, ny, nx,
+                       bc, normal_id, ord, C0, gamma, cutoff, div_scale,
+                       stream);
 }
 
 int direction_fluxes_f64(const void* prim, const void* hyr, const void* hyt,
-                         const void* coef, void* sdiv, void* tf, int nvar,
-                         int outer, int n, int inner, int hy_div, int hy_so,
-                         int hy_sa, int bc, int normal_id, int ord, double C0,
-                         double gamma, double cutoff, double div_scale,
-                         void* stream) {
-  return launch<double>(prim, hyr, hyt, coef, sdiv, tf, nvar, outer, n, inner,
-                        hy_div, hy_so, hy_sa, bc, normal_id, ord, C0, gamma,
-                        cutoff, div_scale, stream);
+                         void* sdiv, void* tf, int axis, int nvar, int nens,
+                         int nz, int ny, int nx, int bc, int normal_id,
+                         int ord, double C0, double gamma, double cutoff,
+                         double div_scale, void* stream) {
+  return launch<double>(prim, hyr, hyt, sdiv, tf, axis, nvar, nens, nz, ny,
+                        nx, bc, normal_id, ord, C0, gamma, cutoff, div_scale,
+                        stream);
 }
 
 const char* direction_fluxes_error_string(int err) {

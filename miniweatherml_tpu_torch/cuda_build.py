@@ -18,7 +18,8 @@ import subprocess
 import threading
 import time
 
-__all__ = ["load_library", "build_seconds", "NVCC_FLAGS", "on_cuda"]
+__all__ = ["load_library", "build_seconds", "NVCC_FLAGS", "nvcc_flags",
+           "on_cuda"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -26,10 +27,21 @@ _BUILD = os.path.join(_PKG_DIR, "_build")
 
 # --fmad=false: every multiply and add rounds on its own, as in the plain
 # PyTorch versions, so a kernel and its plain version agree to the last
-# bits except inside pow/exp.
+# bits except inside pow/exp.  A source listed in FMAD_SOURCES writes its
+# arithmetic with round-to-nearest intrinsics instead and builds with
+# contraction on, so that its pow also rounds as PyTorch's (built that
+# way) does.  --split-compile=0 optimizes a file's kernels in parallel on
+# every core (the flux kernel has 48 instantiations).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+FMAD_SOURCES = ("direction_fluxes",)
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    fmad = "true" if name in FMAD_SOURCES else "false"
+    return NVCC_FLAGS + (f"--fmad={fmad}",)
 
 _lock = threading.Lock()           # guards _name_locks
 _name_locks: dict[str, threading.Lock] = {}
@@ -60,7 +72,8 @@ def load_library(name: str) -> ctypes.CDLL:
     with name_lock:
         if name in _libs:
             return _libs[name]
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        flags = nvcc_flags(name)
+        h = hashlib.sha256(" ".join(flags).encode())
         for path in _sources(name):
             with open(path, "rb") as f:
                 h.update(f.read())
@@ -68,7 +81,7 @@ def load_library(name: str) -> ctypes.CDLL:
         if not os.path.exists(so):
             os.makedirs(_BUILD, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _sources(name)[0]]
+            cmd = [_nvcc(), *flags, "-o", tmp, _sources(name)[0]]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, capture_output=True, text=True)
             build_seconds[name] = time.perf_counter() - t0

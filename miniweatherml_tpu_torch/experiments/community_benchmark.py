@@ -5,7 +5,7 @@ Port of ``miniweatherml_tpu/experiments/community_benchmark.py``
 chain, output disabled, with a timer around the simulation loop and a
 throughput report in cell-updates/sec.
 
-Usage: python -m miniweatherml_tpu_torch.experiments.community_benchmark <input.yaml>
+Usage: python -m miniweatherml_tpu_torch.experiments.community_benchmark <input.yaml> [--device cpu]
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from ..config import SimConfig, load_config
 from . import supercell_example
-from .driver import Timers, default_device, run_main_loop
+from .driver import Timers, parse_command_line, run_main_loop
 
 __all__ = ["main", "run_benchmark"]
 
@@ -60,9 +60,8 @@ def run_benchmark(config: SimConfig, device: str | torch.device,
 
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
-    if not argv:
-        raise SystemExit("usage: community_benchmark <input.yaml>")
-    return run_benchmark(load_config(argv[0]), default_device())
+    path, device = parse_command_line("community_benchmark", argv)
+    return run_benchmark(load_config(path), device)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ before they read the clock.
 
 from __future__ import annotations
 
+import argparse
 import time
 from typing import Callable, Sequence
 
@@ -21,13 +22,24 @@ from ..core.coupler import CouplerState, make_coupler_state
 from ..io.checkpoint import save_checkpoint
 from ..io.netcdf import StateWriter
 
-__all__ = ["setup_state", "run_main_loop", "Timers", "default_device"]
+__all__ = ["setup_state", "run_main_loop", "Timers", "parse_command_line"]
 
 
-def default_device() -> str:
-    """The device a command-line run uses: the first GPU when there is
-    one, else the CPU."""
-    return "cuda" if torch.cuda.is_available() else "cpu"
+def parse_command_line(prog: str, argv: Sequence[str]) -> tuple[str, str]:
+    """(input YAML path, device) of an experiment's command line
+    ``<input.yaml> [--device cuda|cpu]``.  The device is the GPU unless the
+    caller asks for the CPU; without CUDA the GPU default raises rather
+    than falling back."""
+    ap = argparse.ArgumentParser(prog=prog)
+    ap.add_argument("input", help="input YAML")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: cuda)")
+    args = ap.parse_args(list(argv))
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{prog}: no CUDA device is available; pass "
+                           "--device cpu to run on the CPU")
+    return args.input, str(device)
 
 
 def _sync(device: torch.device) -> None:

@@ -8,7 +8,7 @@ averager; a manually-added water_vapor tracer and optional gravity
 package's TPU backend keys ``riemann_impl`` and ``fast_weights`` are read
 by nothing, as in ``supercell_example``.
 
-Usage:  python -m miniweatherml_tpu_torch.experiments.simple_city <input.yaml>
+Usage:  python -m miniweatherml_tpu_torch.experiments.simple_city <input.yaml> [--device cpu]
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from ..io.netcdf import StateWriter
 from ..physics.horizontal_sponge import HorizontalSponge
 from ..physics.sponge import sponge_layer
 from ..physics.time_averager import TimeAverager
-from .driver import Timers, default_device, run_main_loop, setup_state
+from .driver import Timers, parse_command_line, run_main_loop, setup_state
 
 __all__ = ["build", "build_chain", "run", "main"]
 
@@ -91,9 +91,8 @@ def run(config: SimConfig, device: str | torch.device,
 
 def main(argv=None) -> CouplerState:
     argv = argv if argv is not None else sys.argv[1:]
-    if not argv:
-        raise SystemExit("usage: simple_city <input.yaml>")
-    return run(load_config(argv[0]), default_device())
+    path, device = parse_command_line("simple_city", argv)
+    return run(load_config(path), device)
 
 
 if __name__ == "__main__":

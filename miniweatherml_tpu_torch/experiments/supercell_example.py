@@ -5,7 +5,7 @@ Port of ``miniweatherml_tpu/experiments/supercell_example.py``
 dycore + top sponge + column nudging, seeded with a deterministic thermal
 temperature perturbation.
 
-Usage:  python -m miniweatherml_tpu_torch.experiments.supercell_example <input.yaml>
+Usage:  python -m miniweatherml_tpu_torch.experiments.supercell_example <input.yaml> [--device cpu]
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from ..physics.column_nudging import ColumnNudger
 from ..physics.kessler import MicrophysicsKessler
 from ..physics.perturb import perturb_temperature
 from ..physics.sponge import sponge_layer
-from .driver import Timers, default_device, run_main_loop, setup_state
+from .driver import Timers, parse_command_line, run_main_loop, setup_state
 
 __all__ = ["build", "run", "main"]
 
@@ -96,9 +96,8 @@ def run(config: SimConfig, device: str | torch.device) -> CouplerState:
 
 def main(argv=None) -> CouplerState:
     argv = argv if argv is not None else sys.argv[1:]
-    if not argv:
-        raise SystemExit("usage: supercell_example <input.yaml>")
-    return run(load_config(argv[0]), default_device())
+    path, device = parse_command_line("supercell_example", argv)
+    return run(load_config(path), device)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@ ported and raises) and ``p3_diagnostics: true``, which registers part3's
 diagnostic fields, fills them each step and writes them to the NetCDF
 output.
 
-Usage:  python -m miniweatherml_tpu_torch.experiments.supercell_p3 <input.yaml>
+Usage:  python -m miniweatherml_tpu_torch.experiments.supercell_p3 <input.yaml> [--device cpu]
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from ..physics.column_nudging import ColumnNudger
 from ..physics.p3 import MicrophysicsP3
 from ..physics.perturb import perturb_temperature
 from ..physics.sponge import sponge_layer
-from .driver import Timers, default_device, run_main_loop, setup_state
+from .driver import Timers, parse_command_line, run_main_loop, setup_state
 
 __all__ = ["build", "run", "main", "seed_all_active", "seed_layers",
            "seed_mixed_regimes"]
@@ -150,9 +150,8 @@ def run(config: SimConfig, device: str | torch.device) -> CouplerState:
 
 def main(argv=None) -> CouplerState:
     argv = argv if argv is not None else sys.argv[1:]
-    if not argv:
-        raise SystemExit("usage: supercell_p3 <input.yaml>")
-    return run(load_config(argv[0]), default_device())
+    path, device = parse_command_line("supercell_p3", argv)
+    return run(load_config(path), device)
 
 
 if __name__ == "__main__":

@@ -37,7 +37,7 @@ def save_checkpoint(path: str, state: CouplerState, etime: float = 0.0) -> None:
     np.savez(path, __header__=json.dumps(header), **arrays)
 
 
-def load_checkpoint(path: str, device: str | torch.device = "cpu"
+def load_checkpoint(path: str, device: str | torch.device
                     ) -> tuple[CouplerState, float]:
     """The state saved at ``path``, its fields on ``device``, and its
     elapsed time."""

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .stencil import BC_PERIODIC, BC_WALL, pad_bc
@@ -118,36 +119,49 @@ def direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma, hy_r,
     return div(SF, axis, n, div_scale), TF
 
 
-_coef_cache: dict[tuple, torch.Tensor] = {}
-
-
-def _coef_tensor(ord_: int, dtype: torch.dtype, device: torch.device):
-    key = (ord_, dtype, device)
-    if key not in _coef_cache:
-        _coef_cache[key] = torch.as_tensor(weno_coef_table(ord_), dtype=dtype,
-                                           device=device)
-    return _coef_cache[key]
+# Tracers the kernel takes (its unrolled tracer loop is bounded by 9, the P3
+# path's count).
+MAX_TRACERS = 9
 
 
 def _bind(lib):
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("direction_fluxes_f32", "direction_fluxes_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [P, P, P, P, P, P] + [I] * 10 + [D] * 4 + [P]
+        fn.argtypes = [P] * 5 + [I] * 9 + [D] * 4 + [P]
         fn.restype = I
+    lib.direction_fluxes_set_coef.argtypes = [I, P, I]
+    lib.direction_fluxes_set_coef.restype = I
     lib.direction_fluxes_error_string.argtypes = [I]
     lib.direction_fluxes_error_string.restype = ctypes.c_char_p
     return lib
 
 
 _lib = None
+_coef_devices: set[int] = set()
 
 
-def _library():
+def _library(device: torch.device):
+    """The kernel's library, with the limiter tables of every order copied
+    into the device's constant memory on first use."""
     global _lib
     if _lib is None:
         from ..cuda_build import load_library
         _lib = _bind(load_library("direction_fluxes"))
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _coef_devices:
+        with torch.cuda.device(index):
+            for ord_ in (3, 5, 7, 9):
+                table = np.ascontiguousarray(weno_coef_table(ord_),
+                                             dtype=np.float64)
+                rc = _lib.direction_fluxes_set_coef(
+                    ord_, table.ctypes.data, table.size)
+                if rc != 0:
+                    raise RuntimeError(
+                        "direction_fluxes coefficient copy failed: "
+                        + _lib.direction_fluxes_error_string(rc).decode())
+        _coef_devices.add(index)
     return _lib
 
 
@@ -201,29 +215,25 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
     nlev = nz + 1 if axis == _AX_Z else nz
     for name, t in (("hy_r", hy_r), ("hy_t", hy_t)):
         _check_cuda(name, t, prim.dtype, (nens, nlev), prim.device)
-    # (outer, n, inner) view of one variable, and how a line (o, face a)
-    # finds its background value: hy[(o // hy_div) * hy_so + a * hy_sa]
-    if axis == _AX_X:
-        outer, inner, hy = nens * nz * ny, 1, (ny, 1, 0)
-    elif axis == _AX_Y:
-        outer, inner, hy = nens * nz, nx, (1, 1, 0)
-    else:
-        outer, inner, hy = nens, ny * nx, (1, nz + 1, 1)
     ntr = nvar - NUM_STATE
+    if ntr > MAX_TRACERS:
+        raise ValueError(f"{ntr} tracers; the kernel takes at most "
+                         f"{MAX_TRACERS}")
+    if mats.ord not in (3, 5, 7, 9):
+        raise ValueError(f"WENO order {mats.ord} is not 3, 5, 7 or 9")
     sdiv = torch.empty((NUM_STATE, nens, nz, ny, nx), dtype=prim.dtype,
                        device=prim.device)
     tshape = [ntr, nens, nz, ny, nx]
     tshape[axis] += 1
     tf = torch.empty(tshape, dtype=prim.dtype, device=prim.device)
-    coef = _coef_tensor(mats.ord, prim.dtype, prim.device)
-    lib = _library()
+    lib = _library(prim.device)
     fn = (lib.direction_fluxes_f32 if prim.dtype == torch.float32
           else lib.direction_fluxes_f64)
     stream = torch.cuda.current_stream(prim.device).cuda_stream
     rc = fn(prim.data_ptr(), hy_r.data_ptr(), hy_t.data_ptr(),
-            coef.data_ptr(), sdiv.data_ptr(), tf.data_ptr(),
-            nvar, outer, n, inner, *hy, bc, normal_id, mats.ord,
-            float(C0), float(gamma), float(cutoff), float(div_scale), stream)
+            sdiv.data_ptr(), tf.data_ptr(), -1 - axis, nvar, nens, nz, ny,
+            nx, bc, normal_id, mats.ord, float(C0), float(gamma),
+            float(cutoff), float(div_scale), stream)
     if rc != 0:
         raise RuntimeError("direction_fluxes kernel launch failed: "
                            + lib.direction_fluxes_error_string(rc).decode())

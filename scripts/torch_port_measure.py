@@ -1,0 +1,212 @@
+"""Measure the PyTorch / CUDA port of one tree on one NVIDIA GPU.
+
+Usage (from the root of a checkout, on a machine with the card):
+
+  python scripts/torch_port_measure.py flux    [--root DIR] [--reps N]
+  python scripts/torch_port_measure.py cells   [--root DIR]
+  python scripts/torch_port_measure.py profile [--root DIR]
+
+``--root`` names the tree whose ``miniweatherml_tpu_torch`` and
+``chip_smoke.py`` are imported (default: this checkout), so two trees are
+compared by running the script once per tree in one call, in turns.
+
+  flux     direction_fluxes per direction (CUDA events, median of N calls
+           after a warm call) on the Kessler, P3 and city states at their
+           cells' widths (chip_smoke.py's _flux_state), f32 and f64.
+  cells    run_benchmark's Mcellups and ms/step for the Kessler and P3
+           512x512x64 f32 cells (10 steps) and the 400x400x60x2 f32 city
+           (10 steps).
+  profile  torch.profiler device time per step over 3 steps after a warm
+           step, by kernel family (flux, FCT, microphysics, elementwise
+           glue, copies and reductions), and the device's idle share of the
+           profiled span, for the same three chains.
+
+Each mode prints one JSON line (prefixed "RESULT ") with the card's name and
+power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _median_ms(fn, reps):
+    import numpy as np
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
+def mode_flux(cs, reps):
+    import torch
+    from miniweatherml_tpu_torch.ops.direction_fluxes import (
+        IDU, IDV, IDW, direction_fluxes)
+    out = {}
+    for chain in ("kessler", "p3", "city"):
+        for dtype in ("float32", "float64"):
+            state, _, dycore = cs._flux_state(chain, dtype)
+            prim = cs._prim(state, dycore)
+            g, c = state.grid, dycore._consts(state)
+            hy = dycore._hy(state)
+            for name, axis, n, bc, nid, d, hr, ht in (
+                    ("x", -1, g.nx, c.bc_x, IDU, g.dx, hy[0], hy[1]),
+                    ("y", -2, g.ny, c.bc_y, IDV, g.dy, hy[0], hy[1]),
+                    ("z", -3, g.nz, c.bc_z, IDW, g.dz, hy[2], hy[3])):
+                args = (prim, axis, n, bc, nid, c.C0, c.gamma, hr, ht,
+                        dycore.mats, 0.0, 1.0 / d)
+                ms = _median_ms(lambda: direction_fluxes(*args), reps)
+                out[f"{chain} {dtype} {name}"] = ms
+                print(f"flux {chain} nvar {prim.shape[0]} {dtype} {name}: "
+                      f"{ms:.4f} ms", flush=True)
+            del state, prim, hy, dycore
+            torch.cuda.empty_cache()
+    return out
+
+
+def _chains(cs):
+    from miniweatherml_tpu_torch.experiments import (simple_city,
+                                                     supercell_example,
+                                                     supercell_p3)
+    return (("kessler", cs._bench_cfg(512, 512, 64, 10, "float32"),
+             supercell_example.build),
+            ("p3", cs._bench_cfg(512, 512, 64, 10, "float32"),
+             supercell_p3.build),
+            ("city", cs._city_cfg("city", 400, 400, 60, 2, "float32",
+                                  steps=10), simple_city.build_chain))
+
+
+def mode_cells(cs):
+    import torch
+    from miniweatherml_tpu_torch.experiments.community_benchmark import (
+        run_benchmark)
+    out = {}
+    for chain, cfg, build in _chains(cs):
+        torch.cuda.reset_peak_memory_stats()
+        state, res = run_benchmark(cfg, "cuda", quiet=True, build=build)
+        out[chain] = {"mcellups": res["mcellups"],
+                      "ms_per_step": 1e3 * res["elapsed_s"] / res["steps"],
+                      "steps": res["steps"],
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"cell {chain}: {out[chain]}", flush=True)
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _family(name: str) -> str:
+    n = name.lower()
+    if "fluxes" in n:
+        return "flux"
+    if "fct_mult" in n:
+        return "fct_mult"
+    if "fct" in n:
+        return "fct_scale_div"
+    if any(k in n for k in ("kessler", "cellwise", "ice_kernel",
+                            "collect_kernel", "rain_kernel")):
+        return "microphysics"
+    if "elementwise" in n or "vectorized" in n:
+        return "glue"
+    return "cat, reductions, copies"
+
+
+def mode_profile(cs):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for chain, cfg, build in _chains(cs):
+        state, mods, dycore = build(cfg, "cuda")
+        dt = dycore.compute_time_step(state)
+        for m in mods:
+            state = m(state, dt)
+        torch.cuda.synchronize()
+        steps = 3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                for m in mods:
+                    state = m(state, dt)
+            torch.cuda.synchronize()
+        spans = []
+        fam: dict[str, list] = {}
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            t0 = ev.time_range.start
+            t1 = ev.time_range.end
+            spans.append((t0, t1))
+            f = fam.setdefault(_family(ev.name), [0.0, 0])
+            f[0] += (t1 - t0) / 1e3
+            f[1] += 1
+        spans.sort()
+        busy, end = 0.0, None
+        for t0, t1 in spans:
+            if end is None or t0 >= end:
+                busy += t1 - t0
+                end = t1
+            elif t1 > end:
+                busy += t1 - end
+                end = t1
+        total = spans[-1][1] - spans[0][0] if spans else 0.0
+        kern = sum(v[0] for v in fam.values())
+        out[chain] = {
+            "per_step_ms": {k: v[0] / steps for k, v in fam.items()},
+            "launches_per_step": {k: v[1] / steps for k, v in fam.items()},
+            "share_of_kernel_time": {k: v[0] / kern for k, v in fam.items()},
+            "busy_ms_per_step": busy / 1e3 / steps,
+            "idle_share": 1.0 - busy / total if total else None}
+        print(f"profile {chain}: {json.dumps(out[chain])}", flush=True)
+        del state, mods, dycore
+        torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("mode", choices=("flux", "cells", "profile"))
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--reps", type=int, default=10)
+    a = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_port_measure: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    root = os.path.abspath(a.root)
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    import miniweatherml_tpu_torch
+    if not miniweatherml_tpu_torch.__file__.startswith(root):
+        raise RuntimeError(f"imported {miniweatherml_tpu_torch.__file__}, "
+                           f"not the tree at {root}")
+    t0 = time.perf_counter()
+    res = {"flux": lambda: mode_flux(cs, a.reps),
+           "cells": lambda: mode_cells(cs),
+           "profile": lambda: mode_profile(cs)}[a.mode]()
+    print("RESULT " + json.dumps({
+        "mode": a.mode, "root": a.root, "card": _card(),
+        "seconds": time.perf_counter() - t0, "result": res}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -109,7 +109,7 @@ def test_supercell_example_restart_file(tmp_path, capsys):
     first = supercell_example.run(_cfg(2, out_prefix=prefix,
                                        checkpoint_freq=2 * DT), "cpu")
     chk = prefix + "_chkpt.npz"
-    saved, etime = load_checkpoint(chk)
+    saved, etime = load_checkpoint(chk, "cpu")
     assert etime == 2 * DT
     _assert_states_equal(first, saved)
     capsys.readouterr()

@@ -37,25 +37,33 @@ def cuda_device():
 
 
 def _rel(a, b):
-    return ((a - b).abs().max() / a.abs().max()).item()
+    return (a - b).abs().max().item() / max(a.abs().max().item(), 1e-300)
 
 
-def _prim(shape, dtype, device, rng):
-    p = np.empty((8,) + shape)
+def _prim(shape, dtype, device, rng, nvar=8):
+    p = np.empty((nvar,) + shape)
     p[0] = 0.01 * rng.standard_normal(shape)
     p[1:4] = 10 * rng.standard_normal((3,) + shape)
     p[4] = 0.5 * rng.standard_normal(shape)
-    p[5:] = rng.uniform(0, 0.01, (3,) + shape)
+    p[5:] = rng.uniform(0, 0.01, (nvar - 5,) + shape)
     return torch.as_tensor(p, dtype=dtype, device=device)
 
 
+# (nens, nz, ny, nx): ragged tiles; a 2-D slab (ny = 1); and a box whose
+# axes are no multiple of the kernel's 32-line tiles, 64-cell segments or
+# 8-cell x chunks (z and x take two segments)
+FLUX_SHAPES = ((2, 7, 5, 70), (1, 100, 2, 18), (2, 12, 1, 40), (2, 67, 35, 70))
+
+
+@pytest.mark.parametrize("nvar", [5, 6, 8, 14])
 @pytest.mark.parametrize("ord_", [3, 5, 7, 9])
-def test_direction_fluxes_kernel_matches_plain(ord_, cuda_device):
-    """Every direction and BC, on ragged shapes (tiles cut by the edges)."""
-    rng = np.random.default_rng(ord_)
+def test_direction_fluxes_kernel_matches_plain(ord_, nvar, cuda_device):
+    """Every direction and BC, both types, equal to the plain version bit
+    for bit (and so within the 1e-5 / 1e-12 bound)."""
+    rng = np.random.default_rng(ord_ * 100 + nvar)
     for dtype in (torch.float64, torch.float32):
-        for shape in ((2, 7, 5, 70), (1, 100, 2, 18)):
-            prim = _prim(shape, dtype, cuda_device, rng)
+        for shape in FLUX_SHAPES:
+            prim = _prim(shape, dtype, cuda_device, rng, nvar)
             for axis, nid in DIRS:
                 nl = shape[1] + (1 if axis == -3 else 0)
                 hr = torch.as_tensor(1 + 0.1 * rng.random((shape[0], nl)),
@@ -68,8 +76,11 @@ def test_direction_fluxes_kernel_matches_plain(ord_, cuda_device):
                     got = direction_fluxes(*args)
                     assert direction_fluxes.launches == n0 + 1
                     for a, b in zip(direction_fluxes_plain(*args), got):
-                        assert a.shape == b.shape
-                        assert _rel(a, b) <= TOL[dtype], (dtype, axis, bc)
+                        where = (dtype, shape, axis, bc)
+                        assert a.shape == b.shape, where
+                        assert torch.equal(a, b), where
+                        if a.numel():
+                            assert _rel(a, b) <= TOL[dtype], where
 
 
 def test_direction_fluxes_rejects_bad_input(cuda_device):
@@ -84,6 +95,10 @@ def test_direction_fluxes_rejects_bad_input(cuda_device):
                          weno_matrices(5), 0.0, 1.0)
     with pytest.raises(ValueError, match="hy_r"):
         direction_fluxes(prim, -3, 4, 2, 3, 27.56, 1.4008, hy, hy,
+                         weno_matrices(5), 0.0, 1.0)
+    many = torch.zeros((15, 1, 4, 6, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="at most 9"):
+        direction_fluxes(many, -1, 8, 0, 1, 27.56, 1.4008, hy, hy,
                          weno_matrices(5), 0.0, 1.0)
 
 

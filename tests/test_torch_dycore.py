@@ -52,7 +52,7 @@ def to_port(jstate, device="cpu"):
     """A JAX CouplerState as a port state (fields through numpy)."""
     return state_from_numpy(
         {k: np.array(v) for k, v in jstate.fields.items()}, jstate.grid,
-        jstate.options, jstate.meta.tracers, jstate.meta.dtype, device)
+        jstate.options, jstate.meta.tracers, jstate.meta.dtype, device=device)
 
 
 def assert_fields_close(jstate, pstate, rtol, atol_of_scale, names=None):
@@ -93,7 +93,7 @@ def _case(case, nx, ny, nz):
     js = jax_perturb(jd.init(js))
     g = Grid(nx=nx, ny=ny, nz=nz, nens=nens, xlen=xlen, ylen=ylen, zlen=zlen)
     ps = MicrophysicsKessler().init(
-        make_coupler_state(g, dtype="float64", options=opts))
+        make_coupler_state(g, dtype="float64", options=opts, device="cpu"))
     pd = Dycore(ord=5)
     ps = perturb_temperature(pd.init(ps))
     return js, jd, ps, pd
@@ -263,7 +263,8 @@ def test_random_perturbation_is_seeded():
 
 def test_coupler_registry():
     g = Grid(nx=4, ny=3, nz=2)
-    st = make_coupler_state(g, dtype="float64").add_tracer("water_vapor")
+    st = make_coupler_state(g, dtype="float64",
+                            device="cpu").add_tracer("water_vapor")
     st = st.add_tracer("cloud_liquid", positive=False).register_field("temp")
     with pytest.raises(ValueError):
         st.register_field("temp")

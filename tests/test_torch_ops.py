@@ -102,6 +102,23 @@ def test_coef_table_reproduces_reconstruction(ord_):
     assert weno_coef_table(ord_).size == ntv + sum(2 * w for _, w in sup) + len(sup)
 
 
+@pytest.mark.parametrize("ord_", [3, 5, 7, 9])
+def test_coef_table_fits_the_kernels_constant_memory(ord_):
+    """csrc/direction_fluxes.cu keeps each order's table in a __constant__
+    row of COEF_MAX values and unrolls its tracer loop up to NTR_MAX, the
+    wrapper's MAX_TRACERS."""
+    import os
+    import re
+
+    from miniweatherml_tpu_torch.ops import direction_fluxes as DF
+    src = open(os.path.join(os.path.dirname(DF.__file__), "..", "csrc",
+                            "direction_fluxes.cu")).read()
+    coef_max = int(re.search(r"COEF_MAX = (\d+);", src).group(1))
+    assert weno_coef_table(ord_).size <= coef_max
+    assert int(re.search(r"NTR_MAX = (\d+);", src).group(1)) == \
+        DF.MAX_TRACERS
+
+
 @pytest.mark.parametrize("bc,zero_var", [(0, None), (1, None), (2, 1)])
 def test_pad_bc_matches_jax(bc, zero_var):
     x = np.random.default_rng(bc).standard_normal((4, 3, 5, 7))

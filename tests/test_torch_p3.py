@@ -310,7 +310,8 @@ def test_seed_mixed_regimes_is_the_jax_recipe():
     st, _ = _seeded_mixed_state("float64")
     ps = Dycore().init(PP.MicrophysicsP3().init(make_coupler_state(
         to_port(st).grid, dtype="float64",
-        options={"init_data": "supercell", "out_freq": -1.0})))
+        options={"init_data": "supercell", "out_freq": -1.0},
+        device="cpu")))
     ps = supercell_p3.seed_mixed_regimes(ps)
     for name in st.fields:
         np.testing.assert_allclose(ps[name].numpy(), np.asarray(st[name]),
@@ -337,7 +338,8 @@ def test_module_options_and_diagnostics_init():
     st, _ = _seeded_mixed_state("float64")
     micro = PP.MicrophysicsP3(diagnostics=True)
     g = st.grid
-    fresh = micro.init(make_coupler_state(to_port(st).grid, dtype="float64"))
+    fresh = micro.init(make_coupler_state(to_port(st).grid, dtype="float64",
+                                          device="cpu"))
     assert fresh.meta.tracer_names == tuple(t[0] for t in micro.TRACERS)
     assert float(fresh["equiv_reflectivity"].max()) == -99.0
     assert float(fresh["eff_radius_qc"].min()) == 10.0e-6
@@ -384,7 +386,7 @@ def test_cli_and_benchmark_take_the_p3_chain(tmp_path):
                     "xlen: 40000.0\nylen: 40000.0\nzlen: 16000.0\n"
                     "init_data: supercell\nout_freq: -1.0\n"
                     "p3_backend: jax\n")
-    state = supercell_p3.main([str(path)])
+    state = supercell_p3.main([str(path), "--device", "cpu"])
     assert "ice_rime_vol" in state.fields and state.validate() == {}
     cfg = config_from_dict(dict(
         sim_time=3.0, nx_glob=12, ny_glob=2, nz=12, xlen=40000.0,
