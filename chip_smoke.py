@@ -6,7 +6,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. device: name, power limit, torch and CUDA versions;
   2. build: the five CUDA libraries from csrc/ with nvcc (sm_90a), one nvcc
      each, all started together; the registers, spills and shared memory
-     of the flux kernel's instantiations (from its ptxas report);
+     of every kernel (from the ptxas reports: the flux kernel's ord-5
+     instantiations, every entry function of the others), and the Kessler
+     kernel's dynamic shared memory per block at the chains' nz;
   3. the direction-flux kernel against its plain PyTorch version, x/y/z in
      f32 and f64, on each chain's state at its cell's width: the 512x512x64
      supercell with Kessler (3 tracers) plus a small wall/open case, the P3
@@ -16,11 +18,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      times, the bound (bytes and operations from the shapes against the
      card's published rates) and the share of it;
   14. (run inside 3, on the tracer faces each state gave) the FCT kernels
-     against their plain versions: the multiplier, and the scaled
-     divergence along x, z and y, first / accumulating / with the stage
-     update with and without the second base, a mixed positive mask, f32
-     and f64;
-  4. the Kessler kernel against its plain version with rainsplit > 1;
+     against their plain versions: the multiplier (bit for bit, timed with
+     the chain's own positive flags beside its bound: 3 tracers Kessler, 9
+     P3, 1 x nens 2 city), and the scaled divergence along x, z and y,
+     first / accumulating / with the stage update with and without the
+     second base, a mixed positive mask, f32 and f64;
+  4. the fused Kessler step (prep, sub-cycles, post) against its plain
+     version, bit for bit: on the Kessler chain's own 512x512x64 f32 state
+     after one step (its rainsplit printed; the kernel and the whole
+     MicrophysicsKessler.time_step timed) and on heavy-rain columns at
+     rainsplit 3, f32 and f64;
   5. the Kessler slice: community_benchmark.run_benchmark on the 512x512x64
      f32 ord-5 supercell, with its kernels' launch counts, a clean
      validate(), Mcellups and peak memory; plus the 50x1x20 f64 maxw
@@ -58,7 +65,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 Tolerance of a kernel against its plain version: max|kernel - plain| over
 max|plain| of each output below 1e-12 in f64 and 1e-5 in f32 (the JAX
 suite's own f32 bound between its paths, tests/test_pallas.py:260,311);
-the direction-flux kernel must also equal its plain version bit for bit.
+the direction-flux kernel and fct_mult must also equal their plain versions
+bit for bit; the Kessler step prints whether it does, and the count and size
+in ulps of any value that rounds apart.
 A slice on the card against the port's CPU run: 1e-7 of each field's scale
 (1e-9 for the one-step building and city slices, phase 16).
 
@@ -206,6 +215,22 @@ def _ptxas_report(name: str):
     return rows
 
 
+def _kernel_name(mangled: str) -> str:
+    """The function name of a mangled entry function, with its first
+    template argument when that is float or double."""
+    import re
+    i = re.match(r"_ZN?", mangled).end()
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name = mangled[j:j + int(mangled[i:j])]
+        i = j + int(mangled[i:j])
+    t = {"If": "<float>", "Id": "<double>"}.get(mangled[i:i + 2], "")
+    return name + t
+
+
 def _flux_instance(mangled: str):
     """(kind, ord, type, tracer bound) of a direction_fluxes entry function,
     or None."""
@@ -283,6 +308,16 @@ def phase_build():
     print(f"[2] direction_fluxes, most spilled of all orders: {worst[0]} "
           f"registers, {worst[1]} B spill stores, {worst[2]} B spill loads "
           f"({worst[3]})", flush=True)
+    for lib in LIBRARIES[1:]:
+        for mangled, regs, st, ld, stack, smem in _ptxas_report(lib):
+            print(f"[2] {lib} {_kernel_name(mangled)}: {regs} registers, "
+                  f"{st} B spill stores, {ld} B spill loads, {stack} B "
+                  f"stack, {smem} B static shared", flush=True)
+    from miniweatherml_tpu_torch.physics.kessler_cuda import kessler_staging
+    for nz in (64, 100):
+        levels, smem = kessler_staging(nz, torch.float32)
+        print(f"[2] kessler nz {nz} float32: {levels} levels staged at once, "
+              f"{smem} B dynamic shared memory per block", flush=True)
 
 
 def _p3_mixed_build(cfg, device):
@@ -407,31 +442,42 @@ def phase_fct(chain, dtype, tol, state, dycore, faces, recs):
     positive = tuple(i % 3 != 1 for i in range(ntr))
     dt = dycore.compute_time_step(state)
     f32 = dtype == "float32"
-    for scale in (1.0, 100.0):
-        args = (tr, positive, faces[-1], faces[-2], faces[-3], scale * dt,
+    # the chain's own flags at the stage's dt (timed: the main path's
+    # call), then the mixed mask at dt and at 100 dt
+    own = tuple(t.positive for t in state.meta.tracers)
+    for flags, scale in ((own, 1.0), (positive, 1.0), (positive, 100.0)):
+        args = (tr, flags, faces[-1], faces[-2], faces[-3], scale * dt,
                 g.dx, g.dy, g.dz)
         ref = fct.fct_mult_plain(*args)
         mult = fct.fct_mult(*args)
         torch.cuda.synchronize()
         err, rel = _rel(ref, mult)
-        nbytes = _nbytes(args, mult)
+        same = torch.equal(ref, mult)
         limited = (mult < 1.0).double().mean().item()
         del ref
-        ms = _time_ms(lambda: fct.fct_mult(*args))
-        pms = _time_ms(lambda: fct.fct_mult_plain(*args), reps=3)
-        print(f"[14] fct_mult {chain} ntr {ntr} {dtype} dt x{scale:g}: max "
-              f"abs err {err:.3e}, rel {rel:.3e} (tol {tol:g}), {limited:.2e} "
-              f"of values limited; kernel {ms:.3f} ms, plain {pms:.3f} ms",
-              flush=True)
-        if not rel <= tol:
-            raise AssertionError(f"fct_mult {chain} {dtype}: rel {rel:.3e}")
+        line = (f"[14] fct_mult {chain} ntr {ntr} nens {g.nens} {dtype} "
+                f"flags {''.join('1' if f else '0' for f in flags)} dt "
+                f"x{scale:g}: bitwise {'equal' if same else 'DIFFERENT'}, "
+                f"max abs err {err:.3e}, rel {rel:.3e}, {limited:.2e} of "
+                "values limited")
+        if flags is own and scale == 1.0:
+            ms = _time_ms(lambda: fct.fct_mult(*args))
+            pms = _time_ms(lambda: fct.fct_mult_plain(*args), reps=3)
+            # ~20 operations per tracer value (csrc/fct.cu fct_mult)
+            bms, by = _bound(_nbytes(args, mult), 20 * tr.numel(), dtype)
+            line += (f"; kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+                     f"{bms:.3f} ms ({by}), {bms / ms:.1%} of the bound  "
+                     f"[{_card()}]")
+            if f32 and chain == "kessler":
+                recs["fct_mult"].update(ms=ms, plain_ms=pms, bound_ms=bms,
+                                        bound_by=by)
+        print(line, flush=True)
+        if not (same and rel <= tol):
+            raise AssertionError(f"fct_mult {chain} {dtype}: not bitwise "
+                                 f"equal (rel {rel:.3e})")
         if f32:
             r = recs["fct_mult"]
             r["max_abs_err"] = max(r["max_abs_err"], err)
-            if chain == "p3" and scale == 1.0:
-                # ~20 operations per tracer value (csrc/fct.cu fct_mult)
-                bms, by = _bound(nbytes, 20 * tr.numel(), dtype)
-                r.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
     t_prev = fct.fct_scale_div_plain(faces[-1], mult, None, -1, g.nx,
                                      1.0 / g.dx)
     tr1 = tr.flip(-1).contiguous()
@@ -483,54 +529,129 @@ def phase_fct(chain, dtype, tol, state, dycore, faces, recs):
     del tr, tr1, mult, t_prev
 
 
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
+    """(values that differ, their largest difference in units of the last
+    place of a)."""
+    diff = a != b
+    n = int(diff.sum())
+    if n == 0:
+        return 0, 0.0
+    a, b = a[diff], b[diff]
+    ulp = (torch.nextafter(a, torch.full_like(a, math.inf)) - a).abs()
+    return n, float(((a - b).abs() / ulp).max())
+
+
+def _kessler_check(tag, args, tol):
+    """The fused step against its plain version on ``args``: every output
+    equal bit for bit, or (reported with its count and size in ulps) within
+    ``tol`` of its scale.  Returns (max abs err, plain result)."""
+    from miniweatherml_tpu_torch.physics.kessler_cuda import (
+        kessler_step, kessler_step_plain)
+    ref = kessler_step_plain(*args)
+    got = kessler_step(*args)
+    torch.cuda.synchronize()
+    names = ("rho_v", "rho_c", "rho_r", "temp", "precl")
+    errs = [_rel(a, b) for a, b in zip(ref, got)]
+    rel = max(e[1] for e in errs)
+    diffs = {n: _ulps(a, b) for n, a, b in zip(names, ref, got)
+             if not torch.equal(a, b)}
+    print(f"[4] kessler {tag}: "
+          + ("bitwise equal" if not diffs else
+             "DIFFERENT in " + ", ".join(f"{n} ({c} values, at most "
+                                          f"{u:.0f} ulp)"
+                                          for n, (c, u) in diffs.items()))
+          + f", max abs err {max(e[0] for e in errs):.3e}, rel {rel:.3e} "
+          f"(tol {tol:g})", flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"kessler {tag}: rel err {rel:.3e} > {tol:g}")
+    return max(e[0] for e in errs)
+
+
+def _kessler_work(args, nsub):
+    """(bytes, operations) of one fused step: the five coupler fields read
+    once, the four fields and precl written once; ~80 operations per cell
+    and sub-step plus ~25 for the prep (two pow, five divisions, a sqrt)
+    and the post (csrc/kessler.cu; pow, exp and sqrt counted as one)."""
+    cells = args[0].numel()
+    item = args[0].element_size()
+    return item * (9 * cells + cells // args[0].shape[1]), (
+        (80 * nsub + 25) * cells)
+
+
 def phase_kessler():
+    """The fused Kessler step on the Kessler chain's own 512x512x64 f32
+    state after one step (the main path's call: the kernel, and the whole
+    MicrophysicsKessler.time_step with its rainsplit), then on heavy-rain
+    columns at rainsplit 3, f32 and f64."""
+    from miniweatherml_tpu_torch.experiments.supercell_example import build
     from miniweatherml_tpu_torch.physics.kessler import kessler_rainsplit
     from miniweatherml_tpu_torch.physics.kessler_cuda import (
-        kessler_subcycle, kessler_subcycle_plain)
+        kessler_step, kessler_step_plain)
+
+    R = (287.0, 461.0, 1003.0, 1e5)
+    rec = {"max_abs_err": 0.0}
+    state, mods, dycore = build(_bench_cfg(512, 512, 64, 1, "float32"),
+                                "cuda")
+    dt = dycore.compute_time_step(state)
+    for m in mods:
+        state = m(state, dt)
+    g = state.grid
+    rho_d = state["density_dry"]
+    zmid = ((torch.arange(g.nz, dtype=rho_d.dtype, device="cuda") + 0.5)
+            * g.dz)[None, :, None, None]
+    rs = kessler_rainsplit(state["precip_liquid"] / rho_d, rho_d, zmid, dt)
+    args = (rho_d, state["temp"], state["water_vapor"],
+            state["cloud_liquid"], state["precip_liquid"], rs, dt, g.dz, *R)
+    nsub = int(rs)
+    rec["max_abs_err"] = _kessler_check(
+        f"chain state 512x512x64 float32 rainsplit {nsub}", args, 1e-5)
+    ms = _time_ms(lambda: kessler_step(*args), reps=10)
+    pms = _time_ms(lambda: kessler_step_plain(*args), reps=3)
+    step_ms = _time_ms(lambda: mods[1](state, dt), reps=10)
+    nbytes, ops = _kessler_work(args, nsub)
+    bms, by = _bound(nbytes, ops, torch.float32)
+    rec.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+    print(f"[4] kessler main path (rainsplit {nsub}): kernel {ms:.3f} ms, "
+          f"plain {pms:.3f} ms, bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f}"
+          f" GB, {ops / 1e9:.2f} GFLOP), {bms / ms:.1%} of the bound; "
+          f"MicrophysicsKessler.time_step {step_ms:.3f} ms  [{_card()}]",
+          flush=True)
+    del state, mods, dycore, args, rho_d
+    torch.cuda.empty_cache()
 
     rng = np.random.default_rng(7)
-    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
     nens, nz, ny, nx = 1, 64, 512, 512
-    # ~80 operations per cell and rain sub-step (csrc/kessler.cu, pow, exp
-    # and sqrt counted as one)
     dz, dt = 200.0, 30.0
     z = (np.arange(nz) + 0.5) * dz
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         def dev(a):
             a = np.array(np.broadcast_to(a, (nens, nz, ny, nx)))
             return torch.as_tensor(a, dtype=dtype, device="cuda")
-        rho = dev((1.2 * np.exp(-z / 8000.0))[None, :, None, None])
-        pk = dev((np.exp(-z / 8000.0) ** (287.0 / 1003.0))[None, :, None, None])
-        th = dev(300.0 + 10.0 * z[None, :, None, None] / 20000.0
-                 + rng.uniform(0.0, 1.0, (nens, nz, ny, nx)))
-        qv = dev((0.016 * np.exp(-z / 3000.0))[None, :, None, None])
-        qc = dev(np.where(z < 5000.0, 1e-4, 0.0)[None, :, None, None])
-        qr = dev(np.where(z < 3000.0, 5e-4, 0.0)[None, :, None, None]
+        zc = z[None, :, None, None]
+        rho = dev(1.2 * np.exp(-zc / 8000.0))
+        temp = dev((300.0 + 10.0 * zc / 20000.0
+                    + rng.uniform(0.0, 1.0, (nens, nz, ny, nx)))
+                   * np.exp(-zc / 8000.0) ** (287.0 / 1003.0))
+        qv = dev(0.016 * np.exp(-zc / 3000.0))
+        qc = dev(np.where(zc < 5000.0, 1e-4, 0.0))
+        qr = dev(np.where(zc < 3000.0, 5e-4, 0.0)
                  + 5e-3 * rng.random((nens, nz, ny, nx)))
-        zt = torch.as_tensor(z, dtype=dtype, device="cuda")[None, :, None, None]
+        zt = torch.as_tensor(zc, dtype=dtype, device="cuda")
         rs = kessler_rainsplit(qr, rho, zt, dt)
-        args = (th, qv, qc, qr, rho, pk, rs, dt, dz, 287.0, 1003.0, 1e5)
-        ref = kessler_subcycle_plain(*args)
-        got = kessler_subcycle(*args)
-        torch.cuda.synchronize()
-        errs = [_rel(a, b) for a, b in zip(ref, got)]
-        rel = max(e[1] for e in errs)
-        nbytes = _nbytes(args, got)
-        del ref, got
-        ms = _time_ms(lambda: kessler_subcycle(*args))
-        pms = _time_ms(lambda: kessler_subcycle_plain(*args), reps=3)
+        args = (rho, temp, qv * rho, qc * rho, qr * rho, rs, dt, dz, *R)
         nsub = int(rs)
-        print(f"[4] kessler {dtype} rainsplit {nsub}: max abs err "
-              f"{max(e[0] for e in errs):.3e}, rel {rel:.3e} (tol {tol:g}); "
-              f"kernel {ms:.3f} ms, plain {pms:.3f} ms", flush=True)
         if nsub < 2:
             raise AssertionError("kessler check did not sub-cycle")
-        if not rel <= tol:
-            raise AssertionError(f"kessler {dtype}: rel err {rel:.3e} > {tol:g}")
+        err = _kessler_check(f"columns {dtype} rainsplit {nsub}", args, tol)
+        ms = _time_ms(lambda: kessler_step(*args))
+        pms = _time_ms(lambda: kessler_step_plain(*args), reps=3)
+        bms, by = _bound(*_kessler_work(args, nsub), dtype)
+        print(f"[4] kessler columns {dtype} rainsplit {nsub}: kernel "
+              f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms ({by}), "
+              f"{bms / ms:.1%} of the bound", flush=True)
         if dtype == torch.float32:
-            bms, by = _bound(nbytes, 80 * nsub * th.numel(), dtype)
-            rec.update(max_abs_err=max(e[0] for e in errs), ms=ms,
-                       plain_ms=pms, bound_ms=bms, bound_by=by)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        del args, rho, temp, qv, qc, qr
     return rec
 
 
@@ -540,13 +661,13 @@ def _counters(chain):
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
     from miniweatherml_tpu_torch.physics import p3_lookup_cuda as lk
     from miniweatherml_tpu_torch.ops.fct import fct_mult, fct_scale_div
-    from miniweatherml_tpu_torch.physics.kessler_cuda import kessler_subcycle
+    from miniweatherml_tpu_torch.physics.kessler_cuda import kessler_step
     dycore = {"direction_fluxes": direction_fluxes, "fct_mult": fct_mult,
               "fct_scale_div": fct_scale_div}
     if chain == "city":
         return dycore
     if chain == "kessler":
-        return {**dycore, "kessler_subcycle": kessler_subcycle}
+        return {**dycore, "kessler_step": kessler_step}
     return {**dycore,
             "interp_ice": lk.interp_ice, "interp_collect": lk.interp_collect,
             "interp_rain": lk.interp_rain, "p3_part1": cw.p3_part1,
@@ -1030,10 +1151,10 @@ def main() -> int:
          "replaces": "miniweatherml_tpu/ops/pallas_recon.py:536, "
                      "miniweatherml_tpu/ops/pallas_recon.py:941",
          "launches": l_p3["direction_fluxes"], **k_a},
-        {"name": "kessler_subcycle", "route": "cuda",
+        {"name": "kessler_step", "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/kessler.cu",
          "replaces": "miniweatherml_tpu/physics/kessler_pallas.py:128",
-         "launches": l_kessler["kessler_subcycle"], **k_b},
+         "launches": l_kessler["kessler_step"], **k_b},
         {"name": "p3_interp_ice", "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/p3_lookup.cu",
          "replaces": "miniweatherml_tpu/physics/p3_pallas_lookup.py:155, "

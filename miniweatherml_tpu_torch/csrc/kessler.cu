@@ -1,28 +1,64 @@
-// Kessler (KW1978) warm-rain microphysics: the sub-cycled column loop, for
-// NVIDIA Hopper (sm_90a).
+// Kessler (KW1978) warm-rain microphysics: one whole time step of the
+// scheme on the coupler's fields, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel miniweatherml_tpu/physics/kessler_pallas.py::
 // kessler_subcycle_pallas (pallas_call at :128), the VMEM-resident form of
-// the lax.while_loop in physics/kessler.py:196-240.  Each pass: surface
-// precipitation from the current rain, upstream rain sedimentation,
-// autoconversion/accretion, saturation adjustment and rain evaporation.
-// The pass count `rainsplit` is a global minimum computed on the device
-// beforehand (physics/kessler.py::kessler_rainsplit); the kernel reads it
-// through a pointer, so the host never waits for it.
+// the lax.while_loop in physics/kessler.py:196-240, together with the prep
+// and post of MicrophysicsKessler.time_step (physics/kessler.py:89-94,
+// 123-131) that the Pallas call took into its input reads.  Per cell, in
+// registers: the mixing ratios qv, qc, qr = rho_x / rho_d, the pressure,
+// exner = (p / p0)^(Rd/cp) and theta = T / exner; then `rainsplit` passes
+// of surface precipitation, upstream rain sedimentation,
+// autoconversion/accretion, saturation adjustment and rain evaporation; then
+// rho_x = q_x * rho_d and T = theta * exner (the pre-micro exner).  The pass
+// count is a global minimum computed on the device beforehand
+// (physics/kessler.py::kessler_rainsplit); the kernel reads it through a
+// pointer, so the host never waits for it.
 //
-// What bounds it on the H100: bytes.  Each pass reads 6 fields and writes 4
-// per cell for ~10 transcendental evaluations; the eager PyTorch loop would
-// add ~40 kernel launches and a host sync per pass on top.
-// Design: one thread per column (ens, y, x), threads along x so every level's
-// loads and stores coalesce; the thread sweeps its column upward in place.
-// Sedimentation at level k needs the pass's OLD flux at k+1 and k; the sweep
-// reads level k+1 before writing it and carries its flux, density and fall
-// speed in registers to the next level.  Uniform dz only.
+// What bounds it on the H100: its exact arithmetic.  At rainsplit 1 it moves
+// 5 fields in and 5 out (0.6 GB at 512x512x64 f32, 0.18 ms at 3.35 TB/s), but
+// each cell also takes ~16 IEEE divisions and up to 7 pow/exp/sqrt, which
+// must round as PyTorch's do: f32 powf runs at ~350 G/s on the card, a
+// division at ~1.6 T/s (scripts/kernel_variants.py), so two pow and a
+// dozen divisions per cell already cost ~0.2 ms.  Builds with approximate
+// pow, exp and division (measured only, not bitwise) ran in 0.4-0.7 of the
+// time.  Each further pass adds up to 4 pow, an exp and ~9
+// divisions per cell.
+// Design: a block owns C = 32 consecutive columns (a warp reads one level's
+// row of them, coalesced) and L = 8 lanes of levels.  It stages its columns
+// in dynamic shared memory: the four prognostics and the pass-invariant
+// rho, rhalf = sqrt(rho0 / rho), pc = 3.8 / (exner^(cp/Rd) psl) and exner,
+// formed once per cell, plus the pass's rain flux.  The coupler's fields
+// arrive by cp.async, every level's copies issued before the first
+// arithmetic.  A pass needs no march up the column: sedimentation at level k
+// reads the pass's OLD flux at k and k + 1, so every level computes its
+// flux, the block synchronizes, and every level updates.  All passes run in
+// shared memory; each output is written once.
+// Cells without rain or cloud skip work without changing a bit: pow_pos
+// returns the +0 that pow gives for a zero base, and div0 (exact_div.cuh)
+// the signed zero of a zero dividend without the division's slow path.
+// A column of more levels than the block's budget (two blocks per SM) is
+// cut into chunks of `kc` levels, staged one after another, with the level
+// above a chunk read for its flux: the same code, with the prognostics of
+// passes before the last kept in the output arrays between passes.  With
+// C = 32 that stages nz <= 100 whole in f32 and nz <= 50 in f64.
+// Every add and multiply is a round-to-nearest intrinsic (no contraction),
+// divisions and sqrt are IEEE, and the file builds with contraction on so
+// that pow and exp round as PyTorch's own CUDA build does: the kernel gives
+// the plain PyTorch version's values bit for bit.  Uniform dz only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exact_div.cuh"
+
 namespace {
+
+constexpr int C = 32;       // columns per block
+constexpr int L = 8;        // level lanes per block
+constexpr int NFIELD = 8;   // staged per level: th qv qc qr rho rhalf pc pk
+// shared memory per block: two blocks per SM (228 KB, 1 KB reserved each)
+constexpr int SMEM_BUDGET = 115712;
 
 __device__ __forceinline__ float tpow(float a, float b) { return powf(a, b); }
 __device__ __forceinline__ double tpow(double a, double b) { return pow(a, b); }
@@ -30,123 +66,258 @@ __device__ __forceinline__ float texp(float a) { return expf(a); }
 __device__ __forceinline__ double texp(double a) { return exp(a); }
 __device__ __forceinline__ float tsqrt(float a) { return sqrtf(a); }
 __device__ __forceinline__ double tsqrt(double a) { return sqrt(a); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 template <typename T> __device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
 template <typename T> __device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
 
 struct Consts {
-  double dt, dz, pc_exp, psl, lv, c_cond, cp;
+  double dt, dz, Rd, Rv, p0, kappa, pc_exp, psl, lv, c_cond, cp;
 };
 
+// x^e for an exponent e > 0 that is no odd integer: +0 at x = +-0, as pow
+// itself gives, without the call (most cells hold no rain).
 template <typename T>
-__global__ void kessler_kernel(const T* __restrict__ th_in,
-                               const T* __restrict__ qv_in,
-                               const T* __restrict__ qc_in,
-                               const T* __restrict__ qr_in,
-                               const T* __restrict__ rho,
-                               const T* __restrict__ pk,
-                               const int* __restrict__ rainsplit, T* th, T* qv,
-                               T* qc, T* qr, T* __restrict__ precl, int nens,
-                               int nz, int64_t ncol, const Consts k) {
-  const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= (int64_t)nens * ncol) return;
-  const int64_t e = col / ncol, c = col % ncol;
-  const int64_t base = e * nz * ncol + c;
-  const int rs = *rainsplit;
-  const T dt0 = T(k.dt) / T(rs);
-  const T dz = T(k.dz), pc_exp = T(k.pc_exp), psl = T(k.psl);
-  const T lv = T(k.lv), c_cond = T(k.c_cond), cp = T(k.cp);
-  const T rhoqr = T(1000);
-  const T rho0 = rho[base];
-  T precl_acc = T(0);
-  for (int p = 0; p < rs; ++p) {
-    // the first pass reads the inputs, later passes the outputs in place
-    const T* sth = p ? th : th_in;
-    const T* sqv = p ? qv : qv_in;
-    const T* sqc = p ? qc : qc_in;
-    const T* sqr = p ? qr : qr_in;
-    T rho_k = rho0;
-    T r_k = T(0.001) * rho_k;
-    T qr_k = sqr[base];
-    T vel_k = T(36.34) * tpow(qr_k * r_k, T(0.1364)) * tsqrt(rho0 / rho_k);
-    precl_acc = precl_acc + rho0 * qr_k * vel_k / rhoqr;
-    T flux_k = r_k * qr_k * vel_k;
-    for (int lev = 0; lev < nz; ++lev) {
-      const int64_t idx = base + (int64_t)lev * ncol;
-      T sed, rho_n = T(0), r_n = T(0), qr_n = T(0), vel_n = T(0), flux_n = T(0);
-      if (lev < nz - 1) {
-        rho_n = rho[idx + ncol];
-        r_n = T(0.001) * rho_n;
-        qr_n = sqr[idx + ncol];  // old value: level lev+1 is not yet updated
-        vel_n = T(36.34) * tpow(qr_n * r_n, T(0.1364)) * tsqrt(rho0 / rho_n);
-        flux_n = r_n * qr_n * vel_n;
-        sed = dt0 * (flux_n - flux_k) / (r_k * dz);
-      } else {
-        sed = -dt0 * qr_k * vel_k / (T(0.5) * dz);
-      }
-      const T pk_k = pk[idx];
-      const T pc = T(3.8) / (tpow(pk_k, pc_exp) * psl);
-      T th_k = sth[idx], qv_k = sqv[idx], qc_k = sqc[idx], q_r = qr_k;
+__device__ __forceinline__ T pow_pos(T x, T e) {
+  return x == T(0) ? T(0) : tpow(x, e);
+}
 
-      // autoconversion + accretion, KW eq. 2.13
-      const T qrprod =
-          qc_k - (qc_k - dt0 * tmax(T(0.001) * (qc_k - T(0.001)), T(0))) /
-                     (T(1) + dt0 * T(2.2) * tpow(q_r, T(0.875)));
-      qc_k = tmax(qc_k - qrprod, T(0));
-      q_r = tmax(q_r + qrprod + sed, T(0));
+// Rain fall speed, KW eq. 2.15: 36.34 (qr r)^0.1364 rhalf.
+template <typename T>
+__device__ __forceinline__ T fall_speed(T qr, T r, T rhalf) {
+  return mul(mul(T(36.34), pow_pos(mul(qr, r), T(0.1364))), rhalf);
+}
 
-      // saturation vapor mixing ratio, KW eq. 2.11
-      const T tmp = pk_k * th_k - T(36);
-      const T qvs = pc * texp(T(17.27) * (pk_k * th_k - T(273)) / tmp);
-      const T prod = (qv_k - qvs) / (T(1) + qvs * c_cond / (tmp * tmp));
+// Copy one value from global to shared memory without passing through
+// registers (cp.async); stage_wait() waits for the thread's own copies.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src) : "memory");
+}
 
-      // rain evaporation, KW eq. 2.14
-      const T rq = r_k * q_r;
-      const T tmp1 =
-          dt0 * (((T(1.6) + T(124.9) * tpow(rq, T(0.2046))) * tpow(rq, T(0.525))) /
-                 (T(2550000) * pc / (T(3.8) * qvs) + T(540000))) *
-          (tmax(qvs - qv_k, T(0)) / (r_k * qvs));
-      const T ern = tmin(tmp1, tmin(tmax(-prod - qc_k, T(0)), q_r));
-
-      // saturation adjustment, KW eq. 3.10
-      const T cond = tmax(prod, -qc_k);
-      th_k = th_k + lv / (cp * pk_k) * (cond - ern);
-      qv_k = tmax(qv_k - cond + ern, T(0));
-      qc_k = qc_k + cond;
-      q_r = q_r - ern;
-
-      th[idx] = th_k;
-      qv[idx] = qv_k;
-      qc[idx] = qc_k;
-      qr[idx] = q_r;
-      rho_k = rho_n;
-      r_k = r_n;
-      qr_k = qr_n;
-      vel_k = vel_n;
-      flux_k = flux_n;
-    }
-  }
-  precl[e * ncol + c] = precl_acc / T(rs);
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 template <typename T>
-int launch(const void* th_in, const void* qv_in, const void* qc_in,
-           const void* qr_in, const void* rho, const void* pk,
-           const void* rainsplit, void* th, void* qv, void* qc, void* qr,
-           void* precl, int nens, int nz, long long ncol, double dt,
-           double dz, double Rd, double cp, double p0, void* stream) {
-  const Consts k{dt, dz, cp / Rd, p0 / 100.0, 2.5e6, 4093.0 * 2.5e6 / cp, cp};
-  const int threads = 128;
-  const int64_t cols = (int64_t)nens * ncol;
-  const int64_t blocks = (cols + threads - 1) / threads;
-  if (blocks > 2147483647LL || nz < 2) return cudaErrorInvalidValue;
-  kessler_kernel<T><<<(unsigned)blocks, threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(th_in), static_cast<const T*>(qv_in),
-      static_cast<const T*>(qc_in), static_cast<const T*>(qr_in),
-      static_cast<const T*>(rho), static_cast<const T*>(pk),
-      static_cast<const int*>(rainsplit), static_cast<T*>(th),
-      static_cast<T*>(qv), static_cast<T*>(qc), static_cast<T*>(qr),
-      static_cast<T*>(precl), nens, nz, (int64_t)ncol, k);
+__global__ void __launch_bounds__(C * L, 3)
+kessler_kernel(const T* __restrict__ rho_d, const T* __restrict__ temp,
+               const T* __restrict__ rho_v, const T* __restrict__ rho_c,
+               const T* __restrict__ rho_r, const int* __restrict__ rainsplit,
+               T* __restrict__ wv, T* __restrict__ cl, T* __restrict__ pl,
+               T* __restrict__ temp_out, T* __restrict__ precl, int nz,
+               int kc, int64_t ncol, const Consts k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const s = reinterpret_cast<T*>(smem_raw);
+  T* const s_th = s;
+  T* const s_qv = s + 1 * kc * C;
+  T* const s_qc = s + 2 * kc * C;
+  T* const s_qr = s + 3 * kc * C;
+  T* const s_rho = s + 4 * kc * C;
+  T* const s_rhalf = s + 5 * kc * C;
+  T* const s_pc = s + 6 * kc * C;
+  T* const s_pk = s + 7 * kc * C;
+  T* const s_flux = s + NFIELD * kc * C;  // kc + 1 levels
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int64_t col = (int64_t)blockIdx.x * C + tx;
+  const bool live = col < ncol;
+  const int64_t g0 = (int64_t)blockIdx.y * nz * ncol + col;  // level 0
+  const int rs = *rainsplit;
+  const T dt0 = T(k.dt) / T(rs);
+  const T dz = T(k.dz), psl = T(k.psl), lv = T(k.lv), cp = T(k.cp);
+  const T c_cond = T(k.c_cond), p0 = T(k.p0), Rd = T(k.Rd), Rv = T(k.Rv);
+  const T kappa = T(k.kappa), pc_exp = T(k.pc_exp);
+  const T rho0 = live ? rho_d[g0] : T(1);
+  const int nchunk = (nz + kc - 1) / kc;
+  T precl_acc = T(0);
+
+  for (int p = 0; p < rs; ++p) {
+    const bool last = p == rs - 1;
+    for (int ch = 0; ch < nchunk; ++ch) {
+      const int k0 = ch * kc;
+      const int n = min(kc, nz - k0);
+      // stage the chunk: rho_d, temp and rho_v into the rho, pk and pc
+      // slots, and the prognostics' sources (the coupler's rho_c and rho_r
+      // on the first pass, the previous pass's values in the outputs after
+      // it) into theirs, every copy in flight at once; then form the
+      // prognostics and the invariants in place.  A thread reads back only
+      // what it copied itself.
+      if (live && (p == 0 || nchunk > 1)) {
+        for (int lev = ty; lev < n; lev += L) {
+          const int64_t g = g0 + (int64_t)(k0 + lev) * ncol;
+          const int i = lev * C + tx;
+          stage(s_rho + i, rho_d + g);
+          stage(s_pk + i, temp + g);
+          stage(s_pc + i, rho_v + g);
+          if (p == 0) {
+            stage(s_qc + i, rho_c + g);
+            stage(s_qr + i, rho_r + g);
+          } else {
+            stage(s_th + i, temp_out + g);
+            stage(s_qv + i, wv + g);
+            stage(s_qc + i, cl + g);
+            stage(s_qr + i, pl + g);
+          }
+        }
+        stage_wait();
+        for (int lev = ty; lev < n; lev += L) {
+          const int i = lev * C + tx;
+          const T rd = s_rho[i], tk = s_pk[i], rv = s_pc[i];
+          const T pressure = add(mul(mul(Rd, rd), tk), mul(mul(Rv, rv), tk));
+          const T exner = tpow(pressure / p0, kappa);
+          if (p == 0) {
+            s_th[i] = tk / exner;
+            s_qv[i] = rv / rd;
+            s_qc[i] = div0(s_qc[i], rd);
+            s_qr[i] = div0(s_qr[i], rd);
+          }
+          s_rhalf[i] = tsqrt(rho0 / rd);
+          s_pc[i] = T(3.8) / mul(tpow(exner, pc_exp), psl);
+          s_pk[i] = exner;
+        }
+      }
+      __syncthreads();
+      // the pass's rain flux from the old rain, at every staged level and
+      // at the level above the chunk; the surface precipitation
+      if (live) {
+        for (int lev = ty; lev < n; lev += L) {
+          const int i = lev * C + tx;
+          const T qr = s_qr[i], r = mul(T(0.001), s_rho[i]);
+          const T vel = fall_speed(qr, r, s_rhalf[i]);
+          s_flux[i] = mul(mul(r, qr), vel);
+          if (k0 + lev == 0)
+            precl_acc = add(precl_acc, div0(mul(mul(rho0, qr), vel), T(1000)));
+        }
+        if (ty == 0 && k0 + n < nz) {
+          const int64_t g = g0 + (int64_t)(k0 + n) * ncol;
+          const T rd = rho_d[g];
+          const T qr = p == 0 ? div0(rho_r[g], rd) : pl[g];
+          const T r = mul(T(0.001), rd);
+          s_flux[n * C + tx] =
+              mul(mul(r, qr), fall_speed(qr, r, tsqrt(rho0 / rd)));
+        }
+      }
+      __syncthreads();
+      if (live) {
+        for (int lev = ty; lev < n; lev += L) {
+          const int i = lev * C + tx;
+          const int64_t g = g0 + (int64_t)(k0 + lev) * ncol;
+          const T r = mul(T(0.001), s_rho[i]);
+          const T pk = s_pk[i], pc = s_pc[i];
+          T th = s_th[i], qv = s_qv[i], qc = s_qc[i], qr = s_qr[i];
+          T sed;
+          if (k0 + lev < nz - 1) {
+            sed = div0(mul(dt0, sub(s_flux[i + C], s_flux[i])), mul(r, dz));
+          } else {
+            const T vel = fall_speed(qr, r, s_rhalf[i]);
+            sed = div0(mul(mul(-dt0, qr), vel), mul(T(0.5), dz));
+          }
+
+          // autoconversion + accretion, KW eq. 2.13
+          const T qrprod =
+              sub(qc, div0(sub(qc, mul(dt0, tmax(mul(T(0.001),
+                                                     sub(qc, T(0.001))),
+                                                 T(0)))),
+                           add(T(1), mul(mul(dt0, T(2.2)),
+                                         pow_pos(qr, T(0.875))))));
+          qc = tmax(sub(qc, qrprod), T(0));
+          qr = tmax(add(add(qr, qrprod), sed), T(0));
+
+          // saturation vapor mixing ratio, KW eq. 2.11
+          const T tmp = sub(mul(pk, th), T(36));
+          const T qvs =
+              mul(pc, texp(mul(T(17.27), sub(mul(pk, th), T(273))) / tmp));
+          const T prod =
+              sub(qv, qvs) / add(T(1), mul(qvs, c_cond) / mul(tmp, tmp));
+
+          // rain evaporation, KW eq. 2.14
+          const T rq = mul(r, qr);
+          const T tmp1 = mul(
+              mul(dt0, div0(mul(add(T(1.6),
+                                    mul(T(124.9), pow_pos(rq, T(0.2046)))),
+                                pow_pos(rq, T(0.525))),
+                            add(mul(T(2550000), pc) / mul(T(3.8), qvs),
+                                T(540000)))),
+              tmax(sub(qvs, qv), T(0)) / mul(r, qvs));
+          const T ern = tmin(tmp1, tmin(tmax(sub(-prod, qc), T(0)), qr));
+
+          // saturation adjustment, KW eq. 3.10
+          const T cond = tmax(prod, -qc);
+          th = add(th, mul(lv / mul(cp, pk), sub(cond, ern)));
+          qv = tmax(add(sub(qv, cond), ern), T(0));
+          qc = add(qc, cond);
+          qr = sub(qr, ern);
+
+          if (last) {
+            const T rd = s_rho[i];
+            wv[g] = mul(qv, rd);
+            cl[g] = mul(qc, rd);
+            pl[g] = mul(qr, rd);
+            temp_out[g] = mul(th, pk);
+          } else if (nchunk > 1) {
+            wv[g] = qv;
+            cl[g] = qc;
+            pl[g] = qr;
+            temp_out[g] = th;
+          } else {
+            s_th[i] = th;
+            s_qv[i] = qv;
+            s_qc[i] = qc;
+            s_qr[i] = qr;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (live && ty == 0)
+    precl[(int64_t)blockIdx.y * ncol + col] = precl_acc / T(rs);
+}
+
+// Levels staged at once for nz levels of T: all of them if they fit the
+// budget, else the most that do.
+int staged_levels(int nz, int item) {
+  const int fit = (SMEM_BUDGET - C * item) / ((NFIELD + 1) * C * item);
+  return nz < fit ? nz : fit;
+}
+
+template <typename T>
+int launch(const void* rho_d, const void* temp, const void* rho_v,
+           const void* rho_c, const void* rho_r, const void* rainsplit,
+           void* wv, void* cl, void* pl, void* temp_out, void* precl,
+           int nens, int nz, long long ncol, double dt, double dz, double Rd,
+           double Rv, double cp, double p0, void* stream) {
+  if (nz < 2 || nens < 1 || nens > 65535 || ncol < 1)
+    return cudaErrorInvalidValue;
+  const long long blocks = (ncol + C - 1) / C;
+  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  const int kc = staged_levels(nz, (int)sizeof(T));
+  const size_t smem = (size_t)(NFIELD * kc + kc + 1) * C * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      kessler_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const Consts k{dt, dz, Rd, Rv, p0, Rd / cp, cp / Rd, p0 / 100.0, 2.5e6,
+                 4093.0 * 2.5e6 / cp, cp};
+  kessler_kernel<T><<<dim3((unsigned)blocks, (unsigned)nens), dim3(C, L),
+                      smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(rho_d), static_cast<const T*>(temp),
+      static_cast<const T*>(rho_v), static_cast<const T*>(rho_c),
+      static_cast<const T*>(rho_r), static_cast<const int*>(rainsplit),
+      static_cast<T*>(wv), static_cast<T*>(cl), static_cast<T*>(pl),
+      static_cast<T*>(temp_out), static_cast<T*>(precl), nz, kc,
+      (int64_t)ncol, k);
   return cudaGetLastError();
 }
 
@@ -154,26 +325,35 @@ int launch(const void* th_in, const void* qv_in, const void* qc_in,
 
 extern "C" {
 
-int kessler_subcycle_f32(const void* th_in, const void* qv_in,
-                         const void* qc_in, const void* qr_in, const void* rho,
-                         const void* pk, const void* rainsplit, void* th,
-                         void* qv, void* qc, void* qr, void* precl, int nens,
-                         int nz, long long ncol, double dt, double dz,
-                         double Rd, double cp, double p0, void* stream) {
-  return launch<float>(th_in, qv_in, qc_in, qr_in, rho, pk, rainsplit, th, qv,
-                       qc, qr, precl, nens, nz, ncol, dt, dz, Rd, cp, p0,
-                       stream);
+int kessler_step_f32(const void* rho_d, const void* temp, const void* rho_v,
+                     const void* rho_c, const void* rho_r,
+                     const void* rainsplit, void* wv, void* cl, void* pl,
+                     void* temp_out, void* precl, int nens, int nz,
+                     long long ncol, double dt, double dz, double Rd,
+                     double Rv, double cp, double p0, void* stream) {
+  return launch<float>(rho_d, temp, rho_v, rho_c, rho_r, rainsplit, wv, cl,
+                       pl, temp_out, precl, nens, nz, ncol, dt, dz, Rd, Rv,
+                       cp, p0, stream);
 }
 
-int kessler_subcycle_f64(const void* th_in, const void* qv_in,
-                         const void* qc_in, const void* qr_in, const void* rho,
-                         const void* pk, const void* rainsplit, void* th,
-                         void* qv, void* qc, void* qr, void* precl, int nens,
-                         int nz, long long ncol, double dt, double dz,
-                         double Rd, double cp, double p0, void* stream) {
-  return launch<double>(th_in, qv_in, qc_in, qr_in, rho, pk, rainsplit, th,
-                        qv, qc, qr, precl, nens, nz, ncol, dt, dz, Rd, cp, p0,
-                        stream);
+int kessler_step_f64(const void* rho_d, const void* temp, const void* rho_v,
+                     const void* rho_c, const void* rho_r,
+                     const void* rainsplit, void* wv, void* cl, void* pl,
+                     void* temp_out, void* precl, int nens, int nz,
+                     long long ncol, double dt, double dz, double Rd,
+                     double Rv, double cp, double p0, void* stream) {
+  return launch<double>(rho_d, temp, rho_v, rho_c, rho_r, rainsplit, wv, cl,
+                        pl, temp_out, precl, nens, nz, ncol, dt, dz, Rd, Rv,
+                        cp, p0, stream);
+}
+
+// Levels of a column the kernel stages at once (nz when it is staged
+// whole), and its shared memory per block in bytes.
+int kessler_staged_levels(int nz, int item) { return staged_levels(nz, item); }
+
+long long kessler_smem_bytes(int nz, int item) {
+  const int kc = staged_levels(nz, item);
+  return (long long)(NFIELD * kc + kc + 1) * C * item;
 }
 
 const char* kessler_error_string(int err) {

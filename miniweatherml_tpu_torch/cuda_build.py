@@ -29,13 +29,13 @@ _BUILD = os.path.join(_PKG_DIR, "_build")
 # PyTorch versions, so a kernel and its plain version agree to the last
 # bits except inside pow/exp.  A source listed in FMAD_SOURCES writes its
 # arithmetic with round-to-nearest intrinsics instead and builds with
-# contraction on, so that its pow also rounds as PyTorch's (built that
-# way) does.  --split-compile=0 optimizes a file's kernels in parallel on
+# contraction on, so that its pow and exp also round as PyTorch's (built
+# that way) do.  --split-compile=0 optimizes a file's kernels in parallel on
 # every core (the flux kernel has 48 instantiations).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-FMAD_SOURCES = ("direction_fluxes",)
+FMAD_SOURCES = ("direction_fluxes", "kessler")
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

@@ -5,8 +5,9 @@ model/modules/microphysics_kessler.h): autoconversion + accretion,
 saturation adjustment, rain evaporation, and rain sedimentation with internal
 CFL sub-cycling.  The sub-cycle count is a global min reduction
 (``kessler_rainsplit``) that stays on the device; ``MicrophysicsKessler``
-hands it to ``kessler_cuda.kessler_subcycle``, which loops on the card
-without a host sync.  ``kessler_column`` is the whole scheme in plain
+hands it with the coupler's fields to ``kessler_cuda.kessler_step``, which
+runs the whole step (prep, passes, post) in one kernel on the card without a
+host sync.  ``kessler_column`` is the whole scheme in plain
 PyTorch on any z spacing, the counterpart of the JAX function of that name.
 """
 
@@ -16,7 +17,7 @@ import torch
 
 from ..core.coupler import CouplerState
 from .kessler_cuda import (_div, column_constants, kessler_pass,
-                           kessler_subcycle, terminal_velocity)
+                           kessler_step, terminal_velocity)
 
 __all__ = ["MicrophysicsKessler", "kessler_column", "kessler_rainsplit"]
 
@@ -51,38 +52,23 @@ class MicrophysicsKessler:
         """(reference microphysics_kessler.h:99-162)"""
         g = state.grid
         rho_d = state["density_dry"]
-        temp = state["temp"]
-        rho_v = state["water_vapor"]
-
-        qv = rho_v / rho_d
-        qc = state["cloud_liquid"] / rho_d
-        qr = state["precip_liquid"] / rho_d
-        pressure = self.R_d * rho_d * temp + self.R_v * rho_v * temp
-        exner = (pressure / self.p0) ** (self.R_d / self.cp_d)
-        theta = temp / exner
-        zmid = ((torch.arange(g.nz, dtype=temp.dtype, device=temp.device)
-                 + 0.5) * g.dz)[None, :, None, None]
-
-        # The sub-cycle kernel sediments with a scalar dz (reference
-        # kessler.h:296-299 uses z(k+1)-z(k)); a stretched vertical
-        # coordinate must not reach it.
+        # The kernel sediments with a scalar dz (reference kessler.h:296-299
+        # uses z(k+1)-z(k)); a stretched vertical coordinate must not reach
+        # it.
         if not isinstance(g.dz, float):
             raise ValueError("Kessler sub-cycling needs a uniform vertical "
                              "grid (scalar Grid.dz)")
-        rainsplit = kessler_rainsplit(qr, rho_d, zmid, dt)
-        theta, qv, qc, qr, precl = kessler_subcycle(
-            theta, qv, qc, qr, rho_d, exner, rainsplit, dt, g.dz,
-            self.R_d, self.cp_d, self.p0)
-
-        return state.replace_fields(
-            water_vapor=qv * rho_d,
-            cloud_liquid=qc * rho_d,
-            precip_liquid=qr * rho_d,
-            # theta is defined against the pre-micro exner (see reference
-            # microphysics_kessler.h:158-160)
-            temp=theta * exner,
-            precl=precl,
-        )
+        zmid = ((torch.arange(g.nz, dtype=rho_d.dtype, device=rho_d.device)
+                 + 0.5) * g.dz)[None, :, None, None]
+        rainsplit = kessler_rainsplit(state["precip_liquid"] / rho_d, rho_d,
+                                      zmid, dt)
+        rho_v, rho_c, rho_r, temp, precl = kessler_step(
+            rho_d, state["temp"], state["water_vapor"], state["cloud_liquid"],
+            state["precip_liquid"], rainsplit, dt, g.dz, self.R_d, self.R_v,
+            self.cp_d, self.p0)
+        return state.replace_fields(water_vapor=rho_v, cloud_liquid=rho_c,
+                                    precip_liquid=rho_r, temp=temp,
+                                    precl=precl)
 
 
 def kessler_rainsplit(qr, rho, z, dt, z_axis: int = 1):

@@ -1,11 +1,17 @@
-"""The Kessler scheme's sub-cycled column loop: CUDA kernel and plain version.
+"""One Kessler time step on the coupler's fields: CUDA kernel and plain
+version.
 
-``kessler_subcycle`` runs ``rainsplit`` passes of the KW1978 column physics.
+``kessler_step`` forms the mixing ratios, exner and theta from the coupler's
+densities and temperature, runs ``rainsplit`` passes of the KW1978 column
+physics, and returns the new densities, temperature and precipitation rate.
 On a CUDA tensor it launches ``csrc/kessler.cu`` (the port of the Pallas
-kernel ``miniweatherml_tpu/physics/kessler_pallas.py::kessler_subcycle_pallas``)
-with ``rainsplit`` read on the device; on a CPU tensor it runs
-``kessler_subcycle_plain``, the loop of ``kessler_column`` with a uniform dz.
-``kessler_pass`` is the one pass both plain loops share.
+kernel ``miniweatherml_tpu/physics/kessler_pallas.py::kessler_subcycle_pallas``
+with the prep and post that call fused into its reads) with ``rainsplit``
+read on the device; on a CPU tensor it runs ``kessler_step_plain``: the same
+prep, ``kessler_subcycle_plain`` (the loop of ``kessler_column`` with a
+uniform dz) and the same post.  ``kessler_pass`` is the one pass both plain
+loops share.  Every division by a number goes through ``_div``, so the plain
+version and the kernel divide alike on the card.
 """
 
 from __future__ import annotations
@@ -14,8 +20,8 @@ import ctypes
 
 import torch
 
-__all__ = ["kessler_subcycle", "kessler_subcycle_plain", "kessler_pass",
-           "terminal_velocity"]
+__all__ = ["kessler_step", "kessler_step_plain", "kessler_subcycle_plain",
+           "kessler_pass", "kessler_staging", "terminal_velocity"]
 
 _RHOQR = 1000.0  # liquid water density
 _LV = 2.5e6      # latent heat of vaporization
@@ -99,7 +105,9 @@ def column_constants(rho, pk, Rd, cp, p0, z_axis):
 
 def kessler_subcycle_plain(theta, qv, qc, qr, rho, pk, rainsplit, dt, dz, Rd,
                            cp, p0):
-    """Plain PyTorch version of ``kessler_subcycle`` (same arguments).
+    """``rainsplit`` passes of the KW1978 column physics on (nens, nz, ny,
+    nx) fields with a uniform dz: the kernel's loop in plain PyTorch.
+    Returns (theta, qv, qc, qr, precl) with precl shaped (nens, ny, nx).
     Reads ``rainsplit`` on the host."""
     nsub = int(rainsplit)
     dt0 = _div(dt, rainsplit.to(theta.dtype))
@@ -112,12 +120,41 @@ def kessler_subcycle_plain(theta, qv, qc, qr, rho, pk, rainsplit, dt, dz, Rd,
     return theta, qv, qc, qr, (precl / rainsplit.to(theta.dtype))[:, 0]
 
 
+def _prep(rho_d, temp, rho_v, rho_c, rho_r, Rd, Rv, cp, p0):
+    """(theta, qv, qc, qr, exner) of the coupler's fields (reference
+    microphysics_kessler.h:99-152)."""
+    qv = rho_v / rho_d
+    qc = rho_c / rho_d
+    qr = rho_r / rho_d
+    pressure = Rd * rho_d * temp + Rv * rho_v * temp
+    exner = _div(pressure, p0) ** (Rd / cp)
+    return temp / exner, qv, qc, qr, exner
+
+
+def kessler_step_plain(rho_d, temp, rho_v, rho_c, rho_r, rainsplit, dt, dz,
+                       Rd, Rv, cp, p0):
+    """Plain PyTorch version of ``kessler_step`` (same arguments): the prep,
+    ``kessler_subcycle_plain``, and the post.  Reads ``rainsplit`` on the
+    host."""
+    theta, qv, qc, qr, exner = _prep(rho_d, temp, rho_v, rho_c, rho_r, Rd,
+                                     Rv, cp, p0)
+    theta, qv, qc, qr, precl = kessler_subcycle_plain(
+        theta, qv, qc, qr, rho_d, exner, rainsplit, dt, dz, Rd, cp, p0)
+    # theta is defined against the pre-micro exner (reference
+    # microphysics_kessler.h:158-160)
+    return qv * rho_d, qc * rho_d, qr * rho_d, theta * exner, precl
+
+
 def _bind(lib):
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for name in ("kessler_subcycle_f32", "kessler_subcycle_f64"):
+    for name in ("kessler_step_f32", "kessler_step_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = ([P] * 12 + [I, I, ctypes.c_longlong] + [D] * 5 + [P])
+        fn.argtypes = [P] * 11 + [I, I, ctypes.c_longlong] + [D] * 6 + [P]
         fn.restype = I
+    lib.kessler_staged_levels.argtypes = [I, I]
+    lib.kessler_staged_levels.restype = I
+    lib.kessler_smem_bytes.argtypes = [I, I]
+    lib.kessler_smem_bytes.restype = ctypes.c_longlong
     lib.kessler_error_string.argtypes = [I]
     lib.kessler_error_string.restype = ctypes.c_char_p
     return lib
@@ -134,56 +171,72 @@ def _library():
     return _lib
 
 
-def kessler_subcycle(theta, qv, qc, qr, rho, pk, rainsplit, dt, dz, Rd, cp,
-                     p0):
-    """Run ``rainsplit`` passes of the KW1978 column loop.
+def kessler_staging(nz: int, dtype) -> tuple[int, int]:
+    """(levels staged at once, shared memory per block in bytes) of the
+    kernel for columns of ``nz`` levels of ``dtype``: nz itself when a
+    column is staged whole.  Builds the kernel's library."""
+    item = torch.empty((), dtype=dtype).element_size()
+    lib = _library()
+    return lib.kessler_staged_levels(nz, item), lib.kessler_smem_bytes(nz,
+                                                                       item)
+
+
+def kessler_step(rho_d, temp, rho_v, rho_c, rho_r, rainsplit, dt, dz, Rd,
+                 Rv, cp, p0):
+    """One Kessler time step on the coupler's fields.
 
     Args:
-      theta, qv, qc, qr, rho, pk: (nens, nz, ny, nx), bottom-up columns.
+      rho_d, temp, rho_v, rho_c, rho_r: (nens, nz, ny, nx) dry density,
+        temperature and the densities of vapor, cloud and rain; bottom-up
+        columns.
       rainsplit: 0-d int32 tensor on the same device (the global sub-cycle
         count from ``kessler_rainsplit``).
-      dt: physics step; dz: the uniform layer thickness; Rd, cp, p0: gas
-        constant, heat capacity and reference pressure of dry air.
+      dt: physics step; dz: the uniform layer thickness; Rd, Rv, cp, p0: the
+        gas constants of dry air and vapor, the heat capacity of dry air and
+        the reference pressure.
 
-    Returns (theta, qv, qc, qr, precl) with precl shaped (nens, ny, nx).
+    Returns the new (rho_v, rho_c, rho_r, temp) and precl, shaped
+    (nens, ny, nx).  CPU tensors take ``kessler_step_plain``; CUDA tensors
+    launch ``csrc/kessler.cu``.
     """
-    if theta.device.type == "cpu":
-        return kessler_subcycle_plain(theta, qv, qc, qr, rho, pk, rainsplit,
-                                      dt, dz, Rd, cp, p0)
-    if theta.device.type != "cuda":
-        raise ValueError(f"unsupported device {theta.device}")
-    if theta.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dtype {theta.dtype} is not float32/float64")
-    if theta.dim() != 4 or theta.shape[1] < 2:
+    if rho_d.device.type == "cpu":
+        return kessler_step_plain(rho_d, temp, rho_v, rho_c, rho_r,
+                                  rainsplit, dt, dz, Rd, Rv, cp, p0)
+    if rho_d.device.type != "cuda":
+        raise ValueError(f"unsupported device {rho_d.device}")
+    if rho_d.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dtype {rho_d.dtype} is not float32/float64")
+    if rho_d.dim() != 4 or rho_d.shape[1] < 2:
         raise ValueError(f"fields must be (nens, nz>=2, ny, nx), got "
-                         f"{tuple(theta.shape)}")
-    for name, t in (("theta", theta), ("qv", qv), ("qc", qc), ("qr", qr),
-                    ("rho", rho), ("pk", pk)):
-        if (t.device != theta.device or t.dtype != theta.dtype
-                or t.shape != theta.shape or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {theta.dtype} "
-                             f"tensor of shape {tuple(theta.shape)} on "
-                             f"{theta.device}")
-    if (rainsplit.device != theta.device or rainsplit.dtype != torch.int32
+                         f"{tuple(rho_d.shape)}")
+    for name, t in (("rho_d", rho_d), ("temp", temp), ("rho_v", rho_v),
+                    ("rho_c", rho_c), ("rho_r", rho_r)):
+        if (t.device != rho_d.device or t.dtype != rho_d.dtype
+                or t.shape != rho_d.shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {rho_d.dtype} "
+                             f"tensor of shape {tuple(rho_d.shape)} on "
+                             f"{rho_d.device}")
+    if (rainsplit.device != rho_d.device or rainsplit.dtype != torch.int32
             or rainsplit.numel() != 1):
         raise ValueError("rainsplit must be one int32 on the fields' device")
-    nens, nz, ny, nx = theta.shape
-    outs = [torch.empty_like(theta) for _ in range(4)]
-    precl = torch.empty((nens, ny, nx), dtype=theta.dtype, device=theta.device)
+    nens, nz, ny, nx = rho_d.shape
+    outs = [torch.empty_like(rho_d) for _ in range(4)]
+    precl = torch.empty((nens, ny, nx), dtype=rho_d.dtype,
+                        device=rho_d.device)
     lib = _library()
-    fn = (lib.kessler_subcycle_f32 if theta.dtype == torch.float32
-          else lib.kessler_subcycle_f64)
-    stream = torch.cuda.current_stream(theta.device).cuda_stream
-    rc = fn(theta.data_ptr(), qv.data_ptr(), qc.data_ptr(), qr.data_ptr(),
-            rho.data_ptr(), pk.data_ptr(), rainsplit.data_ptr(),
-            *(o.data_ptr() for o in outs), precl.data_ptr(),
-            nens, nz, ny * nx, float(dt), float(dz), float(Rd), float(cp),
+    fn = (lib.kessler_step_f32 if rho_d.dtype == torch.float32
+          else lib.kessler_step_f64)
+    stream = torch.cuda.current_stream(rho_d.device).cuda_stream
+    rc = fn(rho_d.data_ptr(), temp.data_ptr(), rho_v.data_ptr(),
+            rho_c.data_ptr(), rho_r.data_ptr(), rainsplit.data_ptr(),
+            *(o.data_ptr() for o in outs), precl.data_ptr(), nens, nz,
+            ny * nx, float(dt), float(dz), float(Rd), float(Rv), float(cp),
             float(p0), stream)
     if rc != 0:
         raise RuntimeError("kessler kernel launch failed: "
                            + lib.kessler_error_string(rc).decode())
-    kessler_subcycle.launches += 1
+    kessler_step.launches += 1
     return (*outs, precl)
 
 
-kessler_subcycle.launches = 0
+kessler_step.launches = 0

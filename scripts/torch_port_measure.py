@@ -5,6 +5,7 @@ Usage (from the root of a checkout, on a machine with the card):
   python scripts/torch_port_measure.py flux    [--root DIR] [--reps N]
   python scripts/torch_port_measure.py cells   [--root DIR]
   python scripts/torch_port_measure.py profile [--root DIR]
+  python scripts/torch_port_measure.py kernels [--root DIR] [--reps N]
 
 ``--root`` names the tree whose ``miniweatherml_tpu_torch`` and
 ``chip_smoke.py`` are imported (default: this checkout), so two trees are
@@ -20,6 +21,13 @@ compared by running the script once per tree in one call, in turns.
            step, by kernel family (flux, FCT, microphysics, elementwise
            glue, copies and reductions), and the device's idle share of the
            profiled span, for the same three chains.
+  kernels  fct_mult per call on the Kessler (3 tracers), P3 (9) and city
+           (1 x nens 2) f32 states with each chain's own positive flags,
+           beside its bytes bound; and on the Kessler chain's 512x512x64
+           f32 state after one step, the microphysics kernel alone and
+           MicrophysicsKessler.time_step whole (kernel plus rainsplit glue).
+           A tree from before the fused Kessler step times its sub-cycle
+           kernel on the same fields, prepared as its time_step does.
 
 Each mode prints one JSON line (prefixed "RESULT ") with the card's name and
 power limit.
@@ -80,6 +88,90 @@ def mode_flux(cs, reps):
                       f"{ms:.4f} ms", flush=True)
             del state, prim, hy, dycore
             torch.cuda.empty_cache()
+    return out
+
+
+HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
+
+
+def _fct_mult_case(cs, chain):
+    """fct_mult's arguments at the stage dt on a chain's f32 state."""
+    from miniweatherml_tpu_torch.ops.direction_fluxes import (
+        IDU, IDV, IDW, direction_fluxes)
+    state, _, dycore = cs._flux_state(chain, "float32")
+    prim = cs._prim(state, dycore)
+    g, c = state.grid, dycore._consts(state)
+    hy = dycore._hy(state)
+    faces = {}
+    for axis, n, bc, nid, d, hr, ht in (
+            (-1, g.nx, c.bc_x, IDU, g.dx, hy[0], hy[1]),
+            (-2, g.ny, c.bc_y, IDV, g.dy, hy[0], hy[1]),
+            (-3, g.nz, c.bc_z, IDW, g.dz, hy[2], hy[3])):
+        faces[axis] = direction_fluxes(prim, axis, n, bc, nid, c.C0,
+                                       c.gamma, hr, ht, dycore.mats, 0.0,
+                                       1.0 / d)[1]
+    flags = tuple(t.positive for t in state.meta.tracers)
+    return (state.tracer_stack().contiguous(), flags, faces[-1], faces[-2],
+            faces[-3], dycore.compute_time_step(state), g.dx, g.dy, g.dz)
+
+
+def _bytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def mode_kernels(cs, reps):
+    import torch
+    from miniweatherml_tpu_torch.experiments.supercell_example import build
+    from miniweatherml_tpu_torch.ops.fct import fct_mult
+    from miniweatherml_tpu_torch.physics import kessler_cuda as KC
+    from miniweatherml_tpu_torch.physics.kessler import kessler_rainsplit
+    out = {}
+    for chain in ("kessler", "p3", "city"):
+        args = _fct_mult_case(cs, chain)
+        ms = _median_ms(lambda: fct_mult(*args), reps)
+        tr = args[0]
+        bound = 1e3 * _bytes(*args[:1], *args[2:5], tr) / HBM_BYTES_S
+        out[f"fct_mult {chain}"] = {"ms": ms, "bound_ms": bound,
+                                    "share": bound / ms,
+                                    "shape": list(tr.shape)}
+        print(f"fct_mult {chain} {tuple(tr.shape)}: {ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({bound / ms:.1%})", flush=True)
+        del args, tr
+        torch.cuda.empty_cache()
+
+    state, mods, dycore = build(cs._bench_cfg(512, 512, 64, 1, "float32"),
+                                "cuda")
+    dt = dycore.compute_time_step(state)
+    for m in mods:
+        state = m(state, dt)
+    g = state.grid
+    rho_d = state["density_dry"]
+    zmid = ((torch.arange(g.nz, dtype=rho_d.dtype, device="cuda") + 0.5)
+            * g.dz)[None, :, None, None]
+    rs = kessler_rainsplit(state["precip_liquid"] / rho_d, rho_d, zmid, dt)
+    fields = [state[k] for k in ("density_dry", "temp", "water_vapor",
+                                 "cloud_liquid", "precip_liquid")]
+    R_d, R_v, cp, p0 = 287.0, 461.0, 1003.0, 1e5
+    if hasattr(KC, "kessler_step"):
+        kernel = "kessler_step"
+        ms = _median_ms(lambda: KC.kessler_step(*fields, rs, dt, g.dz, R_d,
+                                                R_v, cp, p0), reps)
+    else:  # the sub-cycle kernel of a tree before the fused step
+        kernel = "kessler_subcycle"
+        rd, temp, rv, rc, rr = fields
+        exner = ((R_d * rd * temp + R_v * rv * temp) / p0) ** (R_d / cp)
+        sub = (temp / exner, rv / rd, rc / rd, rr / rd, rd, exner)
+        ms = _median_ms(lambda: KC.kessler_subcycle(*sub, rs, dt, g.dz, R_d,
+                                                    cp, p0), reps)
+    step_ms = _median_ms(lambda: mods[1](state, dt), reps)
+    cells = rho_d.numel()
+    bound = 1e3 * (9 * cells + cells // g.nz) * 4 / HBM_BYTES_S
+    out["kessler"] = {"kernel": kernel, "rainsplit": int(rs),
+                      "kernel_ms": ms, "time_step_ms": step_ms,
+                      "bound_ms": bound, "share": bound / ms}
+    print(f"kessler 512x512x64 f32 rainsplit {int(rs)}: {kernel} {ms:.4f} "
+          f"ms, MicrophysicsKessler.time_step {step_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({bound / ms:.1%} for the kernel)", flush=True)
     return out
 
 
@@ -182,7 +274,7 @@ def mode_profile(cs):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("mode", choices=("flux", "cells", "profile"))
+    ap.add_argument("mode", choices=("flux", "cells", "profile", "kernels"))
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=10)
@@ -201,7 +293,8 @@ def main() -> int:
     t0 = time.perf_counter()
     res = {"flux": lambda: mode_flux(cs, a.reps),
            "cells": lambda: mode_cells(cs),
-           "profile": lambda: mode_profile(cs)}[a.mode]()
+           "profile": lambda: mode_profile(cs),
+           "kernels": lambda: mode_kernels(cs, a.reps)}[a.mode]()
     print("RESULT " + json.dumps({
         "mode": a.mode, "root": a.root, "card": _card(),
         "seconds": time.perf_counter() - t0, "result": res}), flush=True)

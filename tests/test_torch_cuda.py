@@ -21,7 +21,7 @@ from miniweatherml_tpu_torch.ops.direction_fluxes import (
 from miniweatherml_tpu_torch.ops.weno import weno_matrices
 from miniweatherml_tpu_torch.physics.kessler import kessler_rainsplit
 from miniweatherml_tpu_torch.physics.kessler_cuda import (
-    kessler_subcycle, kessler_subcycle_plain)
+    kessler_staging, kessler_step, kessler_step_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -102,34 +102,78 @@ def test_direction_fluxes_rejects_bad_input(cuda_device):
                          weno_matrices(5), 0.0, 1.0)
 
 
-def _columns(dtype, device):
-    """Moist columns with heavy rain, (nens=2, nz=32, ny=2, nx=3)."""
-    rng = np.random.default_rng(3)
-    shape = (2, 32, 2, 3)
-    z = ((np.arange(32) + 0.5) * 500.0)[None, :, None, None]
+def _coupler_columns(shape, dtype, device, seed=3):
+    """Moist columns as the coupler holds them (rho_d, temp, rho_v, rho_c,
+    rho_r), spanning 8 km over shape[1] levels, and the level heights: heavy
+    rain in two columns of three, none in the third, and cloud below 5 km
+    with some -0.0 above it (the kernel's zero shortcuts must keep signs)."""
+    rng = np.random.default_rng(seed)
+    nz = shape[1]
+    dz = 8000.0 / nz
+    z = ((np.arange(nz) + 0.5) * dz)[None, :, None, None]
     rho = 1.2 * np.exp(-z / 8000.0) * np.ones(shape)
-    pk = np.exp(-z / 8000.0) ** (287.0 / 1003.0) * np.ones(shape)
-    theta = 300.0 + 10.0 * z / 20000.0 + rng.uniform(0, 1, shape)
-    qv = 0.016 * np.exp(-z / 3000.0) * np.ones(shape)
-    qc = np.where(z < 5000.0, 1e-4, 0.0) * np.ones(shape)
-    qr = np.where(z < 3000.0, 5e-4, 0.0) + 5e-3 * rng.random(shape)
+    temp = 300.0 - 0.0065 * z + rng.uniform(0, 1, shape)
+    qv = 0.016 * np.exp(-z / 3000.0) * (0.9 + 0.2 * rng.random(shape))
+    qc = np.where(z < 5000.0, 1e-4, 0.0) * rng.random(shape)
+    qc[(rng.random(shape) < 0.2) & (qc == 0.0)] = -0.0
+    wet = np.arange(shape[3]) % 3 != 2
+    qr = (np.where(z < 3000.0, 5e-4, 0.0) + 5e-3 * rng.random(shape)) * wet
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()
-    return [t(a) for a in (theta, qv, qc, qr, rho, pk)], t(z)
+    return [t(a) for a in (rho, temp, qv * rho, qc * rho, qr * rho)], t(z), dz
 
 
-def test_kessler_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("several", [False, True])
+@pytest.mark.parametrize("nz", [2, 64, 100, 101])
+def test_kessler_kernel_matches_plain(nz, several, cuda_device):
+    """The fused step against kessler_step_plain, nens 2 and 3x37 columns
+    (no multiple of the block's 32), f64 and f32, bit for bit.  nz: the
+    fewest levels, the chain's 64 and 100, and one above the most staged
+    whole in f32 (101 = 100 + 1; in f64 64 = 50 + 14 and 101 = 50 + 50 +
+    1); dt 2 s gives one sub-cycle, 0.3 s per metre of dz several."""
     for dtype in (torch.float64, torch.float32):
-        (theta, qv, qc, qr, rho, pk), z = _columns(dtype, cuda_device)
-        rs = kessler_rainsplit(qr, rho, z, 120.0)
-        assert int(rs) > 1
-        args = (theta, qv, qc, qr, rho, pk, rs, 120.0, 500.0, 287.0, 1003.0,
-                1e5)
-        n0 = kessler_subcycle.launches
-        got = kessler_subcycle(*args)
-        assert kessler_subcycle.launches == n0 + 1
-        for a, b in zip(kessler_subcycle_plain(*args), got):
-            assert a.shape == b.shape
-            assert _rel(a, b) <= TOL[dtype], dtype
+        fields, z, dz = _coupler_columns((2, nz, 3, 37), dtype, cuda_device)
+        dt = 0.3 * dz if several else 2.0
+        rs = kessler_rainsplit(fields[4] / fields[0], fields[0], z, dt)
+        assert (int(rs) > 1) == several, int(rs)
+        args = (*fields, rs, dt, dz, 287.0, 461.0, 1003.0, 1e5)
+        n0 = kessler_step.launches
+        got = kessler_step(*args)
+        assert kessler_step.launches == n0 + 1
+        for i, (a, b) in enumerate(zip(kessler_step_plain(*args), got)):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert _rel(a, b) <= TOL[dtype], (dtype, i)
+            assert torch.equal(a, b), (dtype, i)
+
+
+def test_kessler_staging(cuda_device):
+    """Columns up to 100 levels in f32 and 50 in f64 are staged whole, at
+    most two blocks' worth of shared memory per SM."""
+    for nz, dtype, kc in ((64, torch.float32, 64), (100, torch.float32, 100),
+                          (101, torch.float32, 100), (50, torch.float64, 50),
+                          (64, torch.float64, 50)):
+        staged, smem = kessler_staging(nz, dtype)
+        assert staged == kc, (nz, dtype)
+        assert 2 * (smem + 1024) <= 228 * 1024
+
+
+def test_kessler_rejects_bad_input(cuda_device):
+    fields, z, dz = _coupler_columns((1, 8, 2, 4), torch.float32,
+                                     cuda_device)
+    rs = torch.ones((), dtype=torch.int32, device=cuda_device)
+    tail = (1.0, dz, 287.0, 461.0, 1003.0, 1e5)
+    with pytest.raises(ValueError, match="contiguous"):
+        kessler_step(fields[0], fields[1].transpose(2, 3).contiguous()
+                     .transpose(2, 3), *fields[2:], rs, *tail)
+    with pytest.raises(ValueError, match="temp"):
+        kessler_step(fields[0], fields[1].double(), *fields[2:], rs, *tail)
+    with pytest.raises(ValueError, match="rho_v"):
+        kessler_step(*fields[:2], fields[2].cpu(), *fields[3:], rs, *tail)
+    with pytest.raises(TypeError):
+        kessler_step(*(f.half() for f in fields), rs, *tail)
+    with pytest.raises(ValueError, match="nz>=2"):
+        kessler_step(*(f[:, :1].contiguous() for f in fields), rs, *tail)
+    with pytest.raises(ValueError, match="rainsplit"):
+        kessler_step(*fields, rs.long(), *tail)
 
 
 def test_slice_on_card_matches_cpu(cuda_device):
@@ -144,13 +188,13 @@ def test_slice_on_card_matches_cpu(cuda_device):
     for device in ("cpu", cuda_device):
         state, mods, dycore = build(cfg, device)
         dt = dycore.compute_time_step(state)
-        n0 = (direction_fluxes.launches, kessler_subcycle.launches)
+        n0 = (direction_fluxes.launches, kessler_step.launches)
         for _ in range(3):
             for m in mods:
                 state = m(state, dt)
         states.append(state)
     assert direction_fluxes.launches - n0[0] == 3 * 3 * 3
-    assert kessler_subcycle.launches - n0[1] == 3
+    assert kessler_step.launches - n0[1] == 3
     for name, a in states[0].fields.items():
         a = a.numpy()
         b = states[1][name].cpu().numpy()
@@ -349,6 +393,77 @@ def test_fct_kernels_match_plain(dtype, cuda_device):
             assert _rel(want, got) <= TOL[dtype], (axis, form)
             if rk is not None:
                 assert got[0].min() == 0.0 and got[1].min() < 0.0
+
+
+def _mult_case(ntr, nens, nz, ny, nx, dtype, device, rng, two_d):
+    """tr and faces of an fct_mult call, with zeros of both signs among the
+    faces and tracers (zero dividends take the kernel's shortcut); ny = 1
+    and no Fy in 2-D."""
+    shape = (ntr, nens, nz, 1 if two_d else ny, nx)
+    tr, F, _, _, _ = _fct_inputs(shape, dtype, device, rng)
+
+    def neg_zeros(a):
+        hit = torch.as_tensor(rng.random(tuple(a.shape)) < 0.05,
+                              device=a.device)
+        return torch.where(hit, torch.full_like(a, -0.0), a)
+    tr, F = neg_zeros(tr), {k: neg_zeros(v) for k, v in F.items()}
+    return tr, F[-1], None if two_d else F[-2], F[-3]
+
+
+@pytest.mark.parametrize("nx", [1, 3, 70, 128, 513, 1040])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fct_mult_kernel_equals_plain(dtype, nx, cuda_device):
+    """fct_mult bit for bit against fct_mult_plain: 3-D and 2-D (Fy None),
+    nens 2, mixed flags, no tracer flagged, 64 tracers with bit 63 set; row
+    lengths that are and are not whole 16-byte vectors (and 1040 in f32: two
+    sweeps of a 256-thread row), and arrays that are not 16-byte aligned."""
+    from miniweatherml_tpu_torch.ops import fct
+
+    rng = np.random.default_rng(nx)
+    flags64 = tuple(i % 5 == 0 or i == 63 for i in range(64))
+    cases = [(FCT_POSITIVE, 2, 3, 4, two_d) for two_d in (False, True)]
+    cases += [((False,) * 3, 2, 3, 4, False), (flags64, 1, 2, 2, False)]
+    for flags, nens, nz, ny, two_d in cases:
+        tr, Fx, Fy, Fz = _mult_case(len(flags), nens, nz, ny, nx, dtype,
+                                    cuda_device, rng, two_d)
+        for shifted in (False, True):
+            if shifted:  # the same values one element into their storage
+                tr, Fx, Fz = (torch.cat([a.new_zeros(1), a.flatten()])[1:]
+                              .view(a.shape) for a in (tr, Fx, Fz))
+                assert tr.data_ptr() % 16 != 0
+            args = (tr, flags, Fx, Fy, Fz, 0.37, 5.0, 4.0, 2.5)
+            n0 = fct.fct_mult.launches
+            got = fct.fct_mult(*args)
+            assert fct.fct_mult.launches == n0 + 1
+            want = fct.fct_mult_plain(*args)
+            where = (len(flags), nens, nz, two_d, shifted)
+            assert got.shape == want.shape and got.dtype == want.dtype
+            assert torch.equal(got, want), where
+            if any(flags):
+                assert (want < 1.0).any(), where
+            else:
+                assert bool((got == 1.0).all()), where
+
+
+def test_fct_mult_rejects_bad_input(cuda_device):
+    from miniweatherml_tpu_torch.ops import fct
+
+    rng = np.random.default_rng(4)
+    tr, Fx, Fy, Fz = _mult_case(len(FCT_POSITIVE), 1, 4, 6, 8, torch.float32,
+                                cuda_device, rng, False)
+    rest = (0.37, 5.0, 4.0, 2.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        fct.fct_mult(tr.transpose(3, 4).contiguous().transpose(3, 4),
+                     FCT_POSITIVE, Fx, Fy, Fz, *rest)
+    with pytest.raises(TypeError):
+        fct.fct_mult(tr, FCT_POSITIVE, Fx.double(), Fy, Fz, *rest)
+    with pytest.raises(TypeError):
+        fct.fct_mult(tr.half(), FCT_POSITIVE, Fx.half(), Fy.half(),
+                     Fz.half(), *rest)
+    with pytest.raises(ValueError, match="device"):
+        fct.fct_mult(tr, FCT_POSITIVE, Fx, Fy, Fz.cpu(), *rest)
+    with pytest.raises(ValueError, match="shape"):
+        fct.fct_mult(tr, FCT_POSITIVE, Fx, Fz, Fy, *rest)
 
 
 def test_fct_rejects_bad_input(cuda_device):
