@@ -38,7 +38,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (written to chip_smoke_out/);
   8. the three P3 lookup kernels against their plain versions at 512x512x64
      cells, at every column count K of the P3 path, on index sets from
-     seeded physical inputs that reach the tables' clip ranges;
+     seeded physical inputs that reach the tables' clip ranges, then the
+     ice and collection kernels on the index sets that one step of the
+     early-storm, the mixed-regime and the all-active P3 chain hands them,
+     each timed beside its bound with its registers and shared memory per
+     block;
   9. the P3 per-cell kernel's three phases against their plain versions on
      the inputs one P3 step hands them, on the seeded mixed-regime
      512x512x64 state, f32 and f64;
@@ -65,9 +69,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 Tolerance of a kernel against its plain version: max|kernel - plain| over
 max|plain| of each output below 1e-12 in f64 and 1e-5 in f32 (the JAX
 suite's own f32 bound between its paths, tests/test_pallas.py:260,311);
-the direction-flux kernel and fct_mult must also equal their plain versions
-bit for bit; the Kessler step prints whether it does, and the count and size
-in ulps of any value that rounds apart.
+the direction-flux kernel, fct_mult and the three P3 lookups must also equal
+their plain versions bit for bit; the Kessler step prints whether it does,
+and the count and size in ulps of any value that rounds apart.
 A slice on the card against the port's CPU run: 1e-7 of each field's scale
 (1e-9 for the one-step building and city slices, phase 16).
 
@@ -106,13 +110,20 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     return err, err / max(a.double().abs().max().item(), 1e-300)
 
 
+# device cycles (~1 ms) that a timed call is queued behind, so that its
+# events time the card's work and not the host's launch
+QUEUE_CYCLES = 2_000_000
+
+
 def _time_ms(fn, reps: int = 5) -> float:
-    """Median of ``reps`` CUDA-event timings of one call, after a warm call."""
+    """Median of ``reps`` CUDA-event timings of one call, after a warm call;
+    each call is queued behind ``QUEUE_CYCLES`` of device sleep."""
     fn()
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -813,8 +824,102 @@ def _p3_lookup_inputs(n, dtype, seed=13):
     return idx, jr, rs
 
 
+def _lookup_resources(name, K, dtype):
+    """(registers, shared memory per block in bytes) of the kernel that a
+    lookup of K columns launches (ptxas report; the ice kernel's staged
+    table)."""
+    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as LK
+    t = "f" if dtype == torch.float32 else "d"
+    w = LK.vec_width(K, dtype)
+    smem = 0
+    if name == "interp_ice":
+        smem = LK.launch_config("ice", K, dtype, 1)[2]
+        pat = f"ice_kernelI{t}Li{w}EE"
+    elif name == "interp_collect":
+        smem = LK.launch_config("collect", K, dtype, 1)[2]
+        pat = f"collect_kernelI{t}Li{w}E"
+    else:
+        pat = f"rain_kernelI{t}E"
+    regs = [r for m, r, *_ in _ptxas_report("p3_lookup") if pat in m]
+    if len(regs) != 1:
+        raise AssertionError(f"no single entry function {pat} in p3_lookup")
+    return regs[0], smem
+
+
+def _lookup_check(name, label, kern, plain, args, present, dtype, n):
+    """One lookup call against its plain version, bit for bit (else the
+    count and size in ulps of the values that differ, and a failure), then
+    timed beside its bound; returns (max abs err, ms, plain ms, bound ms,
+    bound_by)."""
+    ref = plain(*args, present=present)
+    got = kern(*args, present=present)
+    torch.cuda.synchronize()
+    err = _rel(ref, got)[0]
+    diff, ulps = _ulps(ref, got)
+    nbytes = _nbytes(args, got)
+    del ref, got
+    ms = _time_ms(lambda: kern(*args, present=present))
+    pms = _time_ms(lambda: plain(*args, present=present), reps=3)
+    K = args[0].shape[0]
+    # ~40 operations per cell and column (index clamps, weights, the
+    # multilinear blend; csrc/p3_lookup.cu)
+    bms, by = _bound(nbytes, 40 * K * n, dtype)
+    regs, smem = _lookup_resources(name, K, dtype)
+    print(f"[8] {name} {label} K={K} {_dtype_name(dtype)}: "
+          + ("bit for bit" if diff == 0 else
+             f"DIFFERENT in {diff} values, at most {ulps:.0f} ulp")
+          + f"; kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
+          f"({by}), {bms / ms:.1%} of the bound; {regs} registers, {smem} B "
+          f"shared per block", flush=True)
+    if diff:
+        raise AssertionError(f"{name} {label} {dtype}: {diff} values differ "
+                             f"from the plain version")
+    return err, ms, pms, bms, by
+
+
+def _p3_step_lookups(build, dtype):
+    """The ice and collection lookup calls that one step of a 512x512x64
+    P3 chain makes (``build``: supercell_p3.build, the early storm, or
+    _p3_active_build, every cell seeded): [(name, args, present)] in call
+    order."""
+    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as LK
+    state, mods, dycore = build(_bench_cfg(512, 512, 64, 1, dtype), "cuda")
+    real = {"interp_ice": LK.interp_ice, "interp_collect": LK.interp_collect}
+    seen = []
+
+    def spy(name, nargs):
+        def call(*args, present=None):
+            if len(args) > nargs:  # present passed by position
+                args, present = args[:nargs], args[nargs]
+            seen.append((name, args, present))
+            return real[name](*args, present=present)
+        call.launches = 0  # the wrapper counts on its module-level name
+        return call
+    LK.interp_ice = spy("interp_ice", 7)
+    LK.interp_collect = spy("interp_collect", 9)
+    try:
+        dt = dycore.compute_time_step(state)
+        for m in mods:
+            state = m(state, dt)
+    finally:
+        LK.interp_ice, LK.interp_collect = (real["interp_ice"],
+                                            real["interp_collect"])
+    return seen
+
+
+def _p3_step_chains():
+    """(label, build) of the P3 chains whose lookup index sets phase 8
+    checks and times: the main cell's early storm, the mixed-regime seeds
+    of phase 9 and every cell seeded."""
+    from miniweatherml_tpu_torch.experiments import supercell_p3
+    return (("early-storm", supercell_p3.build),
+            ("mixed", _p3_mixed_build), ("all-active", _p3_active_build))
+
+
 def phase_p3_lookups():
-    """Each lookup kernel at every K of the path, 512x512x64 cells."""
+    """Each lookup kernel at every K of the path, 512x512x64 cells, on the
+    seeded index sets, then the ice and collection kernels on the index
+    sets one step of each of _p3_step_chains hands them."""
     from miniweatherml_tpu_torch.physics import p3_lookup_cuda as LK
     from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
 
@@ -822,7 +927,7 @@ def phase_p3_lookups():
     n = 512 * 512 * 64
     recs = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
             for k in ("interp_ice", "interp_collect", "interp_rain")}
-    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+    for dtype in (torch.float32, torch.float64):
         dev = tables.to("cuda", dtype)
         idx, jr, rs = _p3_lookup_inputs(n, dtype)
         present = torch.tensor(True, device="cuda")
@@ -834,26 +939,12 @@ def phase_p3_lookups():
         calls += [("interp_rain", label, LK.interp_rain, LK.interp_rain_plain,
                    (dev.rain_rows(rows), *rs)) for label, rows in RAIN_CALLS]
         for name, label, kern, plain, args in calls:
-            ref = plain(*args, present=present)
-            got = kern(*args, present=present)
-            torch.cuda.synchronize()
-            err, rel = _rel(ref, got)
-            nbytes = _nbytes(args, got)
-            del ref, got
-            ms = _time_ms(lambda: kern(*args, present=present))
-            pms = _time_ms(lambda: plain(*args, present=present), reps=3)
-            print(f"[8] {name} {label} K={args[0].shape[0]} {dtype}: max abs "
-                  f"err {err:.3e}, rel {rel:.3e} (tol {tol:g}); kernel "
-                  f"{ms:.3f} ms, plain {pms:.3f} ms", flush=True)
-            if not rel <= tol:
-                raise AssertionError(f"{name} {label} {dtype}: rel {rel:.3e}")
+            err, ms, pms, bms, by = _lookup_check(name, label, kern, plain,
+                                                  args, present, dtype, n)
             if dtype == torch.float32:
                 r = recs[name]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
                 if r["ms"] == 0.0:  # the first call site of the family
-                    # ~40 operations per cell and column (index clamps,
-                    # weights, the multilinear blend; csrc/p3_lookup.cu)
-                    bms, by = _bound(nbytes, 40 * args[0].shape[0] * n, dtype)
                     r.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
         off = LK.interp_ice(dev.ice_cols((2,)), *idx,
                             present=torch.tensor(False, device="cuda"))
@@ -861,6 +952,22 @@ def phase_p3_lookups():
             raise AssertionError("interp_ice wrote values with present=False")
         del idx, jr, rs, calls
         torch.cuda.empty_cache()
+    plain = {"interp_ice": LK.interp_ice_plain,
+             "interp_collect": LK.interp_collect_plain}
+    kern = {"interp_ice": LK.interp_ice, "interp_collect": LK.interp_collect}
+    for chain, build in _p3_step_chains():
+        for dtype in ("float32", "float64"):
+            seen = _p3_step_lookups(build, dtype)
+            names = [name for name, *_ in seen]
+            if "interp_ice" not in names or "interp_collect" not in names:
+                raise AssertionError(f"{chain} P3 step made lookups {names}")
+            for i, (name, args, present) in enumerate(seen):
+                gate = "" if present is None else f", present {bool(present)}"
+                _lookup_check(name, f"{chain} call {i + 1}{gate}", kern[name],
+                              plain[name], args, present, args[2].dtype,
+                              args[2].numel())
+            del seen
+            torch.cuda.empty_cache()
     return recs
 
 

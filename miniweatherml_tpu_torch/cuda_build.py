@@ -35,7 +35,7 @@ _BUILD = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-FMAD_SOURCES = ("direction_fluxes", "kessler")
+FMAD_SOURCES = ("direction_fluxes", "kessler", "p3_lookup")
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

@@ -83,7 +83,9 @@ class P3Tables:
 class DeviceTables:
     """A ``P3Tables`` on one device in one dtype, plus the generated rain
     rows (vn, vm, revap).  ``ice_cols`` / ``collect_cols`` / ``rain_rows``
-    pack a column set K-major and contiguous, once per set."""
+    give a column set K-major, once per set: the ice and collection sets
+    in the lookup kernels' packed layout (``p3_lookup_cuda.pack_ice`` /
+    ``pack_collect``), the rain rows contiguous."""
 
     def __init__(self, host: P3Tables, device: torch.device,
                  dtype: torch.dtype):
@@ -97,24 +99,25 @@ class DeviceTables:
             return self
         return self._host.to(device, dtype)
 
-    def _pack(self, key, make):
+    def _pack(self, key, make, layout=lambda t: t):
         if key not in self._packed:
-            self._packed[key] = torch.as_tensor(
+            self._packed[key] = layout(torch.as_tensor(
                 np.ascontiguousarray(make()), dtype=self.dtype,
-                device=self.device)
+                device=self.device))
         return self._packed[key]
 
     def ice_cols(self, cols) -> torch.Tensor:
         """(K, densize, rimsize, isize) for 1-based ice columns ``cols``."""
         cols = tuple(cols)
         return self._pack(("ice", cols), lambda: np.moveaxis(
-            self._host.ice[..., [c - 1 for c in cols]], -1, 0))
+            self._host.ice[..., [c - 1 for c in cols]], -1, 0), _lk.pack_ice)
 
     def collect_cols(self, cols) -> torch.Tensor:
         """(K, densize, rimsize, isize, rcollsize) for 1-based columns."""
         cols = tuple(cols)
         return self._pack(("collect", cols), lambda: np.moveaxis(
-            self._host.collect[..., [c - 1 for c in cols]], -1, 0))
+            self._host.collect[..., [c - 1 for c in cols]], -1, 0),
+            _lk.pack_collect)
 
     def rain_rows(self, names) -> torch.Tensor:
         """(K, 300) generated rain rows by name ("vn", "vm", "revap")."""

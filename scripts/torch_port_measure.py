@@ -15,12 +15,12 @@ compared by running the script once per tree in one call, in turns.
            after a warm call) on the Kessler, P3 and city states at their
            cells' widths (chip_smoke.py's _flux_state), f32 and f64.
   cells    run_benchmark's Mcellups and ms/step for the Kessler and P3
-           512x512x64 f32 cells (10 steps) and the 400x400x60x2 f32 city
-           (10 steps).
+           512x512x64 f32 cells (10 steps), the P3 cell with every cell
+           seeded (3 steps) and the 400x400x60x2 f32 city (10 steps).
   profile  torch.profiler device time per step over 3 steps after a warm
            step, by kernel family (flux, FCT, microphysics, elementwise
            glue, copies and reductions), and the device's idle share of the
-           profiled span, for the same three chains.
+           profiled span, for the same chains.
   kernels  fct_mult per call on the Kessler (3 tracers), P3 (9) and city
            (1 x nens 2) f32 states with each chain's own positive flags,
            beside its bytes bound; and on the Kessler chain's 512x512x64
@@ -183,6 +183,8 @@ def _chains(cs):
              supercell_example.build),
             ("p3", cs._bench_cfg(512, 512, 64, 10, "float32"),
              supercell_p3.build),
+            ("p3_active", cs._bench_cfg(512, 512, 64, 3, "float32"),
+             cs._p3_active_build),
             ("city", cs._city_cfg("city", 400, 400, 60, 2, "float32",
                                   steps=10), simple_city.build_chain))
 

@@ -7,7 +7,8 @@ neither JAX nor the JAX package, so it also runs on a machine without JAX:
 
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 Tolerance: max|kernel - plain| over max|plain| of each output, 1e-12 in
-f64 and 1e-5 in f32.
+f64 and 1e-5 in f32; the flux kernel, fct_mult, the Kessler step and the
+P3 lookups equal their plain versions bit for bit.
 """
 
 import numpy as np
@@ -224,6 +225,8 @@ def _lookup_inputs(n, dtype, device, seed):
 
 @pytest.mark.parametrize("n", [1, 255, 4097])
 def test_p3_lookup_kernels_match_plain(n, cuda_device):
+    """Ice, collection and rain lookups equal their plain versions bit for
+    bit, f32 and f64, with the presence gate None / True / False."""
     from miniweatherml_tpu_torch.physics import p3_lookup_cuda as LK
     from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
 
@@ -247,10 +250,99 @@ def test_p3_lookup_kernels_match_plain(n, cuda_device):
                 assert kern.launches == n0 + 1
                 want = plain(*args, present=p)
                 assert got.shape == want.shape and got.dtype == dtype
+                assert torch.equal(got, want), (kind, dtype, present)
                 if present is False:
                     assert not got.any(), kind
-                else:
-                    assert _rel(want, got) <= TOL[dtype], (kind, dtype)
+
+
+def _edge_inputs(n, dtype, device, seed):
+    """Ice and collection index sets whose indices sit at each axis's two
+    clip edges (0 and size - 2) or between them, fractions in [0, 1]."""
+    rng = np.random.default_rng(seed)
+
+    def index(size):
+        a = rng.integers(0, size - 1, n)
+        pick = rng.integers(0, 3, n)
+        a = np.where(pick == 0, 0, np.where(pick == 1, size - 2, a))
+        return torch.as_tensor(a, dtype=torch.int32, device=device)
+
+    def frac():
+        return torch.as_tensor(rng.random(n), dtype=dtype, device=device)
+    return ((index(50), frac(), index(4), frac(), index(5), frac()),
+            (index(30), frac()))
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 7, 8])
+def test_p3_lookup_packed_layout_on_card(K, cuda_device):
+    """The ice and collection kernels at K columns (K pads to a power of
+    two, at most 16 bytes; collection columns repeat past the table's 2),
+    at 1, 255 and 4097 cells and one past each persistent grid's stride,
+    with indices at both clip edges, bit for bit."""
+    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as LK
+    from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
+
+    tables = load_p3_tables()
+    for dtype in (torch.float64, torch.float32):
+        dev = tables.to(cuda_device, dtype)
+        ice = dev.ice_cols(tuple(1 + (3 * c) % 12 for c in range(K)))
+        coll = dev.collect_cols(tuple(1 + c % 2 for c in range(K)))
+        grids = {kind: LK.launch_config(kind, K, dtype, 1 << 36)
+                 for kind in ("ice", "collect")}
+        # the whole packed ice table
+        assert grids["ice"][2] == ice.untyped_storage().nbytes()
+        # the collection table is read from L1/L2
+        assert grids["collect"][2] == 0
+        ns = {1, 255, 4097} | {b * t + 1 for b, t, _ in grids.values()}
+        for n in sorted(ns):
+            for kind, (blocks, threads, _) in grids.items():
+                got = LK.launch_config(kind, K, dtype, n)[0]
+                assert got == min(blocks, -(-n // threads))
+            idx, jr = _edge_inputs(n, dtype, cuda_device, K * n)
+            for present in (None, True, False):
+                p = (None if present is None
+                     else torch.tensor(present, device=cuda_device))
+                for kern, plain, args in (
+                        (LK.interp_ice, LK.interp_ice_plain, (ice, *idx)),
+                        (LK.interp_collect, LK.interp_collect_plain,
+                         (coll, *idx, *jr))):
+                    got = kern(*args, present=p)
+                    want = plain(*args, present=p)
+                    assert torch.equal(got, want), (kern.__name__, dtype, n,
+                                                    present)
+
+
+def test_p3_lookup_column_sets_and_dtypes(cuda_device):
+    """A second column set of one DeviceTables, and the same sets in the
+    other dtype, are packed apart (the cache keys by columns and dtype) and
+    each gives its plain version bit for bit; an ice table too large for a
+    block's shared memory is refused."""
+    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as LK
+    from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
+
+    tables = load_p3_tables()
+    seen = {}
+    for dtype in (torch.float32, torch.float64):
+        dev = tables.to(cuda_device, dtype)
+        idx, jr = _edge_inputs(3001, dtype, cuda_device, 7)
+        for cols in ((7, 8, 4, 2, 3, 5, 10), (2, 1, 7, 8), (9, 11, 12)):
+            ice = dev.ice_cols(cols)
+            assert dev.ice_cols(cols) is ice
+            assert ice.stride() == LK.ice_strides(len(cols), dtype)
+            seen[dtype, cols] = ice.data_ptr()
+            assert torch.equal(LK.interp_ice(ice, *idx),
+                               LK.interp_ice_plain(ice, *idx))
+        for cols in ((2, 1), (1,)):
+            coll = dev.collect_cols(cols)
+            seen[dtype, cols] = coll.data_ptr()
+            assert torch.equal(LK.interp_collect(coll, *idx, *jr),
+                               LK.interp_collect_plain(coll, *idx, *jr))
+    assert len(set(seen.values())) == len(seen)
+    # 29 f64 columns: 20 blocks of 50 * 30 + 2 values, 240 KB > 227 KB
+    big = tables.to(cuda_device, torch.float64).ice_cols(
+        tuple(1 + c % 12 for c in range(29)))
+    idx, _ = _edge_inputs(64, torch.float64, cuda_device, 8)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        LK.interp_ice(big, *idx)
 
 
 def test_p3_lookup_rejects_bad_input(cuda_device):
@@ -266,6 +358,8 @@ def test_p3_lookup_rejects_bad_input(cuda_device):
         LK.interp_ice(table, idx[0], idx[1].reshape(8, 8).t(), *idx[2:])
     with pytest.raises(ValueError, match="table"):
         LK.interp_ice(table.double(), *idx)
+    with pytest.raises(ValueError, match="packed"):
+        LK.interp_ice(table.contiguous(), *idx)
     with pytest.raises(ValueError, match="present"):
         LK.interp_rain(dev.rain_rows(("vm",)), *rs,
                        present=torch.tensor(1.0, device=cuda_device))

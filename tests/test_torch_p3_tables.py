@@ -61,7 +61,7 @@ def test_loader_matches_jax(jtab, ptab):
 
 def test_tables_from_jax_arrays(jtab):
     """P3Tables built from JAX's numpy arrays packs exactly those values,
-    once per column set and device/dtype."""
+    once per column set and device/dtype, in the lookup kernels' layout."""
     t = PT.P3Tables(jtab.version, np.asarray(jtab.ice),
                     np.asarray(jtab.collect))
     dev = t.to("cpu", torch.float64)
@@ -74,7 +74,9 @@ def test_tables_from_jax_arrays(jtab):
     np.testing.assert_array_equal(
         coll.numpy(), np.moveaxis(np.asarray(jtab.collect)[..., [1, 0]], -1,
                                   0))
-    assert coll.is_contiguous() and tuple(coll.shape) == (2, 5, 4, 50, 30)
+    # in the lookup kernels' packed layout (p3_lookup_cuda.pack_collect)
+    assert coll.stride() == LK.collect_strides(2, torch.float64)
+    assert tuple(coll.shape) == (2, 5, 4, 50, 30)
     assert t.to("cpu", torch.float32).ice_cols((2,)).dtype == torch.float32
 
 
