@@ -64,7 +64,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
      chip_smoke_out/;
   16. small f64 building and city slices (one step), card against the
      port's CPU run at 1e-9 of each field's scale;
-  17. restart: 2 steps, checkpoint, 2 more against 4 straight, bit for bit.
+  17. restart: 2 steps, checkpoint, 2 more against 4 straight, bit for bit;
+  18. the surrogate slice: run_benchmark(build=inference_surrogate.build) at
+     512x512x64 f32, 10 steps, the MLP deployed online with the shipped
+     example model (.npz) and no Kessler comparison (bench.py's
+     MWML_BENCH_MICRO=surrogate case), with the dycore kernels' launch
+     counts and no Kessler launch, a clean validate(), Mcellups, peak
+     memory, and the surrogate's own time per step (CUDA events around its
+     time_step) and its share of the step;
+  19. the same width in compare mode (the Kessler result kept, the mean NN -
+     Kessler diffs stored) for 3 steps: one Kessler launch per step, the
+     diffs finite;
+  20. 16x8x10 f64 surrogate chains, card against the port's CPU run: online
+     (and comparing) for 1 step, and in compare mode for 3 steps; the
+     online chain's 3-step difference printed beside the CPU run's own
+     spread under a 1e-15 perturbation;
+  21. the surrogate workflow inside chip_smoke_out/ (where the harvest
+     writes its dataset and metadata) on inputs/surrogate_example.yaml's
+     2-D grid: gather_statistics and generate_micro_data for a few steps,
+     train_mlp on the card for 3 epochs, one online step with the trained
+     model, and the inference_surrogate experiment with the .npz weights.
 
 Tolerance of a kernel against its plain version: max|kernel - plain| over
 max|plain| of each output below 1e-12 in f64 and 1e-5 in f32 (the JAX
@@ -73,7 +92,10 @@ the direction-flux kernel, fct_mult and the three P3 lookups must also equal
 their plain versions bit for bit; the Kessler step prints whether it does,
 and the count and size in ulps of any value that rounds apart.
 A slice on the card against the port's CPU run: 1e-7 of each field's scale
-(1e-9 for the one-step building and city slices, phase 16).
+(1e-9 for the one-step building and city slices, phase 16).  The surrogate
+is plain tensor code (two torch.matmul calls, TF32 off), as the JAX
+package's is outside any Pallas kernel, so it adds no row to the kernels
+line.
 
 The next-to-last line of output is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.  Needs torch.cuda; exits non-zero without it.
@@ -677,7 +699,7 @@ def _counters(chain):
               "fct_scale_div": fct_scale_div}
     if chain == "city":
         return dycore
-    if chain == "kessler":
+    if chain in ("kessler", "surrogate"):
         return {**dycore, "kessler_step": kessler_step}
     return {**dycore,
             "interp_ice": lk.interp_ice, "interp_collect": lk.interp_collect,
@@ -696,11 +718,17 @@ def _check_state(tag, state):
     return maxw
 
 
-def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None):
+# launches per step of the dycore's kernels at one CFL cycle, in every cell
+DYCORE_PER_STEP = {"direction_fluxes": 9, "fct_mult": 3, "fct_scale_div": 9}
+
+
+def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None,
+              per_step=None):
     """run_benchmark on the chain's path with its launch counters set to 0
     just before and read just after; ``finish(state)`` runs on the final
-    state.  Every step (and the discarded warm-up step) at one CFL cycle
-    runs 9 flux, 3 multiplier and 9 scaled-divergence launches."""
+    state.  Every step (and the discarded warm-up step) launches each kernel
+    of ``per_step`` (default: the dycore's) that many times; every other
+    kernel of the path at least once in the run."""
     from miniweatherml_tpu_torch.experiments.community_benchmark import (
         run_benchmark)
     counters = _counters(chain)
@@ -712,13 +740,14 @@ def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None):
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     maxw = _check_state(tag, state)
-    if min(launches.values()) < 1:
+    per_step = per_step or DYCORE_PER_STEP
+    if any(n < 1 for k, n in launches.items() if per_step.get(k, 1) > 0):
         raise AssertionError(f"{tag}: a kernel of the path never launched: "
                              f"{launches}")
-    per_step = {"direction_fluxes": 9, "fct_mult": 3, "fct_scale_div": 9}
     if any(launches[k] != v * (res["steps"] + 1) for k, v in per_step.items()):
-        raise AssertionError(f"{tag}: dycore launches {launches} for "
-                             f"{res['steps']} + 1 steps")
+        raise AssertionError(f"{tag}: launches {launches} for "
+                             f"{res['steps']} + 1 steps, expected {per_step} "
+                             "per step")
     if finish is not None:
         finish(state)
     g = cfg.grid
@@ -1192,6 +1221,206 @@ def phase_restart():
         raise AssertionError(f"restart differs in {differ} (etime {etime})")
 
 
+# -- the Kessler MLP surrogate ----------------------------------------------
+
+EXAMPLES = os.path.join(ROOT, "inputs", "examples")
+
+
+def _surrogate_cfg(cfg, online=True, compare=False):
+    """``cfg`` with inference_surrogate's YAML keys: the shipped example
+    model as .npz (the same arrays as its Keras HDF5, which needs h5py)."""
+    cfg.extras.update(
+        nn_weights=os.path.join(EXAMPLES,
+                                "supercell_kessler_example_weights.npz"),
+        nn_input_scaling=os.path.join(EXAMPLES,
+                                      "supercell_kessler_input_scaling.txt"),
+        nn_output_scaling=os.path.join(
+            EXAMPLES, "supercell_kessler_output_scaling.txt"),
+        surrogate_online=online, surrogate_compare=compare)
+    return cfg
+
+
+def _timed_micro_build(build, times):
+    """``build`` with CUDA events recorded around the micro module's
+    time_step (step_modules[1]); each step appends its (start, end)."""
+    def timed_build(cfg, device):
+        state, mods, dycore = build(cfg, device)
+        micro = mods[1]
+
+        def timed(s, dt):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = micro(s, dt)
+            e1.record()
+            times.append((e0, e1))
+            return out
+        return state, [mods[0], timed, *mods[2:]], dycore
+    return timed_build
+
+
+def phase_surrogate_slice(card):
+    """The online surrogate at bench.py's 512x512x64 f32 grid, 10 steps,
+    with the surrogate's own time per step; then compare mode, 3 steps."""
+    from miniweatherml_tpu_torch.experiments import inference_surrogate
+
+    times = []
+    cfg = _surrogate_cfg(_bench_cfg(512, 512, 64, 10, "float32"))
+    _, res, _ = _run_cell(
+        "18", cfg, card, chain="surrogate",
+        build=_timed_micro_build(inference_surrogate.build, times),
+        per_step={**DYCORE_PER_STEP, "kessler_step": 0})
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in times[1:]]  # after the warm-up step
+    step_ms = 1e3 * res["elapsed_s"] / res["steps"]
+    print(f"[18] surrogate time_step (online, no comparison): "
+          f"{np.mean(ms):.3f} ms per step (median {np.median(ms):.3f}, min "
+          f"{min(ms):.3f}; CUDA events over {len(ms)} steps), "
+          f"{np.mean(ms) / step_ms:.2%} of the {step_ms:.2f} ms step  "
+          f"[{card}]", flush=True)
+
+    def finish(state):
+        d = state["surrogate_diffs"].tolist()
+        if not (all(math.isfinite(v) for v in d) and any(d)):
+            raise AssertionError(f"surrogate diffs {d}")
+        print(f"[19] mean diff NN - Kessler [temp, rho_v, rho_c, rho_r] of "
+              f"the last step: [{d[0]: .6e}, {d[1]: .6e}, {d[2]: .6e}, "
+              f"{d[3]: .6e}]", flush=True)
+    cfg = _surrogate_cfg(_bench_cfg(512, 512, 64, 3, "float32"),
+                         online=False, compare=True)
+    _run_cell("19", cfg, card, chain="surrogate",
+              build=inference_surrogate.build, finish=finish,
+              per_step={**DYCORE_PER_STEP, "kessler_step": 1})
+
+
+def _surrogate_slice(cfg, device, steps, perturb=0.0):
+    """The inference_surrogate chain on ``device`` after ``steps`` steps;
+    with ``perturb``, every 3-D field starts scaled by 1 + perturb * (u -
+    1/2), u uniform from a seeded generator."""
+    from miniweatherml_tpu_torch.experiments import inference_surrogate
+    state, mods, dycore = inference_surrogate.build(cfg, device)
+    if perturb:
+        gen = torch.Generator(device).manual_seed(0)
+        state = state.replace_fields(**{
+            k: v * (1.0 + perturb * (torch.rand(
+                v.shape, generator=gen, dtype=v.dtype, device=device) - 0.5))
+            for k, v in state.fields.items() if v.dim() == 4})
+    dt = dycore.compute_time_step(state)
+    for _ in range(steps):
+        for m in mods:
+            state = m(state, dt)
+    return state
+
+
+def phase_surrogate_references():
+    """16x8x10 f64 surrogate chains, card against the port's CPU run: online
+    (and comparing) for 1 step, and in compare mode (Kessler's result kept,
+    the NN run and the diffs stored every step) for 3 steps.  The online
+    chain is bounded at one step: with the NN's fields fed back, the CPU
+    run alone with every field perturbed by 1e-15 moves by ~1e-6 of cloud
+    water's scale within two steps (printed here beside the card's
+    3-step difference)."""
+    worst = {}
+    for label, online, steps in (("online", True, 1), ("compare", False, 3),
+                                 ("online", True, 3)):
+        cfg = _surrogate_cfg(_supercell_cfg(16, 8, 10, 40000.0, 40000.0,
+                                            10000.0, 100.0, "float64"),
+                             online=online, compare=True)
+        outs = [_surrogate_slice(cfg, d, steps) for d in ("cpu", "cuda")]
+        errs = {k: _rel(outs[0][k], outs[1][k].cpu())[1]
+                for k in outs[0].fields}
+        name = max(errs, key=errs.get)
+        worst[(label, steps)] = errs[name]
+        line = (f"[20] 16x8x10 f64 {steps}-step {label} surrogate slice, "
+                f"card vs CPU: worst error over field scale {errs[name]:.3e}"
+                f" ({name})")
+        if steps == 3 and online:
+            cpu = _surrogate_slice(cfg, "cpu", steps, perturb=1e-15)
+            spread = max(_rel(outs[0][k], cpu[k])[1] for k in outs[0].fields)
+            _check_state("20", outs[1])
+            print(line + f"; the CPU run against itself with every field "
+                  f"perturbed by 1e-15: {spread:.3e} (not bounded)",
+                  flush=True)
+            continue
+        print(line + f" (tol 1e-7); diffs "
+              f"{outs[1]['surrogate_diffs'].tolist()}", flush=True)
+        if not errs[name] <= 1e-7:
+            raise AssertionError(f"surrogate {label} card vs CPU slice: "
+                                 f"{errs[name]:.3e} in {name}")
+
+
+def phase_surrogate_workflow():
+    """Harvest -> train -> deploy on the card, inside chip_smoke_out/: the
+    harvest writes its dataset and metadata sidecar into the working
+    directory, so the repo's own copies are never touched."""
+    from miniweatherml_tpu_torch.config import load_config
+    from miniweatherml_tpu_torch.experiments import inference_surrogate
+    from miniweatherml_tpu_torch.experiments.gather_statistics import (
+        run_gather_statistics)
+    from miniweatherml_tpu_torch.experiments.generate_micro_data import (
+        run_generate_micro_data)
+    from miniweatherml_tpu_torch.ml.surrogate_data import (DataGenerator,
+                                                           load_dataset)
+    from miniweatherml_tpu_torch.ml.train import train_mlp
+    from miniweatherml_tpu_torch.physics.kessler_surrogate import (
+        MicrophysicsKesslerSurrogate)
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(OUT_DIR)
+    try:
+        # inputs/surrogate_example.yaml's 250x1x50 grid for 6 s (~10 steps)
+        cfg = load_config(os.path.join(ROOT, "inputs",
+                                       "surrogate_example.yaml"))
+        cfg.extras.pop("keras_weights_h5")
+        cfg = _surrogate_cfg(cfg, online=False, compare=True)
+        cfg.sim_time = 6.0
+        cfg.out_prefix = os.path.join(OUT_DIR, "chip_smoke_surrogate")
+        _, gatherer = run_gather_statistics(cfg, "cuda", quiet=True)
+        gen = DataGenerator(fname=os.path.join(
+            OUT_DIR, "chip_smoke_surrogate_data.nc"), samples_per_step=400.0)
+        _, gen = run_generate_micro_data(cfg, "cuda", quiet=True,
+                                         generator=gen)
+        inputs, outputs, meta = load_dataset(gen.fname)
+        if not (len(inputs) == gen.num_samples > 100
+                and os.path.exists("supercell_kessler_metadata.txt")):
+            raise AssertionError(f"harvest: {len(inputs)} rows, "
+                                 f"{gen.num_samples} taken")
+        t0 = time.perf_counter()
+        model, scl_in, scl_out, hist = train_mlp(
+            inputs, outputs, device="cuda", epochs=3, batch=256,
+            verbose=False)
+        train_s = time.perf_counter() - t0
+        model.validate()
+        micro = MicrophysicsKesslerSurrogate(model, scl_in, scl_out,
+                                             online=True, compare=True)
+        state, mods, dycore = inference_surrogate.build(cfg, "cuda",
+                                                        micro=micro)
+        dt = dycore.compute_time_step(state)
+        for m in mods:
+            state = m(state, dt)
+        _check_state("21", state)
+        d = state["surrogate_diffs"].tolist()
+        if not (all(math.isfinite(v) for v in d)
+                and next(model.parameters()).device.type == "cuda"):
+            raise AssertionError(f"deployed model: diffs {d}")
+        print(f"[21] workflow on 250x1x50: active ratio "
+              f"{gatherer.ratio_active:.6e}; {gen.num_samples} samples to "
+              f"{gen.fname}; train_mlp 3 epochs on the card in {train_s:.2f}"
+              f" s, loss {hist[0]['loss']:.6e} -> {hist[-1]['loss']:.6e}, "
+              f"val {hist[-1]['val_loss']:.6e}; one online step with the "
+              f"trained model: validate() clean, diffs "
+              f"[{', '.join(f'{v:.3e}' for v in d)}]", flush=True)
+        state = inference_surrogate.run(_surrogate_cfg(cfg, compare=True),
+                                        "cuda", quiet=True)
+        _check_state("21", state)
+        print(f"[21] inference_surrogate with the .npz weights, online, "
+              f"{cfg.sim_time:g} s: validate() clean, last diffs "
+              f"{state['surrogate_diffs'].tolist()}", flush=True)
+    finally:
+        os.chdir(cwd)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1251,6 +1480,10 @@ def main() -> int:
                        build=simple_city.build_chain, finish=finalize)[0]
     phase_city_references()
     phase_restart()
+
+    phase_surrogate_slice(card)
+    phase_surrogate_references()
+    phase_surrogate_workflow()
 
     kernels = [
         {"name": "direction_fluxes", "route": "cuda",

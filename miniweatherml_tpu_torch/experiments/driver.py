@@ -22,7 +22,8 @@ from ..core.coupler import CouplerState, make_coupler_state
 from ..io.checkpoint import save_checkpoint
 from ..io.netcdf import StateWriter
 
-__all__ = ["setup_state", "run_main_loop", "Timers", "parse_command_line"]
+__all__ = ["setup_state", "run_main_loop", "Timers", "parse_command_line",
+           "add_device_argument", "checked_device"]
 
 
 def parse_command_line(prog: str, argv: Sequence[str]) -> tuple[str, str]:
@@ -32,14 +33,25 @@ def parse_command_line(prog: str, argv: Sequence[str]) -> tuple[str, str]:
     than falling back."""
     ap = argparse.ArgumentParser(prog=prog)
     ap.add_argument("input", help="input YAML")
+    add_device_argument(ap)
+    args = ap.parse_args(list(argv))
+    return args.input, checked_device(prog, args.device)
+
+
+def add_device_argument(ap: argparse.ArgumentParser) -> None:
+    """The ``--device`` option every entry point takes."""
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
-    args = ap.parse_args(list(argv))
-    device = torch.device(args.device)
+
+
+def checked_device(prog: str, name: str) -> str:
+    """``name`` as a torch device string; a CUDA device without CUDA raises,
+    naming ``--device cpu``, rather than falling back."""
+    device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{prog}: no CUDA device is available; pass "
                            "--device cpu to run on the CPU")
-    return args.input, str(device)
+    return str(device)
 
 
 def _sync(device: torch.device) -> None:

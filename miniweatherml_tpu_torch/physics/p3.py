@@ -1060,8 +1060,8 @@ class MicrophysicsP3:
 
     ``backend``: "torch" (or "jax", the JAX package's name for the same
     vectorized scheme, so its YAML files run unchanged).  "native", the C++
-    twin of the JAX package, is not ported (ROADMAP Queue 1, item 5) and
-    raises ``NotImplementedError``."""
+    twin of the JAX package, is not ported (ROADMAP Queue 1, "P3 native
+    twin") and raises ``NotImplementedError``."""
 
     num_tracers = 9
 
@@ -1088,7 +1088,8 @@ class MicrophysicsP3:
         if backend == "native":
             raise NotImplementedError(
                 "p3_backend 'native' (the C++ P3 twin) is not ported to "
-                "miniweatherml_tpu_torch yet: ROADMAP.md Queue 1, item 5")
+                "miniweatherml_tpu_torch yet: ROADMAP.md Queue 1, 'P3 "
+                "native twin'")
         if backend not in ("torch", "jax"):
             raise ValueError("backend must be 'torch' (alias 'jax') or "
                              "'native'")

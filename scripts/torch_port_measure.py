@@ -3,9 +3,10 @@
 Usage (from the root of a checkout, on a machine with the card):
 
   python scripts/torch_port_measure.py flux    [--root DIR] [--reps N]
-  python scripts/torch_port_measure.py cells   [--root DIR]
-  python scripts/torch_port_measure.py profile [--root DIR]
+  python scripts/torch_port_measure.py cells   [--root DIR] [--chains A,B]
+  python scripts/torch_port_measure.py profile [--root DIR] [--chains A,B]
   python scripts/torch_port_measure.py kernels [--root DIR] [--reps N]
+  python scripts/torch_port_measure.py surrogate [--root DIR] [--reps N]
 
 ``--root`` names the tree whose ``miniweatherml_tpu_torch`` and
 ``chip_smoke.py`` are imported (default: this checkout), so two trees are
@@ -16,11 +17,16 @@ compared by running the script once per tree in one call, in turns.
            cells' widths (chip_smoke.py's _flux_state), f32 and f64.
   cells    run_benchmark's Mcellups and ms/step for the Kessler and P3
            512x512x64 f32 cells (10 steps), the P3 cell with every cell
-           seeded (3 steps) and the 400x400x60x2 f32 city (10 steps).
+           seeded (3 steps), the 400x400x60x2 f32 city (10 steps) and the
+           512x512x64 f32 online MLP surrogate (10 steps; a tree that has
+           it); with the micro module's own device time per step (CUDA
+           events around step_modules[1], where chip_smoke.py can record
+           them) and its share of the step.
   profile  torch.profiler device time per step over 3 steps after a warm
-           step, by kernel family (flux, FCT, microphysics, elementwise
-           glue, copies and reductions), and the device's idle share of the
-           profiled span, for the same chains.
+           step, by kernel family (flux, FCT, microphysics, matmul,
+           elementwise glue, copies and reductions), and the device's idle
+           share of the profiled span, for the same chains.
+  --chains kessler,p3,p3_active,city,surrogate: a subset of the chains.
   kernels  fct_mult per call on the Kessler (3 tracers), P3 (9) and city
            (1 x nens 2) f32 states with each chain's own positive flags,
            beside its bytes bound; and on the Kessler chain's 512x512x64
@@ -28,6 +34,11 @@ compared by running the script once per tree in one call, in turns.
            MicrophysicsKessler.time_step whole (kernel plus rainsplit glue).
            A tree from before the fused Kessler step times its sub-cycle
            kernel on the same fields, prepared as its time_step does.
+  surrogate on the online MLP surrogate cell's 512x512x64 f32 state after
+           one step: MicrophysicsKesslerSurrogate.time_step (CUDA events,
+           median of N calls) beside the bytes bound of a fused per-cell
+           version (5 fields read, 4 written), and the profiler's device
+           time of each kernel of one call, by kernel name.
 
 Each mode prints one JSON line (prefixed "RESULT ") with the card's name and
 power limit.
@@ -186,21 +197,42 @@ def _chains(cs):
             ("p3_active", cs._bench_cfg(512, 512, 64, 3, "float32"),
              cs._p3_active_build),
             ("city", cs._city_cfg("city", 400, 400, 60, 2, "float32",
-                                  steps=10), simple_city.build_chain))
+                                  steps=10), simple_city.build_chain)) + (
+        _surrogate_chain(cs) if hasattr(cs, "_surrogate_cfg") else ())
 
 
-def mode_cells(cs):
+def _surrogate_chain(cs):
+    from miniweatherml_tpu_torch.experiments import inference_surrogate
+    return (("surrogate",
+             cs._surrogate_cfg(cs._bench_cfg(512, 512, 64, 10, "float32")),
+             inference_surrogate.build),)
+
+
+def mode_cells(cs, chains):
+    import numpy as np
     import torch
     from miniweatherml_tpu_torch.experiments.community_benchmark import (
         run_benchmark)
     out = {}
     for chain, cfg, build in _chains(cs):
+        if chains and chain not in chains:
+            continue
+        times = []
+        if hasattr(cs, "_timed_micro_build"):
+            build = cs._timed_micro_build(build, times)
         torch.cuda.reset_peak_memory_stats()
         state, res = run_benchmark(cfg, "cuda", quiet=True, build=build)
+        torch.cuda.synchronize()
+        ms_step = 1e3 * res["elapsed_s"] / res["steps"]
+        micro = [a.elapsed_time(b) for a, b in times[1:]]
         out[chain] = {"mcellups": res["mcellups"],
-                      "ms_per_step": 1e3 * res["elapsed_s"] / res["steps"],
+                      "ms_per_step": ms_step,
                       "steps": res["steps"],
-                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "micro_ms_per_step": (float(np.mean(micro)) if micro
+                                            else None),
+                      "micro_share": (float(np.mean(micro)) / ms_step
+                                      if micro else None)}
         print(f"cell {chain}: {out[chain]}", flush=True)
         del state
         torch.cuda.empty_cache()
@@ -215,6 +247,8 @@ def _family(name: str) -> str:
         return "fct_mult"
     if "fct" in n:
         return "fct_scale_div"
+    if "gemm" in n or "cutlass" in n or "xmma" in n:
+        return "matmul"
     if any(k in n for k in ("kessler", "cellwise", "ice_kernel",
                             "collect_kernel", "rain_kernel")):
         return "microphysics"
@@ -223,11 +257,13 @@ def _family(name: str) -> str:
     return "cat, reductions, copies"
 
 
-def mode_profile(cs):
+def mode_profile(cs, chains):
     import torch
     from torch.profiler import ProfilerActivity, profile
     out = {}
     for chain, cfg, build in _chains(cs):
+        if chains and chain not in chains:
+            continue
         state, mods, dycore = build(cfg, "cuda")
         dt = dycore.compute_time_step(state)
         for m in mods:
@@ -274,12 +310,48 @@ def mode_profile(cs):
     return out
 
 
+def mode_surrogate(cs, reps):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from miniweatherml_tpu_torch.experiments import inference_surrogate
+    state, mods, dycore = inference_surrogate.build(
+        cs._surrogate_cfg(cs._bench_cfg(512, 512, 64, 1, "float32")), "cuda")
+    dt = dycore.compute_time_step(state)
+    for m in mods:
+        state = m(state, dt)
+    ms = _median_ms(lambda: mods[1](state, dt), reps)
+    bound = 1e3 * 9 * _bytes(state["temp"]) / HBM_BYTES_S
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mods[1](state, dt)
+        torch.cuda.synchronize()
+    kernels: dict[str, list] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(ev.name[:90], [0.0, 0])
+            k[0] += (ev.time_range.end - ev.time_range.start) / 1e3
+            k[1] += 1
+    out = {"time_step_ms": ms, "fused_bound_ms": bound,
+           "kernels": {k: {"ms": v[0], "launches": v[1]}
+                       for k, v in sorted(kernels.items(),
+                                          key=lambda kv: -kv[1][0])}}
+    print(f"surrogate time_step 512x512x64 f32 online: {ms:.4f} ms; a fused "
+          f"per-cell kernel's bound {bound:.4f} ms", flush=True)
+    for k, v in out["kernels"].items():
+        print(f"  {v['ms']:8.4f} ms  {v['launches']:3d}  {k}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("mode", choices=("flux", "cells", "profile", "kernels"))
+    ap.add_argument("mode", choices=("flux", "cells", "profile", "kernels",
+                                     "surrogate"))
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--chains", default="",
+                    help="comma-separated subset of the chains")
     a = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -292,11 +364,13 @@ def main() -> int:
     if not miniweatherml_tpu_torch.__file__.startswith(root):
         raise RuntimeError(f"imported {miniweatherml_tpu_torch.__file__}, "
                            f"not the tree at {root}")
+    chains = [c for c in a.chains.split(",") if c]
     t0 = time.perf_counter()
     res = {"flux": lambda: mode_flux(cs, a.reps),
-           "cells": lambda: mode_cells(cs),
-           "profile": lambda: mode_profile(cs),
-           "kernels": lambda: mode_kernels(cs, a.reps)}[a.mode]()
+           "cells": lambda: mode_cells(cs, chains),
+           "profile": lambda: mode_profile(cs, chains),
+           "kernels": lambda: mode_kernels(cs, a.reps),
+           "surrogate": lambda: mode_surrogate(cs, a.reps)}[a.mode]()
     print("RESULT " + json.dumps({
         "mode": a.mode, "root": a.root, "card": _card(),
         "seconds": time.perf_counter() - t0, "result": res}), flush=True)

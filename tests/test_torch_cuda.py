@@ -648,3 +648,49 @@ def test_p3_slice_on_card_matches_cpu(cuda_device):
         b = states[1][name].cpu().numpy()
         np.testing.assert_allclose(b, a, rtol=1e-9,
                                    atol=1e-7 * np.abs(a).max(), err_msg=name)
+
+
+# -- the Kessler MLP surrogate ----------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_surrogate_forward_on_card_matches_cpu(dtype, cuda_device):
+    """The surrogate's forward (normalise, two matmuls, LeakyReLU,
+    denormalise, clamps) on the card against the CPU, on the same 16x8x10
+    state after one step of the inference chain, with the shipped weights:
+    f64 within 1e-12 of each output's scale, f32 within 1e-6 of each
+    output's scaling range (the matmuls round differently; TF32 stays off)."""
+    import os
+
+    from miniweatherml_tpu_torch.core.coupler import (state_from_numpy,
+                                                      state_to_numpy)
+    from miniweatherml_tpu_torch.experiments import inference_surrogate
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    ex = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "inputs", "examples")
+    cfg = config_from_dict(dict(
+        sim_time=100.0, nx_glob=16, ny_glob=8, nz=10, xlen=40000.0,
+        ylen=40000.0, zlen=10000.0, init_data="supercell", dtype=dtype,
+        nn_weights=os.path.join(ex, "supercell_kessler_example_weights.npz"),
+        nn_input_scaling=os.path.join(ex, "supercell_kessler_input_scaling.txt"),
+        nn_output_scaling=os.path.join(
+            ex, "supercell_kessler_output_scaling.txt"),
+        surrogate_online=True))
+    state, mods, dycore = inference_surrogate.build(cfg, "cpu")
+    dt = dycore.compute_time_step(state)
+    for m in mods:
+        state = m(state, dt)
+    card = state_from_numpy(state_to_numpy(state), state.grid, state.options,
+                            state.meta.tracers, dtype, device=cuda_device)
+    micro = inference_surrogate.surrogate_from_config(cfg)
+    want = micro._nn_forward(state)
+    got = micro._nn_forward(card)
+    scl_range = (micro.scl_out[:, 1] - micro.scl_out[:, 0]).double()
+    for v, (a, b) in enumerate(zip(want, got)):
+        assert b.device.type == "cuda" and b.dtype == a.dtype
+        err = (a.double() - b.cpu().double()).abs().max().item()
+        if dtype == "float64":
+            assert err <= 1e-12 * a.abs().max().item(), (v, err)
+        else:
+            assert err <= 1e-6 * scl_range[v].item(), (v, err)
