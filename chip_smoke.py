@@ -83,7 +83,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
      writes its dataset and metadata) on inputs/surrogate_example.yaml's
      2-D grid: gather_statistics and generate_micro_data for a few steps,
      train_mlp on the card for 3 epochs, one online step with the trained
-     model, and the inference_surrogate experiment with the .npz weights.
+     model, and the inference_surrogate experiment with the .npz weights;
+  22. the flux kernel's halo-strip form against its plain version on the
+     512x512x64 Kessler state split 2x2 (shard (0, 0), local 256x256x64):
+     x and y, ends inside the domain and a wall and an open global
+     boundary, f32 and f64, bit for bit, timed beside its bound;
+  23. fct_scale_div with the neighbours' edge multipliers against its plain
+     version on that shard's tracer faces, every form, f32 and f64, bit for
+     bit, timed beside its bytes bound;
+  24. the decomposed Kessler slice: make_spmd_step on a (1, 2, 2) mesh of
+     the one card at 512x512x64 f32 -- one dycore step equal bit for bit to
+     the undecomposed step, one chain step within 1e-5 of scale of the
+     undecomposed chain, the host synchronizations of a step (0 expected),
+     then 10 steps with the launch counts per step and shard, ms/step,
+     Mcellups and peak memory beside the undecomposed chain's in the same
+     call; then the 1024x1024x100 community benchmark on that mesh for 3
+     steps;
+  25. 16x8x10x2 f64 Kessler (3 steps) and P3 (seeded layers, 2 steps)
+     chains on a (2, 2, 2) mesh of the card, against the port's CPU run of
+     the same mesh and the card's undecomposed run; ShardedStateWriter on a
+     2x4 mesh and stitch_sharded in chip_smoke_out/, bit for bit against
+     the gathered state's file.
 
 Tolerance of a kernel against its plain version: max|kernel - plain| over
 max|plain| of each output below 1e-12 in f64 and 1e-5 in f32 (the JAX
@@ -265,23 +285,24 @@ def _kernel_name(mangled: str) -> str:
 
 
 def _flux_instance(mangled: str):
-    """(kind, ord, type, tracer bound) of a direction_fluxes entry function,
-    or None."""
+    """(kind, ord, type, tracer bound, form) of a direction_fluxes entry
+    function, or None; the form is "whole axis" or "strips"."""
     import re
-    m = re.search(r"(fluxes_x|fluxes_strided)ILi(\d+)E([fd])Li(\d+)E",
+    m = re.search(r"(fluxes_x|fluxes_strided)ILi(\d+)E([fd])Li(\d+)ELb([01])E",
                   mangled)
     if not m:
         return None
     kind = "x" if m.group(1) == "fluxes_x" else "y/z"
     dtype = "float32" if m.group(3) == "f" else "float64"
-    return kind, int(m.group(2)), dtype, int(m.group(4))
+    form = "strips" if m.group(5) == "1" else "whole axis"
+    return kind, int(m.group(2)), dtype, int(m.group(4)), form
 
 
 def _supercell_cfg(nx, ny, nz, xlen, ylen, zlen, sim_time, dtype,
-                   out_freq=-1.0, out_prefix="chip_smoke"):
+                   out_freq=-1.0, out_prefix="chip_smoke", nens=1):
     from miniweatherml_tpu_torch.config import config_from_dict
     return config_from_dict(dict(
-        sim_time=sim_time, nens=1, nx_glob=nx, ny_glob=ny, nz=nz, xlen=xlen,
+        sim_time=sim_time, nens=nens, nx_glob=nx, ny_glob=ny, nz=nz, xlen=xlen,
         ylen=ylen, zlen=zlen, init_data="supercell", out_prefix=out_prefix,
         dt_phys=0.0, out_freq=out_freq, dtype=dtype))
 
@@ -331,11 +352,12 @@ def phase_build():
         inst = _flux_instance(mangled)
         if inst is None:
             raise AssertionError(f"unexpected entry function {mangled}")
-        kind, ord_, dtype, ntrb = inst
+        kind, ord_, dtype, ntrb, form = inst
         if ord_ == 5:
             print(f"[2] direction_fluxes {kind} ord 5 {dtype} tracers <= "
-                  f"{ntrb}: {regs} registers, {st} B spill stores, {ld} B "
-                  f"spill loads, {stack} B stack, {smem} B shared", flush=True)
+                  f"{ntrb} {form}: {regs} registers, {st} B spill stores, "
+                  f"{ld} B spill loads, {stack} B stack, {smem} B shared",
+                  flush=True)
         if worst is None or (st, regs) > (worst[1], worst[0]):
             worst = (regs, st, ld, inst)
     print(f"[2] direction_fluxes, most spilled of all orders: {worst[0]} "
@@ -1421,6 +1443,422 @@ def phase_surrogate_workflow():
         os.chdir(cwd)
 
 
+# -- the domain decomposition (parallel/) -------------------------------------
+
+HP5 = 3  # halo strip width at ord 5
+
+
+def _shard_case(prim, axis, bc, nid, i, ns=2):
+    """Shard i (of ns along ``axis``) of ``prim``: its block and its halo
+    strips, cut from the global padding (the ring neighbours' cells inside
+    the domain, the boundary fill beyond it), with each end's face mode."""
+    from miniweatherml_tpu_torch.ops.stencil import BC_WALL, pad_bc
+    pad = pad_bc(prim, axis, HP5, bc, zero_var=nid if bc == BC_WALL else None)
+    nl = prim.shape[axis] // ns
+    block = prim.narrow(axis, i * nl, nl).contiguous()
+    lo = pad.narrow(axis, i * nl, HP5).contiguous()
+    hi = pad.narrow(axis, (i + 1) * nl + HP5, HP5).contiguous()
+    return block, (lo, hi, bc if i == 0 else 0, bc if i == ns - 1 else 0)
+
+
+def phase_strip_fluxes():
+    """The flux kernel's halo-strip form against its plain version on the
+    512x512x64 Kessler state split 2x2 (a local 256x256x64 block, shard
+    (0, 0)): x and y, periodic (both ends inside the domain), and a wall
+    and an open global boundary at one end; f32 and f64, bit for bit.  The
+    periodic f32 calls (the main path's form) are timed beside their bound.
+    Returns the JSON record and, per dtype, the local state's pieces that
+    phase 23 needs."""
+    from miniweatherml_tpu_torch.ops.direction_fluxes import (
+        IDU, IDV, direction_fluxes, direction_fluxes_plain)
+    from miniweatherml_tpu_torch.ops.stencil import BC_OPEN, BC_WALL
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    pieces = {}
+    for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
+        state, _, dycore = _flux_state("kessler", dtype)
+        prim = _prim(state, dycore)
+        g, c = state.grid, dycore._consts(state)
+        hy = dycore._hy(state)
+        # shard (0, 0) of the 2x2 split: its y rows, then x or y strips
+        rows = prim.narrow(-2, 0, g.ny // 2)
+        cols = prim.narrow(-1, 0, g.nx // 2)
+        for name, axis, nid, d, src in (("x", -1, IDU, g.dx, rows),
+                                        ("y", -2, IDV, g.dy, cols)):
+            for bc, i in ((c.bc_x if axis == -1 else c.bc_y, 0),
+                          (BC_WALL, 0), (BC_OPEN, 1)):
+                block, strips = _shard_case(src.contiguous(), axis, bc, nid,
+                                            i)
+                nl = block.shape[axis]
+                args = (block, axis, nl, bc, nid, c.C0, c.gamma, hy[0],
+                        hy[1], dycore.mats, 0.0, 1.0 / d, strips)
+                ref = direction_fluxes_plain(*args)
+                got = direction_fluxes(*args)
+                torch.cuda.synchronize()
+                errs = [_rel(a, b) for a, b in zip(ref, got)]
+                rel = max(e[1] for e in errs)
+                same = all(torch.equal(a, b) for a, b in zip(ref, got))
+                line = (f"[22] direction_fluxes strips {dtype} {name} "
+                        f"local {tuple(block.shape[2:])} bc {bc} ends "
+                        f"{strips[2:]}: bitwise "
+                        f"{'equal' if same else 'DIFFERENT'}, rel {rel:.3e}")
+                if bc == 0:
+                    pieces.setdefault(dtype, {})[axis] = got[1]
+                    ms = _time_ms(lambda: direction_fluxes(*args))
+                    pms = _time_ms(lambda: direction_fluxes_plain(*args),
+                                   reps=3)
+                    nbytes, ops = _flux_work(block, axis, dycore.mats.ord)
+                    nbytes += _nbytes(strips[:2])
+                    bms, by = _bound(nbytes, ops, dtype)
+                    line += (f"; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                             f"bound {bms:.3f} ms ({by}), {bms / ms:.1%} of "
+                             f"the bound  [{_card()}]")
+                    if dtype == "float32":
+                        rec["ms"] += ms
+                        rec["plain_ms"] += pms
+                        rec["bound_ms"] += bms
+                        rec["bound_by"] = by
+                print(line, flush=True)
+                if not (same and rel <= tol):
+                    raise AssertionError(f"strip-form flux {dtype} {name} "
+                                         f"bc {bc}: not bitwise ({rel:.3e})")
+                if dtype == "float32":
+                    rec["max_abs_err"] = max(rec["max_abs_err"],
+                                             max(e[0] for e in errs))
+                del ref, got
+        # the shard's own z faces, tracers and stage bases for phase 23
+        block = prim.narrow(-2, 0, g.ny // 2).narrow(-1, 0, g.nx // 2)
+        block = block.contiguous()
+        pieces[dtype][-3] = direction_fluxes(
+            block, -3, g.nz, c.bc_z, 3, c.C0, c.gamma, hy[2], hy[3],
+            dycore.mats, 0.0, 1.0 / g.dz)[1]
+        tr = state.tracer_stack().narrow(-2, 0, g.ny // 2).narrow(
+            -1, 0, g.nx // 2).contiguous()
+        pieces[dtype].update(tr=tr, grid=g, dt=dycore.compute_time_step(state),
+                             positive=tuple(t.positive
+                                            for t in state.meta.tracers))
+        del state, prim, hy, dycore, rows, cols
+        torch.cuda.empty_cache()
+    return rec, pieces
+
+
+def phase_fct_edges(pieces):
+    """fct_scale_div with the neighbours' edge multipliers against its
+    plain version on shard (0, 0)'s tracer faces from phase 22: x first,
+    z accumulating, y with the stage update (the path's forms), and x / y
+    in every form, f32 and f64, bit for bit; the path's x and y calls timed
+    beside their bytes bound."""
+    from miniweatherml_tpu_torch.ops import fct
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for dtype, p in pieces.items():
+        g, tr, dt, own = p["grid"], p["tr"], p["dt"], p["positive"]
+        mult = fct.fct_mult(tr, own, p[-1], p[-2], p[-3], dt, g.dx, g.dy,
+                            g.dz)
+        t_prev = fct.fct_scale_div(p[-3], mult, None, -3, g.nz, 1.0 / g.dz)
+        tr1 = tr.flip(-1).contiguous()
+        for axis, d in ((-1, g.dx), (-2, g.dy)):
+            n = mult.shape[axis]
+            # the neighbours' boundary cells: any plane of multipliers of
+            # the shard's shape, here its own far ends
+            edges = (mult.narrow(axis, n - 1, 1).contiguous(),
+                     mult.narrow(axis, 0, 1).flip(0).contiguous())
+            for form in FCT_FORMS:
+                rk = None
+                if form.startswith("rk"):
+                    rk = (0.75, 0.25, 0.25 * dt, tr,
+                          tr1 if form == "rk_tr1" else None, own)
+
+                def call(fn, prev=None if form == "first" else t_prev):
+                    q = None if prev is None else prev.clone()
+                    return fn(p[axis], mult, q, axis, n, 1.0 / d, rk=rk,
+                              edges=edges)
+                ref = call(fct.fct_scale_div_plain)
+                got = call(fct.fct_scale_div)
+                torch.cuda.synchronize()
+                err, rel = _rel(ref, got)
+                same = torch.equal(ref, got)
+                del ref, got
+                line = (f"[23] fct_scale_div edges {dtype} axis {axis} "
+                        f"{form}: bitwise {'equal' if same else 'DIFFERENT'},"
+                        f" max abs err {err:.3e}")
+                if FCT_PATH[axis] == form:
+                    buf = None if form == "first" else t_prev.clone()
+                    ms = _time_ms(lambda: fct.fct_scale_div(
+                        p[axis], mult, buf, axis, n, 1.0 / d, rk=rk,
+                        edges=edges))
+                    pms = _time_ms(lambda: fct.fct_scale_div_plain(
+                        p[axis], mult, buf, axis, n, 1.0 / d, rk=rk,
+                        edges=edges), reps=3)
+                    out_b = _nbytes(tr)
+                    bms, by = _bound(_nbytes(p[axis], mult, rk, edges) + out_b
+                                     + (0 if buf is None else out_b),
+                                     15 * tr.numel(), dtype)
+                    line += (f"; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                             f"bound {bms:.3f} ms ({by}), {bms / ms:.1%} of "
+                             f"the bound  [{_card()}]")
+                    if dtype == "float32":
+                        rec["ms"] += ms
+                        rec["plain_ms"] += pms
+                        rec["bound_ms"] += bms
+                        rec["bound_by"] = by
+                print(line, flush=True)
+                if not same:
+                    raise AssertionError(f"fct_scale_div edges {dtype} axis "
+                                         f"{axis} {form}: {rel:.3e}")
+                if dtype == "float32":
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        del mult, t_prev, tr1
+    return rec
+
+
+def _spmd_chain(build, cfg, mesh, device="cuda", seed=None):
+    """(global state, step modules, dycore, make_spmd_step's step) of a
+    chain of ``build`` (supercell_example / supercell_p3 order: dycore,
+    micro, sponge, nudger)."""
+    from miniweatherml_tpu_torch.parallel.spmd import make_spmd_step
+    state, mods, dycore = build(cfg, device)
+    if seed is not None:
+        state = seed(state)
+    step = make_spmd_step(state, mesh, dycore, micro=mods[1].__self__,
+                          nudger=mods[3].__self__)
+    return state, mods, dycore, step
+
+
+# launches per step and shard of the decomposed Kessler chain (one CFL
+# cycle): the dycore's, the strip forms among them (x and y of each
+# stage), and the Kessler kernel
+SPMD_PER_STEP = {"direction_fluxes": 9, "strips": 6, "fct_mult": 3,
+                 "fct_scale_div": 9, "edges": 6, "kessler_step": 1}
+
+
+def _spmd_counts():
+    from miniweatherml_tpu_torch.ops.direction_fluxes import direction_fluxes
+    from miniweatherml_tpu_torch.ops.fct import fct_mult, fct_scale_div
+    from miniweatherml_tpu_torch.physics.kessler_cuda import kessler_step
+    return {"direction_fluxes": (direction_fluxes, "launches"),
+            "strips": (direction_fluxes, "strip_launches"),
+            "fct_mult": (fct_mult, "launches"),
+            "fct_scale_div": (fct_scale_div, "launches"),
+            "edges": (fct_scale_div, "edge_launches"),
+            "kessler_step": (kessler_step, "launches")}
+
+
+def _timed_steps(step, state, dt, steps):
+    """(state, seconds) of ``steps`` calls of ``step`` after a warm call on
+    a copy, host clock around work that ends in a synchronize."""
+    warm = step(state, dt)
+    del warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = step(state, dt)
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0
+
+
+def _chain_step(mods):
+    def step(state, dt):
+        for m in mods:
+            state = m(state, dt)
+        return state
+    return step
+
+
+def phase_spmd_kessler(card):
+    """The decomposed Kessler slice: make_spmd_step on a (1, 2, 2) mesh of
+    the one card at 512x512x64 f32, against the undecomposed chain in the
+    same call.  Returns the launches of the strip and edge forms in the
+    main path's run."""
+    from miniweatherml_tpu_torch.experiments import supercell_example
+    from miniweatherml_tpu_torch.parallel.mesh import (gather_state,
+                                                       make_mesh, shard_state)
+    from miniweatherml_tpu_torch.parallel.spmd import make_spmd_step
+    mesh = make_mesh(["cuda:0"] * 4, ens=1, y=2, x=2)
+    cfg = _bench_cfg(512, 512, 64, 10, "float32")
+    state, mods, dycore, step = _spmd_chain(supercell_example.build, cfg, mesh)
+    dt = dycore.compute_time_step(state)
+    cells = state.grid.nx * state.grid.ny * state.grid.nz
+    # one dycore step: the strip and edge forms against the whole axis
+    dyn = make_spmd_step(state, mesh, dycore, sponge_time_scale=None)
+    ref = dycore.time_step(state, dt)
+    got = gather_state(dyn(shard_state(state, mesh), dt), "cuda")
+    dyn.close()
+    differ = [k for k in ref.fields if not torch.equal(ref[k], got[k])]
+    print(f"[24] one dycore step 512x512x64 f32 on a 2x2 mesh of one card "
+          f"against the undecomposed step: {len(ref.fields) - len(differ)} "
+          f"of {len(ref.fields)} fields equal bit for bit", flush=True)
+    if differ:
+        raise AssertionError(f"decomposed dycore step differs in {differ}")
+    del ref, got
+    # one chain step within f32 1e-5 of scale
+    ref = _chain_step(mods)(state, dt)
+    sharded = shard_state(state, mesh)
+    got = gather_state(step(sharded, dt), "cuda")
+    worst = max(_rel(ref[k], got[k])[1] for k in ref.fields)
+    print(f"[24] one chain step (dycore, Kessler, sponge, nudging) against "
+          f"the undecomposed chain: worst error over field scale "
+          f"{worst:.3e} (tol 1e-5)", flush=True)
+    if not worst <= 1e-5:
+        raise AssertionError(f"decomposed chain step: {worst:.3e}")
+    del ref, got
+    # host synchronizations of one decomposed step
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sharded = step(sharded, dt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    # the main path: counts set to 0, 10 steps, counts read
+    counts = _spmd_counts()
+    steps = 10
+    sharded = shard_state(state, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    step(sharded, dt)  # warm
+    torch.cuda.synchronize()
+    for fn, attr in counts.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sharded = step(sharded, dt)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    problems = sharded.validate()
+    maxw = max(float(s["wvel"].abs().max()) for s in sharded.shards)
+    per_shard = {k: v / (steps * mesh.size) for k, v in launches.items()}
+    print(f"[24] decomposed Kessler 512x512x64 f32, 1x2x2 mesh on one card: "
+          f"{steps} steps, {1e3 * elapsed / steps:.2f} ms/step, "
+          f"{cells * steps / elapsed / 1e6:.2f} Mcellups, peak memory "
+          f"{peak / 2**30:.2f} GiB, maxw {maxw:.6e}, validate() "
+          f"{problems or 'clean'}; launches {launches} ({per_shard} per step "
+          f"and shard); host syncs in one step: {syncs}  [{card}]",
+          flush=True)
+    if (problems or not math.isfinite(maxw) or syncs
+            or per_shard != {k: float(v) for k, v in SPMD_PER_STEP.items()}):
+        raise AssertionError(f"decomposed Kessler: validate {problems}, "
+                             f"maxw {maxw}, syncs {syncs}, launches "
+                             f"{per_shard}")
+    step.close()
+    del sharded
+    # the undecomposed chain, same call, same timing
+    torch.cuda.reset_peak_memory_stats()
+    _, und_s = _timed_steps(_chain_step(mods), state, dt, steps)
+    und_peak = torch.cuda.max_memory_allocated()
+    print(f"[24] undecomposed Kessler 512x512x64 f32, same call: "
+          f"{1e3 * und_s / steps:.2f} ms/step, "
+          f"{cells * steps / und_s / 1e6:.2f} Mcellups, peak memory "
+          f"{und_peak / 2**30:.2f} GiB; the 2x2 mesh takes "
+          f"{elapsed / und_s:.3f}x the undecomposed step  [{card}]",
+          flush=True)
+    del state, mods, dycore
+    torch.cuda.empty_cache()
+    # the reference's 1024x1024x100 community benchmark on the same mesh
+    dt6 = 0.6 * 200.0 / 430.0
+    cfg = _supercell_cfg(1024, 1024, 100, 819200.0, 819200.0, 20000.0,
+                         3 * dt6, "float32")
+    state, mods, dycore, step = _spmd_chain(supercell_example.build, cfg,
+                                            mesh)
+    sharded = shard_state(state, mesh)
+    del state, mods
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sharded, s6 = _timed_steps(step, sharded, dycore.compute_time_step(
+        sharded.shards[0]), 3)
+    peak6 = torch.cuda.max_memory_allocated()
+    problems = sharded.validate()
+    step.close()
+    print(f"[24] decomposed 1024x1024x100 f32 community benchmark, 1x2x2 "
+          f"mesh on one card: 3 steps, {1e3 * s6 / 3:.1f} ms/step, "
+          f"{1024 * 1024 * 100 * 3 / s6 / 1e6:.2f} Mcellups, peak memory "
+          f"{peak6 / 2**30:.2f} GiB, validate() {problems or 'clean'}  "
+          f"[{card}]", flush=True)
+    if problems:
+        raise AssertionError(f"decomposed 1024^2x100: {problems}")
+    del sharded, dycore
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_spmd_references():
+    """16x8x10 f64 slices on a (2, 2, 2) mesh of the one card: the Kessler
+    chain (3 steps) and the P3 chain (seeded layers, 2 steps), against the
+    port's CPU run of the same decomposed chain at 1e-7 of each field's
+    scale and against the card's undecomposed run (one step at 1e-12 of
+    scale: the sponge and nudging means are summed shard by shard; past it
+    the microphysics' thresholds amplify those last bits, tests/
+    test_torch_spmd.py, so the rest at 1e-7); then ShardedStateWriter and
+    stitch_sharded in chip_smoke_out/ against the gathered state's file."""
+    from miniweatherml_tpu_torch.experiments import (supercell_example,
+                                                     supercell_p3)
+    from miniweatherml_tpu_torch.io.netcdf import (ShardedStateWriter,
+                                                   StateWriter)
+    from miniweatherml_tpu_torch.io.stitch import stitch_sharded
+    from miniweatherml_tpu_torch.parallel.mesh import (gather_state,
+                                                       make_mesh, shard_state)
+    from scipy.io import netcdf_file
+    for name, build, seed, zlen, steps in (
+            ("Kessler", supercell_example.build, None, 10000.0, 3),
+            ("P3", supercell_p3.build, supercell_p3.seed_layers, 16000.0, 2)):
+        cfg = _supercell_cfg(16, 8, 10, 40000.0, 40000.0, zlen, 100.0,
+                             "float64", nens=2)
+        runs = {}
+        for device in ("cpu", "cuda"):
+            mesh = make_mesh([device] * 8, ens=2)
+            state, mods, dycore, step = _spmd_chain(build, cfg, mesh, device,
+                                                    seed)
+            dt = dycore.compute_time_step(state)
+            sharded, ref = shard_state(state, mesh), state
+            for k in range(steps):
+                sharded = step(sharded, dt)
+                ref = _chain_step(mods)(ref, dt)
+                if k == 0 and device == "cuda":
+                    got = gather_state(sharded, "cuda")
+                    one = max(_rel(ref[f], got[f])[1] for f in ref.fields)
+            step.close()
+            runs[device] = (gather_state(sharded, "cpu"), ref)
+        card, und = runs["cuda"][0], runs["cuda"][1]
+        vs_cpu = max(_rel(runs["cpu"][0][k], card[k])[1] for k in card.fields)
+        vs_und = max(_rel(und[k].cpu(), card[k])[1] for k in card.fields)
+        print(f"[25] 16x8x10x2 f64 {name} chain on a 2x2x2 mesh of the card: "
+              f"{steps} steps against the port's CPU run of the same mesh "
+              f"{vs_cpu:.3e} of field scale (tol 1e-7); against the card's "
+              f"undecomposed run {one:.3e} after one step (tol 1e-12), "
+              f"{vs_und:.3e} after {steps} (tol 1e-7)", flush=True)
+        if not (vs_cpu <= 1e-7 and one <= 1e-12 and vs_und <= 1e-7):
+            raise AssertionError(f"{name} decomposed slice: {vs_cpu:.3e}, "
+                                 f"{one:.3e}, {vs_und:.3e}")
+    # per-shard output and the stitch, on the last (P3) card run's mesh
+    os.makedirs(OUT_DIR, exist_ok=True)
+    prefix = os.path.join(OUT_DIR, "chip_smoke_sharded")
+    mesh = make_mesh(["cuda:0"] * 8, ens=1, y=2, x=4)
+    cfg = _supercell_cfg(32, 16, 8, 32000.0, 16000.0, 8000.0, 1.0, "float64")
+    state = supercell_example.build(cfg, "cuda")[0]
+    sharded = shard_state(state, mesh)
+    sw = ShardedStateWriter(prefix, sharded)
+    gw = StateWriter(prefix + "_gathered", gather_state(sharded, "cuda"))
+    for t in (0.0, 10.0):
+        sw.write(sharded, t)
+        gw.write(gather_state(sharded, "cuda"), t)
+    sw.close()
+    gw.close()
+    out = stitch_sharded(prefix)
+    with netcdf_file(out, "r", mmap=False) as a, \
+            netcdf_file(prefix + "_gathered.nc", "r", mmap=False) as b:
+        differ = [k for k in b.variables
+                  if not np.array_equal(a.variables[k][:], b.variables[k][:])]
+        same_names = set(a.variables) == set(b.variables)
+    same = not differ and same_names
+    print(f"[25] ShardedStateWriter on a 2x4 mesh of the card: 8 files, "
+          f"stitched to {out}: {'equal' if same else 'DIFFERENT'} to the "
+          "gathered state's file, bit for bit", flush=True)
+    if differ or not same_names:
+        raise AssertionError(f"stitched file differs in {differ}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1485,6 +1923,13 @@ def main() -> int:
     phase_surrogate_references()
     phase_surrogate_workflow()
 
+    k_strips, pieces = phase_strip_fluxes()
+    k_edges = phase_fct_edges(pieces)
+    del pieces
+    torch.cuda.empty_cache()
+    l_spmd = phase_spmd_kessler(card)
+    phase_spmd_references()
+
     kernels = [
         {"name": "direction_fluxes", "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/direction_fluxes.cu",
@@ -1525,6 +1970,20 @@ def main() -> int:
          "replaces": "miniweatherml_tpu/dycore/euler.py:880-889 (an XLA "
                      "fusion, not a Pallas kernel)",
          "launches": l_city["fct_mult"], **k_fct["fct_mult"]},
+        {"name": "direction_fluxes_strips", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/direction_fluxes.cu",
+         "replaces": "miniweatherml_tpu/ops/pallas_recon.py:536, "
+                     "miniweatherml_tpu/ops/pallas_recon.py:941 (the "
+                     "halo-strip form, miniweatherml_tpu/dycore/"
+                     "euler.py:645-655)",
+         "launches": l_spmd["strips"], **k_strips},
+        {"name": "fct_scale_div_edges", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/fct.cu",
+         "replaces": "miniweatherml_tpu/ops/pallas_recon.py:1084, "
+                     "miniweatherml_tpu/ops/pallas_recon.py:1151 (with the "
+                     "edge multipliers of miniweatherml_tpu/dycore/"
+                     "euler.py:943-957)",
+         "launches": l_spmd["edges"], **k_edges},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -4,14 +4,19 @@
 // Replaces the Pallas TPU megakernels of miniweatherml_tpu/ops/pallas_recon.py:
 // direction_fluxes_pallas (x, stencil on the last axis, pallas_call at :536)
 // and direction_fluxes_pallas_sub (y and z, stencil on axis -2, pallas_call
-// at :941).
+// at :941), in both of their forms: the whole axis (self_bc: halos from the
+// block's own edges) and the halo-strip form of a split x or y axis (lo / hi
+// strips from the ring neighbours, and a face mode per end, bc=(bc_lo,
+// bc_hi)).
 //
 // Math (the JAX XLA path, dycore/euler.py:475-613 plus div):
 //   halo fill (periodic wrap; wall/open edge copy, wall zeroes the normal
-//   velocity) -> WENO edges of every variable (exact weights, same term
+//   velocity; or, in the halo-strip form, the hp = (ord-1)/2 + 1 cells of
+//   the lo / hi strips a shard's neighbours sent) -> WENO edges of every variable (exact weights, same term
 //   order as ops/weno_fused.py) -> face limits, densitized with the
 //   hydrostatic background (cell profile for x/y, face profile for z) ->
-//   wall/open face overwrite -> upwind Riemann solve -> state divergence
+//   wall/open face overwrite (each end by its own mode: the strip form sets
+//   it only on the shards that hold the global boundary) -> upwind Riemann solve -> state divergence
 //   -(F[f+1] - F[f]) * div_scale, and the unscaled tracer faces.
 //
 // What bounds it on the H100: operations.  The limiter costs about 200
@@ -33,9 +38,11 @@
 //    the table's doubles cast to the type) live in __constant__ memory and
 //    are indexed by compile-time offsets after unrolling, so every
 //    coefficient is a constant-bank operand of its multiply: no loads.
-//  * Order, type, direction kind (x: unit stride; y/z: strided) and a bound
+//  * Order, type, direction kind (x: unit stride; y/z: strided), a bound
 //    on the tracer count (1, 3 or 9; the tracer loop is unrolled and
-//    guarded) are template parameters; tile sizes are compile-time
+//    guarded) and the form (whole axis or halo strips: a runtime branch on
+//    the strip pointer cost the whole-axis x kernel 6-8% through register
+//    spills, PERF.md) are template parameters; tile sizes are compile-time
 //    constants; the grid is (line tiles, planes, segments) for y/z and (x
 //    tiles, rows, planes) for x, so the background profile's index is
 //    plane * hps + face * has and no index needs a runtime division.  The
@@ -61,6 +68,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -180,7 +189,8 @@ __device__ __forceinline__ void weno_edges(const T (&s)[ORD], T cutoff,
 
 // One direction's view of the arrays: a value is
 // base[v * vstride + plane * pstride + cell * astride + line * lstride];
-// the tracer faces likewise with the t* strides (n + 1 faces per line).
+// the tracer faces likewise with the t* strides (n + 1 faces per line), and
+// the halo strips (hp cells per line) with the s* strides.
 struct Geom {
   int64_t vstride, pstride, astride, lstride;
   int64_t tvstride, tpstride, tastride, tlstride;
@@ -189,12 +199,54 @@ struct Geom {
   int bc, nid;
 };
 
+// The halo-strip form's view: the strips (hp cells per line, at the s*
+// strides) and each end's face mode (0 none, else bc).  The whole-axis
+// kernels take the plain Geom, so that they compile as they did before the
+// strip form existed (a runtime branch on the strip pointer, or a larger
+// Geom, cost the whole-axis x kernel 4-8% through register allocation,
+// PERF.md).
+struct StripGeom : Geom {
+  int64_t svstride, spstride, sastride, slstride;
+  const void* lo;
+  const void* hi;
+  int hp, blo, bhi;
+};
+
+template <bool STRIPS>
+using GeomOf = typename std::conditional<STRIPS, StripGeom, Geom>::type;
+
+constexpr int XROWS = 4;  // rows (warps) per block of the x kernel
+
+// Offset of the thread's line in the halo strips, from its block and thread
+// indices: the x kernel's grid is (x tiles, row blocks, planes), the y/z
+// kernel's (line tiles, planes, segments).  Recomputed where a strip is
+// read, so that no register holds it through the kernel.
+template <bool XKIND>
+__device__ __forceinline__ int64_t strip_line(const StripGeom& g) {
+  if (XKIND)
+    return (int64_t)blockIdx.z * g.spstride +
+           (int64_t)(blockIdx.y * XROWS + threadIdx.y) * g.slstride;
+  return (int64_t)blockIdx.y * g.spstride +
+         (int64_t)(blockIdx.x * WARP + threadIdx.x) * g.slstride;
+}
+
 // Value of variable v at cell a (any integer) of the line at `line`, with
-// the boundary rule for cells outside [0, n).
-template <typename T>
+// the boundary rule for cells outside [0, n): in the halo-strip form
+// (STRIPS) the strips' cells (a cell further out than the strips feeds
+// only results that are not written, and reads the outermost one), else
+// the wrap or the edge copy.  STRIPS is a template parameter so that the
+// whole-axis instantiations carry none of the strip form's code.
+template <bool XKIND, bool STRIPS, typename T>
 __device__ __forceinline__ T load_bc(const T* __restrict__ line,
-                                     const Geom& g, int v, int a) {
+                                     const GeomOf<STRIPS>& g, int v, int a) {
   if (a < 0 || a >= g.n) {
+    if constexpr (STRIPS) {
+      const T* s = static_cast<const T*>(a < 0 ? g.lo : g.hi) +
+                   strip_line<XKIND>(g);
+      int k = a < 0 ? a + g.hp : a - g.n;
+      k = k < 0 ? 0 : (k >= g.hp ? g.hp - 1 : k);
+      return s[v * g.svstride + k * g.sastride];
+    }
     if (g.bc == BC_PERIODIC) {
       a %= g.n;
       if (a < 0) a += g.n;
@@ -218,10 +270,11 @@ struct Face {
   bool useL, lo, hi;
 };
 
-template <typename T>
+template <bool STRIPS, typename T>
 __device__ __forceinline__ void riemann(const T (&a)[NS], const T (&b)[NS],
-                                        T hr, T ht, int f, const Geom& g,
-                                        T C0, T gamma, Face<T>& o) {
+                                        T hr, T ht, int f,
+                                        const GeomOf<STRIPS>& g, T C0,
+                                        T gamma, Face<T>& o) {
   const T CS = T(350);
   const int nid = g.nid;
   o.rL = add(a[IDR], hr);
@@ -236,15 +289,37 @@ __device__ __forceinline__ void riemann(const T (&a)[NS], const T (&b)[NS],
   }
   SL[IDT] = add(a[IDT], ht);
   SR[IDT] = add(b[IDT], ht);
-  o.lo = g.bc != BC_PERIODIC && f == 0;
-  o.hi = g.bc != BC_PERIODIC && f == g.n;
+  // The face overwrite, once per form: the strip form with each end's own
+  // mode, the whole axis with bc at both ends.  One loop for both forms
+  // (with the ends' modes, or only the wall test, found per form) compiled
+  // every whole-axis kernel to other SASS than the loop of its own, with
+  // local-memory spills in some x kernels (PERF.md), so the loop is kept
+  // twice.
+  if constexpr (STRIPS) {
+    o.lo = g.blo != 0 && f == 0;
+    o.hi = g.bhi != 0 && f == g.n;
+    const bool wall = (o.lo && g.blo == BC_WALL) ||
+                      (o.hi && g.bhi == BC_WALL);
 #pragma unroll
-  for (int v = 0; v < NS; ++v) {
-    if (o.lo) SL[v] = SR[v];
-    if (o.hi) SR[v] = SL[v];
-    if (g.bc == BC_WALL && (o.lo || o.hi) && v == nid) {
-      SL[v] = T(0);
-      SR[v] = T(0);
+    for (int v = 0; v < NS; ++v) {
+      if (o.lo) SL[v] = SR[v];
+      if (o.hi) SR[v] = SL[v];
+      if (wall && v == nid) {
+        SL[v] = T(0);
+        SR[v] = T(0);
+      }
+    }
+  } else {
+    o.lo = g.bc != BC_PERIODIC && f == 0;
+    o.hi = g.bc != BC_PERIODIC && f == g.n;
+#pragma unroll
+    for (int v = 0; v < NS; ++v) {
+      if (o.lo) SL[v] = SR[v];
+      if (o.hi) SR[v] = SL[v];
+      if (g.bc == BC_WALL && (o.lo || o.hi) && v == nid) {
+        SL[v] = T(0);
+        SR[v] = T(0);
+      }
     }
   }
   T ruL = T(0), ruR = T(0);
@@ -293,21 +368,22 @@ __device__ __forceinline__ T divergence(T fr, T fl, T ds) {
 // neighbouring x positions).  Each variable's next value is loaded one
 // step ahead into a register, so a step's loads are in flight while the
 // previous step computes.
-template <int ORD, typename T, int NV>
+template <int ORD, typename T, int NV, bool STRIPS>
 struct StridedSource {
   static constexpr int HS = (ORD - 1) / 2;
   const T* __restrict__ line;
-  const Geom& g;
+  const GeomOf<STRIPS>& g;
   T pre[NV];
   __device__ __forceinline__ T load(int v, int a) const {
     return a < g.n ? line[v * g.vstride + a * g.astride]
-                   : load_bc(line, g, v, a);
+                   : load_bc<false, STRIPS>(line, g, v, a);
   }
   // variable v's stencil of cell c, at the segment's first step; the load
   // of the next step's value goes out with it
   __device__ __forceinline__ void prime(T (&s)[ORD], int v, int c) {
 #pragma unroll
-    for (int q = 0; q < ORD; ++q) s[q] = load_bc(line, g, v, c - HS + q);
+    for (int q = 0; q < ORD; ++q)
+      s[q] = load_bc<false, STRIPS>(line, g, v, c - HS + q);
     pre[v] = load(v, c + 1 + HS);
   }
   // shift variable v's stencil on to cell c
@@ -322,9 +398,10 @@ struct StridedSource {
 // One line's segment: cells a0 .. a1 - 1 get their divergence, faces
 // a0 .. a1 - 1 (and face n in the last segment) their tracer values.  Step
 // c forms the edges of cell c; from c = a0 on it also solves face c.
-template <int ORD, typename T, int NTRB>
-__device__ __forceinline__ void march(StridedSource<ORD, T, NS + NTRB>& src,
-                                      const Geom& g,
+template <int ORD, typename T, int NTRB, bool STRIPS>
+__device__ __forceinline__ void march(
+    StridedSource<ORD, T, NS + NTRB, STRIPS>& src,
+                                      const GeomOf<STRIPS>& g,
                                       const T* __restrict__ hyr,
                                       const T* __restrict__ hyt,
                                       T* __restrict__ sdiv,
@@ -356,7 +433,7 @@ __device__ __forceinline__ void march(StridedSource<ORD, T, NS + NTRB>& src,
       T eRs[NS];
 #pragma unroll
       for (int v = 0; v < NS; ++v) eRs[v] = eR[v];
-      riemann(eRs, eL, hyr[h], hyt[h], c, g, C0, gamma, o);
+      riemann<STRIPS>(eRs, eL, hyr[h], hyt[h], c, g, C0, gamma, o);
       if (c > a0) {  // divergence of cell c-1
         const int64_t at = obase + (int64_t)(c - 1) * g.astride;
 #pragma unroll
@@ -394,19 +471,19 @@ __device__ __forceinline__ void march(StridedSource<ORD, T, NS + NTRB>& src,
 template <typename T>
 constexpr int min_blocks_strided() { return sizeof(T) == 8 ? 8 : 16; }
 
-template <int ORD, typename T, int NTRB>
+template <int ORD, typename T, int NTRB, bool STRIPS>
 __global__ void __launch_bounds__(WARP, min_blocks_strided<T>())
 fluxes_strided(const T* __restrict__ prim, const T* __restrict__ hyr,
                const T* __restrict__ hyt, T* __restrict__ sdiv,
-               T* __restrict__ tf, const Geom g, const T C0, const T gamma,
-               const T cutoff, const T ds) {
+               T* __restrict__ tf, const GeomOf<STRIPS> g, const T C0,
+               const T gamma, const T cutoff, const T ds) {
   const int l = blockIdx.x * WARP + threadIdx.x;
   if (l >= g.nlines) return;
   const int p = blockIdx.y, a0 = blockIdx.z * SEG;
   const int a1 = min(a0 + SEG, g.n);
   const int64_t obase = p * g.pstride + l * g.lstride;
-  StridedSource<ORD, T, NS + NTRB> src{prim + obase, g, {}};
-  march<ORD, T, NTRB>(src, g, hyr, hyt, sdiv, tf, p, obase,
+  StridedSource<ORD, T, NS + NTRB, STRIPS> src{prim + obase, g, {}};
+  march<ORD, T, NTRB, STRIPS>(src, g, hyr, hyt, sdiv, tf, p, obase,
                       p * g.tpstride + l * g.tlstride, a0, a1, C0, gamma,
                       cutoff, ds);
 }
@@ -419,25 +496,24 @@ fluxes_strided(const T* __restrict__ prim, const T* __restrict__ hyr,
 // face's fluxes by shuffle).  Loads and stores of a warp are contiguous
 // along the row, and no register or shared memory carries between steps.
 constexpr int XT = WARP - 2;
-constexpr int XROWS = 4;  // rows (warps) per block
 constexpr unsigned FULL = 0xffffffffu;
 
 // x: blocks of 4 warps per SM, 8 in f32 (64 registers), 3 in f64 (170).
 template <typename T>
 constexpr int min_blocks_x() { return sizeof(T) == 8 ? 3 : 8; }
 
-template <int ORD, typename T>
+template <int ORD, typename T, bool STRIPS>
 __device__ __forceinline__ void row_stencil(const T* __restrict__ row,
-                                            const Geom& g, int v, int base,
-                                            bool inside, int lane,
+                                            const GeomOf<STRIPS>& g, int v,
+                                            int base, bool inside, int lane,
                                             T (&s)[ORD]) {
   constexpr int HS = (ORD - 1) / 2;
   const T A = inside ? row[v * g.vstride + base + lane]
-                     : load_bc(row, g, v, base + lane);
+                     : load_bc<true, STRIPS>(row, g, v, base + lane);
   T B = T(0);
   if (lane < 2 * HS)
     B = inside ? row[v * g.vstride + base + WARP + lane]
-               : load_bc(row, g, v, base + WARP + lane);
+               : load_bc<true, STRIPS>(row, g, v, base + WARP + lane);
 #pragma unroll
   for (int q = 0; q < ORD; ++q) {
     const T fa = __shfl_sync(FULL, A, (lane + q) & (WARP - 1));
@@ -446,12 +522,12 @@ __device__ __forceinline__ void row_stencil(const T* __restrict__ row,
   }
 }
 
-template <int ORD, typename T, int NTRB>
+template <int ORD, typename T, int NTRB, bool STRIPS>
 __global__ void __launch_bounds__(WARP * XROWS, min_blocks_x<T>())
 fluxes_x(const T* __restrict__ prim, const T* __restrict__ hyr,
          const T* __restrict__ hyt, T* __restrict__ sdiv,
-         T* __restrict__ tf, const Geom g, const T C0, const T gamma,
-         const T cutoff, const T ds) {
+         T* __restrict__ tf, const GeomOf<STRIPS> g, const T C0,
+         const T gamma, const T cutoff, const T ds) {
   constexpr int HS = (ORD - 1) / 2;
   const int lane = threadIdx.x;
   const int l = blockIdx.y * XROWS + threadIdx.y;
@@ -470,12 +546,12 @@ fluxes_x(const T* __restrict__ prim, const T* __restrict__ hyr,
 #pragma unroll
   for (int v = 0; v < NS; ++v) {
     T s[ORD], eR;
-    row_stencil<ORD, T>(row, g, v, base, inside, lane, s);
+    row_stencil<ORD, T, STRIPS>(row, g, v, base, inside, lane, s);
     weno_edges<ORD, T>(s, cutoff, eL[v], eR);
     eRl[v] = __shfl_up_sync(FULL, eR, 1);  // right edge of cell c-1
   }
   Face<T> o;
-  riemann(eRl, eL, hr, ht, c, g, C0, gamma, o);  // lane 0's is unused
+  riemann<STRIPS>(eRl, eL, hr, ht, c, g, C0, gamma, o);  // lane 0's unused
   const bool own = lane >= 1 && lane <= XT && c < g.n;
 #pragma unroll
   for (int v = 0; v < NS; ++v) {
@@ -487,7 +563,7 @@ fluxes_x(const T* __restrict__ prim, const T* __restrict__ hyr,
   for (int q = 0; q < NTRB; ++q) {
     if (q < g.ntr) {
       T s[ORD], left, right;
-      row_stencil<ORD, T>(row, g, NS + q, base, inside, lane, s);
+      row_stencil<ORD, T, STRIPS>(row, g, NS + q, base, inside, lane, s);
       weno_edges<ORD, T>(s, cutoff, left, right);
       const T rl = __shfl_up_sync(FULL, right, 1);
       if (wface) tf[trow + q * g.tvstride + c] = tracer_face(o, rl, left);
@@ -495,28 +571,41 @@ fluxes_x(const T* __restrict__ prim, const T* __restrict__ hyr,
   }
 }
 
-template <int ORD, typename T, int NTRB>
-cudaError_t launch_ntr(int axis, int planes, cudaStream_t s, const T* prim,
-                       const T* hyr, const T* hyt, T* sdiv, T* tf,
-                       const Geom& g, T C0, T gamma, T cutoff, T ds) {
+template <int ORD, typename T, int NTRB, bool STRIPS>
+void launch_kind(int axis, int planes, cudaStream_t s, const T* prim,
+                 const T* hyr, const T* hyt, T* sdiv, T* tf,
+                 const GeomOf<STRIPS>& g, T C0, T gamma, T cutoff, T ds) {
   if (axis == 0) {
     const dim3 grid((g.n + XT - 1) / XT, (g.nlines + XROWS - 1) / XROWS,
                     planes);
-    fluxes_x<ORD, T, NTRB><<<grid, dim3(WARP, XROWS), 0, s>>>(
+    fluxes_x<ORD, T, NTRB, STRIPS><<<grid, dim3(WARP, XROWS), 0, s>>>(
         prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds);
   } else {
     const dim3 grid((g.nlines + WARP - 1) / WARP, planes,
                     (g.n + SEG - 1) / SEG);
-    fluxes_strided<ORD, T, NTRB><<<grid, WARP, 0, s>>>(
+    fluxes_strided<ORD, T, NTRB, STRIPS><<<grid, WARP, 0, s>>>(
         prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds);
   }
+}
+
+template <int ORD, typename T, int NTRB>
+cudaError_t launch_ntr(int axis, int planes, cudaStream_t s, const T* prim,
+                       const T* hyr, const T* hyt, T* sdiv, T* tf,
+                       const StripGeom& g, T C0, T gamma, T cutoff, T ds) {
+  if (g.lo != nullptr)
+    launch_kind<ORD, T, NTRB, true>(axis, planes, s, prim, hyr, hyt, sdiv,
+                                    tf, g, C0, gamma, cutoff, ds);
+  else
+    launch_kind<ORD, T, NTRB, false>(axis, planes, s, prim, hyr, hyt, sdiv,
+                                     tf, static_cast<const Geom&>(g), C0,
+                                     gamma, cutoff, ds);
   return cudaGetLastError();
 }
 
 template <int ORD, typename T>
 cudaError_t launch_ord(int axis, int planes, cudaStream_t s, const T* prim,
                        const T* hyr, const T* hyt, T* sdiv, T* tf,
-                       const Geom& g, T C0, T gamma, T cutoff, T ds) {
+                       const StripGeom& g, T C0, T gamma, T cutoff, T ds) {
   if (g.ntr <= 1)
     return launch_ntr<ORD, T, 1>(axis, planes, s, prim, hyr, hyt, sdiv, tf,
                                  g, C0, gamma, cutoff, ds);
@@ -528,33 +617,47 @@ cudaError_t launch_ord(int axis, int planes, cudaStream_t s, const T* prim,
 }
 
 // axis 0 = x, 1 = y, 2 = z on (nvar, nens, nz, ny, nx) arrays
+// lo / hi: the halo strips (hp = (ord-1)/2 + 1 cells along the axis, else
+// shaped like prim), or both null for the whole axis; bc_lo / bc_hi: the face
+// mode of each end (0 none, else bc).
 template <typename T>
 int launch(const void* prim, const void* hyr, const void* hyt, void* sdiv,
-           void* tf, int axis, int nvar, int nens, int nz, int ny, int nx,
-           int bc, int normal_id, int ord, double C0, double gamma,
-           double cutoff, double div_scale, void* stream) {
+           void* tf, const void* lo, const void* hi, int axis, int nvar,
+           int nens, int nz, int ny, int nx, int bc, int bc_lo, int bc_hi,
+           int normal_id, int ord, double C0, double gamma, double cutoff,
+           double div_scale, void* stream) {
   const int ntr = nvar - NS;
   if (ntr < 0 || ntr > NTR_MAX || axis < 0 || axis > 2 || nens < 1 ||
-      nz < 1 || ny < 1 || nx < 1)
+      nz < 1 || ny < 1 || nx < 1 || (lo == nullptr) != (hi == nullptr) ||
+      (lo != nullptr && axis == 2) || (bc_lo != 0 && bc_lo != bc) ||
+      (bc_hi != 0 && bc_hi != bc))
     return cudaErrorInvalidValue;
   const int64_t cells = (int64_t)nens * nz * ny * nx;
-  Geom g{};
+  const int hp = (ord - 1) / 2 + 1;
+  StripGeom g{};
   g.vstride = cells;
   g.ntr = ntr;
   g.bc = bc;
   g.nid = normal_id;
+  g.lo = lo;
+  g.hi = hi;
+  g.hp = hp;
+  g.blo = bc_lo;
+  g.bhi = bc_hi;
   int planes;
   if (axis == 0) {
     planes = nens * nz;
     g.n = nx, g.nlines = ny;
     g.pstride = (int64_t)ny * nx, g.astride = 1, g.lstride = nx;
     g.tpstride = (int64_t)ny * (nx + 1), g.tastride = 1, g.tlstride = nx + 1;
+    g.spstride = (int64_t)ny * hp, g.sastride = 1, g.slstride = hp;
     g.hps = 1, g.has = 0;
   } else if (axis == 1) {
     planes = nens * nz;
     g.n = ny, g.nlines = nx;
     g.pstride = (int64_t)ny * nx, g.astride = nx, g.lstride = 1;
     g.tpstride = (int64_t)(ny + 1) * nx, g.tastride = nx, g.tlstride = 1;
+    g.spstride = (int64_t)hp * nx, g.sastride = nx, g.slstride = 1;
     g.hps = 1, g.has = 0;
   } else {
     planes = nens;
@@ -566,6 +669,7 @@ int launch(const void* prim, const void* hyr, const void* hyt, void* sdiv,
     g.hps = nz + 1, g.has = 1;
   }
   g.tvstride = g.tpstride * planes;
+  g.svstride = g.spstride * planes;
   const int64_t ltiles = ((int64_t)g.nlines + WARP - 1) / WARP;
   const bool fits = axis == 0 ? (g.nlines + XROWS - 1) / XROWS <= 65535
                               : ltiles <= 2147483647LL &&
@@ -607,23 +711,25 @@ int direction_fluxes_set_coef(int ord, const double* table, int n) {
 }
 
 int direction_fluxes_f32(const void* prim, const void* hyr, const void* hyt,
-                         void* sdiv, void* tf, int axis, int nvar, int nens,
-                         int nz, int ny, int nx, int bc, int normal_id,
-                         int ord, double C0, double gamma, double cutoff,
+                         void* sdiv, void* tf, const void* lo, const void* hi,
+                         int axis, int nvar, int nens, int nz, int ny, int nx,
+                         int bc, int bc_lo, int bc_hi, int normal_id, int ord,
+                         double C0, double gamma, double cutoff,
                          double div_scale, void* stream) {
-  return launch<float>(prim, hyr, hyt, sdiv, tf, axis, nvar, nens, nz, ny, nx,
-                       bc, normal_id, ord, C0, gamma, cutoff, div_scale,
-                       stream);
+  return launch<float>(prim, hyr, hyt, sdiv, tf, lo, hi, axis, nvar, nens, nz,
+                       ny, nx, bc, bc_lo, bc_hi, normal_id, ord, C0, gamma,
+                       cutoff, div_scale, stream);
 }
 
 int direction_fluxes_f64(const void* prim, const void* hyr, const void* hyt,
-                         void* sdiv, void* tf, int axis, int nvar, int nens,
-                         int nz, int ny, int nx, int bc, int normal_id,
-                         int ord, double C0, double gamma, double cutoff,
+                         void* sdiv, void* tf, const void* lo, const void* hi,
+                         int axis, int nvar, int nens, int nz, int ny, int nx,
+                         int bc, int bc_lo, int bc_hi, int normal_id, int ord,
+                         double C0, double gamma, double cutoff,
                          double div_scale, void* stream) {
-  return launch<double>(prim, hyr, hyt, sdiv, tf, axis, nvar, nens, nz, ny,
-                        nx, bc, normal_id, ord, C0, gamma, cutoff, div_scale,
-                        stream);
+  return launch<double>(prim, hyr, hyt, sdiv, tf, lo, hi, axis, nvar, nens,
+                        nz, ny, nx, bc, bc_lo, bc_hi, normal_id, ord, C0,
+                        gamma, cutoff, div_scale, stream);
 }
 
 const char* direction_fluxes_error_string(int err) {

@@ -19,6 +19,9 @@
 //              (1 for tracers not flagged positive)
 //   fct_scale_div, one direction, face f between cells f-1 and f:
 //              fs = F * (F > 0 ? mult[f-1] : F < 0 ? mult[f] : 1), 1 off the axis
+//              (on a split axis, off the shard: the neighbour shard's
+//              boundary multiplier, from the m_lo / m_hi planes, as the JAX
+//              package's _fct_scale_dir with exchange_face_scalar)
 //              acc = (fs_lo - fs_hi) * dxi  [+ t_prev before it]
 //              epilogue: v = c0*tr0 [+ c1*tr1] + cdt*acc, clamped at 0 for
 //              the tracers flagged positive (the SSPRK3 tracer stage update)
@@ -255,7 +258,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fct_scale_div_kernel(const T* __restrict__ F, const T* __restrict__ mult,
                      const T* tprev, const T* __restrict__ tr0,
-                     const T* __restrict__ tr1, T* out, int64_t outer, int n,
+                     const T* __restrict__ tr1, const T* __restrict__ m_lo,
+                     const T* __restrict__ m_hi, T* out, int64_t outer, int n,
                      int64_t inner, int64_t per_tr, uint64_t mask, T c0, T c1,
                      T cdt, T dxi) {
   const int64_t idx = (int64_t)blockIdx.x * THREADS + threadIdx.x;
@@ -267,8 +271,14 @@ fct_scale_div_kernel(const T* __restrict__ F, const T* __restrict__ mult,
   const int64_t lo = o * (line + inner) + rem;  // face a; face a+1 at lo + inner
   const T Flo = F[lo], Fhi = F[lo + inner];
   const T m = mult[idx];
-  const T m_prev = a > 0 ? mult[idx - inner] : T(1);
-  const T m_next = a < n - 1 ? mult[idx + inner] : T(1);
+  // beyond either end: 1, or the neighbour shard's boundary multiplier
+  // (plane index o * inner + the position across the line)
+  const T m_prev = a > 0 ? mult[idx - inner]
+                         : (m_lo != nullptr ? m_lo[o * inner + rem] : T(1));
+  const T m_next = a < n - 1
+                       ? mult[idx + inner]
+                       : (m_hi != nullptr ? m_hi[o * inner + rem - a * inner]
+                                          : T(1));
   const T fs_lo = Flo * (Flo > T(0) ? m_prev : (Flo < T(0) ? m : T(1)));
   const T fs_hi = Fhi * (Fhi > T(0) ? m : (Fhi < T(0) ? m_next : T(1)));
   T acc = (fs_lo - fs_hi) * dxi;
@@ -289,18 +299,22 @@ inline unsigned blocks_for(int64_t total) {
 
 template <typename T>
 int scale_div(const void* F, const void* mult, const void* tprev,
-              const void* tr0, const void* tr1, void* out, long long outer,
+              const void* tr0, const void* tr1, const void* m_lo,
+              const void* m_hi, void* out, long long outer,
               int n, long long inner, long long per_tr, uint64_t mask,
               double c0, double c1, double cdt, double dxi, void* stream) {
   const int64_t total = (int64_t)outer * n * inner;
-  if (total <= 0 || n < 1 || per_tr < 1) return (int)cudaErrorInvalidValue;
+  if (total <= 0 || n < 1 || per_tr < 1 ||
+      (m_lo == nullptr) != (m_hi == nullptr))
+    return (int)cudaErrorInvalidValue;
   if ((total + THREADS - 1) / THREADS > 2147483647LL)
     return (int)cudaErrorInvalidConfiguration;
   fct_scale_div_kernel<T><<<blocks_for(total), THREADS, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(F), static_cast<const T*>(mult),
       static_cast<const T*>(tprev), static_cast<const T*>(tr0),
-      static_cast<const T*>(tr1), static_cast<T*>(out), outer, n, inner,
+      static_cast<const T*>(tr1), static_cast<const T*>(m_lo),
+      static_cast<const T*>(m_hi), static_cast<T*>(out), outer, n, inner,
       per_tr, mask, (T)c0, (T)c1, (T)cdt, (T)dxi);
   return (int)cudaGetLastError();
 }
@@ -341,20 +355,24 @@ int multiplier(const void* tr, const void* Fx, const void* Fy, const void* Fz,
 extern "C" {
 
 int fct_scale_div_f32(const void* F, const void* mult, const void* tprev,
-                      const void* tr0, const void* tr1, void* out,
+                      const void* tr0, const void* tr1, const void* m_lo,
+                      const void* m_hi, void* out,
                       long long outer, int n, long long inner,
                       long long per_tr, uint64_t mask, double c0, double c1,
                       double cdt, double dxi, void* stream) {
-  return scale_div<float>(F, mult, tprev, tr0, tr1, out, outer, n, inner,
+  return scale_div<float>(F, mult, tprev, tr0, tr1, m_lo, m_hi, out, outer,
+                          n, inner,
                           per_tr, mask, c0, c1, cdt, dxi, stream);
 }
 
 int fct_scale_div_f64(const void* F, const void* mult, const void* tprev,
-                      const void* tr0, const void* tr1, void* out,
+                      const void* tr0, const void* tr1, const void* m_lo,
+                      const void* m_hi, void* out,
                       long long outer, int n, long long inner,
                       long long per_tr, uint64_t mask, double c0, double c1,
                       double cdt, double dxi, void* stream) {
-  return scale_div<double>(F, mult, tprev, tr0, tr1, out, outer, n, inner,
+  return scale_div<double>(F, mult, tprev, tr0, tr1, m_lo, m_hi, out, outer,
+                           n, inner,
                            per_tr, mask, c0, c1, cdt, dxi, stream);
 }
 

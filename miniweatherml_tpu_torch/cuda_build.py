@@ -19,7 +19,7 @@ import threading
 import time
 
 __all__ = ["load_library", "build_seconds", "NVCC_FLAGS", "nvcc_flags",
-           "on_cuda"]
+           "on_cuda", "count_launch"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -104,3 +104,14 @@ def on_cuda(t) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
     return True
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """Add one to the launch counter ``fn.<attr>`` of a kernel wrapper.  The
+    shards of a mesh run launch from several threads, and ``+= 1`` on an
+    attribute is no atomic operation, so the update takes a lock."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)

@@ -16,6 +16,13 @@ buffer, the last of which also does the SSPRK3 tracer stage update and the
 positivity clamp (as the JAX package's ``_fct_div_pallas``).  The sources
 and the state's RK stages are plain tensor code.  WENO weights are exact.
 
+Under a mesh (``parallel/spmd.py``) each shard steps its local block with an
+``SpmdCtx``: a split x or y direction takes its halo strips from the ring
+neighbours (``parallel/halo.exchange_halo_strips``) into the flux kernel's
+halo-strip form, whose face overwrites apply only on the shards that hold
+the global boundary, and FCT takes the neighbours' boundary multipliers
+(``exchange_face_scalar``) into ``fct_scale_div``.  z is never split.
+
 State variable order matches the reference (dynamics...h:34-38):
 idR, idU, idV, idW, idT = rho', rho*u, rho*v, rho*w, (rho*theta)'.
 Tensor layout: (nvar, nens, nz, ny, nx).
@@ -26,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from functools import partial
+from typing import Any
 
 import torch
 
@@ -33,9 +41,12 @@ from ..core.coupler import CouplerState
 from ..ops.direction_fluxes import (IDR, IDT, IDU, IDV, IDW,
                                     direction_fluxes)
 from ..ops.fct import fct_mult, fct_scale_div, per_tracer
+from ..ops.stencil import BC_WALL
 from ..ops.weno import weno_matrices
+from ..parallel.collectives import axis_index
+from ..parallel.halo import exchange_face_scalar, exchange_halo_strips
 
-__all__ = ["Dycore", "IDR", "IDU", "IDV", "IDW", "IDT"]
+__all__ = ["Dycore", "SpmdCtx", "IDR", "IDU", "IDV", "IDW", "IDT"]
 
 # Field axes of the directions on (nvar, nens, nz, ny, nx).
 _AX_X, _AX_Y, _AX_Z = -1, -2, -3
@@ -52,6 +63,22 @@ def _tracer_mass(state, tr):
         return torch.sum(tr, dim=0)
     return torch.sum(per_tracer(tr, [not a for a in adds], torch.zeros_like),
                      dim=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmdCtx:
+    """What one shard of a mesh run needs to step its local block.
+
+    ``axes`` maps a field axis (-1 = x, -2 = y) to its (mesh axis name,
+    shard count), for the split axes only.  Halo data then comes from the
+    ring neighbours (``parallel/halo.py``, through the thread's current
+    shard communicator), the counterpart of the reference's MPI halo and
+    edge exchange (dynamics...h:574-1082)."""
+
+    axes: Any  # Mapping[int, tuple[str, int]]
+
+    def get(self, axis: int):
+        return self.axes.get(axis) if self.axes else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,8 +168,11 @@ class Dycore:
         g = state.grid
         return _CFL * min(g.dx, g.dy, g.dz) / _MAXWAVE
 
-    def time_step(self, state: CouplerState, dt_phys: float) -> CouplerState:
-        """One physics step: CFL sub-cycled SSPRK3 (dynamics...h:81-181)."""
+    def time_step(self, state: CouplerState, dt_phys: float,
+                  spmd: SpmdCtx | None = None) -> CouplerState:
+        """One physics step: CFL sub-cycled SSPRK3 (dynamics...h:81-181).
+        ``spmd``: run as one shard of a mesh (``state`` holds the shard's
+        local block and local grid; ``parallel/spmd.py``)."""
         dt_dyn = self.compute_time_step(state)
         ncycles = max(1, int(math.ceil(dt_phys / dt_dyn - 1e-12)))
         dt = dt_phys / ncycles
@@ -155,7 +185,7 @@ class Dycore:
 
         for _ in range(ncycles):
             s, tr = self._ssprk3(state.grid, consts, hy, immersed, positive,
-                                 s, tr, dt)
+                                 s, tr, dt, spmd)
 
         return state.replace_fields(**self._dyn_to_coupler_fields(state, s, tr))
 
@@ -214,7 +244,8 @@ class Dycore:
         return (state["hy_dens_cells"], state["hy_dens_theta_cells"],
                 state["hy_dens_edges"], state["hy_dens_theta_edges"])
 
-    def _ssprk3(self, grid, consts, hy, immersed, positive, s, tr, dt):
+    def _ssprk3(self, grid, consts, hy, immersed, positive, s, tr, dt,
+                spmd=None):
         """Three-stage SSPRK3 with per-stage tracer positivity clamp
         (reference dynamics...h:110-175; FCT dt per stage 1, 1/4, 2/3).  The
         tracer stage update runs in the last FCT pass, which hands back the
@@ -222,7 +253,7 @@ class Dycore:
         update beside it."""
         def tend(s_, tr_, dt_, rk):
             return self._tendencies(grid, consts, hy, immersed, positive,
-                                    s_, tr_, dt_, rk)
+                                    s_, tr_, dt_, rk, spmd)
 
         st, t1 = tend(s, tr, dt, (1.0, 0.0, dt, tr, None))
         s1 = s + dt * st
@@ -235,34 +266,57 @@ class Dycore:
         s3 = (1.0 / 3.0) * s + (2.0 / 3.0) * s2 + (2.0 / 3.0) * dt * st
         return s3, t3
 
-    def _direction(self, consts, hy, prim, axis, n, bc, normal_id, d):
-        """State divergence and tracer faces of one direction."""
+    def _direction(self, consts, hy, prim, axis, n, bc, normal_id, d,
+                   spmd=None):
+        """State divergence and tracer faces of one direction; on an axis
+        split over the mesh, in the flux kernel's halo-strip form."""
         hyc, hyt, hye, hyte = hy
         hy_r, hy_t = (hye, hyte) if axis == _AX_Z else (hyc, hyt)
+        strips = None
+        mesh_ax = spmd.get(axis) if spmd is not None else None
+        if mesh_ax is not None:
+            name, ns = mesh_ax
+            hp = (self.ord - 1) // 2 + 1
+            zv = normal_id if bc == BC_WALL else None
+            lo, hi = exchange_halo_strips(prim, axis, hp, name, ns, bc,
+                                          zero_var=zv)
+            idx = axis_index(name)
+            # the face overwrites only at the global boundary
+            strips = (lo, hi, bc if idx == 0 else 0,
+                      bc if idx == ns - 1 else 0)
         return direction_fluxes(prim, axis, n, bc, normal_id, consts.C0,
                                 consts.gamma, hy_r, hy_t, self.mats,
-                                self.cutoff, 1.0 / d)
+                                self.cutoff, 1.0 / d, strips)
 
-    def _fct(self, grid, tr, positive, Fx, Fy, Fz, dt, rk):
+    def _fct(self, grid, tr, positive, Fx, Fy, Fz, dt, rk, spmd=None):
         """Flux-corrected transport and the tracer divergence
         (dynamics...h:498-516), followed by the tracer stage update: the
         multiplier once, then the scaled divergence of x (first), z and y
         (accumulating into one buffer), the last with the ``rk`` epilogue.
         On periodic axes the seam faces 0 and n are two copies scaled
-        independently, as in the reference."""
+        independently, as in the reference.  On an axis split over the
+        mesh, the faces beyond the shard take the neighbours' boundary
+        multipliers (1 at the global boundary)."""
         mult = fct_mult(tr, positive, Fx, Fy, Fz, dt, grid.dx, grid.dy,
                         grid.dz)
         rk = (*rk, positive)
-        t = fct_scale_div(Fx, mult, None, _AX_X, grid.nx, 1.0 / grid.dx)
+
+        def edges(axis):
+            mesh_ax = spmd.get(axis) if spmd is not None else None
+            if mesh_ax is None:
+                return None
+            return exchange_face_scalar(mult, axis, *mesh_ax)
+        t = fct_scale_div(Fx, mult, None, _AX_X, grid.nx, 1.0 / grid.dx,
+                          edges=edges(_AX_X))
         t = fct_scale_div(Fz, mult, t, _AX_Z, grid.nz, 1.0 / grid.dz,
                           rk=rk if Fy is None else None)
         if Fy is not None:
             t = fct_scale_div(Fy, mult, t, _AX_Y, grid.ny, 1.0 / grid.dy,
-                              rk=rk)
+                              rk=rk, edges=edges(_AX_Y))
         return t
 
     def _tendencies(self, grid, consts, hy, immersed, positive, s, tr, dt,
-                    rk):
+                    rk, spmd=None):
         """One semi-discrete RHS evaluation (dynamics...h:204-552).  Returns
         the state tendency and the stage's updated tracers (``rk`` = (c0, c1,
         cdt, tr0, tr1 | None), see ``ops/fct.fct_scale_div``)."""
@@ -276,17 +330,17 @@ class Dycore:
                           tr / full_r])
 
         SDx, TFx = self._direction(consts, hy, prim, _AX_X, grid.nx,
-                                   consts.bc_x, IDU, grid.dx)
+                                   consts.bc_x, IDU, grid.dx, spmd)
         SDz, TFz = self._direction(consts, hy, prim, _AX_Z, grid.nz,
                                    consts.bc_z, IDW, grid.dz)
         if sim2d:
             SDy = TFy = None
         else:
             SDy, TFy = self._direction(consts, hy, prim, _AX_Y, grid.ny,
-                                       consts.bc_y, IDV, grid.dy)
+                                       consts.bc_y, IDV, grid.dy, spmd)
         del prim
 
-        t_new = self._fct(grid, tr, positive, TFx, TFy, TFz, dt, rk)
+        t_new = self._fct(grid, tr, positive, TFx, TFy, TFz, dt, rk, spmd)
         del TFx, TFy, TFz
 
         s_tend = SDx + SDz

@@ -20,11 +20,11 @@ import torch
 from ..config import SimConfig, load_config
 from ..core.coupler import CouplerState
 from ..dycore.euler import Dycore
-from ..io.netcdf import StateWriter
 from ..physics.horizontal_sponge import HorizontalSponge
 from ..physics.sponge import sponge_layer
 from ..physics.time_averager import TimeAverager
 from .driver import Timers, parse_command_line, run_main_loop, setup_state
+from .supercell_example import make_writer
 
 __all__ = ["build", "build_chain", "run", "main"]
 
@@ -67,16 +67,11 @@ def build_chain(config: SimConfig, device: str | torch.device):
 def run(config: SimConfig, device: str | torch.device,
         avg_path: str = "time_averaged_fields.nc") -> CouplerState:
     """Build and run the chain, with NetCDF output when ``out_freq >= 0``
-    and the averaged fields written to ``avg_path`` at the end; prints the
+    (``supercell_example.make_writer``: one file per shard with
+    ``file_per_process``) and the averaged fields written to ``avg_path`` at the end; prints the
     heartbeat and the timers."""
-    if config.file_per_process and config.out_freq >= 0:
-        raise NotImplementedError(
-            "file_per_process (one NetCDF per shard) is not ported to "
-            "miniweatherml_tpu_torch yet: ROADMAP.md Queue 1, the parallel/ "
-            "item")
     state, mods, dycore, time_averager = build(config, device)
-    writer = StateWriter(config.out_prefix, state) if config.out_freq >= 0 \
-        else None
+    writer = make_writer(config, state)
     timers = Timers(device)
     timers.start("main")
     state = run_main_loop(state, config, mods, dycore, writer, timers,

@@ -18,14 +18,14 @@ from ..config import SimConfig, load_config
 from ..core.coupler import CouplerState
 from ..dycore.euler import Dycore
 from ..io.checkpoint import load_checkpoint
-from ..io.netcdf import StateWriter
+from ..io.netcdf import ShardedStateWriter, StateWriter
 from ..physics.column_nudging import ColumnNudger
 from ..physics.kessler import MicrophysicsKessler
 from ..physics.perturb import perturb_temperature
 from ..physics.sponge import sponge_layer
 from .driver import Timers, parse_command_line, run_main_loop, setup_state
 
-__all__ = ["build", "run", "main"]
+__all__ = ["build", "make_writer", "run", "main"]
 
 
 def build(config: SimConfig, device: str | torch.device):
@@ -75,14 +75,24 @@ def _restart_options(config: SimConfig, state: CouplerState,
         validate=bool(config.extras.get("validate", False)))
 
 
+def make_writer(config: SimConfig, state: CouplerState):
+    """The NetCDF writer of ``config``: None when ``out_freq < 0``; with
+    ``file_per_process`` one file per shard (``<out_prefix>_task_0.nc`` on
+    one device, the reference's per-rank output), else ``<out_prefix>.nc``."""
+    if config.out_freq < 0:
+        return None
+    if config.file_per_process:
+        return ShardedStateWriter(config.out_prefix, state)
+    return StateWriter(config.out_prefix, state)
+
+
 def run(config: SimConfig, device: str | torch.device) -> CouplerState:
     """Build and run the experiment, with NetCDF output when
-    ``out_freq >= 0`` and the checkpoint / restart keys of
+    ``out_freq >= 0`` (``make_writer``) and the checkpoint / restart keys of
     ``_restart_options``; prints the heartbeat and the timers."""
     state, mods, dycore = build(config, device)
     state, loop_kw = _restart_options(config, state, device)
-    writer = StateWriter(config.out_prefix, state) if config.out_freq >= 0 \
-        else None
+    writer = make_writer(config, state)
     timers = Timers(device)
     timers.start("main")
     state = run_main_loop(state, config, mods, dycore, writer, timers,

@@ -19,10 +19,12 @@ that mirrors the JAX XLA path (``Dycore._recon_direction`` ->
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
+from ..cuda_build import count_launch
 from .stencil import BC_PERIODIC, BC_WALL, pad_bc
 from .weno import WenoMatrices
 from .weno_fused import reconstruct_edges_shifted, weno_coef_table
@@ -42,35 +44,44 @@ _AX_X, _AX_Y, _AX_Z = -1, -2, -3
 
 
 def recon_direction(prim, axis, n, bc, normal_id, mats: WenoMatrices,
-                    cutoff: float = 0.0):
+                    cutoff: float = 0.0, strips=None):
     """WENO-reconstruct all vars along ``axis`` and map to faces: (L, R),
     the left/right limits at the n + 1 faces (dynamics...h:271-388 with the
     halo semantics of dynamics...h:574-827).  Wall halos zero the normal
-    velocity."""
+    velocity.  ``strips`` = (lo, hi): the halo cells beyond each end of the
+    axis (a shard's strips from its neighbours), in place of ``pad_bc``."""
     hp = (mats.ord - 1) // 2 + 1
-    zv = normal_id if bc == BC_WALL else None
-    padded = pad_bc(prim, axis, hp, bc, zero_var=zv)
+    if strips is None:
+        zv = normal_id if bc == BC_WALL else None
+        padded = pad_bc(prim, axis, hp, bc, zero_var=zv)
+    else:
+        padded = torch.cat([strips[0], prim, strips[1]], dim=axis % prim.dim())
     gll_l, gll_r = reconstruct_edges_shifted(padded, axis, n + 2, mats, cutoff)
     L = gll_r.narrow(axis, 0, n + 1)   # face f <- right edge of cell f-1
     R = gll_l.narrow(axis, 1, n + 1)   # face f <- left edge of cell f
     return L, R
 
 
-def apply_edge_bcs(SL, SR, TRL, TRR, axis, n, bc, normal_id):
+def apply_edge_bcs(SL, SR, TRL, TRR, axis, n, bc, normal_id, ends=None):
     """Physical-boundary overwrite of the face limits, in place
     (dynamics...h:1005-1081): the exterior limit copies the interior one at
-    faces 0 and n; a wall also zeroes the normal momentum on both sides."""
-    if bc == BC_PERIODIC:
-        return SL, SR, TRL, TRR
-    SL.select(axis, 0).copy_(SR.select(axis, 0))
-    SR.select(axis, n).copy_(SL.select(axis, n))
-    TRL.select(axis, 0).copy_(TRR.select(axis, 0))
-    TRR.select(axis, n).copy_(TRL.select(axis, n))
-    if bc == BC_WALL:
-        # axis is negative, so it names the same axis of F[normal_id]
-        for F in (SL, SR):
-            F[normal_id].select(axis, 0).zero_()
-            F[normal_id].select(axis, n).zero_()
+    faces 0 and n; a wall also zeroes the normal momentum on both sides.
+    ``ends`` = (bc_lo, bc_hi) gives each end its own mode, 0 for none (the
+    shard ends inside the domain); default ``bc`` at both."""
+    bc_lo, bc_hi = (bc, bc) if ends is None else ends
+    for f, mode in ((0, bc_lo), (n, bc_hi)):
+        if mode == BC_PERIODIC:
+            continue
+        if f == 0:
+            SL.select(axis, 0).copy_(SR.select(axis, 0))
+            TRL.select(axis, 0).copy_(TRR.select(axis, 0))
+        else:
+            SR.select(axis, n).copy_(SL.select(axis, n))
+            TRR.select(axis, n).copy_(TRL.select(axis, n))
+        if mode == BC_WALL:
+            # axis is negative, so it names the same axis of F[normal_id]
+            for F in (SL, SR):
+                F[normal_id].select(axis, f).zero_()
     return SL, SR, TRL, TRR
 
 
@@ -101,9 +112,17 @@ def div(F, axis, n, div_scale):
 
 
 def direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma, hy_r,
-                           hy_t, mats: WenoMatrices, cutoff, div_scale):
-    """Plain PyTorch version of ``direction_fluxes`` (same arguments)."""
-    L, R = recon_direction(prim, axis, n, bc, normal_id, mats, cutoff)
+                           hy_t, mats: WenoMatrices, cutoff, div_scale,
+                           strips=None):
+    """Plain PyTorch version of ``direction_fluxes`` (same arguments): with
+    ``strips`` it concatenates lo | prim | hi in place of ``pad_bc`` and
+    applies each end's face overwrite only where its mode is set, as the
+    JAX XLA path does under ``shard_map`` (``euler.py:486-492, 511-546``)."""
+    ends = None
+    if strips is not None:
+        lo, hi, bc_lo, bc_hi = strips
+        strips, ends = (lo, hi), (bc_lo, bc_hi)
+    L, R = recon_direction(prim, axis, n, bc, normal_id, mats, cutoff, strips)
     # Background state at faces (dynamics...h:286-295 for x, :368-377 z).
     hr = hy_r[:, :, None, None]
     ht = hy_t[:, :, None, None]
@@ -114,7 +133,7 @@ def direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma, hy_r,
     TRL = L[NUM_STATE:] * rL
     TRR = R[NUM_STATE:] * rR
     SL, SR, TRL, TRR = apply_edge_bcs(SL, SR, TRL, TRR, axis, n, bc,
-                                      normal_id)
+                                      normal_id, ends)
     SF, TF = riemann(SL, SR, TRL, TRR, normal_id, C0, gamma)
     return div(SF, axis, n, div_scale), TF
 
@@ -128,7 +147,7 @@ def _bind(lib):
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("direction_fluxes_f32", "direction_fluxes_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [P] * 5 + [I] * 9 + [D] * 4 + [P]
+        fn.argtypes = [P] * 7 + [I] * 11 + [D] * 4 + [P]
         fn.restype = I
     lib.direction_fluxes_set_coef.argtypes = [I, P, I]
     lib.direction_fluxes_set_coef.restype = I
@@ -139,6 +158,7 @@ def _bind(lib):
 
 _lib = None
 _coef_devices: set[int] = set()
+_coef_lock = threading.Lock()  # the shards of a mesh run launch from threads
 
 
 def _library(device: torch.device):
@@ -150,18 +170,19 @@ def _library(device: torch.device):
         _lib = _bind(load_library("direction_fluxes"))
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
-    if index not in _coef_devices:
-        with torch.cuda.device(index):
-            for ord_ in (3, 5, 7, 9):
-                table = np.ascontiguousarray(weno_coef_table(ord_),
-                                             dtype=np.float64)
-                rc = _lib.direction_fluxes_set_coef(
-                    ord_, table.ctypes.data, table.size)
-                if rc != 0:
-                    raise RuntimeError(
-                        "direction_fluxes coefficient copy failed: "
-                        + _lib.direction_fluxes_error_string(rc).decode())
-        _coef_devices.add(index)
+    with _coef_lock:
+        if index not in _coef_devices:
+            with torch.cuda.device(index):
+                for ord_ in (3, 5, 7, 9):
+                    table = np.ascontiguousarray(weno_coef_table(ord_),
+                                                 dtype=np.float64)
+                    rc = _lib.direction_fluxes_set_coef(
+                        ord_, table.ctypes.data, table.size)
+                    if rc != 0:
+                        raise RuntimeError(
+                            "direction_fluxes coefficient copy failed: "
+                            + _lib.direction_fluxes_error_string(rc).decode())
+            _coef_devices.add(index)
     return _lib
 
 
@@ -178,7 +199,7 @@ def _check_cuda(name, t, dtype, shape, device):
 
 
 def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
-                     mats: WenoMatrices, cutoff, div_scale):
+                     mats: WenoMatrices, cutoff, div_scale, strips=None):
     """State divergence and tracer faces of one direction.
 
     Args:
@@ -191,13 +212,20 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
         profiles for x and y, (nens, nz + 1) face profiles for z.
       mats: WENO tables of the order; cutoff: low-order weight cutoff.
       div_scale: 1 / cell width along the direction.
+      strips: None (the whole axis: the halo cells come from the block's own
+        edges by ``bc``), or (lo, hi, bc_lo, bc_hi) on a split x or y axis
+        (the halo-strip form): lo / hi hold the hp = (ord - 1) // 2 + 1
+        cells beyond each end (shaped like ``prim`` with hp along ``axis``,
+        contiguous), and bc_lo / bc_hi (host ints) each end's face mode,
+        0 inside the domain or periodic, else ``bc``.
 
     Returns (state divergence (5, nens, nz, ny, nx), tracer faces).  CPU
     tensors take the plain version; CUDA tensors launch the kernel.
     """
     if prim.device.type == "cpu":
         return direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma,
-                                      hy_r, hy_t, mats, cutoff, div_scale)
+                                      hy_r, hy_t, mats, cutoff, div_scale,
+                                      strips)
     if prim.device.type != "cuda":
         raise ValueError(f"unsupported device {prim.device}")
     if prim.dtype not in (torch.float32, torch.float64):
@@ -221,6 +249,20 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
                          f"{MAX_TRACERS}")
     if mats.ord not in (3, 5, 7, 9):
         raise ValueError(f"WENO order {mats.ord} is not 3, 5, 7 or 9")
+    lo = hi = None
+    bc_lo = bc_hi = bc  # whole axis: both ends are the global boundary
+    if strips is not None:
+        lo, hi, bc_lo, bc_hi = strips
+        if axis == _AX_Z:
+            raise ValueError("z is never split: the kernel takes no strips "
+                             "along it")
+        if bc_lo not in (0, bc) or bc_hi not in (0, bc):
+            raise ValueError(f"end modes ({bc_lo}, {bc_hi}) must be 0 or the "
+                             f"axis bc {bc}")
+        sshape = list(prim.shape)
+        sshape[axis] = (mats.ord - 1) // 2 + 1
+        for name, t in (("lo", lo), ("hi", hi)):
+            _check_cuda(name, t, prim.dtype, sshape, prim.device)
     sdiv = torch.empty((NUM_STATE, nens, nz, ny, nx), dtype=prim.dtype,
                        device=prim.device)
     tshape = [ntr, nens, nz, ny, nx]
@@ -231,14 +273,20 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
           else lib.direction_fluxes_f64)
     stream = torch.cuda.current_stream(prim.device).cuda_stream
     rc = fn(prim.data_ptr(), hy_r.data_ptr(), hy_t.data_ptr(),
-            sdiv.data_ptr(), tf.data_ptr(), -1 - axis, nvar, nens, nz, ny,
-            nx, bc, normal_id, mats.ord, float(C0), float(gamma),
-            float(cutoff), float(div_scale), stream)
+            sdiv.data_ptr(), tf.data_ptr(),
+            None if lo is None else lo.data_ptr(),
+            None if hi is None else hi.data_ptr(), -1 - axis, nvar, nens, nz,
+            ny, nx, bc, bc_lo, bc_hi, normal_id, mats.ord, float(C0),
+            float(gamma), float(cutoff), float(div_scale), stream)
     if rc != 0:
         raise RuntimeError("direction_fluxes kernel launch failed: "
                            + lib.direction_fluxes_error_string(rc).decode())
-    direction_fluxes.launches += 1
+    count_launch(direction_fluxes)
+    if strips is not None:
+        count_launch(direction_fluxes, "strip_launches")
     return sdiv, tf
 
 
+# launches of the kernel, and of its halo-strip form among them
 direction_fluxes.launches = 0
+direction_fluxes.strip_launches = 0

@@ -20,6 +20,8 @@ import ctypes
 
 import torch
 
+from ..cuda_build import count_launch
+
 __all__ = ["fct_mult", "fct_mult_plain", "fct_scale_div",
            "fct_scale_div_plain", "per_tracer"]
 
@@ -68,16 +70,18 @@ def fct_mult_plain(tr, positive, Fx, Fy, Fz, dt, dx, dy, dz):
     return per_tracer(mult, [not p for p in positive], torch.ones_like)
 
 
-def fct_scale_div_plain(F, mult, t_prev, axis, n, dxi, rk=None):
+def fct_scale_div_plain(F, mult, t_prev, axis, n, dxi, rk=None, edges=None):
     """Plain PyTorch version of ``fct_scale_div`` (same arguments; writes
     into ``t_prev`` likewise)."""
     Flo = F.narrow(axis, 0, n)
     Fhi = F.narrow(axis, 1, n)
-    one_shape = list(mult.shape)
-    one_shape[axis] = 1
-    one = torch.ones(one_shape, dtype=mult.dtype, device=mult.device)
-    m_prev = torch.cat([one, mult.narrow(axis, 0, n - 1)], dim=axis)
-    m_next = torch.cat([mult.narrow(axis, 1, n - 1), one], dim=axis)
+    if edges is None:
+        one_shape = list(mult.shape)
+        one_shape[axis] = 1
+        one = torch.ones(one_shape, dtype=mult.dtype, device=mult.device)
+        edges = (one, one)
+    m_prev = torch.cat([edges[0], mult.narrow(axis, 0, n - 1)], dim=axis)
+    m_next = torch.cat([mult.narrow(axis, 1, n - 1), edges[1]], dim=axis)
     fs_lo = Flo * torch.where(Flo > 0, m_prev, torch.where(Flo < 0, mult, 1.0))
     fs_hi = Fhi * torch.where(Fhi > 0, mult, torch.where(Fhi < 0, m_next, 1.0))
     acc = (fs_lo - fs_hi) * dxi
@@ -100,7 +104,7 @@ def _bind(lib):
                      ctypes.c_uint64, ctypes.c_double)
     for name in ("fct_scale_div_f32", "fct_scale_div_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [P] * 6 + [L, I, L, L, U, D, D, D, D, P]
+        fn.argtypes = [P] * 8 + [L, I, L, L, U, D, D, D, D, P]
         fn.restype = I
     for name in ("fct_mult_f32", "fct_mult_f64"):
         fn = getattr(lib, name)
@@ -191,19 +195,20 @@ def fct_mult(tr, positive, Fx, Fy, Fz, dt, dx, dy, dz):
     if rc != 0:
         raise RuntimeError("fct_mult kernel launch failed: "
                            + lib.fct_error_string(rc).decode())
-    fct_mult.launches += 1
+    count_launch(fct_mult)
     return mult
 
 
 fct_mult.launches = 0
 
 
-def fct_scale_div(F, mult, t_prev, axis, n, dxi, rk=None):
+def fct_scale_div(F, mult, t_prev, axis, n, dxi, rk=None, edges=None):
     """FCT face scaling and tracer-flux divergence of one direction
     (dynamics...h:509-516), accumulated onto the previous directions'.
 
     Each face is scaled by its upwind cell's multiplier -- cell f-1 where
-    F > 0, cell f where F < 0, 1 beyond either end of the axis -- and
+    F > 0, cell f where F < 0, 1 beyond either end of the axis (or the
+    neighbours' multipliers in ``edges``) -- and
     ``acc = (fs_lo - fs_hi) * dxi``, plus ``t_prev`` when given.
 
     Args:
@@ -217,12 +222,16 @@ def fct_scale_div(F, mult, t_prev, axis, n, dxi, rk=None):
         tracer stage update of the last direction: v = c0*tr0 [+ c1*tr1] +
         cdt*acc, clamped at 0 for the tracers flagged positive.  The
         coefficients are host numbers; ``positive`` host booleans.
+      edges: None, or (m_lo, m_hi) on a split axis: contiguous planes one
+        cell thick along ``axis`` (else shaped like ``mult``) holding the
+        multipliers of the cells beyond each end, the neighbour shards'
+        boundary cells (``parallel/halo.exchange_face_scalar``).
 
     Returns the tendency (or the updated tracers with ``rk``).  CPU tensors
     take the plain version; CUDA tensors launch the kernel.
     """
     if F.device.type == "cpu":
-        return fct_scale_div_plain(F, mult, t_prev, axis, n, dxi, rk)
+        return fct_scale_div_plain(F, mult, t_prev, axis, n, dxi, rk, edges)
     _cuda_operand(mult)
     if axis not in (_AX_X, _AX_Y, _AX_Z) or mult.shape[axis] != n or n < 1:
         raise ValueError(f"axis {axis} / n {n} do not match "
@@ -246,6 +255,11 @@ def fct_scale_div(F, mult, t_prev, axis, n, dxi, rk=None):
         if tr1 is not None:
             _check("tr1", tr1, mult, mult.shape)
         mask = _mask(positive, ntr)
+    if edges is not None:
+        eshape = list(mult.shape)
+        eshape[axis] = 1
+        _check("m_lo", edges[0], mult, eshape)
+        _check("m_hi", edges[1], mult, eshape)
     # (outer, n, inner) view of one direction, and outer indices per tracer
     if axis == _AX_X:
         outer, inner = ntr * nens * nz * ny, 1
@@ -260,14 +274,20 @@ def fct_scale_div(F, mult, t_prev, axis, n, dxi, rk=None):
     rc = fn(F.data_ptr(), mult.data_ptr(),
             None if t_prev is None else t_prev.data_ptr(),
             None if tr0 is None else tr0.data_ptr(),
-            None if tr1 is None else tr1.data_ptr(), out.data_ptr(),
+            None if tr1 is None else tr1.data_ptr(),
+            None if edges is None else edges[0].data_ptr(),
+            None if edges is None else edges[1].data_ptr(), out.data_ptr(),
             outer, n, inner, outer // ntr, mask, float(c0), float(c1),
             float(cdt), float(dxi), stream)
     if rc != 0:
         raise RuntimeError("fct_scale_div kernel launch failed: "
                            + lib.fct_error_string(rc).decode())
-    fct_scale_div.launches += 1
+    count_launch(fct_scale_div)
+    if edges is not None:
+        count_launch(fct_scale_div, "edge_launches")
     return out
 
 
+# launches of the kernel, and of those with edge multipliers among them
 fct_scale_div.launches = 0
+fct_scale_div.edge_launches = 0

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..core.coupler import CouplerState
+from ..parallel.collectives import pmean
 
 __all__ = ["ColumnNudger"]
 
@@ -27,14 +28,20 @@ class ColumnNudger:
             return state.replace_fields(nudging_column=col)
         return state.register_field("nudging_column", value=col)
 
-    def nudge_to_column(self, state: CouplerState, dt: float) -> CouplerState:
-        """Like the reference (column_nudging.h:61-65), the water-vapor nudge
-        is not positivity-clamped; transient negatives in dry cells are
-        re-clamped by the dycore's per-stage FCT clamp on the next step."""
+    def nudge_to_column(self, state: CouplerState, dt: float,
+                        spmd_axes: tuple = ()) -> CouplerState:
+        """``spmd_axes``: horizontal mesh axis names to ``pmean`` the column
+        average over, in a shard of a mesh run (the MPI_Allreduce analog,
+        column_nudging.h:89-99).  Like the reference (column_nudging.h:61-65),
+        the water-vapor nudge is not positivity-clamped; transient negatives
+        in dry cells are re-clamped by the dycore's per-stage FCT clamp on
+        the next step."""
         column = state["nudging_column"]
+        avgs = pmean(torch.stack([torch.mean(state[n], dim=(2, 3),
+                                             keepdim=True) for n in _FIELDS]),
+                     spmd_axes)
         updates = {}
         for l, name in enumerate(_FIELDS):
             f = state[name]
-            avg = torch.mean(f, dim=(2, 3), keepdim=True)
-            updates[name] = f + dt * (column[l][:, :, None, None] - avg) / _TIME_SCALE
+            updates[name] = f + dt * (column[l][:, :, None, None] - avgs[l]) / _TIME_SCALE
         return state.replace_fields(**updates)

@@ -7,9 +7,8 @@ vvel, wvel, temp, water_vapor} at init -- the global (j=0, i=0) column --
 then each step relaxes a cosine-weighted band of ``sponge_cells`` cells at
 the selected x/y walls toward that column (horizontal_sponge.h:100-193).
 The stored column rides in the coupler state as the field
-``horiz_sponge_column``, shaped (6, nens, nz).  The JAX version's ``spmd``
-argument (global wall indices under sharding) waits for the port's
-``parallel/`` module (ROADMAP Queue 1).
+``horiz_sponge_column``, shaped (6, nens, nz).  Under a mesh
+(``apply(spmd=...)``) the wall bands use global cell indices.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ import math
 import torch
 
 from ..core.coupler import CouplerState
+from ..parallel.collectives import axis_index
 
 __all__ = ["HorizontalSponge"]
 
@@ -48,9 +48,13 @@ class HorizontalSponge:
 
     def apply(self, state: CouplerState, dt: float,
               x1: bool = True, x2: bool = True,
-              y1: bool = True, y2: bool = True) -> CouplerState:
+              y1: bool = True, y2: bool = True,
+              spmd=None) -> CouplerState:
         """Cosine-in-space, dt/time_scale-in-time blend toward the column at
-        the selected walls (horizontal_sponge.h:100-193)."""
+        the selected walls (horizontal_sponge.h:100-193).  ``spmd``
+        (``dycore.euler.SpmdCtx``) makes the wall bands use global cell
+        indices in a shard of a mesh run (the reference computes the band
+        from each rank's global offsets)."""
         g = state.grid
         dtype, device = state.meta.tdtype, state.device
         n_sp = self.sponge_cells
@@ -66,6 +70,18 @@ class HorizontalSponge:
 
         ix = torch.arange(g.nx, device=device)
         jy = torch.arange(g.ny, device=device)
+        gnx, gny = g.nx, g.ny
+        if spmd is not None:
+            ax = spmd.get(-1)
+            if ax is not None:
+                name, ns = ax
+                ix = axis_index(name) * g.nx + ix
+                gnx = g.nx * ns
+            ay = spmd.get(-2)
+            if ay is not None:
+                name, ns = ay
+                jy = axis_index(name) * g.ny + jy
+                gny = g.ny * ns
         # The reference blends one wall after another (x1 -> x2 -> y1 -> y2,
         # horizontal_sponge.h:137-193); every pass is a linear blend toward
         # the same column c, f' = w*c + (1-w)*f, so the sequence collapses to
@@ -75,11 +91,11 @@ class HorizontalSponge:
         if x1:
             one_minus = one_minus * (1.0 - wall_weight(ix))[None, :]
         if x2:
-            one_minus = one_minus * (1.0 - wall_weight(g.nx - 1 - ix))[None, :]
+            one_minus = one_minus * (1.0 - wall_weight(gnx - 1 - ix))[None, :]
         if y1:
             one_minus = one_minus * (1.0 - wall_weight(jy))[:, None]
         if y2:
-            one_minus = one_minus * (1.0 - wall_weight(g.ny - 1 - jy))[:, None]
+            one_minus = one_minus * (1.0 - wall_weight(gny - 1 - jy))[:, None]
         w = (1.0 - one_minus)[None, None, :, :]  # (1, 1, ny, nx)
 
         updates = {}

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..core.coupler import CouplerState
+from ..parallel.collectives import pmin
 from .kessler_cuda import (_div, column_constants, kessler_pass,
                            kessler_step, terminal_velocity)
 
@@ -48,8 +49,11 @@ class MicrophysicsKessler:
             p0=self.p0, grav=self.grav,
         )
 
-    def time_step(self, state: CouplerState, dt: float) -> CouplerState:
-        """(reference microphysics_kessler.h:99-162)"""
+    def time_step(self, state: CouplerState, dt: float,
+                  spmd_axes: tuple = ()) -> CouplerState:
+        """(reference microphysics_kessler.h:99-162).  ``spmd_axes``: the
+        mesh axes to take the sub-cycle count's minimum step over, in a
+        shard of a mesh run (the MPI_Allreduce analog)."""
         g = state.grid
         rho_d = state["density_dry"]
         # The kernel sediments with a scalar dz (reference kessler.h:296-299
@@ -61,7 +65,7 @@ class MicrophysicsKessler:
         zmid = ((torch.arange(g.nz, dtype=rho_d.dtype, device=rho_d.device)
                  + 0.5) * g.dz)[None, :, None, None]
         rainsplit = kessler_rainsplit(state["precip_liquid"] / rho_d, rho_d,
-                                      zmid, dt)
+                                      zmid, dt, spmd_axes=spmd_axes)
         rho_v, rho_c, rho_r, temp, precl = kessler_step(
             rho_d, state["temp"], state["water_vapor"], state["cloud_liquid"],
             state["precip_liquid"], rainsplit, dt, g.dz, self.R_d, self.R_v,
@@ -71,11 +75,14 @@ class MicrophysicsKessler:
                                     precl=precl)
 
 
-def kessler_rainsplit(qr, rho, z, dt, z_axis: int = 1):
+def kessler_rainsplit(qr, rho, z, dt, z_axis: int = 1,
+                      spmd_axes: tuple = ()):
     """The sedimentation sub-cycle count as a 0-d int32 tensor on the
     fields' device (reference microphysics_kessler.h:262-280): the max
     stable sub-step is the min over cells below the top of 0.8 dz / velqr,
-    and rainsplit = ceil(dt / max)."""
+    and rainsplit = ceil(dt / max).  ``spmd_axes``: mesh axes to ``pmin``
+    the step over (on the device, no host read), as the JAX function does:
+    the horizontal axes only, so each ensemble shard keeps its own count."""
     nz = qr.shape[z_axis]
     r = 0.001 * rho
     rhalf = torch.sqrt(rho.narrow(z_axis, 0, 1) / rho)
@@ -83,7 +90,7 @@ def kessler_rainsplit(qr, rho, z, dt, z_axis: int = 1):
     dz_lev = z.narrow(z_axis, 1, nz - 1) - z.narrow(z_axis, 0, nz - 1)
     vel_lo = velqr.narrow(z_axis, 0, nz - 1)
     dt2d = torch.where(vel_lo > 1e-10, 0.8 * dz_lev / vel_lo, dt)
-    dt_max = torch.clamp(torch.amin(dt2d), max=dt)
+    dt_max = pmin(torch.clamp(torch.amin(dt2d), max=dt), spmd_axes)
     return torch.ceil(dt / dt_max).to(torch.int32)
 
 

@@ -20,6 +20,8 @@ import ctypes
 
 import torch
 
+from ..cuda_build import count_launch
+
 __all__ = ["kessler_step", "kessler_step_plain", "kessler_subcycle_plain",
            "kessler_pass", "kessler_staging", "terminal_velocity"]
 
@@ -235,7 +237,7 @@ def kessler_step(rho_d, temp, rho_v, rho_c, rho_r, rainsplit, dt, dz, Rd,
     if rc != 0:
         raise RuntimeError("kessler kernel launch failed: "
                            + lib.kessler_error_string(rc).decode())
-    kessler_step.launches += 1
+    count_launch(kessler_step)
     return (*outs, precl)
 
 

@@ -24,6 +24,7 @@ import torch
 
 from ..core.coupler import CouplerState
 from ..ml.mlp import MLP
+from ..parallel.collectives import pmean
 from .kessler import MicrophysicsKessler
 
 __all__ = ["MicrophysicsKesslerSurrogate"]
@@ -96,13 +97,18 @@ class MicrophysicsKesslerSurrogate(MicrophysicsKessler):
         return (temp, torch.clamp_min(rho_v, 0.0), torch.clamp_min(rho_c, 0.0),
                 torch.clamp_min(rho_r, 0.0))
 
-    def time_step(self, state: CouplerState, dt: float) -> CouplerState:
+    def time_step(self, state: CouplerState, dt: float,
+                  spmd_axes: tuple = ()) -> CouplerState:
+        """``spmd_axes``: in a shard of a mesh run, the mesh axes to reduce
+        Kessler's sub-cycle count and to ``pmean`` the compare-mode diffs
+        over."""
         nn_out = self._nn_forward(state)
         if self.compare:
-            truth = super().time_step(state, dt)
+            truth = super().time_step(state, dt, spmd_axes=spmd_axes)
             sums = torch.stack([torch.sum(a - truth[n]) for a, n in
                                 zip(nn_out, _OUTPUTS)])
-            diffs = torch.div(sums, sums.new_full((), nn_out[0].numel()))
+            diffs = pmean(torch.div(sums, sums.new_full((), nn_out[0].numel())),
+                          spmd_axes)
         else:
             truth = None
             diffs = state["surrogate_diffs"]

@@ -31,6 +31,7 @@ import math
 import torch
 
 from ..core.coupler import CouplerState
+from ..parallel.collectives import host_ints, pmax, pmin
 from .kessler_cuda import _div
 from .p3_tables import (F1R, F2R, MU_R, P3Tables, cbrt,
                         default_table_path, ice_table_indices,
@@ -553,7 +554,7 @@ def _p3_wrapper_inputs_cellwise(rho_d, temp, rho_c, rho_nc, rho_r, rho_nr,
 def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
               rho_d, dz, dt, z_axis: int = 1, tables=None, qv_prev=None,
               t_prev=None, do_predict_nc: bool = False,
-              diagnostics: bool = False):
+              diagnostics: bool = False, spmd_axes: tuple = ()):
     """The P3-class column scheme on dry mixing ratios.
 
     All tensors share one shape with the vertical on ``z_axis``
@@ -564,8 +565,11 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
     13th element.  ``tables`` (``P3Tables`` or ``DeviceTables``) selects
     the lookup-table tier; None the continuous [approx] tier.  ``qv_prev`` /
     ``t_prev``: the previous call's post-micro qv and T (None: the
-    instantaneous first-step form).  Arguments and semantics are those of
-    the JAX ``p3_scheme``."""
+    instantaneous first-step form).  ``spmd_axes``: in a shard of a mesh
+    run, the mesh axes over which sedimentation's fastest fall speed
+    (``pmax``) and thinnest level (``pmin``) are taken, so the shards of a
+    group run the same sub-step count.  Arguments and semantics are those
+    of the JAX ``p3_scheme``."""
     from . import p3_cellwise_cuda as cw
 
     dtab = None if tables is None else tables.to(qc.device, qc.dtype)
@@ -907,9 +911,12 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
     vmax = torch.maximum(torch.maximum(rain_sed_speeds(qr, nr)[0].max(),
                                        ice_fallspeeds(qi, ni, qm, bm)[0].max()),
                          cloud_sed_speeds(qc, nc)[0].max())
-    nsub_t = _max(torch.ceil(dt * vmax / (0.9 * dz.min())), 1.0)
+    vmax = pmax(vmax, spmd_axes)
+    dz_min = pmin(dz.min(), spmd_axes)
+    nsub_t = _max(torch.ceil(dt * vmax / (0.9 * dz_min)), 1.0)
     # the one host read of the step: the sub-step count drives the loop
-    nsub = int(nsub_t)
+    # (in a mesh run, one read serves every shard)
+    nsub = host_ints(nsub_t)
     dts = dt / nsub_t
     mass_lo = ax(rho, 0, nz - 1) * ax(dz, 0, nz - 1)
     mass_top = ax(rho, nz - 1, 1) * ax(dz, nz - 1, 1)
@@ -1132,7 +1139,9 @@ class MicrophysicsP3:
             p0=P0, grav=GRAV,
         )
 
-    def time_step(self, state: CouplerState, dt: float) -> CouplerState:
+    def time_step(self, state: CouplerState, dt: float,
+                  spmd_axes: tuple = ()) -> CouplerState:
+        """One P3 step; ``spmd_axes`` as in ``p3_scheme``."""
         rho_d = state["density_dry"]
         (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pressure, dz,
          qv_prev, t_prev) = p3_wrapper_inputs(state)
@@ -1140,7 +1149,7 @@ class MicrophysicsP3:
             qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pressure,
             rho_d, dz, dt, z_axis=1, tables=self.tables, qv_prev=qv_prev,
             t_prev=t_prev, do_predict_nc=self.do_predict_nc,
-            diagnostics=self.diagnostics)
+            diagnostics=self.diagnostics, spmd_axes=spmd_axes)
         qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, pl, pi_ = out[:12]
         if self.diagnostics:
             state = state.replace_fields(**out[12])

@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from ..cuda_build import load_library, on_cuda
+from ..cuda_build import count_launch, load_library, on_cuda
 from .p3 import (_p3_part1_cellwise as part1_plain,
                  _p3_update_cellwise as update_plain,
                  _p3_wrapper_inputs_cellwise as wrapper_plain)
@@ -100,7 +100,8 @@ def p3_part1(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres, rho, *,
     ``p3._p3_part1_cellwise`` for inputs and outputs)."""
     out, launched = _run("part1", do_predict_nc, (
         qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres, rho))
-    p3_part1.launches += launched
+    if launched:
+        count_launch(p3_part1)
     return out
 
 
@@ -110,7 +111,8 @@ def p3_update(dt, *arrays, do_predict_nc: bool):
     if len(arrays) != 45:
         raise ValueError(f"p3_update takes 45 fields, got {len(arrays)}")
     out, launched = _run("update", do_predict_nc, arrays, dt)
-    p3_update.launches += launched
+    if launched:
+        count_launch(p3_update)
     return out
 
 
@@ -121,7 +123,8 @@ def p3_wrapper(rho_d, temp, rho_c, rho_nc, rho_r, rho_nr, rho_i, rho_ni,
     out, launched = _run("wrapper", False, (
         rho_d, temp, rho_c, rho_nc, rho_r, rho_nr, rho_i, rho_ni, rho_m,
         rho_bm, rho_v, qv_prev_f, t_prev_f))
-    p3_wrapper.launches += launched
+    if launched:
+        count_launch(p3_wrapper)
     return out
 
 

@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from ..cuda_build import load_library, on_cuda
+from ..cuda_build import count_launch, load_library, on_cuda
 
 __all__ = ["interp_ice", "interp_collect", "interp_rain", "interp_ice_plain",
            "interp_collect_plain", "interp_rain_plain", "pack_ice",
@@ -291,7 +291,7 @@ def interp_ice(table, i0, fi, ii0, fii, jj0, fjj, present=None):
                       present, ice_strides)
     out = _launch("ice", table, (i0, fi, ii0, fii, jj0, fjj),
                   present, K, shape, fi.dtype, fi.device)
-    interp_ice.launches += 1
+    count_launch(interp_ice)
     return out
 
 
@@ -308,7 +308,7 @@ def interp_collect(table, i0, fi, ii0, fii, jj0, fjj, j0, fj, present=None):
     out = _launch("collect", table,
                   (i0, fi, ii0, fii, jj0, fjj, j0, fj), present, K, shape,
                   fi.dtype, fi.device)
-    interp_collect.launches += 1
+    count_launch(interp_collect)
     return out
 
 
@@ -323,7 +323,7 @@ def interp_rain(rows, i0, fi, present=None):
     K, shape = _check(rows, (rows.shape[1],), (fi,), (i0,), present)
     out = _launch("rain", rows, (i0, fi), present, K, shape, fi.dtype,
                   fi.device, extra_ints=(rows.shape[1],))
-    interp_rain.launches += 1
+    count_launch(interp_rain)
     return out
 
 

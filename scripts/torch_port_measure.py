@@ -7,6 +7,7 @@ Usage (from the root of a checkout, on a machine with the card):
   python scripts/torch_port_measure.py profile [--root DIR] [--chains A,B]
   python scripts/torch_port_measure.py kernels [--root DIR] [--reps N]
   python scripts/torch_port_measure.py surrogate [--root DIR] [--reps N]
+  python scripts/torch_port_measure.py mesh    [--root DIR] [--reps N]
 
 ``--root`` names the tree whose ``miniweatherml_tpu_torch`` and
 ``chip_smoke.py`` are imported (default: this checkout), so two trees are
@@ -39,6 +40,20 @@ compared by running the script once per tree in one call, in turns.
            median of N calls) beside the bytes bound of a fused per-cell
            version (5 fields read, 4 written), and the profiler's device
            time of each kernel of one call, by kernel name.
+
+  mesh     the 512x512x64 f32 Kessler chain undecomposed and decomposed
+           over a (1, 2, 2) mesh of the one card (parallel/spmd.py), in
+           one call: ms/step (host clock over N steps after a warm step,
+           ending in a synchronize), Mcellups and peak memory of each, and
+           both steps at 64x64x64, where the host sets the step time; the
+           decomposed run's launches and barrier meetings per step and
+           shard (ShardComm.all_gather calls, counted by wrapping it for
+           one step); and each chain's
+           device time per step by kernel family over 3 steps (as
+           ``profile``: the exchanges' strip copies and the reductions'
+           small kernels fall in "cat, reductions, copies" and "glue")
+           with the device's idle share.  A tree without parallel/ gives
+           the undecomposed figures only.
 
 Each mode prints one JSON line (prefixed "RESULT ") with the card's name and
 power limit.
@@ -257,9 +272,58 @@ def _family(name: str) -> str:
     return "cat, reductions, copies"
 
 
-def mode_profile(cs, chains):
+def _chain_step(mods):
+    def step(state, dt):
+        for m in mods:
+            state = m(state, dt)
+        return state
+    return step
+
+
+def _profile_families(step, state, dt, steps=3):
+    """torch.profiler device time per step over ``steps`` calls of ``step``
+    (after the caller's warm step) by kernel family, the busy time per step
+    and the device's idle share of the profiled span."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state = step(state, dt)
+        torch.cuda.synchronize()
+    spans = []
+    fam: dict[str, list] = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t0 = ev.time_range.start
+        t1 = ev.time_range.end
+        spans.append((t0, t1))
+        f = fam.setdefault(_family(ev.name), [0.0, 0])
+        f[0] += (t1 - t0) / 1e3
+        f[1] += 1
+    spans.sort()
+    busy, end = 0.0, None
+    for t0, t1 in spans:
+        if end is None or t0 >= end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    total = spans[-1][1] - spans[0][0] if spans else 0.0
+    kern = sum(v[0] for v in fam.values())
+    return {
+        "per_step_ms": {k: v[0] / steps for k, v in fam.items()},
+        "launches_per_step": {k: v[1] / steps for k, v in fam.items()},
+        "share_of_kernel_time": {k: v[0] / kern for k, v in fam.items()},
+        "busy_ms_per_step": busy / 1e3 / steps,
+        "idle_share": 1.0 - busy / total if total else None}
+
+
+def mode_profile(cs, chains):
+    import torch
     out = {}
     for chain, cfg, build in _chains(cs):
         if chains and chain not in chains:
@@ -268,42 +332,7 @@ def mode_profile(cs, chains):
         dt = dycore.compute_time_step(state)
         for m in mods:
             state = m(state, dt)
-        torch.cuda.synchronize()
-        steps = 3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                for m in mods:
-                    state = m(state, dt)
-            torch.cuda.synchronize()
-        spans = []
-        fam: dict[str, list] = {}
-        for ev in prof.events():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            t0 = ev.time_range.start
-            t1 = ev.time_range.end
-            spans.append((t0, t1))
-            f = fam.setdefault(_family(ev.name), [0.0, 0])
-            f[0] += (t1 - t0) / 1e3
-            f[1] += 1
-        spans.sort()
-        busy, end = 0.0, None
-        for t0, t1 in spans:
-            if end is None or t0 >= end:
-                busy += t1 - t0
-                end = t1
-            elif t1 > end:
-                busy += t1 - end
-                end = t1
-        total = spans[-1][1] - spans[0][0] if spans else 0.0
-        kern = sum(v[0] for v in fam.values())
-        out[chain] = {
-            "per_step_ms": {k: v[0] / steps for k, v in fam.items()},
-            "launches_per_step": {k: v[1] / steps for k, v in fam.items()},
-            "share_of_kernel_time": {k: v[0] / kern for k, v in fam.items()},
-            "busy_ms_per_step": busy / 1e3 / steps,
-            "idle_share": 1.0 - busy / total if total else None}
+        out[chain] = _profile_families(_chain_step(mods), state, dt)
         print(f"profile {chain}: {json.dumps(out[chain])}", flush=True)
         del state, mods, dycore
         torch.cuda.empty_cache()
@@ -343,10 +372,128 @@ def mode_surrogate(cs, reps):
     return out
 
 
+def _mesh_step_timed(step, state, dt, reps):
+    """(state, seconds per step over ``reps`` steps after a warm one)."""
+    import torch
+    step(state, dt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        state = step(state, dt)
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t0) / reps
+
+
+def _meetings_per_step(step, sharded, dt):
+    """Barrier meetings a shard makes in one step (every collective is
+    one ``ShardComm.all_gather``)."""
+    import threading
+
+    from miniweatherml_tpu_torch.parallel.collectives import ShardComm
+    plain, lock, calls = ShardComm.all_gather, threading.Lock(), [0]
+
+    def counted(self, value):
+        with lock:
+            calls[0] += 1
+        return plain(self, value)
+    ShardComm.all_gather = counted
+    try:
+        step(sharded, dt)
+    finally:
+        ShardComm.all_gather = plain
+    return calls[0] / sharded.mesh.size
+
+
+def _mesh_host_ms(cs, reps):
+    """ms per step of the Kessler chain at 64x64x64 f32, where the card's
+    work is small and the step time is the host's: undecomposed, and (a
+    tree with parallel/) on the 1x2x2 mesh."""
+    import importlib.util
+    from miniweatherml_tpu_torch.experiments import supercell_example
+    cfg = cs._bench_cfg(64, 64, 64, reps, "float32")
+    state, mods, dycore = supercell_example.build(cfg, "cuda")
+    dt = dycore.compute_time_step(state)
+
+    out = {"undecomposed": 1e3 * _mesh_step_timed(_chain_step(mods), state,
+                                                  dt, reps)[1]}
+    if importlib.util.find_spec("miniweatherml_tpu_torch.parallel") is not None:
+        from miniweatherml_tpu_torch.parallel.mesh import (make_mesh,
+                                                           shard_state)
+        from miniweatherml_tpu_torch.parallel.spmd import make_spmd_step
+        mesh = make_mesh(["cuda:0"] * 4, ens=1, y=2, x=2)
+        step = make_spmd_step(state, mesh, dycore, micro=mods[1].__self__,
+                              nudger=mods[3].__self__)
+        out["decomposed"] = 1e3 * _mesh_step_timed(
+            step, shard_state(state, mesh), dt, reps)[1]
+        step.close()
+    return out
+
+
+def mode_mesh(cs, reps):
+    import importlib.util
+
+    import torch
+    from miniweatherml_tpu_torch.experiments import supercell_example
+    cfg = cs._bench_cfg(512, 512, 64, reps, "float32")
+    state, mods, dycore = supercell_example.build(cfg, "cuda")
+    dt = dycore.compute_time_step(state)
+    g = state.grid
+    cells = g.nx * g.ny * g.nz * g.nens
+
+    torch.cuda.reset_peak_memory_stats()
+    _, und = _mesh_step_timed(_chain_step(mods), state, dt, reps)
+    out = {"undecomposed": {"ms_per_step": 1e3 * und,
+                            "mcellups": cells / und / 1e6,
+                            "peak_gib": torch.cuda.max_memory_allocated()
+                            / 2**30}}
+    print(f"mesh undecomposed: {out['undecomposed']}", flush=True)
+    out["host_bound_64x64x64_ms_per_step"] = _mesh_host_ms(cs, reps)
+    print(f"mesh host-bound steps: {out['host_bound_64x64x64_ms_per_step']}",
+          flush=True)
+    if importlib.util.find_spec("miniweatherml_tpu_torch.parallel") is None:
+        out["decomposed"] = None
+        return out
+    from miniweatherml_tpu_torch.parallel.mesh import make_mesh, shard_state
+    from miniweatherml_tpu_torch.parallel.spmd import make_spmd_step
+    mesh = make_mesh(["cuda:0"] * 4, ens=1, y=2, x=2)
+    step = make_spmd_step(state, mesh, dycore, micro=mods[1].__self__,
+                          nudger=mods[3].__self__)
+    sharded = shard_state(state, mesh)
+    del state
+    torch.cuda.empty_cache()
+    counts = cs._spmd_counts()
+    for fn, attr in counts.values():
+        setattr(fn, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    sharded, dec = _mesh_step_timed(step, sharded, dt, reps)
+    launches = {k: getattr(fn, attr) / ((reps + 1) * mesh.size)
+                for k, (fn, attr) in counts.items()}
+    out["decomposed"] = {"mesh": mesh.shape, "ms_per_step": 1e3 * dec,
+                         "meetings_per_step_and_shard":
+                         _meetings_per_step(step, sharded, dt),
+                         "mcellups": cells / dec / 1e6,
+                         "peak_gib": torch.cuda.max_memory_allocated()
+                         / 2**30,
+                         "launches_per_step_and_shard": launches,
+                         "ratio_to_undecomposed": dec / und}
+    print(f"mesh decomposed: {out['decomposed']}", flush=True)
+
+    out["profile"] = {"decomposed": _profile_families(step, sharded, dt)}
+    step.close()
+    del sharded
+    torch.cuda.empty_cache()
+    state, mods, dycore = supercell_example.build(cfg, "cuda")
+    chain = _chain_step(mods)
+    state = chain(state, dt)
+    out["profile"]["undecomposed"] = _profile_families(chain, state, dt)
+    print(f"mesh profile: {json.dumps(out['profile'])}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", choices=("flux", "cells", "profile", "kernels",
-                                     "surrogate"))
+                                     "surrogate", "mesh"))
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=10)
@@ -370,7 +517,8 @@ def main() -> int:
            "cells": lambda: mode_cells(cs, chains),
            "profile": lambda: mode_profile(cs, chains),
            "kernels": lambda: mode_kernels(cs, a.reps),
-           "surrogate": lambda: mode_surrogate(cs, a.reps)}[a.mode]()
+           "surrogate": lambda: mode_surrogate(cs, a.reps),
+           "mesh": lambda: mode_mesh(cs, a.reps)}[a.mode]()
     print("RESULT " + json.dumps({
         "mode": a.mode, "root": a.root, "card": _card(),
         "seconds": time.perf_counter() - t0, "result": res}), flush=True)

@@ -215,9 +215,17 @@ def test_simple_city_run_writes_outputs(tmp_path, capsys):
         np.testing.assert_allclose(nc.variables["uvel"][:],
                                    state["time_avg_uvel"][0].numpy(),
                                    rtol=1e-15)
+    # file_per_process: the one shard's file, <prefix>_task_0.nc, holds
+    # what the single file holds, with the shard's offsets
     cfg.file_per_process = True
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        simple_city.run(cfg, "cpu", avg_path=avg)
+    simple_city.run(cfg, "cpu", avg_path=avg)
+    with netcdf_file(prefix + ".nc", "r", mmap=False) as one, \
+            netcdf_file(prefix + "_task_0.nc", "r", mmap=False) as shard:
+        assert (shard.i_beg, shard.j_beg) == (0, 0)
+        assert set(shard.variables) == set(one.variables)
+        for name in one.variables:
+            np.testing.assert_array_equal(shard.variables[name][:],
+                                          one.variables[name][:])
 
 
 def test_run_benchmark_takes_the_city_chain():

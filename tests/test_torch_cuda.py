@@ -694,3 +694,123 @@ def test_surrogate_forward_on_card_matches_cpu(dtype, cuda_device):
             assert err <= 1e-12 * a.abs().max().item(), (v, err)
         else:
             assert err <= 1e-6 * scl_range[v].item(), (v, err)
+
+
+# -- the halo-strip form of the flux kernel, FCT edges, the decomposed step --
+
+def _strips_of(prim, axis, bc, nid, i, ns, hp):
+    """Shard i's block of ``prim`` along ``axis`` and its strips, cut from
+    the global padding, with each end's face mode."""
+    from miniweatherml_tpu_torch.ops.stencil import pad_bc
+    pad = pad_bc(prim, axis, hp, bc, zero_var=nid if bc == 2 else None)
+    nl = prim.shape[axis] // ns
+    block = prim.narrow(axis, i * nl, nl).contiguous()
+    lo = pad.narrow(axis, i * nl, hp).contiguous()
+    hi = pad.narrow(axis, (i + 1) * nl + hp, hp).contiguous()
+    return block, (lo, hi, bc if i == 0 else 0, bc if i == ns - 1 else 0)
+
+
+@pytest.mark.parametrize("ord_", [3, 5, 7, 9])
+def test_direction_fluxes_strip_form_matches_plain(ord_, cuda_device):
+    """x and y split in three: every shard (both boundary shards with each
+    BC), both types, bit for bit; and the strip form of a periodic axis
+    reassembles the whole-axis kernel's result."""
+    rng = np.random.default_rng(ord_)
+    hp = (ord_ - 1) // 2 + 1
+    for dtype in (torch.float64, torch.float32):
+        prim = _prim((2, 7, 36, 72), dtype, cuda_device, rng, 8)
+        hr = torch.as_tensor(1 + 0.1 * rng.random((2, 7)), dtype=dtype,
+                             device=cuda_device)
+        for axis, nid in DIRS[:2]:
+            n = prim.shape[axis]
+            for bc in (0, 1, 2):
+                whole = direction_fluxes(prim, axis, n, bc, nid, 27.56,
+                                         1.4008, hr, 300 * hr,
+                                         weno_matrices(ord_), 0.0, 2e-3)
+                parts = []
+                for i in range(3):
+                    block, strips = _strips_of(prim, axis, bc, nid, i, 3, hp)
+                    args = (block, axis, block.shape[axis], bc, nid, 27.56,
+                            1.4008, hr, 300 * hr, weno_matrices(ord_), 0.0,
+                            2e-3, strips)
+                    n0 = direction_fluxes.strip_launches
+                    got = direction_fluxes(*args)
+                    assert direction_fluxes.strip_launches == n0 + 1
+                    for a, b in zip(direction_fluxes_plain(*args), got):
+                        assert torch.equal(a, b), (dtype, axis, bc, i)
+                    parts.append(got)
+                sdiv = torch.cat([p[0] for p in parts], dim=axis)
+                assert torch.equal(sdiv, whole[0]), (dtype, axis, bc)
+
+
+def test_direction_fluxes_strip_form_rejects_bad_strips(cuda_device):
+    prim = torch.zeros((8, 1, 4, 6, 8), device=cuda_device)
+    hy = torch.ones((1, 4), device=cuda_device)
+    ok = torch.zeros((8, 1, 4, 6, 3), device=cuda_device)
+    base = (prim, -1, 8, 2, 1, 27.56, 1.4008, hy, hy, weno_matrices(5), 0.0,
+            1.0)
+    with pytest.raises(ValueError, match="lo"):
+        direction_fluxes(*base, (ok[..., :2], ok, 2, 0))
+    with pytest.raises(ValueError, match="end modes"):
+        direction_fluxes(*base, (ok, ok, 1, 0))
+    zs = torch.zeros((8, 1, 3, 6, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="z is never split"):
+        direction_fluxes(prim, -3, 4, 2, 3, 27.56, 1.4008,
+                         torch.ones((1, 5), device=cuda_device),
+                         torch.ones((1, 5), device=cuda_device),
+                         weno_matrices(5), 0.0, 1.0, (zs, zs, 2, 0))
+
+
+def test_fct_scale_div_edges_match_plain(cuda_device):
+    """Edge multipliers in every form and direction, both types, bit for
+    bit."""
+    from miniweatherml_tpu_torch.ops.fct import (fct_scale_div,
+                                                 fct_scale_div_plain)
+    rng = np.random.default_rng(5)
+    shape = (3, 2, 6, 20, 36)
+    for dtype in (torch.float64, torch.float32):
+        t = (lambda a: torch.as_tensor(a, dtype=dtype, device=cuda_device))
+        mult = t(rng.uniform(0.05, 1.0, shape))
+        tr0, tr1, prev = (t(rng.uniform(-0.2, 1.0, shape)) for _ in range(3))
+        for axis in (-1, -2, -3):
+            fs = list(shape)
+            fs[axis] += 1
+            F = t(rng.standard_normal(fs))
+            es = list(shape)
+            es[axis] = 1
+            edges = (t(rng.uniform(0.05, 1.0, es)),
+                     t(rng.uniform(0.05, 1.0, es)))
+            for rk in (None, (0.75, 0.25, 0.1, tr0, tr1, (True, False, True)),
+                       (1.0, 0.0, 0.1, tr0, None, (True, True, False))):
+                for p in (None, prev):
+                    args = (F, mult, None if p is None else p.clone(), axis,
+                            shape[axis], 2.0, rk, edges)
+                    n0 = fct_scale_div.edge_launches
+                    got = fct_scale_div(*args)
+                    assert fct_scale_div.edge_launches == n0 + 1
+                    want = fct_scale_div_plain(
+                        F, mult, None if p is None else p.clone(), axis,
+                        shape[axis], 2.0, rk, edges)
+                    assert torch.equal(got, want), (dtype, axis)
+
+
+def test_spmd_dycore_step_is_the_undecomposed_step(cuda_device):
+    """A 2x2 mesh of one card: one dycore step equals the undecomposed
+    step bit for bit, with walls in x and open ends in y."""
+    from miniweatherml_tpu_torch.parallel.mesh import (gather_state,
+                                                       make_mesh, shard_state)
+    from miniweatherml_tpu_torch.parallel.spmd import make_spmd_step
+    state, _, dycore = build(config_from_dict(dict(
+        sim_time=10.0, nens=1, nx_glob=32, ny_glob=16, nz=10, xlen=40000.0,
+        ylen=20000.0, zlen=10000.0, init_data="supercell", out_prefix="t",
+        dt_phys=0.0, out_freq=-1.0, dtype="float64")), cuda_device)
+    state = state.set_options(bc_x=2, bc_y=1)
+    state = state.replace_fields(vvel=state["vvel"] + 2.0)
+    dt = dycore.compute_time_step(state)
+    mesh = make_mesh([cuda_device] * 4, y=2, x=2)
+    step = make_spmd_step(state, mesh, dycore, sponge_time_scale=None)
+    out = gather_state(step(shard_state(state, mesh), dt), cuda_device)
+    step.close()
+    ref = dycore.time_step(state, dt)
+    for name in ref.fields:
+        assert torch.equal(ref[name], out[name]), name
