@@ -5,8 +5,9 @@ Usage (from the root of a checkout):  python3 chip_smoke.py
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: name, power limit, torch and CUDA versions;
   2. build: the five CUDA libraries from csrc/ with nvcc (sm_90a), one nvcc
-     each, all started together; the registers, spills and shared memory
-     of every kernel (from the ptxas reports: the flux kernel's ord-5
+     each, and the P3 native twin with g++, all started together; the
+     registers, spills and shared memory of every kernel (from the ptxas
+     reports: the flux kernel's ord-5
      instantiations, every entry function of the others), and the Kessler
      kernel's dynamic shared memory per block at the chains' nz;
   3. the direction-flux kernel against its plain PyTorch version, x/y/z in
@@ -103,7 +104,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
      chains on a (2, 2, 2) mesh of the card, against the port's CPU run of
      the same mesh and the card's undecomposed run; ShardedStateWriter on a
      2x4 mesh and stitch_sharded in chip_smoke_out/, bit for bit against
-     the gathered state's file.
+     the gathered state's file;
+  26. the P3 native twin (csrc/p3_native.cpp, built with g++ in phase 2
+     beside the CUDA libraries): its build seconds and whether the lookup
+     tables were installed, and the twin against the port's p3_scheme on
+     the card in f64 at rtol 1e-9 plus 1e-12 of each field's scale, on
+     seeded mixed columns and on the columns one step of a 64x64x64 P3
+     chain (seeded layers) hands the micro;
+  27. the 128x128x64 f32 supercell_p3 chain with p3_backend native (3 steps
+     after the warm-up step, run_benchmark, launch counters: the dycore's
+     and the wrapper-inputs kernel), its step split by utils.profiling
+     timers (over the timed steps) into the twin's host time, the copies to
+     the host and back and the rest on the card, beside the torch-backend chain at the same grid
+     in the same call; host syncs per native step; a 16x8x10 f64 native
+     slice (seeded layers), card against CPU, 2 steps at 1e-7 of scale;
+  28. tracer groups: the flux kernel at 12 tracers (two launches per call)
+     along x, y, z and in the halo-strip form, fct_mult and fct_scale_div
+     at 12 tracers on its faces (one launch), f32 and f64, and both FCT
+     kernels at 70 tracers (two launches), bit for bit against the plain
+     versions.
 
 Tolerance of a kernel against its plain version: max|kernel - plain| over
 max|plain| of each output below 1e-12 in f64 and 1e-5 in f32 (the JAX
@@ -117,8 +136,9 @@ is plain tensor code (two torch.matmul calls, TF32 off), as the JAX
 package's is outside any Pallas kernel, so it adds no row to the kernels
 line.
 
-The next-to-last line of output is {"kernels": [...]}, the last
-{"ok": true, "device": {...}}.  Needs torch.cuda; exits non-zero without it.
+The last lines of output are {"native": {...}} (the twin is host C++, not a
+TPU kernel, so it has no row in the kernels line), the card's name and power
+limit, {"kernels": [...]} and {"ok": true, "device": {...}}.  Needs torch.cuda; exits non-zero without it.
 """
 
 from __future__ import annotations
@@ -335,13 +355,18 @@ LIBRARIES = ("direction_fluxes", "kessler", "p3_lookup", "p3_cellwise", "fct")
 
 
 def phase_build():
-    from miniweatherml_tpu_torch import cuda_build
+    from miniweatherml_tpu_torch import cuda_build, native
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+    with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
+        # the P3 native twin (g++) builds beside the CUDA libraries
+        twin = pool.submit(native.load_p3_library)
         list(pool.map(cuda_build.load_library, LIBRARIES))
+        twin.result()
     for name in LIBRARIES:
         print(f"[2] built {name}: nvcc "
               f"{cuda_build.build_seconds.get(name, 0.0):.2f} s", flush=True)
+    print(f"[2] built the P3 native twin: g++ {native.build_seconds:.2f} s",
+          flush=True)
     print(f"[2] all builds: {time.perf_counter() - t0:.2f} s", flush=True)
     # registers, spills and shared memory of the flux kernel's
     # instantiations; the paths run ord 5 with tracer bounds 3 (Kessler),
@@ -561,14 +586,15 @@ def phase_fct(chain, dtype, tol, state, dycore, faces, recs):
                 pms = _time_ms(lambda: fct.fct_scale_div_plain(
                     faces[axis], mult, buf, axis, n, 1.0 / d, rk=rk), reps=3)
                 line += f"; kernel {ms:.3f} ms, plain {pms:.3f} ms"
+                # ~15 operations per tracer value (csrc/fct.cu); the
+                # output is the running buffer, read and written
+                out_b = _nbytes(tr)
+                bms, by = _bound(
+                    _nbytes(faces[axis], mult, rk) + out_b
+                    + (0 if buf is None else out_b), 15 * tr.numel(), dtype)
+                line += (f", bound {bms:.3f} ms ({by}), {bms / ms:.1%} of "
+                         "the bound")
                 if f32 and chain == "p3":
-                    # ~15 operations per tracer value (csrc/fct.cu); the
-                    # output is the running buffer, read and written
-                    out_b = _nbytes(tr)
-                    bms, by = _bound(
-                        _nbytes(faces[axis], mult, rk) + out_b
-                        + (0 if buf is None else out_b), 15 * tr.numel(),
-                        dtype)
                     r = recs["fct_scale_div"]
                     r["ms"] += ms
                     r["plain_ms"] += pms
@@ -723,6 +749,8 @@ def _counters(chain):
         return dycore
     if chain in ("kessler", "surrogate"):
         return {**dycore, "kessler_step": kessler_step}
+    if chain == "p3_native":  # the column step runs in the C++ twin
+        return {**dycore, "p3_wrapper": cw.p3_wrapper}
     return {**dycore,
             "interp_ice": lk.interp_ice, "interp_collect": lk.interp_collect,
             "interp_rain": lk.interp_rain, "p3_part1": cw.p3_part1,
@@ -1062,13 +1090,14 @@ def phase_p3_cellwise():
             ms = _time_ms(lambda: launch(phase, pnc, arrays, dt))
             pms = _time_ms(lambda: cw.plain_phase(phase, pnc, arrays, dt),
                            reps=3)
+            bms, by = _bound(nbytes, cell_ops[phase] * cells, dtype)
             print(f"[9] p3_cellwise {phase} ({len(arrays)} in) {dtype}: max "
                   f"abs err {err:.3e}, rel {rel:.3e} (tol {tol:g}); kernel "
-                  f"{ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+                  f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
+                  f"({by}), {bms / ms:.1%} of the bound", flush=True)
             if not rel <= tol:
                 raise AssertionError(f"p3 {phase} {dtype}: rel {rel:.3e}")
             if dtype == "float32":
-                bms, by = _bound(nbytes, cell_ops[phase] * cells, dtype)
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 rec["ms"] += ms
                 rec["plain_ms"] += pms
@@ -1859,6 +1888,299 @@ def phase_spmd_references():
         raise AssertionError(f"stitched file differs in {differ}")
 
 
+# -- the P3 native twin and tracer groups -------------------------------------
+
+SCHEME_OUT = ("qc", "nc", "qr", "nr", "qi", "ni", "qm", "bm", "qv", "theta",
+              "precip_liq", "precip_ice")
+
+
+def _mixed_columns(nz=24, ncol=8, seed=1):
+    """tests/test_p3_native.py::_mixed_column's recipe (numpy, re-made
+    here), as float64 tensors (1, nz, 1, ncol) on the card, and a
+    qv_prev / t_prev history."""
+    rng = np.random.default_rng(seed)
+    z = (np.arange(nz) + 0.5) * 450.0
+    temp = 300.0 - 7.5e-3 * z
+    pres = 1.0e5 * (temp / 300.0) ** 6.0
+    rho_d = pres / (287.042 * temp)
+    shape = (1, nz, 1, ncol)
+
+    def tile(v):
+        return np.broadcast_to(v.reshape(1, nz, 1, 1), shape).copy()
+
+    def rand(hi):
+        return rng.uniform(0, hi, shape)
+    exner = tile((pres / 1e5) ** (287.042 / 1004.64))
+    d = dict(qc=rand(2e-3), nc=tile(100e6 / rho_d), qr=rand(1e-3),
+             nr=rand(1e5), qi=rand(1e-3), ni=rand(1e5), qm=rand(2e-4),
+             bm=rand(1e-6), qv=rand(0.015), theta=tile(temp) / exner,
+             exner=exner, pres=tile(pres), rho_d=tile(rho_d),
+             dz=np.full(shape, 450.0))
+    d = {k: torch.as_tensor(v, device="cuda") for k, v in d.items()}
+    t = d["theta"] * d["exner"]
+    return d, (0.95 * d["qv"], t - 0.2)
+
+
+def _twin_check(tag, inputs, dt, tables, hist):
+    """The twin against the port's p3_scheme on the card (f64): rtol 1e-9,
+    atol 1e-12 of each field's scale (tests/test_p3_native.py:75-83)."""
+    from miniweatherml_tpu_torch.physics import p3 as PP
+    want = PP.p3_scheme(**inputs, dt=dt, z_axis=1, tables=tables,
+                        qv_prev=hist[0], t_prev=hist[1])
+    names = ("qc", "nc", "qr", "nr", "qi", "ni", "qm", "bm", "qv", "theta",
+             "exner", "pres", "rho_d", "dz")
+    got = PP._p3_scheme_native(*(inputs[k] for k in names), dt,
+                               qv_prev=hist[0], t_prev=hist[1])
+    worst, where = 0.0, ""
+    for name, a, b in zip(SCHEME_OUT, want, got):
+        if b.device.type != "cuda" or b.dtype != a.dtype:
+            raise AssertionError(f"[26] {tag} {name}: {b.device} {b.dtype}")
+        scale = max(a.abs().max().item(), 1e-6)
+        # the share of the allowance used, <= 1 passes
+        used = ((a - b).abs() / (1e-9 * a.abs() + 1e-12 * scale)).max().item()
+        if used > worst:
+            worst, where = used, name
+    print(f"[26] twin vs p3_scheme on the card, {tag} "
+          f"({want[0].numel()} cells, f64): worst {worst:.3e} of the "
+          f"allowance rtol 1e-9 + 1e-12 of scale ({where or '-'})",
+          flush=True)
+    if not worst <= 1.0:
+        raise AssertionError(f"[26] twin vs p3_scheme {tag}: {where} at "
+                             f"{worst:.3e} of the allowance")
+
+
+def phase_native_twin():
+    """The P3 native twin (g++ build time, tables installed) against the
+    port's p3_scheme on the card: seeded mixed columns, then the column set
+    one step of the P3 chain hands the micro (64x64x64 f64, seeded layers),
+    both with a qv_prev / t_prev history."""
+    from miniweatherml_tpu_torch import native
+    from miniweatherml_tpu_torch.experiments import supercell_p3
+    from miniweatherml_tpu_torch.physics import p3 as PP
+    from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
+
+    lib = native.load_p3_library()
+    has = bool(lib.p3_has_tables())
+    print(f"[26] P3 native twin: g++ {native.build_seconds:.2f} s "
+          f"({' '.join(native.GXX_FLAGS)}); lookup tables installed: {has}",
+          flush=True)
+    tables = load_p3_tables() if has else None
+    cols, hist = _mixed_columns()
+    _twin_check("mixed columns", cols, 15.0, tables, hist)
+    state, mods, dycore = supercell_p3.build(
+        _bench_cfg(64, 64, 64, 1, "float64"), "cuda")
+    state = supercell_p3.seed_layers(state)
+    dt = dycore.compute_time_step(state)
+    for m in mods:
+        state = m(state, dt)
+    (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres, dz, qv_prev,
+     t_prev) = PP.p3_wrapper_inputs(state)
+    inputs = dict(qc=qc, nc=nc, qr=qr, nr=nr, qi=qi, ni=ni, qm=qm, bm=bm,
+                  qv=qv, theta=theta, exner=exner, pres=pres,
+                  rho_d=state["density_dry"], dz=dz)
+    _twin_check("a P3 chain step's columns (64x64x64, seeded layers)",
+                inputs, dt, tables, (qv_prev, t_prev))
+    del state, mods, dycore, inputs
+    torch.cuda.empty_cache()
+
+
+def _native_cfg(cfg):
+    cfg.extras["p3_backend"] = "native"
+    return cfg
+
+
+def _native_build(cfg, device):
+    from miniweatherml_tpu_torch.experiments import supercell_p3
+    return supercell_p3.build(_native_cfg(cfg), device)
+
+
+def phase_native_chain(card):
+    """The 128x128x64 f32 supercell_p3 chain with p3_backend native (3
+    steps after the warm-up step, run_benchmark, launch counters), its step
+    split with utils.profiling timers, beside the torch-backend chain in
+    the same call; host syncs per step; then a 16x8x10 f64 native slice,
+    card against CPU, 2 steps.  Returns the JSON ``native`` record."""
+    from miniweatherml_tpu_torch import native
+    from miniweatherml_tpu_torch.experiments import supercell_p3
+    from miniweatherml_tpu_torch.physics import p3 as PP
+    from miniweatherml_tpu_torch.utils import profiling
+
+    orig = (PP._columns_to_host, native.column_step, PP._columns_to_device)
+    calls_seen = [0]
+
+    def to_host(fields):
+        profiling.sync()  # what was queued before is the rest of the step
+        calls_seen[0] += 1
+        if calls_seen[0] == 2:
+            # the first timed step: the split covers the window step_ms does
+            profiling.reset_timers()
+        with profiling.timer("to host"):
+            return orig[0](fields)
+
+    def twin(*args, **kw):
+        with profiling.timer("twin"):
+            return orig[1](*args, **kw)
+
+    def to_device(*args):
+        with profiling.timer("to device"):  # synchronizes the card on exit
+            return orig[2](*args)
+    profiling.reset_timers()
+    PP._columns_to_host, native.column_step, PP._columns_to_device = (
+        to_host, twin, to_device)
+    try:
+        _, res, _ = _run_cell(
+            "27 native", _native_cfg(_bench_cfg(128, 128, 64, 3, "float32")), card,
+            chain="p3_native", build=_native_build,
+            per_step={**DYCORE_PER_STEP, "p3_wrapper": 1})
+    finally:
+        PP._columns_to_host, native.column_step, PP._columns_to_device = orig
+    totals = profiling.timer_totals()
+    calls = totals["twin"][1]
+    if (calls != res["steps"] or calls_seen[0] != calls + 1
+            or totals["to host"][1] != calls
+            or totals["to device"][1] != calls):
+        raise AssertionError(f"[27] native timers {totals} for "
+                             f"{res['steps']} timed steps")
+    host_ms = 1e3 * totals["twin"][0] / calls
+    down_ms = 1e3 * totals["to host"][0] / calls
+    up_ms = 1e3 * totals["to device"][0] / calls
+    step_ms = 1e3 * res["elapsed_s"] / res["steps"]
+    print(profiling.timer_report(), flush=True)
+    print(f"[27] native step split (mean of the {calls} timed steps, "
+          f"the window of the ms/step): twin on the host {host_ms:.1f} ms, to host (f64 cast, "
+          f"column permute, one copy) {down_ms:.1f} ms, to the card {up_ms:.1f}"
+          f" ms, the rest on the card ~{step_ms - host_ms - down_ms - up_ms:.1f}"
+          f" ms of the timed {step_ms:.1f} ms/step; twin "
+          f"{host_ms / step_ms:.1%} of the step  [{card}]", flush=True)
+    _run_cell("27 torch", _bench_cfg(128, 128, 64, 3, "float32"), card,
+              chain="p3", build=supercell_p3.build)
+    small = _native_cfg(_bench_cfg(128, 128, 64, 2, "float32"))
+    print(f"[27] host synchronizations in one step at 128x128x64: native P3 "
+          f"chain {_host_syncs(supercell_p3.build, small)}", flush=True)
+    cfg = _native_cfg(_supercell_cfg(16, 8, 10, 40000.0, 40000.0, 16000.0,
+                                     100.0, "float64"))
+    outs = []
+    for device in ("cpu", "cuda"):
+        state, mods, dycore = supercell_p3.build(cfg, device)
+        state = supercell_p3.seed_layers(state)
+        dt = dycore.compute_time_step(state)
+        for _ in range(2):
+            for m in mods:
+                state = m(state, dt)
+        outs.append(state)
+    _check_state("27", outs[1])
+    if float(outs[1]["ice"].max()) <= 0.0:
+        raise AssertionError("native P3 slice holds no ice")
+    worst = max(_rel(outs[0][k], outs[1][k].cpu())[1] for k in outs[0].fields)
+    print(f"[27] 16x8x10 f64 2-step native P3 slice, card vs CPU: worst "
+          f"error over field scale {worst:.3e} (tol 1e-7)", flush=True)
+    if not worst <= 1e-7:
+        raise AssertionError(f"native P3 card vs CPU slice: {worst:.3e}")
+    return {"build_s": native.build_seconds, "host_ms_per_step": host_ms,
+            "copy_ms_per_step": down_ms + up_ms, "cells": 128 * 128 * 64}
+
+
+def phase_tracer_groups():
+    """The wrappers above one launch's tracer count: the flux kernel at 12
+    tracers (17 variables) on a 64x64x32 P3 state plus three more tracers,
+    x / y / z and the halo-strip form, then fct_mult and fct_scale_div at
+    12 tracers on the faces it gave, f32 and f64, and both FCT kernels at
+    70 tracers (f32, small grid); bit for bit against the plain versions,
+    with the launches per call."""
+    from miniweatherml_tpu_torch.ops import fct
+    from miniweatherml_tpu_torch.ops.direction_fluxes import (
+        IDU, IDV, IDW, direction_fluxes, direction_fluxes_plain)
+
+    def check(tag, wrapper, expect, kern, plain):
+        """kern() launches through ``wrapper``, ``expect`` times; plain()
+        is its plain version on the same inputs."""
+        n0 = wrapper.launches
+        got = kern()
+        launches = wrapper.launches - n0
+        ref = plain()
+        torch.cuda.synchronize()
+        pairs = zip(ref, got) if isinstance(got, tuple) else [(ref, got)]
+        same = all(torch.equal(a, b) for a, b in pairs)
+        print(f"[28] {tag}: {launches} launches, bitwise "
+              f"{'equal' if same else 'DIFFERENT'}", flush=True)
+        if not same or launches != expect:
+            raise AssertionError(f"[28] {tag}: {launches} launches (expected"
+                                 f" {expect}), bitwise equal {same}")
+        return got
+
+    def scale_div(fn, F, mult, prev, axis, n, dxi, rk):
+        return fn(F, mult, None if prev is None else prev.clone(), axis, n,
+                  dxi, rk=rk)
+
+    for dtype in ("float32", "float64"):
+        state, _, dycore = _p3_mixed_build(_bench_cfg(64, 64, 32, 1, dtype),
+                                           "cuda")
+        prim = _prim(state, dycore)
+        prim = torch.cat([prim, 0.5 * prim[5:8]]).contiguous()
+        ntr = prim.shape[0] - 5
+        g, c = state.grid, dycore._consts(state)
+        hy = dycore._hy(state)
+        faces = {}
+        for name, axis, n, bc, nid, d, hr, ht in (
+                ("x", -1, g.nx, c.bc_x, IDU, g.dx, hy[0], hy[1]),
+                ("y", -2, g.ny, c.bc_y, IDV, g.dy, hy[0], hy[1]),
+                ("z", -3, g.nz, c.bc_z, IDW, g.dz, hy[2], hy[3])):
+            args = (prim, axis, n, bc, nid, c.C0, c.gamma, hr, ht,
+                    dycore.mats, 0.0, 1.0 / d)
+            faces[axis] = check(
+                f"direction_fluxes {ntr} tracers {dtype} {name}",
+                direction_fluxes, 2, lambda: direction_fluxes(*args),
+                lambda: direction_fluxes_plain(*args))[1]
+        block, strips = _shard_case(prim.narrow(-2, 0, g.ny // 2)
+                                    .contiguous(), -1, c.bc_x, IDU, 0)
+        args = (block, -1, block.shape[-1], c.bc_x, IDU, c.C0, c.gamma,
+                hy[0], hy[1], dycore.mats, 0.0, 1.0 / g.dx, strips)
+        check(f"direction_fluxes strips {ntr} tracers {dtype} x",
+              direction_fluxes, 2, lambda: direction_fluxes(*args),
+              lambda: direction_fluxes_plain(*args))
+        tr = torch.cat([state.tracer_stack(),
+                        0.5 * state.tracer_stack()[:3]]).contiguous()
+        flags = tuple(i % 3 != 1 for i in range(ntr))
+        dt = dycore.compute_time_step(state)
+        margs = (tr, flags, faces[-1], faces[-2], faces[-3], 100 * dt, g.dx,
+                 g.dy, g.dz)
+        mult = check(f"fct_mult {ntr} tracers {dtype}", fct.fct_mult, 1,
+                     lambda: fct.fct_mult(*margs),
+                     lambda: fct.fct_mult_plain(*margs))
+        # one right-hand side: x first, z accumulating, y with the update
+        prev = None
+        for axis, n, d, rk in (
+                (-1, g.nx, g.dx, None), (-3, g.nz, g.dz, None),
+                (-2, g.ny, g.dy, (0.75, 0.25, 0.25 * dt, tr,
+                                  tr.flip(-1).contiguous(), flags))):
+            sargs = (faces[axis], mult, prev, axis, n, 1.0 / d, rk)
+            prev = check(f"fct_scale_div {ntr} tracers {dtype} axis {axis}",
+                         fct.fct_scale_div, 1,
+                         lambda: scale_div(fct.fct_scale_div, *sargs),
+                         lambda: scale_div(fct.fct_scale_div_plain, *sargs))
+        del state, dycore, prim, faces, tr, mult, prev, block, strips
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(70)
+
+    def rand(*shape, lo=None):
+        a = (rng.standard_normal(shape) if lo is None
+             else rng.uniform(lo, 1e-2, shape))
+        return torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    tr = rand(70, 1, 16, 16, 16, lo=-1e-4)
+    flags = tuple(i % 3 != 1 for i in range(70))
+    margs = (tr, flags, rand(70, 1, 16, 16, 17), rand(70, 1, 16, 17, 16),
+             rand(70, 1, 17, 16, 16), 0.9, 5.0, 4.0, 2.5)
+    mult = check("fct_mult 70 tracers float32", fct.fct_mult, 2,
+                 lambda: fct.fct_mult(*margs),
+                 lambda: fct.fct_mult_plain(*margs))
+    sargs = (margs[3], mult, rand(*tr.shape), -2, 16, 0.2,
+             (0.75, 0.25, 0.1, tr, tr.flip(-1).contiguous(), flags))
+    check("fct_scale_div 70 tracers float32 axis -2 with the stage update",
+          fct.fct_scale_div, 2,
+          lambda: scale_div(fct.fct_scale_div, *sargs),
+          lambda: scale_div(fct.fct_scale_div_plain, *sargs))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1930,6 +2252,10 @@ def main() -> int:
     l_spmd = phase_spmd_kessler(card)
     phase_spmd_references()
 
+    phase_native_twin()
+    native_rec = phase_native_chain(card)
+    phase_tracer_groups()
+
     kernels = [
         {"name": "direction_fluxes", "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/direction_fluxes.cu",
@@ -1993,6 +2319,8 @@ def main() -> int:
         missing = [key for key in keys if key not in k]
         if missing:
             raise AssertionError(f"{k['name']}: no {missing} measured")
+    # the twin is host C++, not a TPU kernel: a line of its own
+    print(json.dumps({"native": native_rec}))
     print(card)
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels]}))

@@ -23,7 +23,8 @@ _EXPERIMENTS = {
                            "(reference community_benchmark)",
     "simple_city": "flow over immersed buildings + horizontal sponge + "
                    "time averager (reference simple_city)",
-    "supercell_p3": "supercell with P3 ice microphysics",
+    "supercell_p3": "supercell with P3 ice microphysics (p3_backend: "
+                    "torch, jax or native)",
     "gather_statistics": "measure the active-microphysics cell ratio",
     "generate_micro_data": "harvest stratified Kessler training pairs",
     "inference_surrogate": "run with the MLP surrogate micro inline",

@@ -3,10 +3,11 @@
 Port of ``miniweatherml_tpu/experiments/supercell_p3.py``: the supercell
 driver chain (dycore -> micro -> sponge -> nudge) with ``MicrophysicsP3`` in
 place of Kessler (reference model/modules/microphysics_p3.h).  YAML keys:
-``p3_backend`` ("torch", or "jax" for the same scheme; "native" is not
-ported and raises) and ``p3_diagnostics: true``, which registers part3's
+``p3_backend`` ("torch", or "jax" for the same scheme, or "native" for the
+C++ twin, whose column step runs on the host while the rest of the chain
+stays on the device) and ``p3_diagnostics: true``, which registers part3's
 diagnostic fields, fills them each step and writes them to the NetCDF
-output.
+output (not with "native").
 
 Usage:  python -m miniweatherml_tpu_torch.experiments.supercell_p3 <input.yaml> [--device cpu]
 """

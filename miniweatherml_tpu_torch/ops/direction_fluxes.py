@@ -29,8 +29,8 @@ from .stencil import BC_PERIODIC, BC_WALL, pad_bc
 from .weno import WenoMatrices
 from .weno_fused import reconstruct_edges_shifted, weno_coef_table
 
-__all__ = ["direction_fluxes", "direction_fluxes_plain", "recon_direction",
-           "apply_edge_bcs", "riemann", "div",
+__all__ = ["direction_fluxes", "direction_fluxes_plain", "in_tracer_groups",
+           "recon_direction", "apply_edge_bcs", "riemann", "div",
            "IDR", "IDU", "IDV", "IDW", "IDT", "NUM_STATE"]
 
 IDR, IDU, IDV, IDW, IDT = 0, 1, 2, 3, 4
@@ -138,9 +138,32 @@ def direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma, hy_r,
     return div(SF, axis, n, div_scale), TF
 
 
-# Tracers the kernel takes (its unrolled tracer loop is bounded by 9, the P3
-# path's count).
+# Tracers one launch takes (the kernel's unrolled tracer loop is bounded by
+# 9, the P3 path's count); more go through ``in_tracer_groups``.
 MAX_TRACERS = 9
+
+
+def in_tracer_groups(launch, prim, *args, strips=None):
+    """``direction_fluxes`` of any number of tracers from a ``launch`` that
+    takes at most ``MAX_TRACERS``: one call per group of tracers, each on
+    the 5 state rows followed by the group's tracers (and strips built the
+    same way).  A tracer's faces depend only on the state and on that tracer, so
+    the state divergence of the first group and the groups' faces in order
+    equal one call's bit for bit.  ``args`` are ``direction_fluxes``'s after
+    ``prim``."""
+    ntr = prim.shape[0] - NUM_STATE
+    sdiv, faces = None, []
+    for t0 in range(0, ntr, MAX_TRACERS):
+        rows = slice(NUM_STATE + t0, NUM_STATE + min(t0 + MAX_TRACERS, ntr))
+
+        def group(x):
+            return torch.cat([x[:NUM_STATE], x[rows]])
+        gstrips = None if strips is None else (
+            group(strips[0]), group(strips[1]), *strips[2:])
+        d, tf = launch(group(prim), *args, strips=gstrips)
+        sdiv = d if sdiv is None else sdiv
+        faces.append(tf)
+    return sdiv, torch.cat(faces)
 
 
 def _bind(lib):
@@ -244,11 +267,12 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
     for name, t in (("hy_r", hy_r), ("hy_t", hy_t)):
         _check_cuda(name, t, prim.dtype, (nens, nlev), prim.device)
     ntr = nvar - NUM_STATE
-    if ntr > MAX_TRACERS:
-        raise ValueError(f"{ntr} tracers; the kernel takes at most "
-                         f"{MAX_TRACERS}")
     if mats.ord not in (3, 5, 7, 9):
         raise ValueError(f"WENO order {mats.ord} is not 3, 5, 7 or 9")
+    if ntr > MAX_TRACERS:
+        return in_tracer_groups(direction_fluxes, prim, axis, n, bc,
+                                normal_id, C0, gamma, hy_r, hy_t, mats,
+                                cutoff, div_scale, strips=strips)
     lo = hi = None
     bc_lo = bc_hi = bc  # whole axis: both ends are the global boundary
     if strips is not None:

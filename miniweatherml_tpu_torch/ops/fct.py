@@ -22,8 +22,9 @@ import torch
 
 from ..cuda_build import count_launch
 
-__all__ = ["fct_mult", "fct_mult_plain", "fct_scale_div",
-           "fct_scale_div_plain", "per_tracer"]
+__all__ = ["fct_mult", "fct_mult_plain", "fct_mult_groups", "fct_scale_div",
+           "fct_scale_div_plain", "fct_scale_div_groups", "per_tracer",
+           "MAX_TRACERS"]
 
 # Field axis of each direction on (ntr, nens, nz, ny, nx).
 _AX_X, _AX_Y, _AX_Z = -1, -2, -3
@@ -139,13 +140,55 @@ def _check(name, t, like, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+# Tracers one launch takes: the positive flags travel as a 64-bit mask.
+# More go through ``fct_mult_groups`` / ``fct_scale_div_groups``.
+MAX_TRACERS = 64
+
+
 def _mask(positive, ntr: int) -> int:
     """The positive flags as a 64-bit mask, bit t for tracer t."""
     if len(positive) != ntr:
         raise ValueError(f"{len(positive)} positive flags for {ntr} tracers")
-    if ntr > 64:
-        raise ValueError(f"the FCT kernels take at most 64 tracers, got {ntr}")
+    if ntr > MAX_TRACERS:
+        raise ValueError(f"one FCT launch takes at most {MAX_TRACERS} "
+                         f"tracers, got {ntr}")
     return sum(1 << i for i, p in enumerate(positive) if p)
+
+
+def _groups(ntr: int):
+    """Slices of at most ``MAX_TRACERS`` tracers covering ``ntr``, in
+    order."""
+    return [slice(t0, min(t0 + MAX_TRACERS, ntr))
+            for t0 in range(0, ntr, MAX_TRACERS)]
+
+
+def _part(x, g):
+    return None if x is None else x[g]
+
+
+def fct_mult_groups(launch, tr, positive, Fx, Fy, Fz, dt, dx, dy, dz):
+    """``fct_mult`` of any number of tracers from a ``launch`` that takes at
+    most ``MAX_TRACERS``: one call per group of tracers, each with its own
+    positive flags; the multipliers concatenated equal one call's (every
+    tracer's multiplier depends on that tracer alone)."""
+    return torch.cat([launch(tr[g], positive[g], Fx[g], _part(Fy, g), Fz[g],
+                             dt, dx, dy, dz)
+                      for g in _groups(tr.shape[0])])
+
+
+def fct_scale_div_groups(launch, F, mult, t_prev, axis, n, dxi, rk=None,
+                         edges=None):
+    """``fct_scale_div`` of any number of tracers from a ``launch`` that
+    takes at most ``MAX_TRACERS``, one call per group of tracers; with ``t_prev``
+    each group writes into its own rows of it."""
+    out = []
+    for g in _groups(mult.shape[0]):
+        grk = None if rk is None else (
+            *rk[:3], rk[3][g], _part(rk[4], g), rk[5][g])
+        gedges = None if edges is None else (edges[0][g], edges[1][g])
+        out.append(launch(F[g], mult[g], _part(t_prev, g), axis, n, dxi, grk,
+                          gedges))
+    return t_prev if t_prev is not None else torch.cat(out)
 
 
 def _cuda_operand(x):
@@ -183,6 +226,9 @@ def fct_mult(tr, positive, Fx, Fy, Fz, dt, dx, dy, dz):
     _check("Fz", Fz, tr, (ntr, nens, nz + 1, ny, nx))
     if Fy is not None:
         _check("Fy", Fy, tr, (ntr, nens, nz, ny + 1, nx))
+    if ntr > MAX_TRACERS:
+        return fct_mult_groups(fct_mult, tr, positive, Fx, Fy, Fz, dt, dx,
+                               dy, dz)
     mask = _mask(positive, ntr)
     mult = torch.empty_like(tr)
     lib = _library()
@@ -237,6 +283,9 @@ def fct_scale_div(F, mult, t_prev, axis, n, dxi, rk=None, edges=None):
         raise ValueError(f"axis {axis} / n {n} do not match "
                          f"{tuple(mult.shape)}")
     ntr, nens, nz, ny, nx = mult.shape
+    if ntr > MAX_TRACERS:
+        return fct_scale_div_groups(fct_scale_div, F, mult, t_prev, axis, n,
+                                    dxi, rk, edges)
     _check("mult", mult, mult, mult.shape)
     fshape = list(mult.shape)
     fshape[axis] += 1

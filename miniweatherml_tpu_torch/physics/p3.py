@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..core.coupler import CouplerState
@@ -1060,15 +1061,62 @@ def p3_wrapper_inputs(state: CouplerState):
     return (*out[:12], dz, out[12], out[13])
 
 
+def _p3_scheme_native(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner,
+                      pres, rho_d, dz, dt, qv_prev=None, t_prev=None):
+    """``p3_scheme``'s 12 outputs from the C++ twin, the counterpart of the
+    JAX package's ``_p3_scheme_native_callback`` (p3.py:1586-1618).
+
+    The 16 fields (nens, nz, ny, nx) become columns (nens, ny, nx, nz) in
+    float64 on their own device and go to the host in one copy; one
+    ``p3_column_step`` over every column (one global sub-cycle count, so
+    never split across threads); the 10 prognostic fields and the 2
+    surface fields come back to the device in float64 and are cast there to
+    the inputs' dtype."""
+    from ..native import column_step, load_p3_library
+
+    lib = load_p3_library()
+    nens, nz, ny, nx = qc.shape
+    qvp = qv if qv_prev is None else qv_prev
+    tp = theta * exner if t_prev is None else t_prev
+    cols = _columns_to_host((qc, nc, qr, nr, qi, ni, qm, bm, qv, theta,
+                             exner, pres, rho_d, dz, qvp, tp))
+    host = cols.numpy().reshape(16, nens * ny * nx, nz)
+    pl, pi_ = column_step(lib, host[:10], host[10:14], dt, host[14],
+                          host[15])
+    srf = torch.from_numpy(np.stack([pl, pi_]).reshape(2, nens, ny, nx))
+    return _columns_to_device(cols[:10], srf, qc)
+
+
+def _columns_to_host(fields) -> torch.Tensor:
+    """(nens, nz, ny, nx) fields as one float64 host tensor of columns,
+    (n, nens, ny, nx, nz): cast and permuted on their device, then one
+    copy."""
+    return torch.stack([f.to(torch.float64).permute(0, 2, 3, 1)
+                        for f in fields]).cpu()
+
+
+def _columns_to_device(prog: torch.Tensor, srf: torch.Tensor, like):
+    """The twin's host outputs back on ``like``'s device in its dtype: the
+    (10, nens, ny, nx, nz) columns as 10 contiguous (nens, nz, ny, nx)
+    fields, and the (2, nens, ny, nx) surface fields."""
+    n, nens, ny, nx, nz = prog.shape
+    out = torch.empty((n, nens, nz, ny, nx), dtype=like.dtype,
+                      device=like.device)
+    out.copy_(prog.to(like.device).permute(0, 1, 4, 2, 3))
+    srf = srf.to(like.device).to(like.dtype)
+    return (*out.unbind(0), *srf.unbind(0))
+
+
 class MicrophysicsP3:
     """P3 coupler module: registers the 9 P3 tracers and the persistent
     fields, runs the saturation pre-adjustment and the scheme each step
     (reference microphysics_p3.h:96-444).
 
     ``backend``: "torch" (or "jax", the JAX package's name for the same
-    vectorized scheme, so its YAML files run unchanged).  "native", the C++
-    twin of the JAX package, is not ported (ROADMAP Queue 1, "P3 native
-    twin") and raises ``NotImplementedError``."""
+    vectorized scheme, so its YAML files run unchanged), or "native": the
+    column step runs in the C++ twin on the host (``_p3_scheme_native``),
+    the reference's host-staged Fortran call (microphysics_p3.h:364-376);
+    the rest of the step stays on the state's device."""
 
     num_tracers = 9
 
@@ -1092,19 +1140,23 @@ class MicrophysicsP3:
     def __init__(self, backend: str = "torch", table_path: str | None = None,
                  use_tables: bool | None = None,
                  do_predict_nc: bool = False, diagnostics: bool = False):
-        if backend == "native":
-            raise NotImplementedError(
-                "p3_backend 'native' (the C++ P3 twin) is not ported to "
-                "miniweatherml_tpu_torch yet: ROADMAP.md Queue 1, 'P3 "
-                "native twin'")
-        if backend not in ("torch", "jax"):
+        if backend not in ("torch", "jax", "native"):
             raise ValueError("backend must be 'torch' (alias 'jax') or "
                              "'native'")
+        if diagnostics and backend == "native":
+            raise ValueError("diagnostics=True requires backend 'torch' "
+                             "(the native twin mirrors the reference "
+                             "wrapper, which discards the diag arrays)")
         self.backend = backend
         self.diagnostics = diagnostics
         self.do_predict_nc = do_predict_nc
         self.tables: P3Tables | None = None
-        if use_tables is not False:
+        if backend == "native":
+            # built here, so its tables are installed before any shard of a
+            # mesh runs; they follow the asset whatever ``use_tables`` says
+            from ..native import load_p3_library
+            load_p3_library()
+        elif use_tables is not False:
             path = table_path or default_table_path()
             if path is not None:
                 self.tables = load_p3_tables(path)
@@ -1145,14 +1197,24 @@ class MicrophysicsP3:
         rho_d = state["density_dry"]
         (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pressure, dz,
          qv_prev, t_prev) = p3_wrapper_inputs(state)
-        out = p3_scheme(
-            qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pressure,
-            rho_d, dz, dt, z_axis=1, tables=self.tables, qv_prev=qv_prev,
-            t_prev=t_prev, do_predict_nc=self.do_predict_nc,
-            diagnostics=self.diagnostics, spmd_axes=spmd_axes)
-        qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, pl, pi_ = out[:12]
-        if self.diagnostics:
-            state = state.replace_fields(**out[12])
+        if self.backend == "native":
+            # under a mesh each shard's columns take their own sub-cycle
+            # count, as JAX's pure_callback does under shard_map
+            qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, pl, pi_ = (
+                _p3_scheme_native(
+                    qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner,
+                    pressure, rho_d, dz, dt, qv_prev=qv_prev,
+                    t_prev=t_prev))
+        else:
+            out = p3_scheme(
+                qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pressure,
+                rho_d, dz, dt, z_axis=1, tables=self.tables,
+                qv_prev=qv_prev, t_prev=t_prev,
+                do_predict_nc=self.do_predict_nc,
+                diagnostics=self.diagnostics, spmd_axes=spmd_axes)
+            qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, pl, pi_ = out[:12]
+            if self.diagnostics:
+                state = state.replace_fields(**out[12])
 
         def clamp(q):
             return _max(q * rho_d, 0.0)

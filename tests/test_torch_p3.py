@@ -354,8 +354,10 @@ def test_module_options_and_diagnostics_init():
 
 def test_backends():
     assert PP.MicrophysicsP3(backend="jax").tables is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PP.MicrophysicsP3(backend="native")
+    native = PP.MicrophysicsP3(backend="native")
+    assert native.backend == "native" and native.tables is None
+    with pytest.raises(ValueError, match="diagnostics"):
+        PP.MicrophysicsP3(backend="native", diagnostics=True)
     with pytest.raises(ValueError):
         PP.MicrophysicsP3(backend="fortran")
     assert PP.MicrophysicsP3(use_tables=False).tables is None
@@ -380,13 +382,34 @@ def test_run_with_diagnostics_writes_netcdf(tmp_path, capsys):
                                    state["equiv_reflectivity"][0].numpy())
 
 
-def test_cli_and_benchmark_take_the_p3_chain(tmp_path):
-    path = tmp_path / "p3.yaml"
+def _p3_yaml(tmp_path, backend, out=""):
+    path = tmp_path / f"p3_{backend}.yaml"
     path.write_text("sim_time: 2.0\nnx_glob: 12\nny_glob: 2\nnz: 12\n"
                     "xlen: 40000.0\nylen: 40000.0\nzlen: 16000.0\n"
-                    "init_data: supercell\nout_freq: -1.0\n"
-                    "p3_backend: jax\n")
-    state = supercell_p3.main([str(path), "--device", "cpu"])
+                    "init_data: supercell\n"
+                    + (out or "out_freq: -1.0\n")
+                    + f"p3_backend: {backend}\n")
+    return path
+
+
+def test_cli_runs_the_native_backend(tmp_path, capsys):
+    """supercell_p3.main with ``p3_backend: native`` on the CPU: the
+    heartbeat, a valid state and the 9 P3 tracers (the comparison with
+    JAX's native chain is tests/test_torch_p3_native.py)."""
+    out = f"out_freq: 1.0\nout_prefix: {tmp_path / 'native'}\n"
+    state = supercell_p3.main([str(_p3_yaml(tmp_path, "native", out)),
+                               "--device", "cpu"])
+    beats = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("Etime , dtphys, maxw:")]
+    assert len(beats) == 2 and state.validate() == {}
+    assert (tmp_path / "native.nc").exists()
+    assert state.meta.tracer_names == tuple(
+        t[0] for t in PP.MicrophysicsP3.TRACERS)
+
+
+def test_cli_and_benchmark_take_the_p3_chain(tmp_path):
+    state = supercell_p3.main([str(_p3_yaml(tmp_path, "jax")), "--device",
+                               "cpu"])
     assert "ice_rime_vol" in state.fields and state.validate() == {}
     cfg = config_from_dict(dict(
         sim_time=3.0, nx_glob=12, ny_glob=2, nz=12, xlen=40000.0,
