@@ -122,7 +122,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      along x, y, z and in the halo-strip form, fct_mult and fct_scale_div
      at 12 tracers on its faces (one launch), f32 and f64, and both FCT
      kernels at 70 tracers (two launches), bit for bit against the plain
-     versions.
+     versions;
+  29. the bench entry: python -m miniweatherml_tpu_torch.bench in a
+     subprocess for the default 512x512x64 f32 Kessler run, MICRO=p3,
+     MICRO=p3 with P3_ACTIVE=1 and STEPS=3, CASE=city and MICRO=surrogate,
+     one at a time; each last line parsed (bench.py's keys plus
+     ms_per_step and peak_mem_gib, value > 0) and printed;
+  30. the dry run: dryrun_multichip(8) on cuda:0 repeated 8 times (an
+     (ens 2, 2, 2) mesh of the one card), f64, 20 Kessler and 20 P3 steps
+     and one surrogate step, each within 2e-5 of each field's scale of the
+     undecomposed run; each chain's largest difference and wall time, and
+     the launch counts of the run.
 
 Tolerance of a kernel against its plain version: max|kernel - plain| over
 max|plain| of each output below 1e-12 in f64 and 1e-5 in f32 (the JAX
@@ -2181,6 +2191,94 @@ def phase_tracer_groups():
           lambda: scale_div(fct.fct_scale_div_plain, *sargs))
 
 
+
+# -- the bench entry and the dry run ----------------------------------------
+
+# (label, MWML_BENCH_* switches) of each bench run: the default Kessler
+# cell and each chain switch of bench.py
+BENCH_RUNS = (("kessler", {}),
+              ("p3", {"MWML_BENCH_MICRO": "p3"}),
+              ("p3 all active", {"MWML_BENCH_MICRO": "p3",
+                                 "MWML_BENCH_P3_ACTIVE": "1",
+                                 "MWML_BENCH_STEPS": "3"}),
+              ("city", {"MWML_BENCH_CASE": "city"}),
+              ("surrogate", {"MWML_BENCH_MICRO": "surrogate"}))
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ms_per_step",
+              "peak_mem_gib"}
+
+
+def phase_bench(card):
+    """python -m miniweatherml_tpu_torch.bench in a subprocess per run of
+    BENCH_RUNS, one at a time; each last line parsed, with its keys, a
+    positive value and vs_baseline = value / 10.  Each subprocess builds
+    the chain that phases 5, 10, 11, 15 and 18 count the launches of."""
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("MWML_BENCH_")}
+    out = {}
+    for label, switches in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "miniweatherml_tpu_torch.bench"],
+            cwd=ROOT, env={**base, **switches}, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[29] bench {label} {switches}: exit "
+                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        line = proc.stdout.strip().splitlines()[-1]
+        res = json.loads(line)
+        if (set(res) != BENCH_KEYS or res["unit"] != "Mcellups"
+                or not res["value"] > 0
+                or res["vs_baseline"] != res["value"] / 10.0):
+            raise AssertionError(f"[29] bench {label}: bad line {line}")
+        print(f"[29] bench {label} ({wall:.1f} s): {line}  [{card}]",
+              flush=True)
+        out[label] = res
+    return out
+
+
+def _dryrun_counts():
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
+    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as lk
+    return {**_spmd_counts(),
+            **{k: (fn, "launches") for k, fn in (
+                ("interp_ice", lk.interp_ice),
+                ("interp_collect", lk.interp_collect),
+                ("interp_rain", lk.interp_rain), ("p3_part1", cw.p3_part1),
+                ("p3_update", cw.p3_update), ("p3_wrapper", cw.p3_wrapper))}}
+
+
+def phase_dryrun(card):
+    """dryrun_multichip(8) on cuda:0 repeated 8 times (an (ens 2, 2, 2)
+    mesh of the one card), f64, 20 steps: each chain's largest difference
+    from its undecomposed run (bound 2e-5 of a field's scale, checked by
+    dryrun_multichip) and wall seconds, with the launch counts of the run
+    (every kernel of the Kessler and P3 paths, the halo-strip flux form and
+    the FCT edges at least once)."""
+    from miniweatherml_tpu_torch import dryrun
+    counts = _dryrun_counts()
+    for fn, attr in counts.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    res = dryrun.dryrun_multichip(8)
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counts.items()}
+    if any(n < 1 for n in launches.values()):
+        raise AssertionError(f"[30] a kernel of the dry run never launched: "
+                             f"{launches}")
+    for chain in ("kessler", "p3", "surrogate"):
+        r = res[chain]
+        print(f"[30] dry run {chain}, mesh {res['mesh']}, {r['steps']} f64 "
+              f"steps: largest difference {r['max_rel_err']:.3e} of "
+              f"{r['field']}'s scale (bound {dryrun.INVARIANCE_RTOL:.0e}); "
+              f"{r['seconds']:.2f} s decomposed, "
+              f"{r['seconds_undecomposed']:.2f} s undecomposed  [{card}]",
+              flush=True)
+    print(f"[30] dry run {wall:.1f} s in all; launches {launches}",
+          flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2255,6 +2353,9 @@ def main() -> int:
     phase_native_twin()
     native_rec = phase_native_chain(card)
     phase_tracer_groups()
+    torch.cuda.empty_cache()
+    phase_bench(card)
+    phase_dryrun(card)
 
     kernels = [
         {"name": "direction_fluxes", "route": "cuda",
