@@ -8,8 +8,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      each, and the P3 native twin with g++, all started together; the
      registers, spills and shared memory of every kernel (from the ptxas
      reports: the flux kernel's ord-5
-     instantiations, every entry function of the others), and the Kessler
-     kernel's dynamic shared memory per block at the chains' nz;
+     instantiations, the y/z kernel's accumulating and stage-update forms
+     beside its bare form, every entry function of the others), and the
+     Kessler kernel's dynamic shared memory per block at the chains' nz;
   3. the direction-flux kernel against its plain PyTorch version, x/y/z in
      f32 and f64, on each chain's state at its cell's width: the 512x512x64
      supercell with Kessler (3 tracers) plus a small wall/open case, the P3
@@ -17,7 +18,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      400x400x60x2 city with a cross-flow (1 tracer, 6 variables, periodic x
      and y, wall z); equal bit for bit (torch.equal), with kernel and plain
      times, the bound (bytes and operations from the shapes against the
-     card's published rates) and the share of it;
+     card's published rates) and the share of it; then the forms one
+     right-hand side runs after x -- z accumulating into x's divergence,
+     y accumulating with the SSPRK3 stage update (with b1: stages 2-3) --
+     on every chain (the city's with its immersed blend), and on the
+     Kessler state the stage-1 form (no b1), the form without gravity, a
+     small box with a Coriolis parameter and a 2-D slab with z last; each
+     bit for bit, the acc buffer written in place, timed beside its bound;
   14. (run inside 3, on the tracer faces each state gave) the FCT kernels
      against their plain versions: the multiplier (bit for bit, timed with
      the chain's own positive flags beside its bound: 3 tracers Kessler, 9
@@ -30,7 +37,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      MicrophysicsKessler.time_step timed) and on heavy-rain columns at
      rainsplit 3, f32 and f64;
   5. the Kessler slice: community_benchmark.run_benchmark on the 512x512x64
-     f32 ord-5 supercell, with its kernels' launch counts, a clean
+     f32 ord-5 supercell, with its kernels' launch counts, the PyTorch
+     (glue) launches of one more step (torch.profiler), a clean
      validate(), Mcellups and peak memory; plus the 50x1x20 f64 maxw
      trajectory against the JAX package's golden values and a 16x8x10 f64
      slice against the port's own CPU run;
@@ -60,8 +68,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
   15. the city slice: run_benchmark(build=simple_city.build_chain) at
      inputs/input_city.yaml's 400x400x60 grid with nens 2, f32, 10 steps,
      with the dycore kernels' launch counts (9 flux, 3 multiplier and 9
-     scaled-divergence launches per step, checked in every cell), a clean
-     validate(), Mcellups, peak memory, and the time averages written to
+     scaled-divergence launches per step, checked in every cell) beside the
+     PyTorch (glue) launches of one more step, a clean validate(),
+     Mcellups, peak memory, and the time averages written to
      chip_smoke_out/;
   16. small f64 building and city slices (one step), card against the
      port's CPU run at 1e-9 of each field's scale;
@@ -70,7 +79,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      512x512x64 f32, 10 steps, the MLP deployed online with the shipped
      example model (.npz) and no Kessler comparison (bench.py's
      MWML_BENCH_MICRO=surrogate case), with the dycore kernels' launch
-     counts and no Kessler launch, a clean validate(), Mcellups, peak
+     counts beside the glue launches of one more step and no Kessler
+     launch, a clean validate(), Mcellups, peak
      memory, and the surrogate's own time per step (CUDA events around its
      time_step) and its share of the step;
   19. the same width in compare mode (the Kessler result kept, the mean NN -
@@ -88,7 +98,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
   22. the flux kernel's halo-strip form against its plain version on the
      512x512x64 Kessler state split 2x2 (shard (0, 0), local 256x256x64):
      x and y, ends inside the domain and a wall and an open global
-     boundary, f32 and f64, bit for bit, timed beside its bound;
+     boundary, and y with the stage update (the mesh path's last
+     direction), f32 and f64, bit for bit, timed beside its bound;
   23. fct_scale_div with the neighbours' edge multipliers against its plain
      version on that shard's tracer faces, every form, f32 and f64, bit for
      bit, timed beside its bytes bound;
@@ -119,7 +130,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      in the same call; host syncs per native step; a 16x8x10 f64 native
      slice (seeded layers), card against CPU, 2 steps at 1e-7 of scale;
   28. tracer groups: the flux kernel at 12 tracers (two launches per call)
-     along x, y, z and in the halo-strip form, fct_mult and fct_scale_div
+     along x, y, z, in the halo-strip form and in the accumulating (z) and
+     stage-update (y) forms, fct_mult and fct_scale_div
      at 12 tracers on its faces (one launch), f32 and f64, and both FCT
      kernels at 70 tracers (two launches), bit for bit against the plain
      versions;
@@ -271,6 +283,98 @@ def _flux_work(prim, axis, ord_) -> tuple[int, int]:
     return nbytes, ops
 
 
+def _epilogue_work(args, rk) -> tuple[int, int]:
+    """(bytes, operations) of a direction_fluxes call in the accumulating
+    form (``rk`` None) or with the stage update: the bare call's work
+    (``_flux_work``, strips included), plus the accumulator read (its write
+    takes the divergence's place) and 5 adds per cell, plus, for the stage,
+    b0 [, b1], the cell density profile and the immersed proportion read
+    once and per cell 3 (gravity), 4 (Coriolis), 21 (immersed blend) and 3
+    or 5 per variable (the combination) operations."""
+    prim, axis, ord_ = args[0], args[1], args[9].ord
+    nbytes, ops = _flux_work(prim, axis, ord_)
+    if len(args) > 12 and args[12] is not None:
+        nbytes += _nbytes(args[12][:2])
+    cells = prim[0].numel()
+    nbytes += 5 * cells * prim.element_size()
+    ops += 5 * cells
+    if rk is not None:
+        nbytes += _nbytes(rk.b0, rk.b1, rk.hy_r, rk.immersed)
+        ops += cells * (5 * (3 if rk.b1 is None else 5)
+                        + (3 if rk.grav is not None else 0)
+                        + (4 if rk.fcor != 0.0 else 0)
+                        + (21 if rk.immersed is not None else 0))
+    return nbytes, ops
+
+
+def _flux_form(phase, tag, args, acc, rk, dtype, tol, timed=True):
+    """The accumulating (``rk`` None) or stage-update form of one
+    direction_fluxes call against its plain version on copies of ``acc``:
+    both outputs bit for bit, the result written into the kernel's copy in
+    place; timed beside its bound when ``timed`` (kernel and plain in turn
+    on one buffer, which each call overwrites).  Returns (max abs err, ms,
+    plain ms, bound ms, bound_by), the last four None when not timed."""
+    from miniweatherml_tpu_torch.ops.direction_fluxes import (
+        direction_fluxes, direction_fluxes_plain)
+    a_ref, a_got = acc.clone(), acc.clone()
+    ref = direction_fluxes_plain(*args, acc=a_ref, rk=rk)
+    got = direction_fluxes(*args, acc=a_got, rk=rk)
+    torch.cuda.synchronize()
+    errs = [_rel(a, b) for a, b in zip(ref, got)]
+    rel = max(e[1] for e in errs)
+    same = (got[0] is a_got
+            and all(torch.equal(a, b) for a, b in zip(ref, got)))
+    del ref, got, a_ref
+    line = (f"[{phase}] direction_fluxes {tag} {dtype}: bitwise "
+            f"{'equal' if same else 'DIFFERENT'}, max abs err "
+            f"{max(e[0] for e in errs):.3e}, rel {rel:.3e}")
+    ms = pms = bms = by = None
+    if timed:
+        ms = _time_ms(lambda: direction_fluxes(*args, acc=a_got, rk=rk))
+        pms = _time_ms(lambda: direction_fluxes_plain(*args, acc=a_got,
+                                                      rk=rk), reps=3)
+        nbytes, ops = _epilogue_work(args, rk)
+        bms, by = _bound(nbytes, ops, dtype)
+        line += (f"; kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+                 f"{bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB, "
+                 f"{ops / 1e9:.2f} GFLOP), {bms / ms:.1%} of the bound  "
+                 f"[{_card()}]")
+    print(line, flush=True)
+    if not (same and rel <= tol):
+        raise AssertionError(f"direction_fluxes {tag} {dtype}: not bitwise "
+                             f"equal (rel {rel:.3e})")
+    return max(e[0] for e in errs), ms, pms, bms, by
+
+
+def _stage_bases(state, dycore):
+    """The stage update's bases on the card: b0 the state, b1 it with
+    seeded relative noise of 1e-3 (a previous stage)."""
+    s, _ = dycore.convert_coupler_to_dynamics(state)
+    gen = torch.Generator(device=s.device).manual_seed(17)
+    noise = torch.randn(s.shape, generator=gen, device=s.device,
+                        dtype=s.dtype)
+    return s.contiguous(), (s * (1.0 + 1e-3 * noise)).contiguous()
+
+
+def _stage(state, dycore, b0, b1, dt, grav=True, fcor=None, sim2d=None,
+           crop=None):
+    """The chain's StageUpdate with stage 2's coefficients (stage 1's when
+    ``b1`` is None); ``crop`` cuts the cell tensors to a box."""
+    from miniweatherml_tpu_torch.ops.direction_fluxes import StageUpdate
+    c = dycore._consts(state)
+    cut = crop or (lambda t: t)
+    imm = state["immersed_proportion"]
+    return StageUpdate(
+        1.0 if b1 is None else 0.75, 0.0 if b1 is None else 0.25,
+        dt if b1 is None else 0.25 * dt, cut(b0).contiguous(),
+        None if b1 is None else cut(b1).contiguous(),
+        state["hy_dens_cells"],
+        c.grav if (grav and c.enable_gravity) else None,
+        c.fcor if fcor is None else fcor,
+        cut(imm[None])[0].contiguous() if c.use_immersed else None, dt,
+        state.grid.sim2d if sim2d is None else sim2d)
+
+
 def _ptxas_report(name: str):
     """(kernel, registers, spill store bytes, spill load bytes, stack bytes,
     shared bytes) of each entry function in _build/<name>.ptxas.txt."""
@@ -314,17 +418,25 @@ def _kernel_name(mangled: str) -> str:
     return name + t
 
 
+# the y/z kernel's epilogue forms (csrc/direction_fluxes.cu EPI_*)
+FLUX_EPILOGUES = {"0": "bare", "1": "accumulating", "2": "stage update"}
+
+
 def _flux_instance(mangled: str):
     """(kind, ord, type, tracer bound, form) of a direction_fluxes entry
-    function, or None; the form is "whole axis" or "strips"."""
+    function, or None; the form is "whole axis" or "strips", followed for
+    the y/z kernel by its epilogue ("bare", "accumulating" or "stage
+    update")."""
     import re
-    m = re.search(r"(fluxes_x|fluxes_strided)ILi(\d+)E([fd])Li(\d+)ELb([01])E",
-                  mangled)
+    m = re.search(r"(fluxes_x|fluxes_strided)ILi(\d+)E([fd])Li(\d+)ELb([01])E"
+                  r"(?:Li(\d)E)?", mangled)
     if not m:
         return None
     kind = "x" if m.group(1) == "fluxes_x" else "y/z"
     dtype = "float32" if m.group(3) == "f" else "float64"
     form = "strips" if m.group(5) == "1" else "whole axis"
+    if m.group(6) is not None:
+        form += ", " + FLUX_EPILOGUES[m.group(6)]
     return kind, int(m.group(2)), dtype, int(m.group(4)), form
 
 
@@ -431,9 +543,12 @@ def _flux_state(chain, dtype):
 
 
 def phase_direction_fluxes(fct_recs, chain="kessler"):
-    """The flux kernel on the chain's state at its cell's width, then the
+    """The flux kernel on the chain's state at its cell's width, bare and in
+    the accumulating and stage-update forms of the path's z and y, then the
     FCT kernels on the tracer faces it gave; the Kessler chain also runs the
-    small wall/open box."""
+    other stage forms (stage 1, no gravity, a Coriolis box, a 2-D slab)
+    and the small wall/open box.  The record's times are one right-hand
+    side's: x bare, z accumulating, y with the stage update."""
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
         IDU, IDV, IDW, direction_fluxes, direction_fluxes_plain)
     from miniweatherml_tpu_torch.ops.stencil import BC_OPEN, BC_WALL
@@ -447,7 +562,7 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
         dirs = (("x", -1, g.nx, c.bc_x, IDU, g.dx, hy[0], hy[1]),
                 ("y", -2, g.ny, c.bc_y, IDV, g.dy, hy[0], hy[1]),
                 ("z", -3, g.nz, c.bc_z, IDW, g.dz, hy[2], hy[3]))
-        faces = {}
+        faces, bare_ms = {}, {}
         for name, axis, n, bc, nid, d, hr, ht in dirs:
             args = (prim, axis, n, bc, nid, c.C0, c.gamma, hr, ht,
                     dycore.mats, 0.0, 1.0 / d)
@@ -458,6 +573,8 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
             rel = max(e[1] for e in errs)
             same = all(torch.equal(a, b) for a, b in zip(ref, got))
             faces[axis] = got[1]
+            if axis == -1:
+                xdiv = got[0]
             del ref, got
             ms = _time_ms(lambda: direction_fluxes(*args))
             pms = _time_ms(lambda: direction_fluxes_plain(*args), reps=3)
@@ -474,6 +591,7 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
                 raise AssertionError(f"direction_fluxes {chain} {dtype} "
                                      f"axis {axis}: not bitwise equal "
                                      f"(rel err {rel:.3e})")
+            bare_ms[axis] = (ms, pms, bms)
             if dtype == "float32":
                 rec["max_abs_err"] = max(rec["max_abs_err"],
                                          max(e[0] for e in errs))
@@ -481,12 +599,64 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
                 rec["plain_ms"] += pms
                 rec["bound_ms"] += bms
                 rec["bound_by"] = by
+        # the forms one right-hand side runs after x: z accumulating into
+        # x's divergence, y with the stage update (stages 2-3, with b1)
+        b0, b1 = _stage_bases(state, dycore)
+        dt = dycore.compute_time_step(state)
+        fargs = {name: (prim, axis, n, bc, nid, c.C0, c.gamma, hr, ht,
+                        dycore.mats, 0.0, 1.0 / d)
+                 for name, axis, n, bc, nid, d, hr, ht in dirs}
+        path = [("z accumulating", fargs["z"], None),
+                ("y stage update, b1", fargs["y"],
+                 _stage(state, dycore, b0, b1, dt))]
+        if chain == "kessler":
+            path += [("y stage update, stage 1 (no b1)", fargs["y"],
+                      _stage(state, dycore, b0, None, dt)),
+                     ("y stage update, b1, no gravity", fargs["y"],
+                      _stage(state, dycore, b0, b1, dt, grav=False))]
+        for i, (tag, fa, rk) in enumerate(path):
+            err, ms, pms, bms, by = _flux_form(
+                "3", f"{chain} nvar {prim.shape[0]} {tag}", fa, xdiv, rk,
+                dtype, tol)
+            if dtype == "float32":
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if i < 2:  # the path's forms in place of the bare y and z
+                    rec["ms"] += ms - bare_ms[fa[1]][0]
+                    rec["plain_ms"] += pms - bare_ms[fa[1]][1]
+                    rec["bound_ms"] += bms - bare_ms[fa[1]][2]
         phase_fct(chain, dtype, tol, state, dycore, faces, fct_recs)
-        del faces
+        del faces, fargs, path
         if chain != "kessler":
-            del state, prim, hy, dycore
+            del state, prim, hy, dycore, b0, b1, xdiv
             torch.cuda.empty_cache()
             continue
+        # a small box with a Coriolis parameter, and a 2-D slab (ny = 1)
+        # whose last direction is z
+        box = (slice(None), slice(None), slice(0, 12), slice(0, 10),
+               slice(0, 14))
+        small = prim[box].contiguous()
+        sacc = xdiv[box].contiguous()
+        for axis, nid in ((-2, IDV), (-3, IDW)):
+            nl = small.shape[2] + (1 if axis == -3 else 0)
+            hr = hy[2 if axis == -3 else 0][:, :nl].contiguous()
+            ht = hy[3 if axis == -3 else 1][:, :nl].contiguous()
+            args = (small, axis, small.shape[axis], BC_WALL, nid, c.C0,
+                    c.gamma, hr, ht, dycore.mats, 0.0, 1.0 / 400.0)
+            rk = _stage(state, dycore, b0, b1, dt, fcor=1.0e-4,
+                        crop=lambda t: t[box])
+            rk = rk._replace(hy_r=rk.hy_r[:, :12].contiguous())
+            _flux_form("3", f"small box 12x10x14 axis {axis} stage update, "
+                       "b1, Coriolis 1e-4", args, sacc, rk, dtype, tol,
+                       timed=False)
+        slab = (slice(None), slice(None), slice(None), slice(0, 1))
+        args = (prim[slab].contiguous(), -3, g.nz, c.bc_z, IDW, c.C0,
+                c.gamma, hy[2], hy[3], dycore.mats, 0.0, 1.0 / g.dz)
+        _flux_form("3", f"2-D slab {g.nx}x1x{g.nz} z stage update (the last "
+                   "direction), b1, v = 0", args, xdiv[slab].contiguous(),
+                   _stage(state, dycore, b0, b1, dt, sim2d=True,
+                          crop=lambda t: t[slab]),
+                   dtype, tol, timed=False)
+        del b0, b1, xdiv
         # the boundary conditions the supercell does not use: a small
         # open/wall box in every direction
         small = prim[:, :, :12, :10, :14].contiguous()
@@ -782,21 +952,61 @@ def _check_state(tag, state):
 DYCORE_PER_STEP = {"direction_fluxes": 9, "fct_mult": 3, "fct_scale_div": 9}
 
 
+# the port's own kernels, by a part of their names
+OWN_KERNELS = ("fluxes", "fct", "kessler", "cellwise", "ice_kernel",
+               "collect_kernel", "rain_kernel")
+
+
+def _glue_per_step(mods, state, dt):
+    """torch.profiler over one more step of the chain: the launches and
+    device ms of PyTorch's elementwise kernels (the glue: names holding
+    "elementwise" or "vectorized", as scripts/torch_port_measure.py
+    profile counts them) and of its other kernels (cat, reductions, copies,
+    matmuls); the port's own kernels are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for m in mods:
+            state = m(state, dt)
+        torch.cuda.synchronize()
+    glue, other = [0, 0.0], [0, 0.0]
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n = ev.name.lower()
+        if any(k in n for k in OWN_KERNELS):
+            continue
+        b = glue if ("elementwise" in n or "vectorized" in n) else other
+        b[0] += 1
+        b[1] += (ev.time_range.end - ev.time_range.start) / 1e3
+    return glue, other
+
+
 def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None,
-              per_step=None):
+              per_step=None, glue=False):
     """run_benchmark on the chain's path with its launch counters set to 0
     just before and read just after; ``finish(state)`` runs on the final
     state.  Every step (and the discarded warm-up step) launches each kernel
     of ``per_step`` (default: the dycore's) that many times; every other
-    kernel of the path at least once in the run."""
+    kernel of the path at least once in the run.  ``glue``: then one more
+    step under the profiler counts PyTorch's own launches (the glue)
+    beside the kernels' per step."""
     from miniweatherml_tpu_torch.experiments.community_benchmark import (
         run_benchmark)
+    from miniweatherml_tpu_torch.experiments.supercell_example import (
+        build as default_build)
     counters = _counters(chain)
-    kw = {} if build is None else {"build": build}
+    chain_of = {}
+
+    def keep(cfg_, device):
+        out = (build or default_build)(cfg_, device)
+        chain_of.update(mods=out[1], dycore=out[2])
+        return out
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    state, res = run_benchmark(cfg, "cuda", quiet=True, **kw)
+    state, res = run_benchmark(cfg, "cuda", quiet=True, build=keep)
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     maxw = _check_state(tag, state)
@@ -808,6 +1018,16 @@ def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None,
         raise AssertionError(f"{tag}: launches {launches} for "
                              f"{res['steps']} + 1 steps, expected {per_step} "
                              "per step")
+    if glue:
+        (gn, gms), (on, oms) = _glue_per_step(
+            chain_of["mods"], state, chain_of["dycore"].compute_time_step(
+                state))
+        per = {k: v // (res["steps"] + 1) for k, v in launches.items()}
+        print(f"[{tag}] one more step (torch.profiler): PyTorch glue "
+              f"{gn} elementwise launches, {gms:.3f} ms device; {on} other "
+              f"PyTorch launches (cat, reductions, copies, matmuls), "
+              f"{oms:.3f} ms; beside the kernels' {per} per step  [{card}]",
+              flush=True)
     if finish is not None:
         finish(state)
     g = cfg.grid
@@ -1330,9 +1550,10 @@ def phase_surrogate_slice(card):
     _, res, _ = _run_cell(
         "18", cfg, card, chain="surrogate",
         build=_timed_micro_build(inference_surrogate.build, times),
-        per_step={**DYCORE_PER_STEP, "kessler_step": 0})
+        per_step={**DYCORE_PER_STEP, "kessler_step": 0}, glue=True)
     torch.cuda.synchronize()
-    ms = [a.elapsed_time(b) for a, b in times[1:]]  # after the warm-up step
+    # after the warm-up step, without the profiled step
+    ms = [a.elapsed_time(b) for a, b in times[1:1 + res["steps"]]]
     step_ms = 1e3 * res["elapsed_s"] / res["steps"]
     print(f"[18] surrogate time_step (online, no comparison): "
           f"{np.mean(ms):.3f} ms per step (median {np.median(ms):.3f}, min "
@@ -1504,8 +1725,10 @@ def phase_strip_fluxes():
     """The flux kernel's halo-strip form against its plain version on the
     512x512x64 Kessler state split 2x2 (a local 256x256x64 block, shard
     (0, 0)): x and y, periodic (both ends inside the domain), and a wall
-    and an open global boundary at one end; f32 and f64, bit for bit.  The
-    periodic f32 calls (the main path's form) are timed beside their bound.
+    and an open global boundary at one end, y also with the stage update
+    (the mesh path's last direction); f32 and f64, bit for bit.  The
+    periodic f32 calls (the main path's forms: x bare, y with the stage
+    update) are timed beside their bound.
     Returns the JSON record and, per dtype, the local state's pieces that
     phase 23 needs."""
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
@@ -1518,6 +1741,8 @@ def phase_strip_fluxes():
         prim = _prim(state, dycore)
         g, c = state.grid, dycore._consts(state)
         hy = dycore._hy(state)
+        b0, b1 = _stage_bases(state, dycore)
+        dt = dycore.compute_time_step(state)
         # shard (0, 0) of the 2x2 split: its y rows, then x or y strips
         rows = prim.narrow(-2, 0, g.ny // 2)
         cols = prim.narrow(-1, 0, g.nx // 2)
@@ -1563,7 +1788,27 @@ def phase_strip_fluxes():
                 if dtype == "float32":
                     rec["max_abs_err"] = max(rec["max_abs_err"],
                                              max(e[0] for e in errs))
+                if axis == -2:
+                    # the mesh path's last direction: y with the stage
+                    # update, into the shard's own cells of b0 / b1
+                    nl2 = block.shape[-2]
+
+                    def cut(t):
+                        return t.narrow(-1, 0, g.nx // 2).narrow(
+                            -2, i * nl2, nl2)
+                    rk = _stage(state, dycore, b0, b1, dt, crop=cut)
+                    err, sms, spms, sbms, _ = _flux_form(
+                        "22", f"strips local {tuple(block.shape[2:])} bc {bc}"
+                        f" ends {strips[2:]} y stage update, b1", args,
+                        got[0], rk, dtype, tol, timed=bc == 0)
+                    if dtype == "float32":
+                        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                        if bc == 0:  # in place of the bare y strip call
+                            rec["ms"] += sms - ms
+                            rec["plain_ms"] += spms - pms
+                            rec["bound_ms"] += sbms - bms
                 del ref, got
+        del b0, b1
         # the shard's own z faces, tracers and stage bases for phase 23
         block = prim.narrow(-2, 0, g.ny // 2).narrow(-1, 0, g.nx // 2)
         block = block.contiguous()
@@ -2093,7 +2338,8 @@ def phase_native_chain(card):
 def phase_tracer_groups():
     """The wrappers above one launch's tracer count: the flux kernel at 12
     tracers (17 variables) on a 64x64x32 P3 state plus three more tracers,
-    x / y / z and the halo-strip form, then fct_mult and fct_scale_div at
+    x / y / z, z accumulating, y with the stage update and the halo-strip
+    form, then fct_mult and fct_scale_div at
     12 tracers on the faces it gave, f32 and f64, and both FCT kernels at
     70 tracers (f32, small grid); bit for bit against the plain versions,
     with the launches per call."""
@@ -2141,6 +2387,26 @@ def phase_tracer_groups():
                 f"direction_fluxes {ntr} tracers {dtype} {name}",
                 direction_fluxes, 2, lambda: direction_fluxes(*args),
                 lambda: direction_fluxes_plain(*args))[1]
+        # the accumulating (z) and stage-update (y) forms: the epilogue
+        # rides the first group's launch only
+        b0, b1 = _stage_bases(state, dycore)
+        xdiv = direction_fluxes_plain(prim, -1, g.nx, c.bc_x, IDU, c.C0,
+                                      c.gamma, hy[0], hy[1], dycore.mats,
+                                      0.0, 1.0 / g.dx)[0]
+        rk = _stage(state, dycore, b0, b1, dycore.compute_time_step(state))
+        for name, axis, n, bc, nid, d, hr, ht, form in (
+                ("z accumulating", -3, g.nz, c.bc_z, IDW, g.dz, hy[2], hy[3],
+                 None),
+                ("y stage update", -2, g.ny, c.bc_y, IDV, g.dy, hy[0], hy[1],
+                 rk)):
+            args = (prim, axis, n, bc, nid, c.C0, c.gamma, hr, ht,
+                    dycore.mats, 0.0, 1.0 / d)
+            check(f"direction_fluxes {ntr} tracers {dtype} {name}",
+                  direction_fluxes, 2,
+                  lambda: direction_fluxes(*args, acc=xdiv.clone(), rk=form),
+                  lambda: direction_fluxes_plain(*args, acc=xdiv.clone(),
+                                                 rk=form))
+        del b0, b1, xdiv, rk
         block, strips = _shard_case(prim.narrow(-2, 0, g.ny // 2)
                                     .contiguous(), -1, c.bc_x, IDU, 0)
         args = (block, -1, block.shape[-1], c.bc_x, IDU, c.C0, c.gamma,
@@ -2293,14 +2559,14 @@ def main() -> int:
              for k in ("fct_mult", "fct_scale_div")}
     # no single PyTorch call computes any of these kernels' functions
     k_a8 = phase_direction_fluxes(k_fct)
-    # the JSON line's times: 14 variables, 9 tracers
+    # the JSON line's times: one right-hand side at 14 variables, 9 tracers
     k_a = phase_direction_fluxes(k_fct, "p3")
     k_a6 = phase_direction_fluxes(k_fct, "city")
     k_a["max_abs_err"] = max(k_a["max_abs_err"], k_a8["max_abs_err"],
                              k_a6["max_abs_err"])
     k_b = phase_kessler()
     l_kessler = _run_cell("5", _bench_cfg(512, 512, 64, 10, "float32"),
-                          card)[0]
+                          card, glue=True)[0]
     phase_references()
     # inputs/community_benchmark_1024.yaml (819.2 x 819.2 x 20 km), 3 steps
     dt = 0.6 * 200.0 / 430.0
@@ -2335,7 +2601,8 @@ def main() -> int:
     # inputs/input_city.yaml's grid and ensemble, 10 steps
     l_city = _run_cell("15", _city_cfg("city", 400, 400, 60, 2, "float32",
                                        steps=10), card, chain="city",
-                       build=simple_city.build_chain, finish=finalize)[0]
+                       build=simple_city.build_chain, finish=finalize,
+                       glue=True)[0]
     phase_city_references()
     phase_restart()
 
@@ -2358,7 +2625,10 @@ def main() -> int:
     phase_dryrun(card)
 
     kernels = [
-        {"name": "direction_fluxes", "route": "cuda",
+        # one right-hand side of the P3 path: x, z accumulating, y with the
+        # stage update (the sub kernel's acc and rk forms)
+        {"name": "direction_fluxes (x; y/z bare, accumulating, stage "
+                 "update)", "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/direction_fluxes.cu",
          "replaces": "miniweatherml_tpu/ops/pallas_recon.py:536, "
                      "miniweatherml_tpu/ops/pallas_recon.py:941",
@@ -2397,7 +2667,8 @@ def main() -> int:
          "replaces": "miniweatherml_tpu/dycore/euler.py:880-889 (an XLA "
                      "fusion, not a Pallas kernel)",
          "launches": l_city["fct_mult"], **k_fct["fct_mult"]},
-        {"name": "direction_fluxes_strips", "route": "cuda",
+        {"name": "direction_fluxes_strips (x; y with the stage update)",
+         "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/direction_fluxes.cu",
          "replaces": "miniweatherml_tpu/ops/pallas_recon.py:536, "
                      "miniweatherml_tpu/ops/pallas_recon.py:941 (the "

@@ -7,7 +7,16 @@
 // at :941), in both of their forms: the whole axis (self_bc: halos from the
 // block's own edges) and the halo-strip form of a split x or y axis (lo / hi
 // strips from the ring neighbours, and a face mode per end, bc=(bc_lo,
-// bc_hi)).
+// bc_hi)).  The y/z kernel also carries the sub kernel's two epilogues of
+// the state output (pallas_recon.py:804-813, 853-866, 583-607): `acc`, the
+// running state tendency, which it reads and adds its divergence to in
+// place, and `rk`, the SSPRK3 stage update of the last direction: the sum
+// takes gravity, Coriolis, the 2-D v = 0 and the immersed blend (the
+// port's XLA-path forms: Coriolis from the stage's state, not from the
+// prim block) and becomes c0*b0 [+ c1*b1] + cdt*tendency, in the order of
+// ops/direction_fluxes.py::stage_update.  Each output cell is read and
+// written by the one thread that marches over it, so `acc` is updated in
+// place with no race.
 //
 // Math (the JAX XLA path, dycore/euler.py:475-613 plus div):
 //   halo fill (periodic wrap; wall/open edge copy, wall zeroes the normal
@@ -65,6 +74,14 @@
 //    cell's divergence and its left face.  No shared memory, no
 //    synchronisation, and 32/30 of the limiter work.
 //  * No asynchronous copies or TMA: the loads are not where the time goes.
+//  * The epilogue form (none / accumulate / stage) is a template parameter
+//    of the y/z kernel, so the bare form compiles as before; the stage's
+//    options (b1, gravity, Coriolis, 2-D, immersed) are runtime flags, each
+//    tested once per cell after the limiter work.  The accumulator adds a
+//    read of the 5-variable state (0.34 GB at 512x512x64 f32), the stage
+//    update reads b0, b1 and the immersed proportion as well (up to 1.08
+//    GB in all, beside the bare call's 1.07 GB), against a kernel that is
+//    operation-bound; each cell's reads are coalesced across the warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,6 +96,10 @@ constexpr int WARP = 32;       // threads per block: one warp
 constexpr int SEG = 64;        // cells a thread marches per segment
 constexpr int COEF_MAX = 104;  // longest limiter table (ord 9: 103 values)
 constexpr int NTR_MAX = 9;
+// epilogue forms of the y/z kernel, and the stage update's option flags
+// (ops/direction_fluxes.py::_GRAV, _FCOR, _SIM2D)
+constexpr int EPI_NONE = 0, EPI_ACC = 1, EPI_STAGE = 2;
+constexpr int ST_GRAV = 1, ST_FCOR = 2, ST_SIM2D = 4;
 
 __constant__ float c_coef_f32[4][COEF_MAX];
 __constant__ double c_coef_f64[4][COEF_MAX];
@@ -363,6 +384,83 @@ __device__ __forceinline__ T divergence(T fr, T fl, T ds) {
   return mul(-sub(fr, fl), ds);
 }
 
+// The stage update's operands: the step's base b0, the previous stage b1
+// (null in stage 1), the hydrostatic cell density (index plane * cps + cell
+// * cas) and the immersed proportion (null without), with the host's
+// coefficients cast to the type.
+template <typename T>
+struct Stage {
+  const T* b0;
+  const T* b1;
+  const T* hyc;
+  const T* imm;
+  T c0, c1, cdt, grav, fcor, fac;
+  int flags, cps, cas;
+};
+
+// What the epilogue reads of one cell besides the divergence: its
+// accumulator entries and, for the stage update, its bases b0 and b1.
+template <typename T, int EPI>
+struct EpiIn {
+  T acc[NS];
+  T b0[EPI == EPI_STAGE ? NS : 1], b1[EPI == EPI_STAGE ? NS : 1];
+};
+
+// Every read of the cell at `at` (its variable-0 offset), issued together
+// before any of its writes: the compiler cannot move a read of the output
+// buffer past a write to it, so reads interleaved with the writes would
+// each wait out the memory latency in turn.
+template <typename T, int EPI>
+__device__ __forceinline__ void epi_load(EpiIn<T, EPI>& in,
+                                         const T* __restrict__ sdiv,
+                                         const Stage<T>& e, int64_t at,
+                                         int64_t vs) {
+#pragma unroll
+  for (int v = 0; v < NS; ++v) in.acc[v] = sdiv[at + v * vs];
+  if constexpr (EPI == EPI_STAGE) {
+#pragma unroll
+    for (int v = 0; v < NS; ++v) {
+      in.b0[v] = e.b0[at + v * vs];
+      in.b1[v] = e.b1 != nullptr ? e.b1[at + v * vs] : T(0);
+    }
+  }
+}
+
+// The stage's state from the summed tendency t of the cell at `at` (plane
+// p, cell c along the direction), in the order of
+// ops/direction_fluxes.py::stage_update; s is the state the tendency was
+// taken of (b1 when given, else b0).
+template <typename T, int EPI>
+__device__ __forceinline__ void stage_update(T (&t)[NS],
+                                             const EpiIn<T, EPI>& in,
+                                             const Stage<T>& e, int64_t at,
+                                             int p, int c) {
+  const bool has_b1 = e.b1 != nullptr;
+  T s[NS];
+#pragma unroll
+  for (int v = 0; v < NS; ++v) s[v] = has_b1 ? in.b1[v] : in.b0[v];
+  if (e.flags & ST_GRAV)
+    t[IDW] = sub(t[IDW], mul(e.grav, add(s[IDR], e.hyc[p * e.cps + c * e.cas])));
+  if (e.flags & ST_FCOR) {
+    t[IDU] = add(t[IDU], mul(e.fcor, s[IDV]));
+    t[IDV] = sub(t[IDV], mul(e.fcor, s[IDU]));
+  }
+  if (e.flags & ST_SIM2D) t[IDV] = T(0);
+  if (e.imm != nullptr) {
+    const T prop = e.imm[at];
+    const T rest = sub(T(1), prop);
+#pragma unroll
+    for (int v = 0; v < NS; ++v)
+      t[v] = add(mul(prop, mul(e.fac, s[v])), mul(rest, t[v]));
+  }
+#pragma unroll
+  for (int v = 0; v < NS; ++v) {
+    T o = mul(e.c0, in.b0[v]);
+    if (has_b1) o = add(o, mul(e.c1, in.b1[v]));
+    t[v] = add(o, mul(e.cdt, t[v]));
+  }
+}
+
 // ---------------------------------------------------------------- y and z
 // Values come straight from device memory (coalesced across the warp's
 // neighbouring x positions).  Each variable's next value is loaded one
@@ -395,10 +493,12 @@ struct StridedSource {
   }
 };
 
-// One line's segment: cells a0 .. a1 - 1 get their divergence, faces
-// a0 .. a1 - 1 (and face n in the last segment) their tracer values.  Step
-// c forms the edges of cell c; from c = a0 on it also solves face c.
-template <int ORD, typename T, int NTRB, bool STRIPS>
+// One line's segment: cells a0 .. a1 - 1 get their divergence (EPI_NONE),
+// have it added to their accumulator entry in sdiv (EPI_ACC) or get their
+// stage's state there (EPI_STAGE); faces a0 .. a1 - 1 (and face n in the
+// last segment) get their tracer values.  Step c forms the edges of cell
+// c; from c = a0 on it also solves face c.
+template <int ORD, typename T, int NTRB, bool STRIPS, int EPI>
 __device__ __forceinline__ void march(
     StridedSource<ORD, T, NS + NTRB, STRIPS>& src,
                                       const GeomOf<STRIPS>& g,
@@ -407,7 +507,8 @@ __device__ __forceinline__ void march(
                                       T* __restrict__ sdiv,
                                       T* __restrict__ tf, int p,
                                       int64_t obase, int64_t tbase, int a0,
-                                      int a1, T C0, T gamma, T cutoff, T ds) {
+                                      int a1, T C0, T gamma, T cutoff, T ds,
+                                      const Stage<T>& st) {
   constexpr int NV = NS + NTRB;
   const int ntr = g.ntr;
   T w[NV][ORD];  // stencil of the current cell
@@ -436,9 +537,21 @@ __device__ __forceinline__ void march(
       riemann<STRIPS>(eRs, eL, hyr[h], hyt[h], c, g, C0, gamma, o);
       if (c > a0) {  // divergence of cell c-1
         const int64_t at = obase + (int64_t)(c - 1) * g.astride;
+        if constexpr (EPI == EPI_NONE) {
 #pragma unroll
-        for (int v = 0; v < NS; ++v)
-          sdiv[at + v * g.vstride] = divergence(o.F[v], Fp[v], ds);
+          for (int v = 0; v < NS; ++v)
+            sdiv[at + v * g.vstride] = divergence(o.F[v], Fp[v], ds);
+        } else {
+          EpiIn<T, EPI> in;
+          epi_load(in, sdiv, st, at, g.vstride);
+          T t[NS];
+#pragma unroll
+          for (int v = 0; v < NS; ++v)
+            t[v] = add(in.acc[v], divergence(o.F[v], Fp[v], ds));
+          if constexpr (EPI == EPI_STAGE) stage_update(t, in, st, at, p, c - 1);
+#pragma unroll
+          for (int v = 0; v < NS; ++v) sdiv[at + v * g.vstride] = t[v];
+        }
       }
 #pragma unroll
       for (int v = 0; v < NS; ++v) Fp[v] = o.F[v];
@@ -471,21 +584,21 @@ __device__ __forceinline__ void march(
 template <typename T>
 constexpr int min_blocks_strided() { return sizeof(T) == 8 ? 8 : 16; }
 
-template <int ORD, typename T, int NTRB, bool STRIPS>
+template <int ORD, typename T, int NTRB, bool STRIPS, int EPI>
 __global__ void __launch_bounds__(WARP, min_blocks_strided<T>())
 fluxes_strided(const T* __restrict__ prim, const T* __restrict__ hyr,
                const T* __restrict__ hyt, T* __restrict__ sdiv,
                T* __restrict__ tf, const GeomOf<STRIPS> g, const T C0,
-               const T gamma, const T cutoff, const T ds) {
+               const T gamma, const T cutoff, const T ds, const Stage<T> st) {
   const int l = blockIdx.x * WARP + threadIdx.x;
   if (l >= g.nlines) return;
   const int p = blockIdx.y, a0 = blockIdx.z * SEG;
   const int a1 = min(a0 + SEG, g.n);
   const int64_t obase = p * g.pstride + l * g.lstride;
   StridedSource<ORD, T, NS + NTRB, STRIPS> src{prim + obase, g, {}};
-  march<ORD, T, NTRB, STRIPS>(src, g, hyr, hyt, sdiv, tf, p, obase,
-                      p * g.tpstride + l * g.tlstride, a0, a1, C0, gamma,
-                      cutoff, ds);
+  march<ORD, T, NTRB, STRIPS, EPI>(src, g, hyr, hyt, sdiv, tf, p, obase,
+                                   p * g.tpstride + l * g.tlstride, a0, a1,
+                                   C0, gamma, cutoff, ds, st);
 }
 
 // ---------------------------------------------------------------------- x
@@ -571,10 +684,29 @@ fluxes_x(const T* __restrict__ prim, const T* __restrict__ hyr,
   }
 }
 
+// The y/z kernel in its epilogue form: the stage update when it has a
+// base b0, else the accumulator when `accumulate`, else the bare form.
+template <int ORD, typename T, int NTRB, bool STRIPS>
+void launch_strided(const dim3& grid, cudaStream_t s, const T* prim,
+                    const T* hyr, const T* hyt, T* sdiv, T* tf,
+                    const GeomOf<STRIPS>& g, T C0, T gamma, T cutoff, T ds,
+                    bool accumulate, const Stage<T>& st) {
+  if (st.b0 != nullptr)
+    fluxes_strided<ORD, T, NTRB, STRIPS, EPI_STAGE><<<grid, WARP, 0, s>>>(
+        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds, st);
+  else if (accumulate)
+    fluxes_strided<ORD, T, NTRB, STRIPS, EPI_ACC><<<grid, WARP, 0, s>>>(
+        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds, st);
+  else
+    fluxes_strided<ORD, T, NTRB, STRIPS, EPI_NONE><<<grid, WARP, 0, s>>>(
+        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds, st);
+}
+
 template <int ORD, typename T, int NTRB, bool STRIPS>
 void launch_kind(int axis, int planes, cudaStream_t s, const T* prim,
                  const T* hyr, const T* hyt, T* sdiv, T* tf,
-                 const GeomOf<STRIPS>& g, T C0, T gamma, T cutoff, T ds) {
+                 const GeomOf<STRIPS>& g, T C0, T gamma, T cutoff, T ds,
+                 bool accumulate, const Stage<T>& st) {
   if (axis == 0) {
     const dim3 grid((g.n + XT - 1) / XT, (g.nlines + XROWS - 1) / XROWS,
                     planes);
@@ -583,54 +715,68 @@ void launch_kind(int axis, int planes, cudaStream_t s, const T* prim,
   } else {
     const dim3 grid((g.nlines + WARP - 1) / WARP, planes,
                     (g.n + SEG - 1) / SEG);
-    fluxes_strided<ORD, T, NTRB, STRIPS><<<grid, WARP, 0, s>>>(
-        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds);
+    launch_strided<ORD, T, NTRB, STRIPS>(grid, s, prim, hyr, hyt, sdiv, tf,
+                                         g, C0, gamma, cutoff, ds,
+                                         accumulate, st);
   }
 }
 
 template <int ORD, typename T, int NTRB>
 cudaError_t launch_ntr(int axis, int planes, cudaStream_t s, const T* prim,
                        const T* hyr, const T* hyt, T* sdiv, T* tf,
-                       const StripGeom& g, T C0, T gamma, T cutoff, T ds) {
+                       const StripGeom& g, T C0, T gamma, T cutoff, T ds,
+                       bool accumulate, const Stage<T>& st) {
   if (g.lo != nullptr)
     launch_kind<ORD, T, NTRB, true>(axis, planes, s, prim, hyr, hyt, sdiv,
-                                    tf, g, C0, gamma, cutoff, ds);
+                                    tf, g, C0, gamma, cutoff, ds, accumulate,
+                                    st);
   else
     launch_kind<ORD, T, NTRB, false>(axis, planes, s, prim, hyr, hyt, sdiv,
                                      tf, static_cast<const Geom&>(g), C0,
-                                     gamma, cutoff, ds);
+                                     gamma, cutoff, ds, accumulate, st);
   return cudaGetLastError();
 }
 
 template <int ORD, typename T>
 cudaError_t launch_ord(int axis, int planes, cudaStream_t s, const T* prim,
                        const T* hyr, const T* hyt, T* sdiv, T* tf,
-                       const StripGeom& g, T C0, T gamma, T cutoff, T ds) {
+                       const StripGeom& g, T C0, T gamma, T cutoff, T ds,
+                       bool accumulate, const Stage<T>& st) {
   if (g.ntr <= 1)
     return launch_ntr<ORD, T, 1>(axis, planes, s, prim, hyr, hyt, sdiv, tf,
-                                 g, C0, gamma, cutoff, ds);
+                                 g, C0, gamma, cutoff, ds, accumulate, st);
   if (g.ntr <= 3)
     return launch_ntr<ORD, T, 3>(axis, planes, s, prim, hyr, hyt, sdiv, tf,
-                                 g, C0, gamma, cutoff, ds);
+                                 g, C0, gamma, cutoff, ds, accumulate, st);
   return launch_ntr<ORD, T, NTR_MAX>(axis, planes, s, prim, hyr, hyt, sdiv,
-                                     tf, g, C0, gamma, cutoff, ds);
+                                     tf, g, C0, gamma, cutoff, ds, accumulate,
+                                     st);
 }
 
 // axis 0 = x, 1 = y, 2 = z on (nvar, nens, nz, ny, nx) arrays
 // lo / hi: the halo strips (hp = (ord-1)/2 + 1 cells along the axis, else
 // shaped like prim), or both null for the whole axis; bc_lo / bc_hi: the face
 // mode of each end (0 none, else bc).
+// accumulate: sdiv holds the running state tendency, which the divergence
+// is added to (y and z only).  b0 (with accumulate): the stage update, with
+// b1 (or null), the (nens, nz) hydrostatic cell density hyc, the immersed
+// proportion imm (nens, nz, ny, nx, or null), the ST_* flags and the
+// coefficients; its result replaces the tendency in sdiv.
 template <typename T>
 int launch(const void* prim, const void* hyr, const void* hyt, void* sdiv,
            void* tf, const void* lo, const void* hi, int axis, int nvar,
            int nens, int nz, int ny, int nx, int bc, int bc_lo, int bc_hi,
            int normal_id, int ord, double C0, double gamma, double cutoff,
-           double div_scale, void* stream) {
+           double div_scale, int accumulate, const void* b0, const void* b1,
+           const void* hyc, const void* imm, int flags, double c0, double c1,
+           double cdt, double grav, double fcor, double fac, void* stream) {
   const int ntr = nvar - NS;
   if (ntr < 0 || ntr > NTR_MAX || axis < 0 || axis > 2 || nens < 1 ||
       nz < 1 || ny < 1 || nx < 1 || (lo == nullptr) != (hi == nullptr) ||
       (lo != nullptr && axis == 2) || (bc_lo != 0 && bc_lo != bc) ||
-      (bc_hi != 0 && bc_hi != bc))
+      (bc_hi != 0 && bc_hi != bc) || (accumulate && axis == 0) ||
+      (b0 != nullptr && (!accumulate || hyc == nullptr)) ||
+      (b0 == nullptr && (b1 != nullptr || imm != nullptr)))
     return cudaErrorInvalidValue;
   const int64_t cells = (int64_t)nens * nz * ny * nx;
   const int hp = (ord - 1) / 2 + 1;
@@ -644,6 +790,10 @@ int launch(const void* prim, const void* hyr, const void* hyt, void* sdiv,
   g.hp = hp;
   g.blo = bc_lo;
   g.bhi = bc_hi;
+  Stage<T> st{static_cast<const T*>(b0), static_cast<const T*>(b1),
+              static_cast<const T*>(hyc), static_cast<const T*>(imm),
+              (T)c0, (T)c1, (T)cdt, (T)grav, (T)fcor, (T)fac, flags,
+              axis == 2 ? nz : 1, axis == 2 ? 1 : 0};
   int planes;
   if (axis == 0) {
     planes = nens * nz;
@@ -681,12 +831,13 @@ int launch(const void* prim, const void* hyr, const void* hyt, void* sdiv,
   auto ht = static_cast<const T*>(hyt);
   auto sd = static_cast<T*>(sdiv);
   auto tfp = static_cast<T*>(tf);
-  const T c0 = (T)C0, ga = (T)gamma, co = (T)cutoff, ds = (T)div_scale;
+  const T pc0 = (T)C0, ga = (T)gamma, co = (T)cutoff, ds = (T)div_scale;
+  const bool acc = accumulate != 0;
   switch (ord) {
-    case 3: return launch_ord<3, T>(axis, planes, s, p, hr, ht, sd, tfp, g, c0, ga, co, ds);
-    case 5: return launch_ord<5, T>(axis, planes, s, p, hr, ht, sd, tfp, g, c0, ga, co, ds);
-    case 7: return launch_ord<7, T>(axis, planes, s, p, hr, ht, sd, tfp, g, c0, ga, co, ds);
-    case 9: return launch_ord<9, T>(axis, planes, s, p, hr, ht, sd, tfp, g, c0, ga, co, ds);
+    case 3: return launch_ord<3, T>(axis, planes, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
+    case 5: return launch_ord<5, T>(axis, planes, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
+    case 7: return launch_ord<7, T>(axis, planes, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
+    case 9: return launch_ord<9, T>(axis, planes, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -715,10 +866,14 @@ int direction_fluxes_f32(const void* prim, const void* hyr, const void* hyt,
                          int axis, int nvar, int nens, int nz, int ny, int nx,
                          int bc, int bc_lo, int bc_hi, int normal_id, int ord,
                          double C0, double gamma, double cutoff,
-                         double div_scale, void* stream) {
+                         double div_scale, int accumulate, const void* b0,
+                         const void* b1, const void* hyc, const void* imm,
+                         int flags, double c0, double c1, double cdt,
+                         double grav, double fcor, double fac, void* stream) {
   return launch<float>(prim, hyr, hyt, sdiv, tf, lo, hi, axis, nvar, nens, nz,
                        ny, nx, bc, bc_lo, bc_hi, normal_id, ord, C0, gamma,
-                       cutoff, div_scale, stream);
+                       cutoff, div_scale, accumulate, b0, b1, hyc, imm, flags,
+                       c0, c1, cdt, grav, fcor, fac, stream);
 }
 
 int direction_fluxes_f64(const void* prim, const void* hyr, const void* hyt,
@@ -726,10 +881,14 @@ int direction_fluxes_f64(const void* prim, const void* hyr, const void* hyt,
                          int axis, int nvar, int nens, int nz, int ny, int nx,
                          int bc, int bc_lo, int bc_hi, int normal_id, int ord,
                          double C0, double gamma, double cutoff,
-                         double div_scale, void* stream) {
+                         double div_scale, int accumulate, const void* b0,
+                         const void* b1, const void* hyc, const void* imm,
+                         int flags, double c0, double c1, double cdt,
+                         double grav, double fcor, double fac, void* stream) {
   return launch<double>(prim, hyr, hyt, sdiv, tf, lo, hi, axis, nvar, nens,
                         nz, ny, nx, bc, bc_lo, bc_hi, normal_id, ord, C0,
-                        gamma, cutoff, div_scale, stream);
+                        gamma, cutoff, div_scale, accumulate, b0, b1, hyc,
+                        imm, flags, c0, c1, cdt, grav, fcor, fac, stream);
 }
 
 const char* direction_fluxes_error_string(int err) {

@@ -13,8 +13,12 @@ card).  FCT and the tracer divergence go through ``ops/fct`` (two more CUDA
 kernels on the card): the multiplier once per right-hand side, then one
 scaled divergence per direction -- x, z, y -- accumulating into one tracer
 buffer, the last of which also does the SSPRK3 tracer stage update and the
-positivity clamp (as the JAX package's ``_fct_div_pallas``).  The sources
-and the state's RK stages are plain tensor code.  WENO weights are exact.
+positivity clamp (as the JAX package's ``_fct_div_pallas``).  The state side
+runs the same chain in the flux kernel (the Pallas kernel's ``acc`` and
+``rk`` forms): x writes its divergence, z adds its own to it in place, and
+the last direction (y; z in 2-D) adds its own, the gravity and Coriolis
+sources, the 2-D v = 0 and the immersed blend, and writes the SSPRK3
+stage's state.  WENO weights are exact.
 
 Under a mesh (``parallel/spmd.py``) each shard steps its local block with an
 ``SpmdCtx``: a split x or y direction takes its halo strips from the ring
@@ -38,7 +42,7 @@ from typing import Any
 import torch
 
 from ..core.coupler import CouplerState
-from ..ops.direction_fluxes import (IDR, IDT, IDU, IDV, IDW,
+from ..ops.direction_fluxes import (IDR, IDT, IDU, IDV, IDW, StageUpdate,
                                     direction_fluxes)
 from ..ops.fct import fct_mult, fct_scale_div, per_tracer
 from ..ops.stencil import BC_WALL
@@ -248,28 +252,26 @@ class Dycore:
                 spmd=None):
         """Three-stage SSPRK3 with per-stage tracer positivity clamp
         (reference dynamics...h:110-175; FCT dt per stage 1, 1/4, 2/3).  The
-        tracer stage update runs in the last FCT pass, which hands back the
-        stage's tracers: stage k's (c0, c1, cdt) are those of the state's
-        update beside it."""
-        def tend(s_, tr_, dt_, rk):
+        stage update runs in the last direction's kernels -- the state's in
+        the flux kernel, the tracers' in the last FCT pass --, which hand
+        back the stage's state and tracers: stage k is c0 * base0 + c1 *
+        base1 + cdt * tendency with base0 the step's (s, tr) and base1 the
+        previous stage's (None in stage 1)."""
+        def stage(s_, tr_, dt_, c0, c1, cdt, base1):
             return self._tendencies(grid, consts, hy, immersed, positive,
-                                    s_, tr_, dt_, rk, spmd)
+                                    s_, tr_, dt_, (c0, c1, cdt, (s, tr),
+                                                   base1), spmd)
 
-        st, t1 = tend(s, tr, dt, (1.0, 0.0, dt, tr, None))
-        s1 = s + dt * st
-
-        st, t2 = tend(s1, t1, dt / 4.0, (0.75, 0.25, 0.25 * dt, tr, t1))
-        s2 = 0.75 * s + 0.25 * s1 + 0.25 * dt * st
-
-        st, t3 = tend(s2, t2, 2.0 * dt / 3.0,
-                      (1.0 / 3.0, 2.0 / 3.0, (2.0 / 3.0) * dt, tr, t2))
-        s3 = (1.0 / 3.0) * s + (2.0 / 3.0) * s2 + (2.0 / 3.0) * dt * st
-        return s3, t3
+        s1, t1 = stage(s, tr, dt, 1.0, 0.0, dt, None)
+        s2, t2 = stage(s1, t1, dt / 4.0, 0.75, 0.25, 0.25 * dt, (s1, t1))
+        return stage(s2, t2, 2.0 * dt / 3.0, 1.0 / 3.0, 2.0 / 3.0,
+                     (2.0 / 3.0) * dt, (s2, t2))
 
     def _direction(self, consts, hy, prim, axis, n, bc, normal_id, d,
-                   spmd=None):
-        """State divergence and tracer faces of one direction; on an axis
-        split over the mesh, in the flux kernel's halo-strip form."""
+                   spmd=None, acc=None, rk=None):
+        """State divergence (added into ``acc``; the stage's state with
+        ``rk``) and tracer faces of one direction; on an axis split over the
+        mesh, in the flux kernel's halo-strip form."""
         hyc, hyt, hye, hyte = hy
         hy_r, hy_t = (hye, hyte) if axis == _AX_Z else (hyc, hyt)
         strips = None
@@ -286,7 +288,7 @@ class Dycore:
                       bc if idx == ns - 1 else 0)
         return direction_fluxes(prim, axis, n, bc, normal_id, consts.C0,
                                 consts.gamma, hy_r, hy_t, self.mats,
-                                self.cutoff, 1.0 / d, strips)
+                                self.cutoff, 1.0 / d, strips, acc, rk)
 
     def _fct(self, grid, tr, positive, Fx, Fy, Fz, dt, rk, spmd=None):
         """Flux-corrected transport and the tracer divergence
@@ -299,7 +301,9 @@ class Dycore:
         multipliers (1 at the global boundary)."""
         mult = fct_mult(tr, positive, Fx, Fy, Fz, dt, grid.dx, grid.dy,
                         grid.dz)
-        rk = (*rk, positive)
+        c0, c1, cdt, (_, tr0), base1 = rk
+        rk = (c0, c1, cdt, tr0, None if base1 is None else base1[1],
+              positive)
 
         def edges(axis):
             mesh_ax = spmd.get(axis) if spmd is not None else None
@@ -317,50 +321,37 @@ class Dycore:
 
     def _tendencies(self, grid, consts, hy, immersed, positive, s, tr, dt,
                     rk, spmd=None):
-        """One semi-discrete RHS evaluation (dynamics...h:204-552).  Returns
-        the state tendency and the stage's updated tracers (``rk`` = (c0, c1,
-        cdt, tr0, tr1 | None), see ``ops/fct.fct_scale_div``)."""
-        hyc = hy[0][:, :, None, None]
-        full_r = s[IDR] + hyc
+        """One semi-discrete RHS evaluation (dynamics...h:204-552) and the
+        SSPRK3 stage update of its ``rk`` = (c0, c1, cdt, (s0, tr0), (s1,
+        tr1) | None).  Returns the stage's state and tracers."""
+        c0, c1, cdt, (s0, _), base1 = rk
         sim2d = grid.sim2d
+        full_r = s[IDR] + hy[0][:, :, None, None]
 
         # De-densitized variables (dynamics...h:248-255): rho', u, v, w,
         # (rho theta)', tracer concentrations -- shared by all directions.
         prim = torch.cat([s[IDR:IDU], s[IDU:IDT] / full_r, s[IDT:IDT + 1],
                           tr / full_r])
+        del full_r
 
-        SDx, TFx = self._direction(consts, hy, prim, _AX_X, grid.nx,
+        # Gravity, Coriolis and the immersed-boundary blend
+        # (dynamics...h:524-550) and the stage update ride the last
+        # direction's kernel.
+        stage = StageUpdate(
+            c0, c1, cdt, s0, None if base1 is None else base1[0], hy[0],
+            consts.grav if consts.enable_gravity else None, consts.fcor,
+            immersed if consts.use_immersed else None, dt, sim2d)
+        acc, TFx = self._direction(consts, hy, prim, _AX_X, grid.nx,
                                    consts.bc_x, IDU, grid.dx, spmd)
-        SDz, TFz = self._direction(consts, hy, prim, _AX_Z, grid.nz,
-                                   consts.bc_z, IDW, grid.dz)
-        if sim2d:
-            SDy = TFy = None
-        else:
-            SDy, TFy = self._direction(consts, hy, prim, _AX_Y, grid.ny,
-                                       consts.bc_y, IDV, grid.dy, spmd)
+        s_new, TFz = self._direction(consts, hy, prim, _AX_Z, grid.nz,
+                                     consts.bc_z, IDW, grid.dz, acc=acc,
+                                     rk=stage if sim2d else None)
+        TFy = None
+        if not sim2d:
+            s_new, TFy = self._direction(consts, hy, prim, _AX_Y, grid.ny,
+                                         consts.bc_y, IDV, grid.dy, spmd,
+                                         acc=acc, rk=stage)
         del prim
 
         t_new = self._fct(grid, tr, positive, TFx, TFy, TFz, dt, rk, spmd)
-        del TFx, TFy, TFz
-
-        s_tend = SDx + SDz
-        if not sim2d:
-            s_tend = s_tend + SDy
-
-        # Gravity + Coriolis sources (dynamics...h:524-527).
-        if consts.enable_gravity:
-            s_tend[IDW] = s_tend[IDW] - consts.grav * full_r
-        if consts.fcor != 0.0:
-            s_tend[IDU] = s_tend[IDU] + consts.fcor * s[IDV]
-            s_tend[IDV] = s_tend[IDV] - consts.fcor * s[IDU]
-        if sim2d:
-            s_tend[IDV] = 0.0
-
-        # Immersed-boundary relaxation blending (dynamics...h:534-550).
-        if consts.use_immersed:
-            tau = 1.0e3 * dt
-            fac = -min(1.0, dt / tau) / dt
-            imm_tend = fac * s
-            prop = immersed[None]
-            s_tend = prop * imm_tend + (1.0 - prop) * s_tend
-        return s_tend, t_new
+        return s_new, t_new

@@ -14,12 +14,21 @@ that mirrors the JAX XLA path (``Dycore._recon_direction`` ->
   * the unscaled tracer faces ``(ntr, ...)`` with ``n + 1`` entries along
     the direction (on a periodic axis face n is a second copy of face 0, so
     FCT can scale the two copies from their own sides).
+
+Two more forms carry the state side of an SSPRK3 stage, as the Pallas
+kernel's ``acc`` and ``rk`` do: with ``acc`` (the running state tendency
+of the earlier directions) the divergence is added into it in place; with
+``rk`` (a ``StageUpdate``, the last direction) the sum then takes gravity,
+Coriolis, the 2-D ``v = 0`` and the immersed blend, and becomes the stage's
+state ``c0*b0 [+ c1*b1] + cdt*tendency`` in the ``acc`` buffer -- the
+operations of the dycore's former eager composition, in its order.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,8 +39,8 @@ from .weno import WenoMatrices
 from .weno_fused import reconstruct_edges_shifted, weno_coef_table
 
 __all__ = ["direction_fluxes", "direction_fluxes_plain", "in_tracer_groups",
-           "recon_direction", "apply_edge_bcs", "riemann", "div",
-           "IDR", "IDU", "IDV", "IDW", "IDT", "NUM_STATE"]
+           "StageUpdate", "stage_update", "recon_direction", "apply_edge_bcs",
+           "riemann", "div", "IDR", "IDU", "IDV", "IDW", "IDT", "NUM_STATE"]
 
 IDR, IDU, IDV, IDW, IDT = 0, 1, 2, 3, 4
 NUM_STATE = 5
@@ -111,13 +120,73 @@ def div(F, axis, n, div_scale):
     return -(F.narrow(axis, 1, n) - F.narrow(axis, 0, n)) * div_scale
 
 
+class StageUpdate(NamedTuple):
+    """The SSPRK3 stage update the last direction's call makes of the
+    summed tendency (dynamics...h:110-175, 524-550).  The coefficients and
+    ``grav``, ``fcor``, ``dt`` are host numbers."""
+
+    c0: float
+    c1: float
+    cdt: float
+    b0: torch.Tensor              # (5, nens, nz, ny, nx) the step's base
+    b1: torch.Tensor | None       # the previous stage's state (stages 2-3)
+    hy_r: torch.Tensor            # (nens, nz) hydrostatic cell density
+    grav: float | None            # None: gravity off
+    fcor: float                   # Coriolis parameter (0: none)
+    immersed: torch.Tensor | None  # (nens, nz, ny, nx) proportion, or None
+    dt: float                     # the stage's time step (immersed blend)
+    sim2d: bool                   # 2-D: the v tendency is zero
+
+
+def stage_update(st, rk: StageUpdate):
+    """The stage's state from the summed tendency ``st`` (modified in
+    place), with ``s`` the state the tendency was taken of (``b1`` when
+    given, else ``b0``): w - grav (s_rho' + hy), u + fcor s_v and
+    v - fcor s_u, v = 0 in 2-D, the immersed blend prop (fac s) + (1 - prop)
+    st, then (c0 b0 + c1 b1) + cdt st."""
+    s = rk.b0 if rk.b1 is None else rk.b1
+    if rk.grav is not None:
+        st[IDW] = st[IDW] - rk.grav * (s[IDR] + rk.hy_r[:, :, None, None])
+    if rk.fcor != 0.0:
+        st[IDU] = st[IDU] + rk.fcor * s[IDV]
+        st[IDV] = st[IDV] - rk.fcor * s[IDU]
+    if rk.sim2d:
+        st[IDV] = 0.0
+    if rk.immersed is not None:
+        prop = rk.immersed[None]
+        st = prop * (_immersed_fac(rk.dt) * s) + (1.0 - prop) * st
+    out = rk.c0 * rk.b0
+    if rk.b1 is not None:
+        out = out + rk.c1 * rk.b1
+    return out + rk.cdt * st
+
+
+def _immersed_fac(dt: float) -> float:
+    """Relaxation rate of the immersed blend, -min(1, dt / tau) / dt with
+    tau = 1000 dt (dynamics...h:534-550)."""
+    tau = 1.0e3 * dt
+    return -min(1.0, dt / tau) / dt
+
+
+def _epilogue(d, acc, rk):
+    """The divergence ``d`` added into ``acc`` in place, and with ``rk``
+    the stage's state written there instead."""
+    if acc is None:
+        return d
+    if rk is None:
+        return acc.add_(d)
+    return acc.copy_(stage_update(acc + d, rk))
+
+
 def direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma, hy_r,
                            hy_t, mats: WenoMatrices, cutoff, div_scale,
-                           strips=None):
+                           strips=None, acc=None, rk=None):
     """Plain PyTorch version of ``direction_fluxes`` (same arguments): with
     ``strips`` it concatenates lo | prim | hi in place of ``pad_bc`` and
     applies each end's face overwrite only where its mode is set, as the
     JAX XLA path does under ``shard_map`` (``euler.py:486-492, 511-546``)."""
+    if rk is not None and acc is None:
+        raise ValueError("the stage update needs the accumulator acc")
     ends = None
     if strips is not None:
         lo, hi, bc_lo, bc_hi = strips
@@ -135,7 +204,7 @@ def direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma, hy_r,
     SL, SR, TRL, TRR = apply_edge_bcs(SL, SR, TRL, TRR, axis, n, bc,
                                       normal_id, ends)
     SF, TF = riemann(SL, SR, TRL, TRR, normal_id, C0, gamma)
-    return div(SF, axis, n, div_scale), TF
+    return _epilogue(div(SF, axis, n, div_scale), acc, rk), TF
 
 
 # Tracers one launch takes (the kernel's unrolled tracer loop is bounded by
@@ -143,15 +212,17 @@ def direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma, hy_r,
 MAX_TRACERS = 9
 
 
-def in_tracer_groups(launch, prim, *args, strips=None):
+def in_tracer_groups(launch, prim, *args, strips=None, acc=None, rk=None):
     """``direction_fluxes`` of any number of tracers from a ``launch`` that
     takes at most ``MAX_TRACERS``: one call per group of tracers, each on
     the 5 state rows followed by the group's tracers (and strips built the
     same way).  A tracer's faces depend only on the state and on that tracer, so
     the state divergence of the first group and the groups' faces in order
     equal one call's bit for bit.  ``args`` are ``direction_fluxes``'s after
-    ``prim``."""
+    ``prim``.  ``acc`` and ``rk`` go to the first group only: a later
+    group adding into the same buffer would count the divergence twice."""
     ntr = prim.shape[0] - NUM_STATE
+    epi = {k: v for k, v in (("acc", acc), ("rk", rk)) if v is not None}
     sdiv, faces = None, []
     for t0 in range(0, ntr, MAX_TRACERS):
         rows = slice(NUM_STATE + t0, NUM_STATE + min(t0 + MAX_TRACERS, ntr))
@@ -160,7 +231,8 @@ def in_tracer_groups(launch, prim, *args, strips=None):
             return torch.cat([x[:NUM_STATE], x[rows]])
         gstrips = None if strips is None else (
             group(strips[0]), group(strips[1]), *strips[2:])
-        d, tf = launch(group(prim), *args, strips=gstrips)
+        d, tf = launch(group(prim), *args, strips=gstrips,
+                       **(epi if t0 == 0 else {}))
         sdiv = d if sdiv is None else sdiv
         faces.append(tf)
     return sdiv, torch.cat(faces)
@@ -170,7 +242,8 @@ def _bind(lib):
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("direction_fluxes_f32", "direction_fluxes_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [P] * 7 + [I] * 11 + [D] * 4 + [P]
+        fn.argtypes = ([P] * 7 + [I] * 11 + [D] * 4 + [I] + [P] * 4 + [I]
+                       + [D] * 6 + [P])
         fn.restype = I
     lib.direction_fluxes_set_coef.argtypes = [I, P, I]
     lib.direction_fluxes_set_coef.restype = I
@@ -221,8 +294,36 @@ def _check_cuda(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+# flags of the stage epilogue (csrc/direction_fluxes.cu, EPI_STAGE)
+_GRAV, _FCOR, _SIM2D = 1, 2, 4
+
+
+def _stage_args(rk, prim, cells):
+    """The stage epilogue's pointers (b0, b1, hy_r, immersed), flags and
+    coefficients (c0, c1, cdt, grav, fcor, immersed rate) for the launch;
+    null pointers and zeros without ``rk``."""
+    if rk is None:
+        return (None,) * 4 + (0,) + (0.0,) * 6
+    nens, nz = cells[1], cells[2]
+    _check_cuda("b0", rk.b0, prim.dtype, cells, prim.device)
+    if rk.b1 is not None:
+        _check_cuda("b1", rk.b1, prim.dtype, cells, prim.device)
+    _check_cuda("hy_r", rk.hy_r, prim.dtype, (nens, nz), prim.device)
+    if rk.immersed is not None:
+        _check_cuda("immersed", rk.immersed, prim.dtype, cells[1:],
+                    prim.device)
+    flags = ((_GRAV if rk.grav is not None else 0)
+             | (_FCOR if rk.fcor != 0.0 else 0) | (_SIM2D if rk.sim2d else 0))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    return (rk.b0.data_ptr(), ptr(rk.b1), rk.hy_r.data_ptr(),
+            ptr(rk.immersed), flags, float(rk.c0), float(rk.c1),
+            float(rk.cdt), float(rk.grav or 0.0), float(rk.fcor),
+            _immersed_fac(rk.dt) if rk.immersed is not None else 0.0)
+
+
 def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
-                     mats: WenoMatrices, cutoff, div_scale, strips=None):
+                     mats: WenoMatrices, cutoff, div_scale, strips=None,
+                     acc=None, rk=None):
     """State divergence and tracer faces of one direction.
 
     Args:
@@ -241,14 +342,23 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
         cells beyond each end (shaped like ``prim`` with hp along ``axis``,
         contiguous), and bc_lo / bc_hi (host ints) each end's face mode,
         0 inside the domain or periodic, else ``bc``.
+      acc: None, or the running state tendency (5, nens, nz, ny, nx),
+        contiguous: the divergence is added into it IN PLACE and it is
+        returned in the divergence's place (the Pallas kernel's ``acc``,
+        whose buffer is aliased to its output).  On the card y and z only:
+        x is the first direction.
+      rk: None, or a ``StageUpdate`` (needs ``acc``): ``acc`` then receives
+        the stage's state (see ``stage_update``; the Pallas kernel's
+        ``rk``).  Its tensors are contiguous, of ``prim``'s type.
 
-    Returns (state divergence (5, nens, nz, ny, nx), tracer faces).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel.
+    Returns (state divergence (5, nens, nz, ny, nx) -- or ``acc`` --, tracer
+    faces).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel.
     """
     if prim.device.type == "cpu":
         return direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma,
                                       hy_r, hy_t, mats, cutoff, div_scale,
-                                      strips)
+                                      strips, acc, rk)
     if prim.device.type != "cuda":
         raise ValueError(f"unsupported device {prim.device}")
     if prim.dtype not in (torch.float32, torch.float64):
@@ -272,7 +382,8 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
     if ntr > MAX_TRACERS:
         return in_tracer_groups(direction_fluxes, prim, axis, n, bc,
                                 normal_id, C0, gamma, hy_r, hy_t, mats,
-                                cutoff, div_scale, strips=strips)
+                                cutoff, div_scale, strips=strips, acc=acc,
+                                rk=rk)
     lo = hi = None
     bc_lo = bc_hi = bc  # whole axis: both ends are the global boundary
     if strips is not None:
@@ -287,8 +398,22 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
         sshape[axis] = (mats.ord - 1) // 2 + 1
         for name, t in (("lo", lo), ("hi", hi)):
             _check_cuda(name, t, prim.dtype, sshape, prim.device)
-    sdiv = torch.empty((NUM_STATE, nens, nz, ny, nx), dtype=prim.dtype,
-                       device=prim.device)
+    cells = (NUM_STATE, nens, nz, ny, nx)
+    if rk is not None and acc is None:
+        raise ValueError("the stage update needs the accumulator acc")
+    if acc is not None:
+        if axis == _AX_X:
+            raise ValueError("the x kernel takes no accumulator: x is the "
+                             "first direction")
+        _check_cuda("acc", acc, prim.dtype, cells, prim.device)
+        sdiv = acc
+    else:
+        sdiv = torch.empty(cells, dtype=prim.dtype, device=prim.device)
+    stage = _stage_args(rk, prim, cells)
+    if rk is not None and any(b is not None and b.data_ptr() == acc.data_ptr()
+                              for b in (rk.b0, rk.b1)):
+        raise ValueError("acc must not be b0 or b1: the kernel reads the "
+                         "bases of a cell after writing its first variables")
     tshape = [ntr, nens, nz, ny, nx]
     tshape[axis] += 1
     tf = torch.empty(tshape, dtype=prim.dtype, device=prim.device)
@@ -301,7 +426,8 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
             None if lo is None else lo.data_ptr(),
             None if hi is None else hi.data_ptr(), -1 - axis, nvar, nens, nz,
             ny, nx, bc, bc_lo, bc_hi, normal_id, mats.ord, float(C0),
-            float(gamma), float(cutoff), float(div_scale), stream)
+            float(gamma), float(cutoff), float(div_scale),
+            int(acc is not None), *stage, stream)
     if rc != 0:
         raise RuntimeError("direction_fluxes kernel launch failed: "
                            + lib.direction_fluxes_error_string(rc).decode())

@@ -27,7 +27,10 @@ compared by running the script once per tree in one call, in turns.
            step, by kernel family (flux, FCT, microphysics, matmul,
            elementwise glue, copies and reductions), and the device's idle
            share of the profiled span, for the same chains.
-  --chains kessler,p3,p3_active,city,surrogate: a subset of the chains.
+  --chains kessler,p3,p3_active,city,surrogate: a subset of the chains;
+           ``cells`` also takes b, cell (b) (1024x1024x100, 3 steps, run
+           only when named): its ms/step and peak memory, build and warm-up
+           step included, as chip_smoke.py phase 6 reports them.
   kernels  fct_mult per call on the Kessler (3 tracers), P3 (9) and city
            (1 x nens 2) f32 states with each chain's own positive flags,
            beside its bytes bound; and on the Kessler chain's 512x512x64
@@ -201,10 +204,18 @@ def mode_kernels(cs, reps):
     return out
 
 
-def _chains(cs):
+def _chains(cs, chains=()):
     from miniweatherml_tpu_torch.experiments import (simple_city,
                                                      supercell_example,
                                                      supercell_p3)
+    if "b" in chains:
+        # cell (b), as chip_smoke.py phase 6 runs it: the reference's
+        # 1024x1024x100 community benchmark, 3 steps (only when named)
+        dt = 0.6 * 200.0 / 430.0
+        return (("b", cs._supercell_cfg(1024, 1024, 100, 819200.0, 819200.0,
+                                        20000.0, 3 * dt * (1.0 - 1e-9),
+                                        "float32"),
+                 supercell_example.build),) + _chains(cs)
     return (("kessler", cs._bench_cfg(512, 512, 64, 10, "float32"),
              supercell_example.build),
             ("p3", cs._bench_cfg(512, 512, 64, 10, "float32"),
@@ -229,7 +240,7 @@ def mode_cells(cs, chains):
     from miniweatherml_tpu_torch.experiments.community_benchmark import (
         run_benchmark)
     out = {}
-    for chain, cfg, build in _chains(cs):
+    for chain, cfg, build in _chains(cs, chains):
         if chains and chain not in chains:
             continue
         times = []

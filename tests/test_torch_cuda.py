@@ -770,6 +770,104 @@ def test_direction_fluxes_strip_form_rejects_bad_strips(cuda_device):
                          weno_matrices(5), 0.0, 1.0, (zs, zs, 2, 0))
 
 
+def _stage_case(shape, dtype, device, rng, sim2d=False):
+    """A running tendency, stage bases b0 / b1, a cell density profile and
+    an immersed proportion (zeros, ones and values between) of a cell
+    block ``shape`` = (nens, nz, ny, nx)."""
+    t = (lambda a: torch.as_tensor(a, dtype=dtype, device=device))
+    full = (5,) + shape
+    imm = rng.uniform(0.0, 1.0, shape)
+    imm[rng.random(shape) < 0.3] = 0.0
+    imm[rng.random(shape) < 0.2] = 1.0
+    return (t(rng.standard_normal(full)), t(rng.standard_normal(full)),
+            t(rng.standard_normal(full)),
+            t(1 + 0.1 * rng.random(shape[:2])), t(imm))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_direction_fluxes_epilogues_match_plain(dtype, cuda_device):
+    """The accumulator and stage-update forms along y and z, whole axis and
+    (y) halo strips, with and without b1, gravity, Coriolis, 2-D and the
+    immersed blend, at 8 and 17 variables (two tracer groups: the epilogue
+    in the first launch only): bit for bit, acc written in place."""
+    from miniweatherml_tpu_torch.ops.direction_fluxes import StageUpdate
+    rng = np.random.default_rng(21)
+    for shape, nvar in (((2, 7, 35, 70), 8), ((1, 67, 5, 40), 8),
+                        ((1, 10, 12, 16), 17), ((2, 12, 1, 40), 8)):
+        prim = _prim(shape, dtype, cuda_device, rng, nvar)
+        acc0, b0, b1, hyc, imm = _stage_case(shape, dtype, cuda_device, rng)
+        sim2d = shape[2] == 1
+        groups = 2 if nvar > 14 else 1
+        forms = [None] + [
+            StageUpdate(c0, c1, 0.1, b0, bb, hyc, grav, fcor, im, 0.37,
+                        sim2d)
+            for (c0, c1, bb) in ((1.0, 0.0, None), (0.75, 0.25, b1))
+            for (grav, fcor, im) in ((9.81, 0.0, None), (None, 1e-4, imm),
+                                     (9.81, 1e-4, imm))]
+        for axis, nid in DIRS[1:]:
+            if sim2d and axis == -2:
+                continue
+            nl = shape[1] + (1 if axis == -3 else 0)
+            hr = torch.as_tensor(1 + 0.1 * rng.random((shape[0], nl)),
+                                 dtype=dtype, device=cuda_device)
+            # the whole axis (y periodic, z walls: the main path's), and
+            # both shards of y split in two with walls at the ends
+            variants = [(prim, None, 0 if axis == -2 else 2, slice(None))]
+            if axis == -2:
+                half = shape[2] // 2
+                for i in (0, 1):
+                    block, strips = _strips_of(prim, axis, 2, nid, i, 2, 3)
+                    variants.append((block, strips, 2,
+                                     slice(i * half, (i + 1) * half)))
+            for p, strips, bc, cut in variants:
+                def part(x):
+                    return x[..., cut, :].contiguous()
+                args = (p, axis, p.shape[axis], bc, nid, 27.56, 1.4008,
+                        hr if axis == -3 else hyc, 300 * hr, weno_matrices(5),
+                        0.0, 2e-3, strips)
+                for rk in forms:
+                    if rk is not None:
+                        rk = rk._replace(
+                            b0=part(rk.b0),
+                            b1=None if rk.b1 is None else part(rk.b1),
+                            immersed=None if rk.immersed is None
+                            else part(rk.immersed))
+                    a1, a2 = part(acc0), part(acc0)
+                    want = direction_fluxes_plain(*args, acc=a1, rk=rk)
+                    n0 = direction_fluxes.launches
+                    got = direction_fluxes(*args, acc=a2, rk=rk)
+                    assert direction_fluxes.launches == n0 + groups
+                    assert got[0] is a2
+                    where = (dtype, shape, axis, strips is not None,
+                             rk and (rk.b1 is not None, rk.grav, rk.fcor))
+                    assert torch.equal(want[0], got[0]), where
+                    assert torch.equal(want[1], got[1]), where
+
+
+def test_direction_fluxes_epilogue_rejects_bad_input(cuda_device):
+    from miniweatherml_tpu_torch.ops.direction_fluxes import StageUpdate
+    prim = torch.zeros((8, 1, 4, 6, 8), device=cuda_device)
+    hy = torch.ones((1, 4), device=cuda_device)
+    acc = torch.zeros((5, 1, 4, 6, 8), device=cuda_device)
+    base = (prim, -2, 6, 0, 2, 27.56, 1.4008, hy, hy, weno_matrices(5), 0.0,
+            1.0)
+    rk = StageUpdate(1.0, 0.0, 0.1, acc.clone(), None, hy, 9.81, 0.0, None,
+                     0.1, False)
+    with pytest.raises(ValueError, match="accumulator"):
+        direction_fluxes(*base, rk=rk)
+    with pytest.raises(ValueError, match="first direction"):
+        direction_fluxes(prim, -1, 8, 0, 1, 27.56, 1.4008, hy, hy,
+                         weno_matrices(5), 0.0, 1.0, acc=acc)
+    with pytest.raises(ValueError, match="acc"):
+        direction_fluxes(*base, acc=acc[:, :, :2])
+    with pytest.raises(ValueError, match="b0"):
+        direction_fluxes(*base, acc=acc, rk=rk._replace(b0=acc[..., :4]))
+    with pytest.raises(ValueError, match="immersed"):
+        direction_fluxes(*base, acc=acc, rk=rk._replace(immersed=acc))
+    with pytest.raises(ValueError, match="b0 or b1"):
+        direction_fluxes(*base, acc=acc, rk=rk._replace(b1=acc))
+
+
 def test_fct_scale_div_edges_match_plain(cuda_device):
     """Edge multipliers in every form and direction, both types, bit for
     bit."""
