@@ -4,7 +4,7 @@ Usage (from the root of a checkout):  python3 chip_smoke.py
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: name, power limit, torch and CUDA versions;
-  2. build: the five CUDA libraries from csrc/ with nvcc (sm_90a), one nvcc
+  2. build: the six CUDA libraries from csrc/ with nvcc (sm_90a), one nvcc
      each, and the P3 native twin with g++, all started together; the
      registers, spills and shared memory of every kernel (from the ptxas
      reports: the flux kernel's ord-5
@@ -55,10 +55,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
   9. the P3 per-cell kernel's three phases against their plain versions on
      the inputs one P3 step hands them, on the seeded mixed-regime
      512x512x64 state, f32 and f64;
+  31. (run after 9) the P3 scheme's process rates and sedimentation: the
+     rates_pre and rates_post phases of the per-cell kernel and the
+     sed_vmax and sed_columns kernels against their plain versions on what
+     one step of the early-storm, mixed-regime and all-active 512x512x64
+     P3 chains hands them, f32 and f64: rates_pre's index sets by their
+     lookup positions (index + fraction) with the count of indices that
+     differ, its presence flags equal; the fall speed with the sub-step
+     count made of it and dt vmax / (0.9 dz_min) beside it; the fall at
+     the step's count with do_predict_nc both ways and at a dt that makes
+     that ratio 3.5 (4 sub-steps); each timed beside its bound, with the
+     sedimentation kernels' launch configuration;
   10. the P3 slice: run_benchmark(build=supercell_p3.build) at 512x512x64
      f32, 10 steps from the supercell init, with every P3-path kernel's
      launch count, a clean validate(), Mcellups and peak memory, and the
-     host synchronizations of one step (torch.cuda sync debug mode);
+     host synchronizations of one step (torch.cuda sync debug mode) of the
+     P3, all-active P3 and Kessler chains, which must all be 0;
   11. the same for 3 steps with every cell seeded (bench.py's all-active
      P3 case), so every presence gate fires;
   12. a 16x8x10 f64 P3 slice with seeded hydrometeor layers and part3
@@ -151,7 +163,9 @@ max|plain| of each output below 1e-12 in f64 and 1e-5 in f32 (the JAX
 suite's own f32 bound between its paths, tests/test_pallas.py:260,311);
 the direction-flux kernel, fct_mult and the three P3 lookups must also equal
 their plain versions bit for bit; the Kessler step prints whether it does,
-and the count and size in ulps of any value that rounds apart.
+and the count and size in ulps of any value that rounds apart; the P3
+rates and sedimentation kernels print whether they do (their pow, exp,
+lgamma and log10 need not round as PyTorch's).
 A slice on the card against the port's CPU run: 1e-7 of each field's scale
 (1e-9 for the one-step building and city slices, phase 16).  The surrogate
 is plain tensor code (two torch.matmul calls, TF32 off), as the JAX
@@ -473,7 +487,27 @@ def phase_device():
     return name
 
 
-LIBRARIES = ("direction_fluxes", "kessler", "p3_lookup", "p3_cellwise", "fct")
+LIBRARIES = ("direction_fluxes", "kessler", "p3_lookup", "p3_cellwise", "fct",
+             "p3_sed")
+
+
+def _entry_label(lib: str, mangled: str) -> str:
+    """A readable name of an entry function: the P3 per-cell phase or the
+    sedimentation kernel with its template arguments, else its name."""
+    import re
+    m = re.search(r"(Part1|Update|Wrapper|RatesPre|RatesPost)(?:ILb([01])EE)?"
+                  r"E([fd])E", mangled)
+    if lib == "p3_cellwise" and m:
+        pnc = "" if m.group(2) is None else f" predict_nc={m.group(2)}"
+        return f"cellwise {m.group(1)}{pnc} <{'float' if m.group(3) == 'f' else 'double'}>"
+    m = re.search(r"(sed_vmax_kernel|sed_columns_kernel)I([fd])Lb([01])E"
+                  r"(?:Lb([01])E)?", mangled)
+    if lib == "p3_sed" and m:
+        tier = "tables" if m.group(3) == "1" else "approx"
+        pnc = "" if m.group(4) is None else f" predict_nc={m.group(4)}"
+        return (f"{m.group(1)} <{'float' if m.group(2) == 'f' else 'double'}>"
+                f" {tier}{pnc}")
+    return _kernel_name(mangled)
 
 
 def phase_build():
@@ -512,7 +546,7 @@ def phase_build():
           f"({worst[3]})", flush=True)
     for lib in LIBRARIES[1:]:
         for mangled, regs, st, ld, stack, smem in _ptxas_report(lib):
-            print(f"[2] {lib} {_kernel_name(mangled)}: {regs} registers, "
+            print(f"[2] {lib} {_entry_label(lib, mangled)}: {regs} registers, "
                   f"{st} B spill stores, {ld} B spill loads, {stack} B "
                   f"stack, {smem} B static shared", flush=True)
     from miniweatherml_tpu_torch.physics.kessler_cuda import kessler_staging
@@ -921,6 +955,7 @@ def _counters(chain):
     from miniweatherml_tpu_torch.ops.direction_fluxes import direction_fluxes
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
     from miniweatherml_tpu_torch.physics import p3_lookup_cuda as lk
+    from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
     from miniweatherml_tpu_torch.ops.fct import fct_mult, fct_scale_div
     from miniweatherml_tpu_torch.physics.kessler_cuda import kessler_step
     dycore = {"direction_fluxes": direction_fluxes, "fct_mult": fct_mult,
@@ -934,7 +969,9 @@ def _counters(chain):
     return {**dycore,
             "interp_ice": lk.interp_ice, "interp_collect": lk.interp_collect,
             "interp_rain": lk.interp_rain, "p3_part1": cw.p3_part1,
-            "p3_update": cw.p3_update, "p3_wrapper": cw.p3_wrapper}
+            "p3_update": cw.p3_update, "p3_wrapper": cw.p3_wrapper,
+            "p3_rates_pre": cw.p3_rates_pre, "p3_rates_post": cw.p3_rates_post,
+            "sed_vmax": sed.sed_vmax, "sed_columns": sed.sed_columns}
 
 
 def _check_state(tag, state):
@@ -954,7 +991,7 @@ DYCORE_PER_STEP = {"direction_fluxes": 9, "fct_mult": 3, "fct_scale_div": 9}
 
 # the port's own kernels, by a part of their names
 OWN_KERNELS = ("fluxes", "fct", "kessler", "cellwise", "ice_kernel",
-               "collect_kernel", "rain_kernel")
+               "collect_kernel", "rain_kernel", "sed_vmax", "sed_columns")
 
 
 def _glue_per_step(mods, state, dt):
@@ -1298,7 +1335,8 @@ def phase_p3_cellwise():
         seen = {}
 
         def spy(phase, predict_nc, arrays, dt=0.0):
-            seen[phase] = (predict_nc, arrays, dt)
+            if phase in cell_ops:  # the rates phases are phase 31's
+                seen[phase] = (predict_nc, arrays, dt)
             return launch(phase, predict_nc, arrays, dt)
         cw._launch = spy
         try:
@@ -1306,7 +1344,7 @@ def phase_p3_cellwise():
         finally:
             cw._launch = launch
         del state, mods, dycore
-        if set(seen) != {"part1", "update", "wrapper"}:
+        if set(seen) != set(cell_ops):
             raise AssertionError(f"P3 step launched phases {sorted(seen)}")
         for phase, (pnc, arrays, dt) in sorted(seen.items()):
             ref = cw.plain_phase(phase, pnc, arrays, dt)
@@ -1336,6 +1374,220 @@ def phase_p3_cellwise():
         del seen
         torch.cuda.empty_cache()
     return rec
+
+
+# operations per cell of the rates phases, and per cell and sub-step of the
+# sedimentation kernels, read from csrc/p3_cellwise.cu and csrc/p3_sed.cu
+# (arithmetic of the body and the helpers it calls; exp, log, pow, lgamma
+# counted as one)
+RATES_SED_OPS = {"rates_pre": 120, "rates_post": 450, "sed_vmax": 160,
+                 "sed_columns": 220}
+# indices and fractions of rates_pre's outputs: (index, fraction) pairs
+RATES_PRE_PAIRS = ((2, 3), (4, 5), (6, 7), (8, 9), (10, 11))
+
+
+def _p3_step_rates_sed(build, dtype):
+    """What one step of a 512x512x64 P3 chain hands the two rates phases
+    and the two sedimentation wrappers: {name: (args, keywords)}."""
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
+    from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
+    state, mods, dycore = build(_bench_cfg(512, 512, 64, 1, dtype), "cuda")
+    seen = {}
+    launch, vmax, columns = cw._launch, sed.sed_vmax, sed.sed_columns
+
+    def spy_launch(phase, predict_nc, arrays, dt=0.0):
+        if phase.startswith("rates"):
+            seen[phase] = ((predict_nc, arrays, dt), {})
+        return launch(phase, predict_nc, arrays, dt)
+
+    def spy(name, real):
+        def call(*args, **kw):
+            seen[name] = (args, kw)
+            return real(*args, **kw)
+        call.launches = 0  # the wrapper counts on its module-level name
+        return call
+    cw._launch = spy_launch
+    sed.sed_vmax, sed.sed_columns = (spy("sed_vmax", vmax),
+                                     spy("sed_columns", columns))
+    try:
+        mods[1](state, dycore.compute_time_step(state))
+    finally:
+        cw._launch, sed.sed_vmax, sed.sed_columns = launch, vmax, columns
+    if set(seen) != set(RATES_SED_OPS):
+        raise AssertionError(f"P3 step made calls {sorted(seen)}")
+    return seen
+
+
+def _worst(pairs):
+    """(max abs err, max rel err over each reference's scale) of
+    [(reference, got)]."""
+    errs = [_rel(a, b) for a, b in pairs]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def _rates_check(tag, phase, args, dtype, tol):
+    """One rates phase against its plain version: rates_pre's fields, the
+    lookup positions (index + fraction) its index sets give, how many
+    indices differ, and its presence flags; rates_post's 25 rates."""
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
+    pnc, arrays, dt = args
+    ref = cw.plain_phase(phase, pnc, arrays, dt)
+    got = cw._launch(phase, pnc, arrays, dt)
+    torch.cuda.synchronize()
+    note = ""
+    if phase == "rates_pre":
+        pairs = [(ref[0], got[0]), (ref[1], got[1])] + [
+            (ref[i].double() + ref[f].double(),
+             got[i].double() + got[f].double()) for i, f in RATES_PRE_PAIRS]
+        moved = sum(int((ref[i] != got[i]).sum()) for i, _ in RATES_PRE_PAIRS)
+        flags = torch.equal(ref[-1], got[-1])
+        note = (f"; {moved} of {5 * got[2].numel()} indices differ (their "
+                f"positions index + fraction agree within the bound); "
+                f"presence flags {got[-1].tolist()}, equal {flags}")
+        if not flags:
+            raise AssertionError(f"{tag} rates_pre: flags {got[-1].tolist()}"
+                                 f" against {ref[-1].tolist()}")
+    else:
+        pairs = list(zip(ref, got))
+    err, rel = _worst(pairs)
+    bit = all(torch.equal(a, b) for a, b in zip(ref, got))
+    nbytes = _nbytes(arrays, got)
+    cells = arrays[0].numel()
+    del ref, got
+    ms = _time_ms(lambda: cw._launch(phase, pnc, arrays, dt))
+    pms = _time_ms(lambda: cw.plain_phase(phase, pnc, arrays, dt), reps=3)
+    bms, by = _bound(nbytes, RATES_SED_OPS[phase] * cells, dtype)
+    print(f"[31] {tag} {phase} ({len(arrays)} in): max abs err {err:.3e}, "
+          f"rel {rel:.3e} (tol {tol:g}), bit for bit {bit}{note}; kernel "
+          f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms ({by}), "
+          f"{bms / ms:.1%} of the bound", flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"{tag} {phase}: rel {rel:.3e}")
+    return err, ms, pms, bms, by
+
+
+def _nsub(dt, vmax, dz):
+    """(the sub-step count p3_scheme makes of vmax, dt vmax / (0.9 dz_min))
+    for a single card, as 0-d tensor and float."""
+    ratio = dt * vmax / (0.9 * dz.min())
+    return torch.clamp(torch.ceil(ratio), min=1.0), float(ratio)
+
+
+def _sed_check(tag, seen, dtype, tol):
+    """sed_vmax and sed_columns against their plain versions on what the
+    step handed them: the speed and the count made of it; the fall at the
+    step's count with do_predict_nc both ways, and at a dt that makes
+    dt vmax / (0.9 dz_min) = 3.5 (4 sub-steps).  Returns the records of the
+    two kernels at the step's count, {name: (ms, plain ms, bound ms,
+    bound_by)}, and the largest abs error of the checks."""
+    from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
+    va, vk = seen["sed_vmax"]
+    ca, ck = seen["sed_columns"]
+    fields, (rho, temp, dz, dt, nsub_t, dtab) = ca[:8], ca[8:14]
+    ref_v = sed.vmax_plain(*va, **vk)
+    got_v = sed.sed_vmax(*va, **vk)
+    n_ref, r_ref = _nsub(dt, ref_v, dz)
+    n_got, r_got = _nsub(dt, got_v, dz)
+    err_v, rel_v = _rel(ref_v, got_v)
+    print(f"[31] {tag} sed_vmax: {float(got_v):.9e} m/s, plain "
+          f"{float(ref_v):.9e}, rel err {rel_v:.3e} (tol {tol:g}); nsub "
+          f"{int(n_got)} (plain {int(n_ref)}, the step's {int(nsub_t)}) at "
+          f"dt vmax / (0.9 dz_min) = {r_got:.9f} (plain {r_ref:.9f})",
+          flush=True)
+    if not rel_v <= tol or int(n_got) != int(n_ref) or not torch.equal(
+            n_got, nsub_t):
+        raise AssertionError(f"{tag} sed_vmax: rel {rel_v:.3e}, nsub "
+                             f"{int(n_got)} / {int(n_ref)} / {int(nsub_t)}")
+    cases = [("step", dt, nsub_t, ck["do_predict_nc"]),
+             ("step", dt, nsub_t, not ck["do_predict_nc"])]
+    if float(got_v) > 0.0:
+        dt3 = 3.5 * 0.9 * float(dz.min()) / float(got_v)
+        n3, r3 = _nsub(dt3, got_v, dz)
+        cases.append((f"dt {dt3:.3f} s (ratio {r3:.9f})", dt3, n3, False))
+    else:
+        print(f"[31] {tag}: no hydrometeor falls (vmax 0), so every dt "
+              "gives 1 sub-step", flush=True)
+    err_c = 0.0
+    for label, dt_, n_, pnc in cases:
+        args = (*fields, rho, temp, dz, dt_, n_, dtab)
+        ref = sed.columns_plain(*args, pnc, 1)
+        got = sed.sed_columns(*args, do_predict_nc=pnc)
+        torch.cuda.synchronize()
+        err, rel = _worst(zip(ref, got))
+        bit = all(torch.equal(a, b) for a, b in zip(ref, got))
+        err_c = max(err_c, err)
+        print(f"[31] {tag} sed_columns {label}, {int(n_)} sub-step(s), "
+              f"do_predict_nc {pnc}: max abs err {err:.3e}, rel {rel:.3e} "
+              f"(tol {tol:g}), bit for bit {bit}", flush=True)
+        if not rel <= tol:
+            raise AssertionError(f"{tag} sed_columns {label}: rel {rel:.3e}")
+        del ref, got
+    cells = fields[0].numel()
+    n = int(nsub_t)
+    recs = {}
+    for name, kern, plain, nbytes, ops in (
+            ("sed_vmax", lambda: sed.sed_vmax(*va, **vk),
+             lambda: sed.vmax_plain(*va, **vk),
+             _nbytes(fields, rho, temp) + got_v.element_size(),
+             RATES_SED_OPS["sed_vmax"] * cells),
+            ("sed_columns", lambda: sed.sed_columns(*ca, **ck),
+             lambda: sed.columns_plain(*ca, ck["do_predict_nc"], 1),
+             _nbytes(fields, rho, temp, dz) + _nbytes(fields)
+             + 2 * _nbytes(fields[0][:, 0]),
+             RATES_SED_OPS["sed_columns"] * cells * n)):
+        ms = _time_ms(kern)
+        pms = _time_ms(plain, reps=3)
+        bms, by = _bound(nbytes, ops, dtype)
+        print(f"[31] {tag} {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+              f"bound {bms:.3f} ms ({by}; {n} sub-step(s)), "
+              f"{bms / ms:.1%} of the bound", flush=True)
+        recs[name] = (ms, pms, bms, by)
+    return recs, max(err_v, err_c)
+
+
+def phase_p3_rates_sed():
+    """The two rates phases and the two sedimentation kernels against their
+    plain versions on what one step of each of _p3_step_chains hands them
+    at 512x512x64, f32 and f64; the records of the kernels line from the
+    early-storm f32 step (the main cell)."""
+    from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
+    for kernel in ("vmax", "columns"):
+        for dtype in (torch.float32, torch.float64):
+            b, t, sm = sed.launch_config(kernel, True, False, dtype,
+                                         512 * 512 * 64, 64)
+            print(f"[31] sed_{kernel} {_dtype_name(dtype)} launch: {b} "
+                  f"blocks of {t} threads, {sm} B shared per block (the "
+                  "staged ice columns and rain rows)", flush=True)
+    recs = {"p3_rates": {"max_abs_err": 0.0},
+            "p3_sedimentation": {"max_abs_err": 0.0}}
+    for chain, build in _p3_step_chains():
+        for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
+            tag = f"{chain} {dtype}"
+            seen = _p3_step_rates_sed(build, dtype)
+            main = chain == "early-storm" and dtype == "float32"
+            rates = [_rates_check(tag, ph, seen[ph][0], seen[ph][0][1][0].dtype,
+                                  tol) for ph in ("rates_pre", "rates_post")]
+            sed_recs, sed_err = _sed_check(tag, seen,
+                                           seen["sed_vmax"][0][0].dtype, tol)
+            if dtype == "float32":
+                r = recs["p3_rates"]
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       *(x[0] for x in rates))
+                s = recs["p3_sedimentation"]
+                s["max_abs_err"] = max(s["max_abs_err"], sed_err)
+            if main:
+                recs["p3_rates"].update(
+                    ms=sum(x[1] for x in rates),
+                    plain_ms=sum(x[2] for x in rates),
+                    bound_ms=sum(x[3] for x in rates), bound_by=rates[1][4])
+                recs["p3_sedimentation"].update(
+                    ms=sum(v[0] for v in sed_recs.values()),
+                    plain_ms=sum(v[1] for v in sed_recs.values()),
+                    bound_ms=sum(v[2] for v in sed_recs.values()),
+                    bound_by=sed_recs["sed_columns"][3])
+            del seen
+            torch.cuda.empty_cache()
+    return recs
 
 
 def _p3_active_build(cfg, device):
@@ -2506,12 +2758,17 @@ def phase_bench(card):
 def _dryrun_counts():
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
     from miniweatherml_tpu_torch.physics import p3_lookup_cuda as lk
+    from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
     return {**_spmd_counts(),
             **{k: (fn, "launches") for k, fn in (
                 ("interp_ice", lk.interp_ice),
                 ("interp_collect", lk.interp_collect),
                 ("interp_rain", lk.interp_rain), ("p3_part1", cw.p3_part1),
-                ("p3_update", cw.p3_update), ("p3_wrapper", cw.p3_wrapper))}}
+                ("p3_update", cw.p3_update), ("p3_wrapper", cw.p3_wrapper),
+                ("p3_rates_pre", cw.p3_rates_pre),
+                ("p3_rates_post", cw.p3_rates_post),
+                ("sed_vmax", sed.sed_vmax),
+                ("sed_columns", sed.sed_columns))}}
 
 
 def phase_dryrun(card):
@@ -2579,15 +2836,20 @@ def main() -> int:
     from miniweatherml_tpu_torch.experiments import supercell_p3
     k_lk = phase_p3_lookups()
     k_cw = phase_p3_cellwise()
+    k_rs = phase_p3_rates_sed()
     l_p3 = _run_cell("10", _bench_cfg(512, 512, 64, 10, "float32"), card,
                      chain="p3", build=supercell_p3.build)[0]
     _run_cell("11", _bench_cfg(512, 512, 64, 3, "float32"), card,
               chain="p3", build=_p3_active_build)
     small = _bench_cfg(128, 128, 64, 2, "float32")
-    print(f"[10] host synchronizations in one step at 128x128x64: P3 chain "
-          f"{_host_syncs(supercell_p3.build, small)}, all-active P3 "
-          f"{_host_syncs(_p3_active_build, small)}; Kessler chain "
-          f"{_host_syncs(supercell_example.build, small)}", flush=True)
+    syncs = {"P3 chain": _host_syncs(supercell_p3.build, small),
+             "all-active P3": _host_syncs(_p3_active_build, small),
+             "Kessler chain": _host_syncs(supercell_example.build, small)}
+    print(f"[10] host synchronizations in one step at 128x128x64: {syncs}",
+          flush=True)
+    if any(syncs.values()):
+        raise AssertionError(f"a chain step synchronized with the host: "
+                             f"{syncs}")
     phase_p3_references()
     phase_p3_heartbeat()
 
@@ -2657,6 +2919,20 @@ def main() -> int:
          "replaces": "miniweatherml_tpu/ops/elementwise.py:101",
          "launches": (l_p3["p3_part1"] + l_p3["p3_update"]
                       + l_p3["p3_wrapper"]), **k_cw},
+        # the P3 scheme's process rates and sedimentation, which XLA runs on
+        # the TPU (no Pallas kernels there)
+        {"name": "p3_rates", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/p3_cellwise.cu",
+         "replaces": "miniweatherml_tpu/physics/p3.py:853-1225 (an XLA "
+                     "fusion, not a Pallas kernel)",
+         "launches": l_p3["p3_rates_pre"] + l_p3["p3_rates_post"],
+         **k_rs["p3_rates"]},
+        {"name": "p3_sedimentation", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/p3_sed.cu",
+         "replaces": "miniweatherml_tpu/physics/p3.py:1268-1388 "
+                     "(lax.while_loop, not a Pallas kernel)",
+         "launches": l_p3["sed_vmax"] + l_p3["sed_columns"],
+         **k_rs["p3_sedimentation"]},
         {"name": "fct_scale_div", "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/fct.cu",
          "replaces": "miniweatherml_tpu/ops/pallas_recon.py:1084, "

@@ -29,109 +29,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "p3_index.cuh"
+#include "p3_math.cuh"
+
 namespace {
 
-constexpr double PI = 3.141592653589793;
-constexpr double R_D = 287.042, CP_D = 1004.64, R_V = 461.505, CP_V = 1859.0;
-constexpr double P0 = 1.0e5, CP_L = 4188.0, RHO_H2O = 1000.0;
-constexpr double LV = 2501000.0, LF = 333700.0, LS = LV + LF;
-constexpr double TMELT = 273.15, QSMALL = 1.0e-14, NSMALL = 1.0e-16;
-constexpr double NCCNST = 200.0e6, MAX_TOTAL_NI = 500.0e3;
-// (25e-6)**3 as the plain version's Python pow rounds it (one ulp from the
-// product of three factors)
-constexpr double R25_CUBED = 0x1.19799812dea12p-46;
-constexpr double CONS3 = 1.0 / (4.0 * PI / 3.0 * RHO_H2O * R25_CUBED);
-constexpr double CONS1 = PI / 6.0 * RHO_H2O;
-constexpr double EP_2 = 18.016 / 28.966;
-constexpr double MAGNUS_A = 17.625, MAGNUS_B = 243.04;
-constexpr double THIRD = 1.0 / 3.0;
 constexpr int THREADS = 128;
-
-__device__ __forceinline__ float texp(float a) { return expf(a); }
-__device__ __forceinline__ double texp(double a) { return exp(a); }
-__device__ __forceinline__ float tlog(float a) { return logf(a); }
-__device__ __forceinline__ double tlog(double a) { return log(a); }
-__device__ __forceinline__ float ttanh(float a) { return tanhf(a); }
-__device__ __forceinline__ double ttanh(double a) { return tanh(a); }
-__device__ __forceinline__ float tpow(float a, float b) { return powf(a, b); }
-__device__ __forceinline__ double tpow(double a, double b) { return pow(a, b); }
-__device__ __forceinline__ float tabs(float a) { return fabsf(a); }
-__device__ __forceinline__ double tabs(double a) { return fabs(a); }
-// NaN-propagating max / min / clamp, as torch.clamp and torch.maximum
-template <typename T> __device__ __forceinline__ T tmax(T a, T b) {
-  return (a != a || a > b) ? a : b;
-}
-template <typename T> __device__ __forceinline__ T tmin(T a, T b) {
-  return (a != a || a < b) ? a : b;
-}
-template <typename T> __device__ __forceinline__ T tclamp(T a, T lo, T hi) {
-  return tmin(tmax(a, lo), hi);
-}
-
-// -- saturation and helpers (plain: p3.py part A) --------------------------
-template <typename T> __device__ T magnus_svp(T temp) {
-  const T tc = temp - T(273.15);
-  return T(610.94) * texp(T(MAGNUS_A) * tc / (T(MAGNUS_B) + tc));
-}
-template <typename T> __device__ T magnus_dsvp_dT(T svp, T temp) {
-  const T tc = temp - T(273.15);
-  return svp * T(MAGNUS_A * MAGNUS_B) / ((T(MAGNUS_B) + tc) * (T(MAGNUS_B) + tc));
-}
-template <typename T> __device__ T mk_svp_liq(T t) {
-  const T logt = tlog(t);
-  return texp(T(54.842763) - T(6763.22) / t - T(4.210) * logt + T(0.000367) * t +
-              ttanh(T(0.0415) * (t - T(218.8))) *
-                  (T(53.878) - T(1331.22) / t - T(9.44523) * logt + T(0.014025) * t));
-}
-template <typename T> __device__ T mk_svp_ice(T t) {
-  if (!(t < T(TMELT))) return mk_svp_liq(t);
-  const T logt = tlog(t);
-  return texp(T(9.550426) - T(5723.265) / t + T(3.53068) * logt - T(0.00728332) * t);
-}
-template <typename T> __device__ T qv_sat_liq(T t, T pres) {
-  const T e = mk_svp_liq(t);
-  return T(EP_2) * e / tmax(pres - e, T(1.0e-3));
-}
-template <typename T> __device__ T qv_sat_ice(T t, T pres) {
-  const T e = mk_svp_ice(t);
-  return T(EP_2) * e / tmax(pres - e, T(1.0e-3));
-}
-template <typename T> __device__ T latent_heat_condensation(T temp) {
-  const T tc = temp - T(273.15);
-  return (T(2500.8) - T(2.36) * tc + T(0.0016) * tc * tc - T(0.00006) * tc * tc * tc) *
-         T(1000.0);
-}
-template <typename T> __device__ T cp_moist(T rho_d, T rho_v, T rho_c) {
-  const T rho = rho_d + rho_v + rho_c;
-  return (rho_d * T(CP_D) + rho_v * T(CP_V) + rho_c * T(CP_L)) / rho;
-}
-template <typename T> __device__ T cbrt_pos(T x) { return tpow(x, T(THIRD)); }
-template <typename T> __device__ T cap_ni(T ni, T inv_rho) {
-  const T dum = T(MAX_TOTAL_NI) * inv_rho / tmax(ni, T(1e-20));
-  return ni >= T(1e-20) ? ni * tmin(dum, T(1)) : ni;
-}
-template <typename T> __device__ T rain_dsd2_nr(T qr, T nr) {
-  const T nr1 = tmax(nr, T(NSMALL));
-  const T lamr = cbrt_pos(T(CONS1) * nr1 * T(24.0) / tmax(qr, T(QSMALL)));
-  const T lamr_cl = tclamp(lamr, T(1000.0), T(2.0e5));
-  const T nr_lim =
-      lamr != lamr_cl ? lamr_cl * lamr_cl * lamr_cl * qr / T(24.0 * CONS1) : nr1;
-  return qr >= T(QSMALL) ? nr_lim : nr;
-}
-template <typename T> __device__ T cloud_mu(T nc, T rho) {
-  const T s = T(0.0005714) * (nc * T(1.0e-6) * rho) + T(0.2714);
-  return tclamp(T(1) / (s * s) - T(1), T(2), T(15));
-}
-template <typename T> __device__ T cloud_dsd2_nc(T qc, T nc, T rho) {
-  const T nc1 = tmax(nc, T(NSMALL));
-  const T mu = cloud_mu(nc1, rho);
-  const T mval = (mu + T(3)) * (mu + T(2)) * (mu + T(1));
-  const T lamc = cbrt_pos(T(CONS1) * nc1 * mval / tmax(qc, T(QSMALL)));
-  const T lamc_cl = tclamp(lamc, (mu + T(1)) * T(2.5e4), (mu + T(1)) * T(1.0e6));
-  const T nc_lim =
-      lamc != lamc_cl ? lamc_cl * lamc_cl * lamc_cl * qc / (T(CONS1) * mval) : nc1;
-  return qc >= T(QSMALL) ? nc_lim : nc;
-}
 
 // compute_adjusted_state, guarded-Newton form (microphysics_p3.h:467-550)
 template <typename T>
@@ -190,9 +93,12 @@ __device__ void adjust_state(T rho, T rho_d, T& rho_v, T& rho_c, T& temp) {
 }
 
 // -- the three phases ------------------------------------------------------
+// A phase: NIN inputs and NOUT outputs of type T, NIOUT int32 outputs and
+// NFLAG presence flags (set where any cell of the field sets them).
 template <bool PNC> struct Part1 {
-  static constexpr int NIN = 13, NOUT = 21;
-  template <typename T> __device__ static void run(const T* in, T* out, T) {
+  static constexpr int NIN = 13, NOUT = 21, NIOUT = 0, NFLAG = 0;
+  template <typename T>
+  __device__ static void run(const T* in, T* out, int*, bool*, double) {
     T qc = in[0], nc = in[1], qr = in[2], nr = in[3], qi = in[4], ni = in[5];
     T qm = in[6], bm = in[7], qv = in[8], theta = in[9];
     const T exner = in[10], pres = in[11], rho = in[12];
@@ -248,8 +154,10 @@ template <bool PNC> struct Part1 {
 };
 
 template <bool PNC> struct Update {
-  static constexpr int NIN = 45, NOUT = 10;
-  template <typename T> __device__ static void run(const T* in, T* out, T dt) {
+  static constexpr int NIN = 45, NOUT = 10, NIOUT = 0, NFLAG = 0;
+  template <typename T>
+  __device__ static void run(const T* in, T* out, int*, bool*, double dt_) {
+    const T dt = T(dt_);
     T au = in[0], ac = in[1], qc_frz = in[2], nc_frz = in[3], qr_frz = in[4];
     T nr_frz = in[5], rim = in[6], shed = in[7];
     const T ncshdc = in[8];
@@ -396,8 +304,9 @@ template <bool PNC> struct Update {
 };
 
 struct Wrapper {
-  static constexpr int NIN = 13, NOUT = 14;
-  template <typename T> __device__ static void run(const T* in, T* out, T) {
+  static constexpr int NIN = 13, NOUT = 14, NIOUT = 0, NFLAG = 0;
+  template <typename T>
+  __device__ static void run(const T* in, T* out, int*, bool*, double) {
     const T rho_d = in[0];
     T temp = in[1], rho_c = in[2];
     const T rho_nc = in[3], rho_r = in[4], rho_nr = in[5], rho_i = in[6];
@@ -421,66 +330,285 @@ struct Wrapper {
   }
 };
 
+// The table tier's rates before the lookups (p3._p3_rates_pre_cellwise):
+// the rime re-bounds persisted to qm/bm, and the ice, collection and rain
+// size index sets; flags: any ice, any ice with rain, any rain.
+struct RatesPre {
+  static constexpr int NIN = 10, NOUT = 7, NIOUT = 5, NFLAG = 3;
+  template <typename T>
+  __device__ static void run(const T* in, T* out, int* iout, bool* flag, double) {
+    const T qi = in[0], qr = in[1], qm = in[2], bm = in[3], qi_in = in[4];
+    const T qm_in = in[5], bm_in = in[6], ni_in = in[7], qr_in = in[8];
+    const T nr_in = in[9];
+    T qm_reb = qm_in, bm_reb = bm_in;
+    const T rr = bulk_rho_rime(qi_in, qm_reb, bm_reb);
+    const bool has_qi = qi >= T(QSMALL), has_qr = qr >= T(QSMALL);
+    out[0] = has_qi ? qm_reb : qm;
+    out[1] = has_qi ? bm_reb : bm;
+    ice_table_indices(qi_in, tmax(ni_in, T(NSMALL)), qm_reb, rr, iout[0], out[2],
+                      iout[1], out[3], iout[2], out[4]);
+    rain_collection_index(qr_in, tmax(nr_in, T(NSMALL)), iout[3], out[5]);
+    rain_dm_index(qr_in, nr_in, iout[4], out[6]);
+    flag[0] = has_qi;
+    flag[1] = has_qi && has_qr;
+    flag[2] = has_qr;
+  }
+};
+
+// Every process rate of the table tier after the lookups
+// (p3._p3_rates_post_cellwise, with p3._p3_warm_ice_rates inlined): the
+// update's 25 rate inputs.
+struct RatesPost {
+  static constexpr int NIN = 30, NOUT = 25, NIOUT = 0, NFLAG = 0;
+  template <typename T>
+  __device__ static void run(const T* in, T* out, int*, bool*, double dt_) {
+    const T dt = T(dt_);
+    const T qc = in[0], nc = in[1], qr = in[2], qi = in[3], ni = in[4], qv = in[5];
+    const T temp = in[6], pres = in[7], rho = in[8], qc_in = in[9], qr_in = in[10];
+    const T qi_in = in[11], qm_in = in[12], bm_in = in[13], nc_in = in[14];
+    const T nr_in = in[15], ni_in = in[16], mu_cd = in[17], qv_prev = in[18];
+    const T t_prev = in[19], tab7 = in[20], tab8 = in[21], tab4 = in[22];
+    const T tab2 = in[23], tab3 = in[24], tab5 = in[25], tab10 = in[26];
+    const T coll2 = in[27], coll1 = in[28], revap_v = in[29];
+    const T inv_rho = T(1) / rho;
+
+    // -- the rates both tiers share (p3._p3_warm_ice_rates)
+    const T au = qc_in >= T(1.0e-8)
+                     ? T(1350.0) * tpow(tmax(qc_in, T(QSMALL)), T(2.47)) *
+                           tpow(tmax(nc_in * T(1.0e-6) * rho, T(NSMALL)), T(-1.79))
+                     : T(0);
+    const T ac = (qc >= T(QSMALL) && qr >= T(QSMALL))
+                     ? T(67.0) * tpow(tmax(qc_in * qr_in, T(1e-300)), T(1.15))
+                     : T(0);
+    const T dm_r =
+        cbrt_newton(tmax(qr_in, T(QSMALL)) / (T(PI * RHO_H2O) * tmax(nr_in, T(NSMALL))));
+    const T brk = dm_r < T(280.0e-6) ? T(1) : T(2.0) - texp(T(2300.0) * (dm_r - T(280.0e-6)));
+    const T nr_self = qr >= T(QSMALL) ? brk * T(5.78) * nr_in * qr_in * rho : T(0);
+    const T qsl = qv_sat_liq(temp, pres);
+    const T tc = temp - T(TMELT);
+    const T qv_si = qv_sat_ice(temp, pres);
+    const T sup_i = qv / tmax(qv_si, T(QSMALL)) - T(1);
+    // Cooper nucleation
+    const T n_coop = tmin(T(0.005) * texp(T(0.304) * tmax(-tc, T(0))) * T(1.0e3) * inv_rho,
+                          T(100.0e3) * inv_rho);
+    const T n_nuc = tmax(n_coop - ni, T(0)) / dt;
+    const bool nucleate = tc < T(-15.0) && sup_i >= T(0.05) && n_nuc >= T(1.0e-20);
+    const T qinuc = nucleate ? n_nuc * T(4.0 * PI / 3.0 * 900.0 * 1.0e-18) : T(0);
+    const T ninuc = nucleate ? n_nuc : T(0);
+    // Bigg immersion freezing
+    constexpr double CONS5 = PI / 6.0 * 2.0;
+    constexpr double CONS6 = (PI / 6.0) * (PI / 6.0) * RHO_H2O * 2.0;
+    const T dum1_frz = texp(T(0.65) * tmin(-tc, T(40.0)));
+    const T lamc_frz = cloud_lamc(qc_in, nc, mu_cd);
+    const T cdist1_c = tmax(nc_in, T(NSMALL)) * texp(-tlgamma(mu_cd + T(1)));
+    const T l2c = lamc_frz * lamc_frz;
+    const bool frz_c = qc >= T(QSMALL) && tc <= T(-4.0);
+    const T qc_frz = frz_c ? T(CONS6) * cdist1_c * texp(tlgamma(mu_cd + T(7))) * dum1_frz /
+                                 (l2c * (l2c * l2c))
+                           : T(0);
+    const T nc_frz = frz_c ? T(CONS5) * cdist1_c * texp(tlgamma(mu_cd + T(4))) * dum1_frz /
+                                 (lamc_frz * l2c)
+                           : T(0);
+    const T lamr = cbrt_newton(T(PI / 6.0 * RHO_H2O * 24.0) * tmax(nr_in, T(NSMALL)) /
+                               tmax(qr_in, T(QSMALL)));
+    const T l2r = lamr * lamr;
+    const bool frz_r = qr >= T(QSMALL) && tc <= T(-4.0);
+    const T qr_frz = frz_r ? T(CONS6) * tmax(nr_in, T(NSMALL)) * T(5040.0) * dum1_frz /
+                                 (l2r * (l2r * l2r))
+                           : T(0);
+    const T nr_frz =
+        frz_r ? T(CONS5) * tmax(nr_in, T(NSMALL)) * T(24.0) * dum1_frz / (lamr * l2r) : T(0);
+
+    // -- the table tier
+    const T mu_v = mu_visc(temp);
+    const T acn = stokes_acn(mu_v);
+    T qm_reb = qm_in, bm_reb = bm_in;
+    bulk_rho_rime(qi_in, qm_reb, bm_reb);
+    const bool has_qi = qi >= T(QSMALL);
+    T ni_t = tmax(ni_in, T(NSMALL));
+    ni_t = tmin(ni_t, tab7 * ni_t);
+    ni_t = tmax(ni_t, tab8 * ni_t);
+    const T ni_rate = has_qi ? ni_t : ni_in;
+    const T rhofaci = tpow(T(RHO_600MB) * inv_rho, T(0.54));
+    const T collect_qc = rhofaci * tab4 * qc_in * T(0.5) * rho * ni_rate;
+    const bool both_ic = has_qi && qc >= T(QSMALL);
+    T rim = (both_ic && tc < T(0)) ? collect_qc : T(0);
+    T shed = (both_ic && tc > T(0)) ? collect_qc : T(0);
+    const T ncshdc = shed * T(1.0 / 5.2e-7);
+    const T vi_table = rhofaci * tab2;
+    T lamc_r;
+    const T vt_qc = cloud_vt(qc_in, nc_in, rho, acn, lamc_r);
+    const T d_c = (mu_cd + T(4)) / lamc_r;
+    const T i_tc = T(1) / tmin(tc, T(-0.001));
+    const T ri = tclamp(T(-0.5e6) * d_c * tabs(vi_table - vt_qc) * i_tc, T(1), T(12));
+    T rho_rime = ri <= T(8) ? (T(0.051) + T(0.114) * ri - T(0.0055) * ri * ri) * T(1000.0)
+                            : T(611.0) + T(72.25) * (ri - T(8));
+    if (!(rim >= T(QSMALL) && qc >= T(QSMALL))) rho_rime = T(400.0);
+    const T n0r = tmax(nr_in, T(NSMALL)) * lamr * lamr;
+    const bool both_ir = has_qi && qr >= T(QSMALL);
+    T qrcol = (both_ir && tc <= T(0)) ? coll2 * n0r * rho * rhofaci * ni_rate : T(0);
+    const T nr_col = both_ir ? coll1 * n0r * rho * rhofaci * ni_rate : T(0);
+    const T dv_diff = T(8.794e-5) * tpow(temp, T(1.81)) / pres;
+    const T sc_n = mu_v / (rho * dv_diff);
+    const T kap = T(1.414e3) * mu_v;
+    const T eii =
+        tclamp(T(0.001) + (temp - T(253.15)) * T(0.3 - 0.001) / T(20.0), T(0.001), T(0.3));
+    const T fr = qm_reb / tmax(qi_in, T(QSMALL));
+    const T eii_fact = tclamp(T(1) - (fr - T(0.6)) / T(0.3), T(0), T(1));
+    const T ni_self =
+        has_qi ? tab3 * rho * eii * eii_fact * rhofaci * ni_rate * ni_rate : T(0);
+    const T cbrt_sc = cbrt_newton(sc_n);
+    const T vent = tab5 + tab10 * cbrt_sc * tsqrt(rhofaci * rho / mu_v);
+    const T qsat0 = qv_sat_liq(T(TMELT), pres);
+    const T melt =
+        (has_qi && tc > T(0))
+            ? tmax(vent * (tc * kap - rho * T(LV) * dv_diff * (qsat0 - qv)) * T(2.0) * T(PI) /
+                       T(LF) * ni_rate,
+                   T(0))
+            : T(0);
+    const T epsi = (has_qi && tc < T(0)) ? vent * T(2.0) * T(PI) * rho * dv_diff * ni_rate : T(0);
+    const T dqsidt = T(LS) * qv_si / (T(R_V) * temp * temp);
+    const T abi = T(1) + dqsidt * T(LS) / T(CP_D);
+    const T qi_tend = tmin(epsi / abi, T(1.0 / dt_)) * (qv - qv_si);
+    const T dep = tc < T(0) ? tmax(qi_tend, T(0)) : T(0);
+    const T sub = tmax(-qi_tend, T(0));
+    const T berg = (has_qi && tc < T(0)) ? tmax(epsi / abi * (qsl - qv_si), T(0)) : T(0);
+    const T epsr = T(2.0 * PI) * tmax(nr_in, T(NSMALL)) * rho * dv_diff *
+                   (T(1) / lamr * T(0.78 * 2.0) + T(0.32) * tsqrt(rho / mu_v) * cbrt_sc * revap_v);
+    // wet growth
+    const bool cold_mix = has_qi && (qc_in + qr_in >= T(1.0e-6)) && tc < T(0);
+    const T qwgrth = cold_mix ? tmax(vent * T(2.0) * T(PI) *
+                                         (rho * T(LV) * dv_diff * (qsat0 - qv) - tc * kap) /
+                                         (T(CP_L) * tc + T(LF)) * ni_rate,
+                                     T(0))
+                              : T(INFINITY);
+    T excess = tmax(rim + qrcol - qwgrth, T(0));
+    if (!(excess >= T(1.0e-10))) excess = T(0);
+    const bool log_wg = cold_mix && excess >= T(1.0e-10);
+    const T tot_col = tmax(rim + qrcol, T(1e-30));
+    const T wg_frac = rim + qrcol >= T(1.0e-10) ? excess / tot_col : T(0);
+    shed = shed + excess * (rim / tot_col);
+    rim = rim * (T(1) - wg_frac);
+    qrcol = qrcol * (T(1) - wg_frac);
+    const T nr_shed_wg = excess * T(1.923e6);
+    // rain evaporation with the qv_prev / t_prev history
+    const T dqsldt = T(LV) * qsl / (T(R_V) * temp * temp);
+    const T abl = T(1) + dqsldt * T(LV) / T(CP_D);
+    const T ssat_r = qv - qsl;
+    const bool below = tc < T(0);
+    const T eps_eff = tmax(below ? epsr + epsi * (T(1) + T(LS / CP_D) * dqsldt) / abi : epsr,
+                           T(1.0e-20));
+    const T tau_eff = T(1) / eps_eff;
+    const T A_c = (qv - qv_prev) / dt - dqsldt * (temp - t_prev) / dt -
+                  (below ? (qsl - qv_si) * (T(1) + T(LS / CP_D) * dqsldt) / abi * epsi : T(0));
+    const T tau_r = T(1) / tmax(epsr, T(1.0e-20));
+    const T dtau = T(1) / tau_eff * dt;
+    const T w_ts = -texpm1(-dtau) / dtau;
+    const T instant = -ssat_r / (abl * tau_r);
+    const T equilib = -A_c / abl * tau_eff / tau_r;
+    const T ev_big = instant * w_ts + equilib * (T(1) - w_ts);
+    T ev = (qr_in < T(1.0e-12) && qv / tmax(qsl, T(QSMALL)) < T(0.999)) ? qr_in / dt : ev_big;
+    ev = tmin(ev, -ssat_r / dt / abl);
+    ev = tmin(tmax(ev, T(0)), qr_in / dt);
+    if (!(qc_in + qi_in < T(1.0e-6) && ssat_r < T(0) && qr >= T(QSMALL))) ev = T(0);
+
+    out[0] = au; out[1] = ac; out[2] = qc_frz; out[3] = nc_frz; out[4] = qr_frz;
+    out[5] = nr_frz; out[6] = rim; out[7] = shed; out[8] = ncshdc; out[9] = berg;
+    out[10] = dep; out[11] = sub; out[12] = ev; out[13] = melt; out[14] = qinuc;
+    out[15] = ninuc; out[16] = qrcol; out[17] = nr_col; out[18] = nr_self;
+    out[19] = ni_self; out[20] = nr_shed_wg; out[21] = rho_rime;
+    out[22] = log_wg ? T(1) : T(0); out[23] = ni_rate; out[24] = qv_si;
+  }
+};
+
 // -- the executor ------------------------------------------------------------
-template <int NIN, int NOUT> struct Ptrs {
-  const void* in[NIN];
-  void* out[NOUT];
+template <class Phase> struct Ptrs {
+  const void* in[Phase::NIN];
+  void* out[Phase::NOUT];
+  int* iout[Phase::NIOUT > 0 ? Phase::NIOUT : 1];
+  bool* flags;  // Phase::NFLAG values, zeroed by the caller
 };
 
 template <class Phase, typename T>
 __global__ void __launch_bounds__(THREADS)
-    cellwise(const Ptrs<Phase::NIN, Phase::NOUT> p, int64_t n, T dt) {
+    cellwise(const Ptrs<Phase> p, int64_t n, double dt) {
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n) return;
-  T in[Phase::NIN], out[Phase::NOUT];
+  bool flag[Phase::NFLAG > 0 ? Phase::NFLAG : 1] = {};
+  if (c < n) {
+    T in[Phase::NIN], out[Phase::NOUT];
+    int iout[Phase::NIOUT > 0 ? Phase::NIOUT : 1];
 #pragma unroll
-  for (int k = 0; k < Phase::NIN; ++k) in[k] = __ldg(static_cast<const T*>(p.in[k]) + c);
-  Phase::run(in, out, dt);
+    for (int k = 0; k < Phase::NIN; ++k) in[k] = __ldg(static_cast<const T*>(p.in[k]) + c);
+    Phase::run(in, out, iout, flag, dt);
 #pragma unroll
-  for (int k = 0; k < Phase::NOUT; ++k) static_cast<T*>(p.out[k])[c] = out[k];
+    for (int k = 0; k < Phase::NOUT; ++k) static_cast<T*>(p.out[k])[c] = out[k];
+#pragma unroll
+    for (int k = 0; k < Phase::NIOUT; ++k) p.iout[k][c] = iout[k];
+  }
+  // a flag is set once per warp that sets it (every lane reaches here)
+#pragma unroll
+  for (int k = 0; k < Phase::NFLAG; ++k)
+    if (__any_sync(0xffffffffu, flag[k]) && (threadIdx.x & 31) == 0) p.flags[k] = true;
 }
 
 template <class Phase, typename T>
 int launch_phase(const void* const* in, int nin, void* const* out, int nout,
-                 long long n, double dt, void* stream) {
-  if (nin != Phase::NIN || nout != Phase::NOUT || n < 0) return cudaErrorInvalidValue;
+                 void* const* iout, int niout, void* flags, int nflags, long long n,
+                 double dt, void* stream) {
+  if (nin != Phase::NIN || nout != Phase::NOUT || niout != Phase::NIOUT ||
+      nflags != Phase::NFLAG || n < 0)
+    return cudaErrorInvalidValue;
   const long long blocks = (n + THREADS - 1) / THREADS;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  Ptrs<Phase::NIN, Phase::NOUT> p;
+  Ptrs<Phase> p;
   for (int k = 0; k < Phase::NIN; ++k) p.in[k] = in[k];
   for (int k = 0; k < Phase::NOUT; ++k) p.out[k] = out[k];
+  for (int k = 0; k < Phase::NIOUT; ++k) p.iout[k] = static_cast<int*>(iout[k]);
+  p.flags = static_cast<bool*>(flags);
   cellwise<Phase, T><<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, (int64_t)n, T(dt));
+      p, (int64_t)n, dt);
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int phase, const void* const* in, int nin, void* const* out, int nout,
-             long long n, double dt, void* stream) {
+             void* const* iout, int niout, void* flags, int nflags, long long n,
+             double dt, void* stream) {
+#define P3_PHASE(P) \
+  launch_phase<P, T>(in, nin, out, nout, iout, niout, flags, nflags, n, dt, stream)
   switch (phase) {
-    case 0: return launch_phase<Part1<false>, T>(in, nin, out, nout, n, dt, stream);
-    case 1: return launch_phase<Part1<true>, T>(in, nin, out, nout, n, dt, stream);
-    case 2: return launch_phase<Update<false>, T>(in, nin, out, nout, n, dt, stream);
-    case 3: return launch_phase<Update<true>, T>(in, nin, out, nout, n, dt, stream);
-    case 4: return launch_phase<Wrapper, T>(in, nin, out, nout, n, dt, stream);
+    case 0: return P3_PHASE(Part1<false>);
+    case 1: return P3_PHASE(Part1<true>);
+    case 2: return P3_PHASE(Update<false>);
+    case 3: return P3_PHASE(Update<true>);
+    case 4: return P3_PHASE(Wrapper);
+    case 5: return P3_PHASE(RatesPre);
+    case 6: return P3_PHASE(RatesPost);
     default: return cudaErrorInvalidValue;
   }
+#undef P3_PHASE
 }
 
 }  // namespace
 
 extern "C" {
 
-// phase: 0/1 part1 (prescribed / predicted nc), 2/3 update (same), 4 wrapper
+// phase: 0/1 part1 (prescribed / predicted nc), 2/3 update (same), 4
+// wrapper, 5 rates_pre, 6 rates_post; iout: the int32 outputs, flags: the
+// phase's presence flags (zeroed by the caller; null when it has none)
 int p3_cellwise_f32(int phase, const void* const* in, int nin, void* const* out,
-                    int nout, long long n, double dt, void* stream) {
-  return dispatch<float>(phase, in, nin, out, nout, n, dt, stream);
+                    int nout, void* const* iout, int niout, void* flags, int nflags,
+                    long long n, double dt, void* stream) {
+  return dispatch<float>(phase, in, nin, out, nout, iout, niout, flags, nflags, n, dt,
+                         stream);
 }
 
 int p3_cellwise_f64(int phase, const void* const* in, int nin, void* const* out,
-                    int nout, long long n, double dt, void* stream) {
-  return dispatch<double>(phase, in, nin, out, nout, n, dt, stream);
+                    int nout, void* const* iout, int niout, void* flags, int nflags,
+                    long long n, double dt, void* stream) {
+  return dispatch<double>(phase, in, nin, out, nout, iout, niout, flags, nflags, n, dt,
+                          stream);
 }
 
 const char* p3_cellwise_error_string(int err) {

@@ -62,15 +62,17 @@
 // values bit for bit.  `present` (a device bool, may be null) is the
 // presence gate: when it is false the kernel writes zeros and reads no
 // table.  Indices are clamped into the table so that no index can fault
-// (the index finders never produce one outside it).
+// (the index finders never produce one outside it).  The ice and rain
+// interpolations and the table staging are p3_interp.cuh's, which the
+// sedimentation kernels (p3_sed.cu) call inline too.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "p3_interp.cuh"
+
 namespace {
 
-constexpr int ISIZE = 50, RIMSIZE = 4, DENSIZE = 5, RCOLLSIZE = 30;
-constexpr int BLOCKS = DENSIZE * RIMSIZE;  // (jj, ii) blocks of a table
 constexpr int ICE_THREADS = 512, ICE_PER_SM = 2, RAIN_THREADS = 256;
 // Threads per block of the collection kernel (one block per SM): a thread
 // holds 16 vectors of corner loads and the next cell's inputs (at most 96
@@ -81,86 +83,8 @@ template <typename T> __host__ __device__ constexpr int collect_threads() {
 // A block's shared memory on sm_90 (227 KB): the largest ice table staged.
 constexpr int SMEM_MAX = 232448;
 
-// The vector of W values of type T that a thread loads at once: W is K
-// rounded up to a power of two, at most 16 bytes.
-template <typename T, int W> struct VecOf;
-template <> struct VecOf<float, 1> { using V = float; };
-template <> struct VecOf<float, 2> { using V = float2; };
-template <> struct VecOf<float, 4> { using V = float4; };
-template <> struct VecOf<double, 1> { using V = double; };
-template <> struct VecOf<double, 2> { using V = double2; };
-
-__device__ __forceinline__ float elem(float v, int) { return v; }
-__device__ __forceinline__ float elem(const float2& v, int e) {
-  return e == 0 ? v.x : v.y;
-}
-__device__ __forceinline__ float elem(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ double elem(double v, int) { return v; }
-__device__ __forceinline__ double elem(const double2& v, int e) {
-  return e == 0 ? v.x : v.y;
-}
-
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float pow10(float v) { return powf(10.0f, v); }
 __device__ __forceinline__ double pow10(double v) { return pow(10.0, v); }
-
-// a + f (b - a), each operation rounded on its own (the plain version's lerp)
-template <typename T>
-__device__ __forceinline__ T lerp(T a, T b, T f) { return add(a, mul(f, sub(b, a))); }
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-__host__ __device__ constexpr int round_up(int a, int b) {
-  return (a + b - 1) / b * b;
-}
-
-// The packed tables (p3_lookup_cuda.py mirrors these): an entry holds the K
-// columns of one table point, kp = round_up(K, W) values; ice entries are
-// es values apart, kp rounded up to an odd number of vectors, and an ice
-// (jj, ii) block holds ISIZE entries and W values of skew; the collection
-// table holds its entries in a row.
-template <typename T>
-int vec_width(int K) {
-  int w = 1;
-  while (w < K && w * (int)sizeof(T) < 16) w *= 2;
-  return w;
-}
-__host__ __device__ constexpr int ice_entry(int kp, int W) {
-  return kp / W % 2 ? kp : kp + W;
-}
-__host__ __device__ constexpr int ice_block(int kp, int W) {
-  return ISIZE * ice_entry(kp, W) + W;
-}
-
-// Bytes of shared memory the ice kernel stages for K columns.
-template <typename T>
-size_t ice_smem_bytes(int K) {
-  const int W = vec_width<T>(K);
-  return (size_t)BLOCKS * ice_block(round_up(K, W), W) * sizeof(T);
-}
-
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src) : "memory");
-}
-
-// The block copies `bytes` (a multiple of 16) from src to shared memory.
-__device__ void stage(unsigned char* smem, const void* src, size_t bytes) {
-  for (size_t v = threadIdx.x; v < bytes / 16; v += blockDim.x)
-    copy16(smem + 16 * v, static_cast<const unsigned char*>(src) + 16 * v);
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-}
 
 // Zeros for K planes of n cells, thread `first` of `stride`: 16 bytes a
 // store where every plane starts 16-byte aligned, else one value a store.
@@ -207,7 +131,6 @@ ice_kernel(const T* __restrict__ packed, int K,
            const int* __restrict__ ii0p, const T* __restrict__ fiip,
            const int* __restrict__ jj0p, const T* __restrict__ fjjp,
            const bool* __restrict__ present, T* __restrict__ out, int64_t n) {
-  using V = typename VecOf<T, W>::V;
   const int64_t first = (int64_t)blockIdx.x * ICE_THREADS + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * ICE_THREADS;
   if (present && !*present) {
@@ -226,30 +149,15 @@ ice_kernel(const T* __restrict__ packed, int K,
   for (int64_t c = first; c < n; c += stride) {
     const Cell<T, 3> cell = next;
     if (c + stride < n) next = load_cell(idx, frac, c + stride);
-    const int i0 = clampi(cell.idx[0], 0, ISIZE - 2);
-    const int ii0 = clampi(cell.idx[1], 0, RIMSIZE - 2);
-    const int jj0 = clampi(cell.idx[2], 0, DENSIZE - 2);
+    int i0 = cell.idx[0], ii0 = cell.idx[1], jj0 = cell.idx[2];
+    clamp_ice_index(i0, ii0, jj0);
     const T fi = cell.frac[0], fii = cell.frac[1], fjj = cell.frac[2];
     for (int k0 = 0; k0 < K; k0 += W) {
-      T lii[2][W];  // (jj0 + a)'s value of columns k0 ... k0 + W - 1
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        // corner s = (ii - ii0) * 2 + (i - i0) of block (jj0 + a, ii)
-        V v[4];
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-          v[s] = *reinterpret_cast<const V*>(
-              tab + ((jj0 + a) * RIMSIZE + ii0 + (s >> 1)) * bs +
-              (i0 + (s & 1)) * es + k0);
-#pragma unroll
-        for (int e = 0; e < W; ++e)
-          lii[a][e] = lerp(lerp(elem(v[0], e), elem(v[1], e), fi),
-                           lerp(elem(v[2], e), elem(v[3], e), fi), fii);
-      }
+      T v[W];
+      ice_interp<T, W>(tab, bs, es, i0, ii0, jj0, fi, fii, fjj, k0, v);
 #pragma unroll
       for (int e = 0; e < W; ++e)
-        if (k0 + e < K)
-          out[(k0 + e) * n + c] = lerp(lii[0][e], lii[1][e], fjj);
+        if (k0 + e < K) out[(k0 + e) * n + c] = v[e];
     }
   }
 }
@@ -329,12 +237,10 @@ rain_kernel(const T* __restrict__ rows, int K, int size,
     for (int k = 0; k < K; ++k) out[k * n + c] = T(0);
     return;
   }
-  const int i0 = clampi(i0p[c], 0, size - 2);
+  const int i0 = i0p[c];
   const T fi = fip[c];
-  for (int k = 0; k < K; ++k) {
-    const T* row = rows + (int64_t)k * size + i0;
-    out[k * n + c] = lerp(__ldg(row), __ldg(row + 1), fi);
-  }
+  for (int k = 0; k < K; ++k)
+    out[k * n + c] = rain_interp(rows + (int64_t)k * size, size, i0, fi);
 }
 
 int blocks_for(long long n, int per_block, unsigned* blocks) {
@@ -376,10 +282,10 @@ using CollectKernel = void (*)(const T*, int, const int*, const T*,
 template <typename T>
 int ice_config(int K, long long n, IceKernel<T>* kernel, size_t* smem,
                unsigned* blocks) {
-  if (K < 1 || ice_smem_bytes<T>(K) > (size_t)SMEM_MAX)
+  if (K < 1 || ice_table_bytes<T>(K) > (size_t)SMEM_MAX)
     return cudaErrorInvalidValue;
   if (int e = blocks_for(n, ICE_THREADS, blocks)) return e;
-  *smem = ice_smem_bytes<T>(K);
+  *smem = ice_table_bytes<T>(K);
   const int W = vec_width<T>(K);
   if constexpr (sizeof(T) == 4)
     *kernel = W == 1 ? ice_kernel<T, 1>

@@ -6,15 +6,20 @@ micro_p3.F90): the whole scheme as vectorized PyTorch over every column at
 once.  The process list, tiers and reference citations are those of the JAX
 module's docstring; this module keeps its structure and names.
 
-Execution: the three long per-cell phases (part1 + in-cloud values, the
-conservation/update pass, and the wrapper's inputs with the saturation
-Newton) are plain functions here and run through ``p3_cellwise_cuda``, which
-launches one fused CUDA kernel per phase on CUDA tensors.  Table lookups go
-through ``p3_tables.interp_*_multi`` (CUDA kernels on CUDA tensors).  The
-presence gates the JAX package wrote as ``lax.cond(jnp.any(...))`` are 0-d
-device booleans the lookups read; no gate reads the device from the host.
-Sedimentation sub-cycles in a Python loop whose count ``nsub`` is read once
-per call: the one host sync of a P3 step.
+Execution: the long per-cell phases (part1 + in-cloud values, the table
+tier's rates before and after the lookups, the conservation/update pass,
+and the wrapper's inputs with the saturation Newton) are plain functions
+here and run through ``p3_cellwise_cuda``, which launches one fused CUDA
+kernel per phase on CUDA tensors.  Table lookups go through
+``p3_tables.interp_*_multi`` (CUDA kernels on CUDA tensors).  The presence
+gates the JAX package wrote as ``lax.cond(jnp.any(...))`` are 0-d device
+booleans the lookups read (the rates_pre phase sets them); no gate reads
+the device from the host.  Sedimentation runs through ``p3_sed_cuda``: on
+CUDA tensors one kernel takes the fastest fall speed and one runs the whole
+sub-cycle loop per column with the count ``nsub`` read on the device (the
+JAX package's ``lax.while_loop``), so a P3 step makes no host read; its
+plain version loops in Python over ``nsub`` read to the host.  The
+[approx] tier's rates, freezing and part3 are plain tensor code.
 
 Every division of a tensor by a number (or of a number by a tensor) in the
 per-cell phases goes through ``_div``: PyTorch would multiply by a
@@ -552,6 +557,427 @@ def _p3_wrapper_inputs_cellwise(rho_d, temp, rho_c, rho_nc, rho_r, rho_nr,
             qv_prev, t_prev)
 
 
+def _mu_visc(temp):
+    """Dynamic viscosity of air (micro_p3.F90:3564)."""
+    return 1.496e-6 * temp ** 1.5 / (temp + 120.0)
+
+
+def _cloud_lamc(qc_, nc_, mu_):
+    """get_cloud_dsd2's clipped lambda for a given mu_c."""
+    lamc = _cbrt_pos(_CONS1 * _max(nc_, NSMALL) * (mu_ + 3.0)
+                     * (mu_ + 2.0) * (mu_ + 1.0) / _max(qc_, QSMALL))
+    return torch.clamp(lamc, (mu_ + 1.0) * 2.5e4, (mu_ + 1.0) * 1.0e6)
+
+
+def _cloud_vt(qc_, nc_, rho, acn):
+    """(V_qc, lamc, mu_c) of the current (qc, nc): the Stokes mass-weighted
+    droplet fall speed (cloud_sedimentation, micro_p3.F90:3685-3688, bcn =
+    2; acn at :3613)."""
+    mu_ = _cloud_mu(nc_, rho)
+    lamc = _cloud_lamc(qc_, nc_, mu_)
+    v = acn * torch.exp(torch.lgamma(mu_ + 6.0)
+                        - torch.lgamma(mu_ + 4.0)) / (lamc * lamc)
+    return _where0(qc_ >= QSMALL, v), lamc, mu_
+
+
+def _stokes_acn(mu_visc):
+    """The Stokes fall-speed coefficient acn (micro_p3.F90:3613)."""
+    return 9.80616 * RHO_H2O / (18.0 * mu_visc)
+
+
+_RHO_600MB = 60000.0 / (287.042 * 253.15)
+_RHO_1000MB = 100000.0 / (287.042 * 273.15)
+
+
+def _p3_warm_ice_rates(dt, qc, nc, qr, ni, qv, temp, pres, rho, inv_rho,
+                       qc_in, qr_in, nc_in, nr_in, mu_cd):
+    """The rates both tiers share: warm rain (KK2000 autoconversion and
+    accretion, rain self-collection), saturation, Cooper nucleation and
+    Bigg immersion freezing (micro_p3.F90:2504-2618).  Returns (au, ac,
+    nr_self, qsl, tc, qv_si, sup_i, qinuc, ninuc, qc_frz, nc_frz, qr_frz,
+    nr_frz)."""
+    pi = math.pi
+    au = _where0(qc_in >= 1.0e-8,
+                 1350.0 * _max(qc_in, QSMALL) ** 2.47
+                 * _max(nc_in * 1.0e-6 * rho, NSMALL) ** (-1.79))
+    both = (qc >= QSMALL) & (qr >= QSMALL)
+    ac = _where0(both, 67.0 * _max(qc_in * qr_in, 1e-300) ** 1.15)
+    dm_r = cbrt(_max(qr_in, QSMALL) / (pi * RHO_H2O * _max(nr_in, NSMALL)))
+    brk = torch.where(dm_r < 280.0e-6, 1.0,
+                      2.0 - torch.exp(2300.0 * (dm_r - 280.0e-6)))
+    nr_self = _where0(qr >= QSMALL, brk * 5.78 * nr_in * qr_in * rho)
+
+    qsl = p3_qv_sat_liq(temp, pres)
+    tc = temp - TMELT
+    qv_si = p3_qv_sat_ice(temp, pres)
+    sup_i = qv / _max(qv_si, QSMALL) - 1.0
+
+    # ice nucleation, Cooper 1986 (ice_nucleation, micro_p3.F90:2576-2618)
+    mi0 = 4.0 * pi / 3.0 * 900.0 * 1.0e-18
+    n_coop = torch.minimum(
+        0.005 * torch.exp(0.304 * _max(-tc, 0.0)) * 1.0e3 * inv_rho,
+        100.0e3 * inv_rho)
+    n_nuc = _div(_max(n_coop - ni, 0.0), dt)
+    nucleate = (tc < -15.0) & (sup_i >= 0.05) & (n_nuc >= 1.0e-20)
+    qinuc = _where0(nucleate, n_nuc * mi0)
+    ninuc = _where0(nucleate, n_nuc)
+
+    # immersion freezing of cloud and rain, Bigg 1953 (:2504-2573)
+    aimm, bimm = 0.65, 2.0
+    cons5 = pi / 6.0 * bimm
+    cons6 = (pi / 6.0) ** 2 * RHO_H2O * bimm
+    dum1_frz = torch.exp(aimm * _min(-tc, 40.0))
+    frz_gate_c = (qc >= QSMALL) & (tc <= -4.0)
+    lamc_frz = _cloud_lamc(qc_in, nc, mu_cd)
+    cdist1_c = _max(nc_in, NSMALL) * torch.exp(-torch.lgamma(mu_cd + 1.0))
+    l2 = lamc_frz * lamc_frz
+    qc_frz = _where0(frz_gate_c, cons6 * cdist1_c
+                     * torch.exp(torch.lgamma(7.0 + mu_cd)) * dum1_frz
+                     / (l2 * (l2 * l2)))
+    nc_frz = _where0(frz_gate_c, cons5 * cdist1_c
+                     * torch.exp(torch.lgamma(4.0 + mu_cd)) * dum1_frz
+                     / (lamc_frz * l2))
+    frz_gate_r = (qr >= QSMALL) & (tc <= -4.0)
+    lamr_frz = cbrt(pi / 6.0 * RHO_H2O * 24.0 * _max(nr_in, NSMALL)
+                    / _max(qr_in, QSMALL))
+    l2 = lamr_frz * lamr_frz
+    qr_frz = _where0(frz_gate_r, cons6 * _max(nr_in, NSMALL) * 5040.0
+                     * dum1_frz / (l2 * (l2 * l2)))
+    nr_frz = _where0(frz_gate_r, cons5 * _max(nr_in, NSMALL) * 24.0
+                     * dum1_frz / (lamr_frz * l2))
+    return (au, ac, nr_self, qsl, tc, qv_si, sup_i, qinuc, ninuc, qc_frz,
+            nc_frz, qr_frz, nr_frz)
+
+
+def _p3_rates_pre_cellwise(qi, qr, qm, bm, qi_in, qm_in, bm_in, ni_in, qr_in,
+                           nr_in):
+    """What the table tier's lookups need, per cell: calc_bulkRhoRime's
+    re-bounds of the in-cloud rime, persisted to qm/bm where there is ice
+    (micro_p3.F90:1897-1943, :633), and the three index sets -- ice
+    (find_lookupTable_indices_1a), ice-rain collection (_1b) and rain size
+    (_3).  The plain version of the ``rates_pre`` phase of
+    ``csrc/p3_cellwise.cu``.  Returns (qm, bm, i0, fi, ii0, fii, jj0, fjj,
+    j0, fj, i0r, fir, present): indices int32, and ``present`` a (3,) bool
+    tensor -- any ice, any ice with rain, any rain -- the lookups' presence
+    gates."""
+    qm_reb, bm_reb, rho_rime_raw = _bulk_rho_rime(qi_in, qm_in, bm_in)
+    has_qi = qi >= QSMALL
+    has_qr = qr >= QSMALL
+    qm = torch.where(has_qi, qm_reb, qm)
+    bm = torch.where(has_qi, bm_reb, bm)
+    idx = ice_table_indices(qi_in, _max(ni_in, NSMALL), qm_reb, rho_rime_raw)
+    j0, fj = rain_collection_index(qr_in, _max(nr_in, NSMALL))
+    lamr = cbrt(math.pi / 6.0 * RHO_H2O * 24.0 * _max(nr_in, NSMALL)
+                / _max(qr_in, QSMALL))
+    i0r, fir = rain_size_index((MU_R + 1.0) / lamr)
+    present = torch.stack([has_qi.any(), (has_qi & has_qr).any(),
+                           has_qr.any()])
+    return (qm, bm, *idx, j0, fj, i0r, fir, present)
+
+
+def _p3_rates_post_cellwise(dt, qc, nc, qr, qi, ni, qv, temp, pres, rho,
+                            qc_in, qr_in, qi_in, qm_in, bm_in, nc_in, nr_in,
+                            ni_in, mu_cd, qv_prev, t_prev, tab7, tab8, tab4,
+                            tab2, tab3, tab5, tab10, coll2, coll1, revap_v):
+    """Every process rate of the table tier (micro_p3.F90 part2,
+    :2054-2490, :3269-3537), per cell, given part1's state and in-cloud
+    values, the wrapper's qv/T history and the ten lookup values (ice
+    columns 7, 8, 4, 2, 3, 5, 10; collection 2, 1; the rain evaporation
+    row).  The plain version of the ``rates_post`` phase of
+    ``csrc/p3_cellwise.cu``.  ``dt``: a number.  Returns the update's 25
+    rate inputs: (au, ac, qc_frz, nc_frz, qr_frz, nr_frz, rim, shed, ncshdc,
+    berg, dep, sub, ev, melt, qinuc, ninuc, qrcol, nr_col, nr_self,
+    ni_self, nr_shed_wg, rho_rime, wg_mask, ni_rate, qv_si)."""
+    Lv, Ls, Lf = LATVAP, LATVAP + LATICE, LATICE
+    pi = math.pi
+    inv_rho = 1.0 / rho
+    (au, ac, nr_self, qsl, tc, qv_si, _, qinuc, ninuc, qc_frz, nc_frz,
+     qr_frz, nr_frz) = _p3_warm_ice_rates(
+        dt, qc, nc, qr, ni, qv, temp, pres, rho, inv_rho, qc_in, qr_in,
+        nc_in, nr_in, mu_cd)
+    mu_visc = _mu_visc(temp)
+    acn = _stokes_acn(mu_visc)
+    qm_reb = _bulk_rho_rime(qi_in, qm_in, bm_in)[0]
+    has_qi = qi >= QSMALL
+
+    # part2's ni lambda limiter on the in-cloud ni (:662-678)
+    ni_t = _max(ni_in, NSMALL)
+    ni_t = torch.minimum(ni_t, tab7 * ni_t)
+    ni_t = torch.maximum(ni_t, tab8 * ni_t)
+    ni_rate = torch.where(has_qi, ni_t, ni_in)
+    rhofaci = (_RHO_600MB * inv_rho) ** 0.54
+    eci = 0.5
+    # riming (ice_cldliq_collection, :2054-2100)
+    collect_qc = rhofaci * tab4 * qc_in * eci * rho * ni_rate
+    both_ic = has_qi & (qc >= QSMALL)
+    rim = _where0(both_ic & (tc < 0.0), collect_qc)
+    shed = _where0(both_ic & (tc > 0.0), collect_qc)
+    inv_dropmass = 1.0 / 5.2e-7
+    ncshdc = shed * inv_dropmass
+    vi_table = rhofaci * tab2
+    # rime density (calc_rime_density, :2413-2490)
+    vt_qc, lamc_r, _ = _cloud_vt(qc_in, nc_in, rho, acn)
+    d_c = (mu_cd + 4.0) / lamc_r
+    i_tc = 1.0 / _min(tc, -0.001)
+    ri = torch.clamp(-0.5e6 * d_c * torch.abs(vi_table - vt_qc) * i_tc,
+                     1.0, 12.0)
+    rho_rime = torch.where(
+        ri <= 8.0, (0.051 + 0.114 * ri - 0.0055 * ri * ri) * 1000.0,
+        611.0 + 72.25 * (ri - 8.0))
+    rho_rime = torch.where((rim >= QSMALL) & (qc >= QSMALL), rho_rime,
+                           400.0)
+
+    # ice-rain collection (ice_rain_collection, :2103-2157)
+    lamr = cbrt(pi / 6.0 * RHO_H2O * 24.0 * _max(nr_in, NSMALL)
+                / _max(qr_in, QSMALL))
+    n0r = _max(nr_in, NSMALL) * lamr * lamr
+    both_ir_any = has_qi & (qr >= QSMALL)
+    qrcol = _where0(both_ir_any & (tc <= 0.0),
+                    coll2 * n0r * rho * rhofaci * ni_rate)
+    nr_col = _where0(both_ir_any, coll1 * n0r * rho * rhofaci * ni_rate)
+
+    # thermodynamic/ventilation parameters (:3564-3572)
+    dv_diff = 8.794e-5 * temp ** 1.81 / pres
+    sc_n = mu_visc / (rho * dv_diff)
+    kap = 1.414e3 * mu_visc
+    eii = torch.clamp(0.001 + _div((temp - 253.15) * (0.3 - 0.001), 20.0),
+                      0.001, 0.3)
+    fr = qm_reb / _max(qi_in, QSMALL)
+    eii_fact = torch.clamp(1.0 - _div(fr - 0.6, 0.3), 0.0, 1.0)
+    # aggregation (ice_self_collection, :2159-2207)
+    ni_self = _where0(has_qi, tab3 * rho * eii * eii_fact * rhofaci
+                      * ni_rate * ni_rate)
+    vent = (tab5 + tab10 * cbrt(sc_n)
+            * torch.sqrt(rhofaci * rho / mu_visc))
+    # melting (ice_melting, :2211-2256)
+    qsat0 = p3_qv_sat_liq(torch.full_like(temp, TMELT), pres)
+    melt = _where0(has_qi & (tc > 0.0), _max(
+        _div(vent * (tc * kap - rho * Lv * dv_diff * (qsat0 - qv))
+             * 2.0 * pi, Lf) * ni_rate, 0.0))
+    # deposition/sublimation by relaxation (:2322-2355, :3269-3330);
+    # epsi gated at T < 0 (:2346)
+    epsi = _where0(has_qi & (tc < 0.0),
+                   vent * 2.0 * pi * rho * dv_diff * ni_rate)
+    dqsidt = (Lv + LATICE) * qv_si / (R_V * temp * temp)
+    abi = 1.0 + _div(dqsidt * (Lv + LATICE), CP_D)
+    qi_tend = _min(epsi / abi, 1.0 / dt) * (qv - qv_si)
+    dep = _where0(tc < 0.0, _max(qi_tend, 0.0))
+    sub = _max(-qi_tend, 0.0)
+    # Wegener-Bergeron-Findeisen (:3326-3328)
+    berg = _where0(has_qi & (tc < 0.0),
+                   _max(epsi / abi * (qsl - qv_si), 0.0))
+
+    # rain evaporation through the generated ventilation table
+    cdistr = _max(nr_in, NSMALL)
+    gamma_mu2 = 2.0  # Gamma(mu_r + 2) = Gamma(3)
+    epsr = 2.0 * pi * cdistr * rho * dv_diff * (
+        F1R * gamma_mu2 / lamr
+        + F2R * torch.sqrt(rho / mu_visc) * cbrt(sc_n) * revap_v)
+    # wet growth (ice_cldliq_wet_growth, :2259-2319)
+    cold_mix = has_qi & (qc_in + qr_in >= 1.0e-6) & (tc < 0.0)
+    qwgrth = torch.where(
+        cold_mix,
+        _max(vent * 2.0 * pi
+             * (rho * Lv * dv_diff * (qsat0 - qv) - tc * kap)
+             / (Lf + CP_L * tc) * ni_rate, 0.0),
+        math.inf)
+    excess = _max(rim + qrcol - qwgrth, 0.0)
+    excess = _where0(excess >= 1.0e-10, excess)
+    log_wg = cold_mix & (excess >= 1.0e-10)
+    tot_col = _max(rim + qrcol, 1e-30)
+    wg_frac = _where0(rim + qrcol >= 1.0e-10, excess / tot_col)
+    shed = shed + excess * (rim / tot_col)
+    rim = rim * (1.0 - wg_frac)
+    qrcol = qrcol * (1.0 - wg_frac)
+    nr_shed_wg = excess * 1.923e6  # 1 mm drops (:2304)
+
+    # rain evaporation, analytically integrated (evaporate_rain,
+    # :3383-3537) with the qv_prev/t_prev history
+    dqsldt = Lv * qsl / (R_V * temp * temp)
+    abl = 1.0 + _div(dqsldt * Lv, CP_D)
+    ssat_r = qv - qsl
+    below = tc < 0.0
+    eps_eff = _max(torch.where(
+        below, epsr + epsi * (1.0 + Ls / CP_D * dqsldt) / abi, epsr),
+        1.0e-20)
+    tau_eff = 1.0 / eps_eff
+    A_c = (_div(qv - qv_prev, dt) - _div(dqsldt * (temp - t_prev), dt)
+           - _where0(below, (qsl - qv_si) * (1.0 + Ls / CP_D * dqsldt)
+                     / abi * epsi))
+    tau_r = 1.0 / _max(epsr, 1.0e-20)
+    dtau = dt / tau_eff
+    w_ts = -torch.expm1(-dtau) / dtau
+    instant = -ssat_r / (abl * tau_r)
+    equilib = -A_c / abl * tau_eff / tau_r
+    ev_big = instant * w_ts + equilib * (1.0 - w_ts)
+    ev = torch.where((qr_in < 1.0e-12)
+                     & (qv / _max(qsl, QSMALL) < 0.999),
+                     _div(qr_in, dt), ev_big)
+    ev = torch.minimum(ev, _div(-ssat_r, dt) / abl)
+    ev = torch.minimum(_max(ev, 0.0), _div(qr_in, dt))
+    ev = _where0((qc_in + qi_in < 1.0e-6) & (ssat_r < 0.0)
+                 & (qr >= QSMALL), ev)
+    return (au, ac, qc_frz, nc_frz, qr_frz, nr_frz, rim, shed, ncshdc, berg,
+            dep, sub, ev, melt, qinuc, ninuc, qrcol, nr_col, nr_self,
+            ni_self, nr_shed_wg, rho_rime, log_wg.to(qc.dtype), ni_rate,
+            qv_si)
+
+
+def _p3_rates_approx(dt, qc, nc, qr, qi, ni, qv, temp, pres, rho, inv_rho,
+                     qc_in, qr_in, qi_in, nc_in, nr_in, ni_in, mu_cd):
+    """The continuous [approx] tier's rates, plain tensor code; the same
+    25 outputs as ``_p3_rates_post_cellwise``."""
+    (au, ac, nr_self, qsl, tc, qv_si, sup_i, qinuc, ninuc, qc_frz, nc_frz,
+     qr_frz, nr_frz) = _p3_warm_ice_rates(
+        dt, qc, nc, qr, ni, qv, temp, pres, rho, inv_rho, qc_in, qr_in,
+        nc_in, nr_in, mu_cd)
+    # rain evaporation, deposition/sublimation by relaxation [approx]
+    subsat = _max(qsl - qv, 0.0) / _max(qsl, QSMALL)
+    tau_evap = 150.0 / _max((rho * qr_in) ** 0.35, 1e-4)
+    ev = _where0((qr >= QSMALL) & (qc < QSMALL), subsat * qr_in / tau_evap)
+    tau_dep = 300.0 / _max((rho * qi_in) ** 0.25, 1e-3)
+    has_ice = (qi >= QSMALL) & (tc < 0.0)
+    dep = _where0(has_ice & (sup_i > 0.0), (qv - qv_si) / tau_dep)
+    sub = _where0(has_ice & (sup_i < 0.0), (qv_si - qv) / tau_dep)
+    # riming [approx]
+    vi = torch.clamp(1.2 * _max(rho * qi, 0.0) ** 0.0625, 0.3, 3.0)
+    erim = 0.7
+    rim = _where0((qi >= QSMALL) & (qc >= QSMALL) & (tc < 0.0),
+                  erim * 2.0 * vi * qi * qc)
+    melt = _where0((qi >= QSMALL) & (tc > 0.0), _div(qi * tc, 60.0))
+    zero = torch.zeros_like(qc)
+    return (au, ac, qc_frz, nc_frz, qr_frz, nr_frz, rim, zero, zero, zero,
+            dep, sub, ev, melt, qinuc, ninuc, zero, zero, nr_self, zero,
+            zero, torch.full_like(qc, 400.0), zero, ni_in, qv_si)
+
+
+# -- sedimentation: the fall speeds and the sub-cycled upstream fall --------
+
+def _cloud_sed_speeds(qc_, nc_, rho, acn):
+    """(V_qc, nc) with get_cloud_dsd2's nc adjustment persisted
+    (cloud_sedimentation, micro_p3.F90:3670-3722)."""
+    gate = qc_ >= QSMALL
+    qc_c = _where0(gate, _min(qc_, 5.1e-3))
+    nc_l = _cloud_dsd2(qc_c, _where0(gate, _max(nc_, 0.0)), rho)[0]
+    v, _, _ = _cloud_vt(qc_c, nc_l, rho, acn)
+    return v, torch.where(gate, nc_l, nc_)
+
+
+def _ice_sed_speeds(qi_, ni_, qm_, bm_, rho, inv_rho, dtab):
+    """(V_qit, V_nit, ni, qm, bm) with the re-bounds and the limited ni
+    persisted (ice_sedimentation, micro_p3.F90:4007-4037)."""
+    gate = qi_ >= QSMALL
+    if dtab is None:
+        v = torch.clamp(1.2 * _max(rho * qi_, 0.0) ** 0.0625, 0.3, 3.0)
+        return v, v, ni_, qm_, bm_
+    qi_c = _where0(gate, _min(qi_, 5.1e-3))
+    ni_c = _max(_where0(gate, _max(ni_, 0.0)), NSMALL)
+    has_m = gate & (qm_ >= QSMALL)
+    qm_c = _where0(has_m, qm_)
+    bm_c = _where0(has_m, _min(_max(bm_, 0.0), 5.1e-3))
+    qm_c, bm_c, rr_ = _bulk_rho_rime(qi_c, qm_c, bm_c)
+    idx_ = ice_table_indices(qi_c, ni_c, qm_c, rr_)
+    rfac = (_RHO_600MB * inv_rho) ** 0.54
+    v_q, v_n, t7_, t8_ = interp_ice_multi(dtab, (2, 1, 7, 8), *idx_,
+                                          present=gate.any())
+    ni_l = torch.minimum(ni_c, t7_ * ni_c)
+    ni_l = torch.maximum(ni_l, t8_ * ni_l)
+    return (_where0(gate, rfac * v_q), _where0(gate, rfac * v_n),
+            torch.where(gate, ni_l, ni_), torch.where(gate, qm_c, qm_),
+            torch.where(gate, bm_c, bm_))
+
+
+def _rain_sed_speeds(qr_, nr_, rho, inv_rho, rho_sfc, dtab):
+    """(V_qr, V_nr, nr) with get_rain_dsd2's nr adjustment persisted
+    (rain_sedimentation, micro_p3.F90:3825-3843); the speeds from the
+    generated vm/vn rows in one lookup (compute_rain_fall_velocity,
+    :3872-3908), or a KW-style speed without tables (then V_nr = V_qr)."""
+    gate = qr_ >= QSMALL
+    qr_c = _where0(gate, _min(qr_, 1.0e-2))
+    nr_c = _where0(gate, _max(nr_, 0.0))
+    nr_l = _rain_dsd2(qr_c, nr_c)[0]
+    if dtab is None:
+        v_q = v_n = torch.clamp(36.34 * _max(rho * qr_c, 0.0) ** 0.1364
+                                * torch.sqrt(rho_sfc / rho), 0.0, 9.1)
+    else:
+        rhofacr = (_RHO_1000MB * inv_rho) ** 0.54
+        lam = cbrt(math.pi / 6.0 * RHO_H2O * 24.0 * _max(nr_l, NSMALL)
+                   / _max(qr_c, QSMALL))
+        i0, fi_ = rain_size_index((MU_R + 1.0) / lam)
+        vgate = qr_c >= QSMALL
+        vm, vn = interp_rain_multi(dtab.rain_rows(("vm", "vn")), i0, fi_,
+                                   present=vgate.any())
+        v_q, v_n = _where0(vgate, rhofacr * vm), _where0(vgate, rhofacr * vn)
+    return v_q, v_n, torch.where(gate, nr_l, nr_)
+
+
+def _p3_sed_vmax(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dtab,
+                 z_axis: int = 1):
+    """The fastest mass-weighted fall speed of the state (rain V_qr, ice
+    V_qit, cloud V_qc), a 0-d tensor: the plain version of ``sed_vmax``
+    (``p3_sed_cuda``)."""
+    inv_rho = 1.0 / rho
+    rho_sfc = rho.narrow(z_axis, 0, 1)
+    return torch.maximum(
+        torch.maximum(
+            _rain_sed_speeds(qr, nr, rho, inv_rho, rho_sfc, dtab)[0].max(),
+            _ice_sed_speeds(qi, ni, qm, bm, rho, inv_rho, dtab)[0].max()),
+        _cloud_sed_speeds(qc, nc, rho, _stokes_acn(_mu_visc(temp)))[0].max())
+
+
+def _p3_sed_columns(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt,
+                    nsub_t, dtab, do_predict_nc: bool, z_axis: int = 1):
+    """``nsub_t`` (a 0-d tensor) upstream sub-steps of cloud, rain and ice
+    sedimentation, each with its speeds' persisted write-backs (:3700,
+    :3843, :4021-4034), falling top-down level by level; the plain version
+    of ``sed_columns`` (``p3_sed_cuda``), the counterpart of the JAX
+    package's ``lax.while_loop``.  It reads ``nsub_t`` to the host.
+    Returns (qc, nc, qr, nr, qi, ni, qm, bm, precip_liq, precip_ice), the
+    surface rates in m/s."""
+    nz = qc.shape[z_axis]
+
+    def ax(a, start, length):
+        return a.narrow(z_axis, start, length)
+    inv_rho = 1.0 / rho
+    rho_sfc = ax(rho, 0, 1)
+    acn = _stokes_acn(_mu_visc(temp))
+    # in a mesh run, one read serves every shard
+    nsub = host_ints(nsub_t)
+    dts = dt / nsub_t
+    mass_lo = ax(rho, 0, nz - 1) * ax(dz, 0, nz - 1)
+    mass_top = ax(rho, nz - 1, 1) * ax(dz, nz - 1, 1)
+
+    def fall(q, v):
+        """One upstream sub-step; returns (q, surface outflow)."""
+        flux = rho * q * v  # downward mass flux at cell centers
+        dq_lower = dts * (ax(flux, 1, nz - 1) - ax(flux, 0, nz - 1)) / mass_lo
+        dq_top = -dts * ax(flux, nz - 1, 1) / mass_top
+        q = q + torch.cat([dq_lower, dq_top], dim=z_axis)
+        return _max(q, 0.0), _div(dts * ax(flux, 0, 1), RHO_H2O)
+
+    pl = torch.zeros_like(ax(qc, 0, 1))
+    pi_ = torch.zeros_like(pl)
+    for _ in range(nsub):
+        vr_, vnr_, nr = _rain_sed_speeds(qr, nr, rho, inv_rho, rho_sfc, dtab)
+        vi_, vni_, ni, qm, bm = _ice_sed_speeds(qi, ni, qm, bm, rho, inv_rho,
+                                                dtab)
+        vc_, nc = _cloud_sed_speeds(qc, nc, rho, acn)
+        qc, out = fall(qc, vc_)
+        pl = pl + out
+        if do_predict_nc:
+            nc = fall(nc, vc_)[0]
+        qr, out = fall(qr, vr_)
+        pl = pl + out
+        nr = fall(nr, vnr_)[0]   # nr at V_nr (:3785-3791)
+        qi, out = fall(qi, vi_)
+        pi_ = pi_ + out
+        ni = fall(ni, vni_)[0]   # ni at V_nit (:4025-4037)
+        qm = fall(qm, vi_)[0]
+        bm = fall(bm, vi_)[0]
+    return (qc, nc, qr, nr, qi, ni, qm, bm, _div(pl.squeeze(z_axis), dt),
+            _div(pi_.squeeze(z_axis), dt))
+
+
 def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
               rho_d, dz, dt, z_axis: int = 1, tables=None, qv_prev=None,
               t_prev=None, do_predict_nc: bool = False,
@@ -572,293 +998,47 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
     group run the same sub-step count.  Arguments and semantics are those
     of the JAX ``p3_scheme``."""
     from . import p3_cellwise_cuda as cw
+    from . import p3_sed_cuda as sed
 
     dtab = None if tables is None else tables.to(qc.device, qc.dtype)
     rho = rho_d * (1.0 + qv + qc + qr + qi)  # total density estimate
     inv_rho = 1.0 / rho
     Lv, Ls, Lf, cp = LATVAP, LATVAP + LATICE, LATICE, CP_D
-    nz = qc.shape[z_axis]
-    pi = math.pi
-
-    def cloud_dsd2(qc_, nc_):
-        return _cloud_dsd2(qc_, nc_, rho)
-
-    def ax(a, start, length):
-        return a.narrow(z_axis, start, length)
 
     # -- part1 + in-cloud values + pre-process DSD writebacks (one kernel)
     (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, temp, skip_f,
      qc_in, qr_in, qi_in, qm_in, bm_in, nc_in, nr_in, ni_in,
      _mu_cd) = cw.p3_part1(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner,
                            pres, rho, do_predict_nc=do_predict_nc)
-    skip_lvl = skip_f > 0.5
 
-    # cloud DSD and Stokes mass-weighted droplet fall speed
-    # (get_cloud_dsd2, micro_p3.F90:1774-1835; acn at :3613)
-    _mu_visc0 = 1.496e-6 * temp ** 1.5 / (temp + 120.0)
-    _acn = 9.80616 * RHO_H2O / (18.0 * _mu_visc0)
-
-    def cloud_dsd_lamc_mu(qc_, nc_, mu_):
-        lamc = _cbrt_pos(_CONS1 * _max(nc_, NSMALL) * (mu_ + 3.0)
-                         * (mu_ + 2.0) * (mu_ + 1.0) / _max(qc_, QSMALL))
-        return torch.clamp(lamc, (mu_ + 1.0) * 2.5e4, (mu_ + 1.0) * 1.0e6)
-
-    def cloud_vt(qc_, nc_):
-        """(V_qc, lamc, mu_c) of the current (qc, nc) (cloud_sedimentation,
-        micro_p3.F90:3685-3688, bcn = 2)."""
-        mu_ = _cloud_mu(nc_, rho)
-        lamc = cloud_dsd_lamc_mu(qc_, nc_, mu_)
-        v = _acn * torch.exp(torch.lgamma(mu_ + 6.0)
-                             - torch.lgamma(mu_ + 4.0)) / (lamc * lamc)
-        return _where0(qc_ >= QSMALL, v), lamc, mu_
-
-    # -- warm process rates on the in-cloud values
-    au = _where0(qc_in >= 1.0e-8,
-                 1350.0 * _max(qc_in, QSMALL) ** 2.47
-                 * _max(nc_in * 1.0e-6 * rho, NSMALL) ** (-1.79))
-    both = (qc >= QSMALL) & (qr >= QSMALL)
-    ac = _where0(both, 67.0 * _max(qc_in * qr_in, 1e-300) ** 1.15)
-    dm_r = cbrt(_max(qr_in, QSMALL) / (pi * RHO_H2O * _max(nr_in, NSMALL)))
-    brk = torch.where(dm_r < 280.0e-6, 1.0,
-                      2.0 - torch.exp(2300.0 * (dm_r - 280.0e-6)))
-    nr_self = _where0(qr >= QSMALL, brk * 5.78 * nr_in * qr_in * rho)
-
-    qsl = p3_qv_sat_liq(temp, pres)
-
-    # -- ice process rates
-    tc = temp - TMELT
-    qv_si = p3_qv_sat_ice(temp, pres)
-    sup_i = qv / _max(qv_si, QSMALL) - 1.0
-
-    # ice nucleation, Cooper 1986 (ice_nucleation, micro_p3.F90:2576-2618)
-    mi0 = 4.0 * pi / 3.0 * 900.0 * 1.0e-18
-    n_coop = torch.minimum(
-        0.005 * torch.exp(0.304 * _max(-tc, 0.0)) * 1.0e3 * inv_rho,
-        100.0e3 * inv_rho)
-    n_nuc = _max(n_coop - ni, 0.0) / dt
-    nucleate = (tc < -15.0) & (sup_i >= 0.05) & (n_nuc >= 1.0e-20)
-    qinuc = _where0(nucleate, n_nuc * mi0)
-    ninuc = _where0(nucleate, n_nuc)
-
-    # immersion freezing of cloud and rain, Bigg 1953 (:2504-2573)
-    aimm, bimm = 0.65, 2.0
-    cons5 = pi / 6.0 * bimm
-    cons6 = (pi / 6.0) ** 2 * RHO_H2O * bimm
-    dum1_frz = torch.exp(aimm * _min(-tc, 40.0))
-    frz_gate_c = (qc >= QSMALL) & (tc <= -4.0)
-    lamc_frz = cloud_dsd_lamc_mu(qc_in, nc, _mu_cd)
-    cdist1_c = _max(nc_in, NSMALL) * torch.exp(-torch.lgamma(_mu_cd + 1.0))
-    l2 = lamc_frz * lamc_frz
-    qc_frz = _where0(frz_gate_c, cons6 * cdist1_c
-                     * torch.exp(torch.lgamma(7.0 + _mu_cd)) * dum1_frz
-                     / (l2 * (l2 * l2)))
-    nc_frz = _where0(frz_gate_c, cons5 * cdist1_c
-                     * torch.exp(torch.lgamma(4.0 + _mu_cd)) * dum1_frz
-                     / (lamc_frz * l2))
-    frz_gate_r = (qr >= QSMALL) & (tc <= -4.0)
-    lamr_frz = cbrt(pi / 6.0 * RHO_H2O * 24.0 * _max(nr_in, NSMALL)
-                    / _max(qr_in, QSMALL))
-    l2 = lamr_frz * lamr_frz
-    qr_frz = _where0(frz_gate_r, cons6 * _max(nr_in, NSMALL) * 5040.0
-                     * dum1_frz / (l2 * (l2 * l2)))
-    nr_frz = _where0(frz_gate_r, cons5 * _max(nr_in, NSMALL) * 24.0
-                     * dum1_frz / (lamr_frz * l2))
-
-    rho_600mb = 60000.0 / (287.042 * 253.15)
-
+    # -- process rates: the table tier as two kernels around the lookups
     if dtab is not None:
-        # calc_bulkRhoRime re-bounds, persisted to qm/bm (:1897-1943, :633)
-        qm_reb, bm_reb, rho_rime_raw = _bulk_rho_rime(qi_in, qm_in, bm_in)
-        has_qi = qi >= QSMALL
-        qm = torch.where(has_qi, qm_reb, qm)
-        bm = torch.where(has_qi, bm_reb, bm)
-        idx = ice_table_indices(qi_in, _max(ni_in, NSMALL), qm_reb,
-                                rho_rime_raw)
+        (qm, bm, i0, fi, ii0, fii, jj0, fjj, j0, fj, i0r, fir,
+         present) = cw.p3_rates_pre(qi, qr, qm, bm, qi_in, qm_in, bm_in,
+                                    ni_in, qr_in, nr_in)
+        idx = (i0, fi, ii0, fii, jj0, fjj)
         # one batched lookup for every part2 rate, skipped without ice
-        (tab7, tab8, tab4, tab2, tab3, tab5, tab10) = interp_ice_multi(
-            dtab, (7, 8, 4, 2, 3, 5, 10), *idx, present=has_qi.any())
-        # part2's ni lambda limiter on the in-cloud ni (:662-678)
-        ni_t = _max(ni_in, NSMALL)
-        ni_t = torch.minimum(ni_t, tab7 * ni_t)
-        ni_t = torch.maximum(ni_t, tab8 * ni_t)
-        ni_rate = torch.where(has_qi, ni_t, ni_in)
-        rhofaci = (rho_600mb * inv_rho) ** 0.54
-        eci = 0.5
-        # riming (ice_cldliq_collection, :2054-2100)
-        collect_qc = rhofaci * tab4 * qc_in * eci * rho * ni_rate
-        both_ic = has_qi & (qc >= QSMALL)
-        rim = _where0(both_ic & (tc < 0.0), collect_qc)
-        shed = _where0(both_ic & (tc > 0.0), collect_qc)
-        inv_dropmass = 1.0 / 5.2e-7
-        ncshdc = shed * inv_dropmass
-        vi_table = rhofaci * tab2
-        # rime density (calc_rime_density, :2413-2490)
-        vt_qc, lamc_r, _ = cloud_vt(qc_in, nc_in)
-        d_c = (_mu_cd + 4.0) / lamc_r
-        i_tc = 1.0 / _min(tc, -0.001)
-        ri = torch.clamp(-0.5e6 * d_c * torch.abs(vi_table - vt_qc) * i_tc,
-                         1.0, 12.0)
-        rho_rime = torch.where(
-            ri <= 8.0, (0.051 + 0.114 * ri - 0.0055 * ri * ri) * 1000.0,
-            611.0 + 72.25 * (ri - 8.0))
-        rho_rime = torch.where((rim >= QSMALL) & (qc >= QSMALL), rho_rime,
-                               400.0)
-
-        # ice-rain collection (ice_rain_collection, :2103-2157)
-        j0, fj = rain_collection_index(qr_in, _max(nr_in, NSMALL))
-        lamr = cbrt(pi / 6.0 * RHO_H2O * 24.0 * _max(nr_in, NSMALL)
-                    / _max(qr_in, QSMALL))
-        n0r = _max(nr_in, NSMALL) * lamr * lamr
-        both_ir_any = has_qi & (qr >= QSMALL)
-        coll2, coll1 = interp_collect_multi(dtab, (2, 1), *idx, j0, fj,
-                                            present=both_ir_any.any())
-        qrcol = _where0(both_ir_any & (tc <= 0.0),
-                        coll2 * n0r * rho * rhofaci * ni_rate)
-        nr_col = _where0(both_ir_any, coll1 * n0r * rho * rhofaci * ni_rate)
-
-        # thermodynamic/ventilation parameters (:3564-3572)
-        mu_visc = _mu_visc0
-        dv_diff = 8.794e-5 * temp ** 1.81 / pres
-        sc_n = mu_visc / (rho * dv_diff)
-        kap = 1.414e3 * mu_visc
-        eii = torch.clamp(0.001 + (temp - 253.15) * (0.3 - 0.001) / 20.0,
-                          0.001, 0.3)
-        fr = qm_reb / _max(qi_in, QSMALL)
-        eii_fact = torch.clamp(1.0 - (fr - 0.6) / 0.3, 0.0, 1.0)
-        # aggregation (ice_self_collection, :2159-2207)
-        ni_self = _where0(has_qi, tab3 * rho * eii * eii_fact * rhofaci
-                          * ni_rate * ni_rate)
-        vent = (tab5 + tab10 * cbrt(sc_n)
-                * torch.sqrt(rhofaci * rho / mu_visc))
-        # melting (ice_melting, :2211-2256)
-        qsat0 = p3_qv_sat_liq(torch.full_like(temp, TMELT), pres)
-        melt = _where0(has_qi & (tc > 0.0), _max(
-            vent * (tc * kap - rho * Lv * dv_diff * (qsat0 - qv))
-            * 2.0 * pi / Lf * ni_rate, 0.0))
-        # deposition/sublimation by relaxation (:2322-2355, :3269-3330);
-        # epsi gated at T < 0 (:2346)
-        epsi = _where0(has_qi & (tc < 0.0),
-                       vent * 2.0 * pi * rho * dv_diff * ni_rate)
-        dqsidt = (Lv + LATICE) * qv_si / (R_V * temp * temp)
-        abi = 1.0 + dqsidt * (Lv + LATICE) / CP_D
-        qi_tend = _min(epsi / abi, 1.0 / dt) * (qv - qv_si)
-        dep = _where0(tc < 0.0, _max(qi_tend, 0.0))
-        sub = _max(-qi_tend, 0.0)
-        # Wegener-Bergeron-Findeisen (:3326-3328)
-        berg = _where0(has_qi & (tc < 0.0),
-                       _max(epsi / abi * (qsl - qv_si), 0.0))
-
-        # rain evaporation through the generated ventilation table
-        dm_r2 = (MU_R + 1.0) / lamr
-        i0r, fir = rain_size_index(dm_r2)
+        tabs = interp_ice_multi(dtab, (7, 8, 4, 2, 3, 5, 10), *idx,
+                                present=present[0])
+        colls = interp_collect_multi(dtab, (2, 1), *idx, j0, fj,
+                                     present=present[1])
         (revap_v,) = interp_rain_multi(dtab.rain_rows(("revap",)), i0r, fir,
-                                       present=(qr >= QSMALL).any())
-        cdistr = _max(nr_in, NSMALL)
-        gamma_mu2 = 2.0  # Gamma(mu_r + 2) = Gamma(3)
-        epsr = 2.0 * pi * cdistr * rho * dv_diff * (
-            F1R * gamma_mu2 / lamr
-            + F2R * torch.sqrt(rho / mu_visc) * cbrt(sc_n) * revap_v)
-        # wet growth (ice_cldliq_wet_growth, :2259-2319)
-        cold_mix = has_qi & (qc_in + qr_in >= 1.0e-6) & (tc < 0.0)
-        qwgrth = torch.where(
-            cold_mix,
-            _max(vent * 2.0 * pi
-                 * (rho * Lv * dv_diff * (qsat0 - qv) - tc * kap)
-                 / (Lf + CP_L * tc) * ni_rate, 0.0),
-            math.inf)
-        excess = _max(rim + qrcol - qwgrth, 0.0)
-        excess = _where0(excess >= 1.0e-10, excess)
-        log_wg = cold_mix & (excess >= 1.0e-10)
-        tot_col = _max(rim + qrcol, 1e-30)
-        wg_frac = _where0(rim + qrcol >= 1.0e-10, excess / tot_col)
-        shed = shed + excess * (rim / tot_col)
-        rim = rim * (1.0 - wg_frac)
-        qrcol = qrcol * (1.0 - wg_frac)
-        nr_shed_wg = excess * 1.923e6  # 1 mm drops (:2304)
-
-        # rain evaporation, analytically integrated (evaporate_rain,
-        # :3383-3537) with the qv_prev/t_prev history
-        dqsldt = Lv * qsl / (R_V * temp * temp)
-        abl = 1.0 + dqsldt * Lv / CP_D
-        ssat_r = qv - qsl
-        qvp = qv if qv_prev is None else qv_prev
-        tp = temp if t_prev is None else t_prev
-        below = tc < 0.0
-        eps_eff = _max(torch.where(
-            below, epsr + epsi * (1.0 + Ls / CP_D * dqsldt) / abi, epsr),
-            1.0e-20)
-        tau_eff = 1.0 / eps_eff
-        A_c = ((qv - qvp) / dt - dqsldt * (temp - tp) / dt
-               - _where0(below, (qsl - qv_si) * (1.0 + Ls / CP_D * dqsldt)
-                         / abi * epsi))
-        tau_r = 1.0 / _max(epsr, 1.0e-20)
-        dtau = dt / tau_eff
-        w_ts = -torch.expm1(-dtau) / dtau
-        instant = -ssat_r / (abl * tau_r)
-        equilib = -A_c / abl * tau_eff / tau_r
-        ev_big = instant * w_ts + equilib * (1.0 - w_ts)
-        ev = torch.where((qr_in < 1.0e-12)
-                         & (qv / _max(qsl, QSMALL) < 0.999),
-                         qr_in / dt, ev_big)
-        ev = torch.minimum(ev, -ssat_r / dt / abl)
-        ev = torch.minimum(_max(ev, 0.0), qr_in / dt)
-        ev = _where0((qc_in + qi_in < 1.0e-6) & (ssat_r < 0.0)
-                     & (qr >= QSMALL), ev)
-
-        rho_1000mb = 100000.0 / (287.042 * 273.15)
-        rhofacr = (rho_1000mb * inv_rho) ** 0.54
-        rain_vmn = dtab.rain_rows(("vm", "vn"))
-
-        def rain_fallspeeds(qr_, nr_):
-            """(V_qr, V_nr) from the generated vm/vn rows in one lookup
-            (compute_rain_fall_velocity, micro_p3.F90:3872-3908)."""
-            lam = cbrt(pi / 6.0 * RHO_H2O * 24.0 * _max(nr_, NSMALL)
-                       / _max(qr_, QSMALL))
-            i0, fi_ = rain_size_index((MU_R + 1.0) / lam)
-            gate = qr_ >= QSMALL
-            vm, vn = interp_rain_multi(rain_vmn, i0, fi_, present=gate.any())
-            return _where0(gate, rhofacr * vm), _where0(gate, rhofacr * vn)
+                                       present=present[2])
+        rates = cw.p3_rates_post(
+            dt, qc, nc, qr, qi, ni, qv, temp, pres, rho, qc_in, qr_in, qi_in,
+            qm_in, bm_in, nc_in, nr_in, ni_in, _mu_cd,
+            qv if qv_prev is None else qv_prev,
+            temp if t_prev is None else t_prev, *tabs, *colls, revap_v)
     else:
-        # rain evaporation, deposition/sublimation by relaxation [approx]
-        subsat = _max(qsl - qv, 0.0) / _max(qsl, QSMALL)
-        tau_evap = 150.0 / _max((rho * qr_in) ** 0.35, 1e-4)
-        ev = _where0((qr >= QSMALL) & (qc < QSMALL),
-                     subsat * qr_in / tau_evap)
-        tau_dep = 300.0 / _max((rho * qi_in) ** 0.25, 1e-3)
-        has_ice = (qi >= QSMALL) & (tc < 0.0)
-        dep = _where0(has_ice & (sup_i > 0.0), (qv - qv_si) / tau_dep)
-        sub = _where0(has_ice & (sup_i < 0.0), (qv_si - qv) / tau_dep)
-        ni_self = torch.zeros_like(ni)
-        # riming [approx]
-        vi = torch.clamp(1.2 * _max(rho * qi, 0.0) ** 0.0625, 0.3, 3.0)
-        erim = 0.7
-        rim = _where0((qi >= QSMALL) & (qc >= QSMALL) & (tc < 0.0),
-                      erim * 2.0 * vi * qi * qc)
-        qrcol = torch.zeros_like(qr)
-        nr_col = torch.zeros_like(nr)
-        shed = torch.zeros_like(qc)
-        ncshdc = torch.zeros_like(nr)
-        rho_rime = torch.full_like(qc, 400.0)
-        nr_shed_wg = torch.zeros_like(nr)
-        ni_rate = ni_in
-        log_wg = torch.zeros_like(qc, dtype=torch.bool)
-
-        def rain_fallspeeds(qr_, nr_):
-            # KW-style mass-weighted speed; no vn table without tables
-            v = torch.clamp(36.34 * _max(rho * qr_, 0.0) ** 0.1364
-                            * torch.sqrt(ax(rho, 0, 1) / rho), 0.0, 9.1)
-            return v, v
-        melt = _where0((qi >= QSMALL) & (tc > 0.0), qi * tc / 60.0)
-        berg = torch.zeros_like(qc)
+        rates = _p3_rates_approx(dt, qc, nc, qr, qi, ni, qv, temp, pres, rho,
+                                 inv_rho, qc_in, qr_in, qi_in, nc_in, nr_in,
+                                 ni_in, _mu_cd)
 
     # -- conservation -> prognostic update -> end-of-part2 clip (one kernel)
     (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta) = cw.p3_update(
-        dt, au, ac, qc_frz, nc_frz, qr_frz, nr_frz, rim, shed, ncshdc, berg,
-        dep, sub, ev, melt, qinuc, ninuc, qrcol, nr_col, nr_self, ni_self,
-        nr_shed_wg, rho_rime, log_wg.to(qc.dtype), qc_in, nc_in, qr_in,
-        nr_in, qi_in, ni_rate, qc, nc, qr, nr, qi, ni, qm, bm, qv, theta,
-        exner, inv_rho, temp, qv_si, pres, skip_lvl.to(qc.dtype),
-        do_predict_nc=do_predict_nc)
+        dt, *rates[:23], qc_in, nc_in, qr_in, nr_in, qi_in, rates[23], qc,
+        nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, inv_rho, temp,
+        rates[24], pres, skip_f, do_predict_nc=do_predict_nc)
 
     if diagnostics:
         # per-column is_hydromet_present: a level survived the
@@ -866,92 +1046,16 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
         hydro_col = torch.any((qc > 0.0) | (qr > 0.0) | (qi > 0.0),
                               dim=z_axis, keepdim=True)
 
-    # -- sedimentation (cloud + rain + ice), upstream, CFL sub-cycled
-    def cloud_sed_speeds(qc_, nc_):
-        """(V_qc, nc) with get_cloud_dsd2's nc adjustment persisted
-        (cloud_sedimentation, micro_p3.F90:3670-3722)."""
-        gate = qc_ >= QSMALL
-        qc_c = _where0(gate, _min(qc_, 5.1e-3))
-        nc_l = cloud_dsd2(qc_c, _where0(gate, _max(nc_, 0.0)))[0]
-        v, _, _ = cloud_vt(qc_c, nc_l)
-        return v, torch.where(gate, nc_l, nc_)
-
-    def ice_fallspeeds(qi_, ni_, qm_, bm_):
-        """(V_qit, V_nit, ni, qm, bm) with the re-bounds and the limited ni
-        persisted (ice_sedimentation, micro_p3.F90:4007-4037)."""
-        gate = qi_ >= QSMALL
-        if dtab is None:
-            v = torch.clamp(1.2 * _max(rho * qi_, 0.0) ** 0.0625, 0.3, 3.0)
-            return v, v, ni_, qm_, bm_
-        qi_c = _where0(gate, _min(qi_, 5.1e-3))
-        ni_c = _max(_where0(gate, _max(ni_, 0.0)), NSMALL)
-        has_m = gate & (qm_ >= QSMALL)
-        qm_c = _where0(has_m, qm_)
-        bm_c = _where0(has_m, _min(_max(bm_, 0.0), 5.1e-3))
-        qm_c, bm_c, rr_ = _bulk_rho_rime(qi_c, qm_c, bm_c)
-        idx_ = ice_table_indices(qi_c, ni_c, qm_c, rr_)
-        rfac = (rho_600mb * inv_rho) ** 0.54
-        v_q, v_n, t7_, t8_ = interp_ice_multi(dtab, (2, 1, 7, 8), *idx_,
-                                              present=gate.any())
-        ni_l = torch.minimum(ni_c, t7_ * ni_c)
-        ni_l = torch.maximum(ni_l, t8_ * ni_l)
-        return (_where0(gate, rfac * v_q), _where0(gate, rfac * v_n),
-                torch.where(gate, ni_l, ni_), torch.where(gate, qm_c, qm_),
-                torch.where(gate, bm_c, bm_))
-
-    def rain_sed_speeds(qr_, nr_):
-        """(V_qr, V_nr, nr) with get_rain_dsd2's nr adjustment persisted
-        (rain_sedimentation, micro_p3.F90:3825-3843)."""
-        gate = qr_ >= QSMALL
-        qr_c = _where0(gate, _min(qr_, 1.0e-2))
-        nr_c = _where0(gate, _max(nr_, 0.0))
-        nr_l = _rain_dsd2(qr_c, nr_c)[0]
-        v_q, v_n = rain_fallspeeds(qr_c, nr_l)
-        return v_q, v_n, torch.where(gate, nr_l, nr_)
-
-    vmax = torch.maximum(torch.maximum(rain_sed_speeds(qr, nr)[0].max(),
-                                       ice_fallspeeds(qi, ni, qm, bm)[0].max()),
-                         cloud_sed_speeds(qc, nc)[0].max())
-    vmax = pmax(vmax, spmd_axes)
+    # -- sedimentation (cloud + rain + ice), upstream, CFL sub-cycled: the
+    # sub-step count stays a device tensor, read by the column kernel
+    vmax = pmax(sed.sed_vmax(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dtab,
+                             z_axis=z_axis), spmd_axes)
     dz_min = pmin(dz.min(), spmd_axes)
     nsub_t = _max(torch.ceil(dt * vmax / (0.9 * dz_min)), 1.0)
-    # the one host read of the step: the sub-step count drives the loop
-    # (in a mesh run, one read serves every shard)
-    nsub = host_ints(nsub_t)
-    dts = dt / nsub_t
-    mass_lo = ax(rho, 0, nz - 1) * ax(dz, 0, nz - 1)
-    mass_top = ax(rho, nz - 1, 1) * ax(dz, nz - 1, 1)
-
-    def fall(q, v):
-        """One upstream sub-step; returns (q, surface outflow)."""
-        flux = rho * q * v  # downward mass flux at cell centers
-        dq_lower = dts * (ax(flux, 1, nz - 1) - ax(flux, 0, nz - 1)) / mass_lo
-        dq_top = -dts * ax(flux, nz - 1, 1) / mass_top
-        q = q + torch.cat([dq_lower, dq_top], dim=z_axis)
-        return _max(q, 0.0), dts * ax(flux, 0, 1) / RHO_H2O
-
-    pl = torch.zeros_like(ax(qc, 0, 1))
-    pi_ = torch.zeros_like(pl)
-    for _ in range(nsub):
-        # per-substep DSD/limiter writebacks persist (:3700, :3843,
-        # :4021-4034)
-        vr_, vnr_, nr = rain_sed_speeds(qr, nr)
-        vi_, vni_, ni, qm, bm = ice_fallspeeds(qi, ni, qm, bm)
-        vc_, nc = cloud_sed_speeds(qc, nc)
-        qc, out = fall(qc, vc_)
-        pl = pl + out
-        if do_predict_nc:
-            nc = fall(nc, vc_)[0]
-        qr, out = fall(qr, vr_)
-        pl = pl + out
-        nr = fall(nr, vnr_)[0]   # nr at V_nr (:3785-3791)
-        qi, out = fall(qi, vi_)
-        pi_ = pi_ + out
-        ni = fall(ni, vni_)[0]   # ni at V_nit (:4025-4037)
-        qm = fall(qm, vi_)[0]
-        bm = fall(bm, vi_)[0]
-    precip_liq = pl.squeeze(z_axis) / dt
-    precip_ice = pi_.squeeze(z_axis) / dt
+    (qc, nc, qr, nr, qi, ni, qm, bm, precip_liq, precip_ice) = (
+        sed.sed_columns(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt,
+                        nsub_t, dtab, do_predict_nc=do_predict_nc,
+                        z_axis=z_axis))
 
     # -- homogeneous freezing (micro_p3.F90:4145-4200): below -40 C all
     # cloud, then all rain, freezes into rimed ice packed at rho_rimeMax,
@@ -974,7 +1078,7 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
     small_c = qc < QSMALL
     qv = qv + _where0(small_c, qc)
     theta = theta - _where0(small_c, qc) * Lv / (cp * exner)
-    nc3, mu_c3, lamc3 = cloud_dsd2(qc, nc)
+    nc3, mu_c3, lamc3 = _cloud_dsd2(qc, nc, rho)
     nc = _where0(~small_c, nc3)
     qc = _where0(~small_c, qc)
     if diagnostics:
@@ -1019,7 +1123,7 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
     # -- part3 ice diagnostics (:1102-1112) with the p3_main defaults
     if ice_diag is not None:
         t2_3, t6_3, t9_3, t11_3, t12_3 = ice_diag
-        rhofaci3 = (rho_600mb * inv_rho) ** 0.54
+        rhofaci3 = (_RHO_600MB * inv_rho) ** 0.54
         vm_qi = _where0(~small_i, t2_3 * rhofaci3)
         eff_qi = torch.where(small_i, 25.0e-6, t6_3)
         diam_qi = _where0(~small_i, t11_3)

@@ -2,13 +2,19 @@
 plain versions.
 
 ``p3_part1`` (13 fields in, 21 out), ``p3_update`` (dt + 45 fields in, 10
-out) and ``p3_wrapper`` (13 fields in, 14 out) run the plain functions of
+out), ``p3_wrapper`` (13 fields in, 14 out), ``p3_rates_pre`` (10 fields
+in; 7 fields, 5 int32 index fields and 3 presence flags out) and
+``p3_rates_post`` (dt + 30 fields in, 25 out) run the plain functions of
 ``p3.py`` (``_p3_part1_cellwise``, ``_p3_update_cellwise``,
-``_p3_wrapper_inputs_cellwise``, re-exported here as ``part1_plain``,
-``update_plain`` and ``wrapper_plain``) on CPU tensors.  On CUDA tensors
-each launches the matching phase of ``csrc/p3_cellwise.cu``, the port of the
-Pallas kernel ``miniweatherml_tpu/ops/elementwise.py::fused_cellwise``: one
-thread per cell reads the cell's inputs once and writes its outputs once.
+``_p3_wrapper_inputs_cellwise``, ``_p3_rates_pre_cellwise``,
+``_p3_rates_post_cellwise``, re-exported here as ``*_plain``) on CPU
+tensors.  On CUDA tensors each launches the matching phase of
+``csrc/p3_cellwise.cu``: one thread per cell reads the cell's inputs once
+and writes its outputs once.  The first three are the port of the Pallas
+kernel ``miniweatherml_tpu/ops/elementwise.py::fused_cellwise``; the two
+rates phases, with the table lookups between them, are the port of the XLA
+fusion of the JAX scheme's process rates
+(``miniweatherml_tpu/physics/p3.py:853-1225``), which is no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -19,16 +25,27 @@ import torch
 
 from ..cuda_build import count_launch, load_library, on_cuda
 from .p3 import (_p3_part1_cellwise as part1_plain,
+                 _p3_rates_post_cellwise as rates_post_plain,
+                 _p3_rates_pre_cellwise as rates_pre_plain,
                  _p3_update_cellwise as update_plain,
                  _p3_wrapper_inputs_cellwise as wrapper_plain)
 
-__all__ = ["p3_part1", "p3_update", "p3_wrapper", "plain_phase",
-           "part1_plain", "update_plain", "wrapper_plain"]
+__all__ = ["p3_part1", "p3_update", "p3_wrapper", "p3_rates_pre",
+           "p3_rates_post", "plain_phase", "part1_plain", "update_plain",
+           "wrapper_plain", "rates_pre_plain", "rates_post_plain"]
 
 # phase ids of csrc/p3_cellwise.cu: (phase, do_predict_nc) -> id
 _PHASE_ID = {("part1", False): 0, ("part1", True): 1, ("update", False): 2,
-             ("update", True): 3, ("wrapper", False): 4}
-_N_OUT = {"part1": 21, "update": 10, "wrapper": 14}
+             ("update", True): 3, ("wrapper", False): 4,
+             ("rates_pre", False): 5, ("rates_post", False): 6}
+# (outputs in the fields' dtype, int32 outputs, presence flags) per phase
+_N_OUT = {"part1": (21, 0, 0), "update": (10, 0, 0), "wrapper": (14, 0, 0),
+          "rates_pre": (7, 5, 3), "rates_post": (25, 0, 0)}
+# where rates_pre's outputs go in its plain version's order: ("f", i) the
+# i-th field output, ("i", i) the i-th int32 output
+_RATES_PRE_ORDER = (("f", 0), ("f", 1), ("i", 0), ("f", 2), ("i", 1),
+                    ("f", 3), ("i", 2), ("f", 4), ("i", 3), ("f", 5),
+                    ("i", 4), ("f", 6))
 
 _lib = None
 
@@ -42,7 +59,7 @@ def _library():
         PP = ctypes.POINTER(ctypes.c_void_p)
         for name in ("p3_cellwise_f32", "p3_cellwise_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [I, PP, I, PP, I, L, D, P]
+            fn.argtypes = [I, PP, I, PP, I, PP, I, P, I, L, D, P]
             fn.restype = I
         lib.p3_cellwise_error_string.argtypes = [I]
         lib.p3_cellwise_error_string.restype = ctypes.c_char_p
@@ -62,18 +79,29 @@ def _launch(phase, predict_nc, arrays, dt=0.0):
                              f"{a0.dtype} tensor of shape {tuple(a0.shape)} "
                              f"on {a0.device}, got {a.dtype} "
                              f"{tuple(a.shape)} on {a.device}")
-    outs = [torch.empty_like(a0) for _ in range(_N_OUT[phase])]
-    ins = (ctypes.c_void_p * len(arrays))(*(a.data_ptr() for a in arrays))
-    outp = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+    n_f, n_i, n_flag = _N_OUT[phase]
+    outs = [torch.empty_like(a0) for _ in range(n_f)]
+    iouts = [torch.empty_like(a0, dtype=torch.int32) for _ in range(n_i)]
+    flags = (torch.zeros(n_flag, dtype=torch.bool, device=a0.device)
+             if n_flag else None)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * max(len(ts), 1))(*(t.data_ptr()
+                                                     for t in ts))
     lib = _library()
     fn = (lib.p3_cellwise_f32 if a0.dtype == torch.float32
           else lib.p3_cellwise_f64)
     stream = torch.cuda.current_stream(a0.device).cuda_stream
-    rc = fn(_PHASE_ID[(phase, predict_nc)], ins, len(arrays), outp,
-            len(outs), a0.numel(), float(dt), stream)
+    rc = fn(_PHASE_ID[(phase, predict_nc)], ptrs(arrays), len(arrays),
+            ptrs(outs), n_f, ptrs(iouts), n_i,
+            None if flags is None else flags.data_ptr(), n_flag, a0.numel(),
+            float(dt), stream)
     if rc != 0:
         raise RuntimeError(f"p3 {phase} kernel launch failed: "
                            + lib.p3_cellwise_error_string(rc).decode())
+    if phase == "rates_pre":
+        got = {"f": outs, "i": iouts}
+        return (*(got[k][i] for k, i in _RATES_PRE_ORDER), flags)
     return tuple(outs)
 
 
@@ -83,6 +111,10 @@ def plain_phase(phase: str, predict_nc: bool, arrays, dt=0.0):
         return part1_plain(*arrays, do_predict_nc=predict_nc)
     if phase == "update":
         return update_plain(dt, *arrays, do_predict_nc=predict_nc)
+    if phase == "rates_pre":
+        return rates_pre_plain(*arrays)
+    if phase == "rates_post":
+        return rates_post_plain(dt, *arrays)
     return wrapper_plain(*arrays)
 
 
@@ -128,6 +160,30 @@ def p3_wrapper(rho_d, temp, rho_c, rho_nc, rho_r, rho_nr, rho_i, rho_ni,
     return out
 
 
+def p3_rates_pre(qi, qr, qm, bm, qi_in, qm_in, bm_in, ni_in, qr_in, nr_in):
+    """The table tier's rime re-bounds and lookup index sets, with the
+    lookups' presence flags (see ``p3._p3_rates_pre_cellwise``)."""
+    out, launched = _run("rates_pre", False, (
+        qi, qr, qm, bm, qi_in, qm_in, bm_in, ni_in, qr_in, nr_in))
+    if launched:
+        count_launch(p3_rates_pre)
+    return out
+
+
+def p3_rates_post(dt, *arrays):
+    """The table tier's process rates from part1's state and the ten lookup
+    values, on the 30 fields of ``p3._p3_rates_post_cellwise``; ``dt`` is a
+    number."""
+    if len(arrays) != 30:
+        raise ValueError(f"p3_rates_post takes 30 fields, got {len(arrays)}")
+    out, launched = _run("rates_post", False, arrays, dt)
+    if launched:
+        count_launch(p3_rates_post)
+    return out
+
+
 p3_part1.launches = 0
 p3_update.launches = 0
 p3_wrapper.launches = 0
+p3_rates_pre.launches = 0
+p3_rates_post.launches = 0

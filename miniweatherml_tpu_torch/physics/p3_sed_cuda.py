@@ -1,0 +1,178 @@
+"""P3 sedimentation: the fastest fall speed and the CFL-sub-cycled fall, as
+CUDA kernels, and their plain versions.
+
+``sed_vmax`` (the state's fastest mass-weighted fall speed, a 0-d tensor)
+and ``sed_columns`` (``nsub_t`` upstream sub-steps of cloud, rain and ice
+with their write-backs, and the surface rates) run the plain functions of
+``p3.py`` (``_p3_sed_vmax``, ``_p3_sed_columns``; re-exported here as
+``vmax_plain`` and ``columns_plain``) on CPU tensors.  On CUDA tensors each
+launches its kernel in ``csrc/p3_sed.cu``, the port of the JAX scheme's
+sedimentation (``miniweatherml_tpu/physics/p3.py:1268-1388``, a
+``lax.while_loop``, no Pallas kernel): ``sed_columns`` reads the sub-step
+count on the device, so a step makes no host read.  The fields are
+contiguous (nens, nz, ny, nx) tensors, the vertical on axis 1; ``dtab`` is
+the ``DeviceTables`` of the table tier, or None for the [approx] tier.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..cuda_build import count_launch, load_library, on_cuda
+from .p3 import _p3_sed_columns as columns_plain
+from .p3 import _p3_sed_vmax as vmax_plain
+from .p3_lookup_cuda import ice_strides
+
+__all__ = ["sed_vmax", "sed_columns", "vmax_plain", "columns_plain",
+           "launch_config", "ICE_COLS", "RAIN_ROWS"]
+
+ICE_COLS = (2, 1, 7, 8)    # V_qit, V_nit and the ni limiters
+RAIN_ROWS = ("vm", "vn")   # V_qr, V_nr
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = load_library("p3_sed")
+        P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_double)
+        PP = ctypes.POINTER(ctypes.c_void_p)
+        for t in ("f32", "f64"):
+            fn = getattr(lib, f"p3_sed_vmax_{t}")
+            fn.argtypes = [I, PP, P, P, I, L, I, L, P, P]
+            fn.restype = I
+            fn = getattr(lib, f"p3_sed_columns_{t}")
+            fn.argtypes = [I, I, PP, PP, P, P, I, P, D, L, I, L, P]
+            fn.restype = I
+        lib.p3_sed_launch.argtypes = [I, I, I, I, L, I, P, P, P]
+        lib.p3_sed_launch.restype = I
+        lib.p3_sed_error_string.argtypes = [I]
+        lib.p3_sed_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch_config(kernel: str, tables: bool, predict_nc: bool,
+                  dtype: torch.dtype, n: int, nz: int) -> tuple[int, int, int]:
+    """(blocks, threads per block, shared memory per block in bytes) of the
+    "vmax" or "columns" kernel's launch over n cells of nz levels on the
+    current card."""
+    blocks, threads, smem = (ctypes.c_uint(), ctypes.c_int(),
+                             ctypes.c_longlong())
+    lib = _library()
+    rc = lib.p3_sed_launch(int(kernel == "columns"), int(tables),
+                           int(predict_nc), int(dtype == torch.float64), n,
+                           nz, ctypes.byref(blocks), ctypes.byref(threads),
+                           ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"p3 sed {kernel} launch configuration failed: "
+                           + lib.p3_sed_error_string(rc).decode())
+    return blocks.value, threads.value, smem.value
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+
+def _check(fields, z_axis):
+    """Validate a CUDA call's fields; returns (n, nz, plane)."""
+    f0 = fields[0]
+    if f0.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dtype {f0.dtype} is not float32/float64")
+    if f0.dim() != 4 or z_axis not in (1, -3):
+        raise ValueError("the sedimentation kernels take (nens, nz, ny, nx) "
+                         f"fields with z on axis 1, got shape "
+                         f"{tuple(f0.shape)} and z_axis {z_axis}")
+    for i, a in enumerate(fields):
+        if (a.device != f0.device or a.dtype != f0.dtype
+                or a.shape != f0.shape or not a.is_contiguous()):
+            raise ValueError(f"p3 sedimentation: field {i} must be a "
+                             f"contiguous {f0.dtype} tensor of shape "
+                             f"{tuple(f0.shape)} on {f0.device}, got "
+                             f"{a.dtype} {tuple(a.shape)} on {a.device}")
+    nens, nz, ny, nx = f0.shape
+    return f0.numel(), nz, ny * nx
+
+
+def _tables(dtab, like):
+    """(packed ice table, rain rows) pointers of the table tier, checked."""
+    if dtab is None:
+        return None, None, 0
+    if dtab.device != like.device or dtab.dtype != like.dtype:
+        raise ValueError(f"tables on {dtab.device} in {dtab.dtype}, fields "
+                         f"on {like.device} in {like.dtype}")
+    ice = dtab.ice_cols(ICE_COLS)
+    rain = dtab.rain_rows(RAIN_ROWS)
+    if (ice.stride() != ice_strides(len(ICE_COLS), like.dtype)
+            or ice.data_ptr() % 16 or not rain.is_contiguous()
+            or rain.data_ptr() % 16):
+        raise ValueError("the sedimentation kernels take the packed ice "
+                         "table and contiguous, 16-byte aligned rain rows")
+    return ice.data_ptr(), rain.data_ptr(), rain.shape[1]
+
+
+def _raise(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"p3 {what} kernel launch failed: "
+                           + _library().p3_sed_error_string(rc).decode())
+
+
+def sed_vmax(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dtab,
+             z_axis: int = 1):
+    """The fastest mass-weighted fall speed (rain V_qr, ice V_qit, cloud
+    V_qc) of the state, a 0-d tensor on the fields' device."""
+    if not on_cuda(qc):
+        return vmax_plain(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dtab,
+                          z_axis)
+    fields = (qc, nc, qr, nr, qi, ni, qm, bm, rho, rho, temp)  # no dz read
+    n, nz, plane = _check(fields, z_axis)
+    ice, rain, rsize = _tables(dtab, qc)
+    vmax = torch.zeros((), dtype=qc.dtype, device=qc.device)
+    lib = _library()
+    fn = lib.p3_sed_vmax_f32 if qc.dtype == torch.float32 else \
+        lib.p3_sed_vmax_f64
+    _raise(fn(int(dtab is not None), _ptrs(fields), ice, rain, rsize, n, nz,
+              plane, vmax.data_ptr(),
+              torch.cuda.current_stream(qc.device).cuda_stream), "sed_vmax")
+    count_launch(sed_vmax)
+    return vmax
+
+
+def sed_columns(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt, nsub_t,
+                dtab, *, do_predict_nc: bool, z_axis: int = 1):
+    """``nsub_t`` (a 0-d tensor on the fields' device) upstream sub-steps of
+    cloud, rain and ice sedimentation.  Returns (qc, nc, qr, nr, qi, ni, qm,
+    bm, precip_liq, precip_ice), the surface rates in m/s without the z
+    axis; ``dt`` is a number."""
+    if not on_cuda(qc):
+        return columns_plain(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz,
+                             dt, nsub_t, dtab, do_predict_nc, z_axis)
+    fields = (qc, nc, qr, nr, qi, ni, qm, bm, rho, dz, temp)
+    n, nz, plane = _check(fields, z_axis)
+    if (nsub_t.device != qc.device or nsub_t.dtype != qc.dtype
+            or nsub_t.numel() != 1):
+        raise ValueError("nsub_t must be one value of the fields' dtype on "
+                         "their device")
+    ice, rain, rsize = _tables(dtab, qc)
+    outs = [torch.empty_like(qc) for _ in range(8)]
+    srf = torch.empty((2, qc.shape[0], *qc.shape[2:]), dtype=qc.dtype,
+                      device=qc.device)
+    outs += list(srf.unbind(0))
+    lib = _library()
+    fn = lib.p3_sed_columns_f32 if qc.dtype == torch.float32 else \
+        lib.p3_sed_columns_f64
+    _raise(fn(int(dtab is not None), int(bool(do_predict_nc)),
+              _ptrs(fields), _ptrs(outs), ice, rain, rsize,
+              nsub_t.data_ptr(), float(dt), n, nz, plane,
+              torch.cuda.current_stream(qc.device).cuda_stream),
+           "sed_columns")
+    count_launch(sed_columns)
+    return tuple(outs)
+
+
+sed_vmax.launches = 0
+sed_columns.launches = 0

@@ -276,7 +276,8 @@ def _family(name: str) -> str:
     if "gemm" in n or "cutlass" in n or "xmma" in n:
         return "matmul"
     if any(k in n for k in ("kessler", "cellwise", "ice_kernel",
-                            "collect_kernel", "rain_kernel")):
+                            "collect_kernel", "rain_kernel", "sed_vmax",
+                            "sed_columns")):
         return "microphysics"
     if "elementwise" in n or "vectorized" in n:
         return "glue"

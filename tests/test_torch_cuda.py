@@ -7,7 +7,8 @@ neither JAX nor the JAX package, so it also runs on a machine without JAX:
 
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 Tolerance: max|kernel - plain| over max|plain| of each output, 1e-12 in
-f64 and 1e-5 in f32; the flux kernel, fct_mult, the Kessler step and the
+f64 and 1e-5 in f32 (an index set of the P3 rates by its lookup positions,
+index plus fraction); the flux kernel, fct_mult, the Kessler step and the
 P3 lookups equal their plain versions bit for bit.
 """
 
@@ -381,12 +382,32 @@ def _p3_state(dtype, device, nx=20, ny=3, nz=16):
     return supercell_p3.seed_mixed_regimes(state), mods
 
 
+def _close_to_plain(got, want, where):
+    """rates_pre's index sets by their lookup positions (index + fraction,
+    continuous where an index steps), every other output by its scale."""
+    pairs = list(zip(got, want))
+    if len(got) == 13:  # rates_pre: (qm, bm, 5 x (index, fraction), flags)
+        assert torch.equal(got[12], want[12]), where
+        pairs = pairs[:2] + [
+            (got[i].double() + got[i + 1].double(),
+             want[i].double() + want[i + 1].double()) for i in (2, 4, 6, 8,
+                                                                10)]
+    for i, (g, w) in enumerate(pairs):
+        assert g.dtype == w.dtype and g.shape == w.shape, (where, i)
+        scale = max(w.abs().max().item(), 1e-300)
+        tol = TOL[got[0].dtype]
+        assert (g - w).abs().max().item() / scale <= tol, (where, i)
+
+
 def test_p3_cellwise_kernels_match_plain(cuda_device, monkeypatch):
     """Each phase's kernel against its plain version on the inputs one P3
-    step hands it (20x3x16 = 960 cells: not a multiple of the block)."""
+    step hands it (20x3x16 = 960 cells: not a multiple of the block); the
+    rates phases' index sets by their lookup positions."""
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
 
     launch = CW._launch
+    wrappers = (CW.p3_part1, CW.p3_update, CW.p3_wrapper, CW.p3_rates_pre,
+                CW.p3_rates_post)
     for dtype in ("float64", "float32"):
         state, mods = _p3_state(dtype, cuda_device)
         seen = {}
@@ -397,19 +418,16 @@ def test_p3_cellwise_kernels_match_plain(cuda_device, monkeypatch):
                                                dt))
             return got
         monkeypatch.setattr(CW, "_launch", spy)
-        n0 = [f.launches for f in (CW.p3_part1, CW.p3_update, CW.p3_wrapper)]
+        n0 = [f.launches for f in wrappers]
         mods[1](state, 2.0)
         monkeypatch.undo()
-        assert [f.launches for f in (CW.p3_part1, CW.p3_update,
-                                     CW.p3_wrapper)] == [k + 1 for k in n0]
-        assert set(seen) == {"part1", "update", "wrapper"}
+        assert [f.launches for f in wrappers] == [k + 1 for k in n0]
+        assert set(seen) == {"part1", "update", "wrapper", "rates_pre",
+                             "rates_post"}
         for name, (got, want) in seen.items():
             assert len(got) == len(want)
-            for i, (g, w) in enumerate(zip(got, want)):
-                assert g.dtype == w.dtype and g.shape == w.shape
-                scale = max(w.abs().max().item(), 1e-300)
-                assert (g - w).abs().max().item() / scale <= TOL[g.dtype], (
-                    name, i, dtype)
+            _close_to_plain(got, want, (name, dtype))
+        assert seen["rates_pre"][0][2].dtype == torch.int32
 
 
 def test_p3_cellwise_rejects_bad_input(cuda_device):
@@ -423,6 +441,113 @@ def test_p3_cellwise_rejects_bad_input(cuda_device):
         CW.p3_wrapper(*[x.half()] * 13)
     with pytest.raises(ValueError, match="45 fields"):
         CW.p3_update(1.0, *[x] * 44, do_predict_nc=False)
+    with pytest.raises(ValueError, match="30 fields"):
+        CW.p3_rates_post(1.0, *[x] * 29)
+    with pytest.raises(ValueError, match="contiguous"):
+        CW.p3_rates_pre(*[x] * 9, x.transpose(2, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        CW.p3_rates_post(1.0, *[x] * 29, x.double())
+
+
+def _p3_sed_calls(state, mods, monkeypatch):
+    """The arguments one P3 step hands sed_vmax and sed_columns."""
+    from miniweatherml_tpu_torch.physics import p3_sed_cuda as SED
+
+    seen = {}
+    for name in ("sed_vmax", "sed_columns"):
+        real = getattr(SED, name)
+
+        def call(*a, _real=real, _name=name, **k):
+            seen[_name] = (a, k)
+            return _real(*a, **k)
+        call.launches = 0  # the wrapper counts on its module-level name
+        monkeypatch.setattr(SED, name, call)
+    mods[1](state, 2.0)
+    monkeypatch.undo()
+    return seen
+
+
+@pytest.mark.parametrize("tables", [True, False])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_p3_sed_kernels_match_plain(dtype, tables, cuda_device, monkeypatch):
+    """sed_vmax and sed_columns against their plain versions on what one P3
+    step hands them (960 cells: not a multiple of the blocks), the table
+    and the [approx] tier: the speed, and the fall at the step's one
+    sub-step and at a dt that makes dt vmax / (0.9 dz_min) = 3.5 (4
+    sub-steps), do_predict_nc both ways."""
+    from miniweatherml_tpu_torch.physics import p3_sed_cuda as SED
+
+    state, mods = _p3_state(dtype, cuda_device)
+    if not tables:
+        mods[1].__self__.tables = None
+    seen = _p3_sed_calls(state, mods, monkeypatch)
+    va, vk = seen["sed_vmax"]
+    ca, ck = seen["sed_columns"]
+    assert (ca[13] is None) == (not tables)
+    n0 = (SED.sed_vmax.launches, SED.sed_columns.launches)
+    vmax = SED.sed_vmax(*va, **vk)
+    want = SED.vmax_plain(*va, **vk)
+    assert vmax.shape == () and float(vmax) > 0.0
+    assert abs(float(vmax) - float(want)) <= TOL[vmax.dtype] * float(want)
+    dz = ca[10]
+    dt3 = 3.5 * 0.9 * float(dz.min()) / float(vmax)
+    for dt, nsub in ((ca[11], ca[12]),
+                     (dt3, torch.clamp(torch.ceil(
+                         dt3 * vmax / (0.9 * dz.min())), min=1.0))):
+        for pnc in (False, True):
+            args = (*ca[:11], dt, nsub, ca[13])
+            got = SED.sed_columns(*args, do_predict_nc=pnc)
+            ref = SED.columns_plain(*args, pnc, 1)
+            assert len(got) == len(ref) == 10
+            assert got[8].shape == (state.grid.nens, state.grid.ny,
+                                    state.grid.nx)
+            _close_to_plain(got, ref, (dtype, tables, int(nsub), pnc))
+    assert int(nsub) == 4
+    assert (SED.sed_vmax.launches, SED.sed_columns.launches) == (
+        n0[0] + 1, n0[1] + 4)
+
+
+def test_p3_sed_rejects_bad_input(cuda_device):
+    from miniweatherml_tpu_torch.physics import p3_sed_cuda as SED
+    from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
+
+    x = torch.ones((2, 6, 4, 5), device=cuda_device)
+    dtab = load_p3_tables().to(cuda_device, torch.float32)
+    nsub = torch.tensor(1.0, device=cuda_device)
+    with pytest.raises(TypeError):
+        SED.sed_vmax(*[x.half()] * 10, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        SED.sed_vmax(*[x] * 9, x.transpose(2, 3), dtab)
+    with pytest.raises(ValueError, match="axis 1"):
+        SED.sed_vmax(*[x] * 10, dtab, z_axis=2)
+    with pytest.raises(ValueError, match="tables"):
+        SED.sed_vmax(*[x] * 10, load_p3_tables().to(cuda_device,
+                                                    torch.float64))
+    with pytest.raises(ValueError, match="nsub_t"):
+        SED.sed_columns(*[x] * 11, 1.0, nsub.double(), dtab,
+                        do_predict_nc=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        SED.sed_columns(*[x] * 10, x[:, :, :, :4], 1.0, nsub, dtab,
+                        do_predict_nc=False)
+
+
+@pytest.mark.parametrize("tables", [True, False])
+def test_p3_time_step_makes_no_host_sync(tables, cuda_device):
+    """A whole MicrophysicsP3.time_step (f32, mixed regimes) after a warm
+    step runs under torch.cuda's sync debug mode "error": the sub-step
+    count stays on the card."""
+    state, mods = _p3_state("float32", cuda_device)
+    micro = mods[1].__self__
+    if not tables:
+        micro.tables = None
+    state = micro.time_step(state, 2.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = micro.time_step(state, 2.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.validate() == {}
 
 
 # -- FCT: the multiplier and the scaled tracer divergence --------------------
@@ -639,8 +764,11 @@ def test_p3_slice_on_card_matches_cpu(cuda_device):
         sim_time=100.0, nx_glob=16, ny_glob=8, nz=10, xlen=40000.0,
         ylen=40000.0, zlen=16000.0, init_data="supercell", dtype="float64",
         p3_diagnostics=True))
+    from miniweatherml_tpu_torch.physics import p3_sed_cuda as SED
+
     counters = (LK.interp_ice, LK.interp_collect, LK.interp_rain,
-                CW.p3_part1, CW.p3_update, CW.p3_wrapper)
+                CW.p3_part1, CW.p3_update, CW.p3_wrapper, CW.p3_rates_pre,
+                CW.p3_rates_post, SED.sed_vmax, SED.sed_columns)
     states = []
     for device in ("cpu", cuda_device):
         state, mods, dycore = supercell_p3.build(cfg, device)
