@@ -4,8 +4,8 @@ Usage (from the root of a checkout):  python3 chip_smoke.py
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: name, power limit, torch and CUDA versions;
-  2. build: the six CUDA libraries from csrc/ with nvcc (sm_90a), one nvcc
-     each, and the P3 native twin with g++, all started together; the
+  2. build: the seven CUDA libraries from csrc/ with nvcc (sm_90a), one
+     nvcc each, and the P3 native twin with g++, all started together; the
      registers, spills and shared memory of every kernel (from the ptxas
      reports: the flux kernel's ord-5
      instantiations, the y/z kernel's accumulating and stage-update forms
@@ -66,15 +66,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the step's count with do_predict_nc both ways and at a dt that makes
      that ratio 3.5 (4 sub-steps); each timed beside its bound, with the
      sedimentation kernels' launch configuration;
+  32. (run inside 31, then on its own) the microphysics tails: P3's
+     freezing + part3 (``p3_part3``, with and without its diagnostics,
+     within the bound, with the cells that hold ice and that freeze) and
+     its output pass (``p3_wrapper_out``, bit for bit) on what each of
+     phase 31's steps hands them, f32 and f64; then the Kessler sub-cycle
+     step (``min_step``) on the Kessler chain's 512x512x64 state after one
+     step and on phase 4's heavy-rain columns (count 2 or more, printed
+     beside the largest dt v / (0.8 dz_lev)), and the surrogate's forward pass
+     (``surrogate_forward``) on cell (f)'s state after one step, f32 and
+     f64 (the state cast), bit for bit; each timed beside its bound, with
+     the four kernels' registers and spills from phase 2;
   10. the P3 slice: run_benchmark(build=supercell_p3.build) at 512x512x64
      f32, 10 steps from the supercell init, with every P3-path kernel's
      launch count, a clean validate(), Mcellups and peak memory, and the
      host synchronizations of one step (torch.cuda sync debug mode) of the
-     P3, all-active P3 and Kessler chains, which must all be 0;
+     P3, all-active P3, Kessler and online surrogate chains, which must
+     all be 0;
   11. the same for 3 steps with every cell seeded (bench.py's all-active
      P3 case), so every presence gate fires;
   12. a 16x8x10 f64 P3 slice with seeded hydrometeor layers and part3
-     diagnostics, card against the port's CPU run, 3 steps;
+     diagnostics (through part3's diagnostics kernel), card against the
+     port's CPU run, 3 steps;
   13. the 2-D supercell_p3 experiment with p3_diagnostics, heartbeat and
      NetCDF (chip_smoke_out/);
   15. the city slice: run_benchmark(build=simple_city.build_chain) at
@@ -161,16 +174,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
 Tolerance of a kernel against its plain version: max|kernel - plain| over
 max|plain| of each output below 1e-12 in f64 and 1e-5 in f32 (the JAX
 suite's own f32 bound between its paths, tests/test_pallas.py:260,311);
-the direction-flux kernel, fct_mult and the three P3 lookups must also equal
-their plain versions bit for bit; the Kessler step prints whether it does,
-and the count and size in ulps of any value that rounds apart; the P3
-rates and sedimentation kernels print whether they do (their pow, exp,
-lgamma and log10 need not round as PyTorch's).
+the direction-flux kernel, fct_mult, the three P3 lookups, the Kessler
+sub-cycle step, the P3 output pass and the surrogate's forward pass must
+also equal their plain versions bit for bit; the Kessler step prints
+whether it does, and the count and size in ulps of any value that rounds
+apart; the P3 rates, sedimentation and part3 kernels print whether they do
+(their pow, exp, lgamma and log10 need not round as PyTorch's).
 A slice on the card against the port's CPU run: 1e-7 of each field's scale
-(1e-9 for the one-step building and city slices, phase 16).  The surrogate
-is plain tensor code (two torch.matmul calls, TF32 off), as the JAX
-package's is outside any Pallas kernel, so it adds no row to the kernels
-line.
+(1e-9 for the one-step building and city slices, phase 16).  The
+surrogate's forward pass is one kernel (csrc/surrogate.cu) and the training
+path keeps torch.matmul (TF32 off).
 
 The last lines of output are {"native": {...}} (the twin is host C++, not a
 TPU kernel, so it has no row in the kernels line), the card's name and power
@@ -488,18 +501,25 @@ def phase_device():
 
 
 LIBRARIES = ("direction_fluxes", "kessler", "p3_lookup", "p3_cellwise", "fct",
-             "p3_sed")
+             "p3_sed", "surrogate")
 
 
 def _entry_label(lib: str, mangled: str) -> str:
     """A readable name of an entry function: the P3 per-cell phase or the
     sedimentation kernel with its template arguments, else its name."""
     import re
-    m = re.search(r"(Part1|Update|Wrapper|RatesPre|RatesPost)(?:ILb([01])EE)?"
-                  r"E([fd])E", mangled)
+    m = re.search(r"(Part1|Update|WrapperOut|Wrapper|RatesPre|RatesPost|Part3)"
+                  r"(?:ILb([01])E(?:Lb([01])E)?E)?E([fd])E", mangled)
     if lib == "p3_cellwise" and m:
-        pnc = "" if m.group(2) is None else f" predict_nc={m.group(2)}"
-        return f"cellwise {m.group(1)}{pnc} <{'float' if m.group(3) == 'f' else 'double'}>"
+        flag = "tables" if m.group(1) == "Part3" else "predict_nc"
+        pnc = "" if m.group(2) is None else f" {flag}={m.group(2)}"
+        diag = "" if m.group(3) is None else f" diagnostics={m.group(3)}"
+        return (f"cellwise {m.group(1)}{pnc}{diag} "
+                f"<{'float' if m.group(4) == 'f' else 'double'}>")
+    m = re.search(r"surrogate_kernelI([fd])E", mangled)
+    if lib == "surrogate" and m:
+        t = "float" if m.group(1) == "f" else "double"
+        return f"surrogate_kernel <{t}>"
     m = re.search(r"(sed_vmax_kernel|sed_columns_kernel)I([fd])Lb([01])E"
                   r"(?:Lb([01])E)?", mangled)
     if lib == "p3_sed" and m:
@@ -873,6 +893,29 @@ def _kessler_work(args, nsub):
         (80 * nsub + 25) * cells)
 
 
+def _rain_columns(dtype, rng):
+    """Heavy-rain 512x512x64 columns (dz 200 m, dt 30 s) that sub-cycle:
+    (rho, temp, qv, qc, qr, zmid, dz, dt), the fields on the card in
+    ``dtype``, qr up to 5.5e-3 with ``rng``'s draws."""
+    nens, nz, ny, nx = 1, 64, 512, 512
+    dz, dt = 200.0, 30.0
+    zc = ((np.arange(nz) + 0.5) * dz)[None, :, None, None]
+
+    def dev(a):
+        a = np.array(np.broadcast_to(a, (nens, nz, ny, nx)))
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+    rho = dev(1.2 * np.exp(-zc / 8000.0))
+    temp = dev((300.0 + 10.0 * zc / 20000.0
+                + rng.uniform(0.0, 1.0, (nens, nz, ny, nx)))
+               * np.exp(-zc / 8000.0) ** (287.0 / 1003.0))
+    qv = dev(0.016 * np.exp(-zc / 3000.0))
+    qc = dev(np.where(zc < 5000.0, 1e-4, 0.0))
+    qr = dev(np.where(zc < 3000.0, 5e-4, 0.0)
+             + 5e-3 * rng.random((nens, nz, ny, nx)))
+    zt = torch.as_tensor(zc, dtype=dtype, device="cuda")
+    return rho, temp, qv, qc, qr, zt, dz, dt
+
+
 def phase_kessler():
     """The fused Kessler step on the Kessler chain's own 512x512x64 f32
     state after one step (the main path's call: the kernel, and the whole
@@ -915,23 +958,8 @@ def phase_kessler():
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(7)
-    nens, nz, ny, nx = 1, 64, 512, 512
-    dz, dt = 200.0, 30.0
-    z = (np.arange(nz) + 0.5) * dz
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        def dev(a):
-            a = np.array(np.broadcast_to(a, (nens, nz, ny, nx)))
-            return torch.as_tensor(a, dtype=dtype, device="cuda")
-        zc = z[None, :, None, None]
-        rho = dev(1.2 * np.exp(-zc / 8000.0))
-        temp = dev((300.0 + 10.0 * zc / 20000.0
-                    + rng.uniform(0.0, 1.0, (nens, nz, ny, nx)))
-                   * np.exp(-zc / 8000.0) ** (287.0 / 1003.0))
-        qv = dev(0.016 * np.exp(-zc / 3000.0))
-        qc = dev(np.where(zc < 5000.0, 1e-4, 0.0))
-        qr = dev(np.where(zc < 3000.0, 5e-4, 0.0)
-                 + 5e-3 * rng.random((nens, nz, ny, nx)))
-        zt = torch.as_tensor(zc, dtype=dtype, device="cuda")
+        rho, temp, qv, qc, qr, zt, dz, dt = _rain_columns(dtype, rng)
         rs = kessler_rainsplit(qr, rho, zt, dt)
         args = (rho, temp, qv * rho, qc * rho, qr * rho, rs, dt, dz, *R)
         nsub = int(rs)
@@ -957,21 +985,29 @@ def _counters(chain):
     from miniweatherml_tpu_torch.physics import p3_lookup_cuda as lk
     from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
     from miniweatherml_tpu_torch.ops.fct import fct_mult, fct_scale_div
-    from miniweatherml_tpu_torch.physics.kessler_cuda import kessler_step
+    from miniweatherml_tpu_torch.physics.kessler_cuda import (kessler_step,
+                                                              min_step)
+    from miniweatherml_tpu_torch.physics.kessler_surrogate_cuda import (
+        surrogate_forward)
     dycore = {"direction_fluxes": direction_fluxes, "fct_mult": fct_mult,
               "fct_scale_div": fct_scale_div}
     if chain == "city":
         return dycore
-    if chain in ("kessler", "surrogate"):
-        return {**dycore, "kessler_step": kessler_step}
+    kessler = {"min_step": min_step, "kessler_step": kessler_step}
+    if chain == "kessler":
+        return {**dycore, **kessler}
+    if chain == "surrogate":
+        return {**dycore, **kessler, "surrogate_forward": surrogate_forward}
     if chain == "p3_native":  # the column step runs in the C++ twin
-        return {**dycore, "p3_wrapper": cw.p3_wrapper}
+        return {**dycore, "p3_wrapper": cw.p3_wrapper,
+                "p3_wrapper_out": cw.p3_wrapper_out}
     return {**dycore,
             "interp_ice": lk.interp_ice, "interp_collect": lk.interp_collect,
             "interp_rain": lk.interp_rain, "p3_part1": cw.p3_part1,
             "p3_update": cw.p3_update, "p3_wrapper": cw.p3_wrapper,
             "p3_rates_pre": cw.p3_rates_pre, "p3_rates_post": cw.p3_rates_post,
-            "sed_vmax": sed.sed_vmax, "sed_columns": sed.sed_columns}
+            "sed_vmax": sed.sed_vmax, "sed_columns": sed.sed_columns,
+            "p3_part3": cw.p3_part3, "p3_wrapper_out": cw.p3_wrapper_out}
 
 
 def _check_state(tag, state):
@@ -991,7 +1027,8 @@ DYCORE_PER_STEP = {"direction_fluxes": 9, "fct_mult": 3, "fct_scale_div": 9}
 
 # the port's own kernels, by a part of their names
 OWN_KERNELS = ("fluxes", "fct", "kessler", "cellwise", "ice_kernel",
-               "collect_kernel", "rain_kernel", "sed_vmax", "sed_columns")
+               "collect_kernel", "rain_kernel", "sed_vmax", "sed_columns",
+               "surrogate")
 
 
 def _glue_per_step(mods, state, dt):
@@ -1334,10 +1371,10 @@ def phase_p3_cellwise():
             _bench_cfg(512, 512, 64, 1, dtype), "cuda")
         seen = {}
 
-        def spy(phase, predict_nc, arrays, dt=0.0):
-            if phase in cell_ops:  # the rates phases are phase 31's
+        def spy(phase, predict_nc, arrays, dt=0.0, table=None):
+            if phase in cell_ops:  # the others are phase 31's and 32's
                 seen[phase] = (predict_nc, arrays, dt)
-            return launch(phase, predict_nc, arrays, dt)
+            return launch(phase, predict_nc, arrays, dt, table)
         cw._launch = spy
         try:
             mods[1](state, dycore.compute_time_step(state))
@@ -1387,18 +1424,20 @@ RATES_PRE_PAIRS = ((2, 3), (4, 5), (6, 7), (8, 9), (10, 11))
 
 
 def _p3_step_rates_sed(build, dtype):
-    """What one step of a 512x512x64 P3 chain hands the two rates phases
-    and the two sedimentation wrappers: {name: (args, keywords)}."""
+    """What one step of a 512x512x64 P3 chain hands the two rates phases,
+    the two sedimentation wrappers, part3 and the output pass: {name:
+    (args, keywords)}."""
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
     from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
     state, mods, dycore = build(_bench_cfg(512, 512, 64, 1, dtype), "cuda")
     seen = {}
     launch, vmax, columns = cw._launch, sed.sed_vmax, sed.sed_columns
+    part3, wrapper_out = cw.p3_part3, cw.p3_wrapper_out
 
-    def spy_launch(phase, predict_nc, arrays, dt=0.0):
+    def spy_launch(phase, predict_nc, arrays, dt=0.0, table=None):
         if phase.startswith("rates"):
             seen[phase] = ((predict_nc, arrays, dt), {})
-        return launch(phase, predict_nc, arrays, dt)
+        return launch(phase, predict_nc, arrays, dt, table)
 
     def spy(name, real):
         def call(*args, **kw):
@@ -1409,11 +1448,14 @@ def _p3_step_rates_sed(build, dtype):
     cw._launch = spy_launch
     sed.sed_vmax, sed.sed_columns = (spy("sed_vmax", vmax),
                                      spy("sed_columns", columns))
+    cw.p3_part3, cw.p3_wrapper_out = (spy("p3_part3", part3),
+                                      spy("p3_wrapper_out", wrapper_out))
     try:
         mods[1](state, dycore.compute_time_step(state))
     finally:
         cw._launch, sed.sed_vmax, sed.sed_columns = launch, vmax, columns
-    if set(seen) != set(RATES_SED_OPS):
+        cw.p3_part3, cw.p3_wrapper_out = part3, wrapper_out
+    if set(seen) != set(RATES_SED_OPS) | {"p3_part3", "p3_wrapper_out"}:
         raise AssertionError(f"P3 step made calls {sorted(seen)}")
     return seen
 
@@ -1559,7 +1601,9 @@ def phase_p3_rates_sed():
                   f"blocks of {t} threads, {sm} B shared per block (the "
                   "staged ice columns and rain rows)", flush=True)
     recs = {"p3_rates": {"max_abs_err": 0.0},
-            "p3_sedimentation": {"max_abs_err": 0.0}}
+            "p3_sedimentation": {"max_abs_err": 0.0},
+            "p3_part3": {"max_abs_err": 0.0},
+            "p3_wrapper_out": {"max_abs_err": 0.0}}
     for chain, build in _p3_step_chains():
         for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
             tag = f"{chain} {dtype}"
@@ -1585,8 +1629,216 @@ def phase_p3_rates_sed():
                     plain_ms=sum(v[1] for v in sed_recs.values()),
                     bound_ms=sum(v[2] for v in sed_recs.values()),
                     bound_by=sed_recs["sed_columns"][3])
+            for name, (err, ms, pms, bms, by) in _tails_check(
+                    tag, seen, seen["sed_vmax"][0][0].dtype, tol).items():
+                r = recs[name]
+                if dtype == "float32":
+                    r["max_abs_err"] = max(r["max_abs_err"], err)
+                if main:
+                    r.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
             del seen
             torch.cuda.empty_cache()
+    return recs
+
+
+# operations per cell of phase 32's kernels, read from their sources (exp,
+# log10, pow and sqrt counted as one): part3's freezing, clips, two DSD
+# limiters, re-bounds, index finder and K=2 lookup; the output pass's 11
+# products and clamps; the sub-cycle step's speed and step
+TAIL_OPS = {"p3_part3": 150, "p3_part3 diagnostics": 200,
+            "p3_wrapper_out": 21, "min_step": 20}
+
+
+def _tails_check(tag, seen, dtype, tol):
+    """[32] part3 (without and with its diagnostics) and the output pass
+    against their plain versions on what the P3 step handed them: part3
+    within ``tol`` of each output's scale (its pow and log10 need not round
+    as PyTorch's; whether it is bit for bit is printed), the output pass
+    bit for bit; each timed beside its bound.  Returns {name: (max abs
+    err, ms, plain ms, bound ms, bound_by)} for part3 (its error the larger
+    of both forms', its times those of the form the main path runs) and
+    the output pass."""
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
+    from miniweatherml_tpu_torch.physics.p3 import QSMALL, T_HOMOGFRZ
+    a3, _ = seen["p3_part3"]
+    aw, _ = seen["p3_wrapper_out"]
+    ice = int((a3[4] >= QSMALL).sum())
+    frz = int((((a3[0] >= QSMALL) | (a3[2] >= QSMALL))
+               & (a3[10] < T_HOMOGFRZ)).sum())
+    table = () if a3[14] is None else (cw.ice_table(a3[14], a3[0]),)
+    table_d = () if a3[14] is None else (
+        cw.ice_table(a3[14], a3[0], cw.PART3_DIAG_COLS),)
+
+    def flat(fn):
+        def run(*a):
+            prog, diag = fn(*a, diagnostics=True)
+            return (*prog, *diag.values())
+        return run
+    recs = {}
+    for name, kern, plain, args, extra in (
+            ("p3_part3", cw.p3_part3, cw.part3_plain, a3, table),
+            ("p3_part3 diagnostics", flat(cw.p3_part3),
+             flat(cw.part3_plain), a3, table_d),
+            ("p3_wrapper_out", cw.p3_wrapper_out, cw.wrapper_out_plain, aw,
+             ())):
+        ref = plain(*args)
+        got = kern(*args)
+        torch.cuda.synchronize()
+        err, rel = _worst(zip(ref, got))
+        differ = sum(int((a != b).sum()) for a, b in zip(ref, got))
+        nbytes = _nbytes([a for a in args if torch.is_tensor(a)], extra, got)
+        cells = got[0].numel()
+        del ref, got
+        ms = _time_ms(lambda: kern(*args))
+        pms = _time_ms(lambda: plain(*args), reps=3)
+        bms, by = _bound(nbytes, TAIL_OPS[name] * cells, dtype)
+        note = (f"; {ice} cells with ice, {frz} freezing"
+                if name.startswith("p3_part3") else "")
+        print(f"[32] {tag} {name} ({len(args)} in{note}): max abs err "
+              f"{err:.3e}, rel {rel:.3e} (tol {tol:g}), bit for bit "
+              f"{differ == 0} ({differ} values differ); kernel {ms:.3f} ms, "
+              f"plain {pms:.3f} ms, bound {bms:.3f} ms ({by}: "
+              f"{nbytes / 1e9:.3f} GB), {bms / ms:.1%} of the bound",
+              flush=True)
+        if not rel <= tol or (name == "p3_wrapper_out" and differ):
+            raise AssertionError(f"{tag} {name}: rel {rel:.3e}, {differ} "
+                                 "values differ")
+        if name == "p3_part3 diagnostics":
+            recs["p3_part3"] = (max(err, recs["p3_part3"][0]),
+                                *recs["p3_part3"][1:])
+        else:
+            recs[name] = (err, ms, pms, bms, by)
+    return recs
+
+
+def _tail_registers():
+    """[32] the registers, spills and stack of the four kernels' entry
+    functions (phase 2's ptxas reports)."""
+    for lib, keys in (("kessler", ("min_step",)),
+                      ("p3_cellwise", ("Part3", "WrapperOut")),
+                      ("surrogate", ("surrogate",))):
+        for mangled, regs, st, ld, stack, smem in _ptxas_report(lib):
+            if any(k in mangled for k in keys):
+                print(f"[32] {lib} {_entry_label(lib, mangled)}: {regs} "
+                      f"registers, {st} B spill stores, {ld} B spill loads, "
+                      f"{stack} B stack", flush=True)
+
+
+def phase_micro_tails():
+    """[32] the Kessler sub-cycle step on the Kessler chain's 512x512x64
+    state after one step (little rain, so it barely limits the step) and on
+    phase 4's heavy-rain 512x512x64 columns (which must give a count of 2
+    or more), and the surrogate's forward pass on cell
+    (f)'s state after one step (the shipped model, online), against their
+    plain versions in f32 and in f64 (the state cast), bit for bit; each
+    timed beside its bound.  (Part3 and the P3 output pass run inside phase
+    31.)  Returns the records of the kernels line."""
+    from miniweatherml_tpu_torch.experiments import inference_surrogate
+    from miniweatherml_tpu_torch.experiments.supercell_example import build
+    from miniweatherml_tpu_torch.physics import kessler_cuda as kc
+    from miniweatherml_tpu_torch.physics import kessler_surrogate_cuda as sc
+    _tail_registers()
+    recs = {}
+    state, mods, dycore = build(_bench_cfg(512, 512, 64, 1, "float32"),
+                                "cuda")
+    dt = dycore.compute_time_step(state)
+    for m in mods:
+        state = m(state, dt)
+    dz = state.grid.dz
+    fields = (state["precip_liquid"], state["density_dry"])
+    del state, mods, dycore
+    rng = np.random.default_rng(7)
+    err = 0.0
+    for case in ("chain state", "heavy-rain columns"):
+        for dtype in (torch.float32, torch.float64):
+            if case == "chain state":
+                rr, rd = (f.to(dtype) for f in fields)
+                cdt, cdz = dt, dz
+            else:
+                rd, _, _, _, qr, _, cdz, cdt = _rain_columns(dtype, rng)
+                rr = qr * rd
+                del qr
+            ref = kc.min_step_plain(rr, rd, cdt, cdz)
+            got = kc.min_step(rr, rd, cdt, cdz)
+            bit = torch.equal(ref, got)
+            err = max(err, float((got - ref).abs()))
+            count = int(torch.ceil(cdt / got))
+            main = case == "chain state" and dtype == torch.float32
+            ms = _time_ms(lambda: kc.min_step(rr, rd, cdt, cdz), reps=10)
+            pms = _time_ms(lambda: kc.min_step_plain(rr, rd, cdt, cdz),
+                           reps=3)
+            nbytes = _nbytes(rr, rd, got)
+            bms, by = _bound(nbytes, TAIL_OPS["min_step"] * rr.numel(),
+                             dtype)
+            # dt / step is the largest dt v / (0.8 dz_lev) over the cells
+            # (1 where no cell limits the step)
+            print(f"[32] kessler min_step {case} 512x512x64 "
+                  f"{_dtype_name(dtype)}: {float(got):.9e} s (plain "
+                  f"{float(ref):.9e}), bit for bit {bit}, count {count} at "
+                  f"dt {cdt:.6f} s, max dt v / (0.8 dz_lev) "
+                  f"{float(cdt / got):.6f} (plain {float(cdt / ref):.6f}); "
+                  f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+                  f"{bms:.3f} ms ({by}), {bms / ms:.1%} of the bound",
+                  flush=True)
+            if not bit:
+                raise AssertionError(f"min_step {case} {dtype}: "
+                                     f"{float(got)!r} against {float(ref)!r}")
+            if case == "heavy-rain columns" and count < 2:
+                raise AssertionError(f"min_step {case} {dtype}: count "
+                                     f"{count}, the columns did not limit "
+                                     "the step")
+            if main:
+                recs["min_step"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                        bound_by=by)
+            del rr, rd, ref, got
+    recs["min_step"]["max_abs_err"] = err
+    del fields
+
+    cfg = _surrogate_cfg(_bench_cfg(512, 512, 64, 1, "float32"))
+    state, mods, dycore = inference_surrogate.build(cfg, "cuda")
+    dt = dycore.compute_time_step(state)
+    for m in mods:
+        state = m(state, dt)
+    micro = mods[1].__self__
+    params, widths = micro._cast_for(state)[4]
+    names = ("temp", "density_dry", "water_vapor", "cloud_liquid",
+             "precip_liquid")
+    fields = [state[n] for n in names]
+    del state, mods, dycore
+    macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    for dtype in (torch.float32, torch.float64):
+        fs = [f.to(dtype) for f in fields]
+        ps = params.to(dtype)
+        ref = sc.surrogate_forward_plain(*fs, ps, widths)
+        got = sc.surrogate_forward(*fs, ps, widths)
+        torch.cuda.synchronize()
+        err, rel = _worst(zip(ref, got))
+        differ = sum(int((a != b).sum()) for a, b in zip(ref, got))
+        nbytes = _nbytes(fs, ps, got)
+        del ref, got
+        ms = _time_ms(lambda: sc.surrogate_forward(*fs, ps, widths), reps=10)
+        pms = _time_ms(lambda: sc.surrogate_forward_plain(*fs, ps, widths),
+                       reps=3)
+        # normalise (3 a field), a multiply and an add per weight, the
+        # biases and activations, denormalise and clamp
+        ops = (15 + 2 * macs + 2 * sum(widths[1:]) + 12) * fs[0].numel()
+        bms, by = _bound(nbytes, ops, dtype)
+        print(f"[32] surrogate_forward cell (f) state 512x512x64 "
+              f"{_dtype_name(dtype)}, model {widths}: max abs err "
+              f"{err:.3e}, rel {rel:.3e}, bit for bit {differ == 0} "
+              f"({differ} values differ); kernel {ms:.3f} ms, plain "
+              f"{pms:.3f} ms, bound {bms:.3f} ms ({by}: "
+              f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP), "
+              f"{bms / ms:.1%} of the bound", flush=True)
+        if differ:
+            raise AssertionError(f"surrogate_forward {dtype}: {differ} "
+                                 "values differ from the plain version")
+        if dtype == torch.float32:
+            recs["surrogate_forward"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by)
+        del fs, ps
+    torch.cuda.empty_cache()
     return recs
 
 
@@ -1619,8 +1871,9 @@ def _host_syncs(build, cfg):
 
 def phase_p3_references():
     """16x8x10 f64 P3 slice with seeded layers and part3 diagnostics: card
-    against CPU."""
+    against CPU; the card's run launches the diagnostics form of part3."""
     from miniweatherml_tpu_torch.experiments import supercell_p3
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
 
     cfg = _supercell_cfg(16, 8, 10, 40000.0, 40000.0, 16000.0, 100.0,
                          "float64")
@@ -1630,10 +1883,15 @@ def phase_p3_references():
         state, mods, dycore = supercell_p3.build(cfg, device)
         state = supercell_p3.seed_layers(state)
         dt = dycore.compute_time_step(state)
+        n0 = cw.p3_part3.launches
         for _ in range(3):
             for m in mods:
                 state = m(state, dt)
         outs.append(state)
+    if cw.p3_part3.launches - n0 != 3:
+        raise AssertionError(f"P3 slice with diagnostics: "
+                             f"{cw.p3_part3.launches - n0} part3 launches "
+                             "on the card in 3 steps")
     if float(outs[1]["ice"].max()) <= 0.0:
         raise AssertionError("P3 reference slice holds no ice")
     worst = max(_rel(outs[0][k], outs[1][k].cpu())[1] for k in outs[0].fields)
@@ -1794,15 +2052,17 @@ def _timed_micro_build(build, times):
 
 def phase_surrogate_slice(card):
     """The online surrogate at bench.py's 512x512x64 f32 grid, 10 steps,
-    with the surrogate's own time per step; then compare mode, 3 steps."""
+    with the surrogate's own time per step; then compare mode, 3 steps.
+    Returns the online run's launches (the main path of the surrogate)."""
     from miniweatherml_tpu_torch.experiments import inference_surrogate
 
     times = []
     cfg = _surrogate_cfg(_bench_cfg(512, 512, 64, 10, "float32"))
-    _, res, _ = _run_cell(
+    launches, res, _ = _run_cell(
         "18", cfg, card, chain="surrogate",
         build=_timed_micro_build(inference_surrogate.build, times),
-        per_step={**DYCORE_PER_STEP, "kessler_step": 0}, glue=True)
+        per_step={**DYCORE_PER_STEP, "kessler_step": 0, "min_step": 0,
+                  "surrogate_forward": 1}, glue=True)
     torch.cuda.synchronize()
     # after the warm-up step, without the profiled step
     ms = [a.elapsed_time(b) for a, b in times[1:1 + res["steps"]]]
@@ -1824,7 +2084,9 @@ def phase_surrogate_slice(card):
                          online=False, compare=True)
     _run_cell("19", cfg, card, chain="surrogate",
               build=inference_surrogate.build, finish=finish,
-              per_step={**DYCORE_PER_STEP, "kessler_step": 1})
+              per_step={**DYCORE_PER_STEP, "kessler_step": 1, "min_step": 1,
+                        "surrogate_forward": 1})
+    return launches
 
 
 def _surrogate_slice(cfg, device, steps, perturb=0.0):
@@ -2163,19 +2425,22 @@ def _spmd_chain(build, cfg, mesh, device="cuda", seed=None):
 # cycle): the dycore's, the strip forms among them (x and y of each
 # stage), and the Kessler kernel
 SPMD_PER_STEP = {"direction_fluxes": 9, "strips": 6, "fct_mult": 3,
-                 "fct_scale_div": 9, "edges": 6, "kessler_step": 1}
+                 "fct_scale_div": 9, "edges": 6, "kessler_step": 1,
+                 "min_step": 1}
 
 
 def _spmd_counts():
     from miniweatherml_tpu_torch.ops.direction_fluxes import direction_fluxes
     from miniweatherml_tpu_torch.ops.fct import fct_mult, fct_scale_div
-    from miniweatherml_tpu_torch.physics.kessler_cuda import kessler_step
+    from miniweatherml_tpu_torch.physics.kessler_cuda import (kessler_step,
+                                                              min_step)
     return {"direction_fluxes": (direction_fluxes, "launches"),
             "strips": (direction_fluxes, "strip_launches"),
             "fct_mult": (fct_mult, "launches"),
             "fct_scale_div": (fct_scale_div, "launches"),
             "edges": (fct_scale_div, "edge_launches"),
-            "kessler_step": (kessler_step, "launches")}
+            "kessler_step": (kessler_step, "launches"),
+            "min_step": (min_step, "launches")}
 
 
 def _timed_steps(step, state, dt, steps):
@@ -2756,6 +3021,7 @@ def phase_bench(card):
 
 
 def _dryrun_counts():
+    from miniweatherml_tpu_torch.physics import kessler_surrogate_cuda as sc
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
     from miniweatherml_tpu_torch.physics import p3_lookup_cuda as lk
     from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
@@ -2768,7 +3034,10 @@ def _dryrun_counts():
                 ("p3_rates_pre", cw.p3_rates_pre),
                 ("p3_rates_post", cw.p3_rates_post),
                 ("sed_vmax", sed.sed_vmax),
-                ("sed_columns", sed.sed_columns))}}
+                ("sed_columns", sed.sed_columns),
+                ("p3_part3", cw.p3_part3),
+                ("p3_wrapper_out", cw.p3_wrapper_out),
+                ("surrogate_forward", sc.surrogate_forward))}}
 
 
 def phase_dryrun(card):
@@ -2837,14 +3106,19 @@ def main() -> int:
     k_lk = phase_p3_lookups()
     k_cw = phase_p3_cellwise()
     k_rs = phase_p3_rates_sed()
+    k_tails = phase_micro_tails()
     l_p3 = _run_cell("10", _bench_cfg(512, 512, 64, 10, "float32"), card,
                      chain="p3", build=supercell_p3.build)[0]
     _run_cell("11", _bench_cfg(512, 512, 64, 3, "float32"), card,
               chain="p3", build=_p3_active_build)
     small = _bench_cfg(128, 128, 64, 2, "float32")
+    from miniweatherml_tpu_torch.experiments import inference_surrogate
     syncs = {"P3 chain": _host_syncs(supercell_p3.build, small),
              "all-active P3": _host_syncs(_p3_active_build, small),
-             "Kessler chain": _host_syncs(supercell_example.build, small)}
+             "Kessler chain": _host_syncs(supercell_example.build, small),
+             "online surrogate": _host_syncs(
+                 inference_surrogate.build,
+                 _surrogate_cfg(_bench_cfg(128, 128, 64, 2, "float32")))}
     print(f"[10] host synchronizations in one step at 128x128x64: {syncs}",
           flush=True)
     if any(syncs.values()):
@@ -2868,7 +3142,7 @@ def main() -> int:
     phase_city_references()
     phase_restart()
 
-    phase_surrogate_slice(card)
+    l_sur = phase_surrogate_slice(card)
     phase_surrogate_references()
     phase_surrogate_workflow()
 
@@ -2958,6 +3232,28 @@ def main() -> int:
                      "edge multipliers of miniweatherml_tpu/dycore/"
                      "euler.py:943-957)",
          "launches": l_spmd["edges"], **k_edges},
+        # the microphysics tails that the JAX package leaves to XLA fusion
+        {"name": "kessler_min_step", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/kessler.cu",
+         "replaces": "miniweatherml_tpu/physics/kessler.py:134-150 (an XLA "
+                     "fusion, not a Pallas kernel)",
+         "launches": l_kessler["min_step"], **k_tails["min_step"]},
+        {"name": "p3_part3", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/p3_cellwise.cu",
+         "replaces": "miniweatherml_tpu/physics/p3.py:1392-1485 (an XLA "
+                     "fusion, not a Pallas kernel)",
+         "launches": l_p3["p3_part3"], **k_rs["p3_part3"]},
+        {"name": "p3_wrapper_out", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/p3_cellwise.cu",
+         "replaces": "miniweatherml_tpu/physics/p3.py:1726-1741 (an XLA "
+                     "fusion, not a Pallas kernel)",
+         "launches": l_p3["p3_wrapper_out"], **k_rs["p3_wrapper_out"]},
+        {"name": "surrogate_forward", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/surrogate.cu",
+         "replaces": "miniweatherml_tpu/physics/kessler_surrogate.py:60-76 "
+                     "(an XLA fusion, not a Pallas kernel)",
+         "launches": l_sur["surrogate_forward"],
+         **k_tails["surrogate_forward"]},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -2,7 +2,11 @@
 // (sm_90a): part1 + in-cloud values (13 inputs, 21 outputs), the
 // conservation / prognostic update / end-of-part2 clip (45 inputs + dt, 10
 // outputs), and the wrapper's inputs with the saturation Newton (13 inputs,
-// 14 outputs).
+// 14 outputs); the table tier's rates around the lookups (RatesPre,
+// RatesPost); and the homogeneous freezing with p3_main_part3 (Part3: 14
+// inputs, 10 outputs, 16 with the diagnostics) and the wrapper's output
+// pass (WrapperOut: 12 inputs, 11 outputs), the XLA-fused tail of the JAX scheme
+// (miniweatherml_tpu/physics/p3.py:1392-1485, :1726-1741).
 //
 // Replaces the Pallas TPU kernel miniweatherml_tpu/ops/elementwise.py::
 // fused_cellwise (pallas_call at :101), which runs a pure per-cell function
@@ -35,6 +39,8 @@
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int ICE_K = 4;  // the packed ice table's columns 2, 1, 7, 8
+constexpr double RHO_RIMEMIN = 50.0, RHO_RIMEMAX = 900.0;
 
 // compute_adjusted_state, guarded-Newton form (microphysics_p3.h:467-550)
 template <typename T>
@@ -98,7 +104,7 @@ __device__ void adjust_state(T rho, T rho_d, T& rho_v, T& rho_c, T& temp) {
 template <bool PNC> struct Part1 {
   static constexpr int NIN = 13, NOUT = 21, NIOUT = 0, NFLAG = 0;
   template <typename T>
-  __device__ static void run(const T* in, T* out, int*, bool*, double) {
+  __device__ static void run(const T* in, T* out, int*, bool*, double, const T*) {
     T qc = in[0], nc = in[1], qr = in[2], nr = in[3], qi = in[4], ni = in[5];
     T qm = in[6], bm = in[7], qv = in[8], theta = in[9];
     const T exner = in[10], pres = in[11], rho = in[12];
@@ -156,7 +162,7 @@ template <bool PNC> struct Part1 {
 template <bool PNC> struct Update {
   static constexpr int NIN = 45, NOUT = 10, NIOUT = 0, NFLAG = 0;
   template <typename T>
-  __device__ static void run(const T* in, T* out, int*, bool*, double dt_) {
+  __device__ static void run(const T* in, T* out, int*, bool*, double dt_, const T*) {
     const T dt = T(dt_);
     T au = in[0], ac = in[1], qc_frz = in[2], nc_frz = in[3], qr_frz = in[4];
     T nr_frz = in[5], rim = in[6], shed = in[7];
@@ -306,7 +312,7 @@ template <bool PNC> struct Update {
 struct Wrapper {
   static constexpr int NIN = 13, NOUT = 14, NIOUT = 0, NFLAG = 0;
   template <typename T>
-  __device__ static void run(const T* in, T* out, int*, bool*, double) {
+  __device__ static void run(const T* in, T* out, int*, bool*, double, const T*) {
     const T rho_d = in[0];
     T temp = in[1], rho_c = in[2];
     const T rho_nc = in[3], rho_r = in[4], rho_nr = in[5], rho_i = in[6];
@@ -336,7 +342,7 @@ struct Wrapper {
 struct RatesPre {
   static constexpr int NIN = 10, NOUT = 7, NIOUT = 5, NFLAG = 3;
   template <typename T>
-  __device__ static void run(const T* in, T* out, int* iout, bool* flag, double) {
+  __device__ static void run(const T* in, T* out, int* iout, bool* flag, double, const T*) {
     const T qi = in[0], qr = in[1], qm = in[2], bm = in[3], qi_in = in[4];
     const T qm_in = in[5], bm_in = in[6], ni_in = in[7], qr_in = in[8];
     const T nr_in = in[9];
@@ -361,7 +367,7 @@ struct RatesPre {
 struct RatesPost {
   static constexpr int NIN = 30, NOUT = 25, NIOUT = 0, NFLAG = 0;
   template <typename T>
-  __device__ static void run(const T* in, T* out, int*, bool*, double dt_) {
+  __device__ static void run(const T* in, T* out, int*, bool*, double dt_, const T*) {
     const T dt = T(dt_);
     const T qc = in[0], nc = in[1], qr = in[2], qi = in[3], ni = in[4], qv = in[5];
     const T temp = in[6], pres = in[7], rho = in[8], qc_in = in[9], qr_in = in[10];
@@ -521,12 +527,136 @@ struct RatesPost {
   }
 };
 
+// Homogeneous freezing and p3_main_part3 (p3._p3_part3_cellwise): 14
+// inputs (the ten prognostics after sedimentation, part1's temp, exner,
+// rho, inv_rho), the ten prognostics out, and with DIAG the six diagnostic
+// fields per cell after them (eff_radius_qc, eff_radius_qi, diam_qi,
+// rho_qi, vm_qi, equiv_reflectivity; the caller applies the column mask).
+// TAB: the table tier's ice lookup, read from global memory (cached on
+// chip) where the cell has ice: the ice number limiter's columns 7 and 8
+// from the packed (2, 1, 7, 8) table that p3_sed.cu stages, or with DIAG
+// every column of the packed (2, 1, 7, 8, 6, 9, 11, 12) table.  The plain
+// version gates the lookup on any cell having ice; a cell without ice is
+// zeroed at the end, and its diagnostics set to their defaults, whatever
+// the lookup gives, so both gates give the same outputs.
+template <bool TAB, bool DIAG> struct Part3 {
+  static constexpr int NIN = 14, NOUT = DIAG ? 16 : 10, NIOUT = 0, NFLAG = 0;
+  template <typename T>
+  __device__ static void run(const T* in, T* out, int*, bool*, double, const T* tab) {
+    T qc = in[0], nc = in[1], qr = in[2], nr = in[3], qi = in[4], ni = in[5];
+    T qm = in[6], bm = in[7], qv = in[8], theta = in[9];
+    const T temp = in[10], exner = in[11], rho = in[12], inv_rho = in[13];
+    const T cpx = T(CP_D) * exner;
+
+    // homogeneous freezing, cloud then rain, gated on part1's temp
+    const bool frz_c = qc >= T(QSMALL) && temp < T(TMELT - 40.0);
+    T q_nuc = frz_c ? qc : T(0);
+    qm = qm + q_nuc;
+    qi = qi + q_nuc;
+    bm = bm + q_nuc / T(RHO_RIMEMAX);
+    ni = ni + (frz_c ? tmax(nc, T(NSMALL)) : T(0));
+    theta = theta + q_nuc * T(LF) / cpx;
+    if (frz_c) qc = nc = T(0);
+    const bool frz_r = qr >= T(QSMALL) && temp < T(TMELT - 40.0);
+    q_nuc = frz_r ? qr : T(0);
+    qm = qm + q_nuc;
+    qi = qi + q_nuc;
+    bm = bm + q_nuc / T(RHO_RIMEMAX);
+    ni = ni + (frz_r ? tmax(nr, T(NSMALL)) : T(0));
+    theta = theta + q_nuc * T(LF) / cpx;
+    if (frz_r) qr = nr = T(0);
+
+    // part3: cloud, rain, ice
+    const bool small_c = qc < T(QSMALL);
+    qv = qv + (small_c ? qc : T(0));
+    theta = theta - (small_c ? qc : T(0)) * T(LV) / cpx;
+    T mu_c, lamc, lamr;
+    const T nc3 = cloud_dsd2(qc, nc, rho, mu_c, lamc);
+    nc = small_c ? T(0) : nc3;
+    qc = small_c ? T(0) : qc;
+    const bool small_r = qr < T(QSMALL);
+    qv = qv + (small_r ? qr : T(0));
+    theta = theta - (small_r ? qr : T(0)) * T(LV) / cpx;
+    const T nr3 = rain_dsd2(qr, nr, lamr);
+    nr = small_r ? T(0) : nr3;
+    qr = small_r ? T(0) : qr;
+    const bool small_i = qi < T(QSMALL);
+    qv = qv + (small_i ? qi : T(0));
+    theta = theta - (small_i ? qi : T(0)) * T(LS) / cpx;
+    ni = tmax(ni, T(NSMALL));
+    bulk_rho_rime(qi, qm, bm);
+    ni = cap_ni(ni, inv_rho);
+    // the lookup's columns 2, 1, 7, 8 (and with DIAG 6, 9, 11, 12)
+    constexpr int K = DIAG ? 8 : ICE_K;
+    T col[K] = {};
+    if (TAB && qi >= T(QSMALL)) {
+      const T rhop = tclamp(qm / tmax(bm, T(1e-30)), T(RHO_RIMEMIN), T(RHO_RIMEMAX));
+      int i0, ii0, jj0;
+      T fi, fii, fjj;
+      ice_table_indices(qi, ni, qm, rhop, i0, fi, ii0, fii, jj0, fjj);
+      clamp_ice_index(i0, ii0, jj0);
+      constexpr int W = vec_width<T>(K);
+      const int kp = round_up(K, W);
+      // without DIAG only the limiter's columns 7 and 8 are read
+#pragma unroll
+      for (int k0 = DIAG || W >= K ? 0 : 2; k0 < K; k0 += W) {
+        T v[W];
+        ice_interp<T, W>(tab, ice_block(kp, W), ice_entry(kp, W), i0, ii0, jj0, fi, fii,
+                         fjj, k0, v);
+#pragma unroll
+        for (int e = 0; e < W; ++e) col[k0 + e] = v[e];
+      }
+      ni = tmin(ni, col[2] * ni);
+      ni = tmax(ni, col[3] * ni);
+    }
+    if (small_i) qi = ni = qm = bm = T(0);
+
+    out[0] = qc; out[1] = nc; out[2] = qr; out[3] = nr; out[4] = qi;
+    out[5] = ni; out[6] = qm; out[7] = bm; out[8] = qv; out[9] = theta;
+    if constexpr (DIAG) {
+      // part3's diagnostics (p3.py's order of operations)
+      out[10] = small_c ? T(10.0e-6) : T(0.5) * (mu_c + T(3)) / lamc;
+      // ze_rain = nr (mu_r + 6)! / mu_r! / lamr^6 at mu_r = 1
+      const T l2 = lamr * lamr;
+      const T ze_rain =
+          small_r ? T(1.0e-22) : tmax(nr * T(5040.0) / (l2 * (l2 * l2)), T(1.0e-22));
+      T ze_ice = T(1.0e-22);
+      out[11] = T(25.0e-6);
+      out[12] = out[13] = out[14] = T(0);
+      if (TAB && !small_i) {
+        out[14] = col[0] * tpow(T(RHO_600MB) * inv_rho, T(0.54));
+        out[11] = col[4];
+        out[12] = col[6];
+        out[13] = col[7];
+        ze_ice = tmax(T(1.0e-22) + T(0.1892) * col[5] * ni * rho, T(1.0e-22));
+      }
+      out[15] = T(10.0) * tlog10((ze_rain + ze_ice) * T(1.0e18));
+    }
+  }
+};
+
+// MicrophysicsP3.time_step's output pass (p3._p3_wrapper_out_cellwise): the
+// nine mixing ratios, theta, exner and rho_d in; the nine densities
+// clamped at 0, temp = theta exner and qv_prev = max(qv, 0) out.
+struct WrapperOut {
+  static constexpr int NIN = 12, NOUT = 11, NIOUT = 0, NFLAG = 0;
+  template <typename T>
+  __device__ static void run(const T* in, T* out, int*, bool*, double, const T*) {
+    const T rho_d = in[11];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) out[k] = tmax(in[k] * rho_d, T(0));
+    out[9] = in[9] * in[10];
+    out[10] = tmax(in[8], T(0));
+  }
+};
+
 // -- the executor ------------------------------------------------------------
 template <class Phase> struct Ptrs {
   const void* in[Phase::NIN];
   void* out[Phase::NOUT];
   int* iout[Phase::NIOUT > 0 ? Phase::NIOUT : 1];
   bool* flags;  // Phase::NFLAG values, zeroed by the caller
+  const void* table;  // the packed ice table of a phase that reads it
 };
 
 template <class Phase, typename T>
@@ -539,7 +669,7 @@ __global__ void __launch_bounds__(THREADS)
     int iout[Phase::NIOUT > 0 ? Phase::NIOUT : 1];
 #pragma unroll
     for (int k = 0; k < Phase::NIN; ++k) in[k] = __ldg(static_cast<const T*>(p.in[k]) + c);
-    Phase::run(in, out, iout, flag, dt);
+    Phase::run(in, out, iout, flag, dt, static_cast<const T*>(p.table));
 #pragma unroll
     for (int k = 0; k < Phase::NOUT; ++k) static_cast<T*>(p.out[k])[c] = out[k];
 #pragma unroll
@@ -554,7 +684,7 @@ __global__ void __launch_bounds__(THREADS)
 template <class Phase, typename T>
 int launch_phase(const void* const* in, int nin, void* const* out, int nout,
                  void* const* iout, int niout, void* flags, int nflags, long long n,
-                 double dt, void* stream) {
+                 double dt, const void* table, void* stream) {
   if (nin != Phase::NIN || nout != Phase::NOUT || niout != Phase::NIOUT ||
       nflags != Phase::NFLAG || n < 0)
     return cudaErrorInvalidValue;
@@ -566,17 +696,25 @@ int launch_phase(const void* const* in, int nin, void* const* out, int nout,
   for (int k = 0; k < Phase::NOUT; ++k) p.out[k] = out[k];
   for (int k = 0; k < Phase::NIOUT; ++k) p.iout[k] = static_cast<int*>(iout[k]);
   p.flags = static_cast<bool*>(flags);
+  p.table = table;
   cellwise<Phase, T><<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       p, (int64_t)n, dt);
   return cudaGetLastError();
 }
 
+// the part3 forms (a template argument list's comma would split the
+// macro's argument below)
+using Part3Approx = Part3<false, false>;
+using Part3Tables = Part3<true, false>;
+using Part3ApproxDiag = Part3<false, true>;
+using Part3TablesDiag = Part3<true, true>;
+
 template <typename T>
 int dispatch(int phase, const void* const* in, int nin, void* const* out, int nout,
              void* const* iout, int niout, void* flags, int nflags, long long n,
-             double dt, void* stream) {
+             double dt, const void* table, void* stream) {
 #define P3_PHASE(P) \
-  launch_phase<P, T>(in, nin, out, nout, iout, niout, flags, nflags, n, dt, stream)
+  launch_phase<P, T>(in, nin, out, nout, iout, niout, flags, nflags, n, dt, table, stream)
   switch (phase) {
     case 0: return P3_PHASE(Part1<false>);
     case 1: return P3_PHASE(Part1<true>);
@@ -585,6 +723,17 @@ int dispatch(int phase, const void* const* in, int nin, void* const* out, int no
     case 4: return P3_PHASE(Wrapper);
     case 5: return P3_PHASE(RatesPre);
     case 6: return P3_PHASE(RatesPost);
+    case 7: return P3_PHASE(Part3Approx);
+    case 8:
+      if (table == nullptr || reinterpret_cast<uintptr_t>(table) % 16 != 0)
+        return cudaErrorInvalidValue;
+      return P3_PHASE(Part3Tables);
+    case 9: return P3_PHASE(WrapperOut);
+    case 10: return P3_PHASE(Part3ApproxDiag);
+    case 11:
+      if (table == nullptr || reinterpret_cast<uintptr_t>(table) % 16 != 0)
+        return cudaErrorInvalidValue;
+      return P3_PHASE(Part3TablesDiag);
     default: return cudaErrorInvalidValue;
   }
 #undef P3_PHASE
@@ -595,20 +744,24 @@ int dispatch(int phase, const void* const* in, int nin, void* const* out, int no
 extern "C" {
 
 // phase: 0/1 part1 (prescribed / predicted nc), 2/3 update (same), 4
-// wrapper, 5 rates_pre, 6 rates_post; iout: the int32 outputs, flags: the
-// phase's presence flags (zeroed by the caller; null when it has none)
+// wrapper, 5 rates_pre, 6 rates_post, 7/8 part3 ([approx] / table tier), 9
+// wrapper_out, 10/11 part3 with its diagnostics ([approx] / table tier);
+// iout: the int32 outputs, flags: the phase's presence flags (zeroed by the
+// caller; null when it has none); table: the packed ice table, 16-byte
+// aligned, columns (2, 1, 7, 8) for phase 8 and (2, 1, 7, 8, 6, 9, 11, 12)
+// for phase 11 (null otherwise)
 int p3_cellwise_f32(int phase, const void* const* in, int nin, void* const* out,
                     int nout, void* const* iout, int niout, void* flags, int nflags,
-                    long long n, double dt, void* stream) {
+                    long long n, double dt, const void* table, void* stream) {
   return dispatch<float>(phase, in, nin, out, nout, iout, niout, flags, nflags, n, dt,
-                         stream);
+                         table, stream);
 }
 
 int p3_cellwise_f64(int phase, const void* const* in, int nin, void* const* out,
                     int nout, void* const* iout, int niout, void* flags, int nflags,
-                    long long n, double dt, void* stream) {
+                    long long n, double dt, const void* table, void* stream) {
   return dispatch<double>(phase, in, nin, out, nout, iout, niout, flags, nflags, n, dt,
-                          stream);
+                          table, stream);
 }
 
 const char* p3_cellwise_error_string(int err) {

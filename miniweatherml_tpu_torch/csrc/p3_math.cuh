@@ -98,27 +98,38 @@ template <typename T> __device__ T cap_ni(T ni, T inv_rho) {
   const T dum = T(MAX_TOTAL_NI) * inv_rho / tmax(ni, T(1e-20));
   return ni >= T(1e-20) ? ni * tmin(dum, T(1)) : ni;
 }
-template <typename T> __device__ T rain_dsd2_nr(T qr, T nr) {
+// get_rain_dsd2 (p3._rain_dsd2): nr adjusted; lamr_cl the clipped lambda
+template <typename T> __device__ T rain_dsd2(T qr, T nr, T& lamr_cl) {
   const T nr1 = tmax(nr, T(NSMALL));
   const T lamr = cbrt_pos(T(CONS1) * nr1 * T(24.0) / tmax(qr, T(QSMALL)));
-  const T lamr_cl = tclamp(lamr, T(1000.0), T(2.0e5));
+  lamr_cl = tclamp(lamr, T(1000.0), T(2.0e5));
   const T nr_lim =
       lamr != lamr_cl ? lamr_cl * lamr_cl * lamr_cl * qr / T(24.0 * CONS1) : nr1;
   return qr >= T(QSMALL) ? nr_lim : nr;
+}
+template <typename T> __device__ T rain_dsd2_nr(T qr, T nr) {
+  T lamr_cl;
+  return rain_dsd2(qr, nr, lamr_cl);
 }
 template <typename T> __device__ T cloud_mu(T nc, T rho) {
   const T s = T(0.0005714) * (nc * T(1.0e-6) * rho) + T(0.2714);
   return tclamp(T(1) / (s * s) - T(1), T(2), T(15));
 }
-template <typename T> __device__ T cloud_dsd2_nc(T qc, T nc, T rho) {
+// get_cloud_dsd2 (p3._cloud_dsd2): nc adjusted; mu and lamc_cl the shape
+// and the clipped lambda
+template <typename T> __device__ T cloud_dsd2(T qc, T nc, T rho, T& mu, T& lamc_cl) {
   const T nc1 = tmax(nc, T(NSMALL));
-  const T mu = cloud_mu(nc1, rho);
+  mu = cloud_mu(nc1, rho);
   const T mval = (mu + T(3)) * (mu + T(2)) * (mu + T(1));
   const T lamc = cbrt_pos(T(CONS1) * nc1 * mval / tmax(qc, T(QSMALL)));
-  const T lamc_cl = tclamp(lamc, (mu + T(1)) * T(2.5e4), (mu + T(1)) * T(1.0e6));
+  lamc_cl = tclamp(lamc, (mu + T(1)) * T(2.5e4), (mu + T(1)) * T(1.0e6));
   const T nc_lim =
       lamc != lamc_cl ? lamc_cl * lamc_cl * lamc_cl * qc / (T(CONS1) * mval) : nc1;
   return qc >= T(QSMALL) ? nc_lim : nc;
+}
+template <typename T> __device__ T cloud_dsd2_nc(T qc, T nc, T rho) {
+  T mu, lamc_cl;
+  return cloud_dsd2(qc, nc, rho, mu, lamc_cl);
 }
 
 __device__ __forceinline__ float tlgamma(float a) { return lgammaf(a); }

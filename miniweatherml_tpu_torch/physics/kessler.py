@@ -3,12 +3,13 @@
 Port of ``miniweatherml_tpu/physics/kessler.py`` (reference
 model/modules/microphysics_kessler.h): autoconversion + accretion,
 saturation adjustment, rain evaporation, and rain sedimentation with internal
-CFL sub-cycling.  The sub-cycle count is a global min reduction
-(``kessler_rainsplit``) that stays on the device; ``MicrophysicsKessler``
-hands it with the coupler's fields to ``kessler_cuda.kessler_step``, which
-runs the whole step (prep, passes, post) in one kernel on the card without a
-host sync.  ``kessler_column`` is the whole scheme in plain
-PyTorch on any z spacing, the counterpart of the JAX function of that name.
+CFL sub-cycling.  The sub-cycle count is a global min reduction that stays on
+the device: ``MicrophysicsKessler`` takes the largest stable step from
+``kessler_cuda.min_step`` (one reduction kernel on the card) and hands the
+count with the coupler's fields to ``kessler_cuda.kessler_step``, which runs
+the whole step (prep, passes, post) in one kernel, without a host sync.
+``kessler_column`` is the whole scheme in plain PyTorch on any z spacing,
+the counterpart of the JAX function of that name.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from ..core.coupler import CouplerState
 from ..parallel.collectives import pmin
 from .kessler_cuda import (_div, column_constants, kessler_pass,
-                           kessler_step, terminal_velocity)
+                           kessler_step, min_step, step_plain)
 
 __all__ = ["MicrophysicsKessler", "kessler_column", "kessler_rainsplit"]
 
@@ -62,10 +63,8 @@ class MicrophysicsKessler:
         if not isinstance(g.dz, float):
             raise ValueError("Kessler sub-cycling needs a uniform vertical "
                              "grid (scalar Grid.dz)")
-        zmid = ((torch.arange(g.nz, dtype=rho_d.dtype, device=rho_d.device)
-                 + 0.5) * g.dz)[None, :, None, None]
-        rainsplit = kessler_rainsplit(state["precip_liquid"] / rho_d, rho_d,
-                                      zmid, dt, spmd_axes=spmd_axes)
+        rainsplit = _count(dt, pmin(min_step(state["precip_liquid"], rho_d,
+                                             dt, g.dz), spmd_axes))
         rho_v, rho_c, rho_r, temp, precl = kessler_step(
             rho_d, state["temp"], state["water_vapor"], state["cloud_liquid"],
             state["precip_liquid"], rainsplit, dt, g.dz, self.R_d, self.R_v,
@@ -83,14 +82,11 @@ def kessler_rainsplit(qr, rho, z, dt, z_axis: int = 1,
     and rainsplit = ceil(dt / max).  ``spmd_axes``: mesh axes to ``pmin``
     the step over (on the device, no host read), as the JAX function does:
     the horizontal axes only, so each ensemble shard keeps its own count."""
-    nz = qr.shape[z_axis]
-    r = 0.001 * rho
-    rhalf = torch.sqrt(rho.narrow(z_axis, 0, 1) / rho)
-    velqr = terminal_velocity(qr, r, rhalf)
-    dz_lev = z.narrow(z_axis, 1, nz - 1) - z.narrow(z_axis, 0, nz - 1)
-    vel_lo = velqr.narrow(z_axis, 0, nz - 1)
-    dt2d = torch.where(vel_lo > 1e-10, 0.8 * dz_lev / vel_lo, dt)
-    dt_max = pmin(torch.clamp(torch.amin(dt2d), max=dt), spmd_axes)
+    return _count(dt, pmin(step_plain(qr, rho, z, dt, z_axis), spmd_axes))
+
+
+def _count(dt, dt_max):
+    """ceil(dt / dt_max) as a 0-d int32 tensor on dt_max's device."""
     return torch.ceil(dt / dt_max).to(torch.int32)
 
 

@@ -1,5 +1,5 @@
-"""One Kessler time step on the coupler's fields: CUDA kernel and plain
-version.
+"""One Kessler time step on the coupler's fields, and its sub-cycle count's
+largest stable step: CUDA kernels and plain versions.
 
 ``kessler_step`` forms the mixing ratios, exner and theta from the coupler's
 densities and temperature, runs ``rainsplit`` passes of the KW1978 column
@@ -12,6 +12,13 @@ prep, ``kessler_subcycle_plain`` (the loop of ``kessler_column`` with a
 uniform dz) and the same post.  ``kessler_pass`` is the one pass both plain
 loops share.  Every division by a number goes through ``_div``, so the plain
 version and the kernel divide alike on the card.
+
+``min_step`` is the field work of the sub-cycle count: min(dt, the minimum
+over cells below the top of 0.8 dz_lev / v), a 0-d tensor.  On a CUDA tensor
+it launches ``kessler_min_step`` in the same file (one reduction with an
+atomic min, the port of the field work of the JAX package's
+``kessler_rainsplit``, which XLA fuses); on a CPU tensor
+``min_step_plain``.  ``step_plain`` is the arithmetic both plain forms share.
 """
 
 from __future__ import annotations
@@ -20,10 +27,11 @@ import ctypes
 
 import torch
 
-from ..cuda_build import count_launch
+from ..cuda_build import count_launch, on_cuda
 
 __all__ = ["kessler_step", "kessler_step_plain", "kessler_subcycle_plain",
-           "kessler_pass", "kessler_staging", "terminal_velocity"]
+           "kessler_pass", "kessler_staging", "terminal_velocity",
+           "min_step", "min_step_plain", "step_plain"]
 
 _RHOQR = 1000.0  # liquid water density
 _LV = 2.5e6      # latent heat of vaporization
@@ -47,6 +55,28 @@ def _div(a, b):
 def terminal_velocity(qr, r, rhalf):
     """Rain fall speed, KW eq. 2.15 (reference microphysics_kessler.h:260,331)."""
     return 36.34 * (qr * r) ** 0.1364 * rhalf
+
+
+def step_plain(qr, rho, z, dt, z_axis):
+    """min(dt, the minimum over cells below the top of 0.8 dz_lev / velqr
+    where velqr > 1e-10), a 0-d tensor (reference
+    microphysics_kessler.h:262-280): the largest stable sub-step."""
+    nz = qr.shape[z_axis]
+    r = 0.001 * rho
+    rhalf = torch.sqrt(rho.narrow(z_axis, 0, 1) / rho)
+    velqr = terminal_velocity(qr, r, rhalf)
+    dz_lev = z.narrow(z_axis, 1, nz - 1) - z.narrow(z_axis, 0, nz - 1)
+    vel_lo = velqr.narrow(z_axis, 0, nz - 1)
+    dt2d = torch.where(vel_lo > 1e-10, 0.8 * dz_lev / vel_lo, dt)
+    return torch.clamp(torch.amin(dt2d), max=dt)
+
+
+def min_step_plain(rho_r, rho_d, dt, dz):
+    """Plain version of ``min_step``: the level midpoints (k + 0.5) dz in
+    the fields' dtype and ``step_plain`` of rho_r / rho_d."""
+    zmid = ((torch.arange(rho_d.shape[1], dtype=rho_d.dtype,
+                          device=rho_d.device) + 0.5) * dz)[None, :, None, None]
+    return step_plain(rho_r / rho_d, rho_d, zmid, dt, 1)
 
 
 def kessler_pass(theta, qv, qc, qr, precl, rho, r, rhalf, pk, pc, dz_lev,
@@ -153,6 +183,11 @@ def _bind(lib):
         fn = getattr(lib, name)
         fn.argtypes = [P] * 11 + [I, I, ctypes.c_longlong] + [D] * 6 + [P]
         fn.restype = I
+    for name in ("kessler_min_step_f32", "kessler_min_step_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [P, P, P, ctypes.c_longlong, I, ctypes.c_longlong, D,
+                       D, P]
+        fn.restype = I
     lib.kessler_staged_levels.argtypes = [I, I]
     lib.kessler_staged_levels.restype = I
     lib.kessler_smem_bytes.argtypes = [I, I]
@@ -183,6 +218,23 @@ def kessler_staging(nz: int, dtype) -> tuple[int, int]:
                                                                        item)
 
 
+def _check(**fields):
+    """Raise unless every field is a contiguous f32 / f64 (nens, nz >= 2,
+    ny, nx) tensor of the dtype, shape and device of ``rho_d``."""
+    rho_d = fields["rho_d"]
+    if rho_d.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dtype {rho_d.dtype} is not float32/float64")
+    if rho_d.dim() != 4 or rho_d.shape[1] < 2:
+        raise ValueError(f"fields must be (nens, nz>=2, ny, nx), got "
+                         f"{tuple(rho_d.shape)}")
+    for name, t in fields.items():
+        if (t.device != rho_d.device or t.dtype != rho_d.dtype
+                or t.shape != rho_d.shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {rho_d.dtype} "
+                             f"tensor of shape {tuple(rho_d.shape)} on "
+                             f"{rho_d.device}")
+
+
 def kessler_step(rho_d, temp, rho_v, rho_c, rho_r, rainsplit, dt, dz, Rd,
                  Rv, cp, p0):
     """One Kessler time step on the coupler's fields.
@@ -201,23 +253,10 @@ def kessler_step(rho_d, temp, rho_v, rho_c, rho_r, rainsplit, dt, dz, Rd,
     (nens, ny, nx).  CPU tensors take ``kessler_step_plain``; CUDA tensors
     launch ``csrc/kessler.cu``.
     """
-    if rho_d.device.type == "cpu":
+    if not on_cuda(rho_d):
         return kessler_step_plain(rho_d, temp, rho_v, rho_c, rho_r,
                                   rainsplit, dt, dz, Rd, Rv, cp, p0)
-    if rho_d.device.type != "cuda":
-        raise ValueError(f"unsupported device {rho_d.device}")
-    if rho_d.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dtype {rho_d.dtype} is not float32/float64")
-    if rho_d.dim() != 4 or rho_d.shape[1] < 2:
-        raise ValueError(f"fields must be (nens, nz>=2, ny, nx), got "
-                         f"{tuple(rho_d.shape)}")
-    for name, t in (("rho_d", rho_d), ("temp", temp), ("rho_v", rho_v),
-                    ("rho_c", rho_c), ("rho_r", rho_r)):
-        if (t.device != rho_d.device or t.dtype != rho_d.dtype
-                or t.shape != rho_d.shape or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {rho_d.dtype} "
-                             f"tensor of shape {tuple(rho_d.shape)} on "
-                             f"{rho_d.device}")
+    _check(rho_d=rho_d, temp=temp, rho_v=rho_v, rho_c=rho_c, rho_r=rho_r)
     if (rainsplit.device != rho_d.device or rainsplit.dtype != torch.int32
             or rainsplit.numel() != 1):
         raise ValueError("rainsplit must be one int32 on the fields' device")
@@ -242,3 +281,36 @@ def kessler_step(rho_d, temp, rho_v, rho_c, rho_r, rainsplit, dt, dz, Rd,
 
 
 kessler_step.launches = 0
+
+
+def min_step(rho_r, rho_d, dt, dz):
+    """The largest stable sedimentation sub-step of the coupler's rain and
+    dry densities, a 0-d tensor on their device (the sub-cycle count is
+    ceil(dt / it)).
+
+    Args:
+      rho_r, rho_d: (nens, nz, ny, nx) rain and dry densities, bottom-up.
+      dt: physics step; dz: the uniform layer thickness.
+
+    CPU tensors take ``min_step_plain``; CUDA tensors launch
+    ``kessler_min_step`` in ``csrc/kessler.cu``, with no host read.
+    """
+    if not on_cuda(rho_d):
+        return min_step_plain(rho_r, rho_d, dt, dz)
+    _check(rho_d=rho_d, rho_r=rho_r)
+    nens, nz, ny, nx = rho_d.shape
+    step = torch.empty((), dtype=rho_d.dtype, device=rho_d.device)
+    lib = _library()
+    fn = (lib.kessler_min_step_f32 if rho_d.dtype == torch.float32
+          else lib.kessler_min_step_f64)
+    rc = fn(rho_r.data_ptr(), rho_d.data_ptr(), step.data_ptr(),
+            rho_d.numel(), nz, ny * nx, float(dt), float(dz),
+            torch.cuda.current_stream(rho_d.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("kessler min_step kernel launch failed: "
+                           + lib.kessler_error_string(rc).decode())
+    count_launch(min_step)
+    return step
+
+
+min_step.launches = 0

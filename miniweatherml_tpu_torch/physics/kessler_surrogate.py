@@ -10,9 +10,10 @@ every step and prints the mean NN-truth differences (:244-269), with the
 actual online override left commented out (:271-276); here both behaviors
 are options.
 
-The mean diffs are stored in the coupler field ``surrogate_diffs`` (4,)
-[temp, rho_v, rho_c, rho_p] on the device, so a driver reads all four in
-one transfer.
+The forward pass is ``kessler_surrogate_cuda.surrogate_forward``: one
+kernel on the card, its plain version (ordered sums) on the CPU.  The mean
+diffs are stored in the coupler field ``surrogate_diffs`` (4,) [temp, rho_v,
+rho_c, rho_p] on the device, so a driver reads all four in one transfer.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..core.coupler import CouplerState
 from ..ml.mlp import MLP
 from ..parallel.collectives import pmean
 from .kessler import MicrophysicsKessler
+from .kessler_surrogate_cuda import pack_mlp, surrogate_forward
 
 __all__ = ["MicrophysicsKesslerSurrogate"]
 
@@ -54,10 +56,13 @@ class MicrophysicsKesslerSurrogate(MicrophysicsKessler):
         in the ``surrogate_diffs`` field (always True when online=False,
         since the Kessler result is needed anyway).
 
-    The weights and tables are cast to the state's device and dtype once,
-    at ``init`` (again only if a state of another device or dtype comes):
-    weights loaded as f32 then computed in f64 give what the JAX package
-    computes, where ``jnp`` promotes ``f64 @ f32`` to f64.
+    The weights and tables are cast to the state's device and dtype and
+    packed for the forward kernel once, at ``init`` (again only if a state
+    of another device or dtype comes): weights loaded as f32 then computed
+    in f64 give what the JAX package computes, where ``jnp`` promotes
+    ``f64 @ f32`` to f64.  A model the kernel does not take (a layer over
+    ``kessler_surrogate_cuda.MAX_WIDTH`` units, parameters over
+    ``MAX_PARAM_BYTES``) raises ValueError there.
     """
 
     def __init__(self, model: MLP, scl_in, scl_out,
@@ -67,16 +72,22 @@ class MicrophysicsKesslerSurrogate(MicrophysicsKessler):
         self.scl_out = _tensor(scl_out)
         self.online = online
         self.compare = compare or not online
-        self._cast = None  # ((device, dtype), net, scl_in, scl_out)
+        # ((device, dtype), net, scl_in, scl_out, (packed params, widths))
+        self._cast = None
 
     def _params(self, state: CouplerState):
+        """(net, scl_in, scl_out) on the state's device in its dtype."""
+        return self._cast_for(state)[1:4]
+
+    def _cast_for(self, state: CouplerState):
         key = (state.device, state.meta.tdtype)
         if self._cast is None or self._cast[0] != key:
             kw = dict(device=key[0], dtype=key[1])
             net = copy.deepcopy(self.model).requires_grad_(False).to(**kw)
-            self._cast = (key, net, self.scl_in.to(**kw),
-                          self.scl_out.to(**kw))
-        return self._cast[1:]
+            scl_in, scl_out = self.scl_in.to(**kw), self.scl_out.to(**kw)
+            self._cast = (key, net, scl_in, scl_out,
+                          pack_mlp(net.weights, scl_in, scl_out))
+        return self._cast
 
     def init(self, state: CouplerState) -> CouplerState:
         state = super().init(state)
@@ -88,14 +99,8 @@ class MicrophysicsKesslerSurrogate(MicrophysicsKessler):
         """Normalized-MLP-denormalized prediction of (temp, rho_v, rho_c,
         rho_r), clamped non-negative except temp
         (microphysics_kessler_ponni.h:177-202)."""
-        net, scl_in, scl_out = self._params(state)
-        x = torch.stack([state[n] for n in _INPUTS], dim=-1)
-        x = (x - scl_in[:, 0]) / (scl_in[:, 1] - scl_in[:, 0])
-        y = net(x)                    # (nens, nz, ny, nx, 4)
-        y = y * (scl_out[:, 1] - scl_out[:, 0]) + scl_out[:, 0]
-        temp, rho_v, rho_c, rho_r = y.unbind(-1)
-        return (temp, torch.clamp_min(rho_v, 0.0), torch.clamp_min(rho_c, 0.0),
-                torch.clamp_min(rho_r, 0.0))
+        params, widths = self._cast_for(state)[4]
+        return surrogate_forward(*(state[n] for n in _INPUTS), params, widths)
 
     def time_step(self, state: CouplerState, dt: float,
                   spmd_axes: tuple = ()) -> CouplerState:

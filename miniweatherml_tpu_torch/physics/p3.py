@@ -1057,16 +1057,51 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
                         nsub_t, dtab, do_predict_nc=do_predict_nc,
                         z_axis=z_axis))
 
-    # -- homogeneous freezing (micro_p3.F90:4145-4200): below -40 C all
-    # cloud, then all rain, freezes into rimed ice packed at rho_rimeMax,
-    # gated on the end-of-part1 temperature as in the reference
+    # -- homogeneous freezing and p3_main_part3 (one kernel, with or without
+    # the diagnostics)
+    part3_in = (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, temp, exner, rho,
+                inv_rho)
+    if not diagnostics:
+        return (*cw.p3_part3(*part3_in, dtab), precip_liq, precip_ice)
+    prog, diag_cells = cw.p3_part3(*part3_in, dtab, diagnostics=True)
+    # columns the reference skips keep the p3_main init values
+
+    def col(v, default):
+        return torch.where(hydro_col, v, default)
+    diag = {name: col(diag_cells[name], default)
+            for name, default in _DIAG_DEFAULTS.items()}
+    return (*prog, precip_liq, precip_ice, diag)
+
+
+# part3's diagnostic fields and their p3_main init values
+# (micro_p3.F90:1307-1315)
+_DIAG_DEFAULTS = dict(eff_radius_qc=10.0e-6, eff_radius_qi=25.0e-6,
+                      diam_qi=0.0, rho_qi=0.0, vm_qi=0.0,
+                      equiv_reflectivity=-99.0)
+
+
+def _p3_part3_cellwise(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, temp,
+                       exner, rho, inv_rho, dtab, diagnostics=False):
+    """Homogeneous freezing and p3_main_part3 per cell, on the state after
+    sedimentation (micro_p3.F90:4145-4200, :977-1137).
+
+    ``temp``: the end-of-part1 temperature, which gates the freezing as in
+    the reference; ``dtab``: the table tier's ``DeviceTables`` (the ice
+    number limiter's K=2 lookup), or None for the [approx] tier.  Returns
+    the ten prognostics (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta); with
+    ``diagnostics=True`` also a dict of part3's diagnostic fields per cell,
+    before the caller's column mask."""
+    Lv, Ls, Lf, cp = LATVAP, LATVAP + LATICE, LATICE, CP_D
+
+    # -- homogeneous freezing: below -40 C all cloud, then all rain, freezes
+    # into rimed ice packed at rho_rimeMax
     def freeze(q, n):
         nonlocal qm, qi, bm, ni, theta
         frz = (q >= QSMALL) & (temp < T_HOMOGFRZ)
         q_nuc = _where0(frz, q)
         qm = qm + q_nuc
         qi = qi + q_nuc
-        bm = bm + q_nuc / RHO_RIMEMAX
+        bm = bm + _div(q_nuc, RHO_RIMEMAX)
         ni = ni + _where0(frz, _max(n, NSMALL))
         theta = theta + q_nuc * Lf / (cp * exner)
         return _where0(~frz, q), _where0(~frz, n)
@@ -1074,16 +1109,13 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
     qc, nc = freeze(qc, nc)
     qr, nr = freeze(qr, nr)
 
-    # -- p3_main_part3 (micro_p3.F90:977-1137)
+    # -- p3_main_part3
     small_c = qc < QSMALL
     qv = qv + _where0(small_c, qc)
     theta = theta - _where0(small_c, qc) * Lv / (cp * exner)
     nc3, mu_c3, lamc3 = _cloud_dsd2(qc, nc, rho)
     nc = _where0(~small_c, nc3)
     qc = _where0(~small_c, qc)
-    if diagnostics:
-        eff_qc = torch.where(small_c, 10.0e-6,
-                             0.5 * (mu_c3 + 3.0) / lamc3)
 
     small_r = qr < QSMALL
     qv = qv + _where0(small_r, qr)
@@ -1091,11 +1123,6 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
     nr3, lamr3 = _rain_dsd2(qr, nr)
     nr = _where0(~small_r, nr3)
     qr = _where0(~small_r, qr)
-    if diagnostics:
-        # ze_rain = nr*(mu_r+6)!/(mu_r)!/lamr^6 at mu_r = 1 (:1046-1048)
-        l2 = lamr3 * lamr3
-        ze_rain = torch.where(small_r, 1.0e-22,
-                              _max(nr * 5040.0 / (l2 * (l2 * l2)), 1.0e-22))
 
     small_i = qi < QSMALL
     qv = qv + _where0(small_i, qi)
@@ -1105,6 +1132,8 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
     ni = _cap_ni(ni, inv_rho)
     ice_diag = None
     if dtab is not None:
+        # the lambda limiters' lookup, skipped without ice: a cell with
+        # qi < QSMALL is zeroed below whatever it gives
         rhop3 = torch.clamp(qm / _max(bm, 1e-30), RHO_RIMEMIN, RHO_RIMEMAX)
         idx3 = ice_table_indices(qi, ni, qm, rhop3)
         cols3 = (7, 8, 2, 6, 9, 11, 12) if diagnostics else (7, 8)
@@ -1112,15 +1141,19 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
                                  present=(qi >= QSMALL).any())
         ni = torch.minimum(ni, vals3[0] * ni)
         ni = torch.maximum(ni, vals3[1] * ni)
-        if diagnostics:
-            ice_diag = vals3[2:]
+        ice_diag = vals3[2:]
     qi, ni, qm, bm = (_where0(~small_i, a) for a in (qi, ni, qm, bm))
-
+    prog = (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta)
     if not diagnostics:
-        return (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta,
-                precip_liq, precip_ice)
+        return prog
 
-    # -- part3 ice diagnostics (:1102-1112) with the p3_main defaults
+    # -- part3's diagnostics (:1026, :1046-1048, :1102-1112) with the
+    # p3_main defaults
+    eff_qc = torch.where(small_c, 10.0e-6, 0.5 * (mu_c3 + 3.0) / lamc3)
+    # ze_rain = nr*(mu_r+6)!/(mu_r)!/lamr^6 at mu_r = 1
+    l2 = lamr3 * lamr3
+    ze_rain = torch.where(small_r, 1.0e-22,
+                          _max(nr * 5040.0 / (l2 * (l2 * l2)), 1.0e-22))
     if ice_diag is not None:
         t2_3, t6_3, t9_3, t11_3, t12_3 = ice_diag
         rhofaci3 = (_RHO_600MB * inv_rho) ** 0.54
@@ -1138,16 +1171,21 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
         rho_qi_d = torch.zeros_like(qi)
         ze_ice = torch.full_like(qi, 1.0e-22)
     dbz = 10.0 * torch.log10((ze_rain + ze_ice) * 1.0e18)
-    # columns the reference skips keep the p3_main init values
+    return prog, dict(eff_radius_qc=eff_qc, eff_radius_qi=eff_qi,
+                      diam_qi=diam_qi, rho_qi=rho_qi_d, vm_qi=vm_qi,
+                      equiv_reflectivity=dbz)
 
-    def col(v, default):
-        return torch.where(hydro_col, v, default)
-    diag = dict(
-        eff_radius_qc=col(eff_qc, 10.0e-6), eff_radius_qi=col(eff_qi, 25.0e-6),
-        diam_qi=col(diam_qi, 0.0), rho_qi=col(rho_qi_d, 0.0),
-        vm_qi=col(vm_qi, 0.0), equiv_reflectivity=col(dbz, -99.0))
-    return (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta,
-            precip_liq, precip_ice, diag)
+
+def _p3_wrapper_out_cellwise(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner,
+                             rho_d):
+    """``MicrophysicsP3.time_step``'s output pass per cell
+    (microphysics_p3.h:425-444): the nine densities q rho_d clamped at 0,
+    temp = theta exner (the frozen exner) and qv_prev = max(qv, 0).
+    Returns (cloud_water, cloud_water_num, rain, rain_num, ice, ice_num,
+    ice_rime, ice_rime_vol, water_vapor, temp, qv_prev)."""
+    dens = tuple(_max(q * rho_d, 0.0)
+                 for q in (qc, nc, qr, nr, qi, ni, qm, bm, qv))
+    return (*dens, theta * exner, _max(qv, 0.0))
 
 
 def p3_wrapper_inputs(state: CouplerState):
@@ -1238,8 +1276,7 @@ class MicrophysicsP3:
     )
 
     # part3 diagnostic outputs (opt-in; see p3_scheme(diagnostics=True))
-    DIAG_FIELDS = ("eff_radius_qc", "eff_radius_qi", "diam_qi", "rho_qi",
-                   "vm_qi", "equiv_reflectivity")
+    DIAG_FIELDS = tuple(_DIAG_DEFAULTS)
 
     def __init__(self, backend: str = "torch", table_path: str | None = None,
                  use_tables: bool | None = None,
@@ -1279,12 +1316,9 @@ class MicrophysicsP3:
         if self.diagnostics:
             for name in self.DIAG_FIELDS:
                 state = state.register_field(name)
-            # p3_main init values (micro_p3.F90:1307-1315)
-            state = state.replace_fields(
-                eff_radius_qc=torch.full_like(state["eff_radius_qc"], 10.0e-6),
-                eff_radius_qi=torch.full_like(state["eff_radius_qi"], 25.0e-6),
-                equiv_reflectivity=torch.full_like(
-                    state["equiv_reflectivity"], -99.0))
+            state = state.replace_fields(**{
+                k: torch.full_like(state[k], v)
+                for k, v in _DIAG_DEFAULTS.items()})
         if self.tables is not None:
             self.tables.to(state.device, state.meta.tdtype)
         cv_d = CP_D - R_D
@@ -1320,20 +1354,15 @@ class MicrophysicsP3:
             if self.diagnostics:
                 state = state.replace_fields(**out[12])
 
-        def clamp(q):
-            return _max(q * rho_d, 0.0)
-        temp_new = theta * exner  # frozen exner (microphysics_p3.h:434-436)
-        return state.replace_fields(
-            cloud_water=clamp(qc), cloud_water_num=clamp(nc),
-            rain=clamp(qr), rain_num=clamp(nr),
-            ice=clamp(qi), ice_num=clamp(ni),
-            ice_rime=clamp(qm), ice_rime_vol=clamp(bm),
-            water_vapor=clamp(qv),
-            temp=temp_new,
-            qv_prev=_max(qv, 0.0),
-            t_prev=temp_new,
-            precl=pl, precl_ice=pi_,
-        )
+        from .p3_cellwise_cuda import p3_wrapper_out
+
+        # the clamped densities, temp with the frozen exner
+        # (microphysics_p3.h:434-436) and the qv history in one pass
+        out = p3_wrapper_out(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner,
+                             rho_d)
+        fields = {t[0]: a for t, a in zip(self.TRACERS, out)}
+        return state.replace_fields(**fields, temp=out[9], qv_prev=out[10],
+                                    t_prev=out[9], precl=pl, precl_ice=pi_)
 
     @property
     def micro_name(self) -> str:

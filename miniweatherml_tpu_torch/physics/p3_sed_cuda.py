@@ -26,7 +26,7 @@ from .p3 import _p3_sed_vmax as vmax_plain
 from .p3_lookup_cuda import ice_strides
 
 __all__ = ["sed_vmax", "sed_columns", "vmax_plain", "columns_plain",
-           "launch_config", "ICE_COLS", "RAIN_ROWS"]
+           "launch_config", "ice_table", "ICE_COLS", "RAIN_ROWS"]
 
 ICE_COLS = (2, 1, 7, 8)    # V_qit, V_nit and the ni limiters
 RAIN_ROWS = ("vm", "vn")   # V_qr, V_nr
@@ -98,20 +98,30 @@ def _check(fields, z_axis):
     return f0.numel(), nz, ny * nx
 
 
+def ice_table(dtab, like, cols=ICE_COLS):
+    """The table tier's packed ice columns ``cols`` (default (2, 1, 7, 8)),
+    checked against the fields ``like``: the table the sedimentation
+    kernels stage and part3's lookup reads."""
+    if dtab.device != like.device or dtab.dtype != like.dtype:
+        raise ValueError(f"tables on {dtab.device} in {dtab.dtype}, fields "
+                         f"on {like.device} in {like.dtype}")
+    ice = dtab.ice_cols(cols)
+    if (ice.stride() != ice_strides(len(cols), like.dtype)
+            or ice.data_ptr() % 16):
+        raise ValueError("the kernels take the packed, 16-byte aligned ice "
+                         "table")
+    return ice
+
+
 def _tables(dtab, like):
     """(packed ice table, rain rows) pointers of the table tier, checked."""
     if dtab is None:
         return None, None, 0
-    if dtab.device != like.device or dtab.dtype != like.dtype:
-        raise ValueError(f"tables on {dtab.device} in {dtab.dtype}, fields "
-                         f"on {like.device} in {like.dtype}")
-    ice = dtab.ice_cols(ICE_COLS)
+    ice = ice_table(dtab, like)
     rain = dtab.rain_rows(RAIN_ROWS)
-    if (ice.stride() != ice_strides(len(ICE_COLS), like.dtype)
-            or ice.data_ptr() % 16 or not rain.is_contiguous()
-            or rain.data_ptr() % 16):
-        raise ValueError("the sedimentation kernels take the packed ice "
-                         "table and contiguous, 16-byte aligned rain rows")
+    if not rain.is_contiguous() or rain.data_ptr() % 16:
+        raise ValueError("the sedimentation kernels take contiguous, 16-byte "
+                         "aligned rain rows")
     return ice.data_ptr(), rain.data_ptr(), rain.shape[1]
 
 

@@ -7,6 +7,8 @@ Usage (from the root of a checkout, on a machine with the card):
   python scripts/torch_port_measure.py profile [--root DIR] [--chains A,B]
   python scripts/torch_port_measure.py kernels [--root DIR] [--reps N]
   python scripts/torch_port_measure.py surrogate [--root DIR] [--reps N]
+                                                 [--maxw 16,32]
+  python scripts/torch_port_measure.py surrogate_cpu [--reps N]
   python scripts/torch_port_measure.py mesh    [--root DIR] [--reps N]
 
 ``--root`` names the tree whose ``miniweatherml_tpu_torch`` and
@@ -42,7 +44,20 @@ compared by running the script once per tree in one call, in turns.
            one step: MicrophysicsKesslerSurrogate.time_step (CUDA events,
            median of N calls) beside the bytes bound of a fused per-cell
            version (5 fields read, 4 written), and the profiler's device
-           time of each kernel of one call, by kernel name.
+           time of each kernel of one call, by kernel name; then
+           csrc/surrogate.cu built at each width cap in --maxw (default
+           16,32; -DSURROGATE_MAXW, into chip_smoke_out/surrogate_maxw/)
+           and timed on the same fields with the shipped model and those
+           of the 5-16-16-4 and 5-32-4 models that fit, f32 and f64, each checked
+           against the plain version with torch.equal, with its registers
+           and spills (ptxas).
+  surrogate_cpu  (no card needed) on the CPU, the online surrogate chain
+           at 64x64x32 (bench.py's CPU size) f32 and f64: the surrogate's
+           time_step and a whole chain step (host clock, median of N
+           calls), with the forward pass as the plain ordered sums and as
+           the former stack / torch.matmul form (rebuilt here), each
+           checked against the other within f64 1e-12 of scale, f32 1e-6
+           of each output's scaling range.
 
   mesh     the 512x512x64 f32 Kessler chain undecomposed and decomposed
            over a (1, 2, 2) mesh of the one card (parallel/spmd.py), in
@@ -73,6 +88,9 @@ import time
 
 
 def _card() -> str:
+    import torch
+    if not torch.cuda.is_available():
+        return "no card (CPU)"
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -277,7 +295,7 @@ def _family(name: str) -> str:
         return "matmul"
     if any(k in n for k in ("kessler", "cellwise", "ice_kernel",
                             "collect_kernel", "rain_kernel", "sed_vmax",
-                            "sed_columns")):
+                            "sed_columns", "surrogate")):
         return "microphysics"
     if "elementwise" in n or "vectorized" in n:
         return "glue"
@@ -351,7 +369,7 @@ def mode_profile(cs, chains):
     return out
 
 
-def mode_surrogate(cs, reps):
+def mode_surrogate(cs, reps, maxw):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from miniweatherml_tpu_torch.experiments import inference_surrogate
@@ -381,6 +399,146 @@ def mode_surrogate(cs, reps):
           f"per-cell kernel's bound {bound:.4f} ms", flush=True)
     for k, v in out["kernels"].items():
         print(f"  {v['ms']:8.4f} ms  {v['launches']:3d}  {k}", flush=True)
+    names = ("temp", "density_dry", "water_vapor", "cloud_liquid",
+             "precip_liquid")
+    out["maxw"] = _surrogate_maxw([state[n] for n in names],
+                                  mods[1].__self__, maxw, reps)
+    return out
+
+
+def _surrogate_maxw(fields, micro, maxw, reps):
+    """surrogate.cu built at each width cap in ``maxw``, timed on
+    ``fields`` with the shipped model and two seeded ones."""
+    import ctypes
+    from types import SimpleNamespace
+    import torch
+    from miniweatherml_tpu_torch import cuda_build
+    from miniweatherml_tpu_torch.ml.mlp import init_mlp
+    from miniweatherml_tpu_torch.physics import kessler_surrogate_cuda as sc
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke_out", "surrogate_maxw")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(os.path.dirname(sc.__file__), os.pardir, "csrc",
+                       "surrogate.cu")
+    # _params reads a state's device and dtype only
+    net, si, so = micro._params(SimpleNamespace(
+        device=fields[0].device,
+        meta=SimpleNamespace(tdtype=fields[0].dtype)))
+    gen = torch.Generator("cuda").manual_seed(5)
+    models = {"shipped": net.weights,
+              "5-16-16-4": init_mlp((5, 16, 16, 4), gen, 0.5).weights,
+              "5-32-4": init_mlp((5, 32, 4), gen, 0.5).weights}
+    res = {}
+    real = sc._lib, sc.load_library, sc.MAX_WIDTH
+    try:
+        for w in maxw:
+            lib_path = os.path.join(out_dir, f"surrogate_maxw{w}.so")
+            cmd = [cuda_build._nvcc(), *cuda_build.nvcc_flags("surrogate"),
+                   f"-DSURROGATE_MAXW={w}", "-Xptxas", "-v", "-o", lib_path,
+                   os.path.abspath(src)]
+            done = subprocess.run(cmd, capture_output=True, text=True)
+            if done.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n{done.stderr}")
+            ptxas = [ln.strip() for ln in done.stderr.splitlines()
+                     if "registers" in ln or "spill" in ln]
+            # the wrappers take this build and pack_mlp its width cap
+            sc._lib, sc.MAX_WIDTH = None, w
+            sc.load_library = lambda name, _p=lib_path: ctypes.CDLL(_p)
+            for dtype in (torch.float32, torch.float64):
+                fs = [f.to(dtype) for f in fields]
+                for name, weights in models.items():
+                    widths = [weights[0][0].shape[0]] + [W.shape[1]
+                                                         for W, _ in weights]
+                    if max(widths) > w:
+                        continue
+                    params, widths = sc.pack_mlp(weights, si.to(dtype),
+                                                 so.to(dtype))
+                    got = sc.surrogate_forward(*fs, params, widths)
+                    ref = sc.surrogate_forward_plain(*fs, params, widths)
+                    equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+                    del got, ref
+                    ms = _median_ms(lambda: sc.surrogate_forward(
+                        *fs, params, widths), reps)
+                    key = f"maxw {w} {str(dtype)[6:]} {name}"
+                    res[key] = {"ms": ms, "bit_for_bit": equal}
+                    print(f"surrogate {key}: {ms:.4f} ms, bit for bit "
+                          f"{equal}", flush=True)
+                    if not equal:
+                        raise AssertionError(f"surrogate {key} differs")
+                del fs
+            res[f"maxw {w} ptxas"] = ptxas
+            for ln in ptxas:
+                print(f"surrogate maxw {w} ptxas: {ln}", flush=True)
+    finally:
+        sc._lib, sc.load_library, sc.MAX_WIDTH = real
+    return res
+
+
+def mode_surrogate_cpu(cs, reps):
+    """The online surrogate chain on the CPU with the forward pass as the
+    plain ordered sums and as the former torch.matmul form."""
+    import torch
+    from miniweatherml_tpu_torch.experiments import inference_surrogate
+    from miniweatherml_tpu_torch.physics.kessler_surrogate import \
+        MicrophysicsKesslerSurrogate as MKS
+
+    def former(self, state):
+        net, scl_in, scl_out = self._params(state)
+        x = torch.stack([state[n] for n in ("temp", "density_dry",
+                                            "water_vapor", "cloud_liquid",
+                                            "precip_liquid")], dim=-1)
+        x = (x - scl_in[:, 0]) / (scl_in[:, 1] - scl_in[:, 0])
+        y = net(x)
+        y = y * (scl_out[:, 1] - scl_out[:, 0]) + scl_out[:, 0]
+        t, rv, rc, rr = y.unbind(-1)
+        return (t, torch.clamp_min(rv, 0.0), torch.clamp_min(rc, 0.0),
+                torch.clamp_min(rr, 0.0))
+
+    def host_ms(fn):
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return sorted(times)[len(times) // 2]
+
+    out = {"threads": torch.get_num_threads()}
+    plain = MKS._nn_forward
+    for dtype in ("float32", "float64"):
+        cfg = cs._surrogate_cfg(cs._bench_cfg(64, 64, 32, 1, dtype))
+        state, mods, dycore = inference_surrogate.build(cfg, "cpu")
+        dt = dycore.compute_time_step(state)
+        micro = mods[1].__self__
+        a = plain(micro, state)
+        b = former(micro, state)
+        # f64 within 1e-12 of each output's scale, f32 1e-6 of its
+        # scaling range (tests/test_torch_surrogate.py's bounds)
+        rng = micro._params(state)[2].diff(dim=1).flatten()
+        tol = 1e-12 if dtype == "float64" else 1e-6
+        worst = max(float((x - y).abs().max()) / (
+            max(float(y.abs().max()), 1e-300) if dtype == "float64"
+            else float(rng[i])) for i, (x, y) in enumerate(zip(a, b)))
+        if not worst <= tol:
+            raise AssertionError(f"ordered sums vs matmul {dtype}: {worst}")
+
+        def chain():
+            s = state
+            for m in mods:
+                s = m(s, dt)
+        try:
+            for form, fn in (("ordered sums", plain), ("matmul", former)):
+                MKS._nn_forward = fn
+                r = {"time_step_ms": host_ms(lambda: mods[1](state, dt)),
+                     "step_ms": host_ms(chain)}
+                out[f"{dtype} {form}"] = r
+                print(f"surrogate CPU 64x64x32 {dtype}, forward as {form}: "
+                      f"time_step {r['time_step_ms']:.3f} ms, chain step "
+                      f"{r['step_ms']:.3f} ms ({out['threads']} threads)",
+                      flush=True)
+        finally:
+            MKS._nn_forward = plain
+        out[f"{dtype} worst rel diff"] = worst
     return out
 
 
@@ -505,15 +663,17 @@ def mode_mesh(cs, reps):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", choices=("flux", "cells", "profile", "kernels",
-                                     "surrogate", "mesh"))
+                                     "surrogate", "surrogate_cpu", "mesh"))
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--chains", default="",
                     help="comma-separated subset of the chains")
+    ap.add_argument("--maxw", default="16,32",
+                    help="surrogate: the width caps to build and time")
     a = ap.parse_args()
     import torch
-    if not torch.cuda.is_available():
+    if a.mode != "surrogate_cpu" and not torch.cuda.is_available():
         print("torch_port_measure: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     root = os.path.abspath(a.root)
@@ -529,7 +689,9 @@ def main() -> int:
            "cells": lambda: mode_cells(cs, chains),
            "profile": lambda: mode_profile(cs, chains),
            "kernels": lambda: mode_kernels(cs, a.reps),
-           "surrogate": lambda: mode_surrogate(cs, a.reps),
+           "surrogate": lambda: mode_surrogate(
+               cs, a.reps, [int(w) for w in a.maxw.split(",")]),
+           "surrogate_cpu": lambda: mode_surrogate_cpu(cs, a.reps),
            "mesh": lambda: mode_mesh(cs, a.reps)}[a.mode]()
     print("RESULT " + json.dumps({
         "mode": a.mode, "root": a.root, "card": _card(),

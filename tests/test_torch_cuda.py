@@ -8,8 +8,9 @@ neither JAX nor the JAX package, so it also runs on a machine without JAX:
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 Tolerance: max|kernel - plain| over max|plain| of each output, 1e-12 in
 f64 and 1e-5 in f32 (an index set of the P3 rates by its lookup positions,
-index plus fraction); the flux kernel, fct_mult, the Kessler step and the
-P3 lookups equal their plain versions bit for bit.
+index plus fraction); the flux kernel, fct_mult, the Kessler step and its
+sub-cycle step, the P3 lookups, the P3 output pass and the surrogate's
+forward equal their plain versions bit for bit.
 """
 
 import numpy as np
@@ -23,7 +24,8 @@ from miniweatherml_tpu_torch.ops.direction_fluxes import (
 from miniweatherml_tpu_torch.ops.weno import weno_matrices
 from miniweatherml_tpu_torch.physics.kessler import kessler_rainsplit
 from miniweatherml_tpu_torch.physics.kessler_cuda import (
-    kessler_staging, kessler_step, kessler_step_plain)
+    kessler_staging, kessler_step, kessler_step_plain, min_step,
+    min_step_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -151,6 +153,36 @@ def test_kessler_kernel_matches_plain(nz, several, cuda_device):
             assert a.shape == b.shape and a.dtype == b.dtype
             assert _rel(a, b) <= TOL[dtype], (dtype, i)
             assert torch.equal(a, b), (dtype, i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kessler_min_step_kernel_equals_plain(dtype, cuda_device):
+    """The sub-cycle step against its plain version, bit for bit, and the
+    count made of it: heavy-rain columns at 64 and 101 levels with nens 2
+    (3x37 columns, no multiple of the blocks; counts above 1 at dt 0.3 s
+    per metre of dz), and a dry state (count 1)."""
+    for nz, dry in ((64, False), (101, False), (16, True)):
+        fields, _, dz = _coupler_columns((2, nz, 3, 37), dtype, cuda_device)
+        rho_r = torch.zeros_like(fields[4]) if dry else fields[4]
+        dt = 0.3 * dz
+        n0 = min_step.launches
+        got = min_step(rho_r, fields[0], dt, dz)
+        assert min_step.launches == n0 + 1
+        want = min_step_plain(rho_r, fields[0], dt, dz)
+        assert got.shape == () and got.dtype == dtype
+        assert torch.equal(got, want), (nz, float(got), float(want))
+        count = int(torch.ceil(dt / got))
+        assert (count == 1) if dry else (count > 1), count
+
+
+def test_kessler_min_step_rejects_bad_input(cuda_device):
+    x = torch.ones((1, 4, 3, 5), device=cuda_device)
+    with pytest.raises(TypeError):
+        min_step(x.half(), x.half(), 1.0, 10.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        min_step(x.transpose(2, 3), x, 1.0, 10.0)
+    with pytest.raises(ValueError, match="nz>=2"):
+        min_step(x[:, :1], x[:, :1], 1.0, 10.0)
 
 
 def test_kessler_staging(cuda_device):
@@ -407,15 +439,16 @@ def test_p3_cellwise_kernels_match_plain(cuda_device, monkeypatch):
 
     launch = CW._launch
     wrappers = (CW.p3_part1, CW.p3_update, CW.p3_wrapper, CW.p3_rates_pre,
-                CW.p3_rates_post)
+                CW.p3_rates_post, CW.p3_part3, CW.p3_wrapper_out)
     for dtype in ("float64", "float32"):
         state, mods = _p3_state(dtype, cuda_device)
+        dtab = mods[1].__self__.tables.to(cuda_device, state.meta.tdtype)
         seen = {}
 
-        def spy(phase, predict_nc, arrays, dt=0.0):
-            got = launch(phase, predict_nc, arrays, dt)
+        def spy(phase, predict_nc, arrays, dt=0.0, table=None):
+            got = launch(phase, predict_nc, arrays, dt, table)
             seen[phase] = (got, CW.plain_phase(phase, predict_nc, arrays,
-                                               dt))
+                                               dt, dtab))
             return got
         monkeypatch.setattr(CW, "_launch", spy)
         n0 = [f.launches for f in wrappers]
@@ -423,11 +456,84 @@ def test_p3_cellwise_kernels_match_plain(cuda_device, monkeypatch):
         monkeypatch.undo()
         assert [f.launches for f in wrappers] == [k + 1 for k in n0]
         assert set(seen) == {"part1", "update", "wrapper", "rates_pre",
-                             "rates_post"}
+                             "rates_post", "part3", "wrapper_out"}
         for name, (got, want) in seen.items():
             assert len(got) == len(want)
             _close_to_plain(got, want, (name, dtype))
         assert seen["rates_pre"][0][2].dtype == torch.int32
+
+
+def _part3_calls(state, mods, monkeypatch):
+    """The arguments one P3 step hands p3_part3 and p3_wrapper_out."""
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
+
+    seen = {}
+    for name in ("p3_part3", "p3_wrapper_out"):
+        real = getattr(CW, name)
+
+        def call(*a, _real=real, _name=name):
+            seen[_name] = a
+            return _real(*a)
+        call.launches = 0  # the wrapper counts on its module-level name
+        monkeypatch.setattr(CW, name, call)
+    mods[1](state, 2.0)
+    monkeypatch.undo()
+    return seen
+
+
+@pytest.mark.parametrize("tables", [True, False])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_p3_part3_and_output_pass_match_plain(dtype, tables, cuda_device,
+                                              monkeypatch):
+    """Freezing + part3 and the output pass against their plain versions on
+    what one P3 step hands them (960 cells), both tiers; then part3 on that
+    state with its ice taken away (and no cell below -40 C, so none
+    freezes) and with ice in one cell only: the kernel's per-cell gate of
+    the ice lookup against the plain version's gate on any cell having ice;
+    part3 with and without its diagnostics; the output pass bit for bit."""
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
+
+    state, mods = _p3_state(dtype, cuda_device)
+    if not tables:
+        mods[1].__self__.tables = None
+    seen = _part3_calls(state, mods, monkeypatch)
+    args = list(seen["p3_part3"])
+    assert (args[14] is None) == (not tables)
+    n0 = (CW.p3_part3.launches, CW.p3_wrapper_out.launches)
+    # no ice, and no cell below -40 C, so none freezes
+    ice_free = list(args)
+    for i in (4, 5, 6, 7):
+        ice_free[i] = torch.zeros_like(args[i])
+    ice_free[10] = torch.clamp(args[10], min=240.0)
+    one_cell = list(ice_free)
+    for i in (4, 5, 6, 7):
+        one_cell[i] = one_cell[i].clone()
+        one_cell[i].view(-1)[417] = args[i].flatten()[
+            int(args[4].flatten().argmax())]
+    assert float(args[4].max()) > 0.0
+    for case, a in (("step", args), ("ice-free", ice_free),
+                    ("one ice cell", one_cell)):
+        got = CW.p3_part3(*a)
+        want = CW.part3_plain(*a)
+        assert len(got) == len(want) == 10
+        _close_to_plain(got, want, (dtype, tables, case))
+        if case != "step":
+            assert int((got[4] > 0).sum()) == (case == "one ice cell")
+        got_p, got_d = CW.p3_part3(*a, diagnostics=True)
+        want_p, want_d = CW.part3_plain(*a, diagnostics=True)
+        assert tuple(got_d) == tuple(want_d) == CW.DIAG_NAMES
+        _close_to_plain((*got_p, *got_d.values()),
+                        (*want_p, *want_d.values()),
+                        (dtype, tables, case, "diagnostics"))
+        for g, w in zip(got_p, got):
+            assert torch.equal(g, w), (dtype, tables, case)
+    got = CW.p3_wrapper_out(*seen["p3_wrapper_out"])
+    want = CW.wrapper_out_plain(*seen["p3_wrapper_out"])
+    assert len(got) == len(want) == 11
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (CW.p3_part3.launches, CW.p3_wrapper_out.launches) == (
+        n0[0] + 6, n0[1] + 1)
 
 
 def test_p3_cellwise_rejects_bad_input(cuda_device):
@@ -447,6 +553,10 @@ def test_p3_cellwise_rejects_bad_input(cuda_device):
         CW.p3_rates_pre(*[x] * 9, x.transpose(2, 3))
     with pytest.raises(ValueError, match="contiguous"):
         CW.p3_rates_post(1.0, *[x] * 29, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        CW.p3_wrapper_out(*[x] * 11, x.transpose(2, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        CW.p3_part3(*[x] * 13, x.double(), None)
 
 
 def _p3_sed_calls(state, mods, monkeypatch):
@@ -768,7 +878,8 @@ def test_p3_slice_on_card_matches_cpu(cuda_device):
 
     counters = (LK.interp_ice, LK.interp_collect, LK.interp_rain,
                 CW.p3_part1, CW.p3_update, CW.p3_wrapper, CW.p3_rates_pre,
-                CW.p3_rates_post, SED.sed_vmax, SED.sed_columns)
+                CW.p3_rates_post, CW.p3_part3, CW.p3_wrapper_out,
+                SED.sed_vmax, SED.sed_columns)
     states = []
     for device in ("cpu", cuda_device):
         state, mods, dycore = supercell_p3.build(cfg, device)
@@ -831,6 +942,92 @@ def test_surrogate_forward_on_card_matches_cpu(dtype, cuda_device):
             assert err <= 1e-12 * a.abs().max().item(), (v, err)
         else:
             assert err <= 1e-6 * scl_range[v].item(), (v, err)
+
+
+def _surrogate_models(dtype, device):
+    """(name, MLP, scl_in, scl_out) on ``device`` in ``dtype``: the shipped
+    5 -> 10 -> 4 model with its scaling tables, a seeded deeper 5 -> 16 ->
+    16 -> 4 and a 5 -> 32 -> 4 (the kernel's wider form)."""
+    import os
+    from miniweatherml_tpu_torch.ml.mlp import (init_mlp, load_mlp,
+                                                load_scaling)
+    ex = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "inputs", "examples")
+    si = load_scaling(os.path.join(
+        ex, "supercell_kessler_input_scaling.txt"), 5, dtype, device)
+    so = load_scaling(os.path.join(
+        ex, "supercell_kessler_output_scaling.txt"), 4, dtype, device)
+    gen = torch.Generator(device).manual_seed(5)
+    return [("shipped", load_mlp(os.path.join(
+        ex, "supercell_kessler_example_weights.npz"), dtype, device), si, so),
+        ("5-16-16-4", init_mlp((5, 16, 16, 4), gen, 0.5, dtype), si, so),
+        ("5-16-4", init_mlp((5, 16, 4), gen, 0.5, dtype), si, so),
+        ("18 layers", init_mlp((5,) + (8,) * 17 + (4,), gen, 0.5, dtype), si,
+         so)]
+
+
+def _surrogate_fields(shape, dtype, device, seed=9):
+    """[T, rho_d, rho_v, rho_c, rho_r] over their scaling tables' ranges,
+    with zero cloud and rain in a fifth of the cells."""
+    rng = np.random.default_rng(seed)
+    lo = np.array([200.0, 0.1, 0.0, 0.0, 0.0])
+    hi = np.array([310.0, 1.2, 0.02, 3e-3, 8e-3])
+    out = []
+    for i in range(5):
+        a = lo[i] + (hi[i] - lo[i]) * rng.random(shape)
+        if i >= 3:
+            a[rng.random(shape) < 0.2] = 0.0
+        out.append(torch.as_tensor(a, dtype=dtype, device=device))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_surrogate_kernel_equals_plain(dtype, cuda_device):
+    """The fused forward pass against its plain version (ordered sums),
+    bit for bit, on 2x7x9x13 cells (no multiple of the block) for the
+    shipped model, a deeper one, one at the width cap and one of 18
+    layers."""
+    from miniweatherml_tpu_torch.physics.kessler_surrogate_cuda import (
+        pack_mlp, surrogate_forward, surrogate_forward_plain)
+
+    fields = _surrogate_fields((2, 7, 9, 13), dtype, cuda_device)
+    for name, model, si, so in _surrogate_models(dtype, cuda_device):
+        params, widths = pack_mlp(model.weights, si, so)
+        n0 = surrogate_forward.launches
+        got = surrogate_forward(*fields, params, widths)
+        assert surrogate_forward.launches == n0 + 1
+        want = surrogate_forward_plain(*fields, params, widths)
+        for v, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == dtype and g.shape == fields[0].shape
+            assert torch.equal(g, w), (name, v, _rel(w, g))
+        assert float(got[2].min()) >= 0.0
+
+
+def test_surrogate_kernel_refuses_models_over_its_cap(cuda_device):
+    """A layer wider than 16 units or parameters over the shared memory a
+    block may stage raise a ValueError naming the cap, on the card as on
+    the CPU; so does a model of other than 5 inputs and 4 outputs; a bad
+    field raises too."""
+    from miniweatherml_tpu_torch.ml.mlp import init_mlp
+    from miniweatherml_tpu_torch.physics.kessler_surrogate_cuda import (
+        pack_mlp, surrogate_forward)
+
+    si = torch.ones((5, 2), device=cuda_device)
+    so = torch.ones((4, 2), device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    with pytest.raises(ValueError, match="at most 16 units"):
+        pack_mlp(init_mlp((5, 17, 4), gen).weights, si, so)
+    with pytest.raises(ValueError, match="at most 232448 bytes"):
+        pack_mlp(init_mlp((5,) + (16,) * 110 + (4,), gen).weights,
+                 si.double(), so)
+    with pytest.raises(ValueError, match="5 inputs to 4 outputs"):
+        pack_mlp(init_mlp((5, 8, 3), gen).weights, si, so)
+    params, widths = pack_mlp(init_mlp((5, 8, 4), gen).weights, si, so)
+    x = torch.ones((2, 3, 4, 5), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        surrogate_forward(x, x, x, x, x.transpose(2, 3), params, widths)
+    with pytest.raises(ValueError, match="contiguous"):
+        surrogate_forward(x, x, x, x, x, params.double(), widths)
 
 
 # -- the halo-strip form of the flux kernel, FCT edges, the decomposed step --
