@@ -74,9 +74,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      step (``min_step``) on the Kessler chain's 512x512x64 state after one
      step and on phase 4's heavy-rain columns (count 2 or more, printed
      beside the largest dt v / (0.8 dz_lev)), and the surrogate's forward pass
-     (``surrogate_forward``) on cell (f)'s state after one step, f32 and
-     f64 (the state cast), bit for bit; each timed beside its bound, with
-     the four kernels' registers and spills from phase 2;
+     (``surrogate_forward``) in both kernel forms (fixed-width and general)
+     on cell (f)'s state after one step, then the general form on wider
+     and deeper models (5-17-4, 5-64-64-4, 18 layers, 5-256-256-4 with
+     over 227 KiB of parameters) at 128x128x32 cells of that state and
+     5-8000-4, its activations in global scratch, at 32x32x16; f32 and f64
+     (the state cast), bit for bit; each timed beside its bound, with the four
+     kernels' registers and spills from phase 2;
   10. the P3 slice: run_benchmark(build=supercell_p3.build) at 512x512x64
      f32, 10 steps from the supercell init, with every P3-path kernel's
      launch count, a clean validate(), Mcellups and peak memory, and the
@@ -104,8 +108,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      512x512x64 f32, 10 steps, the MLP deployed online with the shipped
      example model (.npz) and no Kessler comparison (bench.py's
      MWML_BENCH_MICRO=surrogate case), with the dycore kernels' launch
-     counts beside the glue launches of one more step and no Kessler
-     launch, a clean validate(), Mcellups, peak
+     counts beside the glue launches of one more step, no Kessler launch
+     and every surrogate launch in the fixed-width form, a clean
+     validate(), Mcellups, peak
      memory, and the surrogate's own time per step (CUDA events around its
      time_step) and its share of the step;
   19. the same width in compare mode (the Kessler result kept, the mean NN -
@@ -516,10 +521,18 @@ def _entry_label(lib: str, mangled: str) -> str:
         diag = "" if m.group(3) is None else f" diagnostics={m.group(3)}"
         return (f"cellwise {m.group(1)}{pnc}{diag} "
                 f"<{'float' if m.group(4) == 'f' else 'double'}>")
-    m = re.search(r"surrogate_kernelI([fd])E", mangled)
+    m = re.search(r"surrogate_(fixed|general)I([fd])(?:Li(\d+)|Lb([01]))E",
+                  mangled)
     if lib == "surrogate" and m:
-        t = "float" if m.group(1) == "f" else "double"
-        return f"surrogate_kernel <{t}>"
+        t = "float" if m.group(2) == "f" else "double"
+        if m.group(1) == "fixed":
+            return f"surrogate_fixed <{t}> 5-{m.group(3)}-4"
+        where = "global scratch" if m.group(4) == "1" else "shared memory"
+        return f"surrogate_general <{t}> activations in {where}"
+    m = re.search(r"kessler_min_step_kernelI([fd])E", mangled)
+    if lib == "kessler" and m:
+        return (f"kessler_min_step_kernel "
+                f"<{'float' if m.group(1) == 'f' else 'double'}>")
     m = re.search(r"(sed_vmax_kernel|sed_columns_kernel)I([fd])Lb([01])E"
                   r"(?:Lb([01])E)?", mangled)
     if lib == "p3_sed" and m:
@@ -1728,13 +1741,15 @@ def phase_micro_tails():
     """[32] the Kessler sub-cycle step on the Kessler chain's 512x512x64
     state after one step (little rain, so it barely limits the step) and on
     phase 4's heavy-rain 512x512x64 columns (which must give a count of 2
-    or more), and the surrogate's forward pass on cell
-    (f)'s state after one step (the shipped model, online), against their
-    plain versions in f32 and in f64 (the state cast), bit for bit; each
-    timed beside its bound.  (Part3 and the P3 output pass run inside phase
-    31.)  Returns the records of the kernels line."""
+    or more); the surrogate's forward pass in both kernel forms on cell
+    (f)'s state after one step (the shipped 5-10-4 model, online), and the
+    general form on SURROGATE_WIDE's models on corners of that state; each
+    against its plain version in f32 and in f64 (the state cast), bit for
+    bit, timed beside its bound.  (Part3 and the P3 output
+    pass run inside phase 31.)  Returns the records of the kernels line."""
     from miniweatherml_tpu_torch.experiments import inference_surrogate
     from miniweatherml_tpu_torch.experiments.supercell_example import build
+    from miniweatherml_tpu_torch.ml.mlp import init_mlp
     from miniweatherml_tpu_torch.physics import kessler_cuda as kc
     from miniweatherml_tpu_torch.physics import kessler_surrogate_cuda as sc
     _tail_registers()
@@ -1767,9 +1782,7 @@ def phase_micro_tails():
             ms = _time_ms(lambda: kc.min_step(rr, rd, cdt, cdz), reps=10)
             pms = _time_ms(lambda: kc.min_step_plain(rr, rd, cdt, cdz),
                            reps=3)
-            nbytes = _nbytes(rr, rd, got)
-            bms, by = _bound(nbytes, TAIL_OPS["min_step"] * rr.numel(),
-                             dtype)
+            bms, by = _bound(*_min_step_need(rr, got), dtype)
             # dt / step is the largest dt v / (0.8 dz_lev) over the cells
             # (1 where no cell limits the step)
             print(f"[32] kessler min_step {case} 512x512x64 "
@@ -1801,45 +1814,106 @@ def phase_micro_tails():
         state = m(state, dt)
     micro = mods[1].__self__
     params, widths = micro._cast_for(state)[4]
+    scl = micro._cast_for(state)[2:4]
     names = ("temp", "density_dry", "water_vapor", "cloud_liquid",
              "precip_liquid")
     fields = [state[n] for n in names]
     del state, mods, dycore
-    macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    err = 0.0
     for dtype in (torch.float32, torch.float64):
         fs = [f.to(dtype) for f in fields]
         ps = params.to(dtype)
-        ref = sc.surrogate_forward_plain(*fs, ps, widths)
-        got = sc.surrogate_forward(*fs, ps, widths)
-        torch.cuda.synchronize()
-        err, rel = _worst(zip(ref, got))
-        differ = sum(int((a != b).sum()) for a, b in zip(ref, got))
-        nbytes = _nbytes(fs, ps, got)
-        del ref, got
-        ms = _time_ms(lambda: sc.surrogate_forward(*fs, ps, widths), reps=10)
-        pms = _time_ms(lambda: sc.surrogate_forward_plain(*fs, ps, widths),
-                       reps=3)
-        # normalise (3 a field), a multiply and an add per weight, the
-        # biases and activations, denormalise and clamp
-        ops = (15 + 2 * macs + 2 * sum(widths[1:]) + 12) * fs[0].numel()
-        bms, by = _bound(nbytes, ops, dtype)
-        print(f"[32] surrogate_forward cell (f) state 512x512x64 "
-              f"{_dtype_name(dtype)}, model {widths}: max abs err "
-              f"{err:.3e}, rel {rel:.3e}, bit for bit {differ == 0} "
-              f"({differ} values differ); kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms, bound {bms:.3f} ms ({by}: "
-              f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP), "
-              f"{bms / ms:.1%} of the bound", flush=True)
-        if differ:
-            raise AssertionError(f"surrogate_forward {dtype}: {differ} "
-                                 "values differ from the plain version")
-        if dtype == torch.float32:
-            recs["surrogate_forward"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by)
+        for form in ("fixed", "general"):
+            e, ms, pms, bms, by = _surrogate_check(
+                f"cell (f) state 512x512x64, model {widths}", fs, ps, widths,
+                form, dtype, plain_reps=3 if form == "fixed" else 0)
+            err = max(err, e)
+            if dtype == torch.float32 and form == "fixed":
+                recs["surrogate_forward"] = dict(
+                    ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
         del fs, ps
+    # the general form on wider and deeper models (seeded weights, the
+    # shipped scaling tables) on a corner of the same state
+    gen = torch.Generator("cuda").manual_seed(11)
+    for name, sizes, scale, (nz, ny, nx) in SURROGATE_WIDE:
+        model = init_mlp(sizes, gen, scale, torch.float64)
+        for dtype in (torch.float32, torch.float64):
+            ps, ws = sc.pack_mlp([(W.to(dtype), b.to(dtype))
+                                  for W, b in model.weights],
+                                 *(t.to(dtype) for t in scl))
+            fs = [f[:, :nz, :ny, :nx].to(dtype).contiguous() for f in fields]
+            err = max(err, _surrogate_check(
+                f"{name} {nx}x{ny}x{nz} ({ps.numel() * ps.element_size()} B "
+                "of parameters)", fs, ps, ws, "general", dtype,
+                plain_reps=1)[0])
+            del fs, ps
+    del fields
+    recs["surrogate_forward"]["max_abs_err"] = err
     torch.cuda.empty_cache()
     return recs
+
+
+def _min_step_need(rho_r, step) -> tuple[int, int]:
+    """(bytes, operations) that kessler_min_step needs on this data: rho_r
+    below the top level; rho_d, and its column's bottom density, only where
+    a cell there holds rain; the step written; TAIL_OPS' count for each
+    rain cell (a dry cell needs one compare)."""
+    rain = rho_r[:, :-1] != 0
+    rho_d = rain.clone()
+    rho_d[:, 0] |= rain.any(dim=1)
+    nbytes = (rho_r.element_size() * (rain.numel() + int(rho_d.sum()))
+              + step.element_size())
+    return nbytes, TAIL_OPS["min_step"] * int(rain.sum())
+
+
+# (name, widths, scale of the seeded weights, (nz, ny, nx) cells) of phase
+# 32's wide models: a hidden layer over the fixed form's, two 64-wide
+# layers, 18 layers, two 256-wide layers (over 227 KiB of parameters, a
+# block's shared memory) and one too wide for its activations to stay in
+# shared memory, on fewer cells (the plain version keeps a field per unit)
+SURROGATE_WIDE = (("5-17-4", (5, 17, 4), 0.5, (32, 128, 128)),
+                  ("5-64-64-4", (5, 64, 64, 4), 0.2, (32, 128, 128)),
+                  ("18 layers", (5,) + (8,) * 17 + (4,), 0.5, (32, 128, 128)),
+                  ("5-256-256-4", (5, 256, 256, 4), 0.1, (32, 128, 128)),
+                  ("5-8000-4", (5, 8000, 4), 0.02, (16, 32, 32)))
+
+
+def _surrogate_check(tag, fs, ps, widths, form, dtype, plain_reps):
+    """[32] one surrogate kernel form against the plain version, bit for
+    bit, timed beside its bound (and the plain version, with plain_reps >
+    0).  Returns (max abs err, ms, plain ms or None, bound ms, bound_by)."""
+    from miniweatherml_tpu_torch.physics import kessler_surrogate_cuda as sc
+    ref = sc.surrogate_forward_plain(*fs, ps, widths)
+    got = sc._launch(form, *fs, ps, widths)
+    torch.cuda.synchronize()
+    err, rel = _worst(zip(ref, got))
+    differ = sum(int((a != b).sum()) for a, b in zip(ref, got))
+    nbytes = _nbytes(fs, ps, got)
+    del ref, got
+    ms = _time_ms(lambda: sc._launch(form, *fs, ps, widths),
+                  reps=10)
+    pms = (_time_ms(lambda: sc.surrogate_forward_plain(*fs, ps, widths),
+                    reps=plain_reps) if plain_reps else None)
+    macs = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    # normalise (3 a field), a multiply and an add per weight, the biases
+    # and activations, denormalise and clamp
+    ops = (15 + 2 * macs + 2 * sum(widths[1:]) + 12) * fs[0].numel()
+    bms, by = _bound(nbytes, ops, dtype)
+    tile = ""
+    if form == "general":
+        m, smem, gact = sc._general_tile(widths, dtype)
+        tile = (f", tile {m} cells, {smem} B shared"
+                + (", activations in global scratch" if gact else ""))
+    plain = "" if pms is None else f", plain {pms:.3f} ms"
+    print(f"[32] surrogate_forward {form} form, {tag} {_dtype_name(dtype)}"
+          f"{tile}: max abs err {err:.3e}, rel {rel:.3e}, bit for bit "
+          f"{differ == 0} ({differ} values differ); kernel {ms:.3f} ms"
+          f"{plain}, bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB, "
+          f"{ops / 1e9:.2f} GFLOP), {bms / ms:.1%} of the bound", flush=True)
+    if differ:
+        raise AssertionError(f"surrogate_forward {form} {tag} {dtype}: "
+                             f"{differ} values differ from the plain version")
+    return err, ms, pms, bms, by
 
 
 def _p3_active_build(cfg, device):
@@ -2055,15 +2129,31 @@ def phase_surrogate_slice(card):
     with the surrogate's own time per step; then compare mode, 3 steps.
     Returns the online run's launches (the main path of the surrogate)."""
     from miniweatherml_tpu_torch.experiments import inference_surrogate
+    from miniweatherml_tpu_torch.physics import kessler_surrogate_cuda as sc
 
     times = []
     cfg = _surrogate_cfg(_bench_cfg(512, 512, 64, 10, "float32"))
-    launches, res, _ = _run_cell(
-        "18", cfg, card, chain="surrogate",
-        build=_timed_micro_build(inference_surrogate.build, times),
-        per_step={**DYCORE_PER_STEP, "kessler_step": 0, "min_step": 0,
-                  "surrogate_forward": 1}, glue=True)
+    # the kernel form of each launch (surrogate_forward calls sc._launch)
+    forms, launch = [], sc._launch
+
+    def record(form, *args):
+        forms.append(form)
+        return launch(form, *args)
+    sc._launch = record
+    try:
+        launches, res, _ = _run_cell(
+            "18", cfg, card, chain="surrogate",
+            build=_timed_micro_build(inference_surrogate.build, times),
+            per_step={**DYCORE_PER_STEP, "kessler_step": 0, "min_step": 0,
+                      "surrogate_forward": 1}, glue=True)
+    finally:
+        sc._launch = launch
     torch.cuda.synchronize()
+    # the shipped 5-10-4 model runs the fixed-width form
+    if not forms or set(forms) != {"fixed"}:
+        raise AssertionError(f"[18] surrogate launches in the forms "
+                             f"{sorted(set(forms))}, not the fixed-width "
+                             "form alone")
     # after the warm-up step, without the profiled step
     ms = [a.elapsed_time(b) for a, b in times[1:1 + res["steps"]]]
     step_ms = 1e3 * res["elapsed_s"] / res["steps"]

@@ -50,14 +50,25 @@
 // The file also holds the sub-cycle count's field work (kessler_min_step):
 // the field work of the JAX package's kessler_rainsplit
 // (miniweatherml_tpu/physics/kessler.py:134-150, which XLA fuses into one
-// reduction; no Pallas kernel).  One thread per cell, on a persistent grid,
-// forms qr = rho_r / rho_d, r, rhalf, the fall speed and, below the top,
-// 0.8 dz_lev / v where v > 1e-10, with dz_lev the difference of the level
-// midpoints (k + 0.5) dz as the plain version forms them; the minimum goes
-// to a device scalar by an atomic min on the bit patterns of the positive
-// steps, exact in any order.  Every block starts from dt, which folds in
-// the clamp at dt; no step is NaN (a NaN speed fails the > 1e-10 test, so
-// the cell gives dt, as in the plain version).  The caller takes
+// reduction; no Pallas kernel): min(dt, the minimum over cells below the
+// top, where v > 1e-10, of 0.8 dz_lev / v), with v the rain's fall speed
+// from qr = rho_r / rho_d, r and rhalf, and dz_lev the difference of the
+// level midpoints (k + 0.5) dz as the plain version forms them.  The grid
+// is (column tiles, level, ens), with no blocks for the top level, so a
+// block's level and member come from its indices and a column's index is
+// 32-bit; a thread takes 8 columns of the level, 256 apart (coalesced
+// scalar loads).  A block forms a_k = 0.8 dz_lev once, takes the largest
+// speed that passes v > 1e-10 over its cells (warp shuffles, then shared
+// memory) and makes one division, a_k / v_max: IEEE division rounds
+// correctly, so for a positive a_k it does not grow as the divisor grows,
+// and min over cells of a_k / v equals a_k / max v bit for bit.  A NaN
+// speed fails the test, as in the plain version.  Cells without rain
+// skip the arithmetic (pow_pos gives 0, or NaN where rho_d is 0, and
+// neither passes) and the read of their column's bottom density (rhalf
+// needs it; that row stays in L2).  The block's step goes to a device
+// scalar by an atomic min on the bit patterns of the positive steps, exact
+// in any order; a block posts only a step below dt, and the
+// first block always posts dt (the clamp).  The caller takes
 // ceil(dt / step) on the device, so the host never reads the count.  It
 // reads two fields: 134 MB at 512x512x64 f32, 0.04 ms at 3.35 TB/s.
 
@@ -300,6 +311,8 @@ kessler_kernel(const T* __restrict__ rho_d, const T* __restrict__ temp,
 }
 
 constexpr int MIN_THREADS = 256;
+constexpr int MIN_V = 8;                         // columns a thread takes
+constexpr int MIN_TILE = MIN_THREADS * MIN_V;    // columns a block takes
 
 // The atomic-min key of a step >= +0: its bit pattern, which orders as the
 // value does.
@@ -314,62 +327,79 @@ __device__ __forceinline__ void atomic_min_key(double* p, unsigned long long k) 
   atomicMin(reinterpret_cast<unsigned long long*>(p), k);
 }
 
+// A cell's fall speed where it passes v > 1e-10, else 0.  `bottom` is its
+// column's bottom density, read only where the cell has rain.
+template <typename T>
+__device__ __forceinline__ T passing_speed(T rr, T rd, const T* bottom) {
+  if (rr == T(0)) return T(0);
+  const T qr = rr / rd;
+  const T r = mul(T(0.001), rd);
+  const T rhalf = tsqrt(*bottom / rd);
+  const T vel = fall_speed(qr, r, rhalf);
+  return vel > T(1e-10) ? vel : T(0);
+}
+
+// Each thread takes every MIN_THREADS-th column of the block's tile, so a
+// warp's scalar loads are coalesced at any plane and alignment.
 template <typename T>
 __global__ void __launch_bounds__(MIN_THREADS)
 kessler_min_step_kernel(const T* __restrict__ rho_r, const T* __restrict__ rho_d,
-                        T* __restrict__ step, int64_t n, int nz, int64_t plane,
-                        double dt_, double dz_) {
+                        T* __restrict__ step, int nens, int nz, int plane, double dt_,
+                        double dz_) {
+  __shared__ T warp_max[MIN_THREADS / 32];
   const T dt = T(dt_), dz = T(dz_);
-  T m = dt;
-  for (int64_t c = (int64_t)blockIdx.x * MIN_THREADS + threadIdx.x; c < n;
-       c += (int64_t)gridDim.x * MIN_THREADS) {
-    const int64_t col = c % plane, kk = c / plane;
-    const int k = (int)(kk % nz);
-    if (k == nz - 1) continue;
-    const T rd = rho_d[c];
-    const T qr = rho_r[c] / rd;
-    const T r = mul(T(0.001), rd);
-    const T rhalf = tsqrt(rho_d[(kk - k) * plane + col] / rd);
-    const T vel = fall_speed(qr, r, rhalf);
-    if (vel > T(1e-10)) {
-      // zmid = (k + 0.5) dz in T, and the difference of two of them
-      const T dz_lev = sub(mul(add(T(k + 1), T(0.5)), dz), mul(add(T(k), T(0.5)), dz));
-      m = tmin(m, mul(T(0.8), dz_lev) / vel);
+  T m = dt;  // the block's step (thread 0's)
+  const int p0 = blockIdx.x * MIN_TILE;
+  for (int e = blockIdx.z; e < nens; e += gridDim.z) {
+    const T* const bottom = rho_d + (int64_t)e * nz * plane;
+    for (int k = blockIdx.y; k < nz - 1; k += gridDim.y) {
+      const int64_t lev = ((int64_t)e * nz + k) * plane;
+      const T* const rr = rho_r + lev;
+      const T* const rd = rho_d + lev;
+      T v = T(0);
+#pragma unroll
+      for (int i = 0; i < MIN_V; ++i) {
+        const int p = p0 + i * MIN_THREADS + threadIdx.x;
+        if (p < plane) v = tmax(v, passing_speed(__ldg(rr + p), __ldg(rd + p), bottom + p));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v = tmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+      if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = v;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        for (int w = 1; w < MIN_THREADS / 32; ++w) v = tmax(v, warp_max[w]);
+        if (v > T(0)) {
+          // zmid = (k + 0.5) dz in T, and the difference of two of them
+          const T dz_lev = sub(mul(add(T(k + 1), T(0.5)), dz), mul(add(T(k), T(0.5)), dz));
+          m = tmin(m, mul(T(0.8), dz_lev) / v);
+        }
+      }
+      __syncthreads();  // warp_max is read before the next level writes it
     }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = tmin(m, __shfl_xor_sync(0xffffffffu, m, o));
-  __shared__ T warp_min[MIN_THREADS / 32];
-  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < MIN_THREADS / 32; ++w) m = tmin(m, warp_min[w]);
+  if (threadIdx.x == 0 &&
+      (m < dt || (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)))
     atomic_min_key(step, step_key(m));
-  }
 }
 
 template <typename T>
 int launch_min_step(const void* rho_r, const void* rho_d, void* step, long long n, int nz,
                     long long plane, double dt, double dz, void* stream) {
-  if (nz < 2 || plane < 1 || n < 1 || n % ((long long)nz * plane) != 0 || !(dt > 0.0))
+  if (nz < 2 || plane < 1 || plane > 2147483647LL - MIN_TILE || n < 1 ||
+      n % ((long long)nz * plane) != 0 || !(dt > 0.0) || !(dz > 0.0))
     return cudaErrorInvalidValue;
-  int dev, sms, per_sm;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kessler_min_step_kernel<T>,
-                                                        MIN_THREADS, 0);
-  if (err != cudaSuccess) return err;
-  const long long need = (n + MIN_THREADS - 1) / MIN_THREADS;
-  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const unsigned blocks = (unsigned)(need < most ? need : most);
+  const long long nens = n / ((long long)nz * plane);
+  if (nens > 2147483647LL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((plane + MIN_TILE - 1) / MIN_TILE),
+                  (unsigned)(nz - 1 < 65535 ? nz - 1 : 65535),
+                  (unsigned)(nens < 65535 ? nens : 65535));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // all bits set: above every step's key, so the blocks' minima replace it
-  err = cudaMemsetAsync(step, 0xff, sizeof(T), s);
+  // all bits set: above every step's key, so the blocks' steps replace it
+  cudaError_t err = cudaMemsetAsync(step, 0xff, sizeof(T), s);
   if (err != cudaSuccess) return err;
-  kessler_min_step_kernel<T><<<blocks, MIN_THREADS, 0, s>>>(
+  kessler_min_step_kernel<T><<<grid, MIN_THREADS, 0, s>>>(
       static_cast<const T*>(rho_r), static_cast<const T*>(rho_d), static_cast<T*>(step),
-      (int64_t)n, nz, (int64_t)plane, dt, dz);
+      (int)nens, nz, (int)plane, dt, dz);
   return cudaGetLastError();
 }
 

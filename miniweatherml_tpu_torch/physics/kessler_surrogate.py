@@ -10,8 +10,10 @@ every step and prints the mean NN-truth differences (:244-269), with the
 actual online override left commented out (:271-276); here both behaviors
 are options.
 
-The forward pass is ``kessler_surrogate_cuda.surrogate_forward``: one
-kernel on the card, its plain version (ordered sums) on the CPU.  The mean
+The forward pass is ``kessler_surrogate_cuda.surrogate_forward``: a
+kernel on the card (a fixed-width form for the shipped 5 -> 10 -> 4 shape, a
+general one for any other model), its plain version (ordered sums) on the
+CPU.  The mean
 diffs are stored in the coupler field ``surrogate_diffs`` (4,) [temp, rho_v,
 rho_c, rho_p] on the device, so a driver reads all four in one transfer.
 """
@@ -60,9 +62,8 @@ class MicrophysicsKesslerSurrogate(MicrophysicsKessler):
     packed for the forward kernel once, at ``init`` (again only if a state
     of another device or dtype comes): weights loaded as f32 then computed
     in f64 give what the JAX package computes, where ``jnp`` promotes
-    ``f64 @ f32`` to f64.  A model the kernel does not take (a layer over
-    ``kessler_surrogate_cuda.MAX_WIDTH`` units, parameters over
-    ``MAX_PARAM_BYTES``) raises ValueError there.
+    ``f64 @ f32`` to f64.  Any MLP of 5 inputs and 4 outputs is taken, at
+    any depth and width; one of other widths raises ValueError there.
     """
 
     def __init__(self, model: MLP, scl_in, scl_out,

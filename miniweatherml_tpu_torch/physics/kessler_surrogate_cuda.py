@@ -1,4 +1,4 @@
-"""The Kessler MLP surrogate's forward pass: one CUDA kernel, and its plain
+"""The Kessler MLP surrogate's forward pass: CUDA kernels, and their plain
 version.
 
 ``surrogate_forward`` reads the five input fields [T, rho_d, rho_v, rho_c,
@@ -10,17 +10,17 @@ package's ``MicrophysicsKesslerSurrogate._nn_forward``
 (``miniweatherml_tpu/physics/kessler_surrogate.py:60-76``; no Pallas
 kernel); on a CPU tensor ``surrogate_forward_plain``, which writes each dot
 product as an ordered sum, k ascending from x_0 W_0j and then + b_j, one
-rounding per multiply and per add, as the kernel does.
+rounding per multiply and per add, as the kernels do.
 
 The model and its scaling tables travel as one parameter tensor in the
 fields' dtype (``pack_mlp``): a header (the layer count, then the layer
 widths), scl_in (5, 2), scl_out (4, 2), then each layer's W (n_in, n_out)
-and b (n_out,), flattened.  The kernel keeps a cell's activations in
-registers and stages the parameters in shared memory, so it takes a model
-of any depth whose layers are at most ``MAX_WIDTH`` units wide and whose
-parameters fit in ``MAX_PARAM_BYTES``; ``pack_mlp`` refuses any other.
-The shipped model is 5 -> 10 -> 4 and ``ml.train.train_mlp`` trains 5 ->
-hidden -> 4 (hidden 10 by default).
+and b (n_out,), flattened.  Any model of 5 inputs and 4 outputs is taken,
+at any depth, widths and parameter size.  The kernel has two forms,
+chosen by ``kernel_form`` from the widths: "fixed", widths known at compile
+time, for the models in ``FIXED_WIDTHS`` (5 -> 10 -> 4: the shipped model
+and ``ml.train.train_mlp``'s default), and "general", a tiled form that
+streams the weights from device memory, for every other model.
 """
 
 from __future__ import annotations
@@ -33,12 +33,12 @@ from ..cuda_build import count_launch, load_library, on_cuda
 from ..ml.mlp import leaky_relu
 
 __all__ = ["surrogate_forward", "surrogate_forward_plain", "pack_mlp",
-           "MAX_WIDTH", "MAX_PARAM_BYTES"]
+           "kernel_form", "FIXED_WIDTHS"]
 
-MAX_WIDTH = 16  # units of any layer, inputs and outputs included (MAXW)
-# the shared memory a block of an sm_90 card may opt in to
-MAX_PARAM_BYTES = 227 * 1024
 NIN, NOUT = 5, 4
+# the widths the fixed form is built for (csrc/surrogate.cu, form 0)
+FIXED_WIDTHS = ((NIN, 10, NOUT),)
+_FORMS = {"fixed": 0, "general": 1}
 
 _lib = None
 
@@ -49,28 +49,50 @@ def _library():
         lib = load_library("surrogate")
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         PP = ctypes.POINTER(ctypes.c_void_p)
+        PI = ctypes.POINTER(I)
         for name in ("surrogate_forward_f32", "surrogate_forward_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [PP, PP, P, I, I, ctypes.POINTER(I), L, P]
+            fn.argtypes = [PP, PP, P, I, I, PI, L, I, P, L, P]
             fn.restype = I
+        lib.surrogate_scratch.argtypes = [I, PI, I]
+        lib.surrogate_scratch.restype = L
+        lib.surrogate_general_tile.argtypes = [I, PI, I, ctypes.POINTER(L)]
+        lib.surrogate_general_tile.restype = I
         lib.surrogate_error_string.argtypes = [I]
         lib.surrogate_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+def kernel_form(widths) -> str:
+    """The kernel form a CUDA launch takes for a model of these layer
+    widths: "fixed" for one in FIXED_WIDTHS, else "general"."""
+    return "fixed" if tuple(widths) in FIXED_WIDTHS else "general"
+
+
+def _c_widths(widths):
+    return (ctypes.c_int * len(widths))(*widths)
+
+
+def _general_tile(widths, dtype) -> tuple[int, int, bool]:
+    """(cells per tile, dynamic shared memory per block in bytes, whether
+    the activations live in global scratch) of the general form for a model
+    of these widths in ``dtype``.  Builds the kernel's library."""
+    item = torch.empty((), dtype=dtype).element_size()
+    smem = ctypes.c_longlong()
+    tile = _library().surrogate_general_tile(len(widths) - 1,
+                                             _c_widths(widths), item,
+                                             ctypes.byref(smem))
+    return abs(tile), smem.value, tile < 0
+
+
 def pack_mlp(weights, scl_in, scl_out):
     """(params, widths): the surrogate's parameters as one contiguous 1-D
     tensor on scl_in's device and in its dtype, and the layer widths.
     ``weights``: [(W (n_in, n_out), b (n_out,)), ...] of the MLP.  Raises
-    ValueError for a model the kernel does not take: a layer wider than
-    MAX_WIDTH units, parameters over MAX_PARAM_BYTES, or other than 5
-    inputs and 4 outputs."""
+    ValueError for a model of other than 5 inputs and 4 outputs."""
     widths = [int(weights[0][0].shape[0])] + [int(W.shape[1])
                                               for W, _ in weights]
-    if max(widths) > MAX_WIDTH:
-        raise ValueError(f"the surrogate kernel takes layers of at most "
-                         f"{MAX_WIDTH} units; the model has widths {widths}")
     if widths[0] != NIN or widths[-1] != NOUT:
         raise ValueError(f"the surrogate maps {NIN} inputs to {NOUT} "
                          f"outputs; the model has widths {widths}")
@@ -79,13 +101,7 @@ def pack_mlp(weights, scl_in, scl_out):
              scl_in.reshape(-1), scl_out.to(**kw).reshape(-1)]
     for W, b in weights:
         parts += [W.to(**kw).reshape(-1), b.to(**kw).reshape(-1)]
-    params = torch.cat(parts).contiguous()
-    nbytes = params.numel() * params.element_size()
-    if nbytes > MAX_PARAM_BYTES:
-        raise ValueError(f"the surrogate kernel stages at most "
-                         f"{MAX_PARAM_BYTES} bytes of parameters in shared "
-                         f"memory; the model (widths {widths}) has {nbytes}")
-    return params, tuple(widths)
+    return torch.cat(parts).contiguous(), tuple(widths)
 
 
 def _unpack(params, widths):
@@ -134,11 +150,18 @@ def surrogate_forward(temp, rho_d, rho_v, rho_c, rho_r, params, widths):
         the fields' dtype on their device.
 
     CPU tensors take ``surrogate_forward_plain``; CUDA tensors launch
-    ``csrc/surrogate.cu``.
+    ``csrc/surrogate.cu`` in the form ``kernel_form(widths)`` picks.
     """
     fields = (temp, rho_d, rho_v, rho_c, rho_r)
     if not on_cuda(temp):
         return surrogate_forward_plain(*fields, params, widths)
+    return _launch(kernel_form(widths), *fields, params, widths)
+
+
+def _launch(form, temp, rho_d, rho_v, rho_c, rho_r, params, widths):
+    """``surrogate_forward`` on CUDA tensors, in kernel form ``form``
+    ("fixed" or "general"); tests and measurements name the form."""
+    fields = (temp, rho_d, rho_v, rho_c, rho_r)
     if temp.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dtype {temp.dtype} is not float32/float64")
     for i, a in enumerate((*fields, params)):
@@ -149,18 +172,33 @@ def surrogate_forward(temp, rho_d, rho_v, rho_c, rho_r, params, widths):
                              f"{temp.dtype} tensor on {temp.device}"
                              + (f" of shape {tuple(temp.shape)}"
                                 if i < NIN else ""))
+    if form not in _FORMS or (form == "fixed"
+                              and tuple(widths) not in FIXED_WIDTHS):
+        raise ValueError(f"surrogate: no {form!r} kernel form for widths "
+                         f"{tuple(widths)} (the fixed form takes "
+                         f"{FIXED_WIDTHS})")
     outs = [torch.empty_like(temp) for _ in range(NOUT)]
     lib = _library()
+    wid = _c_widths(widths)
+    scratch, nscratch = None, 0
+    if form == "general":
+        nscratch = lib.surrogate_scratch(len(widths) - 1, wid,
+                                         temp.element_size())
+        if nscratch < 0:
+            raise RuntimeError("surrogate: the scratch query failed")
+        if nscratch:
+            scratch = torch.empty(nscratch, dtype=temp.dtype,
+                                  device=temp.device)
     fn = (lib.surrogate_forward_f32 if temp.dtype == torch.float32
           else lib.surrogate_forward_f64)
     ptrs = (ctypes.c_void_p * NIN)(*(a.data_ptr() for a in fields))
     optrs = (ctypes.c_void_p * NOUT)(*(a.data_ptr() for a in outs))
-    wid = (ctypes.c_int * len(widths))(*widths)
     rc = fn(ptrs, optrs, params.data_ptr(), params.numel(), len(widths) - 1,
-            wid, temp.numel(),
+            wid, temp.numel(), _FORMS[form],
+            None if scratch is None else scratch.data_ptr(), nscratch,
             torch.cuda.current_stream(temp.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError("surrogate kernel launch failed: "
+        raise RuntimeError(f"surrogate kernel ({form} form) launch failed: "
                            + lib.surrogate_error_string(rc).decode())
     count_launch(surrogate_forward)
     return tuple(outs)

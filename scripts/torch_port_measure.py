@@ -6,8 +6,8 @@ Usage (from the root of a checkout, on a machine with the card):
   python scripts/torch_port_measure.py cells   [--root DIR] [--chains A,B]
   python scripts/torch_port_measure.py profile [--root DIR] [--chains A,B]
   python scripts/torch_port_measure.py kernels [--root DIR] [--reps N]
+  python scripts/torch_port_measure.py min_step [--root DIR] [--reps N]
   python scripts/torch_port_measure.py surrogate [--root DIR] [--reps N]
-                                                 [--maxw 16,32]
   python scripts/torch_port_measure.py surrogate_cpu [--reps N]
   python scripts/torch_port_measure.py mesh    [--root DIR] [--reps N]
 
@@ -40,17 +40,25 @@ compared by running the script once per tree in one call, in turns.
            MicrophysicsKessler.time_step whole (kernel plus rainsplit glue).
            A tree from before the fused Kessler step times its sub-cycle
            kernel on the same fields, prepared as its time_step does.
+  min_step kessler_cuda.min_step (the sub-cycle count's reduction) on the
+           Kessler chain's 512x512x64 f32 state after one step and on
+           chip_smoke.py's heavy-rain 512x512x64 columns, f32 and f64, each
+           checked against min_step_plain with torch.equal: three medians
+           of N calls each (CUDA events, each call queued behind device
+           sleep, as chip_smoke.py times), beside the bound of what the
+           data needs (chip_smoke.py's _min_step_need).
   surrogate on the online MLP surrogate cell's 512x512x64 f32 state after
            one step: MicrophysicsKesslerSurrogate.time_step (CUDA events,
            median of N calls) beside the bytes bound of a fused per-cell
            version (5 fields read, 4 written), and the profiler's device
-           time of each kernel of one call, by kernel name; then
-           csrc/surrogate.cu built at each width cap in --maxw (default
-           16,32; -DSURROGATE_MAXW, into chip_smoke_out/surrogate_maxw/)
-           and timed on the same fields with the shipped model and those
-           of the 5-16-16-4 and 5-32-4 models that fit, f32 and f64, each checked
-           against the plain version with torch.equal, with its registers
-           and spills (ptxas).
+           time of each kernel of one call, by kernel name; then the
+           kernel's fixed-width form against its general form on the
+           shipped 5-10-4 model on the same fields, and the general form on
+           chip_smoke.py's SURROGATE_WIDE models (seeded) on its corners of
+           them, f32 and f64, each checked against the plain version with
+           torch.equal and timed beside its bound (bytes or operations),
+           with the general form's tile and the registers and
+           spills of every surrogate entry function (ptxas).
   surrogate_cpu  (no card needed) on the CPU, the online surrogate chain
            at 64x64x32 (bench.py's CPU size) f32 and f64: the surrogate's
            time_step and a whole chain step (host clock, median of N
@@ -222,6 +230,43 @@ def mode_kernels(cs, reps):
     return out
 
 
+def mode_min_step(cs, reps):
+    import numpy as np
+    import torch
+    from miniweatherml_tpu_torch.experiments.supercell_example import build
+    from miniweatherml_tpu_torch.physics import kessler_cuda as kc
+    state, mods, dycore = build(cs._bench_cfg(512, 512, 64, 1, "float32"),
+                                "cuda")
+    dt = dycore.compute_time_step(state)
+    for m in mods:
+        state = m(state, dt)
+    chain = (state["precip_liquid"], state["density_dry"], dt, state.grid.dz)
+    del state, mods, dycore
+    rng = np.random.default_rng(7)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        rd, _, _, _, qr, _, dz, cdt = cs._rain_columns(dtype, rng)
+        cases = (("chain state", (chain[0].to(dtype), chain[1].to(dtype),
+                                  chain[2], chain[3])),
+                 ("heavy-rain columns", (qr * rd, rd, cdt, dz)))
+        del rd, qr
+        for case, args in cases:
+            got = kc.min_step(*args)
+            if not torch.equal(got, kc.min_step_plain(*args)):
+                raise AssertionError(f"min_step {case} {dtype} differs")
+            ms = [cs._time_ms(lambda: kc.min_step(*args), reps)
+                  for _ in range(3)]
+            bound, by = cs._bound(*cs._min_step_need(args[0], got), dtype)
+            key = f"{case} {str(dtype)[6:]}"
+            out[key] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                        "count": int(torch.ceil(args[2] / got))}
+            print(f"min_step {key}: {', '.join(f'{t:.4f}' for t in ms)} ms, "
+                  f"bound {bound:.4f} ms ({by}), count "
+                  f"{out[key]['count']}", flush=True)
+        del cases, args, got
+    return out
+
+
 def _chains(cs, chains=()):
     from miniweatherml_tpu_torch.experiments import (simple_city,
                                                      supercell_example,
@@ -369,7 +414,7 @@ def mode_profile(cs, chains):
     return out
 
 
-def mode_surrogate(cs, reps, maxw):
+def mode_surrogate(cs, reps):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from miniweatherml_tpu_torch.experiments import inference_surrogate
@@ -401,76 +446,69 @@ def mode_surrogate(cs, reps, maxw):
         print(f"  {v['ms']:8.4f} ms  {v['launches']:3d}  {k}", flush=True)
     names = ("temp", "density_dry", "water_vapor", "cloud_liquid",
              "precip_liquid")
-    out["maxw"] = _surrogate_maxw([state[n] for n in names],
-                                  mods[1].__self__, maxw, reps)
+    out["forms"] = _surrogate_forms(cs, [state[n] for n in names],
+                                    mods[1].__self__, reps)
     return out
 
 
-def _surrogate_maxw(fields, micro, maxw, reps):
-    """surrogate.cu built at each width cap in ``maxw``, timed on
-    ``fields`` with the shipped model and two seeded ones."""
-    import ctypes
+def _surrogate_forms(cs, fields, micro, reps):
+    """The kernel's two forms on ``fields`` with the shipped model, then
+    the general form on chip_smoke.py's wide models on corners of them."""
     from types import SimpleNamespace
     import torch
-    from miniweatherml_tpu_torch import cuda_build
     from miniweatherml_tpu_torch.ml.mlp import init_mlp
     from miniweatherml_tpu_torch.physics import kessler_surrogate_cuda as sc
-    out_dir = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chip_smoke_out", "surrogate_maxw")
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(os.path.dirname(sc.__file__), os.pardir, "csrc",
-                       "surrogate.cu")
-    # _params reads a state's device and dtype only
-    net, si, so = micro._params(SimpleNamespace(
+    # _cast_for reads a state's device and dtype only
+    cast = micro._cast_for(SimpleNamespace(
         device=fields[0].device,
         meta=SimpleNamespace(tdtype=fields[0].dtype)))
-    gen = torch.Generator("cuda").manual_seed(5)
-    models = {"shipped": net.weights,
-              "5-16-16-4": init_mlp((5, 16, 16, 4), gen, 0.5).weights,
-              "5-32-4": init_mlp((5, 32, 4), gen, 0.5).weights}
+    params, widths = cast[4]
     res = {}
-    real = sc._lib, sc.load_library, sc.MAX_WIDTH
-    try:
-        for w in maxw:
-            lib_path = os.path.join(out_dir, f"surrogate_maxw{w}.so")
-            cmd = [cuda_build._nvcc(), *cuda_build.nvcc_flags("surrogate"),
-                   f"-DSURROGATE_MAXW={w}", "-Xptxas", "-v", "-o", lib_path,
-                   os.path.abspath(src)]
-            done = subprocess.run(cmd, capture_output=True, text=True)
-            if done.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{done.stderr}")
-            ptxas = [ln.strip() for ln in done.stderr.splitlines()
-                     if "registers" in ln or "spill" in ln]
-            # the wrappers take this build and pack_mlp its width cap
-            sc._lib, sc.MAX_WIDTH = None, w
-            sc.load_library = lambda name, _p=lib_path: ctypes.CDLL(_p)
-            for dtype in (torch.float32, torch.float64):
-                fs = [f.to(dtype) for f in fields]
-                for name, weights in models.items():
-                    widths = [weights[0][0].shape[0]] + [W.shape[1]
-                                                         for W, _ in weights]
-                    if max(widths) > w:
-                        continue
-                    params, widths = sc.pack_mlp(weights, si.to(dtype),
-                                                 so.to(dtype))
-                    got = sc.surrogate_forward(*fs, params, widths)
-                    ref = sc.surrogate_forward_plain(*fs, params, widths)
-                    equal = all(torch.equal(a, b) for a, b in zip(got, ref))
-                    del got, ref
-                    ms = _median_ms(lambda: sc.surrogate_forward(
-                        *fs, params, widths), reps)
-                    key = f"maxw {w} {str(dtype)[6:]} {name}"
-                    res[key] = {"ms": ms, "bit_for_bit": equal}
-                    print(f"surrogate {key}: {ms:.4f} ms, bit for bit "
-                          f"{equal}", flush=True)
-                    if not equal:
-                        raise AssertionError(f"surrogate {key} differs")
-                del fs
-            res[f"maxw {w} ptxas"] = ptxas
-            for ln in ptxas:
-                print(f"surrogate maxw {w} ptxas: {ln}", flush=True)
-    finally:
-        sc._lib, sc.load_library, sc.MAX_WIDTH = real
+
+    def one(key, fs, ps, ws, form):
+        got = sc._launch(form, *fs, ps, ws)
+        ref = sc.surrogate_forward_plain(*fs, ps, ws)
+        equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+        nbytes = _bytes(*fs, ps, *got)
+        del got, ref
+        t = _median_ms(lambda: sc._launch(form, *fs, ps, ws), reps)
+        macs = sum(a * b for a, b in zip(ws[:-1], ws[1:]))
+        ops = (15 + 2 * macs + 2 * sum(ws[1:]) + 12) * fs[0].numel()
+        bound, by = cs._bound(nbytes, ops, fs[0].dtype)
+        rec = {"ms": t, "bound_ms": bound, "bound_by": by,
+               "share": bound / t, "bit_for_bit": equal}
+        if form == "general":
+            rec["tile"] = sc._general_tile(ws, fs[0].dtype)
+        res[key] = rec
+        print(f"surrogate {key}: {t:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"{bound / t:.1%}, bit for bit {equal}"
+              + (f", tile {rec['tile']}" if "tile" in rec else ""),
+              flush=True)
+        if not equal:
+            raise AssertionError(f"surrogate {key} differs")
+
+    for dtype in (torch.float32, torch.float64):
+        fs = [f.to(dtype) for f in fields]
+        for form in ("fixed", "general"):
+            one(f"{form} {str(dtype)[6:]} shipped 512x512x64", fs,
+                params.to(dtype), widths, form)
+        del fs
+    gen = torch.Generator(fields[0].device).manual_seed(11)
+    for name, sizes, scale, (nz, ny, nx) in cs.SURROGATE_WIDE:
+        model = init_mlp(sizes, gen, scale, torch.float64)
+        for dtype in (torch.float32, torch.float64):
+            ps, ws = sc.pack_mlp([(W.to(dtype), b.to(dtype))
+                                  for W, b in model.weights],
+                                 *(t.to(dtype) for t in cast[2:4]))
+            one(f"general {str(dtype)[6:]} {name} {nx}x{ny}x{nz}",
+                [f[:, :nz, :ny, :nx].to(dtype).contiguous() for f in fields],
+                ps, ws, "general")
+    ptxas = [(cs._entry_label("surrogate", m), regs, st, ld)
+             for m, regs, st, ld, _, _ in cs._ptxas_report("surrogate")]
+    for label, regs, st, ld in ptxas:
+        print(f"surrogate ptxas: {label}: {regs} registers, {st} B spill "
+              f"stores, {ld} B spill loads", flush=True)
+    res["ptxas"] = ptxas
     return res
 
 
@@ -663,14 +701,12 @@ def mode_mesh(cs, reps):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", choices=("flux", "cells", "profile", "kernels",
-                                     "surrogate", "surrogate_cpu", "mesh"))
+                                     "min_step", "surrogate", "surrogate_cpu", "mesh"))
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--chains", default="",
                     help="comma-separated subset of the chains")
-    ap.add_argument("--maxw", default="16,32",
-                    help="surrogate: the width caps to build and time")
     a = ap.parse_args()
     import torch
     if a.mode != "surrogate_cpu" and not torch.cuda.is_available():
@@ -689,8 +725,8 @@ def main() -> int:
            "cells": lambda: mode_cells(cs, chains),
            "profile": lambda: mode_profile(cs, chains),
            "kernels": lambda: mode_kernels(cs, a.reps),
-           "surrogate": lambda: mode_surrogate(
-               cs, a.reps, [int(w) for w in a.maxw.split(",")]),
+           "min_step": lambda: mode_min_step(cs, a.reps),
+           "surrogate": lambda: mode_surrogate(cs, a.reps),
            "surrogate_cpu": lambda: mode_surrogate_cpu(cs, a.reps),
            "mesh": lambda: mode_mesh(cs, a.reps)}[a.mode]()
     print("RESULT " + json.dumps({

@@ -155,24 +155,45 @@ def test_kessler_kernel_matches_plain(nz, several, cuda_device):
             assert torch.equal(a, b), (dtype, i)
 
 
+# (nens, nz, ny, nx), dry, misaligned: planes that are odd or a multiple
+# of 8, within one 2048-column tile or over two, nz 2 (one level below the
+# top), and fields one value past a 16-byte boundary
+MIN_STEP_CASES = (((2, 64, 3, 37), False, False), ((2, 101, 3, 37), False, False),
+                  ((1, 16, 3, 37), True, False), ((2, 64, 16, 40), False, False),
+                  ((1, 12, 48, 50), False, False), ((2, 2, 5, 7), False, False),
+                  ((2, 2, 8, 8), False, False), ((2, 64, 16, 40), False, True),
+                  ((1, 16, 16, 40), True, False))
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kessler_min_step_kernel_equals_plain(dtype, cuda_device):
     """The sub-cycle step against its plain version, bit for bit, and the
-    count made of it: heavy-rain columns at 64 and 101 levels with nens 2
-    (3x37 columns, no multiple of the blocks; counts above 1 at dt 0.3 s
-    per metre of dz), and a dry state (count 1)."""
-    for nz, dry in ((64, False), (101, False), (16, True)):
-        fields, _, dz = _coupler_columns((2, nz, 3, 37), dtype, cuda_device)
+    count made of it: heavy-rain columns (counts above 1 at dt 0.3 s per
+    metre of dz) and dry states (count 1) on MIN_STEP_CASES; the wrapper
+    counts one launch a call and never reaches the plain version."""
+    import miniweatherml_tpu_torch.physics.kessler_cuda as KC
+
+    for shape, dry, misaligned in MIN_STEP_CASES:
+        fields, _, dz = _coupler_columns(shape, dtype, cuda_device)
         rho_r = torch.zeros_like(fields[4]) if dry else fields[4]
+        rho_d = fields[0]
+        if misaligned:
+            rho_r, rho_d = (torch.cat([a.new_zeros(1), a.reshape(-1)])[1:]
+                            .view(shape) for a in (rho_r, rho_d))
+            assert rho_r.data_ptr() % 16 != 0
         dt = 0.3 * dz
         n0 = min_step.launches
-        got = min_step(rho_r, fields[0], dt, dz)
+        real, KC.min_step_plain = KC.min_step_plain, None
+        try:
+            got = min_step(rho_r, rho_d, dt, dz)
+        finally:
+            KC.min_step_plain = real
         assert min_step.launches == n0 + 1
-        want = min_step_plain(rho_r, fields[0], dt, dz)
+        want = min_step_plain(rho_r, rho_d, dt, dz)
         assert got.shape == () and got.dtype == dtype
-        assert torch.equal(got, want), (nz, float(got), float(want))
+        assert torch.equal(got, want), (shape, float(got), float(want))
         count = int(torch.ceil(dt / got))
-        assert (count == 1) if dry else (count > 1), count
+        assert (count == 1) if dry else (count > 1), (shape, count)
 
 
 def test_kessler_min_step_rejects_bad_input(cuda_device):
@@ -946,8 +967,11 @@ def test_surrogate_forward_on_card_matches_cpu(dtype, cuda_device):
 
 def _surrogate_models(dtype, device):
     """(name, MLP, scl_in, scl_out) on ``device`` in ``dtype``: the shipped
-    5 -> 10 -> 4 model with its scaling tables, a seeded deeper 5 -> 16 ->
-    16 -> 4 and a 5 -> 32 -> 4 (the kernel's wider form)."""
+    5 -> 10 -> 4 model with its scaling tables, then seeded models for the
+    general form: 5 -> 17 -> 4, 5 -> 64 -> 64 -> 4, one of 18 layers, a 5
+    -> 256 -> 256 -> 4 whose parameters exceed 227 KiB (the shared memory
+    of a block) and a 5 -> 8000 -> 4 too wide for its activations to stay
+    in shared memory."""
     import os
     from miniweatherml_tpu_torch.ml.mlp import (init_mlp, load_mlp,
                                                 load_scaling)
@@ -958,12 +982,15 @@ def _surrogate_models(dtype, device):
     so = load_scaling(os.path.join(
         ex, "supercell_kessler_output_scaling.txt"), 4, dtype, device)
     gen = torch.Generator(device).manual_seed(5)
-    return [("shipped", load_mlp(os.path.join(
-        ex, "supercell_kessler_example_weights.npz"), dtype, device), si, so),
-        ("5-16-16-4", init_mlp((5, 16, 16, 4), gen, 0.5, dtype), si, so),
-        ("5-16-4", init_mlp((5, 16, 4), gen, 0.5, dtype), si, so),
-        ("18 layers", init_mlp((5,) + (8,) * 17 + (4,), gen, 0.5, dtype), si,
-         so)]
+    out = [("shipped", load_mlp(os.path.join(
+        ex, "supercell_kessler_example_weights.npz"), dtype, device), si, so)]
+    for name, sizes, scale in (("5-17-4", (5, 17, 4), 0.5),
+                               ("5-64-64-4", (5, 64, 64, 4), 0.2),
+                               ("18 layers", (5,) + (8,) * 17 + (4,), 0.5),
+                               ("5-256-256-4", (5, 256, 256, 4), 0.1),
+                               ("5-8000-4", (5, 8000, 4), 0.02)):
+        out.append((name, init_mlp(sizes, gen, scale, dtype), si, so))
+    return out
 
 
 def _surrogate_fields(shape, dtype, device, seed=9):
@@ -983,51 +1010,81 @@ def _surrogate_fields(shape, dtype, device, seed=9):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_surrogate_kernel_equals_plain(dtype, cuda_device):
-    """The fused forward pass against its plain version (ordered sums),
-    bit for bit, on 2x7x9x13 cells (no multiple of the block) for the
-    shipped model, a deeper one, one at the width cap and one of 18
-    layers."""
-    from miniweatherml_tpu_torch.physics.kessler_surrogate_cuda import (
-        pack_mlp, surrogate_forward, surrogate_forward_plain)
+    """Both kernel forms against the plain version (ordered sums), bit for
+    bit: the fixed and the general form on the shipped 5 -> 10 -> 4 model,
+    the general form on every other model of _surrogate_models; on
+    2x7x9x13 cells (no multiple of the fixed form's 4-cell vectors or the
+    general form's tiles), and the fixed form on fields one value past a
+    16-byte boundary.  ``surrogate_forward`` takes the form kernel_form
+    picks; the private ``_launch`` forces the other.  The launch counter
+    shows the kernel ran and the plain version was never reached."""
+    import miniweatherml_tpu_torch.physics.kessler_surrogate_cuda as SC
 
-    fields = _surrogate_fields((2, 7, 9, 13), dtype, cuda_device)
+    shape = (2, 7, 9, 13)
+    fields = _surrogate_fields(shape, dtype, cuda_device)
+    shifted = [torch.cat([f.new_zeros(1), f.reshape(-1)])[1:].view(shape)
+               for f in fields]
     for name, model, si, so in _surrogate_models(dtype, cuda_device):
-        params, widths = pack_mlp(model.weights, si, so)
-        n0 = surrogate_forward.launches
-        got = surrogate_forward(*fields, params, widths)
-        assert surrogate_forward.launches == n0 + 1
-        want = surrogate_forward_plain(*fields, params, widths)
-        for v, (g, w) in enumerate(zip(got, want)):
-            assert g.dtype == dtype and g.shape == fields[0].shape
-            assert torch.equal(g, w), (name, v, _rel(w, g))
-        assert float(got[2].min()) >= 0.0
+        params, widths = SC.pack_mlp(model.weights, si, so)
+        # None: surrogate_forward itself
+        cases = [(None, fields)]
+        if name == "shipped":
+            assert SC.kernel_form(widths) == "fixed"
+            cases += [("fixed", shifted), ("general", fields)]
+        else:
+            assert SC.kernel_form(widths) == "general"
+        if name == "5-256-256-4":
+            assert params.numel() * params.element_size() > 227 * 1024
+        if name == "5-8000-4":
+            assert SC._general_tile(widths, dtype)[2]  # activations in scratch
+        for form, fs in cases:
+            n0 = SC.surrogate_forward.launches
+            real, SC.surrogate_forward_plain = SC.surrogate_forward_plain, None
+            try:
+                got = (SC.surrogate_forward(*fs, params, widths) if form is None
+                       else SC._launch(form, *fs, params, widths))
+            finally:
+                SC.surrogate_forward_plain = real
+            assert SC.surrogate_forward.launches == n0 + 1
+            want = real(*fs, params, widths)
+            for v, (g, w) in enumerate(zip(got, want)):
+                assert g.dtype == dtype and g.shape == shape
+                assert torch.equal(g, w), (name, form, v, _rel(w, g))
+            assert float(got[2].min()) >= 0.0
 
 
-def test_surrogate_kernel_refuses_models_over_its_cap(cuda_device):
-    """A layer wider than 16 units or parameters over the shared memory a
-    block may stage raise a ValueError naming the cap, on the card as on
-    the CPU; so does a model of other than 5 inputs and 4 outputs; a bad
-    field raises too."""
+def test_surrogate_kernel_rejects_bad_input(cuda_device):
+    """A model of other than 5 inputs and 4 outputs raises a ValueError on
+    the card as on the CPU, and so does the fixed form for widths it is not
+    built for; a field of the wrong shape, dtype or device, or a
+    non-contiguous one, raises too."""
     from miniweatherml_tpu_torch.ml.mlp import init_mlp
     from miniweatherml_tpu_torch.physics.kessler_surrogate_cuda import (
-        pack_mlp, surrogate_forward)
+        _launch, pack_mlp, surrogate_forward)
 
     si = torch.ones((5, 2), device=cuda_device)
     so = torch.ones((4, 2), device=cuda_device)
     gen = torch.Generator(cuda_device).manual_seed(1)
-    with pytest.raises(ValueError, match="at most 16 units"):
-        pack_mlp(init_mlp((5, 17, 4), gen).weights, si, so)
-    with pytest.raises(ValueError, match="at most 232448 bytes"):
-        pack_mlp(init_mlp((5,) + (16,) * 110 + (4,), gen).weights,
-                 si.double(), so)
     with pytest.raises(ValueError, match="5 inputs to 4 outputs"):
         pack_mlp(init_mlp((5, 8, 3), gen).weights, si, so)
+    with pytest.raises(ValueError, match="5 inputs to 4 outputs"):
+        pack_mlp(init_mlp((6, 8, 4), gen).weights, si, so)
     params, widths = pack_mlp(init_mlp((5, 8, 4), gen).weights, si, so)
     x = torch.ones((2, 3, 4, 5), device=cuda_device)
+    with pytest.raises(ValueError, match="fixed"):
+        _launch("fixed", x, x, x, x, x, params, widths)
     with pytest.raises(ValueError, match="contiguous"):
         surrogate_forward(x, x, x, x, x.transpose(2, 3), params, widths)
+    with pytest.raises(ValueError, match="of shape"):
+        surrogate_forward(x, x, x, x, x[:1], params, widths)
+    with pytest.raises(ValueError, match="contiguous"):
+        surrogate_forward(x, x, x, x.double(), x, params, widths)
+    with pytest.raises(ValueError, match="contiguous"):
+        surrogate_forward(x, x, x.cpu(), x, x, params, widths)
     with pytest.raises(ValueError, match="contiguous"):
         surrogate_forward(x, x, x, x, x, params.double(), widths)
+    with pytest.raises(TypeError):
+        surrogate_forward(*(x.half(),) * 5, params.half(), widths)
 
 
 # -- the halo-strip form of the flux kernel, FCT edges, the decomposed step --

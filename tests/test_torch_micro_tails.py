@@ -7,7 +7,7 @@ wrapper runs its plain version, and this file holds those:
 
   * to the JAX package: the sub-cycle count equal to JAX's
     ``kessler_rainsplit`` as an integer (a dry state, count 1, and
-    heavy-rain columns, counts 3-5); freezing + part3 fed JAX's state after
+    heavy-rain columns, counts 3-5; one member and an ensemble of 2); freezing + part3 fed JAX's state after
     ``p3_scheme(..., profile_stop="sed")`` against JAX's whole
     ``p3_scheme``, and ``MicrophysicsP3.time_step``, at the port's P3 bar,
     rtol 1e-9 plus 1e-7 of each field's scale (tests/test_torch_p3_phases.py),
@@ -16,7 +16,9 @@ wrapper runs its plain version, and this file holds those:
     against JAX's ``_nn_forward`` at tests/test_torch_surrogate.py's
     tolerances (f64 1e-12 of each output's scale, f32 1e-6 of its scaling
     range), for the shipped 5 -> 10 -> 4 model and a seeded 5 -> 16 -> 16
-    -> 4;
+    -> 4, and one online step of MicrophysicsKesslerSurrogate with a 5 ->
+    17 -> 4, a 5 -> 64 -> 64 -> 4 and an 18-layer model (the port takes
+    every MLP of 5 inputs and 4 outputs, as JAX does);
   * to the eager code they replace, rebuilt here, bit for bit in f32 and
     f64: the sub-cycle count and the Kessler step made with it, part3 (with
     its diagnostics too) and the output pass.  The surrogate's former eager
@@ -108,14 +110,16 @@ RAIN_CASES = [(True, 60.0, (1,)), (False, 60.0, (3, 4, 5)),
               (False, 100.0, (3, 4, 5))]
 
 
+@pytest.mark.parametrize("nens", [1, 2])
 @pytest.mark.parametrize("dry,dt,counts", RAIN_CASES)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
-def test_kessler_count_matches_jax_and_former(dtype, dry, dt, counts):
-    """min_step's plain version and the count made of it: the count equal
-    to JAX's kessler_rainsplit, the step and the count equal bit for bit to
-    the former eager code's, and the Kessler time_step equal bit for bit to
-    the former step made with that count."""
-    rho_r, rho_d = _rain_columns(dtype, dry)
+def test_kessler_count_matches_jax_and_former(dtype, dry, dt, counts, nens):
+    """min_step's plain version and the count made of it, on one member and
+    on an ensemble of 2: the count equal to JAX's kessler_rainsplit, the
+    step and the count equal bit for bit to the former eager code's, and
+    the Kessler time_step equal bit for bit to the former step made with
+    that count."""
+    rho_r, rho_d = _rain_columns(dtype, dry, nens)
     dz = 200.0
     step = KC.min_step(rho_r, rho_d, dt, dz)
     count = torch.ceil(dt / step).to(torch.int32)
@@ -592,33 +596,66 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     assert [fn.launches for fn in counters] == before
 
 
-def test_surrogate_refuses_models_over_the_kernels_cap():
-    """pack_mlp raises a ValueError naming the cap for a model the kernel
-    does not take (a layer over 16 units, parameters over the shared memory
-    a block may stage), on any device; the surrogate module at init too.
-    Depth alone is no cap: an 18-layer model packs and runs."""
+def _seeded_model(sizes, seed):
+    """(JAX MLP, port MLP) of ``sizes`` with the same f32 weights, drawn
+    with numpy uniform in +-1/sqrt(n_in) (layer outputs stay of order 1)."""
+    rng = np.random.default_rng(seed)
+    ws = [(rng.uniform(-a, a, (n, m)).astype(np.float32),
+           rng.uniform(-a, a, m).astype(np.float32))
+          for n, m, a in ((n, m, n ** -0.5)
+                          for n, m in zip(sizes[:-1], sizes[1:]))]
+    return (JM.MLP([(jnp.asarray(W), jnp.asarray(b)) for W, b in ws]),
+            TM.mlp_from_numpy(ws, "cpu"))
+
+
+# models of other widths and depths than the shipped 5 -> 10 -> 4
+OTHER_MLPS = {"5-17-4": (5, 17, 4), "5-64-64-4": (5, 64, 64, 4),
+              "18 layers": (5,) + (8,) * 17 + (4,)}
+
+
+@pytest.mark.parametrize("name", list(OTHER_MLPS))
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_surrogate_takes_every_mlp(dtype, name):
+    """MicrophysicsKesslerSurrogate takes an MLP of any widths and depth:
+    one online step writes what JAX's MicrophysicsKesslerSurrogate.
+    _nn_forward computes, at test_surrogate_forward_matches_jax_and_former's
+    bounds (f64 1e-12 of each output's scale, f32 1e-6 of its scaling
+    range), and leaves the diffs field as it was."""
+    from miniweatherml_tpu_torch.physics.kessler_surrogate import \
+        MicrophysicsKesslerSurrogate
+    tdtype = torch.float64 if dtype == np.float64 else torch.float32
+    jmodel, pmodel = _seeded_model(OTHER_MLPS[name], len(name))
+    _, _, _, si, so = _models()[0]
+    fields = _surrogate_inputs(dtype, si)
+    micro = MicrophysicsKesslerSurrogate(pmodel, si, so, online=True)
+    diffs = torch.zeros(4, dtype=tdtype)
+    state = _Fields(meta=SimpleNamespace(tdtype=tdtype), surrogate_diffs=diffs,
+                    **dict(zip(NAMES, (torch.as_tensor(f) for f in fields))))
+    state.device = torch.device("cpu")
+    out = micro.time_step(state, 1.0)
+    got = [out[n].numpy() for n in ("temp", "water_vapor", "cloud_liquid",
+                                    "precip_liquid")]
+    jstate = _Fields(meta=SimpleNamespace(jdtype=dtype), **dict(zip(
+        NAMES, (jnp.asarray(f) for f in fields))))
+    want = JSurrogate(jmodel, si, so)._nn_forward(jstate)
+    _assert_surrogate_close(got, want, so, dtype, name)
+    assert out["surrogate_diffs"] is diffs
+    assert micro._cast_for(state)[4][1] == OTHER_MLPS[name]
+
+
+def test_surrogate_refuses_other_than_5_inputs_and_4_outputs():
+    """pack_mlp raises a ValueError for a model of other than 5 inputs and
+    4 outputs (JAX's forward fails on such a model too), on any device; the
+    surrogate module raises it when it first packs the model."""
     from miniweatherml_tpu_torch.physics.kessler_surrogate import \
         MicrophysicsKesslerSurrogate
     gen = torch.Generator().manual_seed(3)
     si, so = torch.ones((5, 2)), torch.ones((4, 2))
-    with pytest.raises(ValueError, match="at most 16 units"):
-        SC.pack_mlp(TM.init_mlp((5, 17, 4), gen).weights, si, so)
-    with pytest.raises(ValueError, match="at most 232448 bytes"):
-        SC.pack_mlp(TM.init_mlp((5,) + (16,) * 110 + (4,), gen).weights,
-                    si.double(), so)
-    with pytest.raises(ValueError, match="5 inputs to 4 outputs"):
-        SC.pack_mlp(TM.init_mlp((5, 8, 3), gen).weights, si, so)
-    deep = TM.init_mlp((5,) + (8,) * 17 + (4,), gen)
-    unit = torch.tensor([0.0, 1.0])
-    params, widths = SC.pack_mlp(deep.weights, unit.expand(5, 2),
-                                 unit.expand(4, 2))
-    assert len(widths) == 19
-    x = [torch.rand((2, 3, 4), generator=gen) for _ in range(5)]
-    got = SC.surrogate_forward(*x, params, widths)
-    assert all(g.shape == (2, 3, 4) and bool(torch.isfinite(g).all())
-               for g in got)
-    micro = MicrophysicsKesslerSurrogate(TM.init_mlp((5, 40, 4), gen), si, so)
+    for sizes in ((5, 8, 3), (6, 8, 4), (4, 4)):
+        with pytest.raises(ValueError, match="5 inputs to 4 outputs"):
+            SC.pack_mlp(TM.init_mlp(sizes, gen).weights, si, so)
+    micro = MicrophysicsKesslerSurrogate(TM.init_mlp((5, 40, 3), gen), si, so)
     state = SimpleNamespace(device=torch.device("cpu"),
                             meta=SimpleNamespace(tdtype=torch.float64))
-    with pytest.raises(ValueError, match="16 units"):
+    with pytest.raises(ValueError, match="5 inputs to 4 outputs"):
         micro._nn_forward(state)
