@@ -4,11 +4,13 @@ Usage (from the root of a checkout):  python3 chip_smoke.py
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: name, power limit, torch and CUDA versions;
-  2. build: the seven CUDA libraries from csrc/ with nvcc (sm_90a), one
+  2. build: the eight CUDA libraries from csrc/ with nvcc (sm_90a), one
      nvcc each, and the P3 native twin with g++, all started together; the
      registers, spills and shared memory of every kernel (from the ptxas
      reports: the flux kernel's ord-5
-     instantiations, the y/z kernel's accumulating and stage-update forms
+     instantiations in each algebra -- reference, opt and opt with the
+     approximate reciprocals, the last two from direction_fluxes_opt.cu --,
+     the y/z kernel's accumulating and stage-update forms
      beside its bare form, every entry function of the others), and the
      Kessler kernel's dynamic shared memory per block at the chains' nz;
   3. the direction-flux kernel against its plain PyTorch version, x/y/z in
@@ -25,6 +27,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
      Kessler state the stage-1 form (no b1), the form without gravity, a
      small box with a Coriolis parameter and a 2-D slab with z last; each
      bit for bit, the acc buffer written in place, timed beside its bound;
+     then the bare x / y / z and the path's z accumulating and y stage
+     update forms again in the JAX package's device algebra (opt=True, the
+     reduced-operation WENO algebra; csrc/direction_fluxes_opt.cu), bit for
+     bit in f32 and f64, and in f32 with fast_weights (the approximate
+     reciprocal) against the plain (exact) version by the fast bar (every
+     value within 1e-5 of its output's scale but those that a one-ulp
+     change of the plain version's reciprocals moves as far, and no more
+     of those than twice one such change's count; FAST_TOL), with the count
+     of values that round apart and the largest difference in ulps, and on
+     the Kessler x and y calls the bar's readings on planted faults; each
+     timed beside its bound,
+     whose operations count
+     the opt algebra's limiter (_limiter_ops_opt); the Kessler chain's
+     small open / wall box in both;
   14. (run inside 3, on the tracer faces each state gave) the FCT kernels
      against their plain versions: the multiplier (bit for bit, timed with
      the chain's own positive flags beside its bound: 3 tracers Kessler, 9
@@ -129,7 +145,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      512x512x64 Kessler state split 2x2 (shard (0, 0), local 256x256x64):
      x and y, ends inside the domain and a wall and an open global
      boundary, and y with the stage update (the mesh path's last
-     direction), f32 and f64, bit for bit, timed beside its bound;
+     direction), f32 and f64, bit for bit, timed beside its bound; then the
+     same in the opt algebra (bit for bit) and with fast_weights (f32,
+     by the fast bar);
   23. fct_scale_div with the neighbours' edge multipliers against its plain
      version on that shard's tracer faces, every form, f32 and f64, bit for
      bit, timed beside its bytes bound;
@@ -161,15 +179,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
      slice (seeded layers), card against CPU, 2 steps at 1e-7 of scale;
   28. tracer groups: the flux kernel at 12 tracers (two launches per call)
      along x, y, z, in the halo-strip form and in the accumulating (z) and
-     stage-update (y) forms, fct_mult and fct_scale_div
+     stage-update (y) forms, in the reference algebra, the opt one and
+     (f32) with fast_weights, each launch counted in its form; fct_mult
+     and fct_scale_div
      at 12 tracers on its faces (one launch), f32 and f64, and both FCT
      kernels at 70 tracers (two launches), bit for bit against the plain
      versions;
   29. the bench entry: python -m miniweatherml_tpu_torch.bench in a
-     subprocess for the default 512x512x64 f32 Kessler run, MICRO=p3,
-     MICRO=p3 with P3_ACTIVE=1 and STEPS=3, CASE=city and MICRO=surrogate,
-     one at a time; each last line parsed (bench.py's keys plus
-     ms_per_step and peak_mem_gib, value > 0) and printed;
+     subprocess for the default 512x512x64 f32 Kessler run (the JAX
+     device form: MWML_BENCH_PALLAS defaults to 1 on the card, so opt with
+     fast weights), the same with MWML_BENCH_PALLAS=0 (the reference
+     algebra), MICRO=p3, MICRO=p3 with P3_ACTIVE=1 and STEPS=3, CASE=city
+     and MICRO=surrogate, one at a time; each last line parsed (bench.py's
+     keys plus ms_per_step and peak_mem_gib, value > 0, the metric naming
+     the form) and printed;
+  33. (run after 5) the main path in the flux kernel's JAX device form:
+     run_benchmark on the 512x512x64 f32 Kessler supercell with the YAML's
+     riemann_impl "pallas" (opt with fast weights), the same with
+     fast_weights false, and Dycore() (the reference algebra), in the order
+     A B C C B A: each with every flux launch counted in its form, a clean
+     validate(), Mcellups, ms/step and peak memory, and the largest
+     differences between their states after 10 steps (printed); then a
+     16x8x10 f64 riemann_impl "pallas" slice (exact weights in f64), card
+     against the port's CPU run, 3 steps, at 1e-7 of each field's scale;
   30. the dry run: dryrun_multichip(8) on cuda:0 repeated 8 times (an
      (ens 2, 2, 2) mesh of the one card), f64, 20 Kessler and 20 P3 steps
      and one surrogate step, each within 2e-5 of each field's scale of the
@@ -179,7 +211,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
 Tolerance of a kernel against its plain version: max|kernel - plain| over
 max|plain| of each output below 1e-12 in f64 and 1e-5 in f32 (the JAX
 suite's own f32 bound between its paths, tests/test_pallas.py:260,311);
-the direction-flux kernel, fct_mult, the three P3 lookups, the Kessler
+the direction-flux kernel (in the reference and opt algebras; with
+fast_weights, whose plain version is exact, 1e-5 of scale on every value
+but the few that a one-ulp change of the plain version's reciprocals moves
+as far, see FAST_TOL), fct_mult,
+the three P3 lookups, the Kessler
 sub-cycle step, the P3 output pass and the surrogate's forward pass must
 also equal their plain versions bit for bit; the Kessler step prints
 whether it does, and the count and size in ulps of any value that rounds
@@ -294,13 +330,55 @@ def _limiter_ops(ord_: int) -> int:
     return 3 * tv + 2 * K + 3 * K + 2 * K + 2 * sum(2 * w + 2 for _, w in sup)
 
 
-def _flux_work(prim, axis, ord_) -> tuple[int, int]:
+def _limiter_ops_opt(ord_: int) -> int:
+    """Floating-point operations of one variable's WENO edges in one cell in
+    the reduced-operation algebra (pallas_recon.py::_weno_edges_block_opt,
+    csrc weno_edges_opt), a reciprocal counted as one: ord 5's Jiang-Shu
+    indicators (8 shared differences and 4 for f0, f2, then 5 per
+    candidate), else per form 2 per tap (multiply, add; the first tap no
+    add, the square one) and an add per further form; the high-order
+    indicator on pair sums and differences (2 per pair, 2H + 2 per even
+    form, 2H + 1 per odd form, an add per further form); the total (K - 1
+    adds), eps T^2 + tiny (3), 4 per weight (square, add, reciprocal,
+    multiply), their sum (K - 1) and its reciprocal; then per edge and
+    candidate kept the blend coefficient (3 with gamma, else 1), the
+    w-tap edge form (2w - 1), its product and an add per further
+    candidate."""
+    from miniweatherml_tpu_torch.ops.weno_fused import (opt_dropped,
+                                                        substencils)
+    sup = substencils(ord_)
+    K, H = len(sup), ord_ // 2
+    if ord_ == 5:
+        low = 12 + 3 * 5
+    else:
+        low = 0
+        for k, (_, w) in enumerate(sup[:-1]):
+            taps = [w - sum(opt_dropped(ord_, k, m, q) for q in range(w))
+                    for m in range(w - 1)]
+            low += sum(2 * t for t in taps) + len(taps) - 1
+    high = 2 * H + H * (2 * H + 2) + (H - 1) + H * (2 * H + 1)
+    weights = (K - 1) + 3 + 4 * K + (K - 1) + 1
+    gamma = ord_ <= 5
+    kept = sup[:-1] if gamma else sup
+    edges = 2 * (sum((3 if gamma else 1) + (2 * w - 1) + 1 for _, w in kept)
+                 + len(kept) - 1)
+    return low + high + weights + edges
+
+
+# the flux call's limiter keywords of each algebra (ops/direction_fluxes.py
+# limiter_algebra): reference, reduced-operation, approximate reciprocals
+ALGEBRA_KW = {"ref": {}, "opt": {"opt": True},
+              "fast": {"opt": True, "fast_weights": True}}
+
+
+def _flux_work(prim, axis, ord_, algebra="ref") -> tuple[int, int]:
     """(bytes, operations) one direction_fluxes call needs: it reads the
     nvar variables and the two background profiles once and writes the 5
     state divergences and the ntr tracer faces (n + 1 per line); it forms
-    WENO edges of n + 2 cells per line for every variable, solves n + 1
-    faces (~25 operations, pow counted as one, plus 4 per tracer) and
-    takes 5 differences and scalings per cell."""
+    WENO edges of n + 2 cells per line for every variable (in the
+    ``algebra``'s operation count), solves n + 1 faces (~25 operations,
+    pow counted as one, plus 4 per tracer) and takes 5 differences and
+    scalings per cell."""
     nvar = prim.shape[0]
     ntr = nvar - 5
     cells = prim[0].numel()
@@ -310,12 +388,13 @@ def _flux_work(prim, axis, ord_) -> tuple[int, int]:
     item = prim.element_size()
     nbytes = item * (nvar * cells + 5 * cells + ntr * lines * (n + 1)
                      + 2 * prim.shape[1] * nlev)
-    ops = (nvar * _limiter_ops(ord_) * lines * (n + 2)
+    lim = _limiter_ops(ord_) if algebra == "ref" else _limiter_ops_opt(ord_)
+    ops = (nvar * lim * lines * (n + 2)
            + (25 + 4 * ntr) * lines * (n + 1) + 10 * cells)
     return nbytes, ops
 
 
-def _epilogue_work(args, rk) -> tuple[int, int]:
+def _epilogue_work(args, rk, algebra="ref") -> tuple[int, int]:
     """(bytes, operations) of a direction_fluxes call in the accumulating
     form (``rk`` None) or with the stage update: the bare call's work
     (``_flux_work``, strips included), plus the accumulator read (its write
@@ -324,7 +403,7 @@ def _epilogue_work(args, rk) -> tuple[int, int]:
     once and per cell 3 (gravity), 4 (Coriolis), 21 (immersed blend) and 3
     or 5 per variable (the combination) operations."""
     prim, axis, ord_ = args[0], args[1], args[9].ord
-    nbytes, ops = _flux_work(prim, axis, ord_)
+    nbytes, ops = _flux_work(prim, axis, ord_, algebra)
     if len(args) > 12 and args[12] is not None:
         nbytes += _nbytes(args[12][:2])
     cells = prim[0].numel()
@@ -339,43 +418,261 @@ def _epilogue_work(args, rk) -> tuple[int, int]:
     return nbytes, ops
 
 
-def _flux_form(phase, tag, args, acc, rk, dtype, tol, timed=True):
+# The fast form's bar.  Its plain version is exact, and no bound of scale
+# holds all of an approximate reciprocal's outputs to it: moving the plain
+# version's own reciprocals by one ulp moves a few flux outputs by up to
+# ~7e-3 of their scale on the Kessler state (the upwind choice ruL + ruR > 0
+# flips at faces where the sum is near zero, and the divergence differences
+# fluxes of ~1e5), and makes an output that is exactly 0 nonzero.  So the
+# one-ulp model only marks those outputs: every output of the fast kernel
+# that no one-ulp model run moves by more than FAST_TOL of its scale must
+# lie within FAST_TOL of it, and the outputs beyond FAST_TOL may number at
+# most FAST_COUNT_FACTOR times as many as the most that one model run moves
+# that far.  _planted_faults shows the bar failing wrong kernels.
+FAST_TOL = 1e-5
+FAST_COUNT_FACTOR = 2
+
+
+def _recip_models():
+    """The one-ulp models of the fast kernel's reciprocals, by name: each
+    moves every reciprocal of the plain opt limiter
+    (ops/weno_fused.py::_recip) by one ulp -- toward zero, away from zero,
+    or up, down or not at random (two seeds)."""
+    from miniweatherml_tpu_torch.ops import weno_fused
+    exact = weno_fused._recip
+
+    def toward(to):
+        def model(v):
+            r = exact(v)
+            return torch.nextafter(r, torch.full_like(r, to))
+        return model
+
+    def at_random(seed):
+        gens = {}
+
+        def model(v):
+            r = exact(v)
+            gen = gens.setdefault(r.device, torch.Generator(
+                device=r.device).manual_seed(seed))
+            step = torch.randint(-1, 2, r.shape, generator=gen,
+                                 device=r.device)
+            up = torch.nextafter(r, torch.full_like(r, math.inf))
+            down = torch.nextafter(r, torch.zeros_like(r))
+            return torch.where(step > 0, up,
+                               torch.where(step < 0, down, r))
+        return model
+    return {"toward zero": toward(0.0), "away from zero": toward(math.inf),
+            "random 16": at_random(16), "random 17": at_random(17)}
+
+
+def _with_recip(recip, fn, terms=None):
+    """fn() with the plain opt limiter's reciprocal replaced by ``recip``
+    (and its terms by ``terms``, when given)."""
+    from miniweatherml_tpu_torch.ops import weno_fused
+    saved = weno_fused._recip, weno_fused._opt_terms
+    weno_fused._recip = recip
+    if terms is not None:
+        weno_fused._opt_terms = terms
+    try:
+        return fn()
+    finally:
+        weno_fused._recip, weno_fused._opt_terms = saved
+
+
+def _beyond(ref, out):
+    """Per output, the mask of the values of ``out`` more than FAST_TOL of
+    the output's scale (max |ref|) from ``ref``."""
+    return [(a.double() - b.double()).abs()
+            > FAST_TOL * a.double().abs().max().item()
+            for a, b in zip(ref, out)]
+
+
+def _one_ulp_model(plain, ref):
+    """The fast bar's model of ``plain()`` (whose result is ``ref``), per
+    output: (mask of the values that some one-ulp model run moves beyond
+    FAST_TOL of scale, the most values one run moves that far, the largest
+    difference of any run)."""
+    masks = counts = spread = None
+    for recip in _recip_models().values():
+        out = _with_recip(recip, plain)
+        far = _beyond(ref, out)
+        diff = [(a.double() - b.double()).abs().max().item()
+                for a, b in zip(ref, out)]
+        del out
+        if masks is None:
+            masks, counts, spread = far, [0] * len(ref), diff
+        else:
+            masks = [m | f for m, f in zip(masks, far)]
+            spread = [max(x, y) for x, y in zip(spread, diff)]
+        counts = [max(c, int(f.sum())) for c, f in zip(counts, far)]
+        del far
+    return masks, counts, spread
+
+
+def _fast_verdict(ref, got, model):
+    """(passes, per output (values beyond FAST_TOL of scale, those of them
+    that no one-ulp model run moves that far)) of the fast kernel's
+    outputs ``got`` against the plain version's ``ref`` and its model."""
+    masks, counts, _ = model
+    per = []
+    for far, mask in zip(_beyond(ref, got), masks):
+        per.append((int(far.sum()), int((far & ~mask).sum())))
+    ok = all(out == 0 and n <= FAST_COUNT_FACTOR * c
+             for (n, out), c in zip(per, counts))
+    return ok, per
+
+
+def _verdict_text(per, model) -> str:
+    return "; ".join(
+        f"{n} beyond {FAST_TOL:g} of scale, {out} of them unmarked (the "
+        f"model marks {int(m.sum())}, one run at most {c}, moves it up to "
+        f"{sp:.3e})"
+        for (n, out), m, c, sp in zip(per, model[0], model[1], model[2]))
+
+
+def _fault_models():
+    """Planted faults of the fast kernel, by name, as (reciprocal, terms)
+    replacements for the plain opt limiter's (_with_recip): every
+    reciprocal 2^-12 or 2^-18 off (relative), and the first optimal weight
+    idl_0 off by 1e-3 (at ord 5 twice its 1e-3)."""
+    from miniweatherml_tpu_torch.ops import weno_fused
+    exact, terms = weno_fused._recip, weno_fused._opt_terms
+
+    def idl_off(ord_):
+        tv, edge, gamma, idl = terms(ord_)
+        return tv, edge, gamma, (idl[0] + 1e-3,) + tuple(idl[1:])
+    return {"reciprocals 2^-12 off": (
+                lambda v: exact(v) * (1.0 + 2.0 ** -12), None),
+            "reciprocals 2^-18 off": (
+                lambda v: exact(v) * (1.0 + 2.0 ** -18), None),
+            "idl_0 off by 1e-3": (exact, idl_off)}
+
+
+def _planted_faults(tag, plain, ref, model):
+    """The fast bar on wrong kernels, stood in for by the plain version
+    with each of _fault_models' faults on the same inputs: it must fail
+    the reciprocals 2^-12 off; the other readings are printed."""
+    caught = {}
+    for name, (recip, terms) in _fault_models().items():
+        out = _with_recip(recip, plain, terms)
+        ok, per = _fast_verdict(ref, out, model)
+        del out
+        caught[name] = not ok
+        print(f"[3] fast bar, planted fault on {tag} ({name}): "
+              f"{'FAILS (caught)' if not ok else 'passes (not caught)'}; "
+              f"{_verdict_text(per, model)}", flush=True)
+    if not caught["reciprocals 2^-12 off"]:
+        raise AssertionError(f"the fast bar passes reciprocals 2^-12 off "
+                             f"on {tag}")
+
+
+def _agreement(ref, got, algebra, plain=None, faults=None):
+    """(max abs err, rel, bitwise equal, passes, text) of a flux call's
+    outputs against its plain version's.  The reference and opt algebras
+    pass bit for bit; the fast form passes the fast bar (FAST_TOL) against
+    the one-ulp model of ``plain`` (the plain call, run again), and its
+    text gives the values that round apart, the largest difference in
+    ulps, and per output the bar's counts.  With ``faults`` (a tag) the
+    bar is also run on planted faults (_planted_faults)."""
+    errs = [_rel(a, b) for a, b in zip(ref, got)]
+    same = all(torch.equal(a, b) for a, b in zip(ref, got))
+    ok, text = same, ""
+    if algebra == "fast":
+        model = _one_ulp_model(plain, ref)
+        ok, per = _fast_verdict(ref, got, model)
+        n, u = max(_ulps(a, b) for a, b in zip(ref, got))
+        text = (f", {n} values apart, largest {u:.0f} ulps; per output "
+                + ", ".join(f"{e[0]:.3e}" for e in errs) + "; fast bar "
+                + ("passes" if ok else "FAILS") + ": "
+                + _verdict_text(per, model))
+        if faults is not None:
+            _planted_faults(faults, plain, ref, model)
+        del model
+    return max(e[0] for e in errs), max(e[1] for e in errs), same, ok, text
+
+
+def _flux_form(phase, tag, args, acc, rk, dtype, tol, timed=True,
+               algebra="ref"):
     """The accumulating (``rk`` None) or stage-update form of one
     direction_fluxes call against its plain version on copies of ``acc``:
-    both outputs bit for bit, the result written into the kernel's copy in
-    place; timed beside its bound when ``timed`` (kernel and plain in turn
-    on one buffer, which each call overwrites).  Returns (max abs err, ms,
-    plain ms, bound ms, bound_by), the last four None when not timed."""
+    both outputs bit for bit (the fast algebra by the fast bar),
+    the result written into the kernel's copy in place; timed beside its
+    bound when ``timed`` (kernel and plain in turn on one buffer, which
+    each call overwrites).  Returns (max abs err, ms, plain ms, bound ms,
+    bound_by), the last four None when not timed."""
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
         direction_fluxes, direction_fluxes_plain)
+    kw = ALGEBRA_KW[algebra]
     a_ref, a_got = acc.clone(), acc.clone()
-    ref = direction_fluxes_plain(*args, acc=a_ref, rk=rk)
-    got = direction_fluxes(*args, acc=a_got, rk=rk)
+    ref = direction_fluxes_plain(*args, acc=a_ref, rk=rk, **kw)
+    got = direction_fluxes(*args, acc=a_got, rk=rk, **kw)
     torch.cuda.synchronize()
-    errs = [_rel(a, b) for a, b in zip(ref, got)]
-    rel = max(e[1] for e in errs)
-    same = (got[0] is a_got
-            and all(torch.equal(a, b) for a, b in zip(ref, got)))
+    err, rel, same, ok, ulps = _agreement(
+        ref, got, algebra,
+        lambda: direction_fluxes_plain(*args, acc=acc.clone(), rk=rk, **kw))
+    in_place = got[0] is a_got
     del ref, got, a_ref
     line = (f"[{phase}] direction_fluxes {tag} {dtype}: bitwise "
-            f"{'equal' if same else 'DIFFERENT'}, max abs err "
-            f"{max(e[0] for e in errs):.3e}, rel {rel:.3e}")
+            f"{'equal' if same and in_place else 'DIFFERENT'}, max abs err "
+            f"{err:.3e}, rel {rel:.3e}{ulps}")
     ms = pms = bms = by = None
     if timed:
-        ms = _time_ms(lambda: direction_fluxes(*args, acc=a_got, rk=rk))
+        ms = _time_ms(lambda: direction_fluxes(*args, acc=a_got, rk=rk,
+                                               **kw))
         pms = _time_ms(lambda: direction_fluxes_plain(*args, acc=a_got,
-                                                      rk=rk), reps=3)
-        nbytes, ops = _epilogue_work(args, rk)
+                                                      rk=rk, **kw), reps=3)
+        nbytes, ops = _epilogue_work(args, rk, algebra)
         bms, by = _bound(nbytes, ops, dtype)
         line += (f"; kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
                  f"{bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB, "
                  f"{ops / 1e9:.2f} GFLOP), {bms / ms:.1%} of the bound  "
                  f"[{_card()}]")
     print(line, flush=True)
-    if not (same and rel <= tol):
-        raise AssertionError(f"direction_fluxes {tag} {dtype}: not bitwise "
-                             f"equal (rel {rel:.3e})")
-    return max(e[0] for e in errs), ms, pms, bms, by
+    if not (in_place and ok and (algebra == "fast" or rel <= tol)):
+        raise AssertionError(f"direction_fluxes {tag} {dtype} {algebra}: "
+                             f"equal {same}, in place {in_place}, rel "
+                             f"{rel:.3e}")
+    return err, ms, pms, bms, by
+
+
+def _flux_bare(phase, tag, args, dtype, tol, algebra, timed=True,
+               faults=False):
+    """One direction_fluxes call of ``algebra`` against its plain version
+    (the same keywords): bit for bit (and within ``tol`` of each output's
+    scale), the fast form within the fast bar, its ulps printed, and with
+    ``faults`` the bar's readings on planted faults; timed beside its bound
+    when ``timed``.  Returns (outputs, max abs err, ms, plain ms, bound ms,
+    bound_by), the times None when not timed."""
+    from miniweatherml_tpu_torch.ops.direction_fluxes import (
+        direction_fluxes, direction_fluxes_plain)
+    kw = ALGEBRA_KW[algebra]
+    ref = direction_fluxes_plain(*args, **kw)
+    got = direction_fluxes(*args, **kw)
+    torch.cuda.synchronize()
+    err, rel, same, ok, ulps = _agreement(
+        ref, got, algebra, lambda: direction_fluxes_plain(*args, **kw),
+        f"{tag} {dtype}" if faults else None)
+    del ref
+    line = (f"[{phase}] direction_fluxes {algebra} {tag} {dtype}: bitwise "
+            f"{'equal' if same else 'DIFFERENT'}, max abs err {err:.3e}, "
+            f"rel {rel:.3e}{ulps}")
+    ms = pms = bms = by = None
+    if timed:
+        ms = _time_ms(lambda: direction_fluxes(*args, **kw))
+        pms = _time_ms(lambda: direction_fluxes_plain(*args, **kw), reps=3)
+        nbytes, ops = _flux_work(args[0], args[1], args[9].ord, algebra)
+        if len(args) > 12 and args[12] is not None:
+            nbytes += _nbytes(args[12][:2])
+        bms, by = _bound(nbytes, ops, dtype)
+        line += (f"; kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+                 f"{bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB, "
+                 f"{ops / 1e9:.2f} GFLOP), {bms / ms:.1%} of the bound  "
+                 f"[{_card()}]")
+    print(line, flush=True)
+    if not (ok and (algebra == "fast" or rel <= tol)):
+        raise AssertionError(f"direction_fluxes {algebra} {tag} {dtype}: "
+                             f"equal {same}, rel {rel:.3e}{ulps}")
+    return got, err, ms, pms, bms, by
 
 
 def _stage_bases(state, dycore):
@@ -450,18 +747,20 @@ def _kernel_name(mangled: str) -> str:
     return name + t
 
 
-# the y/z kernel's epilogue forms (csrc/direction_fluxes.cu EPI_*)
+# the y/z kernel's epilogue forms and the limiter algebras
+# (csrc/direction_fluxes.cuh EPI_*, ALG_*)
 FLUX_EPILOGUES = {"0": "bare", "1": "accumulating", "2": "stage update"}
+FLUX_ALGEBRAS = {"0": "ref", "1": "opt", "2": "fast"}
 
 
 def _flux_instance(mangled: str):
-    """(kind, ord, type, tracer bound, form) of a direction_fluxes entry
-    function, or None; the form is "whole axis" or "strips", followed for
-    the y/z kernel by its epilogue ("bare", "accumulating" or "stage
-    update")."""
+    """(kind, ord, type, tracer bound, form, algebra) of a direction_fluxes
+    entry function, or None; the form is "whole axis" or "strips",
+    followed for the y/z kernel by its epilogue ("bare", "accumulating" or
+    "stage update"); the algebra "ref", "opt" or "fast"."""
     import re
     m = re.search(r"(fluxes_x|fluxes_strided)ILi(\d+)E([fd])Li(\d+)ELb([01])E"
-                  r"(?:Li(\d)E)?", mangled)
+                  r"(?:Li(\d)E)?Li(\d)E", mangled)
     if not m:
         return None
     kind = "x" if m.group(1) == "fluxes_x" else "y/z"
@@ -469,23 +768,26 @@ def _flux_instance(mangled: str):
     form = "strips" if m.group(5) == "1" else "whole axis"
     if m.group(6) is not None:
         form += ", " + FLUX_EPILOGUES[m.group(6)]
-    return kind, int(m.group(2)), dtype, int(m.group(4)), form
+    return (kind, int(m.group(2)), dtype, int(m.group(4)), form,
+            FLUX_ALGEBRAS[m.group(7)])
 
 
 def _supercell_cfg(nx, ny, nz, xlen, ylen, zlen, sim_time, dtype,
-                   out_freq=-1.0, out_prefix="chip_smoke", nens=1):
+                   out_freq=-1.0, out_prefix="chip_smoke", nens=1, **keys):
+    """The supercell configuration; ``keys`` are further YAML keys (the
+    dycore's riemann_impl and fast_weights)."""
     from miniweatherml_tpu_torch.config import config_from_dict
     return config_from_dict(dict(
         sim_time=sim_time, nens=nens, nx_glob=nx, ny_glob=ny, nz=nz, xlen=xlen,
         ylen=ylen, zlen=zlen, init_data="supercell", out_prefix=out_prefix,
-        dt_phys=0.0, out_freq=out_freq, dtype=dtype))
+        dt_phys=0.0, out_freq=out_freq, dtype=dtype, **keys))
 
 
-def _bench_cfg(nx, ny, nz, steps, dtype):
+def _bench_cfg(nx, ny, nz, steps, dtype, **keys):
     """bench.py's grid (400 m x 400 m x 200 m cells) for ``steps`` steps."""
     dt = 0.6 * 200.0 / 430.0
     return _supercell_cfg(nx, ny, nz, 400.0 * nx, 400.0 * ny, 200.0 * nz,
-                          steps * dt * (1.0 - 1e-9), dtype)
+                          steps * dt * (1.0 - 1e-9), dtype, **keys)
 
 
 def _prim(state, dycore):
@@ -505,8 +807,12 @@ def phase_device():
     return name
 
 
-LIBRARIES = ("direction_fluxes", "kessler", "p3_lookup", "p3_cellwise", "fct",
-             "p3_sed", "surrogate")
+LIBRARIES = ("direction_fluxes", "direction_fluxes_opt", "kessler",
+             "p3_lookup", "p3_cellwise", "fct", "p3_sed", "surrogate")
+# the flux kernel's libraries: the reference algebra, and the
+# reduced-operation one with exact and approximate reciprocals
+FLUX_LIBRARIES = {"direction_fluxes": ("ref",),
+                  "direction_fluxes_opt": ("opt", "fast")}
 
 
 def _entry_label(lib: str, mangled: str) -> str:
@@ -558,26 +864,28 @@ def phase_build():
           flush=True)
     print(f"[2] all builds: {time.perf_counter() - t0:.2f} s", flush=True)
     # registers, spills and shared memory of the flux kernel's
-    # instantiations; the paths run ord 5 with tracer bounds 3 (Kessler),
-    # 9 (P3) and 1 (city)
-    worst = None
-    for mangled, regs, st, ld, stack, smem in _ptxas_report(
-            "direction_fluxes"):
-        inst = _flux_instance(mangled)
-        if inst is None:
-            raise AssertionError(f"unexpected entry function {mangled}")
-        kind, ord_, dtype, ntrb, form = inst
-        if ord_ == 5:
-            print(f"[2] direction_fluxes {kind} ord 5 {dtype} tracers <= "
-                  f"{ntrb} {form}: {regs} registers, {st} B spill stores, "
-                  f"{ld} B spill loads, {stack} B stack, {smem} B shared",
-                  flush=True)
-        if worst is None or (st, regs) > (worst[1], worst[0]):
-            worst = (regs, st, ld, inst)
-    print(f"[2] direction_fluxes, most spilled of all orders: {worst[0]} "
-          f"registers, {worst[1]} B spill stores, {worst[2]} B spill loads "
-          f"({worst[3]})", flush=True)
-    for lib in LIBRARIES[1:]:
+    # instantiations in each algebra; the paths run ord 5 with tracer
+    # bounds 3 (Kessler), 9 (P3) and 1 (city)
+    for lib, algebras in FLUX_LIBRARIES.items():
+        worst, count = None, {}
+        for mangled, regs, st, ld, stack, smem in _ptxas_report(lib):
+            inst = _flux_instance(mangled)
+            if inst is None or inst[5] not in algebras:
+                raise AssertionError(f"{lib}: unexpected entry function "
+                                     f"{mangled}")
+            kind, ord_, dtype, ntrb, form, alg = inst
+            count[alg] = count.get(alg, 0) + 1
+            if ord_ == 5:
+                print(f"[2] direction_fluxes {alg} {kind} ord 5 {dtype} "
+                      f"tracers <= {ntrb} {form}: {regs} registers, {st} B "
+                      f"spill stores, {ld} B spill loads, {stack} B stack, "
+                      f"{smem} B shared", flush=True)
+            if worst is None or (st, regs) > (worst[1], worst[0]):
+                worst = (regs, st, ld, inst)
+        print(f"[2] {lib} ({count} entry functions), most spilled of all "
+              f"orders: {worst[0]} registers, {worst[1]} B spill stores, "
+              f"{worst[2]} B spill loads ({worst[3]})", flush=True)
+    for lib in LIBRARIES[2:]:
         for mangled, regs, st, ld, stack, smem in _ptxas_report(lib):
             print(f"[2] {lib} {_entry_label(lib, mangled)}: {regs} registers, "
                   f"{st} B spill stores, {ld} B spill loads, {stack} B "
@@ -614,13 +922,20 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
     the accumulating and stage-update forms of the path's z and y, then the
     FCT kernels on the tracer faces it gave; the Kessler chain also runs the
     other stage forms (stage 1, no gravity, a Coriolis box, a 2-D slab)
-    and the small wall/open box.  The record's times are one right-hand
-    side's: x bare, z accumulating, y with the stage update."""
+    and the small wall/open box.  Then the same bare and path forms (and
+    on the Kessler chain the small box) in the reduced-operation algebra,
+    exact in f32 and f64 (bit for bit) and with the approximate
+    reciprocals in f32 (within the tolerance of scale, its ulps printed).
+    Returns a record per algebra ("ref", "opt", "fast"), whose times are
+    one right-hand side's: x bare, z accumulating, y with the stage
+    update."""
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
         IDU, IDV, IDW, direction_fluxes, direction_fluxes_plain)
     from miniweatherml_tpu_torch.ops.stencil import BC_OPEN, BC_WALL
 
-    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    recs = {a: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                "bound_ms": 0.0} for a in ALGEBRA_KW}
+    rec = recs["ref"]
     for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
         state, _, dycore = _flux_state(chain, dtype)
         prim = _prim(state, dycore)
@@ -691,6 +1006,35 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
                     rec["ms"] += ms - bare_ms[fa[1]][0]
                     rec["plain_ms"] += pms - bare_ms[fa[1]][1]
                     rec["bound_ms"] += bms - bare_ms[fa[1]][2]
+        # the reduced-operation algebra: exact in f32 and f64, with the
+        # approximate reciprocals in f32 (f64 runs exact)
+        for algebra in ("opt", "fast") if dtype == "float32" else ("opt",):
+            arec, abare = recs[algebra], {}
+            for name, axis, *_ in dirs:
+                got, err, ms, pms, bms, by = _flux_bare(
+                    "3", f"{chain} nvar {prim.shape[0]} {name}",
+                    fargs[name], dtype, tol, algebra,
+                    faults=chain == "kessler" and name in ("x", "y"))
+                if axis == -1:
+                    adiv = got[0]
+                del got
+                abare[axis] = (ms, pms, bms)
+                if dtype == "float32":
+                    arec["max_abs_err"] = max(arec["max_abs_err"], err)
+                    arec["ms"] += ms
+                    arec["plain_ms"] += pms
+                    arec["bound_ms"] += bms
+                    arec["bound_by"] = by
+            for tag, fa, rk in path[:2]:
+                err, ms, pms, bms, by = _flux_form(
+                    "3", f"{chain} nvar {prim.shape[0]} {tag} ({algebra})",
+                    fa, adiv, rk, dtype, tol, algebra=algebra)
+                if dtype == "float32":  # in place of the bare y and z
+                    arec["max_abs_err"] = max(arec["max_abs_err"], err)
+                    arec["ms"] += ms - abare[fa[1]][0]
+                    arec["plain_ms"] += pms - abare[fa[1]][1]
+                    arec["bound_ms"] += bms - abare[fa[1]][2]
+            del adiv
         phase_fct(chain, dtype, tol, state, dycore, faces, fct_recs)
         del faces, fargs, path
         if chain != "kessler":
@@ -744,9 +1088,13 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
                 if not (same and rel <= tol):
                     raise AssertionError(f"direction_fluxes small {dtype} "
                                          f"axis {axis} bc {bc}: {rel:.3e}")
+                for algebra in ("opt", "fast")[:2 if dtype == "float32"
+                                                else 1]:
+                    _flux_bare("3", f"small axis {axis} bc {bc}", args,
+                               dtype, tol, algebra, timed=False)
         del state, prim, hy, dycore
         torch.cuda.empty_cache()
-    return rec
+    return recs
 
 
 FCT_FORMS = ("first", "accumulate", "rk_tr1", "rk_no_tr1")
@@ -1128,6 +1476,115 @@ def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None,
     del state
     torch.cuda.empty_cache()
     return launches, res, peak
+
+
+# The dycore forms of phase 33's Kessler slice, by the YAML keys that ask
+# for them: the JAX package's device form (the reduced-operation algebra
+# with approximate-reciprocal weights), the same with exact weights, and
+# Dycore() (the reference algebra); with the flux launches each form counts
+# (ops/direction_fluxes.py: opt_launches, fast_launches).
+OPT_SLICE_FORMS = (("opt + fast weights", {"riemann_impl": "pallas"}, "fast"),
+                   ("opt, exact weights", {"riemann_impl": "pallas",
+                                           "fast_weights": False}, "opt"),
+                   ("reference (Dycore())", {}, "ref"))
+
+
+def _flux_form_counts():
+    from miniweatherml_tpu_torch.ops.direction_fluxes import direction_fluxes
+    return {"opt": direction_fluxes.opt_launches,
+            "fast": direction_fluxes.fast_launches}
+
+
+def phase_opt_slice(card):
+    """The main path of the flux kernel's JAX device form:
+    community_benchmark.run_benchmark on the 512x512x64 f32 Kessler
+    supercell with the YAML's riemann_impl "pallas" (the reduced-operation
+    algebra with approximate-reciprocal weights), the same with exact
+    weights, and Dycore(), in the order A B C C B A: each with its launch
+    counts (every flux launch in its form), a clean validate(), Mcellups,
+    ms/step and peak memory, and the largest differences between the forms'
+    states after the 10 steps (printed, not bounded: the algebras round
+    apart and the flow amplifies it); then a 16x8x10 f64 riemann_impl
+    "pallas" slice (f64 runs exact weights), card against the port's CPU
+    run, 3 steps, at 1e-7 of each field's scale.  Returns the launches per
+    algebra of the first run of each form."""
+    from miniweatherml_tpu_torch.experiments.community_benchmark import (
+        run_benchmark)
+    from miniweatherml_tpu_torch.experiments.supercell_example import build
+    from miniweatherml_tpu_torch.ops.direction_fluxes import direction_fluxes
+    counters = _counters("kessler")
+    finals, launches_of, ms_of = {}, {}, {}
+    order = OPT_SLICE_FORMS + OPT_SLICE_FORMS[::-1]
+    for run, (label, keys, algebra) in enumerate(order):
+        cfg = _bench_cfg(512, 512, 64, 10, "float32", **keys)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        direction_fluxes.opt_launches = direction_fluxes.fast_launches = 0
+        state, res = run_benchmark(cfg, "cuda", quiet=True)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        forms = _flux_form_counts()
+        peak = torch.cuda.max_memory_allocated()
+        maxw = _check_state(f"[33] {label}", state)
+        steps = res["steps"] + 1  # and the discarded warm-up step
+        want = {a: (9 * steps if a == algebra else 0) for a in forms}
+        if (forms != want or launches["direction_fluxes"] != 9 * steps
+                or any(n < 1 for n in launches.values())):
+            raise AssertionError(f"[33] {label}: launches {launches}, by "
+                                 f"form {forms}, expected {want}")
+        ms = 1e3 * res["elapsed_s"] / res["steps"]
+        ms_of.setdefault(label, []).append(ms)
+        print(f"[33] 512x512x64 float32 {label}: {res['steps']} steps in "
+              f"{res['elapsed_s']:.3f} s = {res['mcellups']:.3f} Mcellups, "
+              f"{ms:.2f} ms/step; peak memory {peak / 2**30:.2f} GiB; maxw "
+              f"{maxw:.6e}; launches {launches}, by form {forms}; "
+              f"validate() clean  [{card}]", flush=True)
+        if label not in finals:  # on the host: no later run's peak holds it
+            finals[label] = {k: state[k].cpu() for k in (
+                "density_dry", "uvel", "vvel", "wvel", "temp",
+                "water_vapor", "cloud_liquid", "precip_liquid")}
+            launches_of[algebra] = {**launches, **forms}
+        del state
+        torch.cuda.empty_cache()
+    ref = finals["reference (Dycore())"]
+    for label, fields in finals.items():
+        if fields is ref:
+            continue
+        worst = max(((_rel(ref[k], fields[k])[1], k) for k in ref))
+        print(f"[33] {label} against the reference after 10 steps: largest "
+              f"difference {worst[0]:.3e} of {worst[1]}'s scale; ms/step "
+              f"{', '.join(f'{m:.2f}' for m in ms_of[label])} against the "
+              f"reference's "
+              f"{', '.join(f'{m:.2f}' for m in ms_of['reference (Dycore())'])}"
+              f"  [{card}]", flush=True)
+    a, b = finals["opt + fast weights"], finals["opt, exact weights"]
+    worst = max(((_rel(b[k], a[k])[1], k) for k in a))
+    print(f"[33] approximate against exact weights after 10 steps: largest "
+          f"difference {worst[0]:.3e} of {worst[1]}'s scale", flush=True)
+    del finals, ref, a, b
+
+    cfg = _supercell_cfg(16, 8, 10, 40000.0, 40000.0, 10000.0, 100.0,
+                         "float64", riemann_impl="pallas")
+    outs = []
+    for device in ("cpu", "cuda"):
+        state, mods, dycore = build(cfg, device)
+        dt = dycore.compute_time_step(state)
+        f0 = _flux_form_counts()
+        for _ in range(3):
+            for m in mods:
+                state = m(state, dt)
+        f1 = _flux_form_counts()
+        outs.append(state)
+    worst = max(_rel(outs[0][k], outs[1][k].cpu())[1] for k in outs[0].fields)
+    print(f"[33] 16x8x10 f64 riemann_impl pallas 3-step slice, card vs CPU: "
+          f"worst error over field scale {worst:.3e} (tol 1e-7); card "
+          f"launches by form {{'opt': {f1['opt'] - f0['opt']}, 'fast': "
+          f"{f1['fast'] - f0['fast']}}}", flush=True)
+    if not worst <= 1e-7 or f1["opt"] - f0["opt"] != 27 or f1["fast"] != f0[
+            "fast"]:
+        raise AssertionError(f"[33] f64 pallas slice: {worst:.3e}, "
+                             f"launches {f0} -> {f1}")
+    return launches_of
 
 
 def _golden_maxw():
@@ -2332,7 +2789,9 @@ def phase_strip_fluxes():
     and an open global boundary at one end, y also with the stage update
     (the mesh path's last direction); f32 and f64, bit for bit.  The
     periodic f32 calls (the main path's forms: x bare, y with the stage
-    update) are timed beside their bound.
+    update) are timed beside their bound.  Then the same cases in the
+    reduced-operation algebra: exact in f32 and f64, bit for bit, and with
+    the approximate reciprocals in f32, within the tolerance of scale.
     Returns the JSON record and, per dtype, the local state's pieces that
     phase 23 needs."""
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
@@ -2412,6 +2871,30 @@ def phase_strip_fluxes():
                             rec["plain_ms"] += spms - pms
                             rec["bound_ms"] += sbms - bms
                 del ref, got
+        for algebra in ("opt", "fast") if dtype == "float32" else ("opt",):
+            for name, axis, nid, d, src in (("x", -1, IDU, g.dx, rows),
+                                            ("y", -2, IDV, g.dy, cols)):
+                for bc, i in ((c.bc_x if axis == -1 else c.bc_y, 0),
+                              (BC_WALL, 0), (BC_OPEN, 1)):
+                    block, strips = _shard_case(src.contiguous(), axis, bc,
+                                                nid, i)
+                    nl = block.shape[axis]
+                    args = (block, axis, nl, bc, nid, c.C0, c.gamma, hy[0],
+                            hy[1], dycore.mats, 0.0, 1.0 / d, strips)
+                    tag = (f"strips {name} local {tuple(block.shape[2:])} "
+                           f"bc {bc} ends {strips[2:]}")
+                    got = _flux_bare("22", tag, args, dtype, tol, algebra,
+                                     timed=bc == 0)[0]
+                    if axis == -2:
+                        nl2 = block.shape[-2]
+                        rk = _stage(state, dycore, b0, b1, dt,
+                                    crop=lambda t: t.narrow(
+                                        -1, 0, g.nx // 2).narrow(
+                                            -2, i * nl2, nl2))
+                        _flux_form("22", f"{tag} y stage update, b1 "
+                                   f"({algebra})", args, got[0], rk, dtype,
+                                   tol, timed=bc == 0, algebra=algebra)
+                    del got
         del b0, b1
         # the shard's own z faces, tracers and stage bases for phase 23
         block = prim.narrow(-2, 0, g.ny // 2).narrow(-1, 0, g.nx // 2)
@@ -2946,7 +3429,9 @@ def phase_tracer_groups():
     """The wrappers above one launch's tracer count: the flux kernel at 12
     tracers (17 variables) on a 64x64x32 P3 state plus three more tracers,
     x / y / z, z accumulating, y with the stage update and the halo-strip
-    form, then fct_mult and fct_scale_div at
+    form, in the reference algebra and the reduced-operation one (exact,
+    and with the approximate reciprocals in f32, by the fast bar), then
+    fct_mult and fct_scale_div at
     12 tracers on the faces it gave, f32 and f64, and both FCT kernels at
     70 tracers (f32, small grid); bit for bit against the plain versions,
     with the launches per call."""
@@ -2954,21 +3439,30 @@ def phase_tracer_groups():
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
         IDU, IDV, IDW, direction_fluxes, direction_fluxes_plain)
 
-    def check(tag, wrapper, expect, kern, plain):
-        """kern() launches through ``wrapper``, ``expect`` times; plain()
-        is its plain version on the same inputs."""
-        n0 = wrapper.launches
+    def check(tag, wrapper, expect, kern, plain, algebra="ref"):
+        """kern() launches through ``wrapper``, ``expect`` times (and as
+        many times in its algebra's count); plain() is its plain version
+        on the same inputs: bit for bit, the fast algebra by the fast
+        bar."""
+        counter = {"ref": "launches", "opt": "opt_launches",
+                   "fast": "fast_launches"}[algebra]
+        n0, a0 = wrapper.launches, getattr(wrapper, counter)
         got = kern()
         launches = wrapper.launches - n0
+        in_form = getattr(wrapper, counter) - a0
         ref = plain()
         torch.cuda.synchronize()
-        pairs = zip(ref, got) if isinstance(got, tuple) else [(ref, got)]
-        same = all(torch.equal(a, b) for a, b in pairs)
+        tup = isinstance(got, tuple)
+        _, rel, same, ok, text = _agreement(
+            ref if tup else (ref,), got if tup else (got,), algebra,
+            plain if tup else lambda: (plain(),))
         print(f"[28] {tag}: {launches} launches, bitwise "
-              f"{'equal' if same else 'DIFFERENT'}", flush=True)
-        if not same or launches != expect:
-            raise AssertionError(f"[28] {tag}: {launches} launches (expected"
-                                 f" {expect}), bitwise equal {same}")
+              f"{'equal' if same else 'DIFFERENT'}, rel {rel:.3e}{text}",
+              flush=True)
+        if not ok or launches != expect or in_form != expect:
+            raise AssertionError(f"[28] {tag}: {launches} launches, "
+                                 f"{in_form} in its form (expected "
+                                 f"{expect}), bitwise equal {same}")
         return got
 
     def scale_div(fn, F, mult, prev, axis, n, dxi, rk):
@@ -3021,6 +3515,43 @@ def phase_tracer_groups():
         check(f"direction_fluxes strips {ntr} tracers {dtype} x",
               direction_fluxes, 2, lambda: direction_fluxes(*args),
               lambda: direction_fluxes_plain(*args))
+        # the reduced-operation algebra's groups: every direction, the
+        # epilogue forms and the strips
+        sargs = args
+        b0, b1 = _stage_bases(state, dycore)
+        rk = _stage(state, dycore, b0, b1, dycore.compute_time_step(state))
+        for algebra in ("opt", "fast") if dtype == "float32" else ("opt",):
+            kw = ALGEBRA_KW[algebra]
+            xdiv = direction_fluxes_plain(prim, -1, g.nx, c.bc_x, IDU, c.C0,
+                                          c.gamma, hy[0], hy[1], dycore.mats,
+                                          0.0, 1.0 / g.dx, **kw)[0]
+            for name, axis, n, bc, nid, d, hr, ht, epi in (
+                    ("x", -1, g.nx, c.bc_x, IDU, g.dx, hy[0], hy[1], None),
+                    ("y", -2, g.ny, c.bc_y, IDV, g.dy, hy[0], hy[1], None),
+                    ("z", -3, g.nz, c.bc_z, IDW, g.dz, hy[2], hy[3], None),
+                    ("z accumulating", -3, g.nz, c.bc_z, IDW, g.dz, hy[2],
+                     hy[3], "acc"),
+                    ("y stage update", -2, g.ny, c.bc_y, IDV, g.dy, hy[0],
+                     hy[1], rk)):
+                args = (prim, axis, n, bc, nid, c.C0, c.gamma, hr, ht,
+                        dycore.mats, 0.0, 1.0 / d)
+                ekw = {} if epi is None else {
+                    "rk": None if epi == "acc" else epi}
+                check(f"direction_fluxes {algebra} {ntr} tracers {dtype} "
+                      f"{name}", direction_fluxes, 2,
+                      lambda: direction_fluxes(
+                          *args, **kw, **ekw,
+                          **({"acc": xdiv.clone()} if ekw else {})),
+                      lambda: direction_fluxes_plain(
+                          *args, **kw, **ekw,
+                          **({"acc": xdiv.clone()} if ekw else {})),
+                      algebra)
+            check(f"direction_fluxes {algebra} strips {ntr} tracers {dtype} "
+                  "x", direction_fluxes, 2,
+                  lambda: direction_fluxes(*sargs, **kw),
+                  lambda: direction_fluxes_plain(*sargs, **kw), algebra)
+            del xdiv
+        del b0, b1, rk, sargs
         tr = torch.cat([state.tracer_stack(),
                         0.5 * state.tracer_stack()[:3]]).contiguous()
         flags = tuple(i % 3 != 1 for i in range(ntr))
@@ -3070,6 +3601,7 @@ def phase_tracer_groups():
 # (label, MWML_BENCH_* switches) of each bench run: the default Kessler
 # cell and each chain switch of bench.py
 BENCH_RUNS = (("kessler", {}),
+              ("kessler, reference algebra", {"MWML_BENCH_PALLAS": "0"}),
               ("p3", {"MWML_BENCH_MICRO": "p3"}),
               ("p3 all active", {"MWML_BENCH_MICRO": "p3",
                                  "MWML_BENCH_P3_ACTIVE": "1",
@@ -3100,9 +3632,14 @@ def phase_bench(card):
                                  f"{proc.returncode}\n{proc.stderr[-3000:]}")
         line = proc.stdout.strip().splitlines()[-1]
         res = json.loads(line)
+        # the card's default is the JAX device form, opt + fast weights
+        form = ("" if switches.get("MWML_BENCH_PALLAS") == "0"
+                else ", opt WENO, fast weights")
         if (set(res) != BENCH_KEYS or res["unit"] != "Mcellups"
                 or not res["value"] > 0
-                or res["vs_baseline"] != res["value"] / 10.0):
+                or res["vs_baseline"] != res["value"] / 10.0
+                or ("opt WENO" in res["metric"]) != bool(form)
+                or form not in res["metric"]):
             raise AssertionError(f"[29] bench {label}: bad line {line}")
         print(f"[29] bench {label} ({wall:.1f} s): {line}  [{card}]",
               flush=True)
@@ -3174,15 +3711,21 @@ def main() -> int:
     k_fct = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
              for k in ("fct_mult", "fct_scale_div")}
     # no single PyTorch call computes any of these kernels' functions
-    k_a8 = phase_direction_fluxes(k_fct)
-    # the JSON line's times: one right-hand side at 14 variables, 9 tracers
-    k_a = phase_direction_fluxes(k_fct, "p3")
-    k_a6 = phase_direction_fluxes(k_fct, "city")
-    k_a["max_abs_err"] = max(k_a["max_abs_err"], k_a8["max_abs_err"],
-                             k_a6["max_abs_err"])
+    r_kessler = phase_direction_fluxes(k_fct)
+    r_p3 = phase_direction_fluxes(k_fct, "p3")
+    r_city = phase_direction_fluxes(k_fct, "city")
+    # the JSON line's times: one right-hand side, of the reference algebra
+    # at 14 variables, 9 tracers (P3), of the reduced-operation ones at the
+    # main path's 8 variables (Kessler); the largest error of every chain
+    k_a, k_opt, k_fast = r_p3["ref"], r_kessler["opt"], r_kessler["fast"]
+    for alg, k in (("ref", k_a), ("opt", k_opt), ("fast", k_fast)):
+        k["max_abs_err"] = max(r[alg]["max_abs_err"]
+                               for r in (r_kessler, r_p3, r_city))
+    del r_kessler, r_p3, r_city
     k_b = phase_kessler()
     l_kessler = _run_cell("5", _bench_cfg(512, 512, 64, 10, "float32"),
                           card, glue=True)[0]
+    l_opt = phase_opt_slice(card)
     phase_references()
     # inputs/community_benchmark_1024.yaml (819.2 x 819.2 x 20 km), 3 steps
     dt = 0.6 * 200.0 / 430.0
@@ -3259,6 +3802,22 @@ def main() -> int:
          "replaces": "miniweatherml_tpu/ops/pallas_recon.py:536, "
                      "miniweatherml_tpu/ops/pallas_recon.py:941",
          "launches": l_p3["direction_fluxes"], **k_a},
+        # the same kernel in the Pallas kernels' default algebra (opt=True,
+        # pallas_recon.py:127-247), exact and with fast_weights: one
+        # right-hand side of the Kessler path, launches from phase 33
+        {"name": "direction_fluxes opt (x; y/z bare, accumulating, stage "
+                 "update; exact weights)", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/direction_fluxes_opt.cu",
+         "replaces": "miniweatherml_tpu/ops/pallas_recon.py:536, "
+                     "miniweatherml_tpu/ops/pallas_recon.py:941 (opt=True)",
+         "launches": l_opt["opt"]["opt"], **k_opt},
+        {"name": "direction_fluxes opt + fast weights (x; y/z bare, "
+                 "accumulating, stage update)", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/direction_fluxes_opt.cu",
+         "replaces": "miniweatherml_tpu/ops/pallas_recon.py:536, "
+                     "miniweatherml_tpu/ops/pallas_recon.py:941 (opt=True, "
+                     "fast_weights=True)",
+         "launches": l_opt["fast"]["fast"], **k_fast},
         {"name": "kessler_step", "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/kessler.cu",
          "replaces": "miniweatherml_tpu/physics/kessler_pallas.py:128",

@@ -1,895 +1,20 @@
-// Fused WENO reconstruction + upwind Riemann fluxes + state divergence for
-// one direction of the compressible-Euler dycore, for NVIDIA Hopper (sm_90a).
-//
-// Replaces the Pallas TPU megakernels of miniweatherml_tpu/ops/pallas_recon.py:
-// direction_fluxes_pallas (x, stencil on the last axis, pallas_call at :536)
-// and direction_fluxes_pallas_sub (y and z, stencil on axis -2, pallas_call
-// at :941), in both of their forms: the whole axis (self_bc: halos from the
-// block's own edges) and the halo-strip form of a split x or y axis (lo / hi
-// strips from the ring neighbours, and a face mode per end, bc=(bc_lo,
-// bc_hi)).  The y/z kernel also carries the sub kernel's two epilogues of
-// the state output (pallas_recon.py:804-813, 853-866, 583-607): `acc`, the
-// running state tendency, which it reads and adds its divergence to in
-// place, and `rk`, the SSPRK3 stage update of the last direction: the sum
-// takes gravity, Coriolis, the 2-D v = 0 and the immersed blend (the
-// port's XLA-path forms: Coriolis from the stage's state, not from the
-// prim block) and becomes c0*b0 [+ c1*b1] + cdt*tendency, in the order of
-// ops/direction_fluxes.py::stage_update.  Each output cell is read and
-// written by the one thread that marches over it, so `acc` is updated in
-// place with no race.
-//
-// Math (the JAX XLA path, dycore/euler.py:475-613 plus div):
-//   halo fill (periodic wrap; wall/open edge copy, wall zeroes the normal
-//   velocity; or, in the halo-strip form, the hp = (ord-1)/2 + 1 cells of
-//   the lo / hi strips a shard's neighbours sent) -> WENO edges of every variable (exact weights, same term
-//   order as ops/weno_fused.py) -> face limits, densitized with the
-//   hydrostatic background (cell profile for x/y, face profile for z) ->
-//   wall/open face overwrite (each end by its own mode: the strip form sets
-//   it only on the shards that hold the global boundary) -> upwind Riemann solve -> state divergence
-//   -(F[f+1] - F[f]) * div_scale, and the unscaled tracer faces.
-//
-// What bounds it on the H100: operations.  The limiter costs about 200
-// floating-point operations per variable per cell (ord 5: 33 smoothness
-// terms, two normalisations, four weights with IEEE divisions, 2 x 14 edge
-// terms), against one value read per variable and one written per output;
-// bytes come second (~0.32 ms per call at 512x512x64 with 8 variables).
-// Every result equals the plain PyTorch version bit for bit: each add,
-// subtract and multiply is a round-to-nearest intrinsic (never contracted
-// into an FMA), divisions are IEEE, terms come in the plain version's order,
-// and the file builds with contraction on only so that pow rounds as
-// PyTorch's own pow kernel does.  Without FMAs the floor is about twice the
-// operation bound.  Tensor cores do not apply: the limiter is nonlinear per
-// cell, its linear parts are 3- to 9-wide dot products, and each result
-// must round as the plain f32/f64 arithmetic does.
-//
-// Design (issue-bound, so the instruction count comes first):
-//  * The limiter tables of each order (ops/weno_fused.py::weno_coef_table,
-//    the table's doubles cast to the type) live in __constant__ memory and
-//    are indexed by compile-time offsets after unrolling, so every
-//    coefficient is a constant-bank operand of its multiply: no loads.
-//  * Order, type, direction kind (x: unit stride; y/z: strided), a bound
-//    on the tracer count (1, 3 or 9; the tracer loop is unrolled and
-//    guarded) and the form (whole axis or halo strips: a runtime branch on
-//    the strip pointer cost the whole-axis x kernel 6-8% through register
-//    spills, PERF.md) are template parameters; tile sizes are compile-time
-//    constants; the grid is (line tiles, planes, segments) for y/z and (x
-//    tiles, rows, planes) for x, so the background profile's index is
-//    plane * hps + face * has and no index needs a runtime division.  The
-//    periodic wrap and edge copy run only for cells outside the axis.
-//  * y and z: a block is one warp; each thread owns one line (neighbouring
-//    threads own neighbouring x positions, so every load and store of a
-//    warp is one contiguous line) and marches along the direction through
-//    a segment of SEG cells.  It keeps an ord-wide register window per
-//    variable, the previous cell's right edges and the previous face's
-//    state fluxes in registers, loads each variable's next value one step
-//    ahead, and writes the divergence and the tracer faces directly: no
-//    shared memory, and only the ord - 1 cells before a segment and the one
-//    after it are read twice.
-//  * x (unit stride): a lane per line would make every store of a warp
-//    touch 32 rows (measured 2-3x slower than y/z), so instead a warp owns
-//    30 consecutive cells of one row: lane i forms the edges of cell
-//    x0 - 1 + i from a stencil gathered with warp shuffles out of two
-//    coalesced loads per variable, takes its left neighbour's right edges
-//    and its right neighbour's face fluxes by shuffle, and writes its
-//    cell's divergence and its left face.  No shared memory, no
-//    synchronisation, and 32/30 of the limiter work.
-//  * No asynchronous copies or TMA: the loads are not where the time goes.
-//  * The epilogue form (none / accumulate / stage) is a template parameter
-//    of the y/z kernel, so the bare form compiles as before; the stage's
-//    options (b1, gravity, Coriolis, 2-D, immersed) are runtime flags, each
-//    tested once per cell after the limiter work.  The accumulator adds a
-//    read of the 5-variable state (0.34 GB at 512x512x64 f32), the stage
-//    update reads b0, b1 and the immersed proportion as well (up to 1.08
-//    GB in all, beside the bare call's 1.07 GB), against a kernel that is
-//    operation-bound; each cell's reads are coalesced across the warp.
+// The direction-flux kernels (direction_fluxes.cuh) in the reference
+// limiter algebra: exact WENO weights in the term order of
+// ops/weno_fused.py::reconstruct_edges_shifted, the JAX XLA path's.  The
+// kernels, their design and what bounds them are in the header.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
-
-namespace {
-
-constexpr int IDR = 0, IDU = 1, IDV = 2, IDW = 3, IDT = 4, NS = 5;
-constexpr int BC_PERIODIC = 0, BC_WALL = 2;
-constexpr int WARP = 32;       // threads per block: one warp
-constexpr int SEG = 64;        // cells a thread marches per segment
-constexpr int COEF_MAX = 104;  // longest limiter table (ord 9: 103 values)
-constexpr int NTR_MAX = 9;
-// epilogue forms of the y/z kernel, and the stage update's option flags
-// (ops/direction_fluxes.py::_GRAV, _FCOR, _SIM2D)
-constexpr int EPI_NONE = 0, EPI_ACC = 1, EPI_STAGE = 2;
-constexpr int ST_GRAV = 1, ST_FCOR = 2, ST_SIM2D = 4;
-
-__constant__ float c_coef_f32[4][COEF_MAX];
-__constant__ double c_coef_f64[4][COEF_MAX];
-
-template <typename T>
-__device__ __forceinline__ T coef(int slot, int i);
-template <>
-__device__ __forceinline__ float coef<float>(int slot, int i) {
-  return c_coef_f32[slot][i];
-}
-template <>
-__device__ __forceinline__ double coef<double>(int slot, int i) {
-  return c_coef_f64[slot][i];
-}
-
-__device__ __forceinline__ float tpow(float a, float b) { return powf(a, b); }
-__device__ __forceinline__ double tpow(double a, double b) { return pow(a, b); }
-
-// Every add, subtract and multiply of the arithmetic below rounds on its
-// own (round-to-nearest intrinsics, never contracted into an FMA), as the
-// plain PyTorch version's separate kernels do; the file itself builds with
-// contraction on so that pow rounds as PyTorch's own pow kernel does.
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-
-// Support of each candidate polynomial inside the ord-wide stencil and the
-// layout of the coefficient table (ops/weno_fused.py::weno_coef_table).
-template <int ORD>
-struct Limiter {
-  static constexpr int K = ORD == 3 ? 3 : 4;
-  static constexpr int HS = (ORD - 1) / 2;
-  static constexpr int SLOT = (ORD - 3) / 2;
-  __host__ __device__ static constexpr int start(int k) {
-    return ORD == 3 ? (k == 1 ? 1 : 0) : (k == 3 ? 0 : HS - 2 + k);
-  }
-  __host__ __device__ static constexpr int width(int k) {
-    return ORD == 3 ? (k == 2 ? 3 : 2) : (k == 3 ? ORD : 3);
-  }
-  __host__ __device__ static constexpr int tv_off(int k) {
-    return k == 0 ? 0 : tv_off(k - 1) + width(k - 1) * (width(k - 1) + 1) / 2;
-  }
-  __host__ __device__ static constexpr int edge_off(int k) {
-    return k == 0 ? tv_off(K) : edge_off(k - 1) + 2 * width(k - 1);
-  }
-  static constexpr int IDL_OFF = edge_off(K);
-  static constexpr int SIZE = IDL_OFF + K;
-};
-static_assert(Limiter<9>::SIZE <= COEF_MAX, "coefficient table too long");
-
-// Limited left/right edge values of one cell from its ord-wide stencil.
-template <int ORD, typename T>
-__device__ __forceinline__ void weno_edges(const T (&s)[ORD], T cutoff,
-                                           T& left, T& right) {
-  using L = Limiter<ORD>;
-  constexpr int K = L::K, SLOT = L::SLOT;
-  const T eps = T(1e-20);
-  T tv[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int st = L::start(k), w = L::width(k);
-    int o = L::tv_off(k);
-    T acc = T(0);
-#pragma unroll
-    for (int i = 0; i < w; ++i)
-#pragma unroll
-      for (int j = i; j < w; ++j)
-        acc = add(acc, mul(mul(coef<T>(SLOT, o++), s[st + i]), s[st + j]));
-    tv[k] = acc;
-  }
-  auto convexify = [&](T (&v)[K]) {
-    T tot = v[0];
-#pragma unroll
-    for (int k = 1; k < K; ++k) tot = add(tot, v[k]);
-    const T inv = tot > eps ? T(1) / tot : T(1);
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = mul(v[k], inv);
-  };
-  convexify(tv);
-  T w[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    w[k] = coef<T>(SLOT, L::IDL_OFF + k) / add(mul(tv[k], tv[k]), eps);
-  convexify(w);
-  if (cutoff > T(0)) {
-#pragma unroll
-    for (int k = 0; k < K - 1; ++k) w[k] = w[k] > cutoff ? w[k] : T(0);
-    convexify(w);
-  }
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    T acc = T(0);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int st = L::start(k), wd = L::width(k);
-      const int o = L::edge_off(k) + e * wd;
-      T ek = T(0);
-#pragma unroll
-      for (int i = 0; i < wd; ++i) ek = add(ek, mul(coef<T>(SLOT, o + i), s[st + i]));
-      acc = add(acc, mul(w[k], ek));
-    }
-    if (e == 0) left = acc; else right = acc;
-  }
-}
-
-// One direction's view of the arrays: a value is
-// base[v * vstride + plane * pstride + cell * astride + line * lstride];
-// the tracer faces likewise with the t* strides (n + 1 faces per line), and
-// the halo strips (hp cells per line) with the s* strides.
-struct Geom {
-  int64_t vstride, pstride, astride, lstride;
-  int64_t tvstride, tpstride, tastride, tlstride;
-  int n, nlines, ntr;
-  int hps, has;  // background index: plane * hps + face * has
-  int bc, nid;
-};
-
-// The halo-strip form's view: the strips (hp cells per line, at the s*
-// strides) and each end's face mode (0 none, else bc).  The whole-axis
-// kernels take the plain Geom, so that they compile as they did before the
-// strip form existed (a runtime branch on the strip pointer, or a larger
-// Geom, cost the whole-axis x kernel 4-8% through register allocation,
-// PERF.md).
-struct StripGeom : Geom {
-  int64_t svstride, spstride, sastride, slstride;
-  const void* lo;
-  const void* hi;
-  int hp, blo, bhi;
-};
-
-template <bool STRIPS>
-using GeomOf = typename std::conditional<STRIPS, StripGeom, Geom>::type;
-
-constexpr int XROWS = 4;  // rows (warps) per block of the x kernel
-
-// Offset of the thread's line in the halo strips, from its block and thread
-// indices: the x kernel's grid is (x tiles, row blocks, planes), the y/z
-// kernel's (line tiles, planes, segments).  Recomputed where a strip is
-// read, so that no register holds it through the kernel.
-template <bool XKIND>
-__device__ __forceinline__ int64_t strip_line(const StripGeom& g) {
-  if (XKIND)
-    return (int64_t)blockIdx.z * g.spstride +
-           (int64_t)(blockIdx.y * XROWS + threadIdx.y) * g.slstride;
-  return (int64_t)blockIdx.y * g.spstride +
-         (int64_t)(blockIdx.x * WARP + threadIdx.x) * g.slstride;
-}
-
-// Value of variable v at cell a (any integer) of the line at `line`, with
-// the boundary rule for cells outside [0, n): in the halo-strip form
-// (STRIPS) the strips' cells (a cell further out than the strips feeds
-// only results that are not written, and reads the outermost one), else
-// the wrap or the edge copy.  STRIPS is a template parameter so that the
-// whole-axis instantiations carry none of the strip form's code.
-template <bool XKIND, bool STRIPS, typename T>
-__device__ __forceinline__ T load_bc(const T* __restrict__ line,
-                                     const GeomOf<STRIPS>& g, int v, int a) {
-  if (a < 0 || a >= g.n) {
-    if constexpr (STRIPS) {
-      const T* s = static_cast<const T*>(a < 0 ? g.lo : g.hi) +
-                   strip_line<XKIND>(g);
-      int k = a < 0 ? a + g.hp : a - g.n;
-      k = k < 0 ? 0 : (k >= g.hp ? g.hp - 1 : k);
-      return s[v * g.svstride + k * g.sastride];
-    }
-    if (g.bc == BC_PERIODIC) {
-      a %= g.n;
-      if (a < 0) a += g.n;
-    } else {
-      if (g.bc == BC_WALL && v == g.nid) return T(0);
-      a = a < 0 ? 0 : g.n - 1;
-    }
-  }
-  return line[v * g.vstride + a * g.astride];
-}
-
-// Upwind flux of one face from the limits on its two sides (the right
-// edges `a` of the cell before it, the left edges `b` of the cell after):
-// densitize with the hydrostatic background, overwrite at open/wall
-// boundaries, and solve the acoustic/advective upwind Riemann problem.
-// Keeps what the tracer faces need.
-template <typename T>
-struct Face {
-  T F[NS];
-  T rL, rR, ru_upw, r_upw;
-  bool useL, lo, hi;
-};
-
-template <bool STRIPS, typename T>
-__device__ __forceinline__ void riemann(const T (&a)[NS], const T (&b)[NS],
-                                        T hr, T ht, int f,
-                                        const GeomOf<STRIPS>& g, T C0,
-                                        T gamma, Face<T>& o) {
-  const T CS = T(350);
-  const int nid = g.nid;
-  o.rL = add(a[IDR], hr);
-  o.rR = add(b[IDR], hr);
-  T SL[NS], SR[NS];
-  SL[IDR] = o.rL;
-  SR[IDR] = o.rR;
-#pragma unroll
-  for (int v = IDU; v <= IDW; ++v) {
-    SL[v] = mul(a[v], o.rL);
-    SR[v] = mul(b[v], o.rR);
-  }
-  SL[IDT] = add(a[IDT], ht);
-  SR[IDT] = add(b[IDT], ht);
-  // The face overwrite, once per form: the strip form with each end's own
-  // mode, the whole axis with bc at both ends.  One loop for both forms
-  // (with the ends' modes, or only the wall test, found per form) compiled
-  // every whole-axis kernel to other SASS than the loop of its own, with
-  // local-memory spills in some x kernels (PERF.md), so the loop is kept
-  // twice.
-  if constexpr (STRIPS) {
-    o.lo = g.blo != 0 && f == 0;
-    o.hi = g.bhi != 0 && f == g.n;
-    const bool wall = (o.lo && g.blo == BC_WALL) ||
-                      (o.hi && g.bhi == BC_WALL);
-#pragma unroll
-    for (int v = 0; v < NS; ++v) {
-      if (o.lo) SL[v] = SR[v];
-      if (o.hi) SR[v] = SL[v];
-      if (wall && v == nid) {
-        SL[v] = T(0);
-        SR[v] = T(0);
-      }
-    }
-  } else {
-    o.lo = g.bc != BC_PERIODIC && f == 0;
-    o.hi = g.bc != BC_PERIODIC && f == g.n;
-#pragma unroll
-    for (int v = 0; v < NS; ++v) {
-      if (o.lo) SL[v] = SR[v];
-      if (o.hi) SR[v] = SL[v];
-      if (g.bc == BC_WALL && (o.lo || o.hi) && v == nid) {
-        SL[v] = T(0);
-        SR[v] = T(0);
-      }
-    }
-  }
-  T ruL = T(0), ruR = T(0);
-#pragma unroll
-  for (int v = IDU; v <= IDW; ++v)
-    if (v == nid) {
-      ruL = SL[v];
-      ruR = SR[v];
-    }
-  const T pL = mul(C0, tpow(SL[IDT], gamma));
-  const T pR = mul(C0, tpow(SR[IDT], gamma));
-  const T w1 = mul(T(0.5), sub(pR, mul(CS, ruR)));
-  const T w2 = mul(T(0.5), add(pL, mul(CS, ruL)));
-  const T p_upw = add(w1, w2);
-  o.ru_upw = sub(w2, w1) / CS;
-  o.useL = add(ruL, ruR) > T(0);
-  o.r_upw = o.useL ? SL[IDR] : SR[IDR];
-#pragma unroll
-  for (int v = 0; v < NS; ++v) {
-    T fl = mul(o.ru_upw, o.useL ? SL[v] : SR[v]) / o.r_upw;
-    if (v == IDR) fl = o.ru_upw;
-    if (v == nid) fl = add(fl, p_upw);
-    o.F[v] = fl;
-  }
-}
-
-// A tracer's face value from the limits beside the face.
-template <typename T>
-__device__ __forceinline__ T tracer_face(const Face<T>& o, T left_cell_right,
-                                         T right_cell_left) {
-  T tL = mul(left_cell_right, o.rL);
-  T tR = mul(right_cell_left, o.rR);
-  if (o.lo) tL = tR;
-  if (o.hi) tR = tL;
-  return mul(o.ru_upw, o.useL ? tL : tR) / o.r_upw;
-}
-
-// -(F[f+1] - F[f]) * div_scale
-template <typename T>
-__device__ __forceinline__ T divergence(T fr, T fl, T ds) {
-  return mul(-sub(fr, fl), ds);
-}
-
-// The stage update's operands: the step's base b0, the previous stage b1
-// (null in stage 1), the hydrostatic cell density (index plane * cps + cell
-// * cas) and the immersed proportion (null without), with the host's
-// coefficients cast to the type.
-template <typename T>
-struct Stage {
-  const T* b0;
-  const T* b1;
-  const T* hyc;
-  const T* imm;
-  T c0, c1, cdt, grav, fcor, fac;
-  int flags, cps, cas;
-};
-
-// What the epilogue reads of one cell besides the divergence: its
-// accumulator entries and, for the stage update, its bases b0 and b1.
-template <typename T, int EPI>
-struct EpiIn {
-  T acc[NS];
-  T b0[EPI == EPI_STAGE ? NS : 1], b1[EPI == EPI_STAGE ? NS : 1];
-};
-
-// Every read of the cell at `at` (its variable-0 offset), issued together
-// before any of its writes: the compiler cannot move a read of the output
-// buffer past a write to it, so reads interleaved with the writes would
-// each wait out the memory latency in turn.
-template <typename T, int EPI>
-__device__ __forceinline__ void epi_load(EpiIn<T, EPI>& in,
-                                         const T* __restrict__ sdiv,
-                                         const Stage<T>& e, int64_t at,
-                                         int64_t vs) {
-#pragma unroll
-  for (int v = 0; v < NS; ++v) in.acc[v] = sdiv[at + v * vs];
-  if constexpr (EPI == EPI_STAGE) {
-#pragma unroll
-    for (int v = 0; v < NS; ++v) {
-      in.b0[v] = e.b0[at + v * vs];
-      in.b1[v] = e.b1 != nullptr ? e.b1[at + v * vs] : T(0);
-    }
-  }
-}
-
-// The stage's state from the summed tendency t of the cell at `at` (plane
-// p, cell c along the direction), in the order of
-// ops/direction_fluxes.py::stage_update; s is the state the tendency was
-// taken of (b1 when given, else b0).
-template <typename T, int EPI>
-__device__ __forceinline__ void stage_update(T (&t)[NS],
-                                             const EpiIn<T, EPI>& in,
-                                             const Stage<T>& e, int64_t at,
-                                             int p, int c) {
-  const bool has_b1 = e.b1 != nullptr;
-  T s[NS];
-#pragma unroll
-  for (int v = 0; v < NS; ++v) s[v] = has_b1 ? in.b1[v] : in.b0[v];
-  if (e.flags & ST_GRAV)
-    t[IDW] = sub(t[IDW], mul(e.grav, add(s[IDR], e.hyc[p * e.cps + c * e.cas])));
-  if (e.flags & ST_FCOR) {
-    t[IDU] = add(t[IDU], mul(e.fcor, s[IDV]));
-    t[IDV] = sub(t[IDV], mul(e.fcor, s[IDU]));
-  }
-  if (e.flags & ST_SIM2D) t[IDV] = T(0);
-  if (e.imm != nullptr) {
-    const T prop = e.imm[at];
-    const T rest = sub(T(1), prop);
-#pragma unroll
-    for (int v = 0; v < NS; ++v)
-      t[v] = add(mul(prop, mul(e.fac, s[v])), mul(rest, t[v]));
-  }
-#pragma unroll
-  for (int v = 0; v < NS; ++v) {
-    T o = mul(e.c0, in.b0[v]);
-    if (has_b1) o = add(o, mul(e.c1, in.b1[v]));
-    t[v] = add(o, mul(e.cdt, t[v]));
-  }
-}
-
-// ---------------------------------------------------------------- y and z
-// Values come straight from device memory (coalesced across the warp's
-// neighbouring x positions).  Each variable's next value is loaded one
-// step ahead into a register, so a step's loads are in flight while the
-// previous step computes.
-template <int ORD, typename T, int NV, bool STRIPS>
-struct StridedSource {
-  static constexpr int HS = (ORD - 1) / 2;
-  const T* __restrict__ line;
-  const GeomOf<STRIPS>& g;
-  T pre[NV];
-  __device__ __forceinline__ T load(int v, int a) const {
-    return a < g.n ? line[v * g.vstride + a * g.astride]
-                   : load_bc<false, STRIPS>(line, g, v, a);
-  }
-  // variable v's stencil of cell c, at the segment's first step; the load
-  // of the next step's value goes out with it
-  __device__ __forceinline__ void prime(T (&s)[ORD], int v, int c) {
-#pragma unroll
-    for (int q = 0; q < ORD; ++q)
-      s[q] = load_bc<false, STRIPS>(line, g, v, c - HS + q);
-    pre[v] = load(v, c + 1 + HS);
-  }
-  // shift variable v's stencil on to cell c
-  __device__ __forceinline__ void slide(T (&s)[ORD], int v, int c) {
-#pragma unroll
-    for (int q = 0; q < ORD - 1; ++q) s[q] = s[q + 1];
-    s[ORD - 1] = pre[v];
-    pre[v] = load(v, c + 1 + HS);
-  }
-};
-
-// One line's segment: cells a0 .. a1 - 1 get their divergence (EPI_NONE),
-// have it added to their accumulator entry in sdiv (EPI_ACC) or get their
-// stage's state there (EPI_STAGE); faces a0 .. a1 - 1 (and face n in the
-// last segment) get their tracer values.  Step c forms the edges of cell
-// c; from c = a0 on it also solves face c.
-template <int ORD, typename T, int NTRB, bool STRIPS, int EPI>
-__device__ __forceinline__ void march(
-    StridedSource<ORD, T, NS + NTRB, STRIPS>& src,
-                                      const GeomOf<STRIPS>& g,
-                                      const T* __restrict__ hyr,
-                                      const T* __restrict__ hyt,
-                                      T* __restrict__ sdiv,
-                                      T* __restrict__ tf, int p,
-                                      int64_t obase, int64_t tbase, int a0,
-                                      int a1, T C0, T gamma, T cutoff, T ds,
-                                      const Stage<T>& st) {
-  constexpr int NV = NS + NTRB;
-  const int ntr = g.ntr;
-  T w[NV][ORD];  // stencil of the current cell
-  T eR[NV];      // right edges of the previous cell
-  T Fp[NS];      // state fluxes of the previous face
-
-#pragma unroll 1
-  for (int c = a0 - 1; c <= a1; ++c) {
-    const bool first = c < a0;
-    // the state variables' edges of cell c
-    T eL[NS], eRc[NS];
-#pragma unroll
-    for (int v = 0; v < NS; ++v) {
-      if (first)
-        src.prime(w[v], v, c);
-      else
-        src.slide(w[v], v, c);
-      weno_edges<ORD, T>(w[v], cutoff, eL[v], eRc[v]);
-    }
-    Face<T> o;
-    if (!first) {
-      const int h = p * g.hps + c * g.has;
-      T eRs[NS];
-#pragma unroll
-      for (int v = 0; v < NS; ++v) eRs[v] = eR[v];
-      riemann<STRIPS>(eRs, eL, hyr[h], hyt[h], c, g, C0, gamma, o);
-      if (c > a0) {  // divergence of cell c-1
-        const int64_t at = obase + (int64_t)(c - 1) * g.astride;
-        if constexpr (EPI == EPI_NONE) {
-#pragma unroll
-          for (int v = 0; v < NS; ++v)
-            sdiv[at + v * g.vstride] = divergence(o.F[v], Fp[v], ds);
-        } else {
-          EpiIn<T, EPI> in;
-          epi_load(in, sdiv, st, at, g.vstride);
-          T t[NS];
-#pragma unroll
-          for (int v = 0; v < NS; ++v)
-            t[v] = add(in.acc[v], divergence(o.F[v], Fp[v], ds));
-          if constexpr (EPI == EPI_STAGE) stage_update(t, in, st, at, p, c - 1);
-#pragma unroll
-          for (int v = 0; v < NS; ++v) sdiv[at + v * g.vstride] = t[v];
-        }
-      }
-#pragma unroll
-      for (int v = 0; v < NS; ++v) Fp[v] = o.F[v];
-    }
-    // tracers: edges of cell c, then face c (each segment writes its own
-    // faces; the last one also face n)
-    const bool wface = !first && (c < a1 || c == g.n);
-    const int64_t at = tbase + (int64_t)c * g.tastride;
-#pragma unroll
-    for (int q = 0; q < NTRB; ++q) {
-      if (q < ntr) {
-        if (first)
-          src.prime(w[NS + q], NS + q, c);
-        else
-          src.slide(w[NS + q], NS + q, c);
-        T left, right;
-        weno_edges<ORD, T>(w[NS + q], cutoff, left, right);
-        if (wface) tf[at + q * g.tvstride] = tracer_face(o, eR[NS + q], left);
-        eR[NS + q] = right;
-      }
-    }
-#pragma unroll
-    for (int v = 0; v < NS; ++v) eR[v] = eRc[v];
-  }
-}
-
-// Blocks (warps) per SM the registers must allow, y/z: 16 (128 registers)
-// in f32 (with 9 tracers some of the windows spill, which costs less than
-// fewer warps), 8 (255) in f64.
-template <typename T>
-constexpr int min_blocks_strided() { return sizeof(T) == 8 ? 8 : 16; }
-
-template <int ORD, typename T, int NTRB, bool STRIPS, int EPI>
-__global__ void __launch_bounds__(WARP, min_blocks_strided<T>())
-fluxes_strided(const T* __restrict__ prim, const T* __restrict__ hyr,
-               const T* __restrict__ hyt, T* __restrict__ sdiv,
-               T* __restrict__ tf, const GeomOf<STRIPS> g, const T C0,
-               const T gamma, const T cutoff, const T ds, const Stage<T> st) {
-  const int l = blockIdx.x * WARP + threadIdx.x;
-  if (l >= g.nlines) return;
-  const int p = blockIdx.y, a0 = blockIdx.z * SEG;
-  const int a1 = min(a0 + SEG, g.n);
-  const int64_t obase = p * g.pstride + l * g.lstride;
-  StridedSource<ORD, T, NS + NTRB, STRIPS> src{prim + obase, g, {}};
-  march<ORD, T, NTRB, STRIPS, EPI>(src, g, hyr, hyt, sdiv, tf, p, obase,
-                                   p * g.tpstride + l * g.tlstride, a0, a1,
-                                   C0, gamma, cutoff, ds, st);
-}
-
-// ---------------------------------------------------------------------- x
-// A warp owns XT = 30 consecutive cells of one row; lane i forms the edges
-// of cell x0 - 1 + i from a stencil gathered with warp shuffles out of two
-// coalesced loads per variable, solves the face on its left (edges of the
-// neighbour by shuffle), and writes the divergence of its cell (the next
-// face's fluxes by shuffle).  Loads and stores of a warp are contiguous
-// along the row, and no register or shared memory carries between steps.
-constexpr int XT = WARP - 2;
-constexpr unsigned FULL = 0xffffffffu;
-
-// x: blocks of 4 warps per SM, 8 in f32 (64 registers), 3 in f64 (170).
-template <typename T>
-constexpr int min_blocks_x() { return sizeof(T) == 8 ? 3 : 8; }
-
-template <int ORD, typename T, bool STRIPS>
-__device__ __forceinline__ void row_stencil(const T* __restrict__ row,
-                                            const GeomOf<STRIPS>& g, int v,
-                                            int base, bool inside, int lane,
-                                            T (&s)[ORD]) {
-  constexpr int HS = (ORD - 1) / 2;
-  const T A = inside ? row[v * g.vstride + base + lane]
-                     : load_bc<true, STRIPS>(row, g, v, base + lane);
-  T B = T(0);
-  if (lane < 2 * HS)
-    B = inside ? row[v * g.vstride + base + WARP + lane]
-               : load_bc<true, STRIPS>(row, g, v, base + WARP + lane);
-#pragma unroll
-  for (int q = 0; q < ORD; ++q) {
-    const T fa = __shfl_sync(FULL, A, (lane + q) & (WARP - 1));
-    const T fb = __shfl_sync(FULL, B, (lane + q) & (WARP - 1));
-    s[q] = lane + q < WARP ? fa : fb;
-  }
-}
-
-template <int ORD, typename T, int NTRB, bool STRIPS>
-__global__ void __launch_bounds__(WARP * XROWS, min_blocks_x<T>())
-fluxes_x(const T* __restrict__ prim, const T* __restrict__ hyr,
-         const T* __restrict__ hyt, T* __restrict__ sdiv,
-         T* __restrict__ tf, const GeomOf<STRIPS> g, const T C0,
-         const T gamma, const T cutoff, const T ds) {
-  constexpr int HS = (ORD - 1) / 2;
-  const int lane = threadIdx.x;
-  const int l = blockIdx.y * XROWS + threadIdx.y;
-  if (l >= g.nlines) return;  // whole warps only
-  const int p = blockIdx.z, x0 = blockIdx.x * XT;
-  const int64_t rowoff = p * g.pstride + l * g.lstride;
-  const int64_t trow = p * g.tpstride + l * g.tlstride;
-  const T* row = prim + rowoff;
-  const int base = x0 - 1 - HS;  // first cell of lane 0's stencil
-  const bool inside = base >= 0 && base + WARP + 2 * HS <= g.n;
-  const int c = x0 - 1 + lane;   // this lane's cell; face c is on its left
-  const int h = p * g.hps;
-  const T hr = hyr[h], ht = hyt[h];
-
-  T eL[NS], eRl[NS];
-#pragma unroll
-  for (int v = 0; v < NS; ++v) {
-    T s[ORD], eR;
-    row_stencil<ORD, T, STRIPS>(row, g, v, base, inside, lane, s);
-    weno_edges<ORD, T>(s, cutoff, eL[v], eR);
-    eRl[v] = __shfl_up_sync(FULL, eR, 1);  // right edge of cell c-1
-  }
-  Face<T> o;
-  riemann<STRIPS>(eRl, eL, hr, ht, c, g, C0, gamma, o);  // lane 0's unused
-  const bool own = lane >= 1 && lane <= XT && c < g.n;
-#pragma unroll
-  for (int v = 0; v < NS; ++v) {
-    const T fr = __shfl_down_sync(FULL, o.F[v], 1);
-    if (own) sdiv[rowoff + v * g.vstride + c] = divergence(fr, o.F[v], ds);
-  }
-  const bool wface = lane >= 1 && ((lane <= XT && c < g.n) || c == g.n);
-#pragma unroll
-  for (int q = 0; q < NTRB; ++q) {
-    if (q < g.ntr) {
-      T s[ORD], left, right;
-      row_stencil<ORD, T, STRIPS>(row, g, NS + q, base, inside, lane, s);
-      weno_edges<ORD, T>(s, cutoff, left, right);
-      const T rl = __shfl_up_sync(FULL, right, 1);
-      if (wface) tf[trow + q * g.tvstride + c] = tracer_face(o, rl, left);
-    }
-  }
-}
-
-// The y/z kernel in its epilogue form: the stage update when it has a
-// base b0, else the accumulator when `accumulate`, else the bare form.
-template <int ORD, typename T, int NTRB, bool STRIPS>
-void launch_strided(const dim3& grid, cudaStream_t s, const T* prim,
-                    const T* hyr, const T* hyt, T* sdiv, T* tf,
-                    const GeomOf<STRIPS>& g, T C0, T gamma, T cutoff, T ds,
-                    bool accumulate, const Stage<T>& st) {
-  if (st.b0 != nullptr)
-    fluxes_strided<ORD, T, NTRB, STRIPS, EPI_STAGE><<<grid, WARP, 0, s>>>(
-        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds, st);
-  else if (accumulate)
-    fluxes_strided<ORD, T, NTRB, STRIPS, EPI_ACC><<<grid, WARP, 0, s>>>(
-        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds, st);
-  else
-    fluxes_strided<ORD, T, NTRB, STRIPS, EPI_NONE><<<grid, WARP, 0, s>>>(
-        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds, st);
-}
-
-template <int ORD, typename T, int NTRB, bool STRIPS>
-void launch_kind(int axis, int planes, cudaStream_t s, const T* prim,
-                 const T* hyr, const T* hyt, T* sdiv, T* tf,
-                 const GeomOf<STRIPS>& g, T C0, T gamma, T cutoff, T ds,
-                 bool accumulate, const Stage<T>& st) {
-  if (axis == 0) {
-    const dim3 grid((g.n + XT - 1) / XT, (g.nlines + XROWS - 1) / XROWS,
-                    planes);
-    fluxes_x<ORD, T, NTRB, STRIPS><<<grid, dim3(WARP, XROWS), 0, s>>>(
-        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds);
-  } else {
-    const dim3 grid((g.nlines + WARP - 1) / WARP, planes,
-                    (g.n + SEG - 1) / SEG);
-    launch_strided<ORD, T, NTRB, STRIPS>(grid, s, prim, hyr, hyt, sdiv, tf,
-                                         g, C0, gamma, cutoff, ds,
-                                         accumulate, st);
-  }
-}
-
-template <int ORD, typename T, int NTRB>
-cudaError_t launch_ntr(int axis, int planes, cudaStream_t s, const T* prim,
-                       const T* hyr, const T* hyt, T* sdiv, T* tf,
-                       const StripGeom& g, T C0, T gamma, T cutoff, T ds,
-                       bool accumulate, const Stage<T>& st) {
-  if (g.lo != nullptr)
-    launch_kind<ORD, T, NTRB, true>(axis, planes, s, prim, hyr, hyt, sdiv,
-                                    tf, g, C0, gamma, cutoff, ds, accumulate,
-                                    st);
-  else
-    launch_kind<ORD, T, NTRB, false>(axis, planes, s, prim, hyr, hyt, sdiv,
-                                     tf, static_cast<const Geom&>(g), C0,
-                                     gamma, cutoff, ds, accumulate, st);
-  return cudaGetLastError();
-}
-
-template <int ORD, typename T>
-cudaError_t launch_ord(int axis, int planes, cudaStream_t s, const T* prim,
-                       const T* hyr, const T* hyt, T* sdiv, T* tf,
-                       const StripGeom& g, T C0, T gamma, T cutoff, T ds,
-                       bool accumulate, const Stage<T>& st) {
-  if (g.ntr <= 1)
-    return launch_ntr<ORD, T, 1>(axis, planes, s, prim, hyr, hyt, sdiv, tf,
-                                 g, C0, gamma, cutoff, ds, accumulate, st);
-  if (g.ntr <= 3)
-    return launch_ntr<ORD, T, 3>(axis, planes, s, prim, hyr, hyt, sdiv, tf,
-                                 g, C0, gamma, cutoff, ds, accumulate, st);
-  return launch_ntr<ORD, T, NTR_MAX>(axis, planes, s, prim, hyr, hyt, sdiv,
-                                     tf, g, C0, gamma, cutoff, ds, accumulate,
-                                     st);
-}
-
-// axis 0 = x, 1 = y, 2 = z on (nvar, nens, nz, ny, nx) arrays
-// lo / hi: the halo strips (hp = (ord-1)/2 + 1 cells along the axis, else
-// shaped like prim), or both null for the whole axis; bc_lo / bc_hi: the face
-// mode of each end (0 none, else bc).
-// accumulate: sdiv holds the running state tendency, which the divergence
-// is added to (y and z only).  b0 (with accumulate): the stage update, with
-// b1 (or null), the (nens, nz) hydrostatic cell density hyc, the immersed
-// proportion imm (nens, nz, ny, nx, or null), the ST_* flags and the
-// coefficients; its result replaces the tendency in sdiv.
-template <typename T>
-int launch(const void* prim, const void* hyr, const void* hyt, void* sdiv,
-           void* tf, const void* lo, const void* hi, int axis, int nvar,
-           int nens, int nz, int ny, int nx, int bc, int bc_lo, int bc_hi,
-           int normal_id, int ord, double C0, double gamma, double cutoff,
-           double div_scale, int accumulate, const void* b0, const void* b1,
-           const void* hyc, const void* imm, int flags, double c0, double c1,
-           double cdt, double grav, double fcor, double fac, void* stream) {
-  const int ntr = nvar - NS;
-  if (ntr < 0 || ntr > NTR_MAX || axis < 0 || axis > 2 || nens < 1 ||
-      nz < 1 || ny < 1 || nx < 1 || (lo == nullptr) != (hi == nullptr) ||
-      (lo != nullptr && axis == 2) || (bc_lo != 0 && bc_lo != bc) ||
-      (bc_hi != 0 && bc_hi != bc) || (accumulate && axis == 0) ||
-      (b0 != nullptr && (!accumulate || hyc == nullptr)) ||
-      (b0 == nullptr && (b1 != nullptr || imm != nullptr)))
-    return cudaErrorInvalidValue;
-  const int64_t cells = (int64_t)nens * nz * ny * nx;
-  const int hp = (ord - 1) / 2 + 1;
-  StripGeom g{};
-  g.vstride = cells;
-  g.ntr = ntr;
-  g.bc = bc;
-  g.nid = normal_id;
-  g.lo = lo;
-  g.hi = hi;
-  g.hp = hp;
-  g.blo = bc_lo;
-  g.bhi = bc_hi;
-  Stage<T> st{static_cast<const T*>(b0), static_cast<const T*>(b1),
-              static_cast<const T*>(hyc), static_cast<const T*>(imm),
-              (T)c0, (T)c1, (T)cdt, (T)grav, (T)fcor, (T)fac, flags,
-              axis == 2 ? nz : 1, axis == 2 ? 1 : 0};
-  int planes;
-  if (axis == 0) {
-    planes = nens * nz;
-    g.n = nx, g.nlines = ny;
-    g.pstride = (int64_t)ny * nx, g.astride = 1, g.lstride = nx;
-    g.tpstride = (int64_t)ny * (nx + 1), g.tastride = 1, g.tlstride = nx + 1;
-    g.spstride = (int64_t)ny * hp, g.sastride = 1, g.slstride = hp;
-    g.hps = 1, g.has = 0;
-  } else if (axis == 1) {
-    planes = nens * nz;
-    g.n = ny, g.nlines = nx;
-    g.pstride = (int64_t)ny * nx, g.astride = nx, g.lstride = 1;
-    g.tpstride = (int64_t)(ny + 1) * nx, g.tastride = nx, g.tlstride = 1;
-    g.spstride = (int64_t)hp * nx, g.sastride = nx, g.slstride = 1;
-    g.hps = 1, g.has = 0;
-  } else {
-    planes = nens;
-    g.n = nz, g.nlines = ny * nx;
-    g.pstride = (int64_t)nz * ny * nx, g.astride = (int64_t)ny * nx;
-    g.lstride = 1;
-    g.tpstride = (int64_t)(nz + 1) * ny * nx, g.tastride = (int64_t)ny * nx;
-    g.tlstride = 1;
-    g.hps = nz + 1, g.has = 1;
-  }
-  g.tvstride = g.tpstride * planes;
-  g.svstride = g.spstride * planes;
-  const int64_t ltiles = ((int64_t)g.nlines + WARP - 1) / WARP;
-  const bool fits = axis == 0 ? (g.nlines + XROWS - 1) / XROWS <= 65535
-                              : ltiles <= 2147483647LL &&
-                                    (g.n + SEG - 1) / SEG <= 65535;
-  if (!fits || planes > 65535) return cudaErrorInvalidConfiguration;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto p = static_cast<const T*>(prim);
-  auto hr = static_cast<const T*>(hyr);
-  auto ht = static_cast<const T*>(hyt);
-  auto sd = static_cast<T*>(sdiv);
-  auto tfp = static_cast<T*>(tf);
-  const T pc0 = (T)C0, ga = (T)gamma, co = (T)cutoff, ds = (T)div_scale;
-  const bool acc = accumulate != 0;
-  switch (ord) {
-    case 3: return launch_ord<3, T>(axis, planes, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
-    case 5: return launch_ord<5, T>(axis, planes, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
-    case 7: return launch_ord<7, T>(axis, planes, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
-    case 9: return launch_ord<9, T>(axis, planes, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
+#include "direction_fluxes.cuh"
 
 extern "C" {
 
 // Copy the limiter table of one order (weno_coef_table's float64 values)
 // into constant memory on the current device, as f64 and cast to f32.
 int direction_fluxes_set_coef(int ord, const double* table, int n) {
-  if ((ord != 3 && ord != 5 && ord != 7 && ord != 9) || n < 1 || n > COEF_MAX)
-    return cudaErrorInvalidValue;
-  const int slot = (ord - 3) / 2;
-  float f[COEF_MAX];
-  for (int i = 0; i < n; ++i) f[i] = (float)table[i];
-  cudaError_t err = cudaMemcpyToSymbol(c_coef_f64, table, n * sizeof(double),
-                                       slot * COEF_MAX * sizeof(double));
-  if (err != cudaSuccess) return err;
-  return cudaMemcpyToSymbol(c_coef_f32, f, n * sizeof(float),
-                            slot * COEF_MAX * sizeof(float));
+  return set_coef<ALG_REF>(ord, table, n);
 }
 
-int direction_fluxes_f32(const void* prim, const void* hyr, const void* hyt,
-                         void* sdiv, void* tf, const void* lo, const void* hi,
-                         int axis, int nvar, int nens, int nz, int ny, int nx,
-                         int bc, int bc_lo, int bc_hi, int normal_id, int ord,
-                         double C0, double gamma, double cutoff,
-                         double div_scale, int accumulate, const void* b0,
-                         const void* b1, const void* hyc, const void* imm,
-                         int flags, double c0, double c1, double cdt,
-                         double grav, double fcor, double fac, void* stream) {
-  return launch<float>(prim, hyr, hyt, sdiv, tf, lo, hi, axis, nvar, nens, nz,
-                       ny, nx, bc, bc_lo, bc_hi, normal_id, ord, C0, gamma,
-                       cutoff, div_scale, accumulate, b0, b1, hyc, imm, flags,
-                       c0, c1, cdt, grav, fcor, fac, stream);
-}
-
-int direction_fluxes_f64(const void* prim, const void* hyr, const void* hyt,
-                         void* sdiv, void* tf, const void* lo, const void* hi,
-                         int axis, int nvar, int nens, int nz, int ny, int nx,
-                         int bc, int bc_lo, int bc_hi, int normal_id, int ord,
-                         double C0, double gamma, double cutoff,
-                         double div_scale, int accumulate, const void* b0,
-                         const void* b1, const void* hyc, const void* imm,
-                         int flags, double c0, double c1, double cdt,
-                         double grav, double fcor, double fac, void* stream) {
-  return launch<double>(prim, hyr, hyt, sdiv, tf, lo, hi, axis, nvar, nens,
-                        nz, ny, nx, bc, bc_lo, bc_hi, normal_id, ord, C0,
-                        gamma, cutoff, div_scale, accumulate, b0, b1, hyc,
-                        imm, flags, c0, c1, cdt, grav, fcor, fac, stream);
-}
+DIRECTION_FLUXES_ENTRY(direction_fluxes_f32, float, ALG_REF)
+DIRECTION_FLUXES_ENTRY(direction_fluxes_f64, double, ALG_REF)
 
 const char* direction_fluxes_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -31,11 +31,13 @@ _BUILD = os.path.join(_PKG_DIR, "_build")
 # arithmetic with round-to-nearest intrinsics instead and builds with
 # contraction on, so that its pow and exp also round as PyTorch's (built
 # that way) do.  --split-compile=0 optimizes a file's kernels in parallel on
-# every core (the flux kernel has 48 instantiations).
+# every core (the flux kernel has 192 instantiations in its reference
+# algebra, 288 in its reduced-operation ones).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-FMAD_SOURCES = ("direction_fluxes", "kessler", "p3_lookup")
+FMAD_SOURCES = ("direction_fluxes", "direction_fluxes_opt", "kessler",
+                "p3_lookup")
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

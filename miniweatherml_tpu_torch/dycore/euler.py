@@ -18,7 +18,11 @@ runs the same chain in the flux kernel (the Pallas kernel's ``acc`` and
 ``rk`` forms): x writes its divergence, z adds its own to it in place, and
 the last direction (y; z in 2-D) adds its own, the gravity and Coriolis
 sources, the 2-D v = 0 and the immersed blend, and writes the SSPRK3
-stage's state.  WENO weights are exact.
+stage's state.  The limiter runs in the algebra that ``riemann_impl``
+names, as in the JAX package: "xla" (the default, and what "auto" resolves
+to on every device) the reference algebra with exact weights, "pallas" the
+Pallas kernels' reduced-operation algebra with, by default,
+approximate-reciprocal weights in f32 (``fast_weights``).
 
 Under a mesh (``parallel/spmd.py``) each shard steps its local block with an
 ``SpmdCtx``: a split x or y direction takes its halo strips from the ring
@@ -104,12 +108,40 @@ class Dycore:
     """Order-``ord`` WENO FV Euler dycore (ord in {3,5,7,9}; reference
     -DMW_ORD, dynamics...h:24-28)."""
 
-    def __init__(self, ord: int = 5, cutoff: float = 0.0):
+    def __init__(self, ord: int = 5, cutoff: float = 0.0,
+                 riemann_impl: str = "auto",
+                 fast_weights: bool | None = None):
         if ord not in (3, 5, 7, 9):
             raise ValueError("ord must be 3, 5, 7 or 9")
+        if riemann_impl == "auto":
+            # The JAX package picks "pallas" on a single-device TPU; here the
+            # numerics are never the device's choice, so "auto" is the
+            # reference algebra everywhere and the Pallas kernels' algebra
+            # is asked for by name.
+            riemann_impl = "xla"
+        if riemann_impl not in ("xla", "pallas"):
+            raise ValueError("riemann_impl must be 'xla', 'pallas' or "
+                             "'auto'")
+        if fast_weights is None:
+            fast_weights = riemann_impl == "pallas"
         self.ord = ord
         self.cutoff = cutoff
+        # "xla": the JAX XLA path's limiter (reference algebra, exact
+        # weights); "pallas": the Pallas kernels' reduced-operation algebra
+        # (ops/weno_fused.py::reconstruct_edges_opt) at cutoff 0
+        self.riemann_impl = riemann_impl
+        # fast_weights: approximate-reciprocal weight normalisation (f32 on
+        # the card; the plain version and f64 are exact).  Only affects
+        # riemann_impl="pallas".
+        self.fast_weights = fast_weights
         self.mats = weno_matrices(ord)
+
+    def limiter_form(self) -> dict:
+        """The flux kernel's limiter keywords (``opt``, ``fast_weights``)
+        of this dycore's ``riemann_impl``."""
+        pallas = self.riemann_impl == "pallas"
+        return {"opt": pallas,
+                "fast_weights": pallas and self.fast_weights}
 
     # ------------------------------------------------------------------
     # setup
@@ -288,7 +320,8 @@ class Dycore:
                       bc if idx == ns - 1 else 0)
         return direction_fluxes(prim, axis, n, bc, normal_id, consts.C0,
                                 consts.gamma, hy_r, hy_t, self.mats,
-                                self.cutoff, 1.0 / d, strips, acc, rk)
+                                self.cutoff, 1.0 / d, strips, acc, rk,
+                                **self.limiter_form())
 
     def _fct(self, grid, tr, positive, Fx, Fy, Fz, dt, rk, spmd=None):
         """Flux-corrected transport and the tracer divergence

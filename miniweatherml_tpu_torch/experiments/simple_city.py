@@ -4,9 +4,8 @@ Port of ``miniweatherml_tpu/experiments/simple_city.py``
 (experiments/simple_city/driver.cpp): WENO dycore with immersed boundaries
 + west/east horizontal sponge + top sponge (time scale 1 s) + running time
 averager; a manually-added water_vapor tracer and optional gravity
-(driver.cpp:37-38,55-56,72-77).  ``dyn_order`` sets the WENO order; the JAX
-package's TPU backend keys ``riemann_impl`` and ``fast_weights`` are read
-by nothing, as in ``supercell_example``.
+(driver.cpp:37-38,55-56,72-77).  ``dyn_order``, ``riemann_impl`` and
+``fast_weights`` set the dycore's numerics, as in ``supercell_example``.
 
 Usage:  python -m miniweatherml_tpu_torch.experiments.simple_city <input.yaml> [--device cpu]
 """
@@ -19,12 +18,11 @@ import torch
 
 from ..config import SimConfig, load_config
 from ..core.coupler import CouplerState
-from ..dycore.euler import Dycore
 from ..physics.horizontal_sponge import HorizontalSponge
 from ..physics.sponge import sponge_layer
 from ..physics.time_averager import TimeAverager
 from .driver import Timers, parse_command_line, run_main_loop, setup_state
-from .supercell_example import make_writer
+from .supercell_example import dycore_from_config, make_writer
 
 __all__ = ["build", "build_chain", "run", "main"]
 
@@ -34,7 +32,7 @@ def build(config: SimConfig, device: str | torch.device):
     step_modules, dycore, time_averager).  Module order matches
     driver.cpp:70-77."""
     state = setup_state(config, device)
-    dycore = Dycore(ord=int(config.extras.get("dyn_order", 5)))
+    dycore = dycore_from_config(config)
     horiz_sponge = HorizontalSponge(sponge_cells=10, time_scale=1.0)
     time_averager = TimeAverager()
 

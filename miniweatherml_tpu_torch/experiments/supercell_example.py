@@ -25,7 +25,19 @@ from ..physics.perturb import perturb_temperature
 from ..physics.sponge import sponge_layer
 from .driver import Timers, parse_command_line, run_main_loop, setup_state
 
-__all__ = ["build", "make_writer", "run", "main"]
+__all__ = ["build", "dycore_from_config", "make_writer", "run", "main"]
+
+
+def dycore_from_config(config: SimConfig) -> Dycore:
+    """The dycore of the YAML's numerics keys, as the JAX package's builds
+    read them: ``dyn_order`` (the reference's -DMW_ORD compile flag,
+    dynamics...h:24-28), ``riemann_impl`` ("xla", "pallas" or "auto") and
+    ``fast_weights`` (unset: follows ``riemann_impl``)."""
+    ex = config.extras
+    return Dycore(ord=int(ex.get("dyn_order", 5)),
+                  riemann_impl=str(ex.get("riemann_impl", "auto")),
+                  fast_weights=(bool(ex["fast_weights"])
+                                if "fast_weights" in ex else None))
 
 
 def build(config: SimConfig, device: str | torch.device):
@@ -37,8 +49,7 @@ def build(config: SimConfig, device: str | torch.device):
     """
     state = setup_state(config, device)
     micro = MicrophysicsKessler()
-    # dyn_order: the reference's -DMW_ORD compile flag (dynamics...h:24-28)
-    dycore = Dycore(ord=int(config.extras.get("dyn_order", 5)))
+    dycore = dycore_from_config(config)
     nudger = ColumnNudger()
 
     state = micro.init(state)          # driver.cpp:58

@@ -2,7 +2,7 @@
 boundary conditions, upwind Riemann fluxes and the state divergence.
 
 ``direction_fluxes`` is the entry point the dycore calls for x, y and z.  On
-a CUDA tensor it launches the hand-written kernel ``csrc/direction_fluxes.cu``
+a CUDA tensor it launches the hand-written kernel ``csrc/direction_fluxes.cuh``
 (the port of the Pallas megakernels ``direction_fluxes_pallas`` and
 ``direction_fluxes_pallas_sub`` of ``miniweatherml_tpu/ops/pallas_recon.py``);
 on a CPU tensor it runs ``direction_fluxes_plain``, the plain PyTorch chain
@@ -14,6 +14,16 @@ that mirrors the JAX XLA path (``Dycore._recon_direction`` ->
   * the unscaled tracer faces ``(ntr, ...)`` with ``n + 1`` entries along
     the direction (on a periodic axis face n is a second copy of face 0, so
     FCT can scale the two copies from their own sides).
+
+The WENO limiter runs in one of the Pallas kernels' two algebras
+(``_weno_edges``): the reference algebra (exact weights in the term order
+of the JAX XLA path, ``weno_fused.reconstruct_edges_shifted``; the
+default, and always when ``cutoff > 0``), or with ``opt`` the
+reduced-operation algebra of the Pallas kernels' default form
+(``weno_fused.reconstruct_edges_opt``), whose weights take their
+reciprocals exactly or, with ``fast_weights`` in f32 on the card, as the
+hardware's approximate reciprocal (``csrc/direction_fluxes_opt.cu``; the
+plain version is exact).  ``limiter_algebra`` says which.
 
 Two more forms carry the state side of an SSPRK3 stage, as the Pallas
 kernel's ``acc`` and ``rk`` do: with ``acc`` (the running state tendency
@@ -36,11 +46,13 @@ import torch
 from ..cuda_build import count_launch
 from .stencil import BC_PERIODIC, BC_WALL, pad_bc
 from .weno import WenoMatrices
-from .weno_fused import reconstruct_edges_shifted, weno_coef_table
+from .weno_fused import (opt_coef_table, reconstruct_edges_opt,
+                         reconstruct_edges_shifted, weno_coef_table)
 
 __all__ = ["direction_fluxes", "direction_fluxes_plain", "in_tracer_groups",
-           "StageUpdate", "stage_update", "recon_direction", "apply_edge_bcs",
-           "riemann", "div", "IDR", "IDU", "IDV", "IDW", "IDT", "NUM_STATE"]
+           "limiter_algebra", "StageUpdate", "stage_update",
+           "recon_direction", "apply_edge_bcs", "riemann", "div", "IDR",
+           "IDU", "IDV", "IDW", "IDT", "NUM_STATE"]
 
 IDR, IDU, IDV, IDW, IDT = 0, 1, 2, 3, 4
 NUM_STATE = 5
@@ -52,20 +64,39 @@ _CS = 350.0
 _AX_X, _AX_Y, _AX_Z = -1, -2, -3
 
 
+def limiter_algebra(opt: bool, fast_weights: bool, cutoff: float,
+                    dtype: torch.dtype) -> str:
+    """The WENO algebra a call runs, picked as the Pallas kernels'
+    ``_weno_edges`` picks it: "ref" (the reference algebra: ``opt`` off, or
+    a cutoff), else "fast" (the reduced-operation algebra with approximate
+    reciprocals: ``fast_weights`` in f32; f64 runs exact, as the Pallas
+    kernels do) or "opt"."""
+    if not (opt and cutoff == 0.0):
+        return "ref"
+    return "fast" if fast_weights and dtype == torch.float32 else "opt"
+
+
 def recon_direction(prim, axis, n, bc, normal_id, mats: WenoMatrices,
-                    cutoff: float = 0.0, strips=None):
+                    cutoff: float = 0.0, strips=None, opt: bool = False,
+                    fast_weights: bool = False):
     """WENO-reconstruct all vars along ``axis`` and map to faces: (L, R),
     the left/right limits at the n + 1 faces (dynamics...h:271-388 with the
     halo semantics of dynamics...h:574-827).  Wall halos zero the normal
     velocity.  ``strips`` = (lo, hi): the halo cells beyond each end of the
-    axis (a shard's strips from its neighbours), in place of ``pad_bc``."""
+    axis (a shard's strips from its neighbours), in place of ``pad_bc``.
+    ``opt`` / ``fast_weights``: the limiter algebra (``limiter_algebra``;
+    exact reciprocals here)."""
     hp = (mats.ord - 1) // 2 + 1
     if strips is None:
         zv = normal_id if bc == BC_WALL else None
         padded = pad_bc(prim, axis, hp, bc, zero_var=zv)
     else:
         padded = torch.cat([strips[0], prim, strips[1]], dim=axis % prim.dim())
-    gll_l, gll_r = reconstruct_edges_shifted(padded, axis, n + 2, mats, cutoff)
+    if limiter_algebra(opt, fast_weights, cutoff, prim.dtype) == "ref":
+        gll_l, gll_r = reconstruct_edges_shifted(padded, axis, n + 2, mats,
+                                                 cutoff)
+    else:
+        gll_l, gll_r = reconstruct_edges_opt(padded, axis, n + 2, mats.ord)
     L = gll_r.narrow(axis, 0, n + 1)   # face f <- right edge of cell f-1
     R = gll_l.narrow(axis, 1, n + 1)   # face f <- left edge of cell f
     return L, R
@@ -180,18 +211,21 @@ def _epilogue(d, acc, rk):
 
 def direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma, hy_r,
                            hy_t, mats: WenoMatrices, cutoff, div_scale,
-                           strips=None, acc=None, rk=None):
+                           strips=None, acc=None, rk=None, opt=False,
+                           fast_weights=False):
     """Plain PyTorch version of ``direction_fluxes`` (same arguments): with
     ``strips`` it concatenates lo | prim | hi in place of ``pad_bc`` and
     applies each end's face overwrite only where its mode is set, as the
-    JAX XLA path does under ``shard_map`` (``euler.py:486-492, 511-546``)."""
+    JAX XLA path does under ``shard_map`` (``euler.py:486-492, 511-546``).
+    Its reciprocals are exact whatever ``fast_weights`` says."""
     if rk is not None and acc is None:
         raise ValueError("the stage update needs the accumulator acc")
     ends = None
     if strips is not None:
         lo, hi, bc_lo, bc_hi = strips
         strips, ends = (lo, hi), (bc_lo, bc_hi)
-    L, R = recon_direction(prim, axis, n, bc, normal_id, mats, cutoff, strips)
+    L, R = recon_direction(prim, axis, n, bc, normal_id, mats, cutoff, strips,
+                           opt, fast_weights)
     # Background state at faces (dynamics...h:286-295 for x, :368-377 z).
     hr = hy_r[:, :, None, None]
     ht = hy_t[:, :, None, None]
@@ -212,7 +246,8 @@ def direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma, hy_r,
 MAX_TRACERS = 9
 
 
-def in_tracer_groups(launch, prim, *args, strips=None, acc=None, rk=None):
+def in_tracer_groups(launch, prim, *args, strips=None, acc=None, rk=None,
+                     **form):
     """``direction_fluxes`` of any number of tracers from a ``launch`` that
     takes at most ``MAX_TRACERS``: one call per group of tracers, each on
     the 5 state rows followed by the group's tracers (and strips built the
@@ -220,7 +255,8 @@ def in_tracer_groups(launch, prim, *args, strips=None, acc=None, rk=None):
     the state divergence of the first group and the groups' faces in order
     equal one call's bit for bit.  ``args`` are ``direction_fluxes``'s after
     ``prim``.  ``acc`` and ``rk`` go to the first group only: a later
-    group adding into the same buffer would count the divergence twice."""
+    group adding into the same buffer would count the divergence twice;
+    ``form`` (the limiter's ``opt`` / ``fast_weights``) goes to each."""
     ntr = prim.shape[0] - NUM_STATE
     epi = {k: v for k, v in (("acc", acc), ("rk", rk)) if v is not None}
     sdiv, faces = None, []
@@ -232,54 +268,83 @@ def in_tracer_groups(launch, prim, *args, strips=None, acc=None, rk=None):
         gstrips = None if strips is None else (
             group(strips[0]), group(strips[1]), *strips[2:])
         d, tf = launch(group(prim), *args, strips=gstrips,
-                       **(epi if t0 == 0 else {}))
+                       **(epi if t0 == 0 else {}), **form)
         sdiv = d if sdiv is None else sdiv
         faces.append(tf)
     return sdiv, torch.cat(faces)
 
 
-def _bind(lib):
+# The library of each algebra's kernels (csrc/<name>.cu, whose table copy
+# and error functions are <name>_set_coef and <name>_error_string), its
+# table, and its entry function of each type (DIRECTION_FLUXES_ENTRY in
+# csrc/direction_fluxes.cuh).  The reduced-operation
+# library holds both of its forms.
+_LIBRARIES = {
+    "ref": ("direction_fluxes", weno_coef_table,
+            {torch.float32: "direction_fluxes_f32",
+             torch.float64: "direction_fluxes_f64"}),
+    "opt": ("direction_fluxes_opt", opt_coef_table,
+            {torch.float32: "direction_fluxes_opt_f32",
+             torch.float64: "direction_fluxes_opt_f64"}),
+    "fast": ("direction_fluxes_opt", opt_coef_table,
+             {torch.float32: "direction_fluxes_fast_f32"}),
+}
+
+
+def _bind(lib, name, entries):
+    """``lib`` with the argument and result types of its ``entries`` and of
+    ``<name>_set_coef`` / ``<name>_error_string`` declared."""
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for name in ("direction_fluxes_f32", "direction_fluxes_f64"):
-        fn = getattr(lib, name)
+    for entry in entries:
+        fn = getattr(lib, entry)
         fn.argtypes = ([P] * 7 + [I] * 11 + [D] * 4 + [I] + [P] * 4 + [I]
                        + [D] * 6 + [P])
         fn.restype = I
-    lib.direction_fluxes_set_coef.argtypes = [I, P, I]
-    lib.direction_fluxes_set_coef.restype = I
-    lib.direction_fluxes_error_string.argtypes = [I]
-    lib.direction_fluxes_error_string.restype = ctypes.c_char_p
+    getattr(lib, name + "_set_coef").argtypes = [I, P, I]
+    getattr(lib, name + "_set_coef").restype = I
+    getattr(lib, name + "_error_string").argtypes = [I]
+    getattr(lib, name + "_error_string").restype = ctypes.c_char_p
     return lib
 
 
-_lib = None
-_coef_devices: set[int] = set()
+_libs: dict[str, ctypes.CDLL] = {}
+_coef_devices: set[tuple[str, int]] = set()
 _coef_lock = threading.Lock()  # the shards of a mesh run launch from threads
 
 
-def _library(device: torch.device):
-    """The kernel's library, with the limiter tables of every order copied
-    into the device's constant memory on first use."""
-    global _lib
-    if _lib is None:
+def _error(lib, name, rc) -> str:
+    return getattr(lib, name + "_error_string")(rc).decode()
+
+
+def _library(device: torch.device, algebra: str = "ref"):
+    """(library, its name) of the algebra's kernels, with the limiter
+    tables of every order copied into the device's constant memory on first
+    use.  A library that does not build raises: no algebra stands in for
+    another."""
+    name, table_of, _ = _LIBRARIES[algebra]
+    lib = _libs.get(name)
+    if lib is None:
         from ..cuda_build import load_library
-        _lib = _bind(load_library("direction_fluxes"))
+        lib = _libs.setdefault(name, _bind(
+            load_library(name), name,
+            {e for a in _LIBRARIES.values() if a[0] == name
+             for e in a[2].values()}))
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     with _coef_lock:
-        if index not in _coef_devices:
+        if (name, index) not in _coef_devices:
             with torch.cuda.device(index):
                 for ord_ in (3, 5, 7, 9):
-                    table = np.ascontiguousarray(weno_coef_table(ord_),
+                    table = np.ascontiguousarray(table_of(ord_),
                                                  dtype=np.float64)
-                    rc = _lib.direction_fluxes_set_coef(
+                    rc = getattr(lib, name + "_set_coef")(
                         ord_, table.ctypes.data, table.size)
                     if rc != 0:
                         raise RuntimeError(
-                            "direction_fluxes coefficient copy failed: "
-                            + _lib.direction_fluxes_error_string(rc).decode())
-            _coef_devices.add(index)
-    return _lib
+                            f"{name} coefficient copy failed: "
+                            + _error(lib, name, rc))
+            _coef_devices.add((name, index))
+    return lib, name
 
 
 def _check_cuda(name, t, dtype, shape, device):
@@ -294,7 +359,7 @@ def _check_cuda(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-# flags of the stage epilogue (csrc/direction_fluxes.cu, EPI_STAGE)
+# flags of the stage epilogue (csrc/direction_fluxes.cuh, EPI_STAGE)
 _GRAV, _FCOR, _SIM2D = 1, 2, 4
 
 
@@ -323,7 +388,7 @@ def _stage_args(rk, prim, cells):
 
 def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
                      mats: WenoMatrices, cutoff, div_scale, strips=None,
-                     acc=None, rk=None):
+                     acc=None, rk=None, opt=False, fast_weights=False):
     """State divergence and tracer faces of one direction.
 
     Args:
@@ -350,6 +415,13 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
       rk: None, or a ``StageUpdate`` (needs ``acc``): ``acc`` then receives
         the stage's state (see ``stage_update``; the Pallas kernel's
         ``rk``).  Its tensors are contiguous, of ``prim``'s type.
+      opt, fast_weights: the limiter algebra, the Pallas kernels' keywords
+        (``limiter_algebra``): with ``opt`` (and cutoff 0) the
+        reduced-operation algebra, whose reciprocals are the hardware's
+        approximate ones with ``fast_weights`` in f32 on the card.  The
+        reference algebra with approximate reciprocals (``fast_weights``
+        with a cutoff or without ``opt``, in f32) is not ported: on the
+        card it raises.
 
     Returns (state divergence (5, nens, nz, ny, nx) -- or ``acc`` --, tracer
     faces).  CPU tensors take the plain version; CUDA tensors launch the
@@ -358,7 +430,7 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
     if prim.device.type == "cpu":
         return direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma,
                                       hy_r, hy_t, mats, cutoff, div_scale,
-                                      strips, acc, rk)
+                                      strips, acc, rk, opt, fast_weights)
     if prim.device.type != "cuda":
         raise ValueError(f"unsupported device {prim.device}")
     if prim.dtype not in (torch.float32, torch.float64):
@@ -379,11 +451,17 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
     ntr = nvar - NUM_STATE
     if mats.ord not in (3, 5, 7, 9):
         raise ValueError(f"WENO order {mats.ord} is not 3, 5, 7 or 9")
+    algebra = limiter_algebra(opt, fast_weights, cutoff, prim.dtype)
+    if algebra == "ref" and fast_weights and prim.dtype == torch.float32:
+        raise NotImplementedError(
+            "the reference WENO algebra with approximate reciprocals "
+            "(fast_weights with a cutoff or without opt) has no kernel; "
+            "pass opt=True with cutoff 0, or fast_weights=False")
     if ntr > MAX_TRACERS:
         return in_tracer_groups(direction_fluxes, prim, axis, n, bc,
                                 normal_id, C0, gamma, hy_r, hy_t, mats,
                                 cutoff, div_scale, strips=strips, acc=acc,
-                                rk=rk)
+                                rk=rk, opt=opt, fast_weights=fast_weights)
     lo = hi = None
     bc_lo = bc_hi = bc  # whole axis: both ends are the global boundary
     if strips is not None:
@@ -417,9 +495,8 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
     tshape = [ntr, nens, nz, ny, nx]
     tshape[axis] += 1
     tf = torch.empty(tshape, dtype=prim.dtype, device=prim.device)
-    lib = _library(prim.device)
-    fn = (lib.direction_fluxes_f32 if prim.dtype == torch.float32
-          else lib.direction_fluxes_f64)
+    lib, name = _library(prim.device, algebra)
+    fn = getattr(lib, _LIBRARIES[algebra][2][prim.dtype])
     stream = torch.cuda.current_stream(prim.device).cuda_stream
     rc = fn(prim.data_ptr(), hy_r.data_ptr(), hy_t.data_ptr(),
             sdiv.data_ptr(), tf.data_ptr(),
@@ -429,14 +506,19 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
             float(gamma), float(cutoff), float(div_scale),
             int(acc is not None), *stage, stream)
     if rc != 0:
-        raise RuntimeError("direction_fluxes kernel launch failed: "
-                           + lib.direction_fluxes_error_string(rc).decode())
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + _error(lib, name, rc))
     count_launch(direction_fluxes)
     if strips is not None:
         count_launch(direction_fluxes, "strip_launches")
+    if algebra != "ref":
+        count_launch(direction_fluxes, f"{algebra}_launches")
     return sdiv, tf
 
 
-# launches of the kernel, and of its halo-strip form among them
+# launches of the kernel in every algebra, of its halo-strip form among
+# them, and of its reduced-operation forms (exact and approximate weights)
 direction_fluxes.launches = 0
 direction_fluxes.strip_launches = 0
+direction_fluxes.opt_launches = 0
+direction_fluxes.fast_launches = 0

@@ -4,7 +4,8 @@ Usage (from the root of a checkout, on a machine with the card):
 
   python scripts/flux_epilogue_variants.py [--root DIR] [--reps N]
 
-Each variant is the package's ``csrc/direction_fluxes.cu`` with one change to
+Each variant is the package's ``csrc/direction_fluxes.cu`` (with its header
+``direction_fluxes.cuh`` inlined) with one change to
 where the epilogue reads a cell's accumulator entries and stage bases,
 built for WENO order 5 only (to keep the builds short) with the package's
 nvcc flags into ``chip_smoke_out/flux_variants/`` (git-ignored):
@@ -40,7 +41,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-# The epilogue of the package's march() (csrc/direction_fluxes.cu) and the
+# The epilogue of the package's march() (csrc/direction_fluxes.cuh) and the
 # places each variant changes.
 _DECL = "  T Fp[NS];      // state fluxes of the previous face\n"
 _TOP = ("    const bool first = c < a0;\n"
@@ -94,7 +95,7 @@ def _top(load: str) -> str:
 
 def _replace(src: str, old: str, new: str) -> str:
     if src.count(old) != 1:
-        raise RuntimeError(f"csrc/direction_fluxes.cu no longer holds the "
+        raise RuntimeError(f"csrc/direction_fluxes.cuh no longer holds the "
                            f"text this script edits:\n{old}")
     return src.replace(old, new)
 
@@ -103,7 +104,7 @@ def variants(src: str) -> dict[str, str]:
     """The variant sources of ``src``, each built for order 5 only."""
     for o in (3, 7, 9):
         src = _replace(
-            src, f"    case {o}: return launch_ord<{o}, T>(axis, planes, s, p, "
+            src, f"    case {o}: return launch_ord<{o}, T, ALG>(axis, planes, s, p, "
             "hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);\n", "")
     late_bases = """          if constexpr (EPI == EPI_STAGE) {
             for (int v = 0; v < NS; ++v) {
@@ -147,12 +148,15 @@ def main() -> int:
 
     out_dir = os.path.join(root, "chip_smoke_out", "flux_variants")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(root, "miniweatherml_tpu_torch", "csrc",
-                           "direction_fluxes.cu")) as f:
-        srcs = variants(f.read())
+    csrc = os.path.join(root, "miniweatherml_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "direction_fluxes.cu")) as f:
+        src = f.read()
+    with open(os.path.join(csrc, "direction_fluxes.cuh")) as f:
+        src = _replace(src, '#include "direction_fluxes.cuh"\n',
+                       f.read().replace("#pragma once\n", ""))
+    srcs = variants(src)
     names = list(srcs)
     flags = cuda_build.nvcc_flags("direction_fluxes")
-    csrc = os.path.join(root, "miniweatherml_tpu_torch", "csrc")
 
     def build(name):
         cu = os.path.join(out_dir, f"{name}.cu")
@@ -168,11 +172,13 @@ def main() -> int:
     with ThreadPoolExecutor(len(names)) as pool:
         secs = dict(zip(names, pool.map(build, names)))
     print(f"builds (s): {secs}", flush=True)
-    libs = {n: df._bind(ctypes.CDLL(os.path.join(out_dir, f"lib{n}.so")))
+    ref = df._LIBRARIES["ref"]
+    libs = {n: df._bind(ctypes.CDLL(os.path.join(out_dir, f"lib{n}.so")),
+                        ref[0], ref[2].values())
             for n in names}
 
     def use(name):
-        df._lib = libs[name]
+        df._libs[ref[0]] = libs[name]
         df._coef_devices.clear()  # the next launch copies the tables
     card = cs._card()
     res = {"forms": {}, "steps": {}}

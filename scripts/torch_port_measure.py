@@ -2,9 +2,9 @@
 
 Usage (from the root of a checkout, on a machine with the card):
 
-  python scripts/torch_port_measure.py flux    [--root DIR] [--reps N]
-  python scripts/torch_port_measure.py cells   [--root DIR] [--chains A,B]
-  python scripts/torch_port_measure.py profile [--root DIR] [--chains A,B]
+  python scripts/torch_port_measure.py flux    [--root DIR] [--reps N] [--form F]
+  python scripts/torch_port_measure.py cells   [--root DIR] [--chains A,B] [--form F]
+  python scripts/torch_port_measure.py profile [--root DIR] [--chains A,B] [--form F]
   python scripts/torch_port_measure.py kernels [--root DIR] [--reps N]
   python scripts/torch_port_measure.py min_step [--root DIR] [--reps N]
   python scripts/torch_port_measure.py surrogate [--root DIR] [--reps N]
@@ -14,6 +14,12 @@ Usage (from the root of a checkout, on a machine with the card):
 ``--root`` names the tree whose ``miniweatherml_tpu_torch`` and
 ``chip_smoke.py`` are imported (default: this checkout), so two trees are
 compared by running the script once per tree in one call, in turns.
+``--form`` (flux, cells, profile) picks the flux kernel's WENO algebra:
+ref (default; the reference algebra, ``Dycore()``), opt (the
+reduced-operation algebra with exact weights, ``Dycore(riemann_impl=
+"pallas", fast_weights=False)``) or fast (with approximate-reciprocal
+weights, ``Dycore(riemann_impl="pallas")``, the JAX package's device form);
+a tree from before the opt algebra takes ref only.
 
   flux     direction_fluxes per direction (CUDA events, median of N calls
            after a warm call) on the Kessler, P3 and city states at their
@@ -120,10 +126,31 @@ def _median_ms(fn, reps):
     return float(np.median(times))
 
 
-def mode_flux(cs, reps):
+FORMS = ("ref", "opt", "fast")
+
+
+def _with_form(build, form):
+    """``build`` with its dycore replaced by the form's, as bench.py does
+    with MWML_BENCH_PALLAS (every chain; the city's dycore is not its first
+    module)."""
+    if form == "ref":
+        return build
+
+    def with_form(cfg, device):
+        from miniweatherml_tpu_torch.dycore.euler import Dycore
+        state, mods, dycore = build(cfg, device)
+        dy = Dycore(ord=dycore.ord, riemann_impl="pallas",
+                    fast_weights=form == "fast")
+        mods = [dy.time_step if m == dycore.time_step else m for m in mods]
+        return state, mods, dy
+    return with_form
+
+
+def mode_flux(cs, reps, form="ref"):
     import torch
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
         IDU, IDV, IDW, direction_fluxes)
+    kw = cs.ALGEBRA_KW[form] if form != "ref" else {}
     out = {}
     for chain in ("kessler", "p3", "city"):
         for dtype in ("float32", "float64"):
@@ -137,10 +164,10 @@ def mode_flux(cs, reps):
                     ("z", -3, g.nz, c.bc_z, IDW, g.dz, hy[2], hy[3])):
                 args = (prim, axis, n, bc, nid, c.C0, c.gamma, hr, ht,
                         dycore.mats, 0.0, 1.0 / d)
-                ms = _median_ms(lambda: direction_fluxes(*args), reps)
+                ms = _median_ms(lambda: direction_fluxes(*args, **kw), reps)
                 out[f"{chain} {dtype} {name}"] = ms
-                print(f"flux {chain} nvar {prim.shape[0]} {dtype} {name}: "
-                      f"{ms:.4f} ms", flush=True)
+                print(f"flux {form} {chain} nvar {prim.shape[0]} {dtype} "
+                      f"{name}: {ms:.4f} ms", flush=True)
             del state, prim, hy, dycore
             torch.cuda.empty_cache()
     return out
@@ -297,7 +324,7 @@ def _surrogate_chain(cs):
              inference_surrogate.build),)
 
 
-def mode_cells(cs, chains):
+def mode_cells(cs, chains, form="ref"):
     import numpy as np
     import torch
     from miniweatherml_tpu_torch.experiments.community_benchmark import (
@@ -307,6 +334,7 @@ def mode_cells(cs, chains):
         if chains and chain not in chains:
             continue
         times = []
+        build = _with_form(build, form)
         if hasattr(cs, "_timed_micro_build"):
             build = cs._timed_micro_build(build, times)
         torch.cuda.reset_peak_memory_stats()
@@ -322,7 +350,7 @@ def mode_cells(cs, chains):
                                             else None),
                       "micro_share": (float(np.mean(micro)) / ms_step
                                       if micro else None)}
-        print(f"cell {chain}: {out[chain]}", flush=True)
+        print(f"cell {chain} ({form}): {out[chain]}", flush=True)
         del state
         torch.cuda.empty_cache()
     return out
@@ -397,18 +425,19 @@ def _profile_families(step, state, dt, steps=3):
         "idle_share": 1.0 - busy / total if total else None}
 
 
-def mode_profile(cs, chains):
+def mode_profile(cs, chains, form="ref"):
     import torch
     out = {}
     for chain, cfg, build in _chains(cs):
         if chains and chain not in chains:
             continue
-        state, mods, dycore = build(cfg, "cuda")
+        state, mods, dycore = _with_form(build, form)(cfg, "cuda")
         dt = dycore.compute_time_step(state)
         for m in mods:
             state = m(state, dt)
         out[chain] = _profile_families(_chain_step(mods), state, dt)
-        print(f"profile {chain}: {json.dumps(out[chain])}", flush=True)
+        print(f"profile {chain} ({form}): {json.dumps(out[chain])}",
+              flush=True)
         del state, mods, dycore
         torch.cuda.empty_cache()
     return out
@@ -707,6 +736,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--chains", default="",
                     help="comma-separated subset of the chains")
+    ap.add_argument("--form", choices=FORMS, default="ref",
+                    help="the flux kernel's WENO algebra (flux, cells, "
+                         "profile)")
     a = ap.parse_args()
     import torch
     if a.mode != "surrogate_cpu" and not torch.cuda.is_available():
@@ -721,16 +753,16 @@ def main() -> int:
                            f"not the tree at {root}")
     chains = [c for c in a.chains.split(",") if c]
     t0 = time.perf_counter()
-    res = {"flux": lambda: mode_flux(cs, a.reps),
-           "cells": lambda: mode_cells(cs, chains),
-           "profile": lambda: mode_profile(cs, chains),
+    res = {"flux": lambda: mode_flux(cs, a.reps, a.form),
+           "cells": lambda: mode_cells(cs, chains, a.form),
+           "profile": lambda: mode_profile(cs, chains, a.form),
            "kernels": lambda: mode_kernels(cs, a.reps),
            "min_step": lambda: mode_min_step(cs, a.reps),
            "surrogate": lambda: mode_surrogate(cs, a.reps),
            "surrogate_cpu": lambda: mode_surrogate_cpu(cs, a.reps),
            "mesh": lambda: mode_mesh(cs, a.reps)}[a.mode]()
     print("RESULT " + json.dumps({
-        "mode": a.mode, "root": a.root, "card": _card(),
+        "mode": a.mode, "root": a.root, "form": a.form, "card": _card(),
         "seconds": time.perf_counter() - t0, "result": res}), flush=True)
     return 0
 

@@ -5,9 +5,12 @@ against the root ``bench.py``, on the CPU.
   chain: the last printed line is the returned payload, with ``bench.py``'s
   four keys (and ``ms_per_step``, ``peak_mem_gib``).
 * The configuration each switch builds, against ``bench.py``'s keys
-  (``bench.py:129-133`` supercell, ``:158-168`` city, written out here; the
-  city drops ``riemann_impl`` and ``fast_weights``, which the port does not
-  have) and the all-active P3 seeds, read from ``bench.py``'s source.
+  (``bench.py:129-133`` supercell, ``:158-168`` city with its
+  ``riemann_impl`` and ``fast_weights``, written out here) and the
+  all-active P3 seeds, read from ``bench.py``'s source.
+* The dycore each chain runs under MWML_BENCH_PALLAS / FASTW, dtype and
+  order, on the card's defaults and the CPU's, against ``bench.py``'s
+  choice (``:150-168``, ``:212-238``, written out here).
 * One f64 step of each chain against the JAX package's build of the same
   configuration, run eagerly with its CPU defaults (XLA Riemann solver,
   exact WENO weights): rtol 1e-9 plus 1e-7 of each field's scale, the
@@ -82,14 +85,16 @@ def _bench_py_supercell(nx, ny, nz, nens, dtype):
     )
 
 
-def _bench_py_city(nx, ny, nz, nens, dtype, ordv):
-    """bench.py:158-168 without riemann_impl and fast_weights."""
+def _bench_py_city(nx, ny, nz, nens, dtype, ordv, use_pallas=False,
+                   fastw="1"):
+    """bench.py:158-168."""
     return dict(
         sim_time=1.0e9, nens=nens, nx_glob=nx, ny_glob=ny, nz=nz,
         xlen=2000.0, ylen=2000.0, zlen=300.0,
         init_data="city", out_prefix="bench", dt_phys=0.0,
         out_freq=-1.0, enable_gravity=False, dtype=dtype,
-        dyn_order=ordv,
+        dyn_order=ordv, riemann_impl="pallas" if use_pallas else "xla",
+        fast_weights=use_pallas and fastw == "1",
     )
 
 
@@ -101,6 +106,63 @@ def test_config_is_bench_py_s(chain):
     want = (_bench_py_city(16, 8, 10, 2, "float64", 3) if chain == "city"
             else _bench_py_supercell(16, 8, 10, 2, "float64"))
     assert got == want
+
+
+def _bench_py_dycore(env, case, on_card):
+    """(riemann_impl, fast_weights) of the dycore bench.py runs, or None
+    where it keeps the chain's own (``Dycore()``, the XLA path): the city's
+    config keys (:153-167), else the rebuild of :226-238."""
+    default = "1" if on_card else "0"
+    fastw = env.get("MWML_BENCH_FASTW", "1") == "1"
+    use_pallas = env.get("MWML_BENCH_PALLAS", default) == "1"
+    if case == "city":
+        return ("pallas" if use_pallas else "xla", use_pallas and fastw)
+    if env.get("MWML_BENCH_DTYPE", "float32") == "float64":
+        use_pallas = False
+    if int(env.get("MWML_BENCH_ORD", 5)) != 5 or use_pallas:
+        return ("pallas" if use_pallas else "xla", use_pallas and fastw)
+    return None
+
+
+PALLAS_ENVS = {
+    "default": {}, "pallas0": {"MWML_BENCH_PALLAS": "0"},
+    "fastw0": {"MWML_BENCH_FASTW": "0"},
+    "pallas1_fastw0": {"MWML_BENCH_PALLAS": "1", "MWML_BENCH_FASTW": "0"},
+    "f64": {"MWML_BENCH_DTYPE": "float64"},
+    "f64_pallas1": {"MWML_BENCH_DTYPE": "float64", "MWML_BENCH_PALLAS": "1"},
+    "ord3_pallas0": {"MWML_BENCH_ORD": "3", "MWML_BENCH_PALLAS": "0"}}
+
+
+@pytest.mark.parametrize("on_card", [True, False], ids=["card", "cpu"])
+@pytest.mark.parametrize("env", list(PALLAS_ENVS))
+@pytest.mark.parametrize("chain", ["kessler", "city"])
+def test_pallas_switches_are_bench_py_s(chain, env, on_card, monkeypatch):
+    """The dycore a run steps with, and the city's config keys, as
+    ``bench.py`` picks them (PALLAS defaults to 1 on the device and 0 on
+    the host; float64 turns it off for the supercell; FASTW follows it);
+    the metric names the form."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    e = {**TINY, **CHAINS[chain], **PALLAS_ENVS[env]}
+    if on_card:
+        del e["MWML_BENCH_CPU"]
+    s = bench.settings(e)
+    s["device"] = "cpu"  # build on the host either way
+    want = _bench_py_dycore(e, "city" if chain == "city" else "supercell",
+                            on_card)
+    _, mods, dycore = bench.build_chain(s, "cpu")
+    got = (dycore.riemann_impl, dycore.fast_weights)
+    assert got == (want or ("xla", False))
+    assert mods[0] == dycore.time_step or chain == "city"
+    if chain == "city":
+        cfg = bench.config_dict(s)
+        assert (cfg["riemann_impl"], cfg["fast_weights"]) == want
+    form = {("pallas", True): ", opt WENO, fast weights",
+            ("pallas", False): ", opt WENO"}.get(got, "")
+    assert bench._metric(s, "cpu") == (
+        f"supercell cell-updates/sec/chip (16x8x10, {s['steps']} steps, "
+        f"cpu{form}" + (", city" if chain == "city" else "")
+        + (", float64" if "f64" in env else "")
+        + (", ord 3" if "ord3" in env else "") + ")")
 
 
 def test_defaults_are_bench_py_s(monkeypatch):

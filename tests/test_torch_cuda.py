@@ -112,6 +112,67 @@ def test_direction_fluxes_rejects_bad_input(cuda_device):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("nvar", [5, 6, 8, 14])
+@pytest.mark.parametrize("ord_", [3, 5, 7, 9])
+def test_direction_fluxes_opt_kernels_match_plain(ord_, nvar, cuda_device):
+    """The reduced-operation algebra (``opt``): every direction and BC, both
+    types, equal to the plain version bit for bit; with ``fast_weights``
+    (the approximate reciprocal, f32) within 1e-5 of each output's scale of
+    the plain version, which is exact; each launch counted as its form."""
+    rng = np.random.default_rng(ord_ * 100 + nvar + 7)
+    for dtype in (torch.float64, torch.float32):
+        for shape in FLUX_SHAPES[:2] + FLUX_SHAPES[3:]:
+            prim = _prim(shape, dtype, cuda_device, rng, nvar)
+            for axis, nid in DIRS:
+                nl = shape[1] + (1 if axis == -3 else 0)
+                hr = torch.as_tensor(1 + 0.1 * rng.random((shape[0], nl)),
+                                     dtype=dtype, device=cuda_device)
+                ht = 300 * hr
+                for bc in (0, 1, 2):
+                    args = (prim, axis, prim.shape[axis], bc, nid, 27.56,
+                            1.4008, hr, ht, weno_matrices(ord_), 0.0, 2e-3)
+                    want = direction_fluxes_plain(*args, opt=True)
+                    n0 = direction_fluxes.opt_launches
+                    got = direction_fluxes(*args, opt=True)
+                    assert direction_fluxes.opt_launches == n0 + 1
+                    for a, b in zip(want, got):
+                        where = (dtype, shape, axis, bc)
+                        assert torch.equal(a, b), where
+                    n0 = direction_fluxes.fast_launches
+                    fast = direction_fluxes(*args, opt=True,
+                                            fast_weights=True)
+                    if dtype == torch.float64:  # f64 runs exact
+                        assert direction_fluxes.fast_launches == n0
+                        assert all(torch.equal(a, b)
+                                   for a, b in zip(want, fast))
+                        continue
+                    assert direction_fluxes.fast_launches == n0 + 1
+                    for a, b in zip(want, fast):
+                        if a.numel():
+                            assert _rel(a, b) <= TOL[dtype], where
+
+
+def test_direction_fluxes_reference_fast_weights_raise(cuda_device):
+    """The reference algebra with approximate reciprocals has no kernel: it
+    raises in f32 instead of running exact weights; with a cutoff the opt
+    request takes the reference kernel, as the Pallas kernels do."""
+    prim = _prim((1, 4, 6, 8), torch.float32, cuda_device,
+                 np.random.default_rng(2))
+    hy = torch.ones((1, 4), device=cuda_device)
+    args = (prim, -1, 8, 0, 1, 27.56, 1.4008, hy, 300 * hy,
+            weno_matrices(5))
+    with pytest.raises(NotImplementedError, match="approximate"):
+        direction_fluxes(*args, 0.0, 1.0, opt=False, fast_weights=True)
+    with pytest.raises(NotImplementedError, match="approximate"):
+        direction_fluxes(*args, 0.2, 1.0, opt=True, fast_weights=True)
+    n0, o0 = direction_fluxes.launches, direction_fluxes.opt_launches
+    got = direction_fluxes(*args, 0.2, 1.0, opt=True)
+    assert (direction_fluxes.launches, direction_fluxes.opt_launches) == (
+        n0 + 1, o0)
+    for a, b in zip(direction_fluxes_plain(*args, 0.2, 1.0), got):
+        assert torch.equal(a, b)
+
+
 def _coupler_columns(shape, dtype, device, seed=3):
     """Moist columns as the coupler holds them (rho_d, temp, rho_v, rho_c,
     rho_r), spanning 8 km over shape[1] levels, and the level heights: heavy

@@ -47,7 +47,7 @@ def test_reconstruct_edges_shifted_matches_jax(ord_):
 
 
 def _table_edges(s, ord_, cutoff):
-    """The CUDA kernel's limiter (weno_edges in csrc/direction_fluxes.cu)
+    """The CUDA kernel's limiter (weno_edges in csrc/direction_fluxes.cuh)
     transliterated to numpy: dense sums over each candidate's support,
     read from the flat coefficient table."""
     cf = weno_coef_table(ord_)
@@ -104,7 +104,7 @@ def test_coef_table_reproduces_reconstruction(ord_):
 
 @pytest.mark.parametrize("ord_", [3, 5, 7, 9])
 def test_coef_table_fits_the_kernels_constant_memory(ord_):
-    """csrc/direction_fluxes.cu keeps each order's table in a __constant__
+    """csrc/direction_fluxes.cuh keeps each order's table in a __constant__
     row of COEF_MAX values and unrolls its tracer loop up to NTR_MAX, the
     wrapper's MAX_TRACERS."""
     import os
@@ -112,7 +112,7 @@ def test_coef_table_fits_the_kernels_constant_memory(ord_):
 
     from miniweatherml_tpu_torch.ops import direction_fluxes as DF
     src = open(os.path.join(os.path.dirname(DF.__file__), "..", "csrc",
-                            "direction_fluxes.cu")).read()
+                            "direction_fluxes.cuh")).read()
     coef_max = int(re.search(r"COEF_MAX = (\d+);", src).group(1))
     assert weno_coef_table(ord_).size <= coef_max
     assert int(re.search(r"NTR_MAX = (\d+);", src).group(1)) == \

@@ -481,6 +481,59 @@ def test_strip_form_plain_flux_matches_pallas(direction, case,
     _assert_close(tf, TF, 1e-9, 1e-9)
 
 
+@pytest.mark.parametrize("case", ["interior", "wall_lo", "open_hi"])
+@pytest.mark.parametrize("direction", ["x", "y"])
+def test_strip_form_plain_opt_flux_matches_pallas(direction, case,
+                                                  supercell_prim):
+    """The strip form in the reduced-operation algebra (``opt=True``, the
+    Pallas kernels' default) against the Pallas kernels in it, exact
+    weights, same strips and end modes, at the bound of the reference
+    form's test above."""
+    jd, g, consts, hy, prim = supercell_prim
+    axis, nid = DIRS[direction]
+    bc, i = {"interior": (2, 1), "wall_lo": (2, 0), "open_hi": (1, 3)}[case]
+    block, strips, nl = _shard_strips(prim, axis, bc, nid, 4, i)
+    lo, hi, bc_lo, bc_hi = strips
+    nvar, nens, nz, ny, nx = block.shape
+    hyc, hyt = np.array(hy[0]), np.array(hy[1])
+    args = (jd.mats, 0.0, nid, consts.C0, consts.gamma)
+    mode = {0: 0, 2: 1, 1: 2}
+    kw = dict(fast_weights=False, opt=True, bc=(mode[bc_lo], mode[bc_hi]))
+    j = lambda a, shape: jnp.asarray(a.numpy().reshape(shape))  # noqa: E731
+    if direction == "x":
+        B = nens * nz * ny
+        rows = np.broadcast_to(hyc[:, :, None], (nens, nz, ny)).reshape(-1)
+        rowt = np.broadcast_to(hyt[:, :, None], (nens, nz, ny)).reshape(-1)
+        SF, TF = direction_fluxes_pallas(
+            j(block, (nvar, B, nl)), j(lo, (nvar, B, HP)),
+            j(hi, (nvar, B, HP)),
+            jnp.asarray(np.broadcast_to(rows[:, None], (B, nl + 1))),
+            jnp.asarray(np.broadcast_to(rowt[:, None], (B, nl + 1))),
+            nl, *args, **kw)
+        d = g.dx
+    else:
+        R = nens * nz
+        SF, TF = direction_fluxes_pallas_sub(
+            j(block, (nvar, R, nl, nx)), j(lo, (nvar, R, HP, nx)),
+            j(hi, (nvar, R, HP, nx)), jnp.asarray(hyc.reshape(-1, 1)),
+            jnp.asarray(hyt.reshape(-1, 1)), nl, *args, **kw)
+        d = g.dy
+    fshape = list(block.shape)
+    fshape[axis] += 1
+    SF = np.asarray(SF).reshape([5] + fshape[1:])
+    TF = np.asarray(TF).reshape([nvar - 5] + fshape[1:])
+    ax = SF.ndim + axis
+    jdiv = -(np.take(SF, range(1, nl + 1), axis=ax)
+             - np.take(SF, range(nl), axis=ax)) / d
+    sdiv, tf = direction_fluxes_plain(
+        block, axis, nl, bc, nid, consts.C0, consts.gamma,
+        torch.as_tensor(hyc), torch.as_tensor(hyt), weno_matrices(5), 0.0,
+        1.0 / d, strips, opt=True)
+    for v in range(5):
+        _assert_close(sdiv[v], jdiv[v], 1e-9, 1e-9)
+    _assert_close(tf, TF, 1e-9, 1e-9)
+
+
 def test_strip_form_wants_its_strips_on_the_card():
     """A tensor on neither the CPU nor CUDA is refused, with or without
     strips (a CUDA tensor launches the kernel or raises: no fallback)."""
