@@ -4,12 +4,13 @@ Usage (from the root of a checkout):  python3 chip_smoke.py
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: name, power limit, torch and CUDA versions;
-  2. build: the eight CUDA libraries from csrc/ with nvcc (sm_90a), one
+  2. build: the nine CUDA libraries from csrc/ with nvcc (sm_90a), one
      nvcc each, and the P3 native twin with g++, all started together; the
      registers, spills and shared memory of every kernel (from the ptxas
      reports: the flux kernel's ord-5
      instantiations in each algebra -- reference, opt and opt with the
-     approximate reciprocals, the last two from direction_fluxes_opt.cu --,
+     approximate reciprocals (direction_fluxes_opt.cu), and reference with
+     the approximate reciprocals (direction_fluxes_ref_fast.cu) --,
      the y/z kernel's accumulating and stage-update forms
      beside its bare form, every entry function of the others), and the
      Kessler kernel's dynamic shared memory per block at the chains' nz;
@@ -36,8 +37,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      change of the plain version's reciprocals moves as far, and no more
      of those than twice one such change's count; FAST_TOL), with the count
      of values that round apart and the largest difference in ulps, and on
-     the Kessler x and y calls the bar's readings on planted faults; each
-     timed beside its bound,
+     the Kessler x and y calls the bar's readings on planted faults; then
+     the same in the reference algebra with the approximate reciprocals
+     (f32, opt off: Dycore(riemann_impl="pallas", opt_algebra=False)) by
+     the same bar, and on the Kessler x and y calls with a cutoff of 0.1
+     and opt on (Dycore(riemann_impl="pallas", cutoff=0.1)), with planted
+     faults; each timed beside its bound,
      whose operations count
      the opt algebra's limiter (_limiter_ops_opt); the Kessler chain's
      small open / wall box in both;
@@ -72,16 +77,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the inputs one P3 step hands them, on the seeded mixed-regime
      512x512x64 state, f32 and f64;
   31. (run after 9) the P3 scheme's process rates and sedimentation: the
-     rates_pre and rates_post phases of the per-cell kernel and the
-     sed_vmax and sed_columns kernels against their plain versions on what
-     one step of the early-storm, mixed-regime and all-active 512x512x64
-     P3 chains hands them, f32 and f64: rates_pre's index sets by their
-     lookup positions (index + fraction) with the count of indices that
-     differ, its presence flags equal; the fall speed with the sub-step
-     count made of it and dt vmax / (0.9 dz_min) beside it; the fall at
-     the step's count with do_predict_nc both ways and at a dt that makes
-     that ratio 3.5 (4 sub-steps); each timed beside its bound, with the
-     sedimentation kernels' launch configuration;
+     rates_pre and rates_post phases of the per-cell kernel, and sed_step
+     (the speeds once, their maximum, one sub-step) with the rerun of
+     sed_columns, against their plain versions on what one step of the
+     early-storm, mixed-regime and all-active 512x512x64 P3 chains hands
+     them, f32 and f64: rates_pre's index sets by their lookup positions
+     (index + fraction) with the count of indices that differ, its
+     presence flags equal; the fall speed (also against the oracle
+     _p3_sed_vmax) with the sub-step count made of it and dt vmax / (0.9
+     dz_min) beside it, the one sub-step's outputs, and sed_step + count
+     + rerun against sed_columns' plain version from the inputs at the
+     step's count with do_predict_nc both ways and at a dt that makes that
+     ratio 3.5 (4 sub-steps); each timed beside its bound (operations
+     counted from the SASS of each species branch, _sed_ops) and beside
+     sed_columns alone from the inputs, with the launches per P3 step and
+     the two kernels' launch configuration and registers;
   32. (run inside 31, then on its own) the microphysics tails: P3's
      freezing + part3 (``p3_part3``, with and without its diagnostics,
      within the bound, with the cells that hold ice and that freeze) and
@@ -146,8 +156,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      x and y, ends inside the domain and a wall and an open global
      boundary, and y with the stage update (the mesh path's last
      direction), f32 and f64, bit for bit, timed beside its bound; then the
-     same in the opt algebra (bit for bit) and with fast_weights (f32,
-     by the fast bar);
+     same in the opt algebra (bit for bit) and with fast_weights in both
+     algebras (f32, by the fast bar);
   23. fct_scale_div with the neighbours' edge multipliers against its plain
      version on that shard's tracer faces, every form, f32 and f64, bit for
      bit, timed beside its bytes bound;
@@ -180,7 +190,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
   28. tracer groups: the flux kernel at 12 tracers (two launches per call)
      along x, y, z, in the halo-strip form and in the accumulating (z) and
      stage-update (y) forms, in the reference algebra, the opt one and
-     (f32) with fast_weights, each launch counted in its form; fct_mult
+     (f32) with fast_weights in both, each launch counted in its form;
+     fct_mult
      and fct_scale_div
      at 12 tracers on its faces (one launch), f32 and f64, and both FCT
      kernels at 70 tracers (two launches), bit for bit against the plain
@@ -196,8 +207,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
   33. (run after 5) the main path in the flux kernel's JAX device form:
      run_benchmark on the 512x512x64 f32 Kessler supercell with the YAML's
      riemann_impl "pallas" (opt with fast weights), the same with
-     fast_weights false, and Dycore() (the reference algebra), in the order
-     A B C C B A: each with every flux launch counted in its form, a clean
+     fast_weights false, Dycore() (the reference algebra), and
+     riemann_impl "pallas" with opt_algebra=False and with a cutoff of 0.1
+     (the reference algebra with fast weights), in the order
+     A B C D E E D C B A: each with every flux launch counted in its form,
+     a clean
      validate(), Mcellups, ms/step and peak memory, and the largest
      differences between their states after 10 steps (printed); then a
      16x8x10 f64 riemann_impl "pallas" slice (exact weights in f64), card
@@ -366,9 +380,17 @@ def _limiter_ops_opt(ord_: int) -> int:
 
 
 # the flux call's limiter keywords of each algebra (ops/direction_fluxes.py
-# limiter_algebra): reference, reduced-operation, approximate reciprocals
+# limiter_algebra): reference, reduced-operation, approximate reciprocals in
+# the reduced-operation and in the reference algebra (opt off: the
+# Dycore(riemann_impl="pallas", opt_algebra=False) form; a cutoff with opt
+# on reaches it too, FAST_CUTOFF)
 ALGEBRA_KW = {"ref": {}, "opt": {"opt": True},
-              "fast": {"opt": True, "fast_weights": True}}
+              "fast": {"opt": True, "fast_weights": True},
+              "ref_fast": {"fast_weights": True}}
+# the algebras with approximate reciprocals, held by the fast bar
+FAST_ALGEBRAS = ("fast", "ref_fast")
+# the cutoff of the Dycore(riemann_impl="pallas", cutoff=0.1) form
+FAST_CUTOFF = 0.1
 
 
 def _flux_work(prim, axis, ord_, algebra="ref") -> tuple[int, int]:
@@ -388,7 +410,8 @@ def _flux_work(prim, axis, ord_, algebra="ref") -> tuple[int, int]:
     item = prim.element_size()
     nbytes = item * (nvar * cells + 5 * cells + ntr * lines * (n + 1)
                      + 2 * prim.shape[1] * nlev)
-    lim = _limiter_ops(ord_) if algebra == "ref" else _limiter_ops_opt(ord_)
+    lim = (_limiter_ops(ord_) if algebra in ("ref", "ref_fast")
+           else _limiter_ops_opt(ord_))
     ops = (nvar * lim * lines * (n + 2)
            + (25 + 4 * ntr) * lines * (n + 1) + 10 * cells)
     return nbytes, ops
@@ -433,11 +456,76 @@ FAST_TOL = 1e-5
 FAST_COUNT_FACTOR = 2
 
 
+# the card's approximate reciprocal as an elementwise kernel, the
+# instruction the fast flux kernels issue (csrc/direction_fluxes.cuh
+# rcp_approx), for the fast bar's model run of it
+RCP_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void rcp_kernel(const float* x, float* y, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float r;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x[i]));
+    y[i] = r;
+  }
+}
+extern "C" int rcp_approx_f32(const float* x, float* y, long long n,
+                              void* stream) {
+  if (n > 0)
+    rcp_kernel<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, y, n);
+  return cudaGetLastError();
+}
+"""
+_rcp_lib = []
+
+
+def _rcp_library():
+    """The RCP_SRC library, built with nvcc into chip_smoke_out/ (once per
+    process)."""
+    import ctypes
+    if not _rcp_lib:
+        from miniweatherml_tpu_torch import cuda_build
+        work = os.path.join(OUT_DIR, "rcp")
+        os.makedirs(work, exist_ok=True)
+        src, so = os.path.join(work, "rcp.cu"), os.path.join(work, "rcp.so")
+        with open(src, "w") as f:
+            f.write(RCP_SRC)
+        subprocess.run([cuda_build._nvcc(), *cuda_build.nvcc_flags("rcp"),
+                        "-o", so, src], check=True, capture_output=True)
+        lib = ctypes.CDLL(so)
+        P = ctypes.c_void_p
+        lib.rcp_approx_f32.argtypes = [P, P, ctypes.c_longlong, P]
+        lib.rcp_approx_f32.restype = ctypes.c_int
+        _rcp_lib.append(lib)
+    return _rcp_lib[0]
+
+
+def _card_recip(v):
+    """1 / v by the card's approximate reciprocal (f32 on the card; any
+    other tensor exactly, as the fast kernels do: ops/weno_fused.py's
+    _recip, which a model run replaces by this)."""
+    if not (v.is_cuda and v.dtype == torch.float32):
+        return torch.div(v.new_full((), 1.0), v)
+    x = v.contiguous()
+    r = torch.empty_like(x)
+    rc = _rcp_library().rcp_approx_f32(
+        x.data_ptr(), r.data_ptr(), x.numel(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rcp_approx_f32 failed: {rc}")
+    return r
+
+
 def _recip_models():
-    """The one-ulp models of the fast kernel's reciprocals, by name: each
-    moves every reciprocal of the plain opt limiter
-    (ops/weno_fused.py::_recip) by one ulp -- toward zero, away from zero,
-    or up, down or not at random (two seeds)."""
+    """The model runs of the fast kernels' reciprocals, by name: each
+    replaces every reciprocal of the plain limiters that take them
+    (ops/weno_fused.py::_recip: reconstruct_edges_opt and
+    reconstruct_edges_recip) by one ulp off -- toward zero, away from zero,
+    or up, down or not at random (two seeds) -- and, on the card, by the
+    card's own approximate reciprocal (_card_recip).  A cutoff turns a
+    weight near it on or off, so which outputs an approximate reciprocal
+    moves far depends on the exact reciprocals it gives; only the card's
+    own run of them marks those of the kernel."""
     from miniweatherml_tpu_torch.ops import weno_fused
     exact = weno_fused._recip
 
@@ -461,22 +549,28 @@ def _recip_models():
             return torch.where(step > 0, up,
                                torch.where(step < 0, down, r))
         return model
-    return {"toward zero": toward(0.0), "away from zero": toward(math.inf),
-            "random 16": at_random(16), "random 17": at_random(17)}
+    models = {"toward zero": toward(0.0), "away from zero": toward(math.inf),
+              "random 16": at_random(16), "random 17": at_random(17)}
+    if torch.cuda.is_available():
+        models["the card's rcp.approx"] = _card_recip
+    return models
 
 
 def _with_recip(recip, fn, terms=None):
-    """fn() with the plain opt limiter's reciprocal replaced by ``recip``
-    (and its terms by ``terms``, when given)."""
+    """fn() with the plain limiters' reciprocal replaced by ``recip`` (and
+    their term tables by ``terms``, when given: {name in
+    ops/weno_fused.py: replacement})."""
     from miniweatherml_tpu_torch.ops import weno_fused
-    saved = weno_fused._recip, weno_fused._opt_terms
+    terms = terms or {}
+    saved = {k: getattr(weno_fused, k) for k in ("_recip", *terms)}
     weno_fused._recip = recip
-    if terms is not None:
-        weno_fused._opt_terms = terms
+    for k, v in terms.items():
+        setattr(weno_fused, k, v)
     try:
         return fn()
     finally:
-        weno_fused._recip, weno_fused._opt_terms = saved
+        for k, v in saved.items():
+            setattr(weno_fused, k, v)
 
 
 def _beyond(ref, out):
@@ -531,21 +625,27 @@ def _verdict_text(per, model) -> str:
 
 
 def _fault_models():
-    """Planted faults of the fast kernel, by name, as (reciprocal, terms)
-    replacements for the plain opt limiter's (_with_recip): every
-    reciprocal 2^-12 or 2^-18 off (relative), and the first optimal weight
-    idl_0 off by 1e-3 (at ord 5 twice its 1e-3)."""
+    """Planted faults of the fast kernels, by name, as (reciprocal, terms)
+    replacements for the plain limiters' (_with_recip): every reciprocal
+    2^-12 or 2^-18 off (relative), and the first optimal weight idl_0 off
+    by 1e-3 in both algebras' tables (the opt algebra's _opt_terms, the
+    reference one's _sparse_terms)."""
     from miniweatherml_tpu_torch.ops import weno_fused
-    exact, terms = weno_fused._recip, weno_fused._opt_terms
+    exact = weno_fused._recip
+    opt_terms, ref_terms = weno_fused._opt_terms, weno_fused._sparse_terms
 
-    def idl_off(ord_):
-        tv, edge, gamma, idl = terms(ord_)
-        return tv, edge, gamma, (idl[0] + 1e-3,) + tuple(idl[1:])
+    def idl_off(terms):
+        def off(ord_):
+            *rest, idl = terms(ord_)
+            return (*rest, (idl[0] + 1e-3,) + tuple(idl[1:]))
+        return off
     return {"reciprocals 2^-12 off": (
                 lambda v: exact(v) * (1.0 + 2.0 ** -12), None),
             "reciprocals 2^-18 off": (
                 lambda v: exact(v) * (1.0 + 2.0 ** -18), None),
-            "idl_0 off by 1e-3": (exact, idl_off)}
+            "idl_0 off by 1e-3": (exact, {
+                "_opt_terms": idl_off(opt_terms),
+                "_sparse_terms": idl_off(ref_terms)})}
 
 
 def _planted_faults(tag, plain, ref, model):
@@ -569,20 +669,28 @@ def _planted_faults(tag, plain, ref, model):
 def _agreement(ref, got, algebra, plain=None, faults=None):
     """(max abs err, rel, bitwise equal, passes, text) of a flux call's
     outputs against its plain version's.  The reference and opt algebras
-    pass bit for bit; the fast form passes the fast bar (FAST_TOL) against
-    the one-ulp model of ``plain`` (the plain call, run again), and its
-    text gives the values that round apart, the largest difference in
-    ulps, and per output the bar's counts.  With ``faults`` (a tag) the
+    pass bit for bit; the fast forms pass the fast bar (FAST_TOL) against
+    the model of ``plain`` (the plain call, run again) and equal ``plain``
+    run on the card's approximate reciprocal (_card_recip) bit for bit,
+    and the text gives the values that round apart, the largest
+    difference in ulps, and per output the bar's counts.  With ``faults``
+    (a tag) the
     bar is also run on planted faults (_planted_faults)."""
     errs = [_rel(a, b) for a, b in zip(ref, got)]
     same = all(torch.equal(a, b) for a, b in zip(ref, got))
     ok, text = same, ""
-    if algebra == "fast":
+    if algebra in FAST_ALGEBRAS:
         model = _one_ulp_model(plain, ref)
         ok, per = _fast_verdict(ref, got, model)
         n, u = max(_ulps(a, b) for a, b in zip(ref, got))
+        twin = _with_recip(_card_recip, plain)
+        bit = all(torch.equal(a, b) for a, b in zip(twin, got))
+        del twin
+        ok = ok and bit
         text = (f", {n} values apart, largest {u:.0f} ulps; per output "
-                + ", ".join(f"{e[0]:.3e}" for e in errs) + "; fast bar "
+                + ", ".join(f"{e[0]:.3e}" for e in errs) + "; bit for bit "
+                f"with the plain version on the card's approximate "
+                f"reciprocal: {bit}; fast bar "
                 + ("passes" if ok else "FAILS") + ": "
                 + _verdict_text(per, model))
         if faults is not None:
@@ -592,17 +700,18 @@ def _agreement(ref, got, algebra, plain=None, faults=None):
 
 
 def _flux_form(phase, tag, args, acc, rk, dtype, tol, timed=True,
-               algebra="ref"):
+               algebra="ref", kw=None):
     """The accumulating (``rk`` None) or stage-update form of one
     direction_fluxes call against its plain version on copies of ``acc``:
     both outputs bit for bit (the fast algebra by the fast bar),
     the result written into the kernel's copy in place; timed beside its
     bound when ``timed`` (kernel and plain in turn on one buffer, which
     each call overwrites).  Returns (max abs err, ms, plain ms, bound ms,
-    bound_by), the last four None when not timed."""
+    bound_by), the last four None when not timed.  ``kw``: the limiter
+    keywords, by default ALGEBRA_KW's of the algebra."""
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
         direction_fluxes, direction_fluxes_plain)
-    kw = ALGEBRA_KW[algebra]
+    kw = ALGEBRA_KW[algebra] if kw is None else kw
     a_ref, a_got = acc.clone(), acc.clone()
     ref = direction_fluxes_plain(*args, acc=a_ref, rk=rk, **kw)
     got = direction_fluxes(*args, acc=a_got, rk=rk, **kw)
@@ -628,7 +737,7 @@ def _flux_form(phase, tag, args, acc, rk, dtype, tol, timed=True,
                  f"{ops / 1e9:.2f} GFLOP), {bms / ms:.1%} of the bound  "
                  f"[{_card()}]")
     print(line, flush=True)
-    if not (in_place and ok and (algebra == "fast" or rel <= tol)):
+    if not (in_place and ok and (algebra in FAST_ALGEBRAS or rel <= tol)):
         raise AssertionError(f"direction_fluxes {tag} {dtype} {algebra}: "
                              f"equal {same}, in place {in_place}, rel "
                              f"{rel:.3e}")
@@ -636,16 +745,17 @@ def _flux_form(phase, tag, args, acc, rk, dtype, tol, timed=True,
 
 
 def _flux_bare(phase, tag, args, dtype, tol, algebra, timed=True,
-               faults=False):
+               faults=False, kw=None):
     """One direction_fluxes call of ``algebra`` against its plain version
     (the same keywords): bit for bit (and within ``tol`` of each output's
     scale), the fast form within the fast bar, its ulps printed, and with
     ``faults`` the bar's readings on planted faults; timed beside its bound
     when ``timed``.  Returns (outputs, max abs err, ms, plain ms, bound ms,
-    bound_by), the times None when not timed."""
+    bound_by), the times None when not timed.  ``kw``: the limiter
+    keywords, by default ALGEBRA_KW's of the algebra."""
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
         direction_fluxes, direction_fluxes_plain)
-    kw = ALGEBRA_KW[algebra]
+    kw = ALGEBRA_KW[algebra] if kw is None else kw
     ref = direction_fluxes_plain(*args, **kw)
     got = direction_fluxes(*args, **kw)
     torch.cuda.synchronize()
@@ -669,7 +779,7 @@ def _flux_bare(phase, tag, args, dtype, tol, algebra, timed=True,
                  f"{ops / 1e9:.2f} GFLOP), {bms / ms:.1%} of the bound  "
                  f"[{_card()}]")
     print(line, flush=True)
-    if not (ok and (algebra == "fast" or rel <= tol)):
+    if not (ok and (algebra in FAST_ALGEBRAS or rel <= tol)):
         raise AssertionError(f"direction_fluxes {algebra} {tag} {dtype}: "
                              f"equal {same}, rel {rel:.3e}{ulps}")
     return got, err, ms, pms, bms, by
@@ -750,14 +860,14 @@ def _kernel_name(mangled: str) -> str:
 # the y/z kernel's epilogue forms and the limiter algebras
 # (csrc/direction_fluxes.cuh EPI_*, ALG_*)
 FLUX_EPILOGUES = {"0": "bare", "1": "accumulating", "2": "stage update"}
-FLUX_ALGEBRAS = {"0": "ref", "1": "opt", "2": "fast"}
+FLUX_ALGEBRAS = {"0": "ref", "1": "opt", "2": "fast", "3": "ref_fast"}
 
 
 def _flux_instance(mangled: str):
     """(kind, ord, type, tracer bound, form, algebra) of a direction_fluxes
     entry function, or None; the form is "whole axis" or "strips",
     followed for the y/z kernel by its epilogue ("bare", "accumulating" or
-    "stage update"); the algebra "ref", "opt" or "fast"."""
+    "stage update"); the algebra "ref", "opt", "fast" or "ref_fast"."""
     import re
     m = re.search(r"(fluxes_x|fluxes_strided)ILi(\d+)E([fd])Li(\d+)ELb([01])E"
                   r"(?:Li(\d)E)?Li(\d)E", mangled)
@@ -807,12 +917,15 @@ def phase_device():
     return name
 
 
-LIBRARIES = ("direction_fluxes", "direction_fluxes_opt", "kessler",
-             "p3_lookup", "p3_cellwise", "fct", "p3_sed", "surrogate")
-# the flux kernel's libraries: the reference algebra, and the
-# reduced-operation one with exact and approximate reciprocals
+LIBRARIES = ("direction_fluxes", "direction_fluxes_opt",
+             "direction_fluxes_ref_fast", "kessler", "p3_lookup",
+             "p3_cellwise", "fct", "p3_sed", "surrogate")
+# the flux kernel's libraries: the reference algebra, the
+# reduced-operation one with exact and approximate reciprocals, and the
+# reference one with approximate reciprocals
 FLUX_LIBRARIES = {"direction_fluxes": ("ref",),
-                  "direction_fluxes_opt": ("opt", "fast")}
+                  "direction_fluxes_opt": ("opt", "fast"),
+                  "direction_fluxes_ref_fast": ("ref_fast",)}
 
 
 def _entry_label(lib: str, mangled: str) -> str:
@@ -839,7 +952,7 @@ def _entry_label(lib: str, mangled: str) -> str:
     if lib == "kessler" and m:
         return (f"kessler_min_step_kernel "
                 f"<{'float' if m.group(1) == 'f' else 'double'}>")
-    m = re.search(r"(sed_vmax_kernel|sed_columns_kernel)I([fd])Lb([01])E"
+    m = re.search(r"(sed_step_kernel|sed_columns_kernel)I([fd])Lb([01])E"
                   r"(?:Lb([01])E)?", mangled)
     if lib == "p3_sed" and m:
         tier = "tables" if m.group(3) == "1" else "approx"
@@ -852,11 +965,16 @@ def _entry_label(lib: str, mangled: str) -> str:
 def phase_build():
     from miniweatherml_tpu_torch import cuda_build, native
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
-        # the P3 native twin (g++) builds beside the CUDA libraries
+    with ThreadPoolExecutor(len(LIBRARIES) + 2) as pool:
+        # the P3 native twin (g++) and the sedimentation's SASS probe build
+        # beside the CUDA libraries
         twin = pool.submit(native.load_p3_library)
+        probe = pool.submit(_sed_ops)
+        rcp = pool.submit(_rcp_library)
         list(pool.map(cuda_build.load_library, LIBRARIES))
         twin.result()
+        probe.result()
+        rcp.result()
     for name in LIBRARIES:
         print(f"[2] built {name}: nvcc "
               f"{cuda_build.build_seconds.get(name, 0.0):.2f} s", flush=True)
@@ -885,7 +1003,7 @@ def phase_build():
         print(f"[2] {lib} ({count} entry functions), most spilled of all "
               f"orders: {worst[0]} registers, {worst[1]} B spill stores, "
               f"{worst[2]} B spill loads ({worst[3]})", flush=True)
-    for lib in LIBRARIES[2:]:
+    for lib in (lib for lib in LIBRARIES if lib not in FLUX_LIBRARIES):
         for mangled, regs, st, ld, stack, smem in _ptxas_report(lib):
             print(f"[2] {lib} {_entry_label(lib, mangled)}: {regs} registers, "
                   f"{st} B spill stores, {ld} B spill loads, {stack} B "
@@ -925,10 +1043,13 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
     and the small wall/open box.  Then the same bare and path forms (and
     on the Kessler chain the small box) in the reduced-operation algebra,
     exact in f32 and f64 (bit for bit) and with the approximate
-    reciprocals in f32 (within the tolerance of scale, its ulps printed).
-    Returns a record per algebra ("ref", "opt", "fast"), whose times are
-    one right-hand side's: x bare, z accumulating, y with the stage
-    update."""
+    reciprocals in f32, and in the reference algebra with the approximate
+    reciprocals in f32 (opt off; both by the fast bar, their ulps
+    printed); on the Kessler chain also x and y with a cutoff of
+    FAST_CUTOFF and opt on, which takes the reference algebra with the
+    approximate reciprocals too, with the bar's planted faults.  Returns a
+    record per algebra (ALGEBRA_KW), whose times are one right-hand side's:
+    x bare, z accumulating, y with the stage update."""
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
         IDU, IDV, IDW, direction_fluxes, direction_fluxes_plain)
     from miniweatherml_tpu_torch.ops.stencil import BC_OPEN, BC_WALL
@@ -1007,8 +1128,10 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
                     rec["plain_ms"] += pms - bare_ms[fa[1]][1]
                     rec["bound_ms"] += bms - bare_ms[fa[1]][2]
         # the reduced-operation algebra: exact in f32 and f64, with the
-        # approximate reciprocals in f32 (f64 runs exact)
-        for algebra in ("opt", "fast") if dtype == "float32" else ("opt",):
+        # approximate reciprocals in f32 (f64 runs exact), and the
+        # reference algebra with the approximate reciprocals (f32)
+        for algebra in (("opt", "fast", "ref_fast") if dtype == "float32"
+                        else ("opt",)):
             arec, abare = recs[algebra], {}
             for name, axis, *_ in dirs:
                 got, err, ms, pms, bms, by = _flux_bare(
@@ -1035,6 +1158,19 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
                     arec["plain_ms"] += pms - abare[fa[1]][1]
                     arec["bound_ms"] += bms - abare[fa[1]][2]
             del adiv
+        if chain == "kessler" and dtype == "float32":
+            # Dycore(riemann_impl="pallas", cutoff=FAST_CUTOFF): opt asked
+            # for, the reference algebra run, with the approximate
+            # reciprocals
+            for name in ("x", "y"):
+                cargs = fargs[name][:10] + (FAST_CUTOFF, fargs[name][11])
+                got, err = _flux_bare(
+                    "3", f"{chain} nvar {prim.shape[0]} {name} cutoff "
+                    f"{FAST_CUTOFF}", cargs, dtype, tol, "ref_fast",
+                    timed=False, faults=True, kw=ALGEBRA_KW["fast"])[:2]
+                recs["ref_fast"]["max_abs_err"] = max(
+                    recs["ref_fast"]["max_abs_err"], err)
+                del got
         phase_fct(chain, dtype, tol, state, dycore, faces, fct_recs)
         del faces, fargs, path
         if chain != "kessler":
@@ -1088,8 +1224,8 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
                 if not (same and rel <= tol):
                     raise AssertionError(f"direction_fluxes small {dtype} "
                                          f"axis {axis} bc {bc}: {rel:.3e}")
-                for algebra in ("opt", "fast")[:2 if dtype == "float32"
-                                                else 1]:
+                for algebra in ("opt", "fast", "ref_fast")[
+                        :3 if dtype == "float32" else 1]:
                     _flux_bare("3", f"small axis {axis} bc {bc}", args,
                                dtype, tol, algebra, timed=False)
         del state, prim, hy, dycore
@@ -1367,7 +1503,7 @@ def _counters(chain):
             "interp_rain": lk.interp_rain, "p3_part1": cw.p3_part1,
             "p3_update": cw.p3_update, "p3_wrapper": cw.p3_wrapper,
             "p3_rates_pre": cw.p3_rates_pre, "p3_rates_post": cw.p3_rates_post,
-            "sed_vmax": sed.sed_vmax, "sed_columns": sed.sed_columns,
+            "sed_step": sed.sed_step, "sed_columns": sed.sed_columns,
             "p3_part3": cw.p3_part3, "p3_wrapper_out": cw.p3_wrapper_out}
 
 
@@ -1388,7 +1524,7 @@ DYCORE_PER_STEP = {"direction_fluxes": 9, "fct_mult": 3, "fct_scale_div": 9}
 
 # the port's own kernels, by a part of their names
 OWN_KERNELS = ("fluxes", "fct", "kessler", "cellwise", "ice_kernel",
-               "collect_kernel", "rain_kernel", "sed_vmax", "sed_columns",
+               "collect_kernel", "rain_kernel", "sed_step", "sed_columns",
                "surrogate")
 
 
@@ -1481,18 +1617,43 @@ def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None,
 # The dycore forms of phase 33's Kessler slice, by the YAML keys that ask
 # for them: the JAX package's device form (the reduced-operation algebra
 # with approximate-reciprocal weights), the same with exact weights, and
-# Dycore() (the reference algebra); with the flux launches each form counts
-# (ops/direction_fluxes.py: opt_launches, fast_launches).
+# Dycore() (the reference algebra); then by the Dycore keywords that no
+# YAML key reaches: riemann_impl "pallas" with opt_algebra=False and with a
+# cutoff, both the reference algebra with approximate-reciprocal weights;
+# with the flux launches each form counts (ops/direction_fluxes.py:
+# opt_launches, fast_launches, ref_fast_launches).
 OPT_SLICE_FORMS = (("opt + fast weights", {"riemann_impl": "pallas"}, "fast"),
                    ("opt, exact weights", {"riemann_impl": "pallas",
                                            "fast_weights": False}, "opt"),
-                   ("reference (Dycore())", {}, "ref"))
+                   ("reference (Dycore())", {}, "ref"),
+                   ("opt_algebra=False + fast weights",
+                    {"dycore": {"riemann_impl": "pallas",
+                                "opt_algebra": False}}, "ref_fast"),
+                   (f"cutoff {FAST_CUTOFF} + fast weights",
+                    {"dycore": {"riemann_impl": "pallas",
+                                "cutoff": FAST_CUTOFF}}, "ref_fast"))
 
 
 def _flux_form_counts():
     from miniweatherml_tpu_torch.ops.direction_fluxes import direction_fluxes
     return {"opt": direction_fluxes.opt_launches,
-            "fast": direction_fluxes.fast_launches}
+            "fast": direction_fluxes.fast_launches,
+            "ref_fast": direction_fluxes.ref_fast_launches}
+
+
+def _dycore_build(dycore_kw):
+    """supercell_example.build with its dycore replaced by
+    Dycore(ord, **dycore_kw) (a stateless step: the first dycore's init
+    serves it)."""
+    from miniweatherml_tpu_torch.dycore.euler import Dycore
+    from miniweatherml_tpu_torch.experiments.supercell_example import build
+
+    def with_dycore(cfg, device):
+        state, mods, dycore = build(cfg, device)
+        dy = Dycore(ord=dycore.ord, **dycore_kw)
+        mods = [dy.time_step if m == dycore.time_step else m for m in mods]
+        return state, mods, dy
+    return with_dycore
 
 
 def phase_opt_slice(card):
@@ -1500,7 +1661,9 @@ def phase_opt_slice(card):
     community_benchmark.run_benchmark on the 512x512x64 f32 Kessler
     supercell with the YAML's riemann_impl "pallas" (the reduced-operation
     algebra with approximate-reciprocal weights), the same with exact
-    weights, and Dycore(), in the order A B C C B A: each with its launch
+    weights, Dycore(), and riemann_impl "pallas" with opt_algebra=False and
+    with a cutoff (the reference algebra with approximate-reciprocal
+    weights), in the order A B C D E E D C B A: each with its launch
     counts (every flux launch in its form), a clean validate(), Mcellups,
     ms/step and peak memory, and the largest differences between the forms'
     states after the 10 steps (printed, not bounded: the algebras round
@@ -1516,12 +1679,18 @@ def phase_opt_slice(card):
     finals, launches_of, ms_of = {}, {}, {}
     order = OPT_SLICE_FORMS + OPT_SLICE_FORMS[::-1]
     for run, (label, keys, algebra) in enumerate(order):
+        keys = dict(keys)
+        dycore_kw = keys.pop("dycore", None)
         cfg = _bench_cfg(512, 512, 64, 10, "float32", **keys)
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
         direction_fluxes.opt_launches = direction_fluxes.fast_launches = 0
-        state, res = run_benchmark(cfg, "cuda", quiet=True)
+        direction_fluxes.ref_fast_launches = 0
+        state, res = run_benchmark(
+            cfg, "cuda", quiet=True,
+            **({} if dycore_kw is None else {"build": _dycore_build(
+                dycore_kw)}))
         launches = {k: fn.launches for k, fn in counters.items()}
         forms = _flux_form_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -1543,7 +1712,7 @@ def phase_opt_slice(card):
             finals[label] = {k: state[k].cpu() for k in (
                 "density_dry", "uvel", "vvel", "wvel", "temp",
                 "water_vapor", "cloud_liquid", "precip_liquid")}
-            launches_of[algebra] = {**launches, **forms}
+            launches_of.setdefault(algebra, {**launches, **forms})
         del state
         torch.cuda.empty_cache()
     ref = finals["reference (Dycore())"]
@@ -1883,12 +2052,10 @@ def phase_p3_cellwise():
     return rec
 
 
-# operations per cell of the rates phases, and per cell and sub-step of the
-# sedimentation kernels, read from csrc/p3_cellwise.cu and csrc/p3_sed.cu
+# operations per cell of the rates phases, read from csrc/p3_cellwise.cu
 # (arithmetic of the body and the helpers it calls; exp, log, pow, lgamma
-# counted as one)
-RATES_SED_OPS = {"rates_pre": 120, "rates_post": 450, "sed_vmax": 160,
-                 "sed_columns": 220}
+# counted as one); the sedimentation's come from its SASS (_sed_ops)
+RATES_OPS = {"rates_pre": 120, "rates_post": 450}
 # indices and fractions of rates_pre's outputs: (index, fraction) pairs
 RATES_PRE_PAIRS = ((2, 3), (4, 5), (6, 7), (8, 9), (10, 11))
 
@@ -1896,12 +2063,13 @@ RATES_PRE_PAIRS = ((2, 3), (4, 5), (6, 7), (8, 9), (10, 11))
 def _p3_step_rates_sed(build, dtype):
     """What one step of a 512x512x64 P3 chain hands the two rates phases,
     the two sedimentation wrappers, part3 and the output pass: {name:
-    (args, keywords)}."""
+    (args, keywords)}, and under "launches" the sedimentation wrappers'
+    launches in the step."""
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
     from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
     state, mods, dycore = build(_bench_cfg(512, 512, 64, 1, dtype), "cuda")
     seen = {}
-    launch, vmax, columns = cw._launch, sed.sed_vmax, sed.sed_columns
+    launch, step, columns = cw._launch, sed.sed_step, sed.sed_columns
     part3, wrapper_out = cw.p3_part3, cw.p3_wrapper_out
 
     def spy_launch(phase, predict_nc, arrays, dt=0.0, table=None):
@@ -1916,17 +2084,20 @@ def _p3_step_rates_sed(build, dtype):
         call.launches = 0  # the wrapper counts on its module-level name
         return call
     cw._launch = spy_launch
-    sed.sed_vmax, sed.sed_columns = (spy("sed_vmax", vmax),
-                                     spy("sed_columns", columns))
+    spies = {"sed_step": spy("sed_step", step),
+             "sed_columns": spy("sed_columns", columns)}
+    sed.sed_step, sed.sed_columns = spies["sed_step"], spies["sed_columns"]
     cw.p3_part3, cw.p3_wrapper_out = (spy("p3_part3", part3),
                                       spy("p3_wrapper_out", wrapper_out))
     try:
         mods[1](state, dycore.compute_time_step(state))
     finally:
-        cw._launch, sed.sed_vmax, sed.sed_columns = launch, vmax, columns
+        cw._launch, sed.sed_step, sed.sed_columns = launch, step, columns
         cw.p3_part3, cw.p3_wrapper_out = part3, wrapper_out
-    if set(seen) != set(RATES_SED_OPS) | {"p3_part3", "p3_wrapper_out"}:
+    if set(seen) != set(RATES_OPS) | set(SED_CALLS) | {"p3_part3",
+                                                         "p3_wrapper_out"}:
         raise AssertionError(f"P3 step made calls {sorted(seen)}")
+    seen["launches"] = {name: spy_.launches for name, spy_ in spies.items()}
     return seen
 
 
@@ -1968,7 +2139,7 @@ def _rates_check(tag, phase, args, dtype, tol):
     del ref, got
     ms = _time_ms(lambda: cw._launch(phase, pnc, arrays, dt))
     pms = _time_ms(lambda: cw.plain_phase(phase, pnc, arrays, dt), reps=3)
-    bms, by = _bound(nbytes, RATES_SED_OPS[phase] * cells, dtype)
+    bms, by = _bound(nbytes, RATES_OPS[phase] * cells, dtype)
     print(f"[31] {tag} {phase} ({len(arrays)} in): max abs err {err:.3e}, "
           f"rel {rel:.3e} (tol {tol:g}), bit for bit {bit}{note}; kernel "
           f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms ({by}), "
@@ -1978,98 +2149,281 @@ def _rates_check(tag, phase, args, dtype, tol):
     return err, ms, pms, bms, by
 
 
+def _count(dt, vmax, dz):
+    """The sub-step count p3_scheme makes of vmax on a single card, a 0-d
+    tensor (no host read)."""
+    return torch.clamp(torch.ceil(dt * vmax / (0.9 * dz.min())), min=1.0)
+
+
 def _nsub(dt, vmax, dz):
     """(the sub-step count p3_scheme makes of vmax, dt vmax / (0.9 dz_min))
     for a single card, as 0-d tensor and float."""
-    ratio = dt * vmax / (0.9 * dz.min())
-    return torch.clamp(torch.ceil(ratio), min=1.0), float(ratio)
+    return _count(dt, vmax, dz), float(dt * vmax / (0.9 * dz.min()))
+
+
+# the sedimentation wrappers a P3 step calls
+SED_CALLS = ("sed_step", "sed_columns")
+# the species branches of the sedimentation's level body (csrc/p3_sed.cu):
+# probe kernels, each calling one branch (or the whole body) on values it
+# loads, so that its SASS holds that branch's instructions alone
+SED_PROBE = r"""
+#include "p3_sed.cu"
+namespace {
+template <typename T>
+__device__ SedTables<T> probe_tables(const T* x) {
+  SedTables<T> tb{};
+  tb.ice = x; tb.rain = x; tb.bs = 64; tb.es = 4; tb.rsize = 300;
+  return tb;
+}
+}
+template <typename T> __global__ void probe_rain(const T* x, T* o) {
+  T nr = x[1], vq, vn;
+  rain_speeds<T, true>(x[0], nr, x[2], x[3], probe_tables(x), vq, vn);
+  o[0] = vq; o[1] = vn; o[2] = nr;
+}
+template <typename T> __global__ void probe_ice(const T* x, T* o) {
+  T ni = x[1], qm = x[2], bm = x[3], vq, vn;
+  ice_speeds<T, true>(x[0], ni, qm, bm, x[4], probe_tables(x), vq, vn);
+  o[0] = vq; o[1] = vn; o[2] = ni; o[3] = qm; o[4] = bm;
+}
+template <typename T> __global__ void probe_cloud(const T* x, T* o) {
+  T nc = x[1];
+  o[0] = cloud_speed(x[0], nc, x[2], x[3]);
+  o[1] = nc;
+}
+template <typename T> __global__ void probe_update(const T* x, T* o) {
+  T q[8], v[8], fa[8], r[8];
+  for (int w = 0; w < 8; ++w) {
+    q[w] = x[w]; v[w] = x[8 + w]; fa[w] = x[16 + w];
+  }
+  level_update<T, false>(q, v, x[24], x[25], x[26] > T(0), x[27], fa, r);
+  for (int w = 0; w < 8; ++w) o[w] = r[w] + fa[w];
+}
+template __global__ void probe_rain<float>(const float*, float*);
+template __global__ void probe_ice<float>(const float*, float*);
+template __global__ void probe_cloud<float>(const float*, float*);
+template __global__ void probe_update<float>(const float*, float*);
+template __global__ void probe_rain<double>(const double*, double*);
+template __global__ void probe_ice<double>(const double*, double*);
+template __global__ void probe_cloud<double>(const double*, double*);
+template __global__ void probe_update<double>(const double*, double*);
+"""
+# floating-point opcodes of the SASS (a fused multiply-add counts as two
+# operations, every other instruction as one; MUFU is the special-function
+# unit's approximation step inside exp, log, pow and the divisions)
+SASS_FP = {"FADD": 1, "FMUL": 1, "FFMA": 2, "FMNMX": 1, "FSETP": 1,
+           "FSEL": 1, "FCHK": 1, "FRND": 1, "MUFU": 1, "DADD": 1, "DMUL": 1,
+           "DFMA": 2, "DMNMX": 1, "DSETP": 1, "F2F": 1, "F2I": 1, "I2F": 1,
+           "FSWZADD": 1}
+_sed_ops_cache = {}
+
+
+def _sed_ops():
+    """{"float32" / "float64": {branch: operations}} of the sedimentation's
+    level body, counted from the SASS of SED_PROBE's kernels, built with
+    csrc/p3_sed.cu's own nvcc flags as a cubin in chip_smoke_out/ and read
+    with cuobjdump: "rain", "ice" and "cloud" (one call of each species'
+    speeds) and "update" (the eight fluxes and updates of a level).  A
+    static count: every path through the math functions' range splits
+    counts, so the species branches are an upper estimate of one call,
+    while a cell without the species counts 0 for its branch.  Cached per
+    process."""
+    import re
+    if _sed_ops_cache:
+        return _sed_ops_cache
+    from miniweatherml_tpu_torch import cuda_build
+    nvcc = cuda_build._nvcc()
+    csrc = os.path.join(ROOT, "miniweatherml_tpu_torch", "csrc")
+    work = os.path.join(OUT_DIR, "sed_probe")
+    os.makedirs(work, exist_ok=True)
+    src, cubin = (os.path.join(work, "probe.cu"),
+                  os.path.join(work, "probe.cubin"))
+    with open(src, "w") as f:
+        f.write(SED_PROBE)
+    flags = [f for f in cuda_build.nvcc_flags("p3_sed")
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                          "--split-compile=0")]
+    subprocess.run([nvcc, *flags, "-cubin", "-I", csrc, "-o", cubin, src],
+                   check=True, capture_output=True, text=True)
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                          capture_output=True, text=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)"
+                      r"(?:\.[\w.]+)?\s", ln)
+        if cur and m and m.group(1) in SASS_FP:
+            counts[cur] += SASS_FP[m.group(1)]
+    out = {}
+    for t, dtype in (("f", "float32"), ("d", "float64")):
+        per = {}
+        for branch in ("rain", "ice", "cloud", "update"):
+            hits = [n for k, n in counts.items()
+                    if f"probe_{branch}I{t}E" in k]
+            if len(hits) != 1:
+                raise AssertionError(f"no single probe_{branch} <{dtype}> in "
+                                     f"the SASS: {sorted(counts)}")
+            per[branch] = hits[0]
+        out[dtype] = per
+    _sed_ops_cache.update(out)
+    print(f"[2] sedimentation operations per cell from the SASS (FMA as "
+          f"2): {out}", flush=True)
+    return _sed_ops_cache
+
+
+def _sed_work(fields, rho, dtype, nsub=1):
+    """(bytes, operations) of the sedimentation at ``nsub`` sub-steps on
+    these inputs: 11 fields read and 8 written per sub-step plus the two
+    surface fields; per cell and sub-step the level body's operations,
+    each species' branch only where it is present (at one sub-step the
+    inputs' presence; the speeds' gates, QSMALL)."""
+    from miniweatherml_tpu_torch.physics.p3 import QSMALL
+    ops = _sed_ops()[_dtype_name(dtype)]
+    qc, qr, qi = fields[0], fields[2], fields[4]
+    cells = qc.numel()
+    item = qc.element_size()
+    nbytes = nsub * (19 * cells * item) + 2 * item * cells // rho.shape[1]
+    work = (cells * ops["update"] + int((qr >= QSMALL).sum()) * ops["rain"]
+            + int((qi >= QSMALL).sum()) * ops["ice"]
+            + int((qc >= QSMALL).sum()) * ops["cloud"])
+    return nbytes, nsub * work
+
+
+def _sed_registers(kernel, dtype):
+    """(registers, spill store bytes) of the table-tier, prescribed-nc
+    ``kernel`` ("sed_step_kernel" or "sed_columns_kernel") from the ptxas
+    report."""
+    t = "f" if dtype == torch.float32 else "d"
+    rows = [(r, st) for m, r, st, *_ in _ptxas_report("p3_sed")
+            if f"{kernel}I{t}Lb1ELb0E" in m]
+    if len(rows) != 1:
+        raise AssertionError(f"no single {kernel} <{t}> tables in p3_sed")
+    return rows[0]
 
 
 def _sed_check(tag, seen, dtype, tol):
-    """sed_vmax and sed_columns against their plain versions on what the
-    step handed them: the speed and the count made of it; the fall at the
-    step's count with do_predict_nc both ways, and at a dt that makes
-    dt vmax / (0.9 dz_min) = 3.5 (4 sub-steps).  Returns the records of the
-    two kernels at the step's count, {name: (ms, plain ms, bound ms,
-    bound_by)}, and the largest abs error of the checks."""
+    """sed_step and the rerun of sed_columns against their plain versions
+    on what the step handed them: the speed (against the oracle
+    _p3_sed_vmax too) and the count made of it, the one sub-step's outputs,
+    and the rerun at the step's count with do_predict_nc both ways, and at
+    a dt that makes dt vmax / (0.9 dz_min) = 3.5 (4 sub-steps) against
+    sed_columns' plain version from the inputs; each pass timed beside its
+    bound, with sed_columns alone from the inputs (the former pair's
+    second kernel) beside it.  Returns the record of the sedimentation at
+    the step's count, (ms, plain ms, bound ms, bound_by), and the largest
+    abs error of the checks."""
     from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
-    va, vk = seen["sed_vmax"]
+    sa, sk = seen["sed_step"]
     ca, ck = seen["sed_columns"]
-    fields, (rho, temp, dz, dt, nsub_t, dtab) = ca[:8], ca[8:14]
-    ref_v = sed.vmax_plain(*va, **vk)
-    got_v = sed.sed_vmax(*va, **vk)
+    fields, (rho, temp, dz, dt, dtab) = sa[:8], sa[8:13]
+    nsub_t = ca[12]
+    pnc = sk["do_predict_nc"]
+    if seen["launches"] != {"sed_step": 1, "sed_columns": 1}:
+        raise AssertionError(f"{tag}: sedimentation launches per P3 step "
+                             f"{seen['launches']}")
+    ref_v, ref_one = sed.step_plain(*sa, pnc, 1)
+    oracle = sed.vmax_plain(*fields, rho, temp, dtab)
+    got_v, got_one = sed.sed_step(*sa, **sk)
+    torch.cuda.synchronize()
     n_ref, r_ref = _nsub(dt, ref_v, dz)
     n_got, r_got = _nsub(dt, got_v, dz)
     err_v, rel_v = _rel(ref_v, got_v)
-    print(f"[31] {tag} sed_vmax: {float(got_v):.9e} m/s, plain "
-          f"{float(ref_v):.9e}, rel err {rel_v:.3e} (tol {tol:g}); nsub "
-          f"{int(n_got)} (plain {int(n_ref)}, the step's {int(nsub_t)}) at "
-          f"dt vmax / (0.9 dz_min) = {r_got:.9f} (plain {r_ref:.9f})",
-          flush=True)
-    if not rel_v <= tol or int(n_got) != int(n_ref) or not torch.equal(
-            n_got, nsub_t):
-        raise AssertionError(f"{tag} sed_vmax: rel {rel_v:.3e}, nsub "
-                             f"{int(n_got)} / {int(n_ref)} / {int(nsub_t)}")
-    cases = [("step", dt, nsub_t, ck["do_predict_nc"]),
-             ("step", dt, nsub_t, not ck["do_predict_nc"])]
+    err_1, rel_1 = _worst(zip(ref_one, got_one))
+    bit_1 = all(torch.equal(a, b) for a, b in zip(ref_one, got_one))
+    print(f"[31] {tag} sed_step: vmax {float(got_v):.9e} m/s, plain "
+          f"{float(ref_v):.9e} (oracle {float(oracle):.9e}), rel err "
+          f"{rel_v:.3e}; nsub {int(n_got)} (plain {int(n_ref)}, the step's "
+          f"{int(nsub_t)}) at dt vmax / (0.9 dz_min) = {r_got:.9f} (plain "
+          f"{r_ref:.9f}); one sub-step do_predict_nc {pnc}: max abs err "
+          f"{err_1:.3e}, rel {rel_1:.3e} (tol {tol:g}), bit for bit "
+          f"{bit_1}; launches per P3 step {seen['launches']}", flush=True)
+    if (not rel_v <= tol or not rel_1 <= tol or int(n_got) != int(n_ref)
+            or not torch.equal(n_got, nsub_t)
+            or not torch.equal(ref_v, oracle)):
+        raise AssertionError(f"{tag} sed_step: rel {rel_v:.3e} / "
+                             f"{rel_1:.3e}, nsub {int(n_got)} / {int(n_ref)}"
+                             f" / {int(nsub_t)}")
+    del ref_one, got_one
+    cases = [("step", dt, pnc), ("step", dt, not pnc)]
     if float(got_v) > 0.0:
         dt3 = 3.5 * 0.9 * float(dz.min()) / float(got_v)
-        n3, r3 = _nsub(dt3, got_v, dz)
-        cases.append((f"dt {dt3:.3f} s (ratio {r3:.9f})", dt3, n3, False))
+        cases.append((f"dt {dt3:.3f} s (ratio "
+                      f"{_nsub(dt3, got_v, dz)[1]:.9f})", dt3, False))
     else:
         print(f"[31] {tag}: no hydrometeor falls (vmax 0), so every dt "
               "gives 1 sub-step", flush=True)
-    err_c = 0.0
-    for label, dt_, n_, pnc in cases:
-        args = (*fields, rho, temp, dz, dt_, n_, dtab)
-        ref = sed.columns_plain(*args, pnc, 1)
-        got = sed.sed_columns(*args, do_predict_nc=pnc)
+
+    def passes(dt_, pnc_):
+        """sed_step, the count and the rerun, as p3_scheme runs them."""
+        v, one = sed.sed_step(*fields, rho, temp, dz, dt_, dtab,
+                              do_predict_nc=pnc_)
+        n = _count(dt_, v, dz)
+        return sed.sed_columns(*fields, rho, temp, dz, dt_, n, dtab,
+                               do_predict_nc=pnc_, rerun=one), n
+
+    def plain(dt_, pnc_):
+        v, one = sed.step_plain(*fields, rho, temp, dz, dt_, dtab, pnc_, 1)
+        n = _count(dt_, v, dz)
+        return sed.columns_plain(*fields, rho, temp, dz, dt_, n, dtab, pnc_,
+                                 1, one)
+
+    err_c, recs = max(err_v, err_1), {}
+    for label, dt_, pnc_ in cases:
+        got, n = passes(dt_, pnc_)
+        ref = sed.columns_plain(*fields, rho, temp, dz, dt_, n, dtab, pnc_,
+                                1)
         torch.cuda.synchronize()
         err, rel = _worst(zip(ref, got))
         bit = all(torch.equal(a, b) for a, b in zip(ref, got))
         err_c = max(err_c, err)
-        print(f"[31] {tag} sed_columns {label}, {int(n_)} sub-step(s), "
-              f"do_predict_nc {pnc}: max abs err {err:.3e}, rel {rel:.3e} "
-              f"(tol {tol:g}), bit for bit {bit}", flush=True)
-        if not rel <= tol:
-            raise AssertionError(f"{tag} sed_columns {label}: rel {rel:.3e}")
         del ref, got
-    cells = fields[0].numel()
-    n = int(nsub_t)
-    recs = {}
-    for name, kern, plain, nbytes, ops in (
-            ("sed_vmax", lambda: sed.sed_vmax(*va, **vk),
-             lambda: sed.vmax_plain(*va, **vk),
-             _nbytes(fields, rho, temp) + got_v.element_size(),
-             RATES_SED_OPS["sed_vmax"] * cells),
-            ("sed_columns", lambda: sed.sed_columns(*ca, **ck),
-             lambda: sed.columns_plain(*ca, ck["do_predict_nc"], 1),
-             _nbytes(fields, rho, temp, dz) + _nbytes(fields)
-             + 2 * _nbytes(fields[0][:, 0]),
-             RATES_SED_OPS["sed_columns"] * cells * n)):
-        ms = _time_ms(kern)
-        pms = _time_ms(plain, reps=3)
+        ns = int(n)
+        nbytes, ops = _sed_work(fields, rho, dtype, ns)
         bms, by = _bound(nbytes, ops, dtype)
-        print(f"[31] {tag} {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-              f"bound {bms:.3f} ms ({by}; {n} sub-step(s)), "
-              f"{bms / ms:.1%} of the bound", flush=True)
-        recs[name] = (ms, pms, bms, by)
-    return recs, max(err_v, err_c)
+        ms = _time_ms(lambda: passes(dt_, pnc_))
+        ms_step = _time_ms(lambda: sed.sed_step(
+            *fields, rho, temp, dz, dt_, dtab, do_predict_nc=pnc_))
+        ms_cols = _time_ms(lambda: sed.sed_columns(
+            *fields, rho, temp, dz, dt_, n, dtab, do_predict_nc=pnc_))
+        pms = _time_ms(lambda: plain(dt_, pnc_), reps=3)
+        print(f"[31] {tag} sedimentation {label}, {ns} sub-step(s), "
+              f"do_predict_nc {pnc_}: against sed_columns' plain version "
+              f"from the inputs max abs err {err:.3e}, rel {rel:.3e} (tol "
+              f"{tol:g}), bit for bit {bit}; sed_step + count + rerun "
+              f"{ms:.3f} ms (sed_step alone {ms_step:.3f} ms), sed_columns "
+              f"alone from the inputs {ms_cols:.3f} ms, plain {pms:.3f} ms, "
+              f"bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB, "
+              f"{ops / 1e9:.2f} GFLOP), {bms / ms:.1%} of the bound  "
+              f"[{_card()}]", flush=True)
+        if not rel <= tol:
+            raise AssertionError(f"{tag} sedimentation {label}: rel "
+                                 f"{rel:.3e}")
+        if label == "step" and pnc_ == pnc:
+            recs = (ms, pms, bms, by)
+    return recs, err_c
 
 
 def phase_p3_rates_sed():
-    """The two rates phases and the two sedimentation kernels against their
-    plain versions on what one step of each of _p3_step_chains hands them
-    at 512x512x64, f32 and f64; the records of the kernels line from the
-    early-storm f32 step (the main cell)."""
+    """The two rates phases and the sedimentation (sed_step, the count and
+    the rerun of sed_columns) against their plain versions on what one step
+    of each of _p3_step_chains hands them at 512x512x64, f32 and f64; the
+    records of the kernels line from the early-storm f32 step (the main
+    cell)."""
     from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
-    for kernel in ("vmax", "columns"):
+    for kernel in ("step", "columns"):
         for dtype in (torch.float32, torch.float64):
             b, t, sm = sed.launch_config(kernel, True, False, dtype,
                                          512 * 512 * 64, 64)
+            regs, spill = _sed_registers(f"sed_{kernel}_kernel", dtype)
             print(f"[31] sed_{kernel} {_dtype_name(dtype)} launch: {b} "
                   f"blocks of {t} threads, {sm} B shared per block (the "
-                  "staged ice columns and rain rows)", flush=True)
+                  f"staged ice columns and rain rows); {regs} registers, "
+                  f"{spill} B spill stores", flush=True)
     recs = {"p3_rates": {"max_abs_err": 0.0},
             "p3_sedimentation": {"max_abs_err": 0.0},
             "p3_part3": {"max_abs_err": 0.0},
@@ -2081,8 +2435,8 @@ def phase_p3_rates_sed():
             main = chain == "early-storm" and dtype == "float32"
             rates = [_rates_check(tag, ph, seen[ph][0], seen[ph][0][1][0].dtype,
                                   tol) for ph in ("rates_pre", "rates_post")]
-            sed_recs, sed_err = _sed_check(tag, seen,
-                                           seen["sed_vmax"][0][0].dtype, tol)
+            sed_rec, sed_err = _sed_check(tag, seen,
+                                          seen["sed_step"][0][0].dtype, tol)
             if dtype == "float32":
                 r = recs["p3_rates"]
                 r["max_abs_err"] = max(r["max_abs_err"],
@@ -2095,12 +2449,10 @@ def phase_p3_rates_sed():
                     plain_ms=sum(x[2] for x in rates),
                     bound_ms=sum(x[3] for x in rates), bound_by=rates[1][4])
                 recs["p3_sedimentation"].update(
-                    ms=sum(v[0] for v in sed_recs.values()),
-                    plain_ms=sum(v[1] for v in sed_recs.values()),
-                    bound_ms=sum(v[2] for v in sed_recs.values()),
-                    bound_by=sed_recs["sed_columns"][3])
+                    ms=sed_rec[0], plain_ms=sed_rec[1], bound_ms=sed_rec[2],
+                    bound_by=sed_rec[3])
             for name, (err, ms, pms, bms, by) in _tails_check(
-                    tag, seen, seen["sed_vmax"][0][0].dtype, tol).items():
+                    tag, seen, seen["sed_step"][0][0].dtype, tol).items():
                 r = recs[name]
                 if dtype == "float32":
                     r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -2791,7 +3143,8 @@ def phase_strip_fluxes():
     periodic f32 calls (the main path's forms: x bare, y with the stage
     update) are timed beside their bound.  Then the same cases in the
     reduced-operation algebra: exact in f32 and f64, bit for bit, and with
-    the approximate reciprocals in f32, within the tolerance of scale.
+    the approximate reciprocals in f32, and in the reference algebra with
+    the approximate reciprocals in f32, both by the fast bar.
     Returns the JSON record and, per dtype, the local state's pieces that
     phase 23 needs."""
     from miniweatherml_tpu_torch.ops.direction_fluxes import (
@@ -2871,7 +3224,8 @@ def phase_strip_fluxes():
                             rec["plain_ms"] += spms - pms
                             rec["bound_ms"] += sbms - bms
                 del ref, got
-        for algebra in ("opt", "fast") if dtype == "float32" else ("opt",):
+        for algebra in (("opt", "fast", "ref_fast") if dtype == "float32"
+                        else ("opt",)):
             for name, axis, nid, d, src in (("x", -1, IDU, g.dx, rows),
                                             ("y", -2, IDV, g.dy, cols)):
                 for bc, i in ((c.bc_x if axis == -1 else c.bc_y, 0),
@@ -3430,7 +3784,9 @@ def phase_tracer_groups():
     tracers (17 variables) on a 64x64x32 P3 state plus three more tracers,
     x / y / z, z accumulating, y with the stage update and the halo-strip
     form, in the reference algebra and the reduced-operation one (exact,
-    and with the approximate reciprocals in f32, by the fast bar), then
+    and with the approximate reciprocals in f32, by the fast bar), and in
+    the reference algebra with the approximate reciprocals (f32, by the
+    fast bar), then
     fct_mult and fct_scale_div at
     12 tracers on the faces it gave, f32 and f64, and both FCT kernels at
     70 tracers (f32, small grid); bit for bit against the plain versions,
@@ -3445,7 +3801,8 @@ def phase_tracer_groups():
         on the same inputs: bit for bit, the fast algebra by the fast
         bar."""
         counter = {"ref": "launches", "opt": "opt_launches",
-                   "fast": "fast_launches"}[algebra]
+                   "fast": "fast_launches",
+                   "ref_fast": "ref_fast_launches"}[algebra]
         n0, a0 = wrapper.launches, getattr(wrapper, counter)
         got = kern()
         launches = wrapper.launches - n0
@@ -3520,7 +3877,8 @@ def phase_tracer_groups():
         sargs = args
         b0, b1 = _stage_bases(state, dycore)
         rk = _stage(state, dycore, b0, b1, dycore.compute_time_step(state))
-        for algebra in ("opt", "fast") if dtype == "float32" else ("opt",):
+        for algebra in (("opt", "fast", "ref_fast") if dtype == "float32"
+                        else ("opt",)):
             kw = ALGEBRA_KW[algebra]
             xdiv = direction_fluxes_plain(prim, -1, g.nx, c.bc_x, IDU, c.C0,
                                           c.gamma, hy[0], hy[1], dycore.mats,
@@ -3660,7 +4018,7 @@ def _dryrun_counts():
                 ("p3_update", cw.p3_update), ("p3_wrapper", cw.p3_wrapper),
                 ("p3_rates_pre", cw.p3_rates_pre),
                 ("p3_rates_post", cw.p3_rates_post),
-                ("sed_vmax", sed.sed_vmax),
+                ("sed_step", sed.sed_step),
                 ("sed_columns", sed.sed_columns),
                 ("p3_part3", cw.p3_part3),
                 ("p3_wrapper_out", cw.p3_wrapper_out),
@@ -3715,10 +4073,12 @@ def main() -> int:
     r_p3 = phase_direction_fluxes(k_fct, "p3")
     r_city = phase_direction_fluxes(k_fct, "city")
     # the JSON line's times: one right-hand side, of the reference algebra
-    # at 14 variables, 9 tracers (P3), of the reduced-operation ones at the
-    # main path's 8 variables (Kessler); the largest error of every chain
-    k_a, k_opt, k_fast = r_p3["ref"], r_kessler["opt"], r_kessler["fast"]
-    for alg, k in (("ref", k_a), ("opt", k_opt), ("fast", k_fast)):
+    # at 14 variables, 9 tracers (P3), of the others at the main path's 8
+    # variables (Kessler); the largest error of every chain
+    k_a, k_opt, k_fast, k_rfast = (r_p3["ref"], r_kessler["opt"],
+                                   r_kessler["fast"], r_kessler["ref_fast"])
+    for alg, k in (("ref", k_a), ("opt", k_opt), ("fast", k_fast),
+                   ("ref_fast", k_rfast)):
         k["max_abs_err"] = max(r[alg]["max_abs_err"]
                                for r in (r_kessler, r_p3, r_city))
     del r_kessler, r_p3, r_city
@@ -3818,6 +4178,16 @@ def main() -> int:
                      "miniweatherml_tpu/ops/pallas_recon.py:941 (opt=True, "
                      "fast_weights=True)",
          "launches": l_opt["fast"]["fast"], **k_fast},
+        # the Pallas kernels' reference-ordered algebra with fast_weights
+        # (a cutoff, or opt_algebra=False): launches from phase 33's
+        # opt_algebra=False run
+        {"name": "direction_fluxes ref + fast weights (x; y/z bare, "
+                 "accumulating, stage update)", "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/direction_fluxes_ref_fast.cu",
+         "replaces": "miniweatherml_tpu/ops/pallas_recon.py:536, "
+                     "miniweatherml_tpu/ops/pallas_recon.py:941 "
+                     "(_weno_edges_block with fast_weights=True, :58-124)",
+         "launches": l_opt["ref_fast"]["ref_fast"], **k_rfast},
         {"name": "kessler_step", "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/kessler.cu",
          "replaces": "miniweatherml_tpu/physics/kessler_pallas.py:128",
@@ -3850,11 +4220,12 @@ def main() -> int:
                      "fusion, not a Pallas kernel)",
          "launches": l_p3["p3_rates_pre"] + l_p3["p3_rates_post"],
          **k_rs["p3_rates"]},
-        {"name": "p3_sedimentation", "route": "cuda",
+        {"name": "p3_sedimentation (sed_step + sed_columns rerun)",
+         "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/p3_sed.cu",
          "replaces": "miniweatherml_tpu/physics/p3.py:1268-1388 "
                      "(lax.while_loop, not a Pallas kernel)",
-         "launches": l_p3["sed_vmax"] + l_p3["sed_columns"],
+         "launches": l_p3["sed_step"] + l_p3["sed_columns"],
          **k_rs["p3_sedimentation"]},
         {"name": "fct_scale_div", "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/fct.cu",

@@ -204,7 +204,34 @@ class CouplerState:
     def replace_fields(self, **updates: torch.Tensor) -> "CouplerState":
         f = dict(self.fields)
         f.update(updates)
-        return CouplerState(fields=f, meta=self.meta)
+        out = CouplerState(fields=f, meta=self.meta)
+        # dirty-entry tracking (reference DataManager.h:206-237): the names
+        # written since the last clear_dirty(); every other way of making a
+        # state starts with none, as the JAX package's does
+        out._dirty = self.dirty_fields | frozenset(updates)
+        return out
+
+    @property
+    def dirty_fields(self) -> frozenset:
+        """Names written through replace_fields since the last
+        clear_dirty() (best-effort introspection, as in the reference)."""
+        return getattr(self, "_dirty", frozenset())
+
+    def clear_dirty(self) -> "CouplerState":
+        return CouplerState(fields=dict(self.fields), meta=self.meta)
+
+    def get_lev_col(self, name: str) -> torch.Tensor:
+        """Field collapsed to (nz, ncol) for column physics (reference
+        DataManager::get_lev_col, DataManager.h:294-338; ncol = nens ny nx,
+        the vertical leading)."""
+        g = self.grid
+        return self.fields[name].movedim(1, 0).reshape(
+            g.nz, g.nens * g.ny * g.nx)
+
+    def get_collapsed(self, name: str) -> torch.Tensor:
+        """Field flattened to 1-D (reference DataManager::get_collapsed,
+        DataManager.h:346-379)."""
+        return self.fields[name].reshape(-1)
 
     def with_meta(self, meta: CouplerMeta) -> "CouplerState":
         return CouplerState(fields=dict(self.fields), meta=meta)
@@ -260,10 +287,14 @@ class CouplerState:
         return self.replace_fields(
             **{n: tr[i] for i, n in enumerate(self.meta.tracer_names)})
 
-    def validate(self) -> dict[str, str]:
+    def validate(self, positive_only_registered: bool = True
+                 ) -> dict[str, str]:
         """NaN/Inf/positivity validation (reference DataManager.h:385-483);
         returns {field: problems}, e.g. "nan" or "inf+negative", read from
-        the device in one transfer (``core/validate.py``)."""
+        the device in one transfer (``core/validate.py``).  Positivity is
+        checked for the tracers registered positive only, whatever
+        ``positive_only_registered`` says: the JAX package's signature,
+        which reads it no more."""
         from .validate import check_flags, validation_flags
         return check_flags(validation_flags(self))
 

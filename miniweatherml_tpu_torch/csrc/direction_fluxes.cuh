@@ -3,8 +3,9 @@
 // the kernels, templated on the limiter algebra, and DIRECTION_FLUXES_ENTRY,
 // which declares one extern "C" entry point.  direction_fluxes.cu builds
 // them in the reference algebra, direction_fluxes_opt.cu in the
-// reduced-operation algebra, exact and with approximate reciprocals, each
-// into a library of its own.
+// reduced-operation algebra, exact and with approximate reciprocals, and
+// direction_fluxes_ref_fast.cu in the reference algebra with approximate
+// reciprocals, each into a library of its own.
 //
 // Replaces the Pallas TPU megakernels of miniweatherml_tpu/ops/pallas_recon.py:
 // direction_fluxes_pallas (x, stencil on the last axis, pallas_call at :536)
@@ -29,6 +30,9 @@
 //   the lo / hi strips a shard's neighbours sent) -> WENO edges of every
 //   variable in the algebra ALG (ALG_REF: exact weights in the term order
 //   of ops/weno_fused.py::reconstruct_edges_shifted, the JAX XLA path's;
+//   ALG_REF_FAST: the same with approximate reciprocals, the Pallas
+//   kernels' pallas_recon.py::_weno_edges_block with fast_weights, in the
+//   term order of ops/weno_fused.py::reconstruct_edges_recip;
 //   ALG_OPT / ALG_FAST: the Pallas kernels' reduced-operation algebra,
 //   pallas_recon.py::_weno_edges_block_opt, in the term order of
 //   ops/weno_fused.py::reconstruct_edges_opt, with IEEE or approximate
@@ -61,12 +65,13 @@
 //    __constant__ memory and are indexed by compile-time offsets after
 //    unrolling, so every coefficient is a constant-bank operand of its
 //    multiply: no loads.
-//  * The algebra is a template parameter (ALG_REF, ALG_OPT, ALG_FAST) of
-//    every kernel, so each form compiles only its own limiter.  ALG_FAST
-//    takes the five reciprocals of the opt algebra as one MUFU.RCP each
-//    (rcp.approx.ftz.f32) in place of the IEEE division's instruction
-//    sequence; it exists in f32 only, as the Pallas kernels' approximate
-//    reciprocal does.
+//  * The algebra is a template parameter (ALG_REF, ALG_OPT, ALG_FAST,
+//    ALG_REF_FAST) of every kernel, so each form compiles only its own
+//    limiter.  ALG_FAST takes the five reciprocals of the opt algebra as one
+//    MUFU.RCP each (rcp.approx.ftz.f32) in place of the IEEE division's
+//    instruction sequence, ALG_REF_FAST the reference algebra's two (three
+//    with a cutoff) normalisations and its K weights likewise; both exist
+//    in f32 only, as the Pallas kernels' approximate reciprocal does.
 //  * Order, type, direction kind (x: unit stride; y/z: strided), a bound
 //    on the tracer count (1, 3 or 9; the tracer loop is unrolled and
 //    guarded) and the form (whole axis or halo strips: a runtime branch on
@@ -125,8 +130,15 @@ constexpr int ST_GRAV = 1, ST_FCOR = 2, ST_SIM2D = 4;
 // limiter algebras: the reference order with exact weights (ALG_REF,
 // ops/weno_fused.py::reconstruct_edges_shifted), the reduced-operation
 // algebra with exact reciprocals (ALG_OPT) and with approximate ones
-// (ALG_FAST, f32 only; ops/weno_fused.py::reconstruct_edges_opt)
-constexpr int ALG_REF = 0, ALG_OPT = 1, ALG_FAST = 2;
+// (ALG_FAST, f32 only; ops/weno_fused.py::reconstruct_edges_opt), and the
+// reference algebra with approximate reciprocals (ALG_REF_FAST, f32 only;
+// ops/weno_fused.py::reconstruct_edges_recip)
+constexpr int ALG_REF = 0, ALG_OPT = 1, ALG_FAST = 2, ALG_REF_FAST = 3;
+// whether an algebra reads the reference table (weno_coef_table) and takes
+// a cutoff, or the reduced-operation one (opt_coef_table)
+__host__ __device__ constexpr bool ref_table(int alg) {
+  return alg == ALG_REF || alg == ALG_REF_FAST;
+}
 
 // the tables of each order: weno_coef_table's (reference algebra) and
 // opt_coef_table's (reduced-operation algebra), as f32 and f64; a library
@@ -195,8 +207,32 @@ struct Limiter {
 };
 static_assert(Limiter<9>::SIZE <= COEF_MAX, "coefficient table too long");
 
-// Limited left/right edge values of one cell from its ord-wide stencil.
-template <int ORD, typename T>
+// 1 / v: an IEEE division, or with FAST the hardware's approximate
+// reciprocal (one MUFU.RCP, ~1 ulp; subnormals flush to zero), the
+// counterpart of the Pallas kernels' pl.reciprocal(approx=True)
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+template <typename T, bool FAST>
+__device__ __forceinline__ T recip(T v) {
+  if constexpr (FAST) {
+    static_assert(std::is_same<T, float>::value,
+                  "the approximate reciprocal is f32 only");
+    return rcp_approx(v);
+  } else {
+    return T(1) / v;
+  }
+}
+
+// Limited left/right edge values of one cell from its ord-wide stencil, in
+// the reference algebra: with FAST (ALG_REF_FAST) every reciprocal of the
+// two normalisations and of the weights is the approximate one and each
+// weight is idl times it (pallas_recon.py::_weno_edges_block with
+// fast_weights), else both normalisations take the IEEE reciprocal and the
+// weights an IEEE division (reconstruct_edges_shifted).
+template <int ORD, typename T, bool FAST>
 __device__ __forceinline__ void weno_edges(const T (&s)[ORD], T cutoff,
                                            T& left, T& right) {
   using L = Limiter<ORD>;
@@ -219,7 +255,7 @@ __device__ __forceinline__ void weno_edges(const T (&s)[ORD], T cutoff,
     T tot = v[0];
 #pragma unroll
     for (int k = 1; k < K; ++k) tot = add(tot, v[k]);
-    const T inv = tot > eps ? T(1) / tot : T(1);
+    const T inv = tot > eps ? recip<T, FAST>(tot) : T(1);
 #pragma unroll
     for (int k = 0; k < K; ++k) v[k] = mul(v[k], inv);
   };
@@ -227,7 +263,11 @@ __device__ __forceinline__ void weno_edges(const T (&s)[ORD], T cutoff,
   T w[K];
 #pragma unroll
   for (int k = 0; k < K; ++k)
-    w[k] = coef<T>(SLOT, L::IDL_OFF + k) / add(mul(tv[k], tv[k]), eps);
+    if constexpr (FAST)
+      w[k] = mul(coef<T>(SLOT, L::IDL_OFF + k),
+                 recip<T, true>(add(mul(tv[k], tv[k]), eps)));
+    else
+      w[k] = coef<T>(SLOT, L::IDL_OFF + k) / add(mul(tv[k], tv[k]), eps);
   convexify(w);
   if (cutoff > T(0)) {
 #pragma unroll
@@ -288,25 +328,6 @@ struct OptLimiter {
 static_assert(OptLimiter<3>::SIZE == 22 && OptLimiter<5>::SIZE == 38 &&
                   OptLimiter<7>::SIZE == 75 && OptLimiter<9>::SIZE == 94,
               "opt table layout differs from ops/weno_fused.py");
-
-// 1 / v: an IEEE division, or with FAST the hardware's approximate
-// reciprocal (one MUFU.RCP, ~1 ulp; subnormals flush to zero), the
-// counterpart of the Pallas kernels' pl.reciprocal(approx=True)
-__device__ __forceinline__ float rcp_approx(float v) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-template <typename T, bool FAST>
-__device__ __forceinline__ T recip(T v) {
-  if constexpr (FAST) {
-    static_assert(std::is_same<T, float>::value,
-                  "the approximate reciprocal is f32 only");
-    return rcp_approx(v);
-  } else {
-    return T(1) / v;
-  }
-}
 
 // The floor of the opt weights' denominators (the Pallas kernels' tiny),
 // the double constant cast to the type as the plain version's is.
@@ -433,8 +454,8 @@ __device__ __forceinline__ void weno_edges_opt(const T (&s)[ORD], T& left,
 template <int ORD, typename T, int ALG>
 __device__ __forceinline__ void edges(const T (&s)[ORD], T cutoff, T& left,
                                       T& right) {
-  if constexpr (ALG == ALG_REF)
-    weno_edges<ORD, T>(s, cutoff, left, right);
+  if constexpr (ref_table(ALG))
+    weno_edges<ORD, T, ALG == ALG_REF_FAST>(s, cutoff, left, right);
   else
     weno_edges_opt<ORD, T, ALG == ALG_FAST>(s, left, right);
 }
@@ -1008,7 +1029,7 @@ int launch(const void* prim, const void* hyr, const void* hyt, void* sdiv,
       (bc_hi != 0 && bc_hi != bc) || (accumulate && axis == 0) ||
       (b0 != nullptr && (!accumulate || hyc == nullptr)) ||
       (b0 == nullptr && (b1 != nullptr || imm != nullptr)) ||
-      (ALG != ALG_REF && cutoff != 0.0))
+      (!ref_table(ALG) && cutoff != 0.0))
     return cudaErrorInvalidValue;
   const int64_t cells = (int64_t)nens * nz * ny * nx;
   const int hp = (ord - 1) / 2 + 1;
@@ -1084,18 +1105,18 @@ int set_coef(int ord, const double* table, int n) {
   const int opt_size[4] = {OptLimiter<3>::SIZE, OptLimiter<5>::SIZE,
                            OptLimiter<7>::SIZE, OptLimiter<9>::SIZE};
   const int slot = (ord - 3) / 2;
-  if (n < 1 || n > COEF_MAX || (ALG != ALG_REF && n != opt_size[slot]))
+  if (n < 1 || n > COEF_MAX || (!ref_table(ALG) && n != opt_size[slot]))
     return cudaErrorInvalidValue;
   float f[COEF_MAX];
   for (int i = 0; i < n; ++i) f[i] = (float)table[i];
   cudaError_t err =
-      ALG == ALG_REF
+      ref_table(ALG)
           ? cudaMemcpyToSymbol(c_coef_f64, table, n * sizeof(double),
                                slot * COEF_MAX * sizeof(double))
           : cudaMemcpyToSymbol(c_opt_f64, table, n * sizeof(double),
                                slot * COEF_MAX * sizeof(double));
   if (err != cudaSuccess) return err;
-  return ALG == ALG_REF
+  return ref_table(ALG)
              ? cudaMemcpyToSymbol(c_coef_f32, f, n * sizeof(float),
                                   slot * COEF_MAX * sizeof(float))
              : cudaMemcpyToSymbol(c_opt_f32, f, n * sizeof(float),

@@ -32,12 +32,13 @@ _BUILD = os.path.join(_PKG_DIR, "_build")
 # contraction on, so that its pow and exp also round as PyTorch's (built
 # that way) do.  --split-compile=0 optimizes a file's kernels in parallel on
 # every core (the flux kernel has 192 instantiations in its reference
-# algebra, 288 in its reduced-operation ones).
+# algebra, 288 in its reduced-operation ones, 96 in the reference algebra
+# with approximate reciprocals).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-FMAD_SOURCES = ("direction_fluxes", "direction_fluxes_opt", "kessler",
-                "p3_lookup")
+FMAD_SOURCES = ("direction_fluxes", "direction_fluxes_opt",
+                "direction_fluxes_ref_fast", "kessler", "p3_lookup")
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

@@ -22,7 +22,9 @@ stage's state.  The limiter runs in the algebra that ``riemann_impl``
 names, as in the JAX package: "xla" (the default, and what "auto" resolves
 to on every device) the reference algebra with exact weights, "pallas" the
 Pallas kernels' reduced-operation algebra with, by default,
-approximate-reciprocal weights in f32 (``fast_weights``).
+approximate-reciprocal weights in f32 (``fast_weights``); "pallas" with
+``opt_algebra=False`` or a cutoff the Pallas kernels' reference algebra,
+with the same weights.
 
 Under a mesh (``parallel/spmd.py``) each shard steps its local block with an
 ``SpmdCtx``: a split x or y direction takes its halo strips from the ring
@@ -110,7 +112,7 @@ class Dycore:
 
     def __init__(self, ord: int = 5, cutoff: float = 0.0,
                  riemann_impl: str = "auto",
-                 fast_weights: bool | None = None):
+                 fast_weights: bool | None = None, opt_algebra: bool = True):
         if ord not in (3, 5, 7, 9):
             raise ValueError("ord must be 3, 5, 7 or 9")
         if riemann_impl == "auto":
@@ -134,13 +136,19 @@ class Dycore:
         # the card; the plain version and f64 are exact).  Only affects
         # riemann_impl="pallas".
         self.fast_weights = fast_weights
+        # opt_algebra: the reduced-operation algebra under "pallas"; False
+        # (or a cutoff) runs the Pallas kernels' reference-ordered algebra
+        # (ops/weno_fused.py::reconstruct_edges_recip, with fast_weights
+        # csrc/direction_fluxes_ref_fast.cu).  Only affects
+        # riemann_impl="pallas".
+        self.opt_algebra = opt_algebra
         self.mats = weno_matrices(ord)
 
     def limiter_form(self) -> dict:
         """The flux kernel's limiter keywords (``opt``, ``fast_weights``)
-        of this dycore's ``riemann_impl``."""
+        of this dycore's ``riemann_impl`` and ``opt_algebra``."""
         pallas = self.riemann_impl == "pallas"
-        return {"opt": pallas,
+        return {"opt": pallas and self.opt_algebra,
                 "fast_weights": pallas and self.fast_weights}
 
     # ------------------------------------------------------------------

@@ -110,10 +110,10 @@ def run(config: SimConfig, device: str | torch.device,
     return state
 
 
-def main(argv=None) -> CouplerState:
+def main(argv=None, quiet: bool = False) -> CouplerState:
     argv = argv if argv is not None else sys.argv[1:]
     path, device = parse_command_line("inference_surrogate", argv)
-    return run(load_config(path), device)
+    return run(load_config(path), device, quiet=quiet)
 
 
 if __name__ == "__main__":

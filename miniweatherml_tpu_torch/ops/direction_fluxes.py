@@ -20,10 +20,13 @@ The WENO limiter runs in one of the Pallas kernels' two algebras
 of the JAX XLA path, ``weno_fused.reconstruct_edges_shifted``; the
 default, and always when ``cutoff > 0``), or with ``opt`` the
 reduced-operation algebra of the Pallas kernels' default form
-(``weno_fused.reconstruct_edges_opt``), whose weights take their
-reciprocals exactly or, with ``fast_weights`` in f32 on the card, as the
-hardware's approximate reciprocal (``csrc/direction_fluxes_opt.cu``; the
-plain version is exact).  ``limiter_algebra`` says which.
+(``weno_fused.reconstruct_edges_opt``).  With ``fast_weights`` in f32 on
+the card either takes its reciprocals as the hardware's approximate
+reciprocal: the opt algebra in ``csrc/direction_fluxes_opt.cu``, the
+reference one in ``csrc/direction_fluxes_ref_fast.cu``, whose plain version
+is ``weno_fused.reconstruct_edges_recip`` (the Pallas ``_weno_edges_block``:
+each weight idl times a reciprocal); the plain versions are exact.
+``limiter_algebra`` says which.
 
 Two more forms carry the state side of an SSPRK3 stage, as the Pallas
 kernel's ``acc`` and ``rk`` do: with ``acc`` (the running state tendency
@@ -47,7 +50,8 @@ from ..cuda_build import count_launch
 from .stencil import BC_PERIODIC, BC_WALL, pad_bc
 from .weno import WenoMatrices
 from .weno_fused import (opt_coef_table, reconstruct_edges_opt,
-                         reconstruct_edges_shifted, weno_coef_table)
+                         reconstruct_edges_recip, reconstruct_edges_shifted,
+                         weno_coef_table)
 
 __all__ = ["direction_fluxes", "direction_fluxes_plain", "in_tracer_groups",
            "limiter_algebra", "StageUpdate", "stage_update",
@@ -67,13 +71,15 @@ _AX_X, _AX_Y, _AX_Z = -1, -2, -3
 def limiter_algebra(opt: bool, fast_weights: bool, cutoff: float,
                     dtype: torch.dtype) -> str:
     """The WENO algebra a call runs, picked as the Pallas kernels'
-    ``_weno_edges`` picks it: "ref" (the reference algebra: ``opt`` off, or
-    a cutoff), else "fast" (the reduced-operation algebra with approximate
-    reciprocals: ``fast_weights`` in f32; f64 runs exact, as the Pallas
-    kernels do) or "opt"."""
+    ``_weno_edges`` picks it: the reference algebra (``opt`` off, or a
+    cutoff), "ref_fast" with approximate reciprocals, else "ref"; the
+    reduced-operation algebra, "fast" with approximate reciprocals, else
+    "opt".  The approximate reciprocals are ``fast_weights`` in f32; f64
+    runs exact, as the Pallas kernels do."""
+    fast = fast_weights and dtype == torch.float32
     if not (opt and cutoff == 0.0):
-        return "ref"
-    return "fast" if fast_weights and dtype == torch.float32 else "opt"
+        return "ref_fast" if fast else "ref"
+    return "fast" if fast else "opt"
 
 
 def recon_direction(prim, axis, n, bc, normal_id, mats: WenoMatrices,
@@ -92,9 +98,13 @@ def recon_direction(prim, axis, n, bc, normal_id, mats: WenoMatrices,
         padded = pad_bc(prim, axis, hp, bc, zero_var=zv)
     else:
         padded = torch.cat([strips[0], prim, strips[1]], dim=axis % prim.dim())
-    if limiter_algebra(opt, fast_weights, cutoff, prim.dtype) == "ref":
+    algebra = limiter_algebra(opt, fast_weights, cutoff, prim.dtype)
+    if algebra == "ref":
         gll_l, gll_r = reconstruct_edges_shifted(padded, axis, n + 2, mats,
                                                  cutoff)
+    elif algebra == "ref_fast":
+        gll_l, gll_r = reconstruct_edges_recip(padded, axis, n + 2, mats,
+                                               cutoff)
     else:
         gll_l, gll_r = reconstruct_edges_opt(padded, axis, n + 2, mats.ord)
     L = gll_r.narrow(axis, 0, n + 1)   # face f <- right edge of cell f-1
@@ -278,7 +288,9 @@ def in_tracer_groups(launch, prim, *args, strips=None, acc=None, rk=None,
 # and error functions are <name>_set_coef and <name>_error_string), its
 # table, and its entry function of each type (DIRECTION_FLUXES_ENTRY in
 # csrc/direction_fluxes.cuh).  The reduced-operation
-# library holds both of its forms.
+# library holds both of its forms; the reference algebra with approximate
+# reciprocals has a library of its own, so that it builds beside the other
+# two.
 _LIBRARIES = {
     "ref": ("direction_fluxes", weno_coef_table,
             {torch.float32: "direction_fluxes_f32",
@@ -288,6 +300,8 @@ _LIBRARIES = {
              torch.float64: "direction_fluxes_opt_f64"}),
     "fast": ("direction_fluxes_opt", opt_coef_table,
              {torch.float32: "direction_fluxes_fast_f32"}),
+    "ref_fast": ("direction_fluxes_ref_fast", weno_coef_table,
+                 {torch.float32: "direction_fluxes_ref_fast_f32"}),
 }
 
 
@@ -417,11 +431,9 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
         ``rk``).  Its tensors are contiguous, of ``prim``'s type.
       opt, fast_weights: the limiter algebra, the Pallas kernels' keywords
         (``limiter_algebra``): with ``opt`` (and cutoff 0) the
-        reduced-operation algebra, whose reciprocals are the hardware's
-        approximate ones with ``fast_weights`` in f32 on the card.  The
-        reference algebra with approximate reciprocals (``fast_weights``
-        with a cutoff or without ``opt``, in f32) is not ported: on the
-        card it raises.
+        reduced-operation algebra, else the reference one; with
+        ``fast_weights`` in f32 on the card either takes the hardware's
+        approximate reciprocals.
 
     Returns (state divergence (5, nens, nz, ny, nx) -- or ``acc`` --, tracer
     faces).  CPU tensors take the plain version; CUDA tensors launch the
@@ -452,11 +464,6 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
     if mats.ord not in (3, 5, 7, 9):
         raise ValueError(f"WENO order {mats.ord} is not 3, 5, 7 or 9")
     algebra = limiter_algebra(opt, fast_weights, cutoff, prim.dtype)
-    if algebra == "ref" and fast_weights and prim.dtype == torch.float32:
-        raise NotImplementedError(
-            "the reference WENO algebra with approximate reciprocals "
-            "(fast_weights with a cutoff or without opt) has no kernel; "
-            "pass opt=True with cutoff 0, or fast_weights=False")
     if ntr > MAX_TRACERS:
         return in_tracer_groups(direction_fluxes, prim, axis, n, bc,
                                 normal_id, C0, gamma, hy_r, hy_t, mats,
@@ -517,8 +524,10 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
 
 
 # launches of the kernel in every algebra, of its halo-strip form among
-# them, and of its reduced-operation forms (exact and approximate weights)
+# them, of its reduced-operation forms (exact and approximate weights) and
+# of the reference algebra with approximate weights
 direction_fluxes.launches = 0
 direction_fluxes.strip_launches = 0
 direction_fluxes.opt_launches = 0
 direction_fluxes.fast_launches = 0
+direction_fluxes.ref_fast_launches = 0

@@ -16,10 +16,15 @@ _weno_edges_block_opt`` with ``weno_fused._opt_terms`` and
 ``_high_symforms``): squared linear forms for the smoothness indicators
 (the Jiang-Shu form on shared differences at ord 5), one fused weight
 normalisation, and at ord 3 and 5 the high-order edge folded into the
-low-order blend through the exact optimal weights.  Both are plain
-reconstructions; the CUDA flux kernels (``csrc/direction_fluxes.cuh``,
-``csrc/direction_fluxes_opt.cu``) run the same sums from the coefficient
-tables that ``weno_coef_table`` and ``opt_coef_table`` build.
+low-order blend through the exact optimal weights.  A third,
+``reconstruct_edges_recip``, is the reference algebra as the Pallas
+kernels write it (``pallas_recon.py::_weno_edges_block``): each weight is
+idl_k times the reciprocal of its denominator, every reciprocal through
+``_recip``, the hook that the approximate-reciprocal kernel's bar moves by
+one ulp.  All are plain reconstructions; the CUDA flux kernels
+(``csrc/direction_fluxes.cuh``, ``csrc/direction_fluxes_opt.cu``,
+``csrc/direction_fluxes_ref_fast.cu``) run the same sums from the
+coefficient tables that ``weno_coef_table`` and ``opt_coef_table`` build.
 """
 
 from __future__ import annotations
@@ -31,8 +36,9 @@ import torch
 
 from .weno import WenoMatrices, weno_matrices
 
-__all__ = ["reconstruct_edges_shifted", "reconstruct_edges_opt",
-           "weno_coef_table", "opt_coef_table", "substencils"]
+__all__ = ["reconstruct_edges_shifted", "reconstruct_edges_recip",
+           "reconstruct_edges_opt", "weno_coef_table", "opt_coef_table",
+           "substencils"]
 
 
 @lru_cache(maxsize=None)
@@ -102,14 +108,9 @@ def weno_coef_table(ord_: int) -> np.ndarray:
     return np.asarray(out, np.float64)
 
 
-def reconstruct_edges_shifted(padded: torch.Tensor, axis: int, n_out: int,
-                              mats: WenoMatrices, cutoff: float = 0.0):
-    """WENO-limited left/right edge values from a padded tensor.
-
-    ``padded`` holds >= (ord-1)/2 halo cells on each side of ``axis``;
-    returns (left, right), each shaped like the input with ``axis`` length
-    ``n_out``: the limited values at each cell's minus/plus face.
-    """
+def _reference_edges(padded, axis, n_out, mats, cutoff, inverse, weight):
+    """The reference algebra's edges; ``inverse(tot)`` is a normalisation's
+    reciprocal and ``weight(idl_k, d)`` the weight idl_k / d."""
     ord_ = mats.ord
     tv_terms, edge_terms, idl = _sparse_terms(ord_)
     shifts = [padded.narrow(axis, i, n_out) for i in range(ord_)]
@@ -129,15 +130,12 @@ def reconstruct_edges_shifted(padded: torch.Tensor, axis: int, n_out: int,
         for v in vals[1:]:
             tot = tot + v
         big = tot > eps
-        inv = torch.where(big, 1.0 / torch.where(big, tot, 1.0), 1.0)
+        inv = torch.where(big, inverse(torch.where(big, tot, 1.0)), 1.0)
         return [v * inv for v in vals]
 
     tvs = convexify(tvs)
-    # a 0-d numerator keeps the division exact (Python scalar / tensor in
-    # torch is a reciprocal times the scalar)
-    ws = [torch.div(tv.new_full((), idl_k), tv * tv + eps)
-          for idl_k, tv in zip(idl, tvs)]
-    ws = convexify(ws)
+    ws = convexify([weight(idl_k, tv * tv + eps)
+                    for idl_k, tv in zip(idl, tvs)])
     if cutoff > 0.0:
         ws = [torch.where(w > cutoff, w, 0.0) for w in ws[:-1]] + [ws[-1]]
         ws = convexify(ws)
@@ -154,6 +152,39 @@ def reconstruct_edges_shifted(padded: torch.Tensor, axis: int, n_out: int,
             acc = t if acc is None else acc + t
         edges.append(acc)
     return edges[0], edges[1]
+
+
+def reconstruct_edges_shifted(padded: torch.Tensor, axis: int, n_out: int,
+                              mats: WenoMatrices, cutoff: float = 0.0):
+    """WENO-limited left/right edge values from a padded tensor.
+
+    ``padded`` holds >= (ord-1)/2 halo cells on each side of ``axis``;
+    returns (left, right), each shaped like the input with ``axis`` length
+    ``n_out``: the limited values at each cell's minus/plus face.  Each
+    weight is an IEEE division: a 0-d numerator keeps it one (Python scalar
+    / tensor in torch is a reciprocal times the scalar).
+    """
+    return _reference_edges(
+        padded, axis, n_out, mats, cutoff, lambda tot: 1.0 / tot,
+        lambda idl_k, d: torch.div(d.new_full((), idl_k), d))
+
+
+def reconstruct_edges_recip(padded: torch.Tensor, axis: int, n_out: int,
+                            mats: WenoMatrices, cutoff: float = 0.0):
+    """WENO-limited left/right edge values in the reference algebra as the
+    Pallas kernels write it (``_weno_edges_block`` of the JAX package, term
+    for term): ``reconstruct_edges_shifted`` with every normalisation
+    ``tot > eps ? _recip(tot) : 1`` and each weight idl_k times
+    ``_recip(tv^2 + eps)``.  With the exact ``_recip`` it differs from
+    ``reconstruct_edges_shifted`` only in the weights' rounding, idl_k
+    (1 / x) against idl_k / x; it is the plain version of the kernel that
+    takes the approximate reciprocal
+    (``csrc/direction_fluxes_ref_fast.cu``).  Arguments and result as in
+    ``reconstruct_edges_shifted``."""
+    # _recip is looked up at each call: the fast bar's model runs replace it
+    return _reference_edges(padded, axis, n_out, mats, cutoff,
+                            lambda tot: _recip(tot),
+                            lambda idl_k, d: idl_k * _recip(d))
 
 
 # -- the reduced-operation algebra ---------------------------------------------

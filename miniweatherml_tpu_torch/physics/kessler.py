@@ -35,6 +35,16 @@ class MicrophysicsKessler:
 
     num_tracers = 3
 
+    # the JAX package's kernel choice (xla, pallas or auto), a class default
+    # that subclasses with their own __init__ inherit; every value runs the
+    # one kernel here, whose arithmetic all of them share
+    impl = "auto"
+
+    def __init__(self, impl: str = "auto"):
+        if impl not in ("auto", "xla", "pallas"):
+            raise ValueError("impl must be 'auto', 'xla' or 'pallas'")
+        self.impl = impl
+
     def init(self, state: CouplerState) -> CouplerState:
         g = state.grid
         state = state.add_tracer("water_vapor", "Water Vapor", True, True)

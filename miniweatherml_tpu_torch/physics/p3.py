@@ -15,11 +15,13 @@ kernel per phase on CUDA tensors.  Table lookups go through
 gates the JAX package wrote as ``lax.cond(jnp.any(...))`` are 0-d device
 booleans the lookups read (the rates_pre phase sets them); no gate reads
 the device from the host.  Sedimentation runs through ``p3_sed_cuda``: on
-CUDA tensors one kernel takes the fastest fall speed and one runs the whole
-sub-cycle loop per column with the count ``nsub`` read on the device (the
-JAX package's ``lax.while_loop``), so a P3 step makes no host read; its
-plain version loops in Python over ``nsub`` read to the host.  The
-[approx] tier's rates, freezing and part3 are plain tensor code.
+CUDA tensors one kernel computes every cell's fall speeds once, takes their
+maximum and makes one sub-step of the fall (``sed_step``), and a second
+reruns the whole sub-cycle loop per column, with the count ``nsub`` read on
+the device (the JAX package's ``lax.while_loop``), only where that count is
+above 1, so a P3 step makes no host read; its plain versions loop in Python
+over ``nsub`` read to the host.  The [approx] tier's rates, freezing and
+part3 are plain tensor code.
 
 Every division of a tensor by a number (or of a number by a tensor) in the
 per-cell phases goes through ``_div``: PyTorch would multiply by a
@@ -914,8 +916,8 @@ def _rain_sed_speeds(qr_, nr_, rho, inv_rho, rho_sfc, dtab):
 def _p3_sed_vmax(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dtab,
                  z_axis: int = 1):
     """The fastest mass-weighted fall speed of the state (rain V_qr, ice
-    V_qit, cloud V_qc), a 0-d tensor: the plain version of ``sed_vmax``
-    (``p3_sed_cuda``)."""
+    V_qit, cloud V_qc), a 0-d tensor: the oracle of the maximum that
+    ``sed_step`` (``p3_sed_cuda``) takes."""
     inv_rho = 1.0 / rho
     rho_sfc = rho.narrow(z_axis, 0, 1)
     return torch.maximum(
@@ -925,43 +927,53 @@ def _p3_sed_vmax(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dtab,
         _cloud_sed_speeds(qc, nc, rho, _stokes_acn(_mu_visc(temp)))[0].max())
 
 
-def _p3_sed_columns(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt,
-                    nsub_t, dtab, do_predict_nc: bool, z_axis: int = 1):
-    """``nsub_t`` (a 0-d tensor) upstream sub-steps of cloud, rain and ice
-    sedimentation, each with its speeds' persisted write-backs (:3700,
-    :3843, :4021-4034), falling top-down level by level; the plain version
-    of ``sed_columns`` (``p3_sed_cuda``), the counterpart of the JAX
-    package's ``lax.while_loop``.  It reads ``nsub_t`` to the host.
-    Returns (qc, nc, qr, nr, qi, ni, qm, bm, precip_liq, precip_ice), the
-    surface rates in m/s."""
-    nz = qc.shape[z_axis]
+class _Fall:
+    """The fixed parts of the sub-cycled fall: the speeds' density terms
+    and the column masses of ``rho`` and ``dz`` along ``z_axis``."""
 
-    def ax(a, start, length):
-        return a.narrow(z_axis, start, length)
-    inv_rho = 1.0 / rho
-    rho_sfc = ax(rho, 0, 1)
-    acn = _stokes_acn(_mu_visc(temp))
-    # in a mesh run, one read serves every shard
-    nsub = host_ints(nsub_t)
-    dts = dt / nsub_t
-    mass_lo = ax(rho, 0, nz - 1) * ax(dz, 0, nz - 1)
-    mass_top = ax(rho, nz - 1, 1) * ax(dz, nz - 1, 1)
+    def __init__(self, rho, temp, dz, z_axis, dtab):
+        self.nz, self.z_axis, self.dtab, self.rho = (rho.shape[z_axis],
+                                                     z_axis, dtab, rho)
+        self.inv_rho = 1.0 / rho
+        self.rho_sfc = self.ax(rho, 0, 1)
+        self.acn = _stokes_acn(_mu_visc(temp))
+        nz = self.nz
+        self.mass_lo = self.ax(rho, 0, nz - 1) * self.ax(dz, 0, nz - 1)
+        self.mass_top = self.ax(rho, nz - 1, 1) * self.ax(dz, nz - 1, 1)
 
-    def fall(q, v):
-        """One upstream sub-step; returns (q, surface outflow)."""
-        flux = rho * q * v  # downward mass flux at cell centers
-        dq_lower = dts * (ax(flux, 1, nz - 1) - ax(flux, 0, nz - 1)) / mass_lo
-        dq_top = -dts * ax(flux, nz - 1, 1) / mass_top
-        q = q + torch.cat([dq_lower, dq_top], dim=z_axis)
-        return _max(q, 0.0), _div(dts * ax(flux, 0, 1), RHO_H2O)
+    def ax(self, a, start, length):
+        return a.narrow(self.z_axis, start, length)
 
-    pl = torch.zeros_like(ax(qc, 0, 1))
-    pi_ = torch.zeros_like(pl)
-    for _ in range(nsub):
-        vr_, vnr_, nr = _rain_sed_speeds(qr, nr, rho, inv_rho, rho_sfc, dtab)
+    def speeds(self, q):
+        """(the speeds (V_qc, V_qr, V_nr, V_qit, V_nit) of q = (qc, nc, qr,
+        nr, qi, ni, qm, bm), q with the speeds' persisted write-backs
+        (:3700, :3843, :4021-4034))."""
+        qc, nc, qr, nr, qi, ni, qm, bm = q
+        rho, inv_rho, dtab = self.rho, self.inv_rho, self.dtab
+        vr_, vnr_, nr = _rain_sed_speeds(qr, nr, rho, inv_rho, self.rho_sfc,
+                                         dtab)
         vi_, vni_, ni, qm, bm = _ice_sed_speeds(qi, ni, qm, bm, rho, inv_rho,
                                                 dtab)
-        vc_, nc = _cloud_sed_speeds(qc, nc, rho, acn)
+        vc_, nc = _cloud_sed_speeds(qc, nc, rho, self.acn)
+        return (vc_, vr_, vnr_, vi_, vni_), (qc, nc, qr, nr, qi, ni, qm, bm)
+
+    def substep(self, q, v, dts, do_predict_nc, pl, pi_):
+        """One upstream sub-step of q = (qc, nc, qr, nr, qi, ni, qm, bm)
+        at the speeds v, falling top-down; returns the new q and the
+        surface accumulators (pl, pi_) with this sub-step's outflow."""
+        ax, nz = self.ax, self.nz
+        qc, nc, qr, nr, qi, ni, qm, bm = q
+        vc_, vr_, vnr_, vi_, vni_ = v
+
+        def fall(q, v):
+            """One upstream sub-step; returns (q, surface outflow)."""
+            flux = self.rho * q * v  # downward mass flux at cell centers
+            dq_lower = dts * (ax(flux, 1, nz - 1)
+                              - ax(flux, 0, nz - 1)) / self.mass_lo
+            dq_top = -dts * ax(flux, nz - 1, 1) / self.mass_top
+            q = q + torch.cat([dq_lower, dq_top], dim=self.z_axis)
+            return _max(q, 0.0), _div(dts * ax(flux, 0, 1), RHO_H2O)
+
         qc, out = fall(qc, vc_)
         pl = pl + out
         if do_predict_nc:
@@ -974,8 +986,57 @@ def _p3_sed_columns(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt,
         ni = fall(ni, vni_)[0]   # ni at V_nit (:4025-4037)
         qm = fall(qm, vi_)[0]
         bm = fall(bm, vi_)[0]
-    return (qc, nc, qr, nr, qi, ni, qm, bm, _div(pl.squeeze(z_axis), dt),
-            _div(pi_.squeeze(z_axis), dt))
+        return (qc, nc, qr, nr, qi, ni, qm, bm), pl, pi_
+
+    def run(self, q, v, dt, nsub_t, nsub, do_predict_nc):
+        """``nsub`` sub-steps from q, the first at the speeds ``v`` (of q),
+        each later one at the speeds of its own state; returns (qc ... bm,
+        precip_liq, precip_ice), the surface rates in m/s."""
+        dts = dt / nsub_t
+        pl = torch.zeros_like(self.ax(q[0], 0, 1))
+        pi_ = torch.zeros_like(pl)
+        for s in range(nsub):
+            if s:
+                v, q = self.speeds(q)
+            q, pl, pi_ = self.substep(q, v, dts, do_predict_nc, pl, pi_)
+        z = self.z_axis
+        return (*q, _div(pl.squeeze(z), dt), _div(pi_.squeeze(z), dt))
+
+
+def _p3_sed_step(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt, dtab,
+                 do_predict_nc: bool, z_axis: int = 1):
+    """Every cell's fall speeds once, their maximum (rain V_qr, ice V_qit,
+    cloud V_qc; as ``_p3_sed_vmax`` takes it) and one upstream sub-step of
+    the fall at dts = dt: the plain version of ``sed_step``
+    (``p3_sed_cuda``).  Returns (vmax, (qc, nc, qr, nr, qi, ni, qm, bm,
+    precip_liq, precip_ice)), the outputs those of ``_p3_sed_columns`` at
+    one sub-step."""
+    fall = _Fall(rho, temp, dz, z_axis, dtab)
+    v, q = fall.speeds((qc, nc, qr, nr, qi, ni, qm, bm))
+    vc_, vr_, _, vi_, _ = v
+    vmax = torch.maximum(torch.maximum(vr_.max(), vi_.max()), vc_.max())
+    one = torch.ones((), dtype=qc.dtype, device=qc.device)
+    return vmax, fall.run(q, v, dt, one, 1, do_predict_nc)
+
+
+def _p3_sed_columns(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt,
+                    nsub_t, dtab, do_predict_nc: bool, z_axis: int = 1,
+                    rerun=None):
+    """``nsub_t`` (a 0-d tensor) upstream sub-steps of cloud, rain and ice
+    sedimentation, each with its speeds' persisted write-backs (:3700,
+    :3843, :4021-4034), falling top-down level by level; the plain version
+    of ``sed_columns`` (``p3_sed_cuda``), the counterpart of the JAX
+    package's ``lax.while_loop``.  It reads ``nsub_t`` to the host.
+    ``rerun``: the outputs ``_p3_sed_step`` made of these inputs, returned
+    as they are where nsub is 1.  Returns (qc, nc, qr, nr, qi, ni, qm, bm,
+    precip_liq, precip_ice), the surface rates in m/s."""
+    # in a mesh run, one read serves every shard
+    nsub = host_ints(nsub_t)
+    if rerun is not None and nsub == 1:
+        return tuple(rerun)
+    fall = _Fall(rho, temp, dz, z_axis, dtab)
+    v, q = fall.speeds((qc, nc, qr, nr, qi, ni, qm, bm))
+    return fall.run(q, v, dt, nsub_t, nsub, do_predict_nc)
 
 
 def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
@@ -1046,16 +1107,20 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
         hydro_col = torch.any((qc > 0.0) | (qr > 0.0) | (qi > 0.0),
                               dim=z_axis, keepdim=True)
 
-    # -- sedimentation (cloud + rain + ice), upstream, CFL sub-cycled: the
-    # sub-step count stays a device tensor, read by the column kernel
-    vmax = pmax(sed.sed_vmax(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dtab,
-                             z_axis=z_axis), spmd_axes)
+    # -- sedimentation (cloud + rain + ice), upstream, CFL sub-cycled: one
+    # pass takes the fastest fall speed and makes one sub-step; the count
+    # stays a device tensor, read by the column kernel, which reruns the
+    # whole sub-cycle only where it is above 1
+    vmax, one_step = sed.sed_step(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp,
+                                  dz, dt, dtab, do_predict_nc=do_predict_nc,
+                                  z_axis=z_axis)
+    vmax = pmax(vmax, spmd_axes)
     dz_min = pmin(dz.min(), spmd_axes)
     nsub_t = _max(torch.ceil(dt * vmax / (0.9 * dz_min)), 1.0)
     (qc, nc, qr, nr, qi, ni, qm, bm, precip_liq, precip_ice) = (
         sed.sed_columns(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt,
                         nsub_t, dtab, do_predict_nc=do_predict_nc,
-                        z_axis=z_axis))
+                        z_axis=z_axis, rerun=one_step))
 
     # -- homogeneous freezing and p3_main_part3 (one kernel, with or without
     # the diagnostics)

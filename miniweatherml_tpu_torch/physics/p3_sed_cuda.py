@@ -1,17 +1,22 @@
-"""P3 sedimentation: the fastest fall speed and the CFL-sub-cycled fall, as
-CUDA kernels, and their plain versions.
+"""P3 sedimentation: one pass that takes the fastest fall speed and makes
+one sub-step, and the CFL-sub-cycled fall, as CUDA kernels, and their plain
+versions.
 
-``sed_vmax`` (the state's fastest mass-weighted fall speed, a 0-d tensor)
-and ``sed_columns`` (``nsub_t`` upstream sub-steps of cloud, rain and ice
-with their write-backs, and the surface rates) run the plain functions of
-``p3.py`` (``_p3_sed_vmax``, ``_p3_sed_columns``; re-exported here as
-``vmax_plain`` and ``columns_plain``) on CPU tensors.  On CUDA tensors each
+``sed_step`` (every cell's fall speeds once, the state's fastest
+mass-weighted fall speed as a 0-d tensor, and one upstream sub-step of
+cloud, rain and ice with their write-backs and the surface rates) and
+``sed_columns`` (``nsub_t`` such sub-steps) run the plain functions of
+``p3.py`` (``_p3_sed_step``, ``_p3_sed_columns``; re-exported here as
+``step_plain`` and ``columns_plain``, with ``_p3_sed_vmax``, the oracle of
+the maximum, as ``vmax_plain``) on CPU tensors.  On CUDA tensors each
 launches its kernel in ``csrc/p3_sed.cu``, the port of the JAX scheme's
 sedimentation (``miniweatherml_tpu/physics/p3.py:1268-1388``, a
 ``lax.while_loop``, no Pallas kernel): ``sed_columns`` reads the sub-step
-count on the device, so a step makes no host read.  The fields are
-contiguous (nens, nz, ny, nx) tensors, the vertical on axis 1; ``dtab`` is
-the ``DeviceTables`` of the table tier, or None for the [approx] tier.
+count on the device, so a step makes no host read, and handed
+``sed_step``'s outputs as ``rerun`` it keeps them where the count is 1 and
+overwrites them otherwise.  The fields are contiguous (nens, nz, ny, nx)
+tensors, the vertical on axis 1; ``dtab`` is the ``DeviceTables`` of the
+table tier, or None for the [approx] tier.
 """
 
 from __future__ import annotations
@@ -22,10 +27,12 @@ import torch
 
 from ..cuda_build import count_launch, load_library, on_cuda
 from .p3 import _p3_sed_columns as columns_plain
+from .p3 import _p3_sed_step as step_plain
 from .p3 import _p3_sed_vmax as vmax_plain
 from .p3_lookup_cuda import ice_strides
 
-__all__ = ["sed_vmax", "sed_columns", "vmax_plain", "columns_plain",
+__all__ = ["sed_step", "sed_columns", "step_plain", "vmax_plain",
+           "columns_plain",
            "launch_config", "ice_table", "ICE_COLS", "RAIN_ROWS"]
 
 ICE_COLS = (2, 1, 7, 8)    # V_qit, V_nit and the ni limiters
@@ -34,32 +41,37 @@ RAIN_ROWS = ("vm", "vn")   # V_qr, V_nr
 _lib = None
 
 
+def _bind(lib):
+    """``lib`` (a build of ``csrc/p3_sed.cu``) with its entry points'
+    argument and result types declared."""
+    P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_double)
+    PP = ctypes.POINTER(ctypes.c_void_p)
+    for t in ("f32", "f64"):
+        fn = getattr(lib, f"p3_sed_step_{t}")
+        fn.argtypes = [I, I, PP, PP, P, P, I, D, L, I, L, P, P]
+        fn.restype = I
+        fn = getattr(lib, f"p3_sed_columns_{t}")
+        fn.argtypes = [I, I, PP, PP, P, P, I, P, D, I, L, I, L, P]
+        fn.restype = I
+    lib.p3_sed_launch.argtypes = [I, I, I, I, L, I, P, P, P]
+    lib.p3_sed_launch.restype = I
+    lib.p3_sed_error_string.argtypes = [I]
+    lib.p3_sed_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = load_library("p3_sed")
-        P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                      ctypes.c_double)
-        PP = ctypes.POINTER(ctypes.c_void_p)
-        for t in ("f32", "f64"):
-            fn = getattr(lib, f"p3_sed_vmax_{t}")
-            fn.argtypes = [I, PP, P, P, I, L, I, L, P, P]
-            fn.restype = I
-            fn = getattr(lib, f"p3_sed_columns_{t}")
-            fn.argtypes = [I, I, PP, PP, P, P, I, P, D, L, I, L, P]
-            fn.restype = I
-        lib.p3_sed_launch.argtypes = [I, I, I, I, L, I, P, P, P]
-        lib.p3_sed_launch.restype = I
-        lib.p3_sed_error_string.argtypes = [I]
-        lib.p3_sed_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _bind(load_library("p3_sed"))
     return _lib
 
 
 def launch_config(kernel: str, tables: bool, predict_nc: bool,
                   dtype: torch.dtype, n: int, nz: int) -> tuple[int, int, int]:
     """(blocks, threads per block, shared memory per block in bytes) of the
-    "vmax" or "columns" kernel's launch over n cells of nz levels on the
+    "step" or "columns" kernel's launch over n cells of nz levels on the
     current card."""
     blocks, threads, smem = (ctypes.c_uint(), ctypes.c_int(),
                              ctypes.c_longlong())
@@ -131,36 +143,56 @@ def _raise(rc, what):
                            + _library().p3_sed_error_string(rc).decode())
 
 
-def sed_vmax(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dtab,
-             z_axis: int = 1):
-    """The fastest mass-weighted fall speed (rain V_qr, ice V_qit, cloud
-    V_qc) of the state, a 0-d tensor on the fields' device."""
+def _outputs(qc):
+    """The 8 fields and the two surface rates a launch writes."""
+    outs = [torch.empty_like(qc) for _ in range(8)]
+    srf = torch.empty((2, qc.shape[0], *qc.shape[2:]), dtype=qc.dtype,
+                      device=qc.device)
+    return outs + list(srf.unbind(0))
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sed_step(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt, dtab, *,
+             do_predict_nc: bool, z_axis: int = 1):
+    """Every cell's fall speeds once: the fastest mass-weighted one (rain
+    V_qr, ice V_qit, cloud V_qc) of the state, a 0-d tensor on the fields'
+    device, and one upstream sub-step of the fall at dts = ``dt`` (a
+    number).  Returns (vmax, (qc, nc, qr, nr, qi, ni, qm, bm, precip_liq,
+    precip_ice)), the surface rates in m/s without the z axis: what
+    ``sed_columns`` returns at one sub-step."""
     if not on_cuda(qc):
-        return vmax_plain(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dtab,
-                          z_axis)
-    fields = (qc, nc, qr, nr, qi, ni, qm, bm, rho, rho, temp)  # no dz read
+        return step_plain(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt,
+                          dtab, do_predict_nc, z_axis)
+    fields = (qc, nc, qr, nr, qi, ni, qm, bm, rho, dz, temp)
     n, nz, plane = _check(fields, z_axis)
     ice, rain, rsize = _tables(dtab, qc)
+    outs = _outputs(qc)
     vmax = torch.zeros((), dtype=qc.dtype, device=qc.device)
     lib = _library()
-    fn = lib.p3_sed_vmax_f32 if qc.dtype == torch.float32 else \
-        lib.p3_sed_vmax_f64
-    _raise(fn(int(dtab is not None), _ptrs(fields), ice, rain, rsize, n, nz,
-              plane, vmax.data_ptr(),
-              torch.cuda.current_stream(qc.device).cuda_stream), "sed_vmax")
-    count_launch(sed_vmax)
-    return vmax
+    fn = lib.p3_sed_step_f32 if qc.dtype == torch.float32 else \
+        lib.p3_sed_step_f64
+    _raise(fn(int(dtab is not None), int(bool(do_predict_nc)),
+              _ptrs(fields), _ptrs(outs), ice, rain, rsize, float(dt), n, nz,
+              plane, vmax.data_ptr(), _stream(qc)), "sed_step")
+    count_launch(sed_step)
+    return vmax, tuple(outs)
 
 
 def sed_columns(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt, nsub_t,
-                dtab, *, do_predict_nc: bool, z_axis: int = 1):
+                dtab, *, do_predict_nc: bool, z_axis: int = 1, rerun=None):
     """``nsub_t`` (a 0-d tensor on the fields' device) upstream sub-steps of
     cloud, rain and ice sedimentation.  Returns (qc, nc, qr, nr, qi, ni, qm,
     bm, precip_liq, precip_ice), the surface rates in m/s without the z
-    axis; ``dt`` is a number."""
+    axis; ``dt`` is a number.  ``rerun``: what ``sed_step`` returned for
+    these inputs, which is returned, as it is where the count is 1 and
+    overwritten with the whole sub-cycle elsewhere (on the card in place:
+    the count is never read to the host)."""
     if not on_cuda(qc):
         return columns_plain(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz,
-                             dt, nsub_t, dtab, do_predict_nc, z_axis)
+                             dt, nsub_t, dtab, do_predict_nc, z_axis, rerun)
     fields = (qc, nc, qr, nr, qi, ni, qm, bm, rho, dz, temp)
     n, nz, plane = _check(fields, z_axis)
     if (nsub_t.device != qc.device or nsub_t.dtype != qc.dtype
@@ -168,21 +200,28 @@ def sed_columns(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt, nsub_t,
         raise ValueError("nsub_t must be one value of the fields' dtype on "
                          "their device")
     ice, rain, rsize = _tables(dtab, qc)
-    outs = [torch.empty_like(qc) for _ in range(8)]
-    srf = torch.empty((2, qc.shape[0], *qc.shape[2:]), dtype=qc.dtype,
-                      device=qc.device)
-    outs += list(srf.unbind(0))
+    if rerun is None:
+        outs = _outputs(qc)
+    else:
+        outs = list(rerun)
+        srf = (qc.shape[0], *qc.shape[2:])
+        if len(outs) != 10 or any(
+                o.device != qc.device or o.dtype != qc.dtype
+                or not o.is_contiguous()
+                or tuple(o.shape) != (tuple(qc.shape) if i < 8 else srf)
+                for i, o in enumerate(outs)):
+            raise ValueError("rerun must be sed_step's 10 outputs for these "
+                             "fields")
     lib = _library()
     fn = lib.p3_sed_columns_f32 if qc.dtype == torch.float32 else \
         lib.p3_sed_columns_f64
     _raise(fn(int(dtab is not None), int(bool(do_predict_nc)),
               _ptrs(fields), _ptrs(outs), ice, rain, rsize,
-              nsub_t.data_ptr(), float(dt), n, nz, plane,
-              torch.cuda.current_stream(qc.device).cuda_stream),
-           "sed_columns")
+              nsub_t.data_ptr(), float(dt), int(rerun is not None), n, nz,
+              plane, _stream(qc)), "sed_columns")
     count_launch(sed_columns)
     return tuple(outs)
 
 
-sed_vmax.launches = 0
+sed_step.launches = 0
 sed_columns.launches = 0

@@ -10,6 +10,7 @@ Usage (from the root of a checkout, on a machine with the card):
   python scripts/torch_port_measure.py surrogate [--root DIR] [--reps N]
   python scripts/torch_port_measure.py surrogate_cpu [--reps N]
   python scripts/torch_port_measure.py mesh    [--root DIR] [--reps N]
+  python scripts/torch_port_measure.py sed     [--root DIR] [--reps N]
 
 ``--root`` names the tree whose ``miniweatherml_tpu_torch`` and
 ``chip_smoke.py`` are imported (default: this checkout), so two trees are
@@ -86,6 +87,15 @@ a tree from before the opt algebra takes ref only.
            small kernels fall in "cat, reductions, copies" and "glue")
            with the device's idle share.  A tree without parallel/ gives
            the undecomposed figures only.
+
+  sed      the P3 sedimentation of one step as the tree runs it, on what
+           one step of the early-storm, mixed-regime and all-active
+           512x512x64 P3 chains hands it (chip_smoke.py's _p3_step_chains),
+           f32 and f64: this tree's sed_step, the sub-step count and the
+           rerun of sed_columns, or a tree from before them its sed_vmax,
+           the count and sed_columns; at the step's dt and at a dt that
+           makes dt vmax / (0.9 dz_min) = 3.5 (4 sub-steps).  Three medians
+           of N calls each (CUDA events, queued behind device sleep).
 
 Each mode prints one JSON line (prefixed "RESULT ") with the card's name and
 power limit.
@@ -294,6 +304,57 @@ def mode_min_step(cs, reps):
     return out
 
 
+def mode_sed(cs, reps):
+    import torch
+    from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
+
+    def count(dt, v, dz):
+        return torch.clamp(torch.ceil(dt * v / (0.9 * dz.min())), min=1.0)
+    out = {}
+    for chain, build in cs._p3_step_chains():
+        for dtype in ("float32", "float64"):
+            seen = cs._p3_step_rates_sed(build, dtype)
+            if "sed_step" in seen:   # one pass, the count, the rerun
+                a, k = seen["sed_step"]
+                fields, (rho, temp, dz, dt, dtab) = a[:8], a[8:13]
+                pnc = k["do_predict_nc"]
+
+                def run(dt_):
+                    v, one = sed.sed_step(*fields, rho, temp, dz, dt_, dtab,
+                                          do_predict_nc=pnc)
+                    return sed.sed_columns(*fields, rho, temp, dz, dt_,
+                                           count(dt_, v, dz), dtab,
+                                           do_predict_nc=pnc, rerun=one)
+                vmax = sed.sed_step(*a, **k)[0]
+            else:                    # the former pair
+                va, vk = seen["sed_vmax"]
+                c, ck = seen["sed_columns"]
+                fields, (rho, temp, dz, dt, _, dtab) = c[:8], c[8:14]
+                pnc = ck["do_predict_nc"]
+
+                def run(dt_):
+                    v = sed.sed_vmax(*va, **vk)
+                    return sed.sed_columns(*fields, rho, temp, dz, dt_,
+                                           count(dt_, v, dz), dtab,
+                                           do_predict_nc=pnc)
+                vmax = sed.sed_vmax(*va, **vk)
+            del seen
+            cases = [("step", dt)]
+            if float(vmax) > 0.0:  # else every dt gives 1 sub-step
+                cases.append(("4 sub-steps",
+                              3.5 * 0.9 * float(dz.min()) / float(vmax)))
+            for label, dt_ in cases:
+                key = f"{chain} {dtype} {label}"
+                n = int(count(dt_, vmax, dz))
+                ms = [cs._time_ms(lambda: run(dt_), reps) for _ in range(3)]
+                out[key] = {"ms": ms, "nsub": n, "dt": dt_}
+                print(f"sed {key}: {n} sub-step(s), "
+                      f"{', '.join(f'{t:.4f}' for t in ms)} ms", flush=True)
+            del fields, rho, temp, dz, dtab
+            torch.cuda.empty_cache()
+    return out
+
+
 def _chains(cs, chains=()):
     from miniweatherml_tpu_torch.experiments import (simple_city,
                                                      supercell_example,
@@ -368,7 +429,7 @@ def _family(name: str) -> str:
         return "matmul"
     if any(k in n for k in ("kessler", "cellwise", "ice_kernel",
                             "collect_kernel", "rain_kernel", "sed_vmax",
-                            "sed_columns", "surrogate")):
+                            "sed_step", "sed_columns", "surrogate")):
         return "microphysics"
     if "elementwise" in n or "vectorized" in n:
         return "glue"
@@ -730,7 +791,8 @@ def mode_mesh(cs, reps):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", choices=("flux", "cells", "profile", "kernels",
-                                     "min_step", "surrogate", "surrogate_cpu", "mesh"))
+                                     "min_step", "surrogate", "surrogate_cpu",
+                                     "mesh", "sed"))
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=10)
@@ -760,7 +822,8 @@ def main() -> int:
            "min_step": lambda: mode_min_step(cs, a.reps),
            "surrogate": lambda: mode_surrogate(cs, a.reps),
            "surrogate_cpu": lambda: mode_surrogate_cpu(cs, a.reps),
-           "mesh": lambda: mode_mesh(cs, a.reps)}[a.mode]()
+           "mesh": lambda: mode_mesh(cs, a.reps),
+           "sed": lambda: mode_sed(cs, a.reps)}[a.mode]()
     print("RESULT " + json.dumps({
         "mode": a.mode, "root": a.root, "form": a.form, "card": _card(),
         "seconds": time.perf_counter() - t0, "result": res}), flush=True)

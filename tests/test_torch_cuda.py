@@ -152,25 +152,61 @@ def test_direction_fluxes_opt_kernels_match_plain(ord_, nvar, cuda_device):
                             assert _rel(a, b) <= TOL[dtype], where
 
 
-def test_direction_fluxes_reference_fast_weights_raise(cuda_device):
-    """The reference algebra with approximate reciprocals has no kernel: it
-    raises in f32 instead of running exact weights; with a cutoff the opt
-    request takes the reference kernel, as the Pallas kernels do."""
-    prim = _prim((1, 4, 6, 8), torch.float32, cuda_device,
-                 np.random.default_rng(2))
-    hy = torch.ones((1, 4), device=cuda_device)
-    args = (prim, -1, 8, 0, 1, 27.56, 1.4008, hy, 300 * hy,
-            weno_matrices(5))
-    with pytest.raises(NotImplementedError, match="approximate"):
-        direction_fluxes(*args, 0.0, 1.0, opt=False, fast_weights=True)
-    with pytest.raises(NotImplementedError, match="approximate"):
-        direction_fluxes(*args, 0.2, 1.0, opt=True, fast_weights=True)
-    n0, o0 = direction_fluxes.launches, direction_fluxes.opt_launches
-    got = direction_fluxes(*args, 0.2, 1.0, opt=True)
-    assert (direction_fluxes.launches, direction_fluxes.opt_launches) == (
-        n0 + 1, o0)
-    for a, b in zip(direction_fluxes_plain(*args, 0.2, 1.0), got):
-        assert torch.equal(a, b)
+@pytest.mark.parametrize("case", ["no_opt", "cutoff"])
+def test_direction_fluxes_reference_fast_weights_raise(case, cuda_device):
+    """The reference algebra with approximate reciprocals (fast_weights in
+    f32 with opt off, or with a cutoff, which takes the reference algebra
+    even with opt on) runs its kernel (csrc/direction_fluxes_ref_fast.cu)
+    on every direction, each launch counted in its form, meets
+    chip_smoke.py's fast bar against the exact plain version (its model
+    runs of the plain version's reciprocals) and equals the plain version
+    run on the card's approximate reciprocal bit for bit; a reciprocal
+    2^-12 off fails the bar.  f64 runs the exact reference kernel."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(2)
+    cutoff, opt = (0.2, True) if case == "cutoff" else (0.0, False)
+    for shape in FLUX_SHAPES[:2] + FLUX_SHAPES[3:]:
+        prim = _prim(shape, torch.float32, cuda_device, rng)
+        for axis, nid in DIRS:
+            nl = shape[1] + (1 if axis == -3 else 0)
+            hr = torch.as_tensor(1 + 0.1 * rng.random((shape[0], nl)),
+                                 dtype=torch.float32, device=cuda_device)
+            args = (prim, axis, prim.shape[axis], 0, nid, 27.56, 1.4008, hr,
+                    300 * hr, weno_matrices(5), cutoff, 2e-3)
+            kw = dict(opt=opt, fast_weights=True)
+
+            def plain():
+                return direction_fluxes_plain(*args, **kw)
+            ref = plain()
+            n0 = (direction_fluxes.launches,
+                  direction_fluxes.ref_fast_launches)
+            got = direction_fluxes(*args, **kw)
+            assert (direction_fluxes.launches,
+                    direction_fluxes.ref_fast_launches) == (n0[0] + 1,
+                                                            n0[1] + 1)
+            model = cs._one_ulp_model(plain, ref)
+            ok, per = cs._fast_verdict(ref, got, model)
+            assert ok, (shape, axis, cs._verdict_text(per, model))
+            twin = cs._with_recip(cs._card_recip, plain)
+            assert all(torch.equal(a, b) for a, b in zip(twin, got))
+            off = cs._with_recip(*cs._fault_models()[
+                "reciprocals 2^-12 off"][:1], plain)
+            assert not cs._fast_verdict(ref, off, model)[0], (shape, axis)
+    # f64 runs exact: the reference kernel, bit for bit; so does f32
+    # without fast_weights, opt asked for or not
+    for dtype, fast in ((torch.float64, True), (torch.float32, False)):
+        prim = _prim(FLUX_SHAPES[0], dtype, cuda_device, rng)
+        hy = torch.ones((2, 7), dtype=dtype, device=cuda_device)
+        args = (prim, -1, 70, 0, 1, 27.56, 1.4008, hy, 300 * hy,
+                weno_matrices(5), cutoff, 1.0)
+        n0 = (direction_fluxes.ref_fast_launches,
+              direction_fluxes.opt_launches)
+        got = direction_fluxes(*args, opt=opt, fast_weights=fast)
+        assert (direction_fluxes.ref_fast_launches,
+                direction_fluxes.opt_launches) == n0
+        assert all(torch.equal(a, b) for a, b in zip(
+            direction_fluxes_plain(*args), got))
 
 
 def _coupler_columns(shape, dtype, device, seed=3):
@@ -642,11 +678,11 @@ def test_p3_cellwise_rejects_bad_input(cuda_device):
 
 
 def _p3_sed_calls(state, mods, monkeypatch):
-    """The arguments one P3 step hands sed_vmax and sed_columns."""
+    """The arguments one P3 step hands sed_step and sed_columns."""
     from miniweatherml_tpu_torch.physics import p3_sed_cuda as SED
 
     seen = {}
-    for name in ("sed_vmax", "sed_columns"):
+    for name in ("sed_step", "sed_columns"):
         real = getattr(SED, name)
 
         def call(*a, _real=real, _name=name, **k):
@@ -662,41 +698,54 @@ def _p3_sed_calls(state, mods, monkeypatch):
 @pytest.mark.parametrize("tables", [True, False])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_p3_sed_kernels_match_plain(dtype, tables, cuda_device, monkeypatch):
-    """sed_vmax and sed_columns against their plain versions on what one P3
+    """sed_step and sed_columns against their plain versions on what one P3
     step hands them (960 cells: not a multiple of the blocks), the table
-    and the [approx] tier: the speed, and the fall at the step's one
-    sub-step and at a dt that makes dt vmax / (0.9 dz_min) = 3.5 (4
-    sub-steps), do_predict_nc both ways."""
+    and the [approx] tier: the speed (also against the oracle
+    _p3_sed_vmax), the one sub-step, and the rerun of sed_columns on
+    sed_step's outputs at the step's one sub-step (kept) and at a dt that
+    makes dt vmax / (0.9 dz_min) = 3.5 (4 sub-steps, overwritten), against
+    sed_columns' plain version from the inputs, do_predict_nc both
+    ways."""
     from miniweatherml_tpu_torch.physics import p3_sed_cuda as SED
 
     state, mods = _p3_state(dtype, cuda_device)
     if not tables:
         mods[1].__self__.tables = None
     seen = _p3_sed_calls(state, mods, monkeypatch)
-    va, vk = seen["sed_vmax"]
+    sa, sk = seen["sed_step"]
     ca, ck = seen["sed_columns"]
-    assert (ca[13] is None) == (not tables)
-    n0 = (SED.sed_vmax.launches, SED.sed_columns.launches)
-    vmax = SED.sed_vmax(*va, **vk)
-    want = SED.vmax_plain(*va, **vk)
-    assert vmax.shape == () and float(vmax) > 0.0
-    assert abs(float(vmax) - float(want)) <= TOL[vmax.dtype] * float(want)
-    dz = ca[10]
-    dt3 = 3.5 * 0.9 * float(dz.min()) / float(vmax)
-    for dt, nsub in ((ca[11], ca[12]),
-                     (dt3, torch.clamp(torch.ceil(
-                         dt3 * vmax / (0.9 * dz.min())), min=1.0))):
+    assert (sa[12] is None) == (not tables) and ck["rerun"] is not None
+    n0 = (SED.sed_step.launches, SED.sed_columns.launches)
+    fields, (rho, temp, dz, dt, dtab) = sa[:8], sa[8:13]
+    vmax = None
+    for dt_ in (dt, None):
         for pnc in (False, True):
-            args = (*ca[:11], dt, nsub, ca[13])
-            got = SED.sed_columns(*args, do_predict_nc=pnc)
-            ref = SED.columns_plain(*args, pnc, 1)
+            if dt_ is None:  # 4 sub-steps at the speed of the step
+                dt_ = 3.5 * 0.9 * float(dz.min()) / float(vmax)
+            vmax, one = SED.sed_step(*fields, rho, temp, dz, dt_, dtab,
+                                     do_predict_nc=pnc)
+            want_v, want_one = SED.step_plain(*fields, rho, temp, dz, dt_,
+                                              dtab, pnc)
+            oracle = SED.vmax_plain(*fields, rho, temp, dtab)
+            assert vmax.shape == () and float(vmax) > 0.0
+            for w in (want_v, oracle):
+                assert abs(float(vmax) - float(w)) <= (TOL[vmax.dtype]
+                                                       * float(w))
+            _close_to_plain(one, want_one, (dtype, tables, pnc))
+            nsub = torch.clamp(torch.ceil(dt_ * vmax / (0.9 * dz.min())),
+                               min=1.0)
+            got = SED.sed_columns(*fields, rho, temp, dz, dt_, nsub, dtab,
+                                  do_predict_nc=pnc, rerun=one)
+            assert all((g is o) for g, o in zip(got, one))
+            ref = SED.columns_plain(*fields, rho, temp, dz, dt_, nsub, dtab,
+                                    pnc, 1)
             assert len(got) == len(ref) == 10
             assert got[8].shape == (state.grid.nens, state.grid.ny,
                                     state.grid.nx)
             _close_to_plain(got, ref, (dtype, tables, int(nsub), pnc))
     assert int(nsub) == 4
-    assert (SED.sed_vmax.launches, SED.sed_columns.launches) == (
-        n0[0] + 1, n0[1] + 4)
+    assert (SED.sed_step.launches, SED.sed_columns.launches) == (
+        n0[0] + 4, n0[1] + 4)
 
 
 def test_p3_sed_rejects_bad_input(cuda_device):
@@ -706,21 +755,26 @@ def test_p3_sed_rejects_bad_input(cuda_device):
     x = torch.ones((2, 6, 4, 5), device=cuda_device)
     dtab = load_p3_tables().to(cuda_device, torch.float32)
     nsub = torch.tensor(1.0, device=cuda_device)
+    kw = dict(do_predict_nc=False)
     with pytest.raises(TypeError):
-        SED.sed_vmax(*[x.half()] * 10, None)
+        SED.sed_step(*[x.half()] * 11, 1.0, None, **kw)
     with pytest.raises(ValueError, match="contiguous"):
-        SED.sed_vmax(*[x] * 9, x.transpose(2, 3), dtab)
+        SED.sed_step(*[x] * 10, x.transpose(2, 3), 1.0, dtab, **kw)
     with pytest.raises(ValueError, match="axis 1"):
-        SED.sed_vmax(*[x] * 10, dtab, z_axis=2)
+        SED.sed_step(*[x] * 11, 1.0, dtab, z_axis=2, **kw)
     with pytest.raises(ValueError, match="tables"):
-        SED.sed_vmax(*[x] * 10, load_p3_tables().to(cuda_device,
-                                                    torch.float64))
+        SED.sed_step(*[x] * 11, 1.0, load_p3_tables().to(cuda_device,
+                                                         torch.float64), **kw)
     with pytest.raises(ValueError, match="nsub_t"):
-        SED.sed_columns(*[x] * 11, 1.0, nsub.double(), dtab,
-                        do_predict_nc=False)
+        SED.sed_columns(*[x] * 11, 1.0, nsub.double(), dtab, **kw)
     with pytest.raises(ValueError, match="contiguous"):
-        SED.sed_columns(*[x] * 10, x[:, :, :, :4], 1.0, nsub, dtab,
-                        do_predict_nc=False)
+        SED.sed_columns(*[x] * 10, x[:, :, :, :4], 1.0, nsub, dtab, **kw)
+    one = SED.sed_step(*[x] * 11, 1.0, dtab, **kw)[1]
+    with pytest.raises(ValueError, match="rerun"):
+        SED.sed_columns(*[x] * 11, 1.0, nsub, dtab, rerun=one[:9], **kw)
+    with pytest.raises(ValueError, match="rerun"):
+        SED.sed_columns(*[x] * 11, 1.0, nsub, dtab,
+                        rerun=(*one[:8], one[8].double(), one[9]), **kw)
 
 
 @pytest.mark.parametrize("tables", [True, False])
@@ -961,7 +1015,7 @@ def test_p3_slice_on_card_matches_cpu(cuda_device):
     counters = (LK.interp_ice, LK.interp_collect, LK.interp_rain,
                 CW.p3_part1, CW.p3_update, CW.p3_wrapper, CW.p3_rates_pre,
                 CW.p3_rates_post, CW.p3_part3, CW.p3_wrapper_out,
-                SED.sed_vmax, SED.sed_columns)
+                SED.sed_step, SED.sed_columns)
     states = []
     for device in ("cpu", cuda_device):
         state, mods, dycore = supercell_p3.build(cfg, device)

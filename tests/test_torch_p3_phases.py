@@ -4,9 +4,10 @@ JAX package, on the CPU.
 On a CUDA device ``p3_scheme`` runs its table-tier rates as two per-cell
 kernels around the table lookups (``p3_cellwise_cuda.p3_rates_pre`` /
 ``p3_rates_post``) and its sedimentation as two kernels
-(``p3_sed_cuda.sed_vmax`` / ``sed_columns``, the sub-step count read on the
-device).  Here, on the CPU, the same entry points run their plain versions,
-and this file holds them to the JAX scheme:
+(``p3_sed_cuda.sed_step``, the speeds once with their maximum and one
+sub-step, then ``sed_columns``, which reruns the sub-cycle where the count,
+read on the device, is above 1).  Here, on the CPU, the same entry points
+run their plain versions, and this file holds them to the JAX scheme:
 
   * the state after the prognostic update and after sedimentation, against
     JAX's ``p3_scheme(..., profile_stop="update")`` and ``"sed"``, at the
@@ -90,28 +91,29 @@ def _port(seed, dt, tier, pnc):
     dt vmax / (0.9 dz_min)) captured at the wrappers."""
     args, qv_prev, t_prev = _scheme_args(seed, torch.as_tensor)
     seen = {}
-    update, vmax, columns = CW.p3_update, SED.sed_vmax, SED.sed_columns
+    update, step, columns = CW.p3_update, SED.sed_step, SED.sed_columns
 
     def spy_update(*a, **k):
         seen["update"] = update(*a, **k)
         return seen["update"]
 
-    def spy_vmax(*a, **k):
-        seen["vmax"] = vmax(*a, **k)
-        return seen["vmax"]
+    def spy_step(*a, **k):
+        out = step(*a, **k)
+        seen["vmax"] = out[0]
+        return out
 
     def spy_columns(*a, **k):
         seen["nsub"] = a[12]
         seen["sed"] = columns(*a, **k)
         return seen["sed"]
-    CW.p3_update, SED.sed_vmax, SED.sed_columns = (spy_update, spy_vmax,
+    CW.p3_update, SED.sed_step, SED.sed_columns = (spy_update, spy_step,
                                                    spy_columns)
     try:
         PP.p3_scheme(*args, dt, tables=_tables("port") if tier == "tables"
                      else None, qv_prev=qv_prev, t_prev=t_prev,
                      do_predict_nc=pnc)
     finally:
-        CW.p3_update, SED.sed_vmax, SED.sed_columns = update, vmax, columns
+        CW.p3_update, SED.sed_step, SED.sed_columns = update, step, columns
     after_update = tuple(a.numpy() for a in seen["update"])
     after_sed = tuple(a.numpy() for a in seen["sed"][:8]) + after_update[8:] \
         + tuple(a.numpy() for a in seen["sed"][8:])
@@ -158,7 +160,7 @@ SED_CASES = [("tables", True, "seed_layers", DT_ONE),
 
 @pytest.mark.parametrize("tier,pnc,seed,dt", SED_CASES)
 def test_state_after_sedimentation_matches_jax(tier, pnc, seed, dt):
-    """The sub-cycled fall (sed_vmax -> nsub -> sed_columns) with its
+    """The sub-cycled fall (sed_step -> nsub -> sed_columns) with its
     write-backs and the surface rates; the sub-step count is the expected
     one and the state does not sit near one of its ceil boundaries."""
     _, got, nsub, ratio = _port(seed, dt, tier, pnc)
@@ -215,7 +217,7 @@ def test_rates_pre_index_sets_match_jax(seed):
 def test_wrappers_take_the_plain_versions_on_the_cpu():
     """Given CPU tensors the four new wrappers run their plain versions and
     count no launch; a scheme step launches nothing either."""
-    counters = (CW.p3_rates_pre, CW.p3_rates_post, SED.sed_vmax,
+    counters = (CW.p3_rates_pre, CW.p3_rates_post, SED.sed_step,
                 SED.sed_columns)
     before = [fn.launches for fn in counters]
     _port.cache_clear()
@@ -225,9 +227,12 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     args = [torch.as_tensor(a) for a in ins]
     rho = torch.as_tensor(rho_d) * 1.01
     dtab = _tables("port").to("cpu", torch.float64)
-    assert torch.equal(
-        SED.sed_vmax(*args[:8], rho, args[10], dtab),
-        SED.vmax_plain(*args[:8], rho, args[10], dtab))
+    vmax, one = SED.sed_step(*args[:8], rho, args[10], args[12], 60.0,
+                             dtab, do_predict_nc=True)
+    assert torch.equal(vmax, SED.vmax_plain(*args[:8], rho, args[10], dtab))
+    for a, b in zip(one, SED.step_plain(*args[:8], rho, args[10], args[12],
+                                        60.0, dtab, True)[1]):
+        assert torch.equal(a, b)
     nsub = torch.tensor(3.0, dtype=torch.float64)
     for a, b in zip(SED.sed_columns(*args[:8], rho, args[10], args[12], 60.0,
                                     nsub, dtab, do_predict_nc=True),

@@ -25,7 +25,15 @@ On the CPU in float64 and float32.
   Pallas step at the port's step bar.
 * Dispatch: a cutoff takes the reference algebra; ``fast_weights`` changes
   nothing in f64, under "xla", or on the CPU; the argument resolution of
-  ``Dycore`` is JAX's.
+  ``Dycore`` is JAX's, ``opt_algebra`` and the cutoff included.
+* The reference algebra as the Pallas kernels write it, with a reciprocal
+  hook (``weno_fused.reconstruct_edges_recip``, the plain version of the
+  kernel with approximate reciprocals): bit for bit against JAX's
+  ``_weno_edges_block`` with exact weights, cutoff 0 and 0.1, f64 and f32;
+  one f64 step of a dycore that runs it against JAX's
+  ``Dycore(riemann_impl="pallas", opt_algebra=False, fast_weights=False)``
+  step (interpret mode) at the step bar; and chip_smoke.py's fast bar on it,
+  with opt off and with a cutoff.
 """
 
 import jax
@@ -36,16 +44,20 @@ import torch
 
 from miniweatherml_tpu.dycore.euler import Dycore as JDycore
 from miniweatherml_tpu.ops import weno_fused as JW
-from miniweatherml_tpu.ops.pallas_recon import (_weno_edges_block_opt,
+from miniweatherml_tpu.ops.pallas_recon import (_weno_edges_block,
+                                                _weno_edges_block_opt,
                                                 direction_fluxes_pallas,
                                                 direction_fluxes_pallas_sub)
 from miniweatherml_tpu_torch.dycore.euler import Dycore
 from miniweatherml_tpu_torch.ops import weno_fused as PW
 from miniweatherml_tpu_torch.ops.direction_fluxes import (
     direction_fluxes, direction_fluxes_plain, limiter_algebra)
+from miniweatherml_tpu_torch.ops.weno import weno_matrices
 from miniweatherml_tpu_torch.ops.weno_fused import (opt_coef_table,
                                                     opt_dropped,
                                                     reconstruct_edges_opt,
+                                                    reconstruct_edges_recip,
+                                                    reconstruct_edges_shifted,
                                                     substencils)
 from tests.test_torch_dycore import (STEP_ATOL_OF_SCALE, STEP_RTOL, _case,
                                      assert_fields_close)
@@ -55,6 +67,9 @@ from tests.test_torch_flux_epilogue import (_AX_X, _AX_Y, _AX_Z, _MODE, _call,
 torch.set_num_threads(1)
 
 ORDERS = [3, 5, 7, 9]
+# the port's table of the reference algebra, which the fast bar's planted
+# faults replace for a call and must restore
+SPARSE_TERMS = PW._sparse_terms
 
 
 def _stencils(ord_, dtype, seed):
@@ -512,3 +527,134 @@ def test_yaml_keys_reach_the_dycore(experiment, keys):
         == (want.ord, want.riemann_impl, want.fast_weights)
     assert got.limiter_form()["opt"] == (want.riemann_impl == "pallas"
                                          and want.opt_algebra)
+
+
+# -- the reference algebra with a reciprocal hook ------------------------------
+
+@pytest.mark.parametrize("cutoff", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("ord_", ORDERS)
+def test_reconstruct_edges_recip_matches_jax(ord_, dtype, cutoff):
+    """reconstruct_edges_recip against JAX's _weno_edges_block (a plain jnp
+    function) with exact weights: bit for bit along the last axis and a
+    middle one; and within rounding of reconstruct_edges_shifted (the same
+    algebra with idl / x weights)."""
+    x = _stencils(ord_, dtype, ord_ + 50)
+    n = x.shape[-1] - ord_ + 1
+    terms = JW._sparse_terms(ord_, 0)
+    mats = weno_matrices(ord_)
+    for arr, axis in ((x, -1), (np.ascontiguousarray(
+            np.stack([x, x[::-1]]).transpose(1, 2, 0)), 1)):
+        jl, jr = _weno_edges_block(jnp.asarray(arr), n, ord_, *terms, cutoff,
+                                   axis=axis, fast_weights=False)
+        pl, pr = reconstruct_edges_recip(torch.from_numpy(arr), axis, n,
+                                         mats, cutoff)
+        np.testing.assert_array_equal(pl.numpy(), np.asarray(jl))
+        np.testing.assert_array_equal(pr.numpy(), np.asarray(jr))
+        sl, sr = reconstruct_edges_shifted(torch.from_numpy(arr), axis, n,
+                                           mats, cutoff)
+        eps = np.finfo(dtype).eps
+        for a, b in ((pl, sl), (pr, sr)):
+            assert (a - b).abs().max().item() <= 64 * eps * max(
+                b.abs().max().item(), 1e-300)
+
+
+def test_recip_algebra_dycore_step_matches_jax(monkeypatch):
+    """One f64 step of the 16x8x10 supercell whose flux runs
+    reconstruct_edges_recip (riemann_impl="pallas", opt_algebra=False, the
+    dispatch sent to the reference-with-reciprocals form, which f64 never
+    takes on its own) against JAX's jitted Dycore(riemann_impl="pallas",
+    opt_algebra=False, fast_weights=False) step (interpret mode: the same
+    algebra with exact reciprocals) at the port's step bar."""
+    from miniweatherml_tpu_torch.ops import direction_fluxes as DF
+    js, jd, ps, _ = _case("supercell", 16, 8, 10)
+    pd = Dycore(ord=5, riemann_impl="pallas", opt_algebra=False,
+                fast_weights=False)
+    assert pd.limiter_form() == {"opt": False, "fast_weights": False}
+    calls = []
+    real = DF.reconstruct_edges_recip
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(DF, "reconstruct_edges_recip", counted)
+    monkeypatch.setattr(DF, "limiter_algebra",
+                        lambda *a, **k: "ref_fast")
+    dt = jd.compute_time_step(js)
+    got = pd.time_step(ps, dt)
+    assert len(calls) >= 9  # every direction of every stage
+    jp = JDycore(ord=5, riemann_impl="pallas", opt_algebra=False,
+                 fast_weights=False)
+    pallas = jax.jit(lambda s: jp.time_step(s, dt))(js)
+    assert_fields_close(pallas, got, STEP_RTOL, STEP_ATOL_OF_SCALE)
+
+
+# every combination of the JAX package's keywords but "auto" (the port's
+# "auto" is "xla" on every device), with a cutoff and without
+OPT_RESOLUTIONS = [(impl, fw, oa, co) for impl in ("xla", "pallas")
+                   for fw in (None, True, False) for oa in (True, False)
+                   for co in (0.0, 0.1)]
+
+
+@pytest.mark.parametrize("impl,fw,oa,co", OPT_RESOLUTIONS)
+def test_dycore_opt_algebra_resolves_as_jax(impl, fw, oa, co):
+    """Dycore(riemann_impl, fast_weights, opt_algebra, cutoff): the flux
+    call's algebra in f32 and f64 is the one JAX's dycore runs -- "xla"
+    the reference algebra with exact weights; "pallas" the Pallas kernels'
+    _weno_edges, opt with opt_algebra at cutoff 0, approximate reciprocals
+    with fast_weights in f32."""
+    j = JDycore(ord=5, cutoff=co, riemann_impl=impl, fast_weights=fw,
+                opt_algebra=oa)
+    p = Dycore(ord=5, cutoff=co, riemann_impl=impl, fast_weights=fw,
+               opt_algebra=oa)
+    assert (p.riemann_impl, p.fast_weights, p.opt_algebra, p.cutoff) == (
+        j.riemann_impl, j.fast_weights, j.opt_algebra, j.cutoff)
+    for dtype in (torch.float32, torch.float64):
+        if j.riemann_impl == "xla":
+            want = "ref"
+        else:
+            opt = j.opt_algebra and j.cutoff == 0.0
+            fast = j.fast_weights and dtype == torch.float32
+            want = {(True, True): "fast", (True, False): "opt",
+                    (False, True): "ref_fast", (False, False): "ref"}[
+                        (opt, fast)]
+        got = limiter_algebra(cutoff=p.cutoff, dtype=dtype,
+                              **p.limiter_form())
+        assert got == want, (dtype, got, want)
+
+
+@pytest.mark.parametrize("case", BAR_CASES)
+@pytest.mark.parametrize("axis", [_AX_X, _AX_Y, _AX_Z])
+@pytest.mark.parametrize("form", ["no_opt", "cutoff"])
+def test_fast_bar_on_the_reference_algebra(form, axis, case, supercell_f32):
+    """chip_smoke.py's fast bar on the plain flux of the reference algebra
+    with approximate reciprocals (opt off, or a cutoff of 0.1 with opt on)
+    of the f32 supercell: a one-ulp change of its reciprocals outside the
+    bar's own model passes; planted faults (reciprocals 2^-12 off, idl_0
+    off in the reference table) fail."""
+    import chip_smoke as cs
+    ps, pd, prim = supercell_f32
+    d, c = _dirs(ps, pd)[axis], pd._consts(ps)
+    cutoff = 0.1 if form == "cutoff" else 0.0
+    kw = dict(opt=form == "cutoff", fast_weights=True)
+    assert limiter_algebra(cutoff=cutoff, dtype=prim.dtype, **kw) == \
+        "ref_fast"
+    axis_, n, bc, nid, width, hr, ht = d
+
+    def plain():
+        return direction_fluxes_plain(prim, axis_, n, bc, nid, c.C0,
+                                      c.gamma, hr, ht, pd.mats, cutoff,
+                                      1.0 / width, **kw)
+    ref = plain()
+    model = cs._one_ulp_model(plain, ref)
+    exact = PW._recip
+    if case == BAR_CASES[0]:
+        recip, terms = (lambda v: torch.nextafter(
+            exact(v), torch.full_like(v, 2.0 ** -60))), None
+    else:
+        recip, terms = cs._fault_models()[case]
+    got = cs._with_recip(recip, plain, terms)
+    assert not all(torch.equal(a, b) for a, b in zip(ref, got))
+    ok, per = cs._fast_verdict(ref, got, model)
+    assert ok == (case == BAR_CASES[0]), cs._verdict_text(per, model)
+    assert PW._recip is exact and PW._sparse_terms is SPARSE_TERMS
