@@ -76,14 +76,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
   9. the P3 per-cell kernel's three phases against their plain versions on
      the inputs one P3 step hands them, on the seeded mixed-regime
      512x512x64 state, f32 and f64;
-  31. (run after 9) the P3 scheme's process rates and sedimentation: the
-     rates_pre and rates_post phases of the per-cell kernel, and sed_step
-     (the speeds once, their maximum, one sub-step) with the rerun of
-     sed_columns, against their plain versions on what one step of the
-     early-storm, mixed-regime and all-active 512x512x64 P3 chains hands
-     them, f32 and f64: rates_pre's index sets by their lookup positions
-     (index + fraction) with the count of indices that differ, its
-     presence flags equal; the fall speed (also against the oracle
+  31. (run after 9) the P3 scheme's per-cell phases and sedimentation:
+     first rates_pre's presence flags against its plain version's on 963
+     cells in which no cell, or one at the first, middle or last cell,
+     holds ice, rain or both, as made and one element into their storage
+     (not 16-byte aligned), f32 and f64; then every phase of the per-cell
+     kernel a P3 step launches (part1, rates_pre, rates_post, update,
+     wrapper), and sed_step (the speeds once, their maximum, one sub-step)
+     with the rerun of sed_columns, against their plain versions on what
+     one step of the early-storm, mixed-regime and all-active 512x512x64
+     P3 chains hands them, f32 and f64: rates_pre's index sets by their
+     lookup positions (index + fraction) with the count of indices that
+     differ, its presence flags equal; each phase timed beside its bound,
+     the operations counted from its body's SASS (_cell_ops); the fall
+     speed (also against the oracle
      _p3_sed_vmax) with the sub-step count made of it and dt vmax / (0.9
      dz_min) beside it, the one sub-step's outputs, and sed_step + count
      + rerun against sed_columns' plain version from the inputs at the
@@ -814,12 +820,13 @@ def _stage(state, dycore, b0, b1, dt, grav=True, fcor=None, sim2d=None,
         state.grid.sim2d if sim2d is None else sim2d)
 
 
-def _ptxas_report(name: str):
+def _ptxas_report(name: str, path: str | None = None):
     """(kernel, registers, spill store bytes, spill load bytes, stack bytes,
-    shared bytes) of each entry function in _build/<name>.ptxas.txt."""
+    shared bytes) of each entry function in _build/<name>.ptxas.txt (or in
+    the ptxas report at ``path``)."""
     import re
-    path = os.path.join(ROOT, "miniweatherml_tpu_torch", "_build",
-                        f"{name}.ptxas.txt")
+    path = path or os.path.join(ROOT, "miniweatherml_tpu_torch", "_build",
+                                f"{name}.ptxas.txt")
     rows, cur, frame = [], None, (0, 0, 0)
     with open(path) as f:
         for ln in f:
@@ -965,15 +972,16 @@ def _entry_label(lib: str, mangled: str) -> str:
 def phase_build():
     from miniweatherml_tpu_torch import cuda_build, native
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 2) as pool:
-        # the P3 native twin (g++) and the sedimentation's SASS probe build
-        # beside the CUDA libraries
+    with ThreadPoolExecutor(len(LIBRARIES) + 4) as pool:
+        # the P3 native twin (g++) and the SASS probes of the sedimentation
+        # and the per-cell phases build beside the CUDA libraries
         twin = pool.submit(native.load_p3_library)
-        probe = pool.submit(_sed_ops)
+        probes = [pool.submit(_sed_ops), pool.submit(_cell_ops)]
         rcp = pool.submit(_rcp_library)
         list(pool.map(cuda_build.load_library, LIBRARIES))
         twin.result()
-        probe.result()
+        for probe in probes:
+            probe.result()
         rcp.result()
     for name in LIBRARIES:
         print(f"[2] built {name}: nvcc "
@@ -2000,10 +2008,7 @@ def phase_p3_cellwise():
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
 
     rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    # operations per cell of each phase, read from csrc/p3_cellwise.cu
-    # (arithmetic of the phase body and the helpers it calls; exp, log,
-    # pow, tanh counted as one)
-    cell_ops = {"part1": 150, "update": 500, "wrapper": 60}
+    cell_phases = ("part1", "update", "wrapper")
     launch = cw._launch
     for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
         state, mods, dycore = _p3_mixed_build(
@@ -2011,7 +2016,7 @@ def phase_p3_cellwise():
         seen = {}
 
         def spy(phase, predict_nc, arrays, dt=0.0, table=None):
-            if phase in cell_ops:  # the others are phase 31's and 32's
+            if phase in cell_phases:  # the others are phase 31's and 32's
                 seen[phase] = (predict_nc, arrays, dt)
             return launch(phase, predict_nc, arrays, dt, table)
         cw._launch = spy
@@ -2020,7 +2025,7 @@ def phase_p3_cellwise():
         finally:
             cw._launch = launch
         del state, mods, dycore
-        if set(seen) != set(cell_ops):
+        if set(seen) != set(cell_phases):
             raise AssertionError(f"P3 step launched phases {sorted(seen)}")
         for phase, (pnc, arrays, dt) in sorted(seen.items()):
             ref = cw.plain_phase(phase, pnc, arrays, dt)
@@ -2034,7 +2039,8 @@ def phase_p3_cellwise():
             ms = _time_ms(lambda: launch(phase, pnc, arrays, dt))
             pms = _time_ms(lambda: cw.plain_phase(phase, pnc, arrays, dt),
                            reps=3)
-            bms, by = _bound(nbytes, cell_ops[phase] * cells, dtype)
+            bms, by = _bound(nbytes, _phase_ops(phase, pnc, dtype) * cells,
+                             dtype)
             print(f"[9] p3_cellwise {phase} ({len(arrays)} in) {dtype}: max "
                   f"abs err {err:.3e}, rel {rel:.3e} (tol {tol:g}); kernel "
                   f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
@@ -2052,19 +2058,55 @@ def phase_p3_cellwise():
     return rec
 
 
-# operations per cell of the rates phases, read from csrc/p3_cellwise.cu
-# (arithmetic of the body and the helpers it calls; exp, log, pow, lgamma
-# counted as one); the sedimentation's come from its SASS (_sed_ops)
-RATES_OPS = {"rates_pre": 120, "rates_post": 450}
+# the per-cell phases a P3 step launches through p3_cellwise_cuda._launch,
+# in the step's order (part3 and the output pass go through their own
+# wrappers, _tails_check)
+STEP_PHASES = ("part1", "rates_pre", "rates_post", "update", "wrapper")
 # indices and fractions of rates_pre's outputs: (index, fraction) pairs
 RATES_PRE_PAIRS = ((2, 3), (4, 5), (6, 7), (8, 9), (10, 11))
+# rates_pre's flags case: fields of 963 cells (not a multiple of 128 or 4)
+# in which no cell, or exactly one, holds ice, rain or both, at these cells
+RATES_PRE_FLAG_CELLS = 963
+RATES_PRE_FLAG_CASES = (("none", None),) + tuple(
+    (kind, at) for kind in ("ice", "rain", "ice and rain")
+    for at in (0, RATES_PRE_FLAG_CELLS // 2, RATES_PRE_FLAG_CELLS - 1))
+
+
+def _rates_pre_flag_fields(kind, at, dtype, device, n=RATES_PRE_FLAG_CELLS,
+                           seed=18):
+    """rates_pre's ten inputs (qi, qr, qm, bm, qi_in, qm_in, bm_in, ni_in,
+    qr_in, nr_in) on ``n`` cells, made with numpy from ``seed``: qi and qr
+    below QSMALL everywhere except, by ``kind`` ("none", "ice", "rain",
+    "ice and rain"), 1e-4 at cell ``at``; the in-cloud values spread over
+    their ranges in every cell (a tenth of them 0), so that the index
+    finders see every branch."""
+    from miniweatherml_tpu_torch.physics.p3 import QSMALL
+    rng = np.random.default_rng(seed)
+
+    def logu(lo, hi):
+        v = 10.0 ** rng.uniform(lo, hi, n)
+        v[rng.uniform(size=n) < 0.1] = 0.0
+        return v
+    qi = rng.uniform(0.0, 0.99, n) * QSMALL
+    qr = rng.uniform(0.0, 0.99, n) * QSMALL
+    if "ice" in kind:
+        qi[at] = 1e-4
+    if "rain" in kind:
+        qr[at] = 1e-4
+    qi_in = logu(-9, -3)
+    qm_in = qi_in * rng.uniform(0.0, 1.2, n)
+    bm_in = qm_in / rng.uniform(20.0, 1000.0, n)
+    fields = (qi, qr, logu(-12, -5), logu(-14, -7), qi_in, qm_in, bm_in,
+              logu(1, 7), logu(-9, -3), logu(0, 6))
+    return [torch.as_tensor(f).to(device=device, dtype=dtype)
+            for f in fields]
 
 
 def _p3_step_rates_sed(build, dtype):
-    """What one step of a 512x512x64 P3 chain hands the two rates phases,
-    the two sedimentation wrappers, part3 and the output pass: {name:
-    (args, keywords)}, and under "launches" the sedimentation wrappers'
-    launches in the step."""
+    """What one step of a 512x512x64 P3 chain hands the per-cell phases of
+    STEP_PHASES, the two sedimentation wrappers, part3 and the output pass:
+    {name: (args, keywords)}, and under "launches" the sedimentation
+    wrappers' launches in the step."""
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
     from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
     state, mods, dycore = build(_bench_cfg(512, 512, 64, 1, dtype), "cuda")
@@ -2073,7 +2115,7 @@ def _p3_step_rates_sed(build, dtype):
     part3, wrapper_out = cw.p3_part3, cw.p3_wrapper_out
 
     def spy_launch(phase, predict_nc, arrays, dt=0.0, table=None):
-        if phase.startswith("rates"):
+        if phase in STEP_PHASES:
             seen[phase] = ((predict_nc, arrays, dt), {})
         return launch(phase, predict_nc, arrays, dt, table)
 
@@ -2094,8 +2136,8 @@ def _p3_step_rates_sed(build, dtype):
     finally:
         cw._launch, sed.sed_step, sed.sed_columns = launch, step, columns
         cw.p3_part3, cw.p3_wrapper_out = part3, wrapper_out
-    if set(seen) != set(RATES_OPS) | set(SED_CALLS) | {"p3_part3",
-                                                         "p3_wrapper_out"}:
+    if set(seen) != set(STEP_PHASES) | set(SED_CALLS) | {"p3_part3",
+                                                           "p3_wrapper_out"}:
         raise AssertionError(f"P3 step made calls {sorted(seen)}")
     seen["launches"] = {name: spy_.launches for name, spy_ in spies.items()}
     return seen
@@ -2108,10 +2150,27 @@ def _worst(pairs):
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
-def _rates_check(tag, phase, args, dtype, tol):
-    """One rates phase against its plain version: rates_pre's fields, the
-    lookup positions (index + fraction) its index sets give, how many
-    indices differ, and its presence flags; rates_post's 25 rates."""
+def _rates_pre_agreement(tag, ref, got):
+    """rates_pre's outputs against its plain version's: the pairs to hold
+    to the tolerance (the two fields, and the lookup positions index +
+    fraction its index sets give), how many indices differ, and its
+    presence flags, which must be equal."""
+    pairs = [(ref[0], got[0]), (ref[1], got[1])] + [
+        (ref[i].double() + ref[f].double(),
+         got[i].double() + got[f].double()) for i, f in RATES_PRE_PAIRS]
+    moved = sum(int((ref[i] != got[i]).sum()) for i, _ in RATES_PRE_PAIRS)
+    if not torch.equal(ref[-1], got[-1]):
+        raise AssertionError(f"{tag} rates_pre: flags {got[-1].tolist()} "
+                             f"against {ref[-1].tolist()}")
+    return pairs, moved
+
+
+def _cell_check(tag, phase, args, dtype, tol):
+    """One per-cell phase against its plain version on what the step
+    handed it (rates_pre: its fields, the lookup positions its index sets
+    give, how many indices differ, and its presence flags), timed beside
+    its bound, the operations from the SASS (_cell_ops).  Returns (max abs
+    err, ms, plain ms, bound ms, bound_by)."""
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
     pnc, arrays, dt = args
     ref = cw.plain_phase(phase, pnc, arrays, dt)
@@ -2119,34 +2178,63 @@ def _rates_check(tag, phase, args, dtype, tol):
     torch.cuda.synchronize()
     note = ""
     if phase == "rates_pre":
-        pairs = [(ref[0], got[0]), (ref[1], got[1])] + [
-            (ref[i].double() + ref[f].double(),
-             got[i].double() + got[f].double()) for i, f in RATES_PRE_PAIRS]
-        moved = sum(int((ref[i] != got[i]).sum()) for i, _ in RATES_PRE_PAIRS)
-        flags = torch.equal(ref[-1], got[-1])
+        pairs, moved = _rates_pre_agreement(tag, ref, got)
         note = (f"; {moved} of {5 * got[2].numel()} indices differ (their "
                 f"positions index + fraction agree within the bound); "
-                f"presence flags {got[-1].tolist()}, equal {flags}")
-        if not flags:
-            raise AssertionError(f"{tag} rates_pre: flags {got[-1].tolist()}"
-                                 f" against {ref[-1].tolist()}")
+                f"presence flags {got[-1].tolist()}, equal True")
     else:
         pairs = list(zip(ref, got))
     err, rel = _worst(pairs)
     bit = all(torch.equal(a, b) for a, b in zip(ref, got))
     nbytes = _nbytes(arrays, got)
-    cells = arrays[0].numel()
+    ops = _phase_ops(phase, pnc, dtype) * arrays[0].numel()
     del ref, got
     ms = _time_ms(lambda: cw._launch(phase, pnc, arrays, dt))
     pms = _time_ms(lambda: cw.plain_phase(phase, pnc, arrays, dt), reps=3)
-    bms, by = _bound(nbytes, RATES_OPS[phase] * cells, dtype)
+    bms, by = _bound(nbytes, ops, dtype)
     print(f"[31] {tag} {phase} ({len(arrays)} in): max abs err {err:.3e}, "
           f"rel {rel:.3e} (tol {tol:g}), bit for bit {bit}{note}; kernel "
-          f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms ({by}), "
-          f"{bms / ms:.1%} of the bound", flush=True)
+          f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms ({by}: "
+          f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP), {bms / ms:.1%} "
+          f"of the bound  [{_card()}]", flush=True)
     if not rel <= tol:
         raise AssertionError(f"{tag} {phase}: rel {rel:.3e}")
     return err, ms, pms, bms, by
+
+
+def _rates_pre_flags_check(dtype, tol):
+    """[31] rates_pre's kernel against its plain version on
+    RATES_PRE_FLAG_CASES (963 cells, no cell or one with ice, rain or both
+    at the first, the middle or the last cell), on the fields as made and
+    on views one element into their storage (contiguous, not 16-byte
+    aligned): flags equal in every case, fields and lookup positions
+    within ``tol``.  Returns the largest abs error."""
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
+    worst, seen = 0.0, []
+    for kind, at in RATES_PRE_FLAG_CASES:
+        fields = _rates_pre_flag_fields(kind, at, dtype, "cuda")
+        shifted = []
+        for f in fields:
+            buf = torch.empty(f.numel() + 1, dtype=dtype, device="cuda")
+            buf[1:] = f
+            shifted.append(buf[1:])
+        for layout, args in (("aligned", fields), ("offset 1", shifted)):
+            ref = cw.rates_pre_plain(*args)
+            got = cw._launch("rates_pre", False, args)
+            torch.cuda.synchronize()
+            tag = f"flags case {kind} at {at} {layout} {_dtype_name(dtype)}"
+            pairs, moved = _rates_pre_agreement(tag, ref, got)
+            err, rel = _worst(pairs)
+            if not rel <= tol:
+                raise AssertionError(f"{tag}: rel {rel:.3e}")
+            worst = max(worst, err)
+            seen.append(f"{kind} at {at} {layout}: {got[-1].tolist()} "
+                        f"({moved} indices differ)")
+    print(f"[31] rates_pre flags, {RATES_PRE_FLAG_CELLS} cells "
+          f"{_dtype_name(dtype)}, each equal to the plain version's: "
+          f"{'; '.join(seen)}; max abs err {worst:.3e} (tol {tol:g})",
+          flush=True)
+    return worst
 
 
 def _count(dt, vmax, dz):
@@ -2215,32 +2303,73 @@ SASS_FP = {"FADD": 1, "FMUL": 1, "FFMA": 2, "FMNMX": 1, "FSETP": 1,
            "FSEL": 1, "FCHK": 1, "FRND": 1, "MUFU": 1, "DADD": 1, "DMUL": 1,
            "DFMA": 2, "DMNMX": 1, "DSETP": 1, "F2F": 1, "F2I": 1, "I2F": 1,
            "FSWZADD": 1}
-_sed_ops_cache = {}
+# the per-cell phases of csrc/p3_cellwise.cu as probe kernels, each calling
+# one phase's body (RatesPre's and the main path's forms of the others) on
+# values it loads, so that its SASS holds that body's instructions alone
+CELL_PROBE = r"""
+#include "p3_cellwise.cu"
+namespace {
+template <class P, typename T>
+__device__ void probe_phase(const T* x, T* o, int* io, bool* f) {
+  T in[P::NIN], out[P::NOUT];
+  int iout[P::NIOUT > 0 ? P::NIOUT : 1];
+  bool fl[P::NFLAG > 0 ? P::NFLAG : 1];
+  for (int k = 0; k < P::NIN; ++k) in[k] = x[k];
+  P::template run<T>(in, out, iout, fl, (double)x[P::NIN], x + 64);
+  for (int k = 0; k < P::NOUT; ++k) o[k] = out[k];
+  for (int k = 0; k < P::NIOUT; ++k) io[k] = iout[k];
+  for (int k = 0; k < P::NFLAG; ++k) f[k] = fl[k];
+}
+using Part1Pnc = Part1<true>;
+using UpdatePnc = Update<true>;
+}
+#define PROBE(NAME, PHASE)                                                   \
+  template <typename T>                                                      \
+  __global__ void probe_##NAME(const T* x, T* o, int* io, bool* f) {         \
+    probe_phase<PHASE, T>(x, o, io, f);                                      \
+  }                                                                          \
+  template __global__ void probe_##NAME<float>(const float*, float*, int*,   \
+                                               bool*);                       \
+  template __global__ void probe_##NAME<double>(const double*, double*,      \
+                                                int*, bool*);
+PROBE(part1, Part1<false>)
+PROBE(part1_pnc, Part1Pnc)
+PROBE(update, Update<false>)
+PROBE(update_pnc, UpdatePnc)
+PROBE(wrapper, Wrapper)
+PROBE(rates_pre, RatesPre)
+PROBE(rates_post, RatesPost)
+PROBE(part3, Part3Tables)
+PROBE(part3_diag, Part3TablesDiag)
+PROBE(wrapper_out, WrapperOut)
+"""
+CELL_PROBES = ("part1", "part1_pnc", "update", "update_pnc", "wrapper",
+               "rates_pre", "rates_post", "part3", "part3_diag",
+               "wrapper_out")
+_sass_ops_cache = {}
 
 
-def _sed_ops():
-    """{"float32" / "float64": {branch: operations}} of the sedimentation's
-    level body, counted from the SASS of SED_PROBE's kernels, built with
-    csrc/p3_sed.cu's own nvcc flags as a cubin in chip_smoke_out/ and read
-    with cuobjdump: "rain", "ice" and "cloud" (one call of each species'
-    speeds) and "update" (the eight fluxes and updates of a level).  A
+def _sass_ops(lib, probe, names):
+    """{"float32" / "float64": {name: operations}} of the probe kernels
+    ``probe_<name><T>`` of ``probe`` (a source that includes
+    csrc/<lib>.cu), counted from their SASS: built with that file's own
+    nvcc flags as a cubin in chip_smoke_out/ and read with cuobjdump.  A
     static count: every path through the math functions' range splits
-    counts, so the species branches are an upper estimate of one call,
-    while a cell without the species counts 0 for its branch.  Cached per
-    process."""
+    (and, in part3, the ice lookup a cell without ice skips) counts, so a
+    count is an upper estimate of one call.  Cached per process."""
     import re
-    if _sed_ops_cache:
-        return _sed_ops_cache
+    if lib in _sass_ops_cache:
+        return _sass_ops_cache[lib]
     from miniweatherml_tpu_torch import cuda_build
     nvcc = cuda_build._nvcc()
     csrc = os.path.join(ROOT, "miniweatherml_tpu_torch", "csrc")
-    work = os.path.join(OUT_DIR, "sed_probe")
+    work = os.path.join(OUT_DIR, f"{lib}_probe")
     os.makedirs(work, exist_ok=True)
     src, cubin = (os.path.join(work, "probe.cu"),
                   os.path.join(work, "probe.cubin"))
     with open(src, "w") as f:
-        f.write(SED_PROBE)
-    flags = [f for f in cuda_build.nvcc_flags("p3_sed")
+        f.write(probe)
+    flags = [f for f in cuda_build.nvcc_flags(lib)
              if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                           "--split-compile=0")]
     subprocess.run([nvcc, *flags, "-cubin", "-I", csrc, "-o", cubin, src],
@@ -2262,18 +2391,39 @@ def _sed_ops():
     out = {}
     for t, dtype in (("f", "float32"), ("d", "float64")):
         per = {}
-        for branch in ("rain", "ice", "cloud", "update"):
+        for name in names:
             hits = [n for k, n in counts.items()
-                    if f"probe_{branch}I{t}E" in k]
+                    if re.search(rf"\d+probe_{name}I{t}E", k)]
             if len(hits) != 1:
-                raise AssertionError(f"no single probe_{branch} <{dtype}> in "
+                raise AssertionError(f"no single probe_{name} <{dtype}> in "
                                      f"the SASS: {sorted(counts)}")
-            per[branch] = hits[0]
+            per[name] = hits[0]
         out[dtype] = per
-    _sed_ops_cache.update(out)
-    print(f"[2] sedimentation operations per cell from the SASS (FMA as "
-          f"2): {out}", flush=True)
-    return _sed_ops_cache
+    _sass_ops_cache[lib] = out
+    print(f"[2] {lib} operations per cell from the SASS (FMA as 2): {out}",
+          flush=True)
+    return out
+
+
+def _sed_ops():
+    """The sedimentation's level body by species branch (SED_PROBE):
+    "rain", "ice" and "cloud" (one call of each species' speeds) and
+    "update" (the eight fluxes and updates of a level); a cell without
+    the species counts 0 for its branch."""
+    return _sass_ops("p3_sed", SED_PROBE, ("rain", "ice", "cloud", "update"))
+
+
+def _cell_ops():
+    """The per-cell phases' bodies (CELL_PROBE), by phase."""
+    return _sass_ops("p3_cellwise", CELL_PROBE, CELL_PROBES)
+
+
+def _phase_ops(phase, predict_nc, dtype):
+    """Operations per cell of one launch of a per-cell phase (``_launch``'s
+    phase name and flag), from the SASS."""
+    name = phase + ("_pnc" if phase in ("part1", "update") and predict_nc
+                     else "")
+    return _cell_ops()[_dtype_name(dtype)][name]
 
 
 def _sed_work(fields, rho, dtype, nsub=1):
@@ -2409,11 +2559,13 @@ def _sed_check(tag, seen, dtype, tol):
 
 
 def phase_p3_rates_sed():
-    """The two rates phases and the sedimentation (sed_step, the count and
-    the rerun of sed_columns) against their plain versions on what one step
-    of each of _p3_step_chains hands them at 512x512x64, f32 and f64; the
-    records of the kernels line from the early-storm f32 step (the main
-    cell)."""
+    """rates_pre's presence flags on RATES_PRE_FLAG_CASES; then every
+    per-cell phase of a P3 step (STEP_PHASES; part3 and the output pass in
+    _tails_check) and the sedimentation (sed_step, the count and the rerun
+    of sed_columns) against their plain versions on what one step of each
+    of _p3_step_chains hands them at 512x512x64, f32 and f64, each timed
+    beside its bound; the records of the kernels line from the early-storm
+    f32 step (the main cell)."""
     from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
     for kernel in ("step", "columns"):
         for dtype in (torch.float32, torch.float64):
@@ -2428,13 +2580,19 @@ def phase_p3_rates_sed():
             "p3_sedimentation": {"max_abs_err": 0.0},
             "p3_part3": {"max_abs_err": 0.0},
             "p3_wrapper_out": {"max_abs_err": 0.0}}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        err = _rates_pre_flags_check(dtype, tol)
+        if dtype == torch.float32:
+            recs["p3_rates"]["max_abs_err"] = err
     for chain, build in _p3_step_chains():
         for dtype, tol in (("float32", 1e-5), ("float64", 1e-12)):
             tag = f"{chain} {dtype}"
             seen = _p3_step_rates_sed(build, dtype)
             main = chain == "early-storm" and dtype == "float32"
-            rates = [_rates_check(tag, ph, seen[ph][0], seen[ph][0][1][0].dtype,
-                                  tol) for ph in ("rates_pre", "rates_post")]
+            checks = {ph: _cell_check(tag, ph, seen[ph][0],
+                                      seen[ph][0][1][0].dtype, tol)
+                      for ph in STEP_PHASES}
+            rates = [checks["rates_pre"], checks["rates_post"]]
             sed_rec, sed_err = _sed_check(tag, seen,
                                           seen["sed_step"][0][0].dtype, tol)
             if dtype == "float32":
@@ -2463,12 +2621,13 @@ def phase_p3_rates_sed():
     return recs
 
 
-# operations per cell of phase 32's kernels, read from their sources (exp,
-# log10, pow and sqrt counted as one): part3's freezing, clips, two DSD
-# limiters, re-bounds, index finder and K=2 lookup; the output pass's 11
-# products and clamps; the sub-cycle step's speed and step
-TAIL_OPS = {"p3_part3": 150, "p3_part3 diagnostics": 200,
-            "p3_wrapper_out": 21, "min_step": 20}
+# operations per rain cell of kessler_min_step, read from its source (pow
+# counted as one): the sub-cycle step's speed and step; part3's and the
+# output pass's come from the SASS (_cell_ops)
+TAIL_OPS = {"min_step": 20}
+# _tails_check's kernels as phases of csrc/p3_cellwise.cu (the table tier)
+TAIL_PHASES = {"p3_part3": "part3", "p3_part3 diagnostics": "part3_diag",
+               "p3_wrapper_out": "wrapper_out"}
 
 
 def _tails_check(tag, seen, dtype, tol):
@@ -2513,7 +2672,8 @@ def _tails_check(tag, seen, dtype, tol):
         del ref, got
         ms = _time_ms(lambda: kern(*args))
         pms = _time_ms(lambda: plain(*args), reps=3)
-        bms, by = _bound(nbytes, TAIL_OPS[name] * cells, dtype)
+        bms, by = _bound(nbytes, _phase_ops(TAIL_PHASES[name], False, dtype)
+                         * cells, dtype)
         note = (f"; {ice} cells with ice, {frz} freezing"
                 if name.startswith("p3_part3") else "")
         print(f"[32] {tag} {name} ({len(args)} in{note}): max abs err "

@@ -27,11 +27,15 @@
 // inputs and writes its outputs once (update: 55 values per cell, 220 B in
 // f32).  The saturation Newton (up to 11 trips of one exp each) and the
 // Murphy-Koop svp (exp, log, tanh) are the arithmetic; the update's 45
-// inputs make it the register-heaviest phase.
+// inputs make it the register-heaviest phase.  RatesPre, the one phase with
+// presence flags, has a launch path of its own (rates_pre_kernel below):
+// a few 16-byte words of neighbouring cells a thread, and the flags
+// reduced per block.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "p3_index.cuh"
 #include "p3_math.cuh"
@@ -659,46 +663,179 @@ template <class Phase> struct Ptrs {
   const void* table;  // the packed ice table of a phase that reads it
 };
 
+// the phases without presence flags: one cell a thread
 template <class Phase, typename T>
 __global__ void __launch_bounds__(THREADS)
     cellwise(const Ptrs<Phase> p, int64_t n, double dt) {
+  static_assert(Phase::NFLAG == 0, "a phase with flags has a launch path of its own");
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  bool flag[Phase::NFLAG > 0 ? Phase::NFLAG : 1] = {};
-  if (c < n) {
-    T in[Phase::NIN], out[Phase::NOUT];
-    int iout[Phase::NIOUT > 0 ? Phase::NIOUT : 1];
+  if (c >= n) return;
+  T in[Phase::NIN], out[Phase::NOUT];
+  int iout[Phase::NIOUT > 0 ? Phase::NIOUT : 1];
 #pragma unroll
-    for (int k = 0; k < Phase::NIN; ++k) in[k] = __ldg(static_cast<const T*>(p.in[k]) + c);
-    Phase::run(in, out, iout, flag, dt, static_cast<const T*>(p.table));
+  for (int k = 0; k < Phase::NIN; ++k) in[k] = __ldg(static_cast<const T*>(p.in[k]) + c);
+  Phase::run(in, out, iout, nullptr, dt, static_cast<const T*>(p.table));
 #pragma unroll
-    for (int k = 0; k < Phase::NOUT; ++k) static_cast<T*>(p.out[k])[c] = out[k];
+  for (int k = 0; k < Phase::NOUT; ++k) static_cast<T*>(p.out[k])[c] = out[k];
 #pragma unroll
-    for (int k = 0; k < Phase::NIOUT; ++k) p.iout[k][c] = iout[k];
-  }
-  // a flag is set once per warp that sets it (every lane reaches here)
-#pragma unroll
-  for (int k = 0; k < Phase::NFLAG; ++k)
-    if (__any_sync(0xffffffffu, flag[k]) && (threadIdx.x & 31) == 0) p.flags[k] = true;
+  for (int k = 0; k < Phase::NIOUT; ++k) p.iout[k][c] = iout[k];
 }
 
-template <class Phase, typename T>
-int launch_phase(const void* const* in, int nin, void* const* out, int nout,
-                 void* const* iout, int niout, void* flags, int nflags, long long n,
-                 double dt, const void* table, void* stream) {
+template <class Phase>
+int check_counts(int nin, int nout, int niout, int nflags, long long n) {
   if (nin != Phase::NIN || nout != Phase::NOUT || niout != Phase::NIOUT ||
       nflags != Phase::NFLAG || n < 0)
     return cudaErrorInvalidValue;
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
+  return cudaSuccess;
+}
+
+template <class Phase>
+Ptrs<Phase> pointers(const void* const* in, void* const* out, void* const* iout, void* flags,
+                     const void* table) {
   Ptrs<Phase> p;
   for (int k = 0; k < Phase::NIN; ++k) p.in[k] = in[k];
   for (int k = 0; k < Phase::NOUT; ++k) p.out[k] = out[k];
   for (int k = 0; k < Phase::NIOUT; ++k) p.iout[k] = static_cast<int*>(iout[k]);
   p.flags = static_cast<bool*>(flags);
   p.table = table;
+  return p;
+}
+
+template <class Phase, typename T>
+int launch_phase(const void* const* in, int nin, void* const* out, int nout,
+                 void* const* iout, int niout, void* flags, int nflags, long long n,
+                 double dt, const void* table, void* stream) {
+  if (int e = check_counts<Phase>(nin, nout, niout, nflags, n)) return e;
+  const long long blocks = (n + THREADS - 1) / THREADS;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
   cellwise<Phase, T><<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, (int64_t)n, dt);
+      pointers<Phase>(in, out, iout, flags, table), (int64_t)n, dt);
+  return cudaGetLastError();
+}
+
+// -- rates_pre's launch path: the presence flags reduced per block ---------
+// The flags are three bytes of one tensor.  Stored once per warp that sets
+// them (the executor above, before this launch path), the 524 288 warps of
+// the 512x512x64 grid wrote up to three stores each to those three bytes:
+// one L2 slice takes them one after the other, and the rest of the
+// traffic that slice serves waits behind them (0.44 ms of a 0.94 ms f32
+// call on the mixed state; scripts/p3_rates_variants.py).  Here a block
+// takes RP_STEPS * THREADS words of RP_WORD<T> neighbouring cells (4 f32
+// or 2 f64: one 16-byte load or store of each field, the int32 indices
+// one of 16 or 8 bytes), a thread one word a step at block stride; each
+// thread ORs its cells' flags, and the block stores each flag at most
+// once, after one __syncthreads_or: 16 384 blocks at 512x512x64 in f32.
+// Where a field is not 16-byte aligned, and for the n % RP_WORD cells at
+// the end, a thread takes one cell.  Measured there: more steps a block
+// (fewer stores) cost more than they save, a resident grid walking the
+// cells at grid stride was 4-16% slower, the step loop unrolled (the W
+// cells' arithmetic copied per step) took up to twice the time, and the
+// math's slow paths cost nothing (fast-math builds ran as fast).  The
+// arithmetic is RatesPre::run's, cell by cell.
+template <typename T> constexpr int RP_WORD = 16 / sizeof(T);
+template <typename T> constexpr int RP_STEPS = 2;
+
+template <int B> struct Word;
+template <> struct Word<4> { using type = unsigned; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<16> { using type = uint4; };
+
+// W neighbouring values of one field from cell c0, in words of up to 16 B
+template <typename U, int W>
+__device__ __forceinline__ void load_cells(const void* field, int64_t c0, U (&v)[W]) {
+  constexpr int B = W * sizeof(U) < 16 ? W * sizeof(U) : 16;
+  using Wd = typename Word<B>::type;
+  constexpr int NW = W * sizeof(U) / B;
+  const Wd* src = reinterpret_cast<const Wd*>(static_cast<const U*>(field) + c0);
+  Wd w[NW];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) w[j] = __ldg(src + j);
+  memcpy(v, w, sizeof(v));
+}
+
+template <typename U, int W>
+__device__ __forceinline__ void store_cells(void* field, int64_t c0, const U (&v)[W]) {
+  constexpr int B = W * sizeof(U) < 16 ? W * sizeof(U) : 16;
+  using Wd = typename Word<B>::type;
+  constexpr int NW = W * sizeof(U) / B;
+  Wd w[NW];
+  memcpy(w, v, sizeof(v));
+  Wd* dst = reinterpret_cast<Wd*>(static_cast<U*>(field) + c0);
+#pragma unroll
+  for (int j = 0; j < NW; ++j) dst[j] = w[j];
+}
+
+// RatesPre on the W cells from c0; ORs their flags into any
+template <typename T, int W>
+__device__ __forceinline__ void rates_pre_cells(const Ptrs<RatesPre>& p, int64_t c0,
+                                                bool (&any)[RatesPre::NFLAG]) {
+  using P = RatesPre;
+  T in[P::NIN][W], out[P::NOUT][W];
+  int iout[P::NIOUT][W];
+#pragma unroll
+  for (int k = 0; k < P::NIN; ++k) load_cells<T, W>(p.in[k], c0, in[k]);
+#pragma unroll
+  for (int e = 0; e < W; ++e) {
+    T x[P::NIN], o[P::NOUT];
+    int io[P::NIOUT];
+    bool f[P::NFLAG];
+#pragma unroll
+    for (int k = 0; k < P::NIN; ++k) x[k] = in[k][e];
+    P::run<T>(x, o, io, f, 0.0, nullptr);
+#pragma unroll
+    for (int k = 0; k < P::NOUT; ++k) out[k][e] = o[k];
+#pragma unroll
+    for (int k = 0; k < P::NIOUT; ++k) iout[k][e] = io[k];
+#pragma unroll
+    for (int k = 0; k < P::NFLAG; ++k) any[k] = any[k] || f[k];
+  }
+#pragma unroll
+  for (int k = 0; k < P::NOUT; ++k) store_cells<T, W>(p.out[k], c0, out[k]);
+#pragma unroll
+  for (int k = 0; k < P::NIOUT; ++k) store_cells<int, W>(p.iout[k], c0, iout[k]);
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(THREADS)
+    rates_pre_kernel(const Ptrs<RatesPre> p, int64_t n) {
+  bool any[RatesPre::NFLAG] = {};
+  const int64_t base = (int64_t)blockIdx.x * (RP_STEPS<T> * THREADS * W);
+  // not unrolled: each copy of the W cells' arithmetic is a few KB of code
+#pragma unroll 1
+  for (int j = 0; j < RP_STEPS<T>; ++j) {
+    const int64_t c = base + ((int64_t)j * THREADS + threadIdx.x) * W;
+    if (c + W <= n) {
+      rates_pre_cells<T, W>(p, c, any);
+    } else {
+      for (int64_t e = c; e < n; ++e) rates_pre_cells<T, 1>(p, e, any);
+    }
+  }
+  // every thread of the block reaches the barriers
+#pragma unroll
+  for (int k = 0; k < RatesPre::NFLAG; ++k)
+    if (__syncthreads_or(any[k]) && threadIdx.x == 0) p.flags[k] = true;
+}
+
+template <typename T>
+int launch_rates_pre(const void* const* in, int nin, void* const* out, int nout,
+                     void* const* iout, int niout, void* flags, int nflags, long long n,
+                     void* stream) {
+  using P = RatesPre;
+  if (int e = check_counts<P>(nin, nout, niout, nflags, n)) return e;
+  if (flags == nullptr) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  bool aligned = true;
+  for (int k = 0; k < P::NIN; ++k) aligned = aligned && reinterpret_cast<uintptr_t>(in[k]) % 16 == 0;
+  for (int k = 0; k < P::NOUT; ++k) aligned = aligned && reinterpret_cast<uintptr_t>(out[k]) % 16 == 0;
+  for (int k = 0; k < P::NIOUT; ++k) aligned = aligned && reinterpret_cast<uintptr_t>(iout[k]) % 16 == 0;
+  const int w = aligned ? RP_WORD<T> : 1;
+  const long long per_block = (long long)RP_STEPS<T> * THREADS * w;
+  const long long blocks = (n + per_block - 1) / per_block;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  const auto kernel = aligned ? rates_pre_kernel<T, RP_WORD<T>> : rates_pre_kernel<T, 1>;
+  kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      pointers<P>(in, out, iout, flags, nullptr), (int64_t)n);
   return cudaGetLastError();
 }
 
@@ -721,7 +858,8 @@ int dispatch(int phase, const void* const* in, int nin, void* const* out, int no
     case 2: return P3_PHASE(Update<false>);
     case 3: return P3_PHASE(Update<true>);
     case 4: return P3_PHASE(Wrapper);
-    case 5: return P3_PHASE(RatesPre);
+    case 5:
+      return launch_rates_pre<T>(in, nin, out, nout, iout, niout, flags, nflags, n, stream);
     case 6: return P3_PHASE(RatesPost);
     case 7: return P3_PHASE(Part3Approx);
     case 8:

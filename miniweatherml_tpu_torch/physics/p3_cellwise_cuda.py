@@ -12,9 +12,12 @@ functions of ``p3.py`` (``_p3_part1_cellwise``, ``_p3_update_cellwise``,
 ``_p3_wrapper_out_cellwise``, re-exported here as ``*_plain``) on CPU
 tensors.  On CUDA tensors each launches the matching phase of
 ``csrc/p3_cellwise.cu``: one thread per cell reads the cell's inputs once
-and writes its outputs once.  The first three are the port of the Pallas
-kernel ``miniweatherml_tpu/ops/elementwise.py::fused_cellwise``; the two
-rates phases, with the table lookups between them, are the port of the XLA
+and writes its outputs once (``p3_rates_pre``: a thread takes
+neighbouring cells as 16-byte words, and a block reduces the presence
+flags, one store per block and flag at most).  The first three are the
+port of the Pallas kernel
+``miniweatherml_tpu/ops/elementwise.py::fused_cellwise``; the two rates
+phases, with the table lookups between them, are the port of the XLA
 fusion of the JAX scheme's process rates
 (``miniweatherml_tpu/physics/p3.py:853-1225``), which is no Pallas kernel;
 ``p3_part3`` and ``p3_wrapper_out`` port the XLA fusions of its homogeneous
@@ -73,20 +76,25 @@ _RATES_PRE_ORDER = (("f", 0), ("f", 1), ("i", 0), ("f", 2), ("i", 1),
 _lib = None
 
 
+def _bind(lib):
+    """``lib`` (a build of ``csrc/p3_cellwise.cu``) with its entry points'
+    argument and result types declared."""
+    P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_double)
+    PP = ctypes.POINTER(ctypes.c_void_p)
+    for name in ("p3_cellwise_f32", "p3_cellwise_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [I, PP, I, PP, I, PP, I, P, I, L, D, P, P]
+        fn.restype = I
+    lib.p3_cellwise_error_string.argtypes = [I]
+    lib.p3_cellwise_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = load_library("p3_cellwise")
-        P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                      ctypes.c_double)
-        PP = ctypes.POINTER(ctypes.c_void_p)
-        for name in ("p3_cellwise_f32", "p3_cellwise_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [I, PP, I, PP, I, PP, I, P, I, L, D, P, P]
-            fn.restype = I
-        lib.p3_cellwise_error_string.argtypes = [I]
-        lib.p3_cellwise_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = _bind(load_library("p3_cellwise"))
     return _lib
 
 

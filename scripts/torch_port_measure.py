@@ -11,6 +11,7 @@ Usage (from the root of a checkout, on a machine with the card):
   python scripts/torch_port_measure.py surrogate_cpu [--reps N]
   python scripts/torch_port_measure.py mesh    [--root DIR] [--reps N]
   python scripts/torch_port_measure.py sed     [--root DIR] [--reps N]
+  python scripts/torch_port_measure.py rates   [--root DIR] [--reps N]
 
 ``--root`` names the tree whose ``miniweatherml_tpu_torch`` and
 ``chip_smoke.py`` are imported (default: this checkout), so two trees are
@@ -96,6 +97,15 @@ a tree from before the opt algebra takes ref only.
            the count and sed_columns; at the step's dt and at a dt that
            makes dt vmax / (0.9 dz_min) = 3.5 (4 sub-steps).  Three medians
            of N calls each (CUDA events, queued behind device sleep).
+
+  rates    P3's per-cell kernels on what one step of the early-storm,
+           mixed-regime and all-active 512x512x64 P3 chains hands them
+           (chip_smoke.py's _p3_step_chains), f32 and f64: rates_pre and
+           rates_post, and where the tree's _p3_step_rates_sed records them
+           part1, update and the wrapper's inputs, then part3 and the
+           output pass.  Three medians of N calls each (CUDA events,
+           queued behind device sleep); a tree from before rates_pre's own
+           launch path runs the same call with the flags stored per warp.
 
 Each mode prints one JSON line (prefixed "RESULT ") with the card's name and
 power limit.
@@ -351,6 +361,36 @@ def mode_sed(cs, reps):
                 print(f"sed {key}: {n} sub-step(s), "
                       f"{', '.join(f'{t:.4f}' for t in ms)} ms", flush=True)
             del fields, rho, temp, dz, dtab
+            torch.cuda.empty_cache()
+    return out
+
+
+def mode_rates(cs, reps):
+    import torch
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
+    phases = ("part1", "rates_pre", "rates_post", "update", "wrapper")
+    out = {}
+    for chain, build in cs._p3_step_chains():
+        for dtype in ("float32", "float64"):
+            seen = cs._p3_step_rates_sed(build, dtype)
+            calls = {}
+            for ph in phases:
+                if ph in seen:
+                    pnc, arrays, dt = seen[ph][0]
+                    calls[ph] = (lambda ph=ph, pnc=pnc, arrays=arrays, dt=dt:
+                                 cw._launch(ph, pnc, arrays, dt))
+            for name in ("p3_part3", "p3_wrapper_out"):
+                args, _ = seen[name]
+                calls[name] = (lambda fn=getattr(cw, name), args=args:
+                               fn(*args))
+            del seen
+            for name, call in calls.items():
+                key = f"{chain} {dtype} {name}"
+                ms = [cs._time_ms(call, reps) for _ in range(3)]
+                out[key] = ms
+                print(f"rates {key}: {', '.join(f'{t:.4f}' for t in ms)} ms",
+                      flush=True)
+            del calls
             torch.cuda.empty_cache()
     return out
 
@@ -792,7 +832,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("mode", choices=("flux", "cells", "profile", "kernels",
                                      "min_step", "surrogate", "surrogate_cpu",
-                                     "mesh", "sed"))
+                                     "mesh", "sed", "rates"))
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=10)
@@ -823,7 +863,8 @@ def main() -> int:
            "surrogate": lambda: mode_surrogate(cs, a.reps),
            "surrogate_cpu": lambda: mode_surrogate_cpu(cs, a.reps),
            "mesh": lambda: mode_mesh(cs, a.reps),
-           "sed": lambda: mode_sed(cs, a.reps)}[a.mode]()
+           "sed": lambda: mode_sed(cs, a.reps),
+           "rates": lambda: mode_rates(cs, a.reps)}[a.mode]()
     print("RESULT " + json.dumps({
         "mode": a.mode, "root": a.root, "form": a.form, "card": _card(),
         "seconds": time.perf_counter() - t0, "result": res}), flush=True)

@@ -27,6 +27,8 @@ from miniweatherml_tpu_torch.physics.kessler_cuda import (
     kessler_staging, kessler_step, kessler_step_plain, min_step,
     min_step_plain)
 
+import chip_smoke as cs
+
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -579,6 +581,37 @@ def test_p3_cellwise_kernels_match_plain(cuda_device, monkeypatch):
             assert len(got) == len(want)
             _close_to_plain(got, want, (name, dtype))
         assert seen["rates_pre"][0][2].dtype == torch.int32
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset 1"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind,at", cs.RATES_PRE_FLAG_CASES)
+def test_p3_rates_pre_flags_match_plain(kind, at, dtype, layout, cuda_device):
+    """rates_pre's kernel against its plain version on 963 cells (not a
+    multiple of the block or of a thread's 16-byte word) in which no cell,
+    or exactly one (the first, the middle or the last), holds ice, rain or
+    both: the presence flags equal (the per-block reduction, the leftover
+    cells of the vector path), the fields and lookup positions within the
+    tolerance; "offset 1" hands the kernel views one element into their
+    storage, contiguous but not 16-byte aligned (its one-cell path)."""
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
+
+    fields = cs._rates_pre_flag_fields(kind, at, dtype, cuda_device)
+    if layout == "offset 1":
+        views = []
+        for f in fields:
+            buf = torch.empty(f.numel() + 1, dtype=dtype, device=cuda_device)
+            buf[1:] = f
+            views.append(buf[1:])
+        fields = views
+        assert all(f.is_contiguous() and f.data_ptr() % 16 for f in fields)
+    n0 = CW.p3_rates_pre.launches
+    got = CW.p3_rates_pre(*fields)
+    want = CW.rates_pre_plain(*fields)
+    assert CW.p3_rates_pre.launches == n0 + 1
+    assert got[-1].tolist() == ["ice" in kind, kind == "ice and rain",
+                                "rain" in kind]
+    _close_to_plain(got, want, (kind, at, dtype, layout))
 
 
 def _part3_calls(state, mods, monkeypatch):

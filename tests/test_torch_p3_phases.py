@@ -41,6 +41,8 @@ from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
 from miniweatherml_tpu_torch.physics import p3_sed_cuda as SED
 from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
 
+import chip_smoke as cs
+
 torch.set_num_threads(1)
 
 PROG = ("qc", "nc", "qr", "nr", "qi", "ni", "qm", "bm", "qv", "theta")
@@ -188,6 +190,19 @@ def test_rates_pre_index_sets_match_jax(seed):
     qm_in, bm_in, nr_in, ni_in = p1[15], p1[16], p1[18], p1[19]
     got = CW.p3_rates_pre(*(torch.as_tensor(a) for a in (
         qi, qr, qm, bm, qi_in, qm_in, bm_in, ni_in, qr_in, nr_in)))
+    _assert_rates_pre_matches_jax(
+        got, (qi, qr, qm, bm, qi_in, qm_in, bm_in, ni_in, qr_in, nr_in))
+    has_qi, has_qr = qi >= PP.QSMALL, qr >= PP.QSMALL
+    assert got[-1].tolist() == [bool(has_qi.any()),
+                                bool((has_qi & has_qr).any()),
+                                bool(has_qr.any())]
+
+
+def _assert_rates_pre_matches_jax(got, fields):
+    """p3_rates_pre's outputs ``got`` against JAX's calc_bulkRhoRime and
+    index finders on the same inputs (numpy ``fields``): indices equal,
+    fields and fractions within 1e-12 of their scale."""
+    qi, qr, qm, bm, qi_in, qm_in, bm_in, ni_in, qr_in, nr_in = fields
     j = jnp.asarray
     qm_reb, bm_reb, rr = JP._bulk_rho_rime(j(qi_in), j(qm_in), j(bm_in))
     has_qi = qi >= PP.QSMALL
@@ -208,10 +223,28 @@ def test_rates_pre_index_sets_match_jax(seed):
         else:
             np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-12 * max(
                 np.abs(w).max(), 1.0), err_msg=f"out {i}")
-    has_qr = qr >= PP.QSMALL
-    assert got[-1].tolist() == [bool(has_qi.any()),
-                                bool((has_qi & has_qr).any()),
-                                bool(has_qr.any())]
+
+
+@pytest.mark.parametrize("kind,at", cs.RATES_PRE_FLAG_CASES)
+def test_rates_pre_flags_match_jax_gates(kind, at):
+    """p3_rates_pre's presence flags on 963 f64 cells in which no cell, or
+    exactly one (the first, the middle or the last), holds ice, rain or
+    both, against the JAX scheme's lookup gates on the same inputs (the
+    jnp.any of each lax.cond in its table tier); its re-bounds and index
+    sets against JAX's index finders.  This is what the kernel's per-block
+    reduction of the flags must give (tests/test_torch_cuda.py runs the
+    same cases through it)."""
+    fields = cs._rates_pre_flag_fields(kind, at, torch.float64, "cpu")
+    got = CW.p3_rates_pre(*fields)
+    arrays = [f.numpy() for f in fields]
+    _assert_rates_pre_matches_jax(got, arrays)
+    qi, qr = jnp.asarray(arrays[0]), jnp.asarray(arrays[1])
+    gates = [jnp.any(qi >= JP.QSMALL),
+             jnp.any((qi >= JP.QSMALL) & (qr >= JP.QSMALL)),
+             jnp.any(qr >= JP.QSMALL)]
+    assert got[-1].tolist() == [bool(g) for g in gates]
+    assert got[-1].tolist() == ["ice" in kind, kind == "ice and rain",
+                                "rain" in kind]
 
 
 def test_wrappers_take_the_plain_versions_on_the_cpu():
