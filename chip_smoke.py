@@ -88,7 +88,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      P3 chains hands them, f32 and f64: rates_pre's index sets by their
      lookup positions (index + fraction) with the count of indices that
      differ, its presence flags equal; each phase timed beside its bound,
-     the operations counted from its body's SASS (_cell_ops); the fall
+     the operations counted from its body's SASS (_cell_ops; rates_post's
+     bytes and operations those its data needs, each gated group of rates
+     counted in the cells whose gate holds, _rates_post_work); on each
+     state the wrapper Newton's trips per cell (histogram, and the mean of
+     a warp's slowest cell) and, for each rates_post gate, the share of
+     warps in which some cell passes it and in which its cells disagree;
+     the two kernels' registers, spills and occupancy; the fall
      speed (also against the oracle
      _p3_sed_vmax) with the sub-step count made of it and dt vmax / (0.9
      dz_min) beside it, the one sub-step's outputs, and sed_step + count
@@ -945,7 +951,8 @@ def _entry_label(lib: str, mangled: str) -> str:
         flag = "tables" if m.group(1) == "Part3" else "predict_nc"
         pnc = "" if m.group(2) is None else f" {flag}={m.group(2)}"
         diag = "" if m.group(3) is None else f" diagnostics={m.group(3)}"
-        return (f"cellwise {m.group(1)}{pnc}{diag} "
+        kernel = "cell_kernel" if "cell_kernel" in mangled else "cellwise"
+        return (f"{kernel} {m.group(1)}{pnc}{diag} "
                 f"<{'float' if m.group(4) == 'f' else 'double'}>")
     m = re.search(r"surrogate_(fixed|general)I([fd])(?:Li(\d+)|Lb([01]))E",
                   mangled)
@@ -2102,6 +2109,73 @@ def _rates_pre_flag_fields(kind, at, dtype, device, n=RATES_PRE_FLAG_CELLS,
             for f in fields]
 
 
+# rates_post's regimes of _rates_post_fields: which of q{c,r,i} a cell
+# holds (at least QSMALL) and its temperature range (K)
+RP_REGIMES = {"quiet": ("", 262.0, 300.0),
+              "cold mixed": ("cri", 235.0, 255.0),
+              "warm rain": ("r", 280.0, 300.0),
+              "melting": ("ci", 274.0, 285.0),
+              "cold ice": ("i", 240.0, 270.0)}
+# the branch cases of the card tests: rates_post's fields of 963 cells (not
+# a multiple of the block or of a warp), all quiet, or with one cell of a
+# regime that passes gates at the first, the middle or the last cell
+RATES_POST_CELLS = 963
+RATES_POST_CASES = (("quiet", None),) + tuple(
+    (kind, at) for kind in ("cold mixed", "warm rain")
+    for at in (0, RATES_POST_CELLS // 2, RATES_POST_CELLS - 1))
+
+
+def _rates_post_fields(regimes, dtype, device, seed=19):
+    """rates_post's 30 inputs on one cell per entry of ``regimes`` (names of
+    RP_REGIMES), made with numpy from ``seed``: the hydrometeors a regime
+    holds at 1e-6 to 3e-4 (in-cloud values alike; the others below QSMALL,
+    in-cloud 0), its temperatures, ice-supersaturated in the cold regimes
+    (so that Cooper nucleation fires below -15 C) and subsaturated in the
+    others (so that rain evaporates); numbers, shapes and lookup values
+    spread over plausible ranges in every cell."""
+    from miniweatherml_tpu_torch.physics import p3 as P
+    rng = np.random.default_rng(seed)
+    n = len(regimes)
+
+    def logu(lo, hi):
+        return 10.0 ** rng.uniform(lo, hi, n)
+    held = np.array([RP_REGIMES[r][0] for r in regimes])
+    temp = np.array([rng.uniform(*RP_REGIMES[r][1:]) for r in regimes])
+    pres = rng.uniform(5.0e4, 1.0e5, n)
+    rho = pres / (287.0 * temp)
+    qsi = P.p3_qv_sat_ice(torch.as_tensor(temp),
+                          torch.as_tensor(pres)).numpy()
+    cold = temp < 258.0
+    qv = qsi * np.where(cold, rng.uniform(1.06, 1.3, n),
+                        rng.uniform(0.3, 0.9, n))
+    q, q_in = {}, {}
+    for s in "cri":
+        has = np.char.find(held, s) >= 0
+        q_in[s] = np.where(has, logu(-6.0, -3.5), 0.0)
+        q[s] = np.where(has, q_in[s], rng.uniform(0.0, 0.9, n) * P.QSMALL)
+    qm_in = q_in["i"] * rng.uniform(0.0, 1.0, n)
+    fields = (q["c"], logu(7, 9), q["r"], q["i"], logu(3, 6), qv, temp, pres,
+              rho, q_in["c"], q_in["r"], q_in["i"], qm_in,
+              qm_in / rng.uniform(100.0, 900.0, n), logu(7, 9), logu(2, 5),
+              logu(3, 6), rng.uniform(2.0, 15.0, n),
+              qv * rng.uniform(0.98, 1.02, n),
+              temp + rng.uniform(-0.5, 0.5, n), rng.uniform(1.0, 3.0, n),
+              rng.uniform(0.1, 1.0, n), logu(-6, -4), rng.uniform(0.2, 2.0, n),
+              logu(-12, -9), logu(-6, -4), logu(-5, -3), logu(-8, -5),
+              logu(-8, -5), rng.uniform(0.5, 2.0, n))
+    return [torch.as_tensor(f).to(device=device, dtype=dtype)
+            for f in fields]
+
+
+def _rates_post_case(kind, at, dtype, device, n=RATES_POST_CELLS):
+    """_rates_post_fields of ``n`` quiet cells but cell ``at``, of regime
+    ``kind`` (RATES_POST_CASES)."""
+    regimes = ["quiet"] * n
+    if at is not None:
+        regimes[at] = kind
+    return _rates_post_fields(regimes, dtype, device)
+
+
 def _p3_step_rates_sed(build, dtype):
     """What one step of a 512x512x64 P3 chain hands the per-cell phases of
     STEP_PHASES, the two sedimentation wrappers, part3 and the output pass:
@@ -2143,6 +2217,180 @@ def _p3_step_rates_sed(build, dtype):
     return seen
 
 
+def _bits(x):
+    """The bit patterns of a float32 or float64 tensor."""
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
+def _newton_trips(args):
+    """Trips of the wrapper kernel's saturation Newton in each cell (int64)
+    on the wrapper's 13 inputs, by the plain version's arithmetic
+    (p3.compute_adjusted_state): 0 where the kernel skips it (a cell that
+    neither condenses nor evaporates, or an evaporating cell whose boundary
+    root holds), else the first trip that leaves x with the bits it had, or
+    n_newton + 1 where none does."""
+    from miniweatherml_tpu_torch.physics import p3 as P
+    rho_d, temp, rho_c, _, rho_r, _, rho_i, _, _, _, rho_v = args[:11]
+    rho = rho_d + rho_c + rho_r + rho_i + rho_v
+    svp = P.saturation_vapor_pressure(temp)
+    pv = rho_v * P.R_V * temp
+    condensing = pv > svp
+    evaporating = (pv < svp) & (rho_c > 0.0)
+    lv = P.latent_heat_condensation(temp)
+    n_newton = 10 if temp.dtype == torch.float64 else 7
+    lo = torch.where(condensing, 0.0, -rho_c)
+    hi = torch.where(condensing, rho_v, 0.0)
+    rho_t = rho_d + rho_v + rho_c
+    cp0 = (rho_d * P.CP_D + rho_v * P.CP_V + rho_c * P.CP_L) / rho_t
+    dcp = P._div(P.CP_L - P.CP_V, rho_t)
+    cp_lo = cp0 - rho_c * dcp
+    t_lo = temp - rho_c * lv / (rho * cp_lo)
+    f_lo = ((rho_v + rho_c) * P.R_V * t_lo
+            - P.saturation_vapor_pressure(t_lo))
+    run = (condensing | evaporating) & ~(evaporating & (f_lo <= 0.0))
+    dtdx0 = lv / (rho * cp0)
+    fp0 = (-P.R_V * temp + rho_v * P.R_V * dtdx0
+           - P._magnus_dsvp_dT(svp, temp) * dtdx0)
+    x1 = -(pv - svp) / P._min(fp0, -1e-30)
+    x = torch.where((fp0 < 0.0) & (x1 >= lo) & (x1 <= hi), x1,
+                    0.5 * (lo + hi))
+    trips = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    done = ~run
+    for _trip in range(n_newton + 1):
+        rv = rho_v - x
+        cp = cp0 + x * dcp
+        dtdx_lin = lv / (rho * cp)
+        t_loc = temp + x * dtdx_lin
+        svp_loc = P.saturation_vapor_pressure(t_loc)
+        f = rv * P.R_V * t_loc - svp_loc
+        pos = f > 0.0
+        lo = torch.where(pos, x, lo)
+        hi = torch.where(pos, hi, x)
+        dtdx = dtdx_lin * (1.0 - x * dcp / cp)
+        fp = (-P.R_V * t_loc + rv * P.R_V * dtdx
+              - P._magnus_dsvp_dT(svp_loc, t_loc) * dtdx)
+        xn = x - f / fp
+        nxt = torch.where((xn >= lo) & (xn <= hi), xn, 0.5 * (lo + hi))
+        trips += (~done).long()
+        done = done | (_bits(nxt) == _bits(x))
+        x = nxt
+    return trips
+
+
+def _warp_split(mask):
+    """(share of 32-cell warps in which some cell sets ``mask``, share in
+    which its cells disagree) over the cells in their launch order."""
+    m = mask.reshape(-1)
+    pad = (-m.numel()) % 32
+    w = torch.cat([m, m.new_zeros(pad)]).reshape(-1, 32).sum(1)
+    return (float((w > 0).float().mean()),
+            float(((w > 0) & (w < 32)).float().mean()))
+
+
+def _rates_post_gates(arrays):
+    """{group: cells whose gate holds} of RatesPost's gated groups
+    (RP_GROUPS) on its 30 inputs, by the plain version's arithmetic; and
+    the cells of its ice-rain collection ("ice and rain") and of that
+    collection's mass rate ("ice and rain at or below 0 C")."""
+    from miniweatherml_tpu_torch.physics import p3 as P
+    qc, _, qr, qi, _, qv, temp, pres, rho, qc_in, qr_in, qi_in = arrays[:12]
+    ni_in, tab7, tab8, tab4 = arrays[16], arrays[20], arrays[21], arrays[22]
+    tc = temp - P.TMELT
+    has_qc, has_qr, has_qi = qc >= P.QSMALL, qr >= P.QSMALL, qi >= P.QSMALL
+    sup_i = qv / P._max(P.p3_qv_sat_ice(temp, pres), P.QSMALL) - 1.0
+    evap = (qc_in + qi_in < 1.0e-6) & has_qr
+    ni_t = P._max(ni_in, P.NSMALL)
+    ni_t = torch.maximum(torch.minimum(ni_t, tab7 * ni_t), tab8 * ni_t)
+    rim = torch.where(has_qi & has_qc & (tc < 0.0),
+                      (P._RHO_600MB * (1.0 / rho)) ** 0.54 * tab4 * qc_in
+                      * 0.5 * rho * ni_t, 0.0)
+    return {"autoconversion": qc_in >= 1.0e-8,
+            "accretion": has_qc & has_qr, "rain_size": has_qr,
+            "nucleation": (tc < -15.0) & (sup_i >= 0.05),
+            "bigg_cloud": has_qc & (tc <= -4.0),
+            "bigg_rain": has_qr & (tc <= -4.0),
+            "transport": has_qi | evap,
+            "qsl": (has_qi & (tc < 0.0)) | evap, "ice": has_qi,
+            "rime": has_qi & has_qc & (rim >= P.QSMALL),
+            "evaporation": evap, "ice and rain": has_qi & has_qr,
+            "ice and rain at or below 0 C": has_qi & has_qr & (tc <= 0.0)}
+
+
+# RatesPost's inputs that a gated group reads (every other input is read
+# in every cell): input position -> the groups whose cells read it
+# (csrc/p3_cellwise.cu rp::In)
+RP_LOADS = {14: ("autoconversion", "bigg_cloud", "rime"),  # nc_in
+            15: ("rain_size",), 4: ("nucleation",), 1: ("bigg_cloud",),
+            17: ("bigg_cloud", "rime"),  # mu_cd
+            **{k: ("ice",) for k in (12, 13, 20, 21, 22, 24, 25, 26)},
+            23: ("rime",), 28: ("ice and rain",),
+            27: ("ice and rain at or below 0 C",),
+            **{k: ("evaporation",) for k in (18, 19, 29)}}
+
+
+def _rates_post_work(arrays, dtype):
+    """(bytes, operations) that RatesPost's data needs on these inputs: its
+    25 outputs written, each input read in the cells whose groups read it
+    (RP_LOADS), the rest in every cell; the operations of each gated group
+    (its probe's SASS) in the cells whose gate holds and the saturation's
+    in every cell (the few comparisons and products of the gates, ni_rate
+    and the deposition are not counted)."""
+    gates = _rates_post_gates(arrays)
+    n = arrays[0].numel()
+    item = arrays[0].element_size()
+    cells = 25 * n
+    for k in range(30):
+        if k in RP_LOADS:
+            need = torch.zeros_like(gates["ice"])
+            for g in RP_LOADS[k]:
+                need = need | gates[g]
+            cells += int(need.sum())
+        else:
+            cells += n
+    ops = _cell_ops()[_dtype_name(dtype)]
+    work = ops["rp_saturation"] * n + sum(
+        ops[f"rp_{g}"] * int(gates[g].sum()) for g in RP_GROUPS)
+    return cells * item, work
+
+
+def _own_path_registers():
+    """[31] registers, spills and the occupancy they allow (warps per SM of
+    64, blocks of 128 threads, registers allocated in eights) of the
+    wrapper's and rates_post's launch path, from phase 2's ptxas report."""
+    import re
+    for mangled, regs, st, ld, stack, _ in _ptxas_report("p3_cellwise"):
+        m = re.search(r"cell_kernelI.*?(Wrapper|RatesPost)E([fd])E", mangled)
+        if not m:
+            continue
+        warps = 4 * min(16, 65536 // (128 * (-(-regs // 8) * 8)))
+        print(f"[31] cell_kernel<{m.group(1)}, "
+              f"{'float' if m.group(2) == 'f' else 'double'}>: {regs} "
+              f"registers, {st} B spill stores, {ld} B spill loads, {stack} "
+              f"B stack; occupancy {warps} of 64 warps per SM", flush=True)
+
+
+def _own_path_report(tag, seen):
+    """[31] what the wrapper's and rates_post's branches meet on this
+    state: the Newton's trips per cell (histogram), their mean per cell and
+    the mean per warp of its slowest cell; and for each RatesPost group the
+    share of warps in which some cell passes its gate and in which the
+    cells disagree."""
+    trips = _newton_trips(seen["wrapper"][0][1]).reshape(-1)
+    hist = torch.bincount(trips).tolist()
+    pad = (-trips.numel()) % 32
+    warp = torch.cat([trips, trips.new_zeros(pad)]).reshape(-1, 32)
+    print(f"[31] {tag} wrapper Newton trips per cell {dict(enumerate(hist))}"
+          f"; mean {float(trips.double().mean()):.3f} a cell, "
+          f"{float(warp.max(1).values.double().mean()):.3f} a warp's "
+          f"slowest cell", flush=True)
+    gates = _rates_post_gates(seen["rates_post"][0][1])
+    split = {g: _warp_split(m) for g, m in gates.items()}
+    print(f"[31] {tag} rates_post warps (some cell passes the gate / cells "
+          f"disagree): " + ", ".join(f"{g} {a:.1%} / {d:.1%}"
+                                     for g, (a, d) in split.items()),
+          flush=True)
+
+
 def _worst(pairs):
     """(max abs err, max rel err over each reference's scale) of
     [(reference, got)]."""
@@ -2169,8 +2417,10 @@ def _cell_check(tag, phase, args, dtype, tol):
     """One per-cell phase against its plain version on what the step
     handed it (rates_pre: its fields, the lookup positions its index sets
     give, how many indices differ, and its presence flags), timed beside
-    its bound, the operations from the SASS (_cell_ops).  Returns (max abs
-    err, ms, plain ms, bound ms, bound_by)."""
+    its bound, the operations from the SASS (_cell_ops; rates_post's
+    bytes and operations those its data needs, _rates_post_work, with its
+    bound on every byte beside it).  Returns (max abs err, ms, plain ms,
+    bound ms, bound_by)."""
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
     pnc, arrays, dt = args
     ref = cw.plain_phase(phase, pnc, arrays, dt)
@@ -2186,8 +2436,13 @@ def _cell_check(tag, phase, args, dtype, tol):
         pairs = list(zip(ref, got))
     err, rel = _worst(pairs)
     bit = all(torch.equal(a, b) for a, b in zip(ref, got))
-    nbytes = _nbytes(arrays, got)
-    ops = _phase_ops(phase, pnc, dtype) * arrays[0].numel()
+    if phase == "rates_post":  # its gated loads and groups: the data's need
+        nbytes, ops = _rates_post_work(arrays, dtype)
+        full = 1e3 * _nbytes(arrays, got) / HBM_BYTES_S
+        note += f"; its bound on every byte {full:.3f} ms"
+    else:
+        nbytes = _nbytes(arrays, got)
+        ops = _phase_ops(phase, pnc, dtype) * arrays[0].numel()
     del ref, got
     ms = _time_ms(lambda: cw._launch(phase, pnc, arrays, dt))
     pms = _time_ms(lambda: cw.plain_phase(phase, pnc, arrays, dt), reps=3)
@@ -2342,10 +2597,64 @@ PROBE(rates_post, RatesPost)
 PROBE(part3, Part3Tables)
 PROBE(part3_diag, Part3TablesDiag)
 PROBE(wrapper_out, WrapperOut)
+namespace {
+// RatesPost's shared values, loaded (its gates as values above 0)
+template <typename T>
+__device__ rp::Cell<T> probe_cell(const T* x) {
+  rp::Cell<T> c;
+  c.dt = x[30]; c.qc = x[0]; c.qr = x[2]; c.qi = x[3]; c.qv = x[5];
+  c.temp = x[6]; c.pres = x[7]; c.rho = x[8]; c.inv_rho = x[31];
+  c.tc = x[32]; c.qc_in = x[9]; c.qr_in = x[10]; c.qi_in = x[11];
+  c.has_qc = x[33] > T(0); c.has_qr = x[34] > T(0); c.has_qi = x[35] > T(0);
+  c.qv_si = x[36]; c.abi = x[37]; c.ni_rate = x[38]; c.epsi = x[39];
+  c.nr1 = x[40]; c.lamr = x[41]; c.mu_v = x[42]; c.dv_diff = x[43];
+  c.cbrt_sc = x[44]; c.qsl = x[45]; c.rhofaci = x[46]; c.rim0 = x[47];
+  return c;
+}
+template <typename T>
+__device__ void probe_keep(const rp::Cell<T>& c, T a, T b, T* o) {
+  o[25] = a; o[26] = b; o[27] = c.nr1; o[28] = c.lamr; o[29] = c.mu_v;
+  o[30] = c.dv_diff; o[31] = c.cbrt_sc; o[32] = c.epsi; o[33] = c.rhofaci;
+  o[34] = c.rim0; o[35] = c.qv_si; o[36] = c.abi;
+}
+}
+// one group of RatesPost's gated rates alone (RP_GROUPS)
+#define PROBE_RP(NAME, CALL)                                                 \
+  template <typename T>                                                      \
+  __global__ void probe_rp_##NAME(const T* x, T* o, int*, bool*) {           \
+    rp::Cell<T> c = probe_cell(x);                                           \
+    const ArrayIO<T> io{x, o};                                               \
+    T a = T(0), b = T(0);                                                    \
+    CALL;                                                                    \
+    probe_keep(c, a, b, o);                                                  \
+  }                                                                          \
+  template __global__ void probe_rp_##NAME<float>(const float*, float*,      \
+                                                  int*, bool*);              \
+  template __global__ void probe_rp_##NAME<double>(const double*, double*,   \
+                                                   int*, bool*);
+PROBE_RP(saturation, a = rp::saturation(c))
+PROBE_RP(autoconversion, a = rp::autoconversion<T>(io, c))
+PROBE_RP(accretion, a = rp::accretion(c))
+PROBE_RP(rain_size, a = rp::rain_size<T>(io, c))
+PROBE_RP(nucleation, rp::nucleation<T>(io, c, a, b))
+PROBE_RP(bigg_cloud, rp::bigg_cloud<T>(io, c, a, b))
+PROBE_RP(bigg_rain, rp::bigg_rain(c, a, b))
+PROBE_RP(transport, rp::transport(c))
+PROBE_RP(qsl, a = qv_sat_liq(c.temp, c.pres))
+PROBE_RP(ice, rp::ice_rates<T>(io, c))
+PROBE_RP(rime, a = rp::rime_density<T>(io, c))
+PROBE_RP(evaporation, a = rp::rain_evaporation<T>(io, c))
 """
+# RatesPost's gated groups of rates (csrc/p3_cellwise.cu, namespace rp), in
+# the order of _rates_post_gates; each has a probe (probe_rp_<name>), as
+# has the saturation every cell computes
+RP_GROUPS = ("autoconversion", "accretion", "rain_size", "nucleation",
+             "bigg_cloud", "bigg_rain", "transport", "qsl", "ice", "rime",
+             "evaporation")
 CELL_PROBES = ("part1", "part1_pnc", "update", "update_pnc", "wrapper",
                "rates_pre", "rates_post", "part3", "part3_diag",
-               "wrapper_out")
+               "wrapper_out", "rp_saturation") + tuple(
+                   f"rp_{g}" for g in RP_GROUPS)
 _sass_ops_cache = {}
 
 
@@ -2576,6 +2885,7 @@ def phase_p3_rates_sed():
                   f"blocks of {t} threads, {sm} B shared per block (the "
                   f"staged ice columns and rain rows); {regs} registers, "
                   f"{spill} B spill stores", flush=True)
+    _own_path_registers()
     recs = {"p3_rates": {"max_abs_err": 0.0},
             "p3_sedimentation": {"max_abs_err": 0.0},
             "p3_part3": {"max_abs_err": 0.0},
@@ -2589,6 +2899,7 @@ def phase_p3_rates_sed():
             tag = f"{chain} {dtype}"
             seen = _p3_step_rates_sed(build, dtype)
             main = chain == "early-storm" and dtype == "float32"
+            _own_path_report(tag, seen)
             checks = {ph: _cell_check(tag, ph, seen[ph][0],
                                       seen[ph][0][1][0].dtype, tol)
                       for ph in STEP_PHASES}

@@ -30,7 +30,13 @@
 // inputs make it the register-heaviest phase.  RatesPre, the one phase with
 // presence flags, has a launch path of its own (rates_pre_kernel below):
 // a few 16-byte words of neighbouring cells a thread, and the flags
-// reduced per block.
+// reduced per block.  Wrapper and RatesPost have one too (cell_kernel):
+// one cell a thread whose body reads each input only where it is needed
+// and stores each output once final; RatesPost runs each gated group of
+// rates under a real branch on its gate, and Wrapper its Newton only where
+// the result is kept and only until a trip leaves x's bits as they were,
+// so a warp skips the work none of its cells keeps.  Both still do, on
+// every value they keep, the plain version's operations in its order.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,21 +52,32 @@ constexpr int THREADS = 128;
 constexpr int ICE_K = 4;  // the packed ice table's columns 2, 1, 7, 8
 constexpr double RHO_RIMEMIN = 50.0, RHO_RIMEMAX = 900.0;
 
-// compute_adjusted_state, guarded-Newton form (microphysics_p3.h:467-550)
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+__device__ __forceinline__ bool same_bits(double a, double b) {
+  return __double_as_longlong(a) == __double_as_longlong(b);
+}
+
+// The saturation Newton of compute_adjusted_state from its seed (one Newton
+// step from x = 0 on the svp already computed): the best iterate ever
+// visited, after at most n_newton + 1 trips.  A trip is a dependent chain
+// of one exp and three divisions, so a cell ends its loop as soon as it can
+// without changing a bit: once a trip leaves x with the bits it started
+// with.  The state after such a trip is fixed.  f is a function of x alone,
+// so the next trip finds the same f; |f| is not below fb, which that trip
+// set to |f| or left at a value |f| was not below, so xb and fb stay; lo or
+// hi, whichever f's sign picks, is set to x again, which it already holds;
+// and xn and its bracket test are the same, so x is too.  Every later trip
+// would change nothing, and the result equals the fixed-count loop's bit
+// for bit, NaN iterates included (the bits are compared, not the values,
+// so +0 and -0 differ and a NaN repeats only with the same payload).
 template <typename T>
-__device__ void adjust_state(T rho, T rho_d, T& rho_v, T& rho_c, T& temp) {
-  const T svp = magnus_svp(temp);
-  const T pv = rho_v * T(R_V) * temp;
-  const bool condensing = pv > svp;
-  const bool evaporating = (pv < svp) && (rho_c > T(0));
-  const T Lv = latent_heat_condensation(temp);
+__device__ T saturation_newton(T rho, T temp, T rho_v, T rho_c, T svp, T pv, T Lv,
+                               bool condensing, T cp0, T dcp) {
   const int n_newton = sizeof(T) == 8 ? 10 : 7;
   T lo = condensing ? T(0) : -rho_c;
   T hi = condensing ? rho_v : T(0);
-  const T rho_t = rho_d + rho_v + rho_c;
-  const T cp0 = (rho_d * T(CP_D) + rho_v * T(CP_V) + rho_c * T(CP_L)) / rho_t;
-  const T dcp = T(CP_L - CP_V) / rho_t;
-
   const T f0 = pv - svp;
   const T dtdx0 = Lv / (rho * cp0);
   const T dsvp0 = magnus_dsvp_dT(svp, temp);
@@ -85,15 +102,40 @@ __device__ void adjust_state(T rho, T rho_d, T& rho_v, T& rho_c, T& temp) {
     const T dsvp = magnus_dsvp_dT(svp_loc, t_loc);
     const T fp = T(-R_V) * t_loc + rv * T(R_V) * dtdx - dsvp * dtdx;
     const T xn = x - f / fp;
-    x = ((xn >= lo) && (xn <= hi)) ? xn : T(0.5) * (lo + hi);
+    const T next = ((xn >= lo) && (xn <= hi)) ? xn : T(0.5) * (lo + hi);
+    const bool fixed = same_bits(next, x);
+    x = next;
+    if (fixed) break;
   }
-  x = xb;
-  const T cp_lo = cp0 - rho_c * dcp;
-  const T t_lo = temp - rho_c * Lv / (rho * cp_lo);
-  const T f_lo = (rho_v + rho_c) * T(R_V) * t_lo - magnus_svp(t_lo);
-  if (evaporating && f_lo <= T(0)) x = -rho_c;
+  return xb;
+}
 
-  if (!(condensing || evaporating)) x = T(0);
+// compute_adjusted_state, guarded-Newton form (microphysics_p3.h:467-550).
+// The Newton runs only where its result is kept: a cell that neither
+// condenses nor evaporates keeps x = 0, and an evaporating cell still
+// subsaturated once all its cloud is gone takes the boundary root -rho_c.
+template <typename T>
+__device__ void adjust_state(T rho, T rho_d, T& rho_v, T& rho_c, T& temp) {
+  const T svp = magnus_svp(temp);
+  const T pv = rho_v * T(R_V) * temp;
+  const bool condensing = pv > svp;
+  const bool evaporating = (pv < svp) && (rho_c > T(0));
+  const T Lv = latent_heat_condensation(temp);
+  T x = T(0);
+  if (condensing || evaporating) {
+    const T rho_t = rho_d + rho_v + rho_c;
+    const T cp0 = (rho_d * T(CP_D) + rho_v * T(CP_V) + rho_c * T(CP_L)) / rho_t;
+    const T dcp = T(CP_L - CP_V) / rho_t;
+    bool boundary = false;
+    if (evaporating) {
+      const T cp_lo = cp0 - rho_c * dcp;
+      const T t_lo = temp - rho_c * Lv / (rho * cp_lo);
+      boundary = (rho_v + rho_c) * T(R_V) * t_lo - magnus_svp(t_lo) <= T(0);
+    }
+    if (!boundary)
+      x = saturation_newton(rho, temp, rho_v, rho_c, svp, pv, Lv, condensing, cp0, dcp);
+    if (boundary) x = -rho_c;
+  }
   const T rv = tmax(rho_v - x, T(0));
   const T rc = tmax(rho_c + x, T(0));
   const T cp = cp_moist(rho_d, rv, rc);
@@ -313,30 +355,53 @@ template <bool PNC> struct Update {
   }
 };
 
+// A phase body's fields: in(k) gives input k, out(k, v) sets output k.
+// ArrayIO reads and writes the executor's register arrays; CellIO (the
+// launch path of Wrapper and RatesPost, cell_kernel below) reads an input
+// from device memory where the body asks for it and stores an output as
+// soon as the body has it, so that neither holds a register longer.
+template <typename T> struct ArrayIO {
+  const T* x;
+  T* o;
+  __device__ __forceinline__ T in(int k) const { return x[k]; }
+  __device__ __forceinline__ void out(int k, T v) const { o[k] = v; }
+};
+
+// The wrapper's inputs: the densities to mixing ratios (the seven that the
+// saturation adjustment leaves alone first), the adjustment, pressure /
+// exner / theta and the qv_prev / t_prev history.
 struct Wrapper {
   static constexpr int NIN = 13, NOUT = 14, NIOUT = 0, NFLAG = 0;
-  template <typename T>
-  __device__ static void run(const T* in, T* out, int*, bool*, double, const T*) {
-    const T rho_d = in[0];
-    T temp = in[1], rho_c = in[2];
-    const T rho_nc = in[3], rho_r = in[4], rho_nr = in[5], rho_i = in[6];
-    const T rho_ni = in[7], rho_m = in[8], rho_bm = in[9];
-    T rho_v = in[10];
-    const T qv_prev_f = in[11], t_prev_f = in[12];
+  template <typename T, class IO>
+  __device__ static void body(const IO& io, double) {
+    const T rho_d = io.in(0), rho_r = io.in(4), rho_i = io.in(6);
+    T temp = io.in(1), rho_c = io.in(2), rho_v = io.in(10);
     const T rho = rho_d + rho_c + rho_r + rho_i + rho_v;
-    adjust_state(rho, rho_d, rho_v, rho_c, temp);
     const T inv_rd = T(1) / rho_d;
+    io.out(2, rho_r * inv_rd);
+    io.out(4, rho_i * inv_rd);
+    io.out(1, io.in(3) * inv_rd);
+    io.out(3, io.in(5) * inv_rd);
+    io.out(5, io.in(7) * inv_rd);
+    io.out(6, io.in(8) * inv_rd);
+    io.out(7, io.in(9) * inv_rd);
+    adjust_state(rho, rho_d, rho_v, rho_c, temp);
     const T qv = rho_v * inv_rd;
     const T pressure = T(R_D) * rho_d * temp + T(R_V) * rho_v * temp;
     const T exner = tpow(pressure / T(P0), T(R_D / CP_D));
+    io.out(0, rho_c * inv_rd);
+    io.out(8, qv);
+    io.out(9, temp / exner);
+    io.out(10, exner);
+    io.out(11, pressure);
+    const T qv_prev_f = io.in(11), t_prev_f = io.in(12);
     const bool first = t_prev_f <= T(0);
-    out[0] = rho_c * inv_rd; out[1] = rho_nc * inv_rd;
-    out[2] = rho_r * inv_rd; out[3] = rho_nr * inv_rd;
-    out[4] = rho_i * inv_rd; out[5] = rho_ni * inv_rd;
-    out[6] = rho_m * inv_rd; out[7] = rho_bm * inv_rd;
-    out[8] = qv; out[9] = temp / exner; out[10] = exner; out[11] = pressure;
-    out[12] = first ? qv : qv_prev_f;
-    out[13] = first ? temp : t_prev_f;
+    io.out(12, first ? qv : qv_prev_f);
+    io.out(13, first ? temp : t_prev_f);
+  }
+  template <typename T>
+  __device__ static void run(const T* in, T* out, int*, bool*, double dt, const T*) {
+    body<T>(ArrayIO<T>{in, out}, dt);
   }
 };
 
@@ -367,167 +432,319 @@ struct RatesPre {
 
 // Every process rate of the table tier after the lookups
 // (p3._p3_rates_post_cellwise, with p3._p3_warm_ice_rates inlined): the
-// update's 25 rate inputs.
+// update's 25 rate inputs.  Each group of rates that a gate keeps is a
+// function below, run under a real branch on its gate, so that a warp none
+// of whose cells passes the gate skips the group's transcendentals, and
+// its inputs are loaded only where a gate that reads them holds; a cell
+// whose gate fails gets the value the plain version gives it there (+0,
+// rho_rime 400, ni_rate = ni_in).  What later rates read whatever the
+// gates (qv_si, abi, ni_rate, the deposition) is computed in every cell.
+// Each value a group keeps is the plain version's, operation for
+// operation.
+namespace rp {
+enum In {
+  QC, NC, QR, QI, NI, QV, TEMP, PRES, RHO, QC_IN, QR_IN, QI_IN, QM_IN, BM_IN, NC_IN,
+  NR_IN, NI_IN, MU_CD, QV_PREV, T_PREV, TAB7, TAB8, TAB4, TAB2, TAB3, TAB5, TAB10,
+  COLL2, COLL1, REVAP_V
+};
+enum Out {
+  AU, AC, QC_FRZ, NC_FRZ, QR_FRZ, NR_FRZ, RIM, SHED, NCSHDC, BERG, DEP, SUB, EV, MELT,
+  QINUC, NINUC, QRCOL, NR_COL, NR_SELF, NI_SELF, NR_SHED_WG, RHO_RIME, LOG_WG, NI_RATE,
+  QV_SI
+};
+constexpr double CONS5 = PI / 6.0 * 2.0;
+constexpr double CONS6 = (PI / 6.0) * (PI / 6.0) * RHO_H2O * 2.0;
+
+// what the groups share: the gate inputs, and values computed once (each
+// read only where the group that sets it ran)
+template <typename T> struct Cell {
+  T dt, qc, qr, qi, qv, temp, pres, rho, inv_rho, tc, qc_in, qr_in, qi_in;
+  bool has_qc, has_qr, has_qi;
+  T qv_si, abi, ni_rate, epsi;  // saturation; ni_rate, epsi: the body
+  T nr1, lamr;               // rain_size
+  T mu_v, dv_diff, cbrt_sc;  // transport
+  T qsl;                     // where the Bergeron rate or rain evaporation runs
+  T rhofaci, rim0;           // ice_rates (rim0: riming before wet growth)
+};
+
+// ice saturation (every cell): qv_si and abi set, the ice supersaturation
+// returned
+template <typename T> __device__ T saturation(Cell<T>& c) {
+  c.qv_si = qv_sat_ice(c.temp, c.pres);
+  const T dqsidt = T(LS) * c.qv_si / (T(R_V) * c.temp * c.temp);
+  c.abi = T(1) + dqsidt * T(LS) / T(CP_D);
+  return c.qv / tmax(c.qv_si, T(QSMALL)) - T(1);
+}
+// KK2000 autoconversion (gate: qc_in >= 1e-8)
+template <typename T, class IO> __device__ T autoconversion(const IO& io, const Cell<T>& c) {
+  return T(1350.0) * tpow(tmax(c.qc_in, T(QSMALL)), T(2.47)) *
+         tpow(tmax(io.in(NC_IN) * T(1.0e-6) * c.rho, T(NSMALL)), T(-1.79));
+}
+// accretion (gate: cloud and rain)
+template <typename T> __device__ T accretion(const Cell<T>& c) {
+  return T(67.0) * tpow(tmax(c.qc_in * c.qr_in, T(1e-300)), T(1.15));
+}
+// rain self-collection with breakup, and the rain slope lamr (gate: rain)
+template <typename T, class IO> __device__ T rain_size(const IO& io, Cell<T>& c) {
+  const T nr_in = io.in(NR_IN);
+  c.nr1 = tmax(nr_in, T(NSMALL));
+  const T dm_r = cbrt_newton(tmax(c.qr_in, T(QSMALL)) / (T(PI * RHO_H2O) * c.nr1));
+  const T brk = dm_r < T(280.0e-6) ? T(1) : T(2.0) - texp(T(2300.0) * (dm_r - T(280.0e-6)));
+  c.lamr = cbrt_newton(T(PI / 6.0 * RHO_H2O * 24.0) * c.nr1 / tmax(c.qr_in, T(QSMALL)));
+  return brk * T(5.78) * nr_in * c.qr_in * c.rho;
+}
+// Cooper nucleation (gate: below -15 C at 5% ice supersaturation; the rate
+// where n_nuc >= 1e-20)
+template <typename T, class IO>
+__device__ void nucleation(const IO& io, const Cell<T>& c, T& qinuc, T& ninuc) {
+  const T n_coop = tmin(T(0.005) * texp(T(0.304) * tmax(-c.tc, T(0))) * T(1.0e3) * c.inv_rho,
+                        T(100.0e3) * c.inv_rho);
+  const T n_nuc = tmax(n_coop - io.in(NI), T(0)) / c.dt;
+  if (n_nuc >= T(1.0e-20)) {
+    qinuc = n_nuc * T(4.0 * PI / 3.0 * 900.0 * 1.0e-18);
+    ninuc = n_nuc;
+  }
+}
+// Bigg immersion freezing of cloud (gate: cloud, at or below -4 C)
+template <typename T, class IO>
+__device__ void bigg_cloud(const IO& io, const Cell<T>& c, T& qc_frz, T& nc_frz) {
+  const T dum1_frz = texp(T(0.65) * tmin(-c.tc, T(40.0)));
+  const T nc_in = io.in(NC_IN), mu_cd = io.in(MU_CD);
+  const T lamc_frz = cloud_lamc(c.qc_in, io.in(NC), mu_cd);
+  const T cdist1_c = tmax(nc_in, T(NSMALL)) * texp(-tlgamma(mu_cd + T(1)));
+  const T l2c = lamc_frz * lamc_frz;
+  qc_frz = T(CONS6) * cdist1_c * texp(tlgamma(mu_cd + T(7))) * dum1_frz / (l2c * (l2c * l2c));
+  nc_frz = T(CONS5) * cdist1_c * texp(tlgamma(mu_cd + T(4))) * dum1_frz / (lamc_frz * l2c);
+}
+// ... and of rain (gate: rain, at or below -4 C)
+template <typename T> __device__ void bigg_rain(const Cell<T>& c, T& qr_frz, T& nr_frz) {
+  const T dum1_frz = texp(T(0.65) * tmin(-c.tc, T(40.0)));
+  const T l2r = c.lamr * c.lamr;
+  qr_frz = T(CONS6) * c.nr1 * T(5040.0) * dum1_frz / (l2r * (l2r * l2r));
+  nr_frz = T(CONS5) * c.nr1 * T(24.0) * dum1_frz / (c.lamr * l2r);
+}
+// viscosity, vapour diffusivity and the Schmidt number's cube root (gate:
+// ice, or rain evaporation)
+template <typename T> __device__ void transport(Cell<T>& c) {
+  c.mu_v = mu_visc(c.temp);
+  c.dv_diff = T(8.794e-5) * tpow(c.temp, T(1.81)) / c.pres;
+  c.cbrt_sc = cbrt_newton(c.mu_v / (c.rho * c.dv_diff));
+}
+// the ice rates (gate: ice): riming and shedding, ice-rain collection,
+// self-collection, melting, deposition's epsi and the Bergeron rate, wet
+// growth; stores ten outputs
+template <typename T, class IO> __device__ void ice_rates(const IO& io, Cell<T>& c) {
+  const T tc = c.tc, rho = c.rho, ni_rate = c.ni_rate, qv = c.qv, dv_diff = c.dv_diff;
+  const T rhofaci = tpow(T(RHO_600MB) * c.inv_rho, T(0.54));
+  c.rhofaci = rhofaci;
+  const T collect_qc = rhofaci * io.in(TAB4) * c.qc_in * T(0.5) * rho * ni_rate;
+  const T rim = (c.has_qc && tc < T(0)) ? collect_qc : T(0);
+  const T shed = (c.has_qc && tc > T(0)) ? collect_qc : T(0);
+  c.rim0 = rim;
+  io.out(NCSHDC, shed * T(1.0 / 5.2e-7));
+  T qrcol = T(0), nr_col = T(0);
+  if (c.has_qr) {
+    const T n0r = c.nr1 * c.lamr * c.lamr;
+    if (tc <= T(0)) qrcol = io.in(COLL2) * n0r * rho * rhofaci * ni_rate;
+    nr_col = io.in(COLL1) * n0r * rho * rhofaci * ni_rate;
+  }
+  io.out(NR_COL, nr_col);
+  const T kap = T(1.414e3) * c.mu_v;
+  const T eii =
+      tclamp(T(0.001) + (c.temp - T(253.15)) * T(0.3 - 0.001) / T(20.0), T(0.001), T(0.3));
+  T qm_reb = io.in(QM_IN), bm_reb = io.in(BM_IN);
+  bulk_rho_rime(c.qi_in, qm_reb, bm_reb);
+  const T fr = qm_reb / tmax(c.qi_in, T(QSMALL));
+  const T eii_fact = tclamp(T(1) - (fr - T(0.6)) / T(0.3), T(0), T(1));
+  io.out(NI_SELF, io.in(TAB3) * rho * eii * eii_fact * rhofaci * ni_rate * ni_rate);
+  const T vent = io.in(TAB5) + io.in(TAB10) * c.cbrt_sc * tsqrt(rhofaci * rho / c.mu_v);
+  const T qsat0 = qv_sat_liq(T(TMELT), c.pres);
+  T melt = T(0), berg = T(0);
+  if (tc > T(0))
+    melt = tmax(vent * (tc * kap - rho * T(LV) * dv_diff * (qsat0 - qv)) * T(2.0) * T(PI) /
+                    T(LF) * ni_rate,
+                T(0));
+  if (tc < T(0)) {
+    c.epsi = vent * T(2.0) * T(PI) * rho * dv_diff * ni_rate;
+    berg = tmax(c.epsi / c.abi * (c.qsl - c.qv_si), T(0));
+  }
+  io.out(MELT, melt);
+  io.out(BERG, berg);
+  // wet growth
+  const bool cold_mix = (c.qc_in + c.qr_in >= T(1.0e-6)) && tc < T(0);
+  const T qwgrth = cold_mix ? tmax(vent * T(2.0) * T(PI) *
+                                       (rho * T(LV) * dv_diff * (qsat0 - qv) - tc * kap) /
+                                       (T(CP_L) * tc + T(LF)) * ni_rate,
+                                   T(0))
+                            : T(INFINITY);
+  T excess = tmax(rim + qrcol - qwgrth, T(0));
+  if (!(excess >= T(1.0e-10))) excess = T(0);
+  io.out(LOG_WG, cold_mix && excess >= T(1.0e-10) ? T(1) : T(0));
+  const T tot_col = tmax(rim + qrcol, T(1e-30));
+  const T wg_frac = rim + qrcol >= T(1.0e-10) ? excess / tot_col : T(0);
+  io.out(SHED, shed + excess * (rim / tot_col));
+  io.out(RIM, rim * (T(1) - wg_frac));
+  io.out(QRCOL, qrcol * (T(1) - wg_frac));
+  io.out(NR_SHED_WG, excess * T(1.923e6));
+}
+// the rime density (gate: riming of at least QSMALL, before wet growth)
+template <typename T, class IO> __device__ T rime_density(const IO& io, const Cell<T>& c) {
+  const T acn = stokes_acn(c.mu_v);
+  const T vi_table = c.rhofaci * io.in(TAB2);
+  T lamc_r;
+  const T vt_qc = cloud_vt(c.qc_in, io.in(NC_IN), c.rho, acn, lamc_r);
+  const T d_c = (io.in(MU_CD) + T(4)) / lamc_r;
+  const T i_tc = T(1) / tmin(c.tc, T(-0.001));
+  const T ri = tclamp(T(-0.5e6) * d_c * tabs(vi_table - vt_qc) * i_tc, T(1), T(12));
+  return ri <= T(8) ? (T(0.051) + T(0.114) * ri - T(0.0055) * ri * ri) * T(1000.0)
+                    : T(611.0) + T(72.25) * (ri - T(8));
+}
+// rain evaporation with the qv_prev / t_prev history (gate: rain, with
+// qc_in + qi_in below 1e-6; the rate where subsaturated)
+template <typename T, class IO> __device__ T rain_evaporation(const IO& io, const Cell<T>& c) {
+  const T temp = c.temp, rho = c.rho, qv = c.qv, qsl = c.qsl, dt = c.dt;
+  const T epsr = T(2.0 * PI) * c.nr1 * rho * c.dv_diff *
+                 (T(1) / c.lamr * T(0.78 * 2.0) +
+                  T(0.32) * tsqrt(rho / c.mu_v) * c.cbrt_sc * io.in(REVAP_V));
+  const T dqsldt = T(LV) * qsl / (T(R_V) * temp * temp);
+  const T abl = T(1) + dqsldt * T(LV) / T(CP_D);
+  const T ssat_r = qv - qsl;
+  const bool below = c.tc < T(0);
+  const T eps_eff =
+      tmax(below ? epsr + c.epsi * (T(1) + T(LS / CP_D) * dqsldt) / c.abi : epsr, T(1.0e-20));
+  const T tau_eff = T(1) / eps_eff;
+  const T A_c = (qv - io.in(QV_PREV)) / dt - dqsldt * (temp - io.in(T_PREV)) / dt -
+                (below ? (qsl - c.qv_si) * (T(1) + T(LS / CP_D) * dqsldt) / c.abi * c.epsi
+                       : T(0));
+  const T tau_r = T(1) / tmax(epsr, T(1.0e-20));
+  const T dtau = T(1) / tau_eff * dt;
+  const T w_ts = -texpm1(-dtau) / dtau;
+  const T instant = -ssat_r / (abl * tau_r);
+  const T equilib = -A_c / abl * tau_eff / tau_r;
+  const T ev_big = instant * w_ts + equilib * (T(1) - w_ts);
+  T ev = (c.qr_in < T(1.0e-12) && qv / tmax(qsl, T(QSMALL)) < T(0.999)) ? c.qr_in / dt : ev_big;
+  ev = tmin(ev, -ssat_r / dt / abl);
+  ev = tmin(tmax(ev, T(0)), c.qr_in / dt);
+  return ssat_r < T(0) ? ev : T(0);
+}
+}  // namespace rp
+
+// RatesPost's inputs past its gate inputs, read by the groups from
+// registers (x, filled by the body) and its outputs stored through io
+template <typename T, class IO> struct Loaded {
+  const T* x;
+  const IO& io;
+  __device__ __forceinline__ T in(int k) const { return x[k]; }
+  __device__ __forceinline__ void out(int k, T v) const { io.out(k, v); }
+};
+
 struct RatesPost {
   static constexpr int NIN = 30, NOUT = 25, NIOUT = 0, NFLAG = 0;
-  template <typename T>
-  __device__ static void run(const T* in, T* out, int*, bool*, double dt_, const T*) {
-    const T dt = T(dt_);
-    const T qc = in[0], nc = in[1], qr = in[2], qi = in[3], ni = in[4], qv = in[5];
-    const T temp = in[6], pres = in[7], rho = in[8], qc_in = in[9], qr_in = in[10];
-    const T qi_in = in[11], qm_in = in[12], bm_in = in[13], nc_in = in[14];
-    const T nr_in = in[15], ni_in = in[16], mu_cd = in[17], qv_prev = in[18];
-    const T t_prev = in[19], tab7 = in[20], tab8 = in[21], tab4 = in[22];
-    const T tab2 = in[23], tab3 = in[24], tab5 = in[25], tab10 = in[26];
-    const T coll2 = in[27], coll1 = in[28], revap_v = in[29];
-    const T inv_rho = T(1) / rho;
+  template <typename T, class IO>
+  __device__ static void body(const IO& io, double dt_) {
+    using namespace rp;
+    Cell<T> c;
+    c.dt = T(dt_);
+    c.qc = io.in(QC);
+    c.qr = io.in(QR);
+    c.qi = io.in(QI);
+    c.qv = io.in(QV);
+    c.temp = io.in(TEMP);
+    c.pres = io.in(PRES);
+    c.rho = io.in(RHO);
+    c.qc_in = io.in(QC_IN);
+    c.qr_in = io.in(QR_IN);
+    c.qi_in = io.in(QI_IN);
+    c.inv_rho = T(1) / c.rho;
+    c.tc = c.temp - T(TMELT);
+    c.has_qc = c.qc >= T(QSMALL);
+    c.has_qr = c.qr >= T(QSMALL);
+    c.has_qi = c.qi >= T(QSMALL);
+    c.epsi = T(0);
+    c.nr1 = c.lamr = c.mu_v = c.dv_diff = c.cbrt_sc = c.qsl = c.rhofaci = c.rim0 = T(0);
+    const bool frz_c = c.has_qc && c.tc <= T(-4.0);
+    const bool riming = c.has_qi && c.has_qc && c.tc < T(0);  // rime_density's cells and more
+    const bool evap = c.qc_in + c.qi_in < T(1.0e-6) && c.has_qr;
 
-    // -- the rates both tiers share (p3._p3_warm_ice_rates)
-    const T au = qc_in >= T(1.0e-8)
-                     ? T(1350.0) * tpow(tmax(qc_in, T(QSMALL)), T(2.47)) *
-                           tpow(tmax(nc_in * T(1.0e-6) * rho, T(NSMALL)), T(-1.79))
-                     : T(0);
-    const T ac = (qc >= T(QSMALL) && qr >= T(QSMALL))
-                     ? T(67.0) * tpow(tmax(qc_in * qr_in, T(1e-300)), T(1.15))
-                     : T(0);
-    const T dm_r =
-        cbrt_newton(tmax(qr_in, T(QSMALL)) / (T(PI * RHO_H2O) * tmax(nr_in, T(NSMALL))));
-    const T brk = dm_r < T(280.0e-6) ? T(1) : T(2.0) - texp(T(2300.0) * (dm_r - T(280.0e-6)));
-    const T nr_self = qr >= T(QSMALL) ? brk * T(5.78) * nr_in * qr_in * rho : T(0);
-    const T qsl = qv_sat_liq(temp, pres);
-    const T tc = temp - T(TMELT);
-    const T qv_si = qv_sat_ice(temp, pres);
-    const T sup_i = qv / tmax(qv_si, T(QSMALL)) - T(1);
-    // Cooper nucleation
-    const T n_coop = tmin(T(0.005) * texp(T(0.304) * tmax(-tc, T(0))) * T(1.0e3) * inv_rho,
-                          T(100.0e3) * inv_rho);
-    const T n_nuc = tmax(n_coop - ni, T(0)) / dt;
-    const bool nucleate = tc < T(-15.0) && sup_i >= T(0.05) && n_nuc >= T(1.0e-20);
-    const T qinuc = nucleate ? n_nuc * T(4.0 * PI / 3.0 * 900.0 * 1.0e-18) : T(0);
-    const T ninuc = nucleate ? n_nuc : T(0);
-    // Bigg immersion freezing
-    constexpr double CONS5 = PI / 6.0 * 2.0;
-    constexpr double CONS6 = (PI / 6.0) * (PI / 6.0) * RHO_H2O * 2.0;
-    const T dum1_frz = texp(T(0.65) * tmin(-tc, T(40.0)));
-    const T lamc_frz = cloud_lamc(qc_in, nc, mu_cd);
-    const T cdist1_c = tmax(nc_in, T(NSMALL)) * texp(-tlgamma(mu_cd + T(1)));
-    const T l2c = lamc_frz * lamc_frz;
-    const bool frz_c = qc >= T(QSMALL) && tc <= T(-4.0);
-    const T qc_frz = frz_c ? T(CONS6) * cdist1_c * texp(tlgamma(mu_cd + T(7))) * dum1_frz /
-                                 (l2c * (l2c * l2c))
-                           : T(0);
-    const T nc_frz = frz_c ? T(CONS5) * cdist1_c * texp(tlgamma(mu_cd + T(4))) * dum1_frz /
-                                 (lamc_frz * l2c)
-                           : T(0);
-    const T lamr = cbrt_newton(T(PI / 6.0 * RHO_H2O * 24.0) * tmax(nr_in, T(NSMALL)) /
-                               tmax(qr_in, T(QSMALL)));
-    const T l2r = lamr * lamr;
-    const bool frz_r = qr >= T(QSMALL) && tc <= T(-4.0);
-    const T qr_frz = frz_r ? T(CONS6) * tmax(nr_in, T(NSMALL)) * T(5040.0) * dum1_frz /
-                                 (l2r * (l2r * l2r))
-                           : T(0);
-    const T nr_frz =
-        frz_r ? T(CONS5) * tmax(nr_in, T(NSMALL)) * T(24.0) * dum1_frz / (lamr * l2r) : T(0);
+    // Every other input, loaded now where a gate that reads it holds (a
+    // lane whose gates fail reads nothing): a warp's loads are in flight
+    // together, not one group's after another's.
+    T x[NIN];
+    x[NI_IN] = io.in(NI_IN);
+    x[NC_IN] = c.qc_in >= T(1.0e-8) || frz_c || riming ? io.in(NC_IN) : T(0);
+    x[NR_IN] = c.has_qr ? io.in(NR_IN) : T(0);
+    x[NI] = c.tc < T(-15.0) ? io.in(NI) : T(0);
+    x[NC] = frz_c ? io.in(NC) : T(0);
+    x[MU_CD] = frz_c || riming ? io.in(MU_CD) : T(0);
+    const In ice_in[] = {QM_IN, BM_IN, TAB7, TAB8, TAB4, TAB3, TAB5, TAB10};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[ice_in[k]] = c.has_qi ? io.in(ice_in[k]) : T(0);
+    x[TAB2] = riming ? io.in(TAB2) : T(0);
+    x[COLL1] = c.has_qi && c.has_qr ? io.in(COLL1) : T(0);
+    x[COLL2] = c.has_qi && c.has_qr && c.tc <= T(0) ? io.in(COLL2) : T(0);
+    x[QV_PREV] = evap ? io.in(QV_PREV) : T(0);
+    x[T_PREV] = evap ? io.in(T_PREV) : T(0);
+    x[REVAP_V] = evap ? io.in(REVAP_V) : T(0);
+    const Loaded<T, IO> in{x, io};
+
+    // -- the rates both tiers share (p3._p3_warm_ice_rates); a and b hold
+    // a group's outputs until they are stored
+    T a = T(0), b = T(0);
+    if (c.qc_in >= T(1.0e-8)) a = autoconversion<T>(in, c);
+    io.out(AU, a);
+    a = T(0);
+    if (c.has_qc && c.has_qr) a = accretion(c);
+    io.out(AC, a);
+    a = T(0);
+    if (c.has_qr) a = rain_size<T>(in, c);
+    io.out(NR_SELF, a);
+    const T sup_i = saturation(c);
+    io.out(QV_SI, c.qv_si);
+    a = b = T(0);
+    if (c.tc < T(-15.0) && sup_i >= T(0.05)) nucleation<T>(in, c, a, b);
+    io.out(QINUC, a);
+    io.out(NINUC, b);
+    a = b = T(0);
+    if (frz_c) bigg_cloud<T>(in, c, a, b);
+    io.out(QC_FRZ, a);
+    io.out(NC_FRZ, b);
+    a = b = T(0);
+    if (c.has_qr && c.tc <= T(-4.0)) bigg_rain(c, a, b);
+    io.out(QR_FRZ, a);
+    io.out(NR_FRZ, b);
 
     // -- the table tier
-    const T mu_v = mu_visc(temp);
-    const T acn = stokes_acn(mu_v);
-    T qm_reb = qm_in, bm_reb = bm_in;
-    bulk_rho_rime(qi_in, qm_reb, bm_reb);
-    const bool has_qi = qi >= T(QSMALL);
-    T ni_t = tmax(ni_in, T(NSMALL));
-    ni_t = tmin(ni_t, tab7 * ni_t);
-    ni_t = tmax(ni_t, tab8 * ni_t);
-    const T ni_rate = has_qi ? ni_t : ni_in;
-    const T rhofaci = tpow(T(RHO_600MB) * inv_rho, T(0.54));
-    const T collect_qc = rhofaci * tab4 * qc_in * T(0.5) * rho * ni_rate;
-    const bool both_ic = has_qi && qc >= T(QSMALL);
-    T rim = (both_ic && tc < T(0)) ? collect_qc : T(0);
-    T shed = (both_ic && tc > T(0)) ? collect_qc : T(0);
-    const T ncshdc = shed * T(1.0 / 5.2e-7);
-    const T vi_table = rhofaci * tab2;
-    T lamc_r;
-    const T vt_qc = cloud_vt(qc_in, nc_in, rho, acn, lamc_r);
-    const T d_c = (mu_cd + T(4)) / lamc_r;
-    const T i_tc = T(1) / tmin(tc, T(-0.001));
-    const T ri = tclamp(T(-0.5e6) * d_c * tabs(vi_table - vt_qc) * i_tc, T(1), T(12));
-    T rho_rime = ri <= T(8) ? (T(0.051) + T(0.114) * ri - T(0.0055) * ri * ri) * T(1000.0)
-                            : T(611.0) + T(72.25) * (ri - T(8));
-    if (!(rim >= T(QSMALL) && qc >= T(QSMALL))) rho_rime = T(400.0);
-    const T n0r = tmax(nr_in, T(NSMALL)) * lamr * lamr;
-    const bool both_ir = has_qi && qr >= T(QSMALL);
-    T qrcol = (both_ir && tc <= T(0)) ? coll2 * n0r * rho * rhofaci * ni_rate : T(0);
-    const T nr_col = both_ir ? coll1 * n0r * rho * rhofaci * ni_rate : T(0);
-    const T dv_diff = T(8.794e-5) * tpow(temp, T(1.81)) / pres;
-    const T sc_n = mu_v / (rho * dv_diff);
-    const T kap = T(1.414e3) * mu_v;
-    const T eii =
-        tclamp(T(0.001) + (temp - T(253.15)) * T(0.3 - 0.001) / T(20.0), T(0.001), T(0.3));
-    const T fr = qm_reb / tmax(qi_in, T(QSMALL));
-    const T eii_fact = tclamp(T(1) - (fr - T(0.6)) / T(0.3), T(0), T(1));
-    const T ni_self =
-        has_qi ? tab3 * rho * eii * eii_fact * rhofaci * ni_rate * ni_rate : T(0);
-    const T cbrt_sc = cbrt_newton(sc_n);
-    const T vent = tab5 + tab10 * cbrt_sc * tsqrt(rhofaci * rho / mu_v);
-    const T qsat0 = qv_sat_liq(T(TMELT), pres);
-    const T melt =
-        (has_qi && tc > T(0))
-            ? tmax(vent * (tc * kap - rho * T(LV) * dv_diff * (qsat0 - qv)) * T(2.0) * T(PI) /
-                       T(LF) * ni_rate,
-                   T(0))
-            : T(0);
-    const T epsi = (has_qi && tc < T(0)) ? vent * T(2.0) * T(PI) * rho * dv_diff * ni_rate : T(0);
-    const T dqsidt = T(LS) * qv_si / (T(R_V) * temp * temp);
-    const T abi = T(1) + dqsidt * T(LS) / T(CP_D);
-    const T qi_tend = tmin(epsi / abi, T(1.0 / dt_)) * (qv - qv_si);
-    const T dep = tc < T(0) ? tmax(qi_tend, T(0)) : T(0);
-    const T sub = tmax(-qi_tend, T(0));
-    const T berg = (has_qi && tc < T(0)) ? tmax(epsi / abi * (qsl - qv_si), T(0)) : T(0);
-    const T epsr = T(2.0 * PI) * tmax(nr_in, T(NSMALL)) * rho * dv_diff *
-                   (T(1) / lamr * T(0.78 * 2.0) + T(0.32) * tsqrt(rho / mu_v) * cbrt_sc * revap_v);
-    // wet growth
-    const bool cold_mix = has_qi && (qc_in + qr_in >= T(1.0e-6)) && tc < T(0);
-    const T qwgrth = cold_mix ? tmax(vent * T(2.0) * T(PI) *
-                                         (rho * T(LV) * dv_diff * (qsat0 - qv) - tc * kap) /
-                                         (T(CP_L) * tc + T(LF)) * ni_rate,
-                                     T(0))
-                              : T(INFINITY);
-    T excess = tmax(rim + qrcol - qwgrth, T(0));
-    if (!(excess >= T(1.0e-10))) excess = T(0);
-    const bool log_wg = cold_mix && excess >= T(1.0e-10);
-    const T tot_col = tmax(rim + qrcol, T(1e-30));
-    const T wg_frac = rim + qrcol >= T(1.0e-10) ? excess / tot_col : T(0);
-    shed = shed + excess * (rim / tot_col);
-    rim = rim * (T(1) - wg_frac);
-    qrcol = qrcol * (T(1) - wg_frac);
-    const T nr_shed_wg = excess * T(1.923e6);
-    // rain evaporation with the qv_prev / t_prev history
-    const T dqsldt = T(LV) * qsl / (T(R_V) * temp * temp);
-    const T abl = T(1) + dqsldt * T(LV) / T(CP_D);
-    const T ssat_r = qv - qsl;
-    const bool below = tc < T(0);
-    const T eps_eff = tmax(below ? epsr + epsi * (T(1) + T(LS / CP_D) * dqsldt) / abi : epsr,
-                           T(1.0e-20));
-    const T tau_eff = T(1) / eps_eff;
-    const T A_c = (qv - qv_prev) / dt - dqsldt * (temp - t_prev) / dt -
-                  (below ? (qsl - qv_si) * (T(1) + T(LS / CP_D) * dqsldt) / abi * epsi : T(0));
-    const T tau_r = T(1) / tmax(epsr, T(1.0e-20));
-    const T dtau = T(1) / tau_eff * dt;
-    const T w_ts = -texpm1(-dtau) / dtau;
-    const T instant = -ssat_r / (abl * tau_r);
-    const T equilib = -A_c / abl * tau_eff / tau_r;
-    const T ev_big = instant * w_ts + equilib * (T(1) - w_ts);
-    T ev = (qr_in < T(1.0e-12) && qv / tmax(qsl, T(QSMALL)) < T(0.999)) ? qr_in / dt : ev_big;
-    ev = tmin(ev, -ssat_r / dt / abl);
-    ev = tmin(tmax(ev, T(0)), qr_in / dt);
-    if (!(qc_in + qi_in < T(1.0e-6) && ssat_r < T(0) && qr >= T(QSMALL))) ev = T(0);
-
-    out[0] = au; out[1] = ac; out[2] = qc_frz; out[3] = nc_frz; out[4] = qr_frz;
-    out[5] = nr_frz; out[6] = rim; out[7] = shed; out[8] = ncshdc; out[9] = berg;
-    out[10] = dep; out[11] = sub; out[12] = ev; out[13] = melt; out[14] = qinuc;
-    out[15] = ninuc; out[16] = qrcol; out[17] = nr_col; out[18] = nr_self;
-    out[19] = ni_self; out[20] = nr_shed_wg; out[21] = rho_rime;
-    out[22] = log_wg ? T(1) : T(0); out[23] = ni_rate; out[24] = qv_si;
+    c.ni_rate = x[NI_IN];
+    if (c.has_qi) {
+      T ni_t = tmax(x[NI_IN], T(NSMALL));
+      ni_t = tmin(ni_t, x[TAB7] * ni_t);
+      ni_t = tmax(ni_t, x[TAB8] * ni_t);
+      c.ni_rate = ni_t;
+    }
+    io.out(NI_RATE, c.ni_rate);
+    if (c.has_qi || evap) transport(c);
+    if ((c.has_qi && c.tc < T(0)) || evap) c.qsl = qv_sat_liq(c.temp, c.pres);
+    a = T(400.0);
+    if (c.has_qi) {
+      ice_rates<T>(in, c);
+      if (c.rim0 >= T(QSMALL) && c.has_qc) a = rime_density<T>(in, c);
+    } else {
+      const Out ice_out[] = {RIM,   SHED,   NCSHDC,  BERG,       MELT,
+                             QRCOL, NR_COL, NI_SELF, NR_SHED_WG, LOG_WG};
+#pragma unroll
+      for (int k = 0; k < 10; ++k) io.out(ice_out[k], T(0));
+    }
+    io.out(RHO_RIME, a);
+    const T qi_tend = tmin(c.epsi / c.abi, T(1.0 / dt_)) * (c.qv - c.qv_si);
+    io.out(DEP, c.tc < T(0) ? tmax(qi_tend, T(0)) : T(0));
+    io.out(SUB, tmax(-qi_tend, T(0)));
+    a = T(0);
+    if (evap) a = rain_evaporation<T>(in, c);
+    io.out(EV, a);
+  }
+  template <typename T>
+  __device__ static void run(const T* in, T* out, int*, bool*, double dt, const T*) {
+    body<T>(ArrayIO<T>{in, out}, dt);
   }
 };
 
@@ -681,6 +898,30 @@ __global__ void __launch_bounds__(THREADS)
   for (int k = 0; k < Phase::NIOUT; ++k) p.iout[k][c] = iout[k];
 }
 
+// -- the launch path of Wrapper and RatesPost ---------------------------------
+// One cell a thread through CellIO: the body loads an input when it asks
+// for it (Wrapper where it first uses it; RatesPost its gate inputs, then
+// the others where a gate that reads them holds) and stores each output as
+// soon as it is final, so that neither holds a register for the whole body
+// as in the executor above.  scripts/p3_rates_variants.py --phase
+// rates_post|wrapper times it against the executor and against 16-byte
+// words of neighbouring cells a thread (rates_pre's layout): both lost.
+template <class Phase, typename T> struct CellIO {
+  const Ptrs<Phase>& p;
+  int64_t c;
+  __device__ __forceinline__ T in(int k) const {
+    return __ldg(static_cast<const T*>(p.in[k]) + c);
+  }
+  __device__ __forceinline__ void out(int k, T v) const { static_cast<T*>(p.out[k])[c] = v; }
+};
+
+template <class Phase, typename T>
+__global__ void __launch_bounds__(THREADS)
+    cell_kernel(const Ptrs<Phase> p, int64_t n, double dt) {
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < n) Phase::template body<T>(CellIO<Phase, T>{p, c}, dt);
+}
+
 template <class Phase>
 int check_counts(int nin, int nout, int niout, int nflags, long long n) {
   if (nin != Phase::NIN || nout != Phase::NOUT || niout != Phase::NIOUT ||
@@ -701,7 +942,8 @@ Ptrs<Phase> pointers(const void* const* in, void* const* out, void* const* iout,
   return p;
 }
 
-template <class Phase, typename T>
+// CELLS: the phase's own launch path (cell_kernel), else the executor
+template <class Phase, typename T, bool CELLS = false>
 int launch_phase(const void* const* in, int nin, void* const* out, int nout,
                  void* const* iout, int niout, void* flags, int nflags, long long n,
                  double dt, const void* table, void* stream) {
@@ -709,8 +951,12 @@ int launch_phase(const void* const* in, int nin, void* const* out, int nout,
   const long long blocks = (n + THREADS - 1) / THREADS;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  cellwise<Phase, T><<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      pointers<Phase>(in, out, iout, flags, table), (int64_t)n, dt);
+  const auto ptrs = pointers<Phase>(in, out, iout, flags, table);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (CELLS)
+    cell_kernel<Phase, T><<<(unsigned)blocks, THREADS, 0, s>>>(ptrs, (int64_t)n, dt);
+  else
+    cellwise<Phase, T><<<(unsigned)blocks, THREADS, 0, s>>>(ptrs, (int64_t)n, dt);
   return cudaGetLastError();
 }
 
@@ -852,15 +1098,17 @@ int dispatch(int phase, const void* const* in, int nin, void* const* out, int no
              double dt, const void* table, void* stream) {
 #define P3_PHASE(P) \
   launch_phase<P, T>(in, nin, out, nout, iout, niout, flags, nflags, n, dt, table, stream)
+#define P3_CELLS(P) \
+  launch_phase<P, T, true>(in, nin, out, nout, iout, niout, flags, nflags, n, dt, table, stream)
   switch (phase) {
     case 0: return P3_PHASE(Part1<false>);
     case 1: return P3_PHASE(Part1<true>);
     case 2: return P3_PHASE(Update<false>);
     case 3: return P3_PHASE(Update<true>);
-    case 4: return P3_PHASE(Wrapper);
+    case 4: return P3_CELLS(Wrapper);
     case 5:
       return launch_rates_pre<T>(in, nin, out, nout, iout, niout, flags, nflags, n, stream);
-    case 6: return P3_PHASE(RatesPost);
+    case 6: return P3_CELLS(RatesPost);
     case 7: return P3_PHASE(Part3Approx);
     case 8:
       if (table == nullptr || reinterpret_cast<uintptr_t>(table) % 16 != 0)
@@ -875,6 +1123,7 @@ int dispatch(int phase, const void* const* in, int nin, void* const* out, int no
     default: return cudaErrorInvalidValue;
   }
 #undef P3_PHASE
+#undef P3_CELLS
 }
 
 }  // namespace

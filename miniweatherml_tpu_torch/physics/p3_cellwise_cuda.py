@@ -14,7 +14,10 @@ tensors.  On CUDA tensors each launches the matching phase of
 ``csrc/p3_cellwise.cu``: one thread per cell reads the cell's inputs once
 and writes its outputs once (``p3_rates_pre``: a thread takes
 neighbouring cells as 16-byte words, and a block reduces the presence
-flags, one store per block and flag at most).  The first three are the
+flags, one store per block and flag at most; ``p3_wrapper`` and
+``p3_rates_post``: an input is read where first used and an output stored
+once final, and a warp skips the saturation Newton or the gated rates
+where none of its cells keeps their result).  The first three are the
 port of the Pallas kernel
 ``miniweatherml_tpu/ops/elementwise.py::fused_cellwise``; the two rates
 phases, with the table lookups between them, are the port of the XLA

@@ -1,13 +1,16 @@
-"""Time variants of P3's ``rates_pre`` kernel on one NVIDIA GPU.
+"""Time variants of P3's per-cell kernels ``rates_pre``, ``rates_post`` and
+the wrapper inputs on one NVIDIA GPU.
 
 Usage (from the root of a checkout, on a machine with the card):
 
-  python scripts/p3_rates_variants.py [--reps N] [--parent DIR]
+  python scripts/p3_rates_variants.py [--phase rates_pre|rates_post|wrapper]
+                                      [--reps N] [--parent DIR]
 
 Each variant is a text edit of ``csrc/p3_cellwise.cu`` (or of a header it
 includes), or the package's source with other nvcc flags, built into
-``chip_smoke_out/p3_rates_variants/<variant>/`` (git-ignored) and launched
-through the package's wrapper (``physics/p3_cellwise_cuda.py``):
+``chip_smoke_out/p3_rates_variants/<phase>/<variant>/`` (git-ignored) and
+launched through the package's wrapper (``physics/p3_cellwise_cuda.py``).
+``--phase rates_pre`` (the default):
 
   package       the package's build: a block of 128 threads takes 2 steps
                 of 128 words of 16 bytes (4 neighbouring cells in f32, 2 in
@@ -34,19 +37,53 @@ through the package's wrapper (``physics/p3_cellwise_cuda.py``):
                 unchanged)
   fast_log10    the package with float log10 as __log10f (timing only; f64
                 unchanged)
-  parent        with ``--parent DIR``: DIR's own p3_cellwise.cu and headers,
-                unedited (a tree from before this launch path is the
-                warp_stores design as it was shipped)
+
+``--phase rates_post``: the package runs each gated group of rates under a
+real branch on its gate, one cell a thread on cell_kernel (the gate inputs
+loaded first, then every other input where a gate that reads it holds,
+outputs stored once final); the parent runs every group in every cell and
+selects by the gates, on the executor (every input in registers first,
+every output stored last):
+
+  late          each group's inputs loaded inside its branch, where the
+                group first uses them (the package's first design)
+  executor      the package's body on the executor: the branches alone
+  words         the package's body on 16-byte words of 4 (f32) or 2 (f64)
+                neighbouring cells a thread, every input loaded as words
+                first and every output stored as words last (rates_pre's
+                layout; one cell a thread where a field is not 16-byte
+                aligned)
+
+``--phase wrapper``: the package skips the saturation Newton where its
+result is thrown away (no condensation or evaporation, or the boundary
+root) and ends a cell's Newton once a trip leaves x with the bits it had,
+one cell a thread on cell_kernel (the seven fields the adjustment leaves
+alone stored before it):
+
+  executor      the package's body on the executor (every output last)
+  no_skip       the Newton in every cell, as the parent
+  no_stop       every trip in every cell, as the parent
+  warp_stop     the loop left once every cell of the warp has repeated its
+                bits
+  skip_only     the skip alone, on the executor (no_stop + executor)
+  stop_only     the early end alone, on the executor (no_skip + executor)
+  words         as for rates_post
+
+For both: fast_math (timing only, as above) and no_math (timing only:
+cell_kernel loads every input and stores every output, with no
+arithmetic but their sum; the floor of the layout).  With ``--parent DIR``
+every phase also has the variant ``parent``: DIR's own p3_cellwise.cu and
+headers, unedited.
 
 On what one step of the early-storm, mixed-regime and all-active
-512x512x64 P3 chains hands ``rates_pre`` (``chip_smoke.py``'s
+512x512x64 P3 chains hands the phase (``chip_smoke.py``'s
 ``_p3_step_rates_sed``), f32 and f64, each variant is timed with CUDA
 events, each call queued behind device sleep (the median of N calls after
 a warm call), in turns: every variant in order, then in the reverse order.
 Every variant that is not timing only must equal the package's build with
 ``torch.equal`` (fields, indices and flags).  Prints the registers and
-spills of each build's rates_pre entry functions and one ``RESULT`` JSON
-line with the card's name and power limit.
+spills of each build's entry functions of the phase and one ``RESULT``
+JSON line with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -145,7 +182,7 @@ _VEC = "16 / sizeof(T)"
 # name: ([(file, old, new)], nvcc flags dropped, nvcc flags added,
 # timing only); ``old`` may be a (start, end) pair: the text from start up
 # to end
-VARIANTS = {
+RATES_PRE = {
     "package": ([], (), (), False),
     "warp_stores": (_shape("1", 1) + [(SRC, _STORE, _WARP_STORE)], (), (),
                     False),
@@ -169,6 +206,133 @@ VARIANTS = {
 }
 
 
+# the launch path of rates_post and the wrapper (cell_kernel) and the
+# executor, by phase
+_CASE = {"rates_post": "    case 6: return P3_CELLS(RatesPost);\n",
+         "wrapper": "    case 4: return P3_CELLS(Wrapper);\n"}
+
+
+def _executor(phase):
+    return [(SRC, _CASE[phase], _CASE[phase].replace("P3_CELLS", "P3_PHASE"))]
+
+
+# 16-byte words of neighbouring cells a thread for a phase on cell_kernel:
+# every input loaded as words, the body run cell by cell on them, every
+# output stored as words (one cell a thread where a field is not 16-byte
+# aligned, and for the cells past the last whole word)
+_WORDS = """template <class Phase, typename T, int W> struct WordIO {
+  const T (&x)[Phase::NIN][W];
+  T (&o)[Phase::NOUT][W];
+  int e;
+  __device__ __forceinline__ T in(int k) const { return x[k][e]; }
+  __device__ __forceinline__ void out(int k, T v) const { o[k][e] = v; }
+};
+
+template <class Phase, typename T, int W>
+__global__ void __launch_bounds__(THREADS)
+    word_kernel(const Ptrs<Phase> p, int64_t n, double dt) {
+  const int64_t c = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * W;
+  if (c + W <= n) {
+    T x[Phase::NIN][W], o[Phase::NOUT][W];
+#pragma unroll
+    for (int k = 0; k < Phase::NIN; ++k) load_cells<T, W>(p.in[k], c, x[k]);
+#pragma unroll
+    for (int e = 0; e < W; ++e) Phase::template body<T>(WordIO<Phase, T, W>{x, o, e}, dt);
+#pragma unroll
+    for (int k = 0; k < Phase::NOUT; ++k) store_cells<T, W>(p.out[k], c, o[k]);
+  } else {
+    for (int64_t e = c; e < n; ++e) Phase::template body<T>(CellIO<Phase, T>{p, e}, dt);
+  }
+}
+
+template <class Phase, typename T>
+int launch_words(const void* const* in, int nin, void* const* out, int nout,
+                 void* const* iout, int niout, void* flags, int nflags, long long n,
+                 double dt, void* stream) {
+  if (int e = check_counts<Phase>(nin, nout, niout, nflags, n)) return e;
+  if (n == 0) return cudaSuccess;
+  bool aligned = true;
+  for (int k = 0; k < Phase::NIN; ++k) aligned = aligned && reinterpret_cast<uintptr_t>(in[k]) % 16 == 0;
+  for (int k = 0; k < Phase::NOUT; ++k) aligned = aligned && reinterpret_cast<uintptr_t>(out[k]) % 16 == 0;
+  constexpr int W = 16 / sizeof(T);
+  const long long per_block = (long long)THREADS * (aligned ? W : 1);
+  const long long blocks = (n + per_block - 1) / per_block;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  const auto kernel = aligned ? word_kernel<Phase, T, W> : word_kernel<Phase, T, 1>;
+  kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      pointers<Phase>(in, out, iout, flags, nullptr), (int64_t)n, dt);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(int phase,"""
+
+
+def _words(phase):
+    call = _CASE[phase].split("return ")[0] + (
+        f"return launch_words<{'RatesPost' if phase == 'rates_post' else 'Wrapper'}"
+        ", T>(in, nin, out, nout, iout, niout, flags, nflags, n, dt, stream);\n")
+    return [(SRC, "template <typename T>\nint dispatch(int phase,", _WORDS),
+            (SRC, _CASE[phase], call)]
+
+
+# cell_kernel moving every input and output, with no arithmetic but the
+# inputs' sum (timing only)
+_BODY_CALL = "  if (c < n) Phase::template body<T>(CellIO<Phase, T>{p, c}, dt);\n"
+_NO_MATH = """  if (c < n) {
+    const CellIO<Phase, T> io{p, c};
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < Phase::NIN; ++k) s += io.in(k);
+#pragma unroll
+    for (int k = 0; k < Phase::NOUT; ++k) io.out(k, s);
+  }
+"""
+_FAST = ([], ("--fmad=false",), ("--use_fast_math",), True)
+# RatesPost's inputs as its groups read them
+_LOADED = ("  const IO& io;\n"
+           "  __device__ __forceinline__ T in(int k) const { return x[k]; }")
+# the wrapper's levers: the Newton where its result is thrown away, and the
+# end of a cell's loop at repeated bits
+_NO_SKIP = [(SRC, "  if (condensing || evaporating) {\n    const T rho_t",
+             "  {\n    const T rho_t"),
+            (SRC, "    if (!boundary)\n      x = saturation_newton(",
+             "    x = saturation_newton("),
+            (SRC, "    if (boundary) x = -rho_c;\n  }\n",
+             "    if (boundary) x = -rho_c;\n  }\n"
+             "  if (!(condensing || evaporating)) x = T(0);\n")]
+_NO_STOP = [(SRC, "    if (fixed) break;\n", "    (void)fixed;\n")]
+_WARP_STOP = [(SRC, "    if (fixed) break;\n",
+               "    if (__all_sync(__activemask(), fixed)) break;\n")]
+# name: ([(file, old, new)], nvcc flags dropped, nvcc flags added, timing
+# only), by phase
+VARIANTS = {
+    "rates_pre": RATES_PRE,
+    "rates_post": {
+        "package": ([], (), (), False),
+        "late": ([(SRC, _LOADED, _LOADED.replace("x[k]", "io.in(k)"))],
+                 (), (), False),
+        "executor": (_executor("rates_post"), (), (), False),
+        "words": (_words("rates_post"), (), (), False),
+        "fast_math": _FAST,
+        "no_math": ([(SRC, _BODY_CALL, _NO_MATH)], (), (), True)},
+    "wrapper": {
+        "package": ([], (), (), False),
+        "executor": (_executor("wrapper"), (), (), False),
+        "no_skip": (_NO_SKIP, (), (), False),
+        "no_stop": (_NO_STOP, (), (), False),
+        "warp_stop": (_WARP_STOP, (), (), False),
+        "skip_only": (_NO_STOP + _executor("wrapper"), (), (), False),
+        "stop_only": (_NO_SKIP + _executor("wrapper"), (), (), False),
+        "words": (_words("wrapper"), (), (), False),
+        "fast_math": _FAST,
+        "no_math": ([(SRC, _BODY_CALL, _NO_MATH)], (), (), True)},
+}
+# each phase's entry functions in the ptxas report (mangled names)
+_ENTRY = {"rates_pre": "8RatesPreE", "rates_post": "9RatesPostE",
+          "wrapper": "7WrapperE"}
+
+
 def _card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -190,19 +354,20 @@ def _sources(csrc: str, edits) -> dict[str, str]:
             if i < 0 or j < i:
                 raise RuntimeError(f"edit of {name} does not apply: {old!r}")
             old = text[i:j]
-        if old not in text:
-            raise RuntimeError(f"edit of {name} does not apply: {old!r}")
+        if text.count(old) != 1:
+            raise RuntimeError(f"edit of {name} does not apply once: {old!r}")
         files[name] = text.replace(old, new)
     return files
 
 
-def _build(name: str, files: dict[str, str], flags) -> tuple[str, list]:
+def _build(phase: str, name: str, files: dict[str, str],
+           flags) -> tuple[str, list]:
     """Write the variant's sources into its own directory (so its .cu finds
     its own headers first), build it, and return (library path, ptxas rows
-    of its rates_pre entry functions)."""
+    of the phase's entry functions)."""
     from miniweatherml_tpu_torch import cuda_build
     import chip_smoke as cs
-    work = os.path.join(OUT, name)
+    work = os.path.join(OUT, phase, name)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     for fname, text in files.items():
@@ -216,16 +381,17 @@ def _build(name: str, files: dict[str, str], flags) -> tuple[str, list]:
     report = os.path.join(work, "ptxas.txt")
     with open(report, "w") as f:
         f.write(res.stderr)
-    rows = [(cs._kernel_name(m), regs, st, ld)
+    rows = [(cs._entry_label("p3_cellwise", m), regs, st, ld)
             for m, regs, st, ld, _, _ in cs._ptxas_report(name, report)
-            if "RatesPre" in m]
-    print(f"built {name}: rates_pre entry functions (kernel, registers, "
+            if _ENTRY[phase] in m]
+    print(f"built {name}: {phase} entry functions (kernel, registers, "
           f"spill stores, spill loads) {rows}", flush=True)
     return so, rows
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", default="rates_pre", choices=sorted(VARIANTS))
     ap.add_argument("--reps", type=int, default=15)
     ap.add_argument("--parent", default=None,
                     help="root of another tree whose p3_cellwise.cu is "
@@ -243,7 +409,7 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     base = cuda_build.nvcc_flags("p3_cellwise")
     jobs, timing_only = {}, set()
-    for name, (edits, drop, add, t_only) in VARIANTS.items():
+    for name, (edits, drop, add, t_only) in VARIANTS[a.phase].items():
         flags = [f for f in base if f not in drop] + list(add)
         jobs[name] = (_sources(CSRC, edits), flags)
         if t_only:
@@ -254,7 +420,7 @@ def main() -> int:
             []), list(base))
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(
-            lambda kv: _build(kv[0], *kv[1]), jobs.items())))
+            lambda kv: _build(a.phase, kv[0], *kv[1]), jobs.items())))
     libs = {name: cw._bind(ctypes.CDLL(so)) for name, (so, _) in built.items()}
     order = list(libs)
 
@@ -264,11 +430,11 @@ def main() -> int:
         for dtype in ("float32", "float64"):
             cw._lib = libs["package"]
             seen = cs._p3_step_rates_sed(build, dtype)
-            _, arrays, _ = seen["rates_pre"][0]
+            _, arrays, dt = seen[a.phase][0]
             del seen
 
             def run():
-                return cw._launch("rates_pre", False, arrays)
+                return cw._launch(a.phase, False, arrays, dt)
             want = run()
             line = {"equal": {}}
             for name in order:
@@ -291,7 +457,8 @@ def main() -> int:
             print(f"{chain} {dtype}", json.dumps(line), flush=True)
             del arrays, want
             torch.cuda.empty_cache()
-    print("RESULT " + json.dumps({"card": _card(), "result": res}),
+    print("RESULT " + json.dumps({"card": _card(), "phase": a.phase,
+                                  "result": res}),
           flush=True)
     return 0
 

@@ -614,6 +614,104 @@ def test_p3_rates_pre_flags_match_plain(kind, at, dtype, layout, cuda_device):
     _close_to_plain(got, want, (kind, at, dtype, layout))
 
 
+def _offset_views(fields):
+    """Each field as a contiguous view one element into its storage (not
+    16-byte aligned)."""
+    views = []
+    for f in fields:
+        buf = torch.empty(f.numel() + 1, dtype=f.dtype, device=f.device)
+        buf[1:] = f
+        views.append(buf[1:])
+    assert all(v.is_contiguous() and v.data_ptr() % 16 for v in views)
+    return views
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset 1"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind,at", cs.RATES_POST_CASES)
+def test_p3_rates_post_branches_match_plain(kind, at, dtype, layout,
+                                            cuda_device):
+    """rates_post's kernel against its plain version on 963 quiet cells (no
+    gate holds), or with one cell of a cold mixed-phase regime (every
+    gated group but rain evaporation) or of warm rain (rain evaporation)
+    at the first, the middle or the last cell: a warp whose one cell
+    passes a gate among 31 that fail it takes the branch for that cell
+    alone; as made and one element into storage."""
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
+
+    fields = cs._rates_post_case(kind, at, dtype, cuda_device)
+    if layout == "offset 1":
+        fields = _offset_views(fields)
+    gates = cs._rates_post_gates(fields)
+    assert any(bool(g.any()) for g in gates.values()) == (at is not None)
+    n0 = CW.p3_rates_post.launches
+    got = CW.p3_rates_post(2.0, *fields)
+    want = CW.rates_post_plain(2.0, *fields)
+    assert CW.p3_rates_post.launches == n0 + 1
+    _close_to_plain(got, want, (kind, at, dtype, layout))
+
+
+def _newton_cells(dtype, device):
+    """The wrapper's 13 inputs on 963 cells, made with numpy: the 8192-cell
+    recipe of the CPU tests and as many cells within 1e-7 of saturation
+    (where the Newton ends after one trip), placed by their trips
+    (chip_smoke._newton_trips): warps of cells that skip the Newton, one
+    that ends after one trip or that runs every trip among them at the
+    first, a middle and the last cell, a warp of cells that run every trip
+    and one of every kind."""
+    from miniweatherml_tpu_torch.physics import p3 as P
+    rng = np.random.default_rng(17)
+    m = 8192
+    rho_d = np.tile(0.3 + 1.0 * rng.random(m), 2)
+    rho_v = 0.03 * rng.random(m)
+    rho_c = np.where(rng.random(m) < 0.5, 0.01 * rng.random(m), 0.0)
+    temp = np.tile(200.0 + 120.0 * rng.random(m), 2)
+    svp = P.saturation_vapor_pressure(torch.as_tensor(temp[m:])).numpy()
+    rho_v = np.concatenate([rho_v, svp / (P.R_V * temp[m:]) * (1 + 1e-7)])
+    rho_c = np.concatenate([rho_c, np.full(m, 1e-3)])
+    z = np.zeros(2 * m)
+    pool = [rho_d, temp, rho_c, z, 1e-4 * rng.random(2 * m) * rho_d, z,
+            1e-4 * rng.random(2 * m) * rho_d, z, z, z, rho_v, z, z]
+    trips = cs._newton_trips([torch.as_tensor(a, dtype=dtype)
+                              for a in pool]).numpy()
+    full = 11 if dtype == torch.float64 else 8
+    kinds = {t: np.flatnonzero(trips == t) for t in (0, 1, full)}
+    assert all(len(v) >= 64 for v in kinds.values()), dtype
+    n = 963
+    pick = rng.choice(kinds[0], n)
+    for t, at in ((1, 0), (1, 481), (1, 962), (full, 100), (full, 700)):
+        pick[at] = rng.choice(kinds[t])
+    pick[320:352] = rng.choice(kinds[full], 32)
+    pick[384:416] = rng.choice(np.concatenate(list(kinds.values())), 32)
+    first = rng.random(n) < 0.5  # the first step's t_prev = 0
+    fields = [a[pick] for a in pool]
+    for k, scale in ((3, 1e8), (5, 1e4), (7, 1e5), (8, 1e-5), (9, 1e-8)):
+        fields[k] = scale * rng.random(n) * fields[0]
+    fields[11] = np.where(first, 0.0, fields[10] / fields[0])
+    fields[12] = np.where(first, 0.0, fields[1] - 0.3)
+    return [torch.as_tensor(f).to(device=device, dtype=dtype)
+            for f in fields]
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset 1"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_p3_wrapper_newton_cells_match_plain(dtype, layout, cuda_device):
+    """The wrapper's kernel against its plain version on cells that skip
+    the saturation Newton, end it after one trip or run every trip, alone
+    or together in a warp (_newton_cells); as made and one element into
+    storage."""
+    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
+
+    fields = _newton_cells(dtype, cuda_device)
+    if layout == "offset 1":
+        fields = _offset_views(fields)
+    n0 = CW.p3_wrapper.launches
+    got = CW.p3_wrapper(*fields)
+    want = CW.wrapper_plain(*fields)
+    assert CW.p3_wrapper.launches == n0 + 1
+    _close_to_plain(got, want, (dtype, layout))
+
+
 def _part3_calls(state, mods, monkeypatch):
     """The arguments one P3 step hands p3_part3 and p3_wrapper_out."""
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW

@@ -41,6 +41,8 @@ from tests.test_p3_oracle import NZ_FULL, _column_profile
 from tests.test_torch_dycore import (STEP_ATOL_OF_SCALE, STEP_RTOL,
                                      assert_fields_close, to_port)
 
+import chip_smoke as cs
+
 torch.set_num_threads(1)
 
 SCHEME_OUT = ("qc", "nc", "qr", "nr", "qi", "ni", "qm", "bm", "qv", "theta",
@@ -102,13 +104,7 @@ def test_saturation_functions_match_jax():
 def test_compute_adjusted_state_matches_jax(iters):
     """Both solver forms, over condensing / evaporating / inactive cells
     (the recipe of tests/test_p3.py's Newton-vs-bisection test)."""
-    rng = np.random.default_rng(17)
-    n = 8192
-    rho_d = 0.3 + 1.0 * rng.random(n)
-    rho_v = 0.03 * rng.random(n)
-    rho_c = np.where(rng.random(n) < 0.5, 0.01 * rng.random(n), 0.0)
-    temp = 200.0 + 120.0 * rng.random(n)
-    args = (rho_d + rho_v + rho_c, rho_d, rho_v, rho_c, temp)
+    args = _recipe_inputs()
     want = JP.compute_adjusted_state(*(jnp.asarray(a) for a in args),
                                      iters=iters)
     got = PP.compute_adjusted_state(*(_t(a) for a in args), iters=iters)
@@ -191,6 +187,150 @@ def test_cellwise_phase_matches_jax(phase, pnc, mixed64):
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
         _close_of_scale(g, w, 1e-12, f"{phase} output {i}")
+
+
+def _bits(x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+
+
+def _newton_model(rho, rho_d, rho_v, rho_c, temp):
+    """The wrapper kernel's control flow of the saturation adjustment
+    (csrc/p3_cellwise.cu adjust_state, saturation_newton) in torch, on the
+    plain version's arithmetic: the Newton only in cells that condense or
+    evaporate and whose boundary root does not hold, and each cell's trips
+    ended by a ``done`` mask after the first trip that leaves x with the
+    bits it had.  Returns (rho_v, rho_c, temp, trips per cell)."""
+    svp = PP.saturation_vapor_pressure(temp)
+    pv = rho_v * PP.R_V * temp
+    condensing = pv > svp
+    evaporating = (pv < svp) & (rho_c > 0.0)
+    lv = PP.latent_heat_condensation(temp)
+    rho_t = rho_d + rho_v + rho_c
+    cp0 = (rho_d * PP.CP_D + rho_v * PP.CP_V + rho_c * PP.CP_L) / rho_t
+    dcp = PP._div(PP.CP_L - PP.CP_V, rho_t)
+    cp_lo = cp0 - rho_c * dcp
+    t_lo = temp - rho_c * lv / (rho * cp_lo)
+    boundary = evaporating & ((rho_v + rho_c) * PP.R_V * t_lo
+                              - PP.saturation_vapor_pressure(t_lo) <= 0.0)
+    newton = (condensing | evaporating) & ~boundary
+    lo = torch.where(condensing, 0.0, -rho_c)
+    hi = torch.where(condensing, rho_v, 0.0)
+    dtdx0 = lv / (rho * cp0)
+    fp0 = (-PP.R_V * temp + rho_v * PP.R_V * dtdx0
+           - PP._magnus_dsvp_dT(svp, temp) * dtdx0)
+    x1 = -(pv - svp) / PP._min(fp0, -1e-30)
+    x = torch.where((fp0 < 0.0) & (x1 >= lo) & (x1 <= hi), x1,
+                    0.5 * (lo + hi))
+    xb, fb = x, torch.full_like(x, float("inf"))
+    done = ~newton
+    trips = torch.zeros(x.shape, dtype=torch.int64)
+    for _ in range(11 if x.dtype == torch.float64 else 8):
+        live = ~done
+        rv = rho_v - x
+        cp = cp0 + x * dcp
+        dtdx_lin = lv / (rho * cp)
+        t_loc = temp + x * dtdx_lin
+        svp_loc = PP.saturation_vapor_pressure(t_loc)
+        f = rv * PP.R_V * t_loc - svp_loc
+        better = live & (f.abs() < fb)
+        xb = torch.where(better, x, xb)
+        fb = torch.where(better, f.abs(), fb)
+        lo = torch.where(live & (f > 0.0), x, lo)
+        hi = torch.where(live & ~(f > 0.0), x, hi)
+        dtdx = dtdx_lin * (1.0 - x * dcp / cp)
+        fp = (-PP.R_V * t_loc + rv * PP.R_V * dtdx
+              - PP._magnus_dsvp_dT(svp_loc, t_loc) * dtdx)
+        xn = x - f / fp
+        nxt = torch.where((xn >= lo) & (xn <= hi), xn, 0.5 * (lo + hi))
+        trips += live.long()
+        done = done | (live & (_bits(nxt) == _bits(x)))
+        x = torch.where(live, nxt, x)
+    x = torch.where(boundary, -rho_c, torch.where(newton, xb, 0.0))
+    rv = PP._max(rho_v - x, 0.0)
+    rc = PP._max(rho_c + x, 0.0)
+    cp = PP._cp_moist(rho_d, rv, rc)
+    return rv, rc, temp + x * lv / (rho * cp), trips
+
+
+def _recipe_inputs():
+    """(rho, rho_d, rho_v, rho_c, temp) of 8192 condensing, evaporating and
+    inactive cells (the recipe of tests/test_p3.py's Newton-vs-bisection
+    test)."""
+    rng = np.random.default_rng(17)
+    n = 8192
+    rho_d = 0.3 + 1.0 * rng.random(n)
+    rho_v = 0.03 * rng.random(n)
+    rho_c = np.where(rng.random(n) < 0.5, 0.01 * rng.random(n), 0.0)
+    temp = 200.0 + 120.0 * rng.random(n)
+    return rho_d + rho_v + rho_c, rho_d, rho_v, rho_c, temp
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cells", ["recipe", "mixed64"])
+def test_newton_early_end_matches_compute_adjusted_state(cells, dtype,
+                                                         mixed64):
+    """The kernel's Newton control flow (_newton_model: skipped where its
+    result is thrown away, each cell's loop ended at repeated bits) equals
+    the fixed-trip compute_adjusted_state bit for bit, on the 8192-cell
+    recipe and on the seeded mixed-regime state, f32 and f64; some cells
+    skip the Newton, some end it early and some run every trip; and
+    chip_smoke's trip count (the phase 31 histogram) is the model's."""
+    if cells == "recipe":  # as the wrapper's inputs, without hydrometeors
+        _, rho_d, rho_v, rho_c, temp = (torch.as_tensor(a, dtype=dtype)
+                                        for a in _recipe_inputs())
+        zero = torch.zeros_like(temp)
+        wargs = [rho_d, temp, rho_c, *[zero] * 7, rho_v, zero, zero]
+    else:
+        wargs = [torch.as_tensor(np.array(a), dtype=dtype)
+                 for a in _wrapper_args(mixed64[0])]
+    rho_d, temp, rho_c, rho_v = wargs[0], wargs[1], wargs[2], wargs[10]
+    rho = rho_d + rho_c + wargs[4] + wargs[6] + rho_v  # the wrapper's rho
+    want = PP.compute_adjusted_state(rho, rho_d, rho_v, rho_c, temp)
+    *got, trips = _newton_model(rho, rho_d, rho_v, rho_c, temp)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w)), (cells, dtype)
+    full = 11 if dtype == torch.float64 else 8
+    assert int((trips == 0).sum()) > 0
+    assert int(((trips > 0) & (trips < full)).sum()) > 0
+    assert int((trips == full).sum()) > 0
+    assert torch.equal(cs._newton_trips(wargs), trips)
+
+
+# RatesPost's gated groups (chip_smoke._rates_post_gates) and what the
+# kernel writes where a gate fails: output index -> value (None: +0)
+RP_SKIP = {"autoconversion": {0: None}, "accretion": {1: None},
+           "rain_size": {18: None}, "nucleation": {14: None, 15: None},
+           "bigg_cloud": {2: None, 3: None}, "bigg_rain": {4: None, 5: None},
+           "ice": {**{k: None for k in (6, 7, 8, 9, 13, 16, 17, 19, 20, 22)},
+                   21: 400.0, 23: "ni_in"},
+           "rime": {21: 400.0}, "evaporation": {12: None},
+           "ice and rain": {16: None, 17: None},
+           "ice and rain at or below 0 C": {16: None}}
+
+
+@pytest.mark.parametrize("gate", list(RP_SKIP))
+def test_rates_post_gates_give_the_skip_constants(gate):
+    """Where a RatesPost gate fails, the plain version gives exactly the
+    value the kernel's skip path writes there (+0 with its sign, rho_rime
+    400, ni_rate = ni_in), f32 and f64, on cells of every regime of
+    chip_smoke._rates_post_fields; each gate holds in some cells and fails
+    in others."""
+    rng = np.random.default_rng(23)
+    regimes = list(rng.choice(list(cs.RP_REGIMES), 4096))
+    for dtype in (torch.float64, torch.float32):
+        fields = cs._rates_post_fields(regimes, dtype, "cpu")
+        off = ~cs._rates_post_gates(fields)[gate]
+        assert 0 < int(off.sum()) < off.numel(), (gate, dtype)
+        out = CW.rates_post_plain(2.0, *fields)
+        for k, value in RP_SKIP[gate].items():
+            if value is None:
+                want = torch.zeros_like(out[k])
+            elif value == "ni_in":
+                want = fields[16]
+            else:
+                want = torch.full_like(out[k], value)
+            assert torch.equal(_bits(out[k][off]), _bits(want[off])), (
+                gate, dtype, k)
 
 
 def _scheme_inputs(st):
