@@ -1,0 +1,60 @@
+"""The system under test: the port's chain for a configuration, built
+through the port's public entries.
+
+The configuration names the experiment module whose ``build(config,
+device)`` makes the chain (``entry``) and the dycore form to run
+(``dycore``: its keyword arguments, as ``miniweatherml_tpu_torch.bench``
+swaps it in); the four step modules then run in the reference order.  This
+is the only module of the benchmark that imports the program.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import torch
+
+
+class Program:
+    """The port's chain for ``cfg`` on ``device``."""
+
+    def __init__(self, cfg: dict, device):
+        from miniweatherml_tpu_torch.config import config_from_dict
+        from miniweatherml_tpu_torch.dycore.euler import Dycore
+
+        self.config = config_from_dict(cfg)
+        build = importlib.import_module(cfg["entry"]).build
+        state, mods, _ = build(self.config, device)
+        self.dycore = Dycore(**cfg["dycore"])
+        self.mods = [self.dycore.time_step, *mods[1:]]
+        self.names = list(cfg["modules"])
+        if len(self.names) != len(self.mods):
+            raise ValueError(f"modules {self.names} do not name the chain's "
+                             f"{len(self.mods)} step modules")
+        self.state = state
+
+    def apply(self, updates: dict) -> None:
+        self.state = self.state.replace_fields(**updates)
+
+    def time_step(self) -> float:
+        """The CFL step, taken once and held (``Dycore.compute_time_step``)."""
+        return self.dycore.compute_time_step(self.state)
+
+    def step(self, dt: float, spans: bool = False) -> None:
+        """One step of the chain; with ``spans`` each module inside a
+        ``record_function`` span of its name."""
+        state = self.state
+        if spans:
+            for name, mod in zip(self.names, self.mods):
+                with torch.profiler.record_function(name):
+                    state = mod(state, dt)
+        else:
+            for mod in self.mods:
+                state = mod(state, dt)
+        self.state = state
+
+    def fields(self, names) -> dict:
+        return {n: self.state[n] for n in names}
+
+    def validate(self) -> dict:
+        return self.state.validate()
