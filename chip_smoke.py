@@ -272,6 +272,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from miniweatherml_tpu_torch.utils import profiling
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chip_smoke_out")  # git-ignored
 
@@ -976,10 +978,21 @@ def _entry_label(lib: str, mangled: str) -> str:
     return _kernel_name(mangled)
 
 
+def _build_seconds(source):
+    """Host seconds of this process's build of ``source`` (its span
+    ``build.<source>``, recorded under a profiler session); 0.0 when it was
+    not built under one (cached)."""
+    span = profiling.read()["spans"].get(f"build.{source}")
+    return 0.0 if span is None else span["host_ms"] / 1e3
+
+
 def phase_build():
     from miniweatherml_tpu_torch import cuda_build, native
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 4) as pool:
+    # a profiler session, so that the builds' spans record their times
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]), \
+            ThreadPoolExecutor(len(LIBRARIES) + 4) as pool:
         # the P3 native twin (g++) and the SASS probes of the sedimentation
         # and the per-cell phases build beside the CUDA libraries
         twin = pool.submit(native.load_p3_library)
@@ -991,10 +1004,11 @@ def phase_build():
             probe.result()
         rcp.result()
     for name in LIBRARIES:
-        print(f"[2] built {name}: nvcc "
-              f"{cuda_build.build_seconds.get(name, 0.0):.2f} s", flush=True)
-    print(f"[2] built the P3 native twin: g++ {native.build_seconds:.2f} s",
-          flush=True)
+        print(f"[2] built {name}: nvcc {_build_seconds(name):.2f} s",
+              flush=True)
+    print(f"[2] built the P3 native twin: g++ "
+          f"{_build_seconds('p3_native'):.2f} s; "
+          f"{profiling.counter('cuda_build.builds')} builds", flush=True)
     print(f"[2] all builds: {time.perf_counter() - t0:.2f} s", flush=True)
     # registers, spills and shared memory of the flux kernel's
     # instantiations in each algebra; the paths run ord 5 with tracer
@@ -1490,36 +1504,37 @@ def phase_kessler():
     return rec
 
 
+def _launch_counters(*kernels):
+    """{kernel: the registry name of its launch counter}."""
+    return {k: f"{k}.launches" for k in kernels}
+
+
 def _counters(chain):
     """The launch counters of the kernels on a chain's path."""
-    from miniweatherml_tpu_torch.ops.direction_fluxes import direction_fluxes
-    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
-    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as lk
-    from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
-    from miniweatherml_tpu_torch.ops.fct import fct_mult, fct_scale_div
-    from miniweatherml_tpu_torch.physics.kessler_cuda import (kessler_step,
-                                                              min_step)
-    from miniweatherml_tpu_torch.physics.kessler_surrogate_cuda import (
-        surrogate_forward)
-    dycore = {"direction_fluxes": direction_fluxes, "fct_mult": fct_mult,
-              "fct_scale_div": fct_scale_div}
+    dycore = _launch_counters("direction_fluxes", "fct_mult", "fct_scale_div")
     if chain == "city":
         return dycore
-    kessler = {"min_step": min_step, "kessler_step": kessler_step}
+    kessler = _launch_counters("min_step", "kessler_step")
     if chain == "kessler":
         return {**dycore, **kessler}
     if chain == "surrogate":
-        return {**dycore, **kessler, "surrogate_forward": surrogate_forward}
+        return {**dycore, **kessler, **_launch_counters("surrogate_forward")}
     if chain == "p3_native":  # the column step runs in the C++ twin
-        return {**dycore, "p3_wrapper": cw.p3_wrapper,
-                "p3_wrapper_out": cw.p3_wrapper_out}
-    return {**dycore,
-            "interp_ice": lk.interp_ice, "interp_collect": lk.interp_collect,
-            "interp_rain": lk.interp_rain, "p3_part1": cw.p3_part1,
-            "p3_update": cw.p3_update, "p3_wrapper": cw.p3_wrapper,
-            "p3_rates_pre": cw.p3_rates_pre, "p3_rates_post": cw.p3_rates_post,
-            "sed_step": sed.sed_step, "sed_columns": sed.sed_columns,
-            "p3_part3": cw.p3_part3, "p3_wrapper_out": cw.p3_wrapper_out}
+        return {**dycore, **_launch_counters("p3_wrapper", "p3_wrapper_out")}
+    return {**dycore, **_launch_counters(
+        "interp_ice", "interp_collect", "interp_rain", "p3_part1",
+        "p3_update", "p3_wrapper", "p3_rates_pre", "p3_rates_post",
+        "sed_step", "sed_columns", "p3_part3", "p3_wrapper_out")}
+
+
+def _totals(counters):
+    """{key: the registry total of its counter} of ``counters``."""
+    return {k: profiling.counter(name) for k, name in counters.items()}
+
+
+def _since(counters, before):
+    """{key: its counter's count since ``before`` (``_totals``)}."""
+    return {k: n - before[k] for k, n in _totals(counters).items()}
 
 
 def _check_state(tag, state):
@@ -1571,8 +1586,8 @@ def _glue_per_step(mods, state, dt):
 
 def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None,
               per_step=None, glue=False):
-    """run_benchmark on the chain's path with its launch counters set to 0
-    just before and read just after; ``finish(state)`` runs on the final
+    """run_benchmark on the chain's path with its launch counters read
+    just before and just after; ``finish(state)`` runs on the final
     state.  Every step (and the discarded warm-up step) launches each kernel
     of ``per_step`` (default: the dycore's) that many times; every other
     kernel of the path at least once in the run.  ``glue``: then one more
@@ -1590,10 +1605,9 @@ def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None,
         chain_of.update(mods=out[1], dycore=out[2])
         return out
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    before = _totals(counters)
     state, res = run_benchmark(cfg, "cuda", quiet=True, build=keep)
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _since(counters, before)
     peak = torch.cuda.max_memory_allocated()
     maxw = _check_state(tag, state)
     per_step = per_step or DYCORE_PER_STEP
@@ -1635,8 +1649,8 @@ def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None,
 # Dycore() (the reference algebra); then by the Dycore keywords that no
 # YAML key reaches: riemann_impl "pallas" with opt_algebra=False and with a
 # cutoff, both the reference algebra with approximate-reciprocal weights;
-# with the flux launches each form counts (ops/direction_fluxes.py:
-# opt_launches, fast_launches, ref_fast_launches).
+# with the flux launches each form counts (the counters
+# direction_fluxes.opt_launches, .fast_launches and .ref_fast_launches).
 OPT_SLICE_FORMS = (("opt + fast weights", {"riemann_impl": "pallas"}, "fast"),
                    ("opt, exact weights", {"riemann_impl": "pallas",
                                            "fast_weights": False}, "opt"),
@@ -1649,11 +1663,8 @@ OPT_SLICE_FORMS = (("opt + fast weights", {"riemann_impl": "pallas"}, "fast"),
                                 "cutoff": FAST_CUTOFF}}, "ref_fast"))
 
 
-def _flux_form_counts():
-    from miniweatherml_tpu_torch.ops.direction_fluxes import direction_fluxes
-    return {"opt": direction_fluxes.opt_launches,
-            "fast": direction_fluxes.fast_launches,
-            "ref_fast": direction_fluxes.ref_fast_launches}
+FLUX_FORM_COUNTERS = {a: f"direction_fluxes.{a}_launches"
+                      for a in ("opt", "fast", "ref_fast")}
 
 
 def _dycore_build(dycore_kw):
@@ -1689,7 +1700,6 @@ def phase_opt_slice(card):
     from miniweatherml_tpu_torch.experiments.community_benchmark import (
         run_benchmark)
     from miniweatherml_tpu_torch.experiments.supercell_example import build
-    from miniweatherml_tpu_torch.ops.direction_fluxes import direction_fluxes
     counters = _counters("kessler")
     finals, launches_of, ms_of = {}, {}, {}
     order = OPT_SLICE_FORMS + OPT_SLICE_FORMS[::-1]
@@ -1698,16 +1708,14 @@ def phase_opt_slice(card):
         dycore_kw = keys.pop("dycore", None)
         cfg = _bench_cfg(512, 512, 64, 10, "float32", **keys)
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        direction_fluxes.opt_launches = direction_fluxes.fast_launches = 0
-        direction_fluxes.ref_fast_launches = 0
+        before = _totals(counters)
+        form0 = _totals(FLUX_FORM_COUNTERS)
         state, res = run_benchmark(
             cfg, "cuda", quiet=True,
             **({} if dycore_kw is None else {"build": _dycore_build(
                 dycore_kw)}))
-        launches = {k: fn.launches for k, fn in counters.items()}
-        forms = _flux_form_counts()
+        launches = _since(counters, before)
+        forms = _since(FLUX_FORM_COUNTERS, form0)
         peak = torch.cuda.max_memory_allocated()
         maxw = _check_state(f"[33] {label}", state)
         steps = res["steps"] + 1  # and the discarded warm-up step
@@ -1753,11 +1761,11 @@ def phase_opt_slice(card):
     for device in ("cpu", "cuda"):
         state, mods, dycore = build(cfg, device)
         dt = dycore.compute_time_step(state)
-        f0 = _flux_form_counts()
+        f0 = _totals(FLUX_FORM_COUNTERS)
         for _ in range(3):
             for m in mods:
                 state = m(state, dt)
-        f1 = _flux_form_counts()
+        f1 = _totals(FLUX_FORM_COUNTERS)
         outs.append(state)
     worst = max(_rel(outs[0][k], outs[1][k].cpu())[1] for k in outs[0].fields)
     print(f"[33] 16x8x10 f64 riemann_impl pallas 3-step slice, card vs CPU: "
@@ -1930,7 +1938,6 @@ def _p3_step_lookups(build, dtype):
                 args, present = args[:nargs], args[nargs]
             seen.append((name, args, present))
             return real[name](*args, present=present)
-        call.launches = 0  # the wrapper counts on its module-level name
         return call
     LK.interp_ice = spy("interp_ice", 7)
     LK.interp_collect = spy("interp_collect", 9)
@@ -2181,6 +2188,7 @@ def _p3_step_rates_sed(build, dtype):
     STEP_PHASES, the two sedimentation wrappers, part3 and the output pass:
     {name: (args, keywords)}, and under "launches" the sedimentation
     wrappers' launches in the step."""
+    sed_counters = _launch_counters("sed_step", "sed_columns")
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
     from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
     state, mods, dycore = build(_bench_cfg(512, 512, 64, 1, dtype), "cuda")
@@ -2197,7 +2205,6 @@ def _p3_step_rates_sed(build, dtype):
         def call(*args, **kw):
             seen[name] = (args, kw)
             return real(*args, **kw)
-        call.launches = 0  # the wrapper counts on its module-level name
         return call
     cw._launch = spy_launch
     spies = {"sed_step": spy("sed_step", step),
@@ -2205,6 +2212,7 @@ def _p3_step_rates_sed(build, dtype):
     sed.sed_step, sed.sed_columns = spies["sed_step"], spies["sed_columns"]
     cw.p3_part3, cw.p3_wrapper_out = (spy("p3_part3", part3),
                                       spy("p3_wrapper_out", wrapper_out))
+    before = _totals(sed_counters)
     try:
         mods[1](state, dycore.compute_time_step(state))
     finally:
@@ -2213,7 +2221,7 @@ def _p3_step_rates_sed(build, dtype):
     if set(seen) != set(STEP_PHASES) | set(SED_CALLS) | {"p3_part3",
                                                            "p3_wrapper_out"}:
         raise AssertionError(f"P3 step made calls {sorted(seen)}")
-    seen["launches"] = {name: spy_.launches for name, spy_ in spies.items()}
+    seen["launches"] = _since(sed_counters, before)
     return seen
 
 
@@ -3227,7 +3235,6 @@ def phase_p3_references():
     """16x8x10 f64 P3 slice with seeded layers and part3 diagnostics: card
     against CPU; the card's run launches the diagnostics form of part3."""
     from miniweatherml_tpu_torch.experiments import supercell_p3
-    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
 
     cfg = _supercell_cfg(16, 8, 10, 40000.0, 40000.0, 16000.0, 100.0,
                          "float64")
@@ -3237,15 +3244,15 @@ def phase_p3_references():
         state, mods, dycore = supercell_p3.build(cfg, device)
         state = supercell_p3.seed_layers(state)
         dt = dycore.compute_time_step(state)
-        n0 = cw.p3_part3.launches
+        n0 = profiling.counter("p3_part3.launches")
         for _ in range(3):
             for m in mods:
                 state = m(state, dt)
         outs.append(state)
-    if cw.p3_part3.launches - n0 != 3:
-        raise AssertionError(f"P3 slice with diagnostics: "
-                             f"{cw.p3_part3.launches - n0} part3 launches "
-                             "on the card in 3 steps")
+    part3 = profiling.counter("p3_part3.launches") - n0
+    if part3 != 3:
+        raise AssertionError(f"P3 slice with diagnostics: {part3} part3 "
+                             "launches on the card in 3 steps")
     if float(outs[1]["ice"].max()) <= 0.0:
         raise AssertionError("P3 reference slice holds no ice")
     worst = max(_rel(outs[0][k], outs[1][k].cpu())[1] for k in outs[0].fields)
@@ -3828,17 +3835,9 @@ SPMD_PER_STEP = {"direction_fluxes": 9, "strips": 6, "fct_mult": 3,
 
 
 def _spmd_counts():
-    from miniweatherml_tpu_torch.ops.direction_fluxes import direction_fluxes
-    from miniweatherml_tpu_torch.ops.fct import fct_mult, fct_scale_div
-    from miniweatherml_tpu_torch.physics.kessler_cuda import (kessler_step,
-                                                              min_step)
-    return {"direction_fluxes": (direction_fluxes, "launches"),
-            "strips": (direction_fluxes, "strip_launches"),
-            "fct_mult": (fct_mult, "launches"),
-            "fct_scale_div": (fct_scale_div, "launches"),
-            "edges": (fct_scale_div, "edge_launches"),
-            "kessler_step": (kessler_step, "launches"),
-            "min_step": (min_step, "launches")}
+    return {**_counters("kessler"),
+            "strips": "direction_fluxes.strip_launches",
+            "edges": "fct_scale_div.edge_launches"}
 
 
 def _timed_steps(step, state, dt, steps):
@@ -3909,21 +3908,20 @@ def phase_spmd_kessler(card):
             torch.cuda.set_sync_debug_mode("default")
     syncs = sum("called a synchronizing CUDA operation" in str(w.message)
                 for w in caught)
-    # the main path: counts set to 0, 10 steps, counts read
+    # the main path: counts read, 10 steps, counts read
     counts = _spmd_counts()
     steps = 10
     sharded = shard_state(state, mesh)
     torch.cuda.reset_peak_memory_stats()
     step(sharded, dt)  # warm
     torch.cuda.synchronize()
-    for fn, attr in counts.values():
-        setattr(fn, attr, 0)
+    before = _totals(counts)
     t0 = time.perf_counter()
     for _ in range(steps):
         sharded = step(sharded, dt)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {k: getattr(fn, attr) for k, (fn, attr) in counts.items()}
+    launches = _since(counts, before)
     peak = torch.cuda.max_memory_allocated()
     problems = sharded.validate()
     maxw = max(float(s["wvel"].abs().max()) for s in sharded.shards)
@@ -4131,7 +4129,7 @@ def phase_native_twin():
 
     lib = native.load_p3_library()
     has = bool(lib.p3_has_tables())
-    print(f"[26] P3 native twin: g++ {native.build_seconds:.2f} s "
+    print(f"[26] P3 native twin: g++ {_build_seconds('p3_native'):.2f} s "
           f"({' '.join(native.GXX_FLAGS)}); lookup tables installed: {has}",
           flush=True)
     tables = load_p3_tables() if has else None
@@ -4246,7 +4244,8 @@ def phase_native_chain(card):
           f"error over field scale {worst:.3e} (tol 1e-7)", flush=True)
     if not worst <= 1e-7:
         raise AssertionError(f"native P3 card vs CPU slice: {worst:.3e}")
-    return {"build_s": native.build_seconds, "host_ms_per_step": host_ms,
+    return {"build_s": _build_seconds("p3_native"),
+            "host_ms_per_step": host_ms,
             "copy_ms_per_step": down_ms + up_ms, "cells": 128 * 128 * 64}
 
 
@@ -4271,13 +4270,14 @@ def phase_tracer_groups():
         many times in its algebra's count); plain() is its plain version
         on the same inputs: bit for bit, the fast algebra by the fast
         bar."""
-        counter = {"ref": "launches", "opt": "opt_launches",
-                   "fast": "fast_launches",
-                   "ref_fast": "ref_fast_launches"}[algebra]
-        n0, a0 = wrapper.launches, getattr(wrapper, counter)
+        name = wrapper.__name__
+        counter = f"{name}.launches" if algebra == "ref" else (
+            f"{name}.{algebra}_launches")
+        n0, a0 = (profiling.counter(f"{name}.launches"),
+                  profiling.counter(counter))
         got = kern()
-        launches = wrapper.launches - n0
-        in_form = getattr(wrapper, counter) - a0
+        launches = profiling.counter(f"{name}.launches") - n0
+        in_form = profiling.counter(counter) - a0
         ref = plain()
         torch.cuda.synchronize()
         tup = isinstance(got, tuple)
@@ -4477,23 +4477,8 @@ def phase_bench(card):
 
 
 def _dryrun_counts():
-    from miniweatherml_tpu_torch.physics import kessler_surrogate_cuda as sc
-    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as cw
-    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as lk
-    from miniweatherml_tpu_torch.physics import p3_sed_cuda as sed
-    return {**_spmd_counts(),
-            **{k: (fn, "launches") for k, fn in (
-                ("interp_ice", lk.interp_ice),
-                ("interp_collect", lk.interp_collect),
-                ("interp_rain", lk.interp_rain), ("p3_part1", cw.p3_part1),
-                ("p3_update", cw.p3_update), ("p3_wrapper", cw.p3_wrapper),
-                ("p3_rates_pre", cw.p3_rates_pre),
-                ("p3_rates_post", cw.p3_rates_post),
-                ("sed_step", sed.sed_step),
-                ("sed_columns", sed.sed_columns),
-                ("p3_part3", cw.p3_part3),
-                ("p3_wrapper_out", cw.p3_wrapper_out),
-                ("surrogate_forward", sc.surrogate_forward))}}
+    return {**_spmd_counts(), **_counters("p3"),
+            **_launch_counters("surrogate_forward")}
 
 
 def phase_dryrun(card):
@@ -4505,12 +4490,11 @@ def phase_dryrun(card):
     the FCT edges at least once)."""
     from miniweatherml_tpu_torch import dryrun
     counts = _dryrun_counts()
-    for fn, attr in counts.values():
-        setattr(fn, attr, 0)
+    before = _totals(counts)
     t0 = time.perf_counter()
     res = dryrun.dryrun_multichip(8)
     wall = time.perf_counter() - t0
-    launches = {k: getattr(fn, attr) for k, (fn, attr) in counts.items()}
+    launches = _since(counts, before)
     if any(n < 1 for n in launches.values()):
         raise AssertionError(f"[30] a kernel of the dry run never launched: "
                              f"{launches}")

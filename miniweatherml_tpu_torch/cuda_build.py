@@ -16,10 +16,10 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 
-__all__ = ["load_library", "build_seconds", "NVCC_FLAGS", "nvcc_flags",
-           "on_cuda", "count_launch"]
+from .utils.profiling import count, span
+
+__all__ = ["load_library", "NVCC_FLAGS", "nvcc_flags", "on_cuda"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -49,7 +49,6 @@ def nvcc_flags(name: str) -> tuple[str, ...]:
 _lock = threading.Lock()           # guards _name_locks
 _name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
-build_seconds: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -85,9 +84,9 @@ def load_library(name: str) -> ctypes.CDLL:
             os.makedirs(_BUILD, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *flags, "-o", tmp, _sources(name)[0]]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            build_seconds[name] = time.perf_counter() - t0
+            count("cuda_build.builds")
+            with span(f"build.{name}"):
+                res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed for {name}.cu (rc {res.returncode}):\n"
@@ -108,13 +107,3 @@ def on_cuda(t) -> bool:
         raise ValueError(f"unsupported device {t.device}")
     return True
 
-
-_count_lock = threading.Lock()
-
-
-def count_launch(fn, attr: str = "launches") -> None:
-    """Add one to the launch counter ``fn.<attr>`` of a kernel wrapper.  The
-    shards of a mesh run launch from several threads, and ``+= 1`` on an
-    attribute is no atomic operation, so the update takes a lock."""
-    with _count_lock:
-        setattr(fn, attr, getattr(fn, attr) + 1)

@@ -55,6 +55,7 @@ from ..ops.stencil import BC_WALL
 from ..ops.weno import weno_matrices
 from ..parallel.collectives import axis_index
 from ..parallel.halo import exchange_face_scalar, exchange_halo_strips
+from ..utils.profiling import span
 
 __all__ = ["Dycore", "SpmdCtx", "IDR", "IDU", "IDV", "IDW", "IDT"]
 
@@ -217,21 +218,25 @@ class Dycore:
         """One physics step: CFL sub-cycled SSPRK3 (dynamics...h:81-181).
         ``spmd``: run as one shard of a mesh (``state`` holds the shard's
         local block and local grid; ``parallel/spmd.py``)."""
-        dt_dyn = self.compute_time_step(state)
-        ncycles = max(1, int(math.ceil(dt_phys / dt_dyn - 1e-12)))
-        dt = dt_phys / ncycles
+        with span("dycore.step"):
+            dt_dyn = self.compute_time_step(state)
+            ncycles = max(1, int(math.ceil(dt_phys / dt_dyn - 1e-12)))
+            dt = dt_phys / ncycles
 
-        s, tr = self.convert_coupler_to_dynamics(state)
-        consts = self._consts(state)
-        hy = self._hy(state)
-        immersed = state["immersed_proportion"]
-        positive = [t.positive for t in state.meta.tracers]
+            with span("dycore.to_dynamics"):
+                s, tr = self.convert_coupler_to_dynamics(state)
+            consts = self._consts(state)
+            hy = self._hy(state)
+            immersed = state["immersed_proportion"]
+            positive = [t.positive for t in state.meta.tracers]
 
-        for _ in range(ncycles):
-            s, tr = self._ssprk3(state.grid, consts, hy, immersed, positive,
-                                 s, tr, dt, spmd)
+            for _ in range(ncycles):
+                s, tr = self._ssprk3(state.grid, consts, hy, immersed,
+                                     positive, s, tr, dt, spmd)
 
-        return state.replace_fields(**self._dyn_to_coupler_fields(state, s, tr))
+            with span("dycore.to_coupler"):
+                return state.replace_fields(
+                    **self._dyn_to_coupler_fields(state, s, tr))
 
     # ------------------------------------------------------------------
     # conversions (reference dynamics...h:1891-2015)
@@ -367,13 +372,13 @@ class Dycore:
         tr1) | None).  Returns the stage's state and tracers."""
         c0, c1, cdt, (s0, _), base1 = rk
         sim2d = grid.sim2d
-        full_r = s[IDR] + hy[0][:, :, None, None]
-
         # De-densitized variables (dynamics...h:248-255): rho', u, v, w,
         # (rho theta)', tracer concentrations -- shared by all directions.
-        prim = torch.cat([s[IDR:IDU], s[IDU:IDT] / full_r, s[IDT:IDT + 1],
-                          tr / full_r])
-        del full_r
+        with span("dycore.prim"):
+            full_r = s[IDR] + hy[0][:, :, None, None]
+            prim = torch.cat([s[IDR:IDU], s[IDU:IDT] / full_r,
+                              s[IDT:IDT + 1], tr / full_r])
+            del full_r
 
         # Gravity, Coriolis and the immersed-boundary blend
         # (dynamics...h:524-550) and the stage update ride the last

@@ -20,12 +20,13 @@ import hashlib
 import os
 import subprocess
 import threading
-import time
 
 import numpy as np
 
+from ..utils.profiling import count, span
+
 __all__ = ["load_p3_library", "native_available", "p3_adjust_state_native",
-           "p3_column_step_native", "GXX_FLAGS", "build_seconds"]
+           "p3_column_step_native", "GXX_FLAGS"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "p3_native.cpp")
@@ -36,8 +37,6 @@ GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-# seconds of this process's g++ run (0.0 when the library was cached)
-build_seconds = 0.0
 
 
 def _library_path() -> str:
@@ -49,17 +48,16 @@ def _library_path() -> str:
 
 
 def _build(out: str) -> None:
-    global build_seconds
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = ["g++", *GXX_FLAGS, _SRC, "-o", tmp]
-    t0 = time.perf_counter()
+    count("cuda_build.builds")
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        with span("build.p3_native"):
+            res = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
         raise RuntimeError(f"native P3 build failed: {' '.join(cmd)}: {e}") \
             from e
-    build_seconds = time.perf_counter() - t0
     if res.returncode != 0:
         raise RuntimeError(
             f"native P3 build failed (rc {res.returncode}):\n{' '.join(cmd)}"

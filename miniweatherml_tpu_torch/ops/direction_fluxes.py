@@ -46,7 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..cuda_build import count_launch
+from ..utils.profiling import count
 from .stencil import BC_PERIODIC, BC_WALL, pad_bc
 from .weno import WenoMatrices
 from .weno_fused import (opt_coef_table, reconstruct_edges_opt,
@@ -515,19 +515,9 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + _error(lib, name, rc))
-    count_launch(direction_fluxes)
+    count("direction_fluxes.launches")
     if strips is not None:
-        count_launch(direction_fluxes, "strip_launches")
+        count("direction_fluxes.strip_launches")
     if algebra != "ref":
-        count_launch(direction_fluxes, f"{algebra}_launches")
+        count(f"direction_fluxes.{algebra}_launches")
     return sdiv, tf
-
-
-# launches of the kernel in every algebra, of its halo-strip form among
-# them, of its reduced-operation forms (exact and approximate weights) and
-# of the reference algebra with approximate weights
-direction_fluxes.launches = 0
-direction_fluxes.strip_launches = 0
-direction_fluxes.opt_launches = 0
-direction_fluxes.fast_launches = 0
-direction_fluxes.ref_fast_launches = 0

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from ..cuda_build import count_launch
+from ..utils.profiling import count
 
 __all__ = ["fct_mult", "fct_mult_plain", "fct_mult_groups", "fct_scale_div",
            "fct_scale_div_plain", "fct_scale_div_groups", "per_tracer",
@@ -241,11 +241,8 @@ def fct_mult(tr, positive, Fx, Fy, Fz, dt, dx, dy, dz):
     if rc != 0:
         raise RuntimeError("fct_mult kernel launch failed: "
                            + lib.fct_error_string(rc).decode())
-    count_launch(fct_mult)
+    count("fct_mult.launches")
     return mult
-
-
-fct_mult.launches = 0
 
 
 def fct_scale_div(F, mult, t_prev, axis, n, dxi, rk=None, edges=None):
@@ -331,12 +328,7 @@ def fct_scale_div(F, mult, t_prev, axis, n, dxi, rk=None, edges=None):
     if rc != 0:
         raise RuntimeError("fct_scale_div kernel launch failed: "
                            + lib.fct_error_string(rc).decode())
-    count_launch(fct_scale_div)
+    count("fct_scale_div.launches")
     if edges is not None:
-        count_launch(fct_scale_div, "edge_launches")
+        count("fct_scale_div.edge_launches")
     return out
-
-
-# launches of the kernel, and of those with edge multipliers among them
-fct_scale_div.launches = 0
-fct_scale_div.edge_launches = 0

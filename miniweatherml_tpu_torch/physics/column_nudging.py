@@ -11,6 +11,7 @@ import torch
 
 from ..core.coupler import CouplerState
 from ..parallel.collectives import pmean
+from ..utils.profiling import span
 
 __all__ = ["ColumnNudger"]
 
@@ -36,12 +37,14 @@ class ColumnNudger:
         the water-vapor nudge is not positivity-clamped; transient negatives
         in dry cells are re-clamped by the dycore's per-stage FCT clamp on
         the next step."""
-        column = state["nudging_column"]
-        avgs = pmean(torch.stack([torch.mean(state[n], dim=(2, 3),
-                                             keepdim=True) for n in _FIELDS]),
-                     spmd_axes)
-        updates = {}
-        for l, name in enumerate(_FIELDS):
-            f = state[name]
-            updates[name] = f + dt * (column[l][:, :, None, None] - avgs[l]) / _TIME_SCALE
-        return state.replace_fields(**updates)
+        with span("nudge.step"):
+            column = state["nudging_column"]
+            avgs = pmean(torch.stack([
+                torch.mean(state[n], dim=(2, 3), keepdim=True)
+                for n in _FIELDS]), spmd_axes)
+            updates = {}
+            for l, name in enumerate(_FIELDS):
+                f = state[name]
+                updates[name] = f + dt * (column[l][:, :, None, None]
+                                          - avgs[l]) / _TIME_SCALE
+            return state.replace_fields(**updates)

@@ -18,6 +18,7 @@ import torch
 
 from ..core.coupler import CouplerState
 from ..parallel.collectives import pmin
+from ..utils.profiling import count_device, span
 from .kessler_cuda import (_div, column_constants, kessler_pass,
                            kessler_step, min_step, step_plain)
 
@@ -66,22 +67,24 @@ class MicrophysicsKessler:
         mesh axes to take the sub-cycle count's minimum step over, in a
         shard of a mesh run (the MPI_Allreduce analog)."""
         g = state.grid
-        rho_d = state["density_dry"]
         # The kernel sediments with a scalar dz (reference kessler.h:296-299
         # uses z(k+1)-z(k)); a stretched vertical coordinate must not reach
         # it.
         if not isinstance(g.dz, float):
             raise ValueError("Kessler sub-cycling needs a uniform vertical "
                              "grid (scalar Grid.dz)")
-        rainsplit = _count(dt, pmin(min_step(state["precip_liquid"], rho_d,
-                                             dt, g.dz), spmd_axes))
-        rho_v, rho_c, rho_r, temp, precl = kessler_step(
-            rho_d, state["temp"], state["water_vapor"], state["cloud_liquid"],
-            state["precip_liquid"], rainsplit, dt, g.dz, self.R_d, self.R_v,
-            self.cp_d, self.p0)
-        return state.replace_fields(water_vapor=rho_v, cloud_liquid=rho_c,
-                                    precip_liquid=rho_r, temp=temp,
-                                    precl=precl)
+        with span("kessler.step"):
+            rho_d = state["density_dry"]
+            rainsplit = _count(dt, pmin(min_step(state["precip_liquid"],
+                                                 rho_d, dt, g.dz), spmd_axes))
+            count_device("kessler.subcycles", rainsplit)
+            rho_v, rho_c, rho_r, temp, precl = kessler_step(
+                rho_d, state["temp"], state["water_vapor"],
+                state["cloud_liquid"], state["precip_liquid"], rainsplit, dt,
+                g.dz, self.R_d, self.R_v, self.cp_d, self.p0)
+            return state.replace_fields(water_vapor=rho_v, cloud_liquid=rho_c,
+                                        precip_liquid=rho_r, temp=temp,
+                                        precl=precl)
 
 
 def kessler_rainsplit(qr, rho, z, dt, z_axis: int = 1,

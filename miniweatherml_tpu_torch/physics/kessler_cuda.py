@@ -27,7 +27,8 @@ import ctypes
 
 import torch
 
-from ..cuda_build import count_launch, on_cuda
+from ..cuda_build import on_cuda
+from ..utils.profiling import count
 
 __all__ = ["kessler_step", "kessler_step_plain", "kessler_subcycle_plain",
            "kessler_pass", "kessler_staging", "terminal_velocity",
@@ -276,11 +277,8 @@ def kessler_step(rho_d, temp, rho_v, rho_c, rho_r, rainsplit, dt, dz, Rd,
     if rc != 0:
         raise RuntimeError("kessler kernel launch failed: "
                            + lib.kessler_error_string(rc).decode())
-    count_launch(kessler_step)
+    count("kessler_step.launches")
     return (*outs, precl)
-
-
-kessler_step.launches = 0
 
 
 def min_step(rho_r, rho_d, dt, dz):
@@ -309,8 +307,5 @@ def min_step(rho_r, rho_d, dt, dz):
     if rc != 0:
         raise RuntimeError("kessler min_step kernel launch failed: "
                            + lib.kessler_error_string(rc).decode())
-    count_launch(min_step)
+    count("min_step.launches")
     return step
-
-
-min_step.launches = 0

@@ -29,7 +29,8 @@ import ctypes
 
 import torch
 
-from ..cuda_build import count_launch, load_library, on_cuda
+from ..cuda_build import load_library, on_cuda
+from ..utils.profiling import count
 from ..ml.mlp import leaky_relu
 
 __all__ = ["surrogate_forward", "surrogate_forward_plain", "pack_mlp",
@@ -200,8 +201,5 @@ def _launch(form, temp, rho_d, rho_v, rho_c, rho_r, params, widths):
     if rc != 0:
         raise RuntimeError(f"surrogate kernel ({form} form) launch failed: "
                            + lib.surrogate_error_string(rc).decode())
-    count_launch(surrogate_forward)
+    count("surrogate_forward.launches")
     return tuple(outs)
-
-
-surrogate_forward.launches = 0

@@ -40,6 +40,7 @@ import torch
 
 from ..core.coupler import CouplerState
 from ..parallel.collectives import host_ints, pmax, pmin
+from ..utils.profiling import count_device, span
 from .kessler_cuda import _div
 from .p3_tables import (F1R, F2R, MU_R, P3Tables, cbrt,
                         default_table_path, ice_table_indices,
@@ -1117,6 +1118,7 @@ def p3_scheme(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres,
     vmax = pmax(vmax, spmd_axes)
     dz_min = pmin(dz.min(), spmd_axes)
     nsub_t = _max(torch.ceil(dt * vmax / (0.9 * dz_min)), 1.0)
+    count_device("p3.sed_substeps", nsub_t)
     (qc, nc, qr, nr, qi, ni, qm, bm, precip_liq, precip_ice) = (
         sed.sed_columns(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt,
                         nsub_t, dtab, do_predict_nc=do_predict_nc,
@@ -1397,37 +1399,40 @@ class MicrophysicsP3:
     def time_step(self, state: CouplerState, dt: float,
                   spmd_axes: tuple = ()) -> CouplerState:
         """One P3 step; ``spmd_axes`` as in ``p3_scheme``."""
-        rho_d = state["density_dry"]
-        (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pressure, dz,
-         qv_prev, t_prev) = p3_wrapper_inputs(state)
-        if self.backend == "native":
-            # under a mesh each shard's columns take their own sub-cycle
-            # count, as JAX's pure_callback does under shard_map
-            qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, pl, pi_ = (
-                _p3_scheme_native(
+        with span("p3.step"):
+            rho_d = state["density_dry"]
+            (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pressure, dz,
+             qv_prev, t_prev) = p3_wrapper_inputs(state)
+            if self.backend == "native":
+                # under a mesh each shard's columns take their own sub-cycle
+                # count, as JAX's pure_callback does under shard_map
+                qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, pl, pi_ = (
+                    _p3_scheme_native(
+                        qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner,
+                        pressure, rho_d, dz, dt, qv_prev=qv_prev,
+                        t_prev=t_prev))
+            else:
+                out = p3_scheme(
                     qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner,
-                    pressure, rho_d, dz, dt, qv_prev=qv_prev,
-                    t_prev=t_prev))
-        else:
-            out = p3_scheme(
-                qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pressure,
-                rho_d, dz, dt, z_axis=1, tables=self.tables,
-                qv_prev=qv_prev, t_prev=t_prev,
-                do_predict_nc=self.do_predict_nc,
-                diagnostics=self.diagnostics, spmd_axes=spmd_axes)
-            qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, pl, pi_ = out[:12]
-            if self.diagnostics:
-                state = state.replace_fields(**out[12])
+                    pressure, rho_d, dz, dt, z_axis=1, tables=self.tables,
+                    qv_prev=qv_prev, t_prev=t_prev,
+                    do_predict_nc=self.do_predict_nc,
+                    diagnostics=self.diagnostics, spmd_axes=spmd_axes)
+                (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, pl,
+                 pi_) = out[:12]
+                if self.diagnostics:
+                    state = state.replace_fields(**out[12])
 
-        from .p3_cellwise_cuda import p3_wrapper_out
+            from .p3_cellwise_cuda import p3_wrapper_out
 
-        # the clamped densities, temp with the frozen exner
-        # (microphysics_p3.h:434-436) and the qv history in one pass
-        out = p3_wrapper_out(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner,
-                             rho_d)
-        fields = {t[0]: a for t, a in zip(self.TRACERS, out)}
-        return state.replace_fields(**fields, temp=out[9], qv_prev=out[10],
-                                    t_prev=out[9], precl=pl, precl_ice=pi_)
+            # the clamped densities, temp with the frozen exner
+            # (microphysics_p3.h:434-436) and the qv history in one pass
+            out = p3_wrapper_out(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta,
+                                 exner, rho_d)
+            fields = {t[0]: a for t, a in zip(self.TRACERS, out)}
+            return state.replace_fields(**fields, temp=out[9],
+                                        qv_prev=out[10], t_prev=out[9],
+                                        precl=pl, precl_ice=pi_)
 
     @property
     def micro_name(self) -> str:

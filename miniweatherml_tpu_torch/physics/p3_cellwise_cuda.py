@@ -34,7 +34,8 @@ import ctypes
 
 import torch
 
-from ..cuda_build import count_launch, load_library, on_cuda
+from ..cuda_build import load_library, on_cuda
+from ..utils.profiling import count
 from .p3 import (_p3_part1_cellwise as part1_plain,
                  _p3_part3_cellwise as part3_plain,
                  _p3_rates_post_cellwise as rates_post_plain,
@@ -175,7 +176,7 @@ def p3_part1(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres, rho, *,
     out, launched = _run("part1", do_predict_nc, (
         qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, pres, rho))
     if launched:
-        count_launch(p3_part1)
+        count("p3_part1.launches")
     return out
 
 
@@ -186,7 +187,7 @@ def p3_update(dt, *arrays, do_predict_nc: bool):
         raise ValueError(f"p3_update takes 45 fields, got {len(arrays)}")
     out, launched = _run("update", do_predict_nc, arrays, dt)
     if launched:
-        count_launch(p3_update)
+        count("p3_update.launches")
     return out
 
 
@@ -198,7 +199,7 @@ def p3_wrapper(rho_d, temp, rho_c, rho_nc, rho_r, rho_nr, rho_i, rho_ni,
         rho_d, temp, rho_c, rho_nc, rho_r, rho_nr, rho_i, rho_ni, rho_m,
         rho_bm, rho_v, qv_prev_f, t_prev_f))
     if launched:
-        count_launch(p3_wrapper)
+        count("p3_wrapper.launches")
     return out
 
 
@@ -208,7 +209,7 @@ def p3_rates_pre(qi, qr, qm, bm, qi_in, qm_in, bm_in, ni_in, qr_in, nr_in):
     out, launched = _run("rates_pre", False, (
         qi, qr, qm, bm, qi_in, qm_in, bm_in, ni_in, qr_in, nr_in))
     if launched:
-        count_launch(p3_rates_pre)
+        count("p3_rates_pre.launches")
     return out
 
 
@@ -220,7 +221,7 @@ def p3_rates_post(dt, *arrays):
         raise ValueError(f"p3_rates_post takes 30 fields, got {len(arrays)}")
     out, launched = _run("rates_post", False, arrays, dt)
     if launched:
-        count_launch(p3_rates_post)
+        count("p3_rates_post.launches")
     return out
 
 
@@ -241,7 +242,7 @@ def p3_part3(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, temp, exner, rho,
                           else ICE_COLS)
     out = _launch("part3_diag" if diagnostics else "part3", dtab is not None,
                   arrays, table=table)
-    count_launch(p3_part3)
+    count("p3_part3.launches")
     if not diagnostics:
         return out
     return out[:10], dict(zip(DIAG_NAMES, out[10:]))
@@ -253,14 +254,5 @@ def p3_wrapper_out(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, rho_d):
     out, launched = _run("wrapper_out", False, (
         qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner, rho_d))
     if launched:
-        count_launch(p3_wrapper_out)
+        count("p3_wrapper_out.launches")
     return out
-
-
-p3_part1.launches = 0
-p3_update.launches = 0
-p3_wrapper.launches = 0
-p3_rates_pre.launches = 0
-p3_rates_post.launches = 0
-p3_part3.launches = 0
-p3_wrapper_out.launches = 0

@@ -27,7 +27,8 @@ import ctypes
 
 import torch
 
-from ..cuda_build import count_launch, load_library, on_cuda
+from ..cuda_build import load_library, on_cuda
+from ..utils.profiling import count
 
 __all__ = ["interp_ice", "interp_collect", "interp_rain", "interp_ice_plain",
            "interp_collect_plain", "interp_rain_plain", "pack_ice",
@@ -291,7 +292,7 @@ def interp_ice(table, i0, fi, ii0, fii, jj0, fjj, present=None):
                       present, ice_strides)
     out = _launch("ice", table, (i0, fi, ii0, fii, jj0, fjj),
                   present, K, shape, fi.dtype, fi.device)
-    count_launch(interp_ice)
+    count("interp_ice.launches")
     return out
 
 
@@ -308,7 +309,7 @@ def interp_collect(table, i0, fi, ii0, fii, jj0, fjj, j0, fj, present=None):
     out = _launch("collect", table,
                   (i0, fi, ii0, fii, jj0, fjj, j0, fj), present, K, shape,
                   fi.dtype, fi.device)
-    count_launch(interp_collect)
+    count("interp_collect.launches")
     return out
 
 
@@ -323,10 +324,5 @@ def interp_rain(rows, i0, fi, present=None):
     K, shape = _check(rows, (rows.shape[1],), (fi,), (i0,), present)
     out = _launch("rain", rows, (i0, fi), present, K, shape, fi.dtype,
                   fi.device, extra_ints=(rows.shape[1],))
-    count_launch(interp_rain)
+    count("interp_rain.launches")
     return out
-
-
-interp_ice.launches = 0
-interp_collect.launches = 0
-interp_rain.launches = 0

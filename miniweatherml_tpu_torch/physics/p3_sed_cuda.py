@@ -25,7 +25,8 @@ import ctypes
 
 import torch
 
-from ..cuda_build import count_launch, load_library, on_cuda
+from ..cuda_build import load_library, on_cuda
+from ..utils.profiling import count
 from .p3 import _p3_sed_columns as columns_plain
 from .p3 import _p3_sed_step as step_plain
 from .p3 import _p3_sed_vmax as vmax_plain
@@ -177,7 +178,7 @@ def sed_step(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt, dtab, *,
     _raise(fn(int(dtab is not None), int(bool(do_predict_nc)),
               _ptrs(fields), _ptrs(outs), ice, rain, rsize, float(dt), n, nz,
               plane, vmax.data_ptr(), _stream(qc)), "sed_step")
-    count_launch(sed_step)
+    count("sed_step.launches")
     return vmax, tuple(outs)
 
 
@@ -219,9 +220,5 @@ def sed_columns(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt, nsub_t,
               _ptrs(fields), _ptrs(outs), ice, rain, rsize,
               nsub_t.data_ptr(), float(dt), int(rerun is not None), n, nz,
               plane, _stream(qc)), "sed_columns")
-    count_launch(sed_columns)
+    count("sed_columns.launches")
     return tuple(outs)
-
-
-sed_step.launches = 0
-sed_columns.launches = 0

@@ -14,6 +14,7 @@ import torch
 
 from ..core.coupler import CouplerState
 from ..parallel.collectives import pmean
+from ..utils.profiling import span
 
 __all__ = ["sponge_layer"]
 
@@ -24,30 +25,31 @@ def sponge_layer(state: CouplerState, dt: float, time_scale: float = 60.0,
     """``spmd_axes``: horizontal mesh axis names to ``pmean`` the horizontal
     means over, in a shard of a mesh run (the Allreduce analog; one
     reduction of every field's means together)."""
-    g = state.grid
-    names = ["density_dry", "uvel", "vvel", "wvel", "temp"] + \
-        list(state.meta.tracer_names)
-    time_factor = dt / time_scale
+    with span("sponge.step"):
+        g = state.grid
+        names = ["density_dry", "uvel", "vvel", "wvel", "temp"] + \
+            list(state.meta.tracer_names)
+        time_factor = dt / time_scale
 
-    ref = state["temp"]
-    k = torch.arange(g.nz - num_layers, g.nz, device=ref.device)
-    z = (k.to(ref.dtype) + 0.5) * g.dz
-    rel_dist = (g.zlen - z) / (num_layers * g.dz)
-    space_factor = (torch.cos(math.pi * rel_dist) + 1.0) / 2.0
-    factor = (space_factor * time_factor)[None, :, None, None]
+        ref = state["temp"]
+        k = torch.arange(g.nz - num_layers, g.nz, device=ref.device)
+        z = (k.to(ref.dtype) + 0.5) * g.dz
+        rel_dist = (g.zlen - z) / (num_layers * g.dz)
+        space_factor = (torch.cos(math.pi * rel_dist) + 1.0) / 2.0
+        factor = (space_factor * time_factor)[None, :, None, None]
 
-    # w is relaxed toward zero, not its mean (sponge_layer.h:23,50)
-    avg_names = [n for n in names if n != "wvel"]
-    means = pmean(torch.stack([
-        torch.mean(state[n][:, -num_layers:], dim=(2, 3), keepdim=True)
-        for n in avg_names]), spmd_axes)
-    havgs = dict(zip(avg_names, means.unbind(0)), wvel=0.0)
+        # w is relaxed toward zero, not its mean (sponge_layer.h:23,50)
+        avg_names = [n for n in names if n != "wvel"]
+        means = pmean(torch.stack([
+            torch.mean(state[n][:, -num_layers:], dim=(2, 3), keepdim=True)
+            for n in avg_names]), spmd_axes)
+        havgs = dict(zip(avg_names, means.unbind(0)), wvel=0.0)
 
-    updates = {}
-    for name in names:
-        f = state[name]
-        top = f[:, -num_layers:]
-        havg = havgs[name]
-        updates[name] = torch.cat(
-            [f[:, :-num_layers], top + (havg - top) * factor], dim=1)
-    return state.replace_fields(**updates)
+        updates = {}
+        for name in names:
+            f = state[name]
+            top = f[:, -num_layers:]
+            havg = havgs[name]
+            updates[name] = torch.cat(
+                [f[:, :-num_layers], top + (havg - top) * factor], dim=1)
+        return state.replace_fields(**updates)

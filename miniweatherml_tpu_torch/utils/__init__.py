@@ -1,1 +1,2 @@
-"""Host-side utilities (section timers, profiler annotations and traces)."""
+"""Host-side utilities: the program's spans and counters, section timers and
+profiler traces."""

@@ -800,12 +800,11 @@ def mode_mesh(cs, reps):
     del state
     torch.cuda.empty_cache()
     counts = cs._spmd_counts()
-    for fn, attr in counts.values():
-        setattr(fn, attr, 0)
+    before = cs._totals(counts)
     torch.cuda.reset_peak_memory_stats()
     sharded, dec = _mesh_step_timed(step, sharded, dt, reps)
-    launches = {k: getattr(fn, attr) / ((reps + 1) * mesh.size)
-                for k, (fn, attr) in counts.items()}
+    launches = {k: n / ((reps + 1) * mesh.size)
+                for k, n in cs._since(counts, before).items()}
     out["decomposed"] = {"mesh": mesh.shape, "ms_per_step": 1e3 * dec,
                          "meetings_per_step_and_shard":
                          _meetings_per_step(step, sharded, dt),

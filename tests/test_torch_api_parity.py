@@ -77,6 +77,9 @@ ALLOWED = {
         "the JAX halo fill's option to zero the halo; not ported",
     ("parallel/halo.py", "exchange_halos", "zero_halo"):
         "the JAX halo exchange's option to zero the halo; not ported",
+    ("utils/profiling.py", "annotate"):
+        "the port names a region with span, which also keeps its host and "
+        "device time",
 }
 
 

@@ -26,6 +26,7 @@ from miniweatherml_tpu_torch.physics.kessler import kessler_rainsplit
 from miniweatherml_tpu_torch.physics.kessler_cuda import (
     kessler_staging, kessler_step, kessler_step_plain, min_step,
     min_step_plain)
+from miniweatherml_tpu_torch.utils.profiling import counter
 
 import chip_smoke as cs
 
@@ -78,9 +79,9 @@ def test_direction_fluxes_kernel_matches_plain(ord_, nvar, cuda_device):
                 for bc in (0, 1, 2):
                     args = (prim, axis, prim.shape[axis], bc, nid, 27.56,
                             1.4008, hr, ht, weno_matrices(ord_), 0.0, 2e-3)
-                    n0 = direction_fluxes.launches
+                    n0 = counter("direction_fluxes.launches")
                     got = direction_fluxes(*args)
-                    assert direction_fluxes.launches == n0 + 1
+                    assert counter("direction_fluxes.launches") == n0 + 1
                     for a, b in zip(direction_fluxes_plain(*args), got):
                         where = (dtype, shape, axis, bc)
                         assert a.shape == b.shape, where
@@ -107,9 +108,9 @@ def test_direction_fluxes_rejects_bad_input(cuda_device):
                  np.random.default_rng(1), nvar=15)
     args = (many, -1, 8, 0, 1, 27.56, 1.4008, hy.double(), 300 * hy.double(),
             weno_matrices(5), 0.0, 1.0)
-    n0 = direction_fluxes.launches
+    n0 = counter("direction_fluxes.launches")
     got = direction_fluxes(*args)
-    assert direction_fluxes.launches == n0 + 2
+    assert counter("direction_fluxes.launches") == n0 + 2
     for a, b in zip(direction_fluxes_plain(*args), got):
         assert torch.equal(a, b)
 
@@ -134,21 +135,21 @@ def test_direction_fluxes_opt_kernels_match_plain(ord_, nvar, cuda_device):
                     args = (prim, axis, prim.shape[axis], bc, nid, 27.56,
                             1.4008, hr, ht, weno_matrices(ord_), 0.0, 2e-3)
                     want = direction_fluxes_plain(*args, opt=True)
-                    n0 = direction_fluxes.opt_launches
+                    n0 = counter("direction_fluxes.opt_launches")
                     got = direction_fluxes(*args, opt=True)
-                    assert direction_fluxes.opt_launches == n0 + 1
+                    assert counter("direction_fluxes.opt_launches") == n0 + 1
                     for a, b in zip(want, got):
                         where = (dtype, shape, axis, bc)
                         assert torch.equal(a, b), where
-                    n0 = direction_fluxes.fast_launches
+                    n0 = counter("direction_fluxes.fast_launches")
                     fast = direction_fluxes(*args, opt=True,
                                             fast_weights=True)
                     if dtype == torch.float64:  # f64 runs exact
-                        assert direction_fluxes.fast_launches == n0
+                        assert counter("direction_fluxes.fast_launches") == n0
                         assert all(torch.equal(a, b)
                                    for a, b in zip(want, fast))
                         continue
-                    assert direction_fluxes.fast_launches == n0 + 1
+                    assert counter("direction_fluxes.fast_launches") == n0 + 1
                     for a, b in zip(want, fast):
                         if a.numel():
                             assert _rel(a, b) <= TOL[dtype], where
@@ -181,11 +182,11 @@ def test_direction_fluxes_reference_fast_weights_raise(case, cuda_device):
             def plain():
                 return direction_fluxes_plain(*args, **kw)
             ref = plain()
-            n0 = (direction_fluxes.launches,
-                  direction_fluxes.ref_fast_launches)
+            n0 = (counter("direction_fluxes.launches"),
+                  counter("direction_fluxes.ref_fast_launches"))
             got = direction_fluxes(*args, **kw)
-            assert (direction_fluxes.launches,
-                    direction_fluxes.ref_fast_launches) == (n0[0] + 1,
+            assert (counter("direction_fluxes.launches"),
+                    counter("direction_fluxes.ref_fast_launches")) == (n0[0] + 1,
                                                             n0[1] + 1)
             model = cs._one_ulp_model(plain, ref)
             ok, per = cs._fast_verdict(ref, got, model)
@@ -202,11 +203,11 @@ def test_direction_fluxes_reference_fast_weights_raise(case, cuda_device):
         hy = torch.ones((2, 7), dtype=dtype, device=cuda_device)
         args = (prim, -1, 70, 0, 1, 27.56, 1.4008, hy, 300 * hy,
                 weno_matrices(5), cutoff, 1.0)
-        n0 = (direction_fluxes.ref_fast_launches,
-              direction_fluxes.opt_launches)
+        n0 = (counter("direction_fluxes.ref_fast_launches"),
+              counter("direction_fluxes.opt_launches"))
         got = direction_fluxes(*args, opt=opt, fast_weights=fast)
-        assert (direction_fluxes.ref_fast_launches,
-                direction_fluxes.opt_launches) == n0
+        assert (counter("direction_fluxes.ref_fast_launches"),
+                counter("direction_fluxes.opt_launches")) == n0
         assert all(torch.equal(a, b) for a, b in zip(
             direction_fluxes_plain(*args), got))
 
@@ -245,9 +246,9 @@ def test_kessler_kernel_matches_plain(nz, several, cuda_device):
         rs = kessler_rainsplit(fields[4] / fields[0], fields[0], z, dt)
         assert (int(rs) > 1) == several, int(rs)
         args = (*fields, rs, dt, dz, 287.0, 461.0, 1003.0, 1e5)
-        n0 = kessler_step.launches
+        n0 = counter("kessler_step.launches")
         got = kessler_step(*args)
-        assert kessler_step.launches == n0 + 1
+        assert counter("kessler_step.launches") == n0 + 1
         for i, (a, b) in enumerate(zip(kessler_step_plain(*args), got)):
             assert a.shape == b.shape and a.dtype == b.dtype
             assert _rel(a, b) <= TOL[dtype], (dtype, i)
@@ -281,13 +282,13 @@ def test_kessler_min_step_kernel_equals_plain(dtype, cuda_device):
                             .view(shape) for a in (rho_r, rho_d))
             assert rho_r.data_ptr() % 16 != 0
         dt = 0.3 * dz
-        n0 = min_step.launches
+        n0 = counter("min_step.launches")
         real, KC.min_step_plain = KC.min_step_plain, None
         try:
             got = min_step(rho_r, rho_d, dt, dz)
         finally:
             KC.min_step_plain = real
-        assert min_step.launches == n0 + 1
+        assert counter("min_step.launches") == n0 + 1
         want = min_step_plain(rho_r, rho_d, dt, dz)
         assert got.shape == () and got.dtype == dtype
         assert torch.equal(got, want), (shape, float(got), float(want))
@@ -348,13 +349,13 @@ def test_slice_on_card_matches_cpu(cuda_device):
     for device in ("cpu", cuda_device):
         state, mods, dycore = build(cfg, device)
         dt = dycore.compute_time_step(state)
-        n0 = (direction_fluxes.launches, kessler_step.launches)
+        n0 = (counter("direction_fluxes.launches"), counter("kessler_step.launches"))
         for _ in range(3):
             for m in mods:
                 state = m(state, dt)
         states.append(state)
-    assert direction_fluxes.launches - n0[0] == 3 * 3 * 3
-    assert kessler_step.launches - n0[1] == 3
+    assert counter("direction_fluxes.launches") - n0[0] == 3 * 3 * 3
+    assert counter("kessler_step.launches") - n0[1] == 3
     for name, a in states[0].fields.items():
         a = a.numpy()
         b = states[1][name].cpu().numpy()
@@ -404,9 +405,10 @@ def test_p3_lookup_kernels_match_plain(n, cuda_device):
             for present in (None, True, False):
                 p = (None if present is None
                      else torch.tensor(present, device=cuda_device))
-                n0 = kern.launches
+                launches = f"{kern.__name__}.launches"
+                n0 = counter(launches)
                 got = kern(*args, present=p)
-                assert kern.launches == n0 + 1
+                assert counter(launches) == n0 + 1
                 want = plain(*args, present=p)
                 assert got.shape == want.shape and got.dtype == dtype
                 assert torch.equal(got, want), (kind, dtype, present)
@@ -558,8 +560,8 @@ def test_p3_cellwise_kernels_match_plain(cuda_device, monkeypatch):
     from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
 
     launch = CW._launch
-    wrappers = (CW.p3_part1, CW.p3_update, CW.p3_wrapper, CW.p3_rates_pre,
-                CW.p3_rates_post, CW.p3_part3, CW.p3_wrapper_out)
+    wrappers = ("p3_part1", "p3_update", "p3_wrapper", "p3_rates_pre",
+                "p3_rates_post", "p3_part3", "p3_wrapper_out")
     for dtype in ("float64", "float32"):
         state, mods = _p3_state(dtype, cuda_device)
         dtab = mods[1].__self__.tables.to(cuda_device, state.meta.tdtype)
@@ -571,10 +573,11 @@ def test_p3_cellwise_kernels_match_plain(cuda_device, monkeypatch):
                                                dt, dtab))
             return got
         monkeypatch.setattr(CW, "_launch", spy)
-        n0 = [f.launches for f in wrappers]
+        n0 = [counter(f"{w}.launches") for w in wrappers]
         mods[1](state, 2.0)
         monkeypatch.undo()
-        assert [f.launches for f in wrappers] == [k + 1 for k in n0]
+        assert [counter(f"{w}.launches") for w in wrappers] == [
+            k + 1 for k in n0]
         assert set(seen) == {"part1", "update", "wrapper", "rates_pre",
                              "rates_post", "part3", "wrapper_out"}
         for name, (got, want) in seen.items():
@@ -605,10 +608,10 @@ def test_p3_rates_pre_flags_match_plain(kind, at, dtype, layout, cuda_device):
             views.append(buf[1:])
         fields = views
         assert all(f.is_contiguous() and f.data_ptr() % 16 for f in fields)
-    n0 = CW.p3_rates_pre.launches
+    n0 = counter("p3_rates_pre.launches")
     got = CW.p3_rates_pre(*fields)
     want = CW.rates_pre_plain(*fields)
-    assert CW.p3_rates_pre.launches == n0 + 1
+    assert counter("p3_rates_pre.launches") == n0 + 1
     assert got[-1].tolist() == ["ice" in kind, kind == "ice and rain",
                                 "rain" in kind]
     _close_to_plain(got, want, (kind, at, dtype, layout))
@@ -644,10 +647,10 @@ def test_p3_rates_post_branches_match_plain(kind, at, dtype, layout,
         fields = _offset_views(fields)
     gates = cs._rates_post_gates(fields)
     assert any(bool(g.any()) for g in gates.values()) == (at is not None)
-    n0 = CW.p3_rates_post.launches
+    n0 = counter("p3_rates_post.launches")
     got = CW.p3_rates_post(2.0, *fields)
     want = CW.rates_post_plain(2.0, *fields)
-    assert CW.p3_rates_post.launches == n0 + 1
+    assert counter("p3_rates_post.launches") == n0 + 1
     _close_to_plain(got, want, (kind, at, dtype, layout))
 
 
@@ -705,10 +708,10 @@ def test_p3_wrapper_newton_cells_match_plain(dtype, layout, cuda_device):
     fields = _newton_cells(dtype, cuda_device)
     if layout == "offset 1":
         fields = _offset_views(fields)
-    n0 = CW.p3_wrapper.launches
+    n0 = counter("p3_wrapper.launches")
     got = CW.p3_wrapper(*fields)
     want = CW.wrapper_plain(*fields)
-    assert CW.p3_wrapper.launches == n0 + 1
+    assert counter("p3_wrapper.launches") == n0 + 1
     _close_to_plain(got, want, (dtype, layout))
 
 
@@ -723,7 +726,6 @@ def _part3_calls(state, mods, monkeypatch):
         def call(*a, _real=real, _name=name):
             seen[_name] = a
             return _real(*a)
-        call.launches = 0  # the wrapper counts on its module-level name
         monkeypatch.setattr(CW, name, call)
     mods[1](state, 2.0)
     monkeypatch.undo()
@@ -748,7 +750,7 @@ def test_p3_part3_and_output_pass_match_plain(dtype, tables, cuda_device,
     seen = _part3_calls(state, mods, monkeypatch)
     args = list(seen["p3_part3"])
     assert (args[14] is None) == (not tables)
-    n0 = (CW.p3_part3.launches, CW.p3_wrapper_out.launches)
+    n0 = (counter("p3_part3.launches"), counter("p3_wrapper_out.launches"))
     # no ice, and no cell below -40 C, so none freezes
     ice_free = list(args)
     for i in (4, 5, 6, 7):
@@ -781,7 +783,7 @@ def test_p3_part3_and_output_pass_match_plain(dtype, tables, cuda_device,
     assert len(got) == len(want) == 11
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert (CW.p3_part3.launches, CW.p3_wrapper_out.launches) == (
+    assert (counter("p3_part3.launches"), counter("p3_wrapper_out.launches")) == (
         n0[0] + 6, n0[1] + 1)
 
 
@@ -819,7 +821,6 @@ def _p3_sed_calls(state, mods, monkeypatch):
         def call(*a, _real=real, _name=name, **k):
             seen[_name] = (a, k)
             return _real(*a, **k)
-        call.launches = 0  # the wrapper counts on its module-level name
         monkeypatch.setattr(SED, name, call)
     mods[1](state, 2.0)
     monkeypatch.undo()
@@ -846,7 +847,7 @@ def test_p3_sed_kernels_match_plain(dtype, tables, cuda_device, monkeypatch):
     sa, sk = seen["sed_step"]
     ca, ck = seen["sed_columns"]
     assert (sa[12] is None) == (not tables) and ck["rerun"] is not None
-    n0 = (SED.sed_step.launches, SED.sed_columns.launches)
+    n0 = (counter("sed_step.launches"), counter("sed_columns.launches"))
     fields, (rho, temp, dz, dt, dtab) = sa[:8], sa[8:13]
     vmax = None
     for dt_ in (dt, None):
@@ -875,7 +876,7 @@ def test_p3_sed_kernels_match_plain(dtype, tables, cuda_device, monkeypatch):
                                     state.grid.nx)
             _close_to_plain(got, ref, (dtype, tables, int(nsub), pnc))
     assert int(nsub) == 4
-    assert (SED.sed_step.launches, SED.sed_columns.launches) == (
+    assert (counter("sed_step.launches"), counter("sed_columns.launches")) == (
         n0[0] + 4, n0[1] + 4)
 
 
@@ -966,9 +967,9 @@ def test_fct_kernels_match_plain(dtype, cuda_device):
         Fx = F[-1] if Fy is not None else F[-1][:, :, :, :1].contiguous()
         Fz = F[-3] if Fy is not None else F[-3][:, :, :, :1].contiguous()
         args = (trm, FCT_POSITIVE, Fx, Fy, Fz, 0.37, 5.0, 4.0, 2.5)
-        n0 = fct.fct_mult.launches
+        n0 = counter("fct_mult.launches")
         got = fct.fct_mult(*args)
-        assert fct.fct_mult.launches == n0 + 1
+        assert counter("fct_mult.launches") == n0 + 1
         want = fct.fct_mult_plain(*args)
         assert got.shape == want.shape and (want < 1.0).any()
         assert _rel(want, got) <= TOL[dtype]
@@ -985,12 +986,12 @@ def test_fct_kernels_match_plain(dtype, cuda_device):
             outs = []
             for fn in (fct.fct_scale_div_plain, fct.fct_scale_div):
                 p = None if prev is None else prev.clone()
-                n0 = fct.fct_scale_div.launches
+                n0 = counter("fct_scale_div.launches")
                 out = fn(F[axis], mult, p, axis, n, 0.25, rk=rk)
                 if p is not None:
                     assert out is p
                 outs.append(out)
-            assert fct.fct_scale_div.launches == n0 + 1
+            assert counter("fct_scale_div.launches") == n0 + 1
             want, got = outs
             assert _rel(want, got) <= TOL[dtype], (axis, form)
             if rk is not None:
@@ -1034,9 +1035,9 @@ def test_fct_mult_kernel_equals_plain(dtype, nx, cuda_device):
                               .view(a.shape) for a in (tr, Fx, Fz))
                 assert tr.data_ptr() % 16 != 0
             args = (tr, flags, Fx, Fy, Fz, 0.37, 5.0, 4.0, 2.5)
-            n0 = fct.fct_mult.launches
+            n0 = counter("fct_mult.launches")
             got = fct.fct_mult(*args)
-            assert fct.fct_mult.launches == n0 + 1
+            assert counter("fct_mult.launches") == n0 + 1
             want = fct.fct_mult_plain(*args)
             where = (len(flags), nens, nz, two_d, shifted)
             assert got.shape == want.shape and got.dtype == want.dtype
@@ -1092,9 +1093,9 @@ def test_fct_rejects_bad_input(cuda_device):
                                             device=cuda_device),
             None, torch.zeros((65, 1, 3, 2, 2), device=cuda_device),
             1.0, 1.0, 1.0, 1.0)
-    n0 = fct.fct_mult.launches
+    n0 = counter("fct_mult.launches")
     assert torch.equal(fct.fct_mult(*args), fct.fct_mult_plain(*args))
-    assert fct.fct_mult.launches == n0 + 2
+    assert counter("fct_mult.launches") == n0 + 2
 
 
 def test_city_step_launches_its_kernels(cuda_device):
@@ -1103,24 +1104,24 @@ def test_city_step_launches_its_kernels(cuda_device):
     port's CPU run (f64, uniform cross-flow as in tests/test_torch_city.py,
     rtol 1e-9 plus 1e-7 of each field's scale)."""
     from miniweatherml_tpu_torch.experiments import simple_city
-    from miniweatherml_tpu_torch.ops import fct
 
     cfg = config_from_dict(dict(
         sim_time=1.0, nens=2, nx_glob=64, ny_glob=64, nz=12, xlen=2000.0,
         ylen=2000.0, zlen=300.0, init_data="city", enable_gravity=False,
         dtype="float64"))
-    counters = (direction_fluxes, fct.fct_mult, fct.fct_scale_div)
+    counters = ("direction_fluxes.launches", "fct_mult.launches",
+                "fct_scale_div.launches")
     states = []
     for device in ("cpu", cuda_device):
         state, mods, dycore = simple_city.build_chain(cfg, device)
         state = state.replace_fields(vvel=torch.full_like(state["vvel"], 2.0),
                                      wvel=torch.full_like(state["wvel"], 0.5))
         dt = dycore.compute_time_step(state)
-        n0 = [c.launches for c in counters]
+        n0 = [counter(c) for c in counters]
         for m in mods:
             state = m(state, dt)
         states.append(state)
-    assert [c.launches - k for c, k in zip(counters, n0)] == [9, 3, 9]
+    assert [counter(c) - k for c, k in zip(counters, n0)] == [9, 3, 9]
     assert float(states[1]["immersed_proportion"].max()) == 1.0
     for name, a in states[0].fields.items():
         a = a.numpy()
@@ -1134,30 +1135,26 @@ def test_p3_slice_on_card_matches_cpu(cuda_device):
     16x8x10 supercell_p3 f64 with smooth hydrometeor layers and part3
     diagnostics, 3 steps; rtol 1e-9 plus 1e-7 of each field's scale."""
     from miniweatherml_tpu_torch.experiments import supercell_p3
-    from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
-    from miniweatherml_tpu_torch.physics import p3_lookup_cuda as LK
 
     cfg = config_from_dict(dict(
         sim_time=100.0, nx_glob=16, ny_glob=8, nz=10, xlen=40000.0,
         ylen=40000.0, zlen=16000.0, init_data="supercell", dtype="float64",
         p3_diagnostics=True))
-    from miniweatherml_tpu_torch.physics import p3_sed_cuda as SED
-
-    counters = (LK.interp_ice, LK.interp_collect, LK.interp_rain,
-                CW.p3_part1, CW.p3_update, CW.p3_wrapper, CW.p3_rates_pre,
-                CW.p3_rates_post, CW.p3_part3, CW.p3_wrapper_out,
-                SED.sed_step, SED.sed_columns)
+    counters = [f"{k}.launches" for k in (
+        "interp_ice", "interp_collect", "interp_rain", "p3_part1",
+        "p3_update", "p3_wrapper", "p3_rates_pre", "p3_rates_post",
+        "p3_part3", "p3_wrapper_out", "sed_step", "sed_columns")]
     states = []
     for device in ("cpu", cuda_device):
         state, mods, dycore = supercell_p3.build(cfg, device)
         state = supercell_p3.seed_layers(state)
         dt = dycore.compute_time_step(state)
-        n0 = [c.launches for c in counters]
+        n0 = [counter(c) for c in counters]
         for _ in range(3):
             for m in mods:
                 state = m(state, dt)
         states.append(state)
-    assert all(c.launches > k for c, k in zip(counters, n0))
+    assert all(counter(c) > k for c, k in zip(counters, n0))
     for name, a in states[0].fields.items():
         a = a.numpy()
         b = states[1][name].cpu().numpy()
@@ -1284,14 +1281,14 @@ def test_surrogate_kernel_equals_plain(dtype, cuda_device):
         if name == "5-8000-4":
             assert SC._general_tile(widths, dtype)[2]  # activations in scratch
         for form, fs in cases:
-            n0 = SC.surrogate_forward.launches
+            n0 = counter("surrogate_forward.launches")
             real, SC.surrogate_forward_plain = SC.surrogate_forward_plain, None
             try:
                 got = (SC.surrogate_forward(*fs, params, widths) if form is None
                        else SC._launch(form, *fs, params, widths))
             finally:
                 SC.surrogate_forward_plain = real
-            assert SC.surrogate_forward.launches == n0 + 1
+            assert counter("surrogate_forward.launches") == n0 + 1
             want = real(*fs, params, widths)
             for v, (g, w) in enumerate(zip(got, want)):
                 assert g.dtype == dtype and g.shape == shape
@@ -1370,9 +1367,9 @@ def test_direction_fluxes_strip_form_matches_plain(ord_, cuda_device):
                     args = (block, axis, block.shape[axis], bc, nid, 27.56,
                             1.4008, hr, 300 * hr, weno_matrices(ord_), 0.0,
                             2e-3, strips)
-                    n0 = direction_fluxes.strip_launches
+                    n0 = counter("direction_fluxes.strip_launches")
                     got = direction_fluxes(*args)
-                    assert direction_fluxes.strip_launches == n0 + 1
+                    assert counter("direction_fluxes.strip_launches") == n0 + 1
                     for a, b in zip(direction_fluxes_plain(*args), got):
                         assert torch.equal(a, b), (dtype, axis, bc, i)
                     parts.append(got)
@@ -1462,9 +1459,9 @@ def test_direction_fluxes_epilogues_match_plain(dtype, cuda_device):
                             else part(rk.immersed))
                     a1, a2 = part(acc0), part(acc0)
                     want = direction_fluxes_plain(*args, acc=a1, rk=rk)
-                    n0 = direction_fluxes.launches
+                    n0 = counter("direction_fluxes.launches")
                     got = direction_fluxes(*args, acc=a2, rk=rk)
-                    assert direction_fluxes.launches == n0 + groups
+                    assert counter("direction_fluxes.launches") == n0 + groups
                     assert got[0] is a2
                     where = (dtype, shape, axis, strips is not None,
                              rk and (rk.b1 is not None, rk.grav, rk.fcor))
@@ -1520,9 +1517,9 @@ def test_fct_scale_div_edges_match_plain(cuda_device):
                 for p in (None, prev):
                     args = (F, mult, None if p is None else p.clone(), axis,
                             shape[axis], 2.0, rk, edges)
-                    n0 = fct_scale_div.edge_launches
+                    n0 = counter("fct_scale_div.edge_launches")
                     got = fct_scale_div(*args)
-                    assert fct_scale_div.edge_launches == n0 + 1
+                    assert counter("fct_scale_div.edge_launches") == n0 + 1
                     want = fct_scale_div_plain(
                         F, mult, None if p is None else p.clone(), axis,
                         shape[axis], 2.0, rk, edges)
@@ -1569,9 +1566,9 @@ def test_flux_and_fct_tracer_groups_match_plain(dtype, cuda_device):
                              device=cuda_device)
         args = (prim, axis, prim.shape[axis], 2, nid, 27.56, 1.4008, hr,
                 300 * hr, weno_matrices(5), 0.0, 2e-3)
-        n0 = direction_fluxes.launches
+        n0 = counter("direction_fluxes.launches")
         got = direction_fluxes(*args)
-        assert direction_fluxes.launches == n0 + 2
+        assert counter("direction_fluxes.launches") == n0 + 2
         for a, b in zip(direction_fluxes_plain(*args), got):
             assert torch.equal(a, b), axis
     for ntr, launches in ((12, 1), (70, 2)):
@@ -1579,18 +1576,18 @@ def test_flux_and_fct_tracer_groups_match_plain(dtype, cuda_device):
         tr, Fx, Fy, Fz = _mult_case(ntr, 1, 3, 4, 8, dtype, cuda_device, rng,
                                     False)
         margs = (tr, flags, Fx, Fy, Fz, 0.37, 5.0, 4.0, 2.5)
-        n0 = fct.fct_mult.launches
+        n0 = counter("fct_mult.launches")
         mult = fct.fct_mult(*margs)
-        assert fct.fct_mult.launches == n0 + launches
+        assert counter("fct_mult.launches") == n0 + launches
         assert torch.equal(mult, fct.fct_mult_plain(*margs)), ntr
         t_prev = torch.randn(tuple(tr.shape), dtype=dtype, device=cuda_device)
         rk = (0.75, 0.25, 0.1, tr, tr.flip(0).contiguous(), flags)
         for F, axis, n in ((Fx, -1, 8), (Fy, -2, 4), (Fz, -3, 3)):
             want = fct.fct_scale_div_plain(F, mult, t_prev.clone(), axis, n,
                                            0.2, rk)
-            n0 = fct.fct_scale_div.launches
+            n0 = counter("fct_scale_div.launches")
             got = fct.fct_scale_div(F, mult, t_prev.clone(), axis, n, 0.2, rk)
-            assert fct.fct_scale_div.launches == n0 + launches
+            assert counter("fct_scale_div.launches") == n0 + launches
             assert torch.equal(got, want), (ntr, axis)
 
 

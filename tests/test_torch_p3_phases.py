@@ -40,6 +40,7 @@ from miniweatherml_tpu_torch.physics import p3 as PP
 from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
 from miniweatherml_tpu_torch.physics import p3_sed_cuda as SED
 from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
+from miniweatherml_tpu_torch.utils.profiling import counter
 
 import chip_smoke as cs
 
@@ -250,12 +251,12 @@ def test_rates_pre_flags_match_jax_gates(kind, at):
 def test_wrappers_take_the_plain_versions_on_the_cpu():
     """Given CPU tensors the four new wrappers run their plain versions and
     count no launch; a scheme step launches nothing either."""
-    counters = (CW.p3_rates_pre, CW.p3_rates_post, SED.sed_step,
-                SED.sed_columns)
-    before = [fn.launches for fn in counters]
+    counters = ("p3_rates_pre.launches", "p3_rates_post.launches",
+                "sed_step.launches", "sed_columns.launches")
+    before = [counter(c) for c in counters]
     _port.cache_clear()
     _port("seed_all_active", DT_MANY, "tables", False)
-    assert [fn.launches for fn in counters] == before
+    assert [counter(c) for c in counters] == before
     ins, rho_d = _inputs("seed_layers")
     args = [torch.as_tensor(a) for a in ins]
     rho = torch.as_tensor(rho_d) * 1.01
@@ -272,6 +273,6 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
                     SED.columns_plain(*args[:8], rho, args[10], args[12],
                                       60.0, nsub, dtab, True)):
         assert torch.equal(a, b)
-    assert [fn.launches for fn in counters] == before
+    assert [counter(c) for c in counters] == before
     assert CW.plain_phase("rates_pre", False, args[:10])[0].shape == \
         args[0].shape

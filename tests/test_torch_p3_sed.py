@@ -26,6 +26,7 @@ from miniweatherml_tpu_torch.experiments import supercell_p3
 from miniweatherml_tpu_torch.physics import p3 as PP
 from miniweatherml_tpu_torch.physics import p3_sed_cuda as SED
 from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
+from miniweatherml_tpu_torch.utils.profiling import counter
 
 torch.set_num_threads(1)
 
@@ -151,7 +152,7 @@ def test_rerun_wrapper_on_the_cpu():
     sed_step's tensors, at 3 the whole sub-cycle."""
     a, _ = _sed_args("seed_layers", "float64", "tables", True)
     q, (rho, temp, dz), dtab = a[:8], a[8:11], a[12]
-    before = (SED.sed_step.launches, SED.sed_columns.launches)
+    before = (counter("sed_step.launches"), counter("sed_columns.launches"))
     vmax, one = SED.sed_step(*q, rho, temp, dz, 60.0, dtab,
                              do_predict_nc=True)
     for n, same in ((1.0, True), (3.0, False)):
@@ -161,4 +162,4 @@ def test_rerun_wrapper_on_the_cpu():
         want = SED.columns_plain(*q, rho, temp, dz, 60.0, nsub, dtab, True)
         assert all((g is o) == same for g, o in zip(got, one))
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert (SED.sed_step.launches, SED.sed_columns.launches) == before
+    assert (counter("sed_step.launches"), counter("sed_columns.launches")) == before

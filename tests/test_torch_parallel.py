@@ -296,13 +296,11 @@ def test_collectives_under_thread_stress():
     exact mean, and launch counts taken from all threads add up."""
     import sys
 
-    from miniweatherml_tpu_torch.cuda_build import count_launch
+    from miniweatherml_tpu_torch.utils.profiling import count, counter
     mesh = make_mesh(["cpu"] * 16, ens=2, y=2, x=4)
     rounds = 200
-
-    def counted():
-        pass
-    counted.launches = 0
+    name = "stress_test.launches"
+    n0 = counter(name)
 
     def fn(comm, _):
         for k in range(rounds):
@@ -311,7 +309,7 @@ def test_collectives_under_thread_stress():
             m = comm.pmean(torch.tensor([float(comm.rank + k)]), "x")
             x0 = comm.peer("x", 0)
             assert m.item() == k + x0 + 1.5, (k, m)
-            count_launch(counted)
+            count(name)
         return comm.rank
 
     interval = sys.getswitchinterval()
@@ -324,7 +322,7 @@ def test_collectives_under_thread_stress():
     finally:
         sys.setswitchinterval(interval)
     assert time.perf_counter() - t0 < 60.0
-    assert counted.launches == rounds * mesh.size
+    assert counter(name) - n0 == rounds * mesh.size
 
 
 # -- the halo-strip form of the flux and FCT functions -------------------------

@@ -1,12 +1,34 @@
-"""The port's section timers, region names and traces
-(``utils/profiling.py``) on the CPU, beside the JAX package's."""
+"""The port's spans, counters, section timers and traces
+(``utils/profiling.py``) on the CPU, beside the JAX package's; the spans
+and device counters of a chain step; and the benchmark's metrics that read
+them."""
 
 import os
+from types import SimpleNamespace
 
+import pytest
 import torch
 
+from benchmark import harness
 from miniweatherml_tpu.utils import profiling as JPR
+from miniweatherml_tpu_torch.config import config_from_dict
+from miniweatherml_tpu_torch.experiments import supercell_example, supercell_p3
+from miniweatherml_tpu_torch.physics import kessler as PK
+from miniweatherml_tpu_torch.physics import p3 as PP
 from miniweatherml_tpu_torch.utils import profiling as PR
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the benchmark harness's own span names (benchmark/trace.py, the cells'
+# "modules"), which no program span may take
+HARNESS_SPANS = {"window", "dycore", "micro", "sponge", "nudge"}
+CHAINS = ("kessler", "p3")
+MICRO = {"kessler": "kessler.step", "p3": "p3.step"}
+# span -> (calls in one step at one CFL cycle, parent)
+DYCORE_SPANS = {"dycore.step": (1, None),
+                "dycore.to_dynamics": (1, "dycore.step"),
+                "dycore.prim": (3, "dycore.step"),
+                "dycore.to_coupler": (1, "dycore.step")}
 
 
 def test_timer_accumulates_and_reports():
@@ -33,15 +55,220 @@ def test_report_header_equals_jax():
 
 
 def test_annotate_and_trace_write_a_file(tmp_path):
+    """A span names its region in the profiler's trace (the JAX package's
+    ``annotate``), which ``trace`` writes to a file."""
+    PR.reset()
     logdir = str(tmp_path / "trace")
     with PR.trace(logdir) as prof:
-        with PR.annotate("weno_recon"):
+        with PR.span("weno_recon"):
             y = torch.zeros(8) + 1.0
     assert float(y.sum()) == 8.0
     names = {e.key for e in prof.key_averages()}
     assert "weno_recon" in names
+    assert PR.read()["spans"]["weno_recon"]["calls"] == 1
     files = os.listdir(logdir)
     assert len(files) == 1 and files[0].endswith(".json")
     assert os.path.getsize(os.path.join(logdir, files[0])) > 0
     PR.sync()
     PR.sync(y)
+    PR.reset()
+
+
+# -- the registry ---------------------------------------------------------------
+
+def _profile():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def test_registry_without_a_profiler_counts_on_the_host_only():
+    """Without a profiler session a span and a device counter record
+    nothing; a host counter always counts; ``reset`` clears them."""
+    PR.reset()
+    with PR.span("a"):
+        PR.count_device("d", torch.tensor(2))
+        PR.count("h")
+        PR.count("h", 4)
+    assert PR.counter("h") == 5 and PR.counter("never") == 0
+    assert PR.read() == {"spans": {}, "counters": {"h": {"total": 5,
+                                                         "calls": 2}}}
+    PR.reset()
+    assert PR.read() == {"spans": {}, "counters": {}}
+
+
+def test_registry_under_a_profiler_keeps_spans_and_device_counts():
+    """Under a profiler: calls, host time, parents (per thread), device
+    counts resolved at ``read``, which repeats its totals."""
+    PR.reset()
+    with _profile():
+        for k in range(2):
+            with PR.span("outer"):
+                with PR.span("inner"):
+                    PR.count_device("d", torch.tensor(k + 2))
+    got = PR.read()
+    assert got == PR.read()
+    assert set(got["spans"]) == {"outer", "inner"}
+    outer, inner = got["spans"]["outer"], got["spans"]["inner"]
+    assert (outer["calls"], outer["parent"]) == (2, None)
+    assert (inner["calls"], inner["parent"]) == (2, "outer")
+    assert outer["host_ms"] >= inner["host_ms"] > 0.0
+    assert outer["device_ms"] is None and inner["device_ms"] is None
+    assert got["counters"] == {"d": {"total": 5, "calls": 2}}
+    PR.reset()
+
+
+# -- a chain step ------------------------------------------------------------------
+
+def _chain(chain):
+    cfg = config_from_dict(dict(
+        sim_time=10.0, nx_glob=12, ny_glob=8, nz=16, xlen=40000.0,
+        ylen=40000.0, zlen=16000.0, init_data="supercell",
+        dtype="float64"))
+    if chain == "kessler":
+        state, mods, dycore = supercell_example.build(cfg, "cpu")
+        rain = 0.002 * state["density_dry"]
+        rain[:, 8:] = 0.0
+        state = state.replace_fields(precip_liquid=rain)
+    else:
+        state, mods, dycore = supercell_p3.build(cfg, "cpu")
+        state = supercell_p3.seed_layers(state)
+    return state, mods, dycore.compute_time_step(state)
+
+
+@pytest.mark.parametrize("chain", CHAINS)
+def test_chain_step_without_a_profiler_records_no_span(chain):
+    state, mods, dt = _chain(chain)
+    PR.reset()
+    for m in mods:
+        state = m(state, dt)
+    got = PR.read()
+    assert got["spans"] == {}
+    assert not {"kessler.subcycles", "p3.sed_substeps"} & set(
+        got["counters"])
+
+
+@pytest.mark.parametrize("chain", CHAINS)
+def test_chain_step_spans_under_a_profiler(chain):
+    """One step with each module in a span of the harness's name, as the
+    benchmark steps it: every program span with its calls and parent, no
+    device time on the CPU, each on the profiler's timeline inside its
+    parent (a module span inside the harness's) as a CPU op, none with a
+    harness name."""
+    state, mods, dt = _chain(chain)
+    PR.reset()
+    with _profile() as prof:
+        for name, m in zip(("dycore", "micro", "sponge", "nudge"), mods):
+            with torch.profiler.record_function(name):
+                state = m(state, dt)
+    spans = PR.read()["spans"]
+    want = {**DYCORE_SPANS, MICRO[chain]: (1, None),
+            "sponge.step": (1, None), "nudge.step": (1, None)}
+    assert {k: (v["calls"], v["parent"]) for k, v in spans.items()} == want
+    assert all(v["device_ms"] is None and v["host_ms"] > 0.0
+               for v in spans.values())
+    assert not HARNESS_SPANS & set(spans)
+    harness_of = {"dycore.step": "dycore", MICRO[chain]: "micro",
+                  "sponge.step": "sponge", "nudge.step": "nudge"}
+    seen = {}
+    for e in prof.events():
+        if e.name in want:
+            seen[e.name] = seen.get(e.name, 0) + 1
+            parent = want[e.name][1] or harness_of[e.name]
+            assert e.cpu_parent is not None, e.name
+            assert e.cpu_parent.name == parent, (e.name, e.cpu_parent.name)
+            assert (e.cpu_parent.time_range.start <= e.time_range.start
+                    and e.time_range.end <= e.cpu_parent.time_range.end)
+    assert seen == {k: v[0] for k, v in want.items()}
+    # CPU ops, not user annotations, which the profiler would mirror on a
+    # card's timeline as device events
+    kinds = {e.activity_type() for e in prof.profiler.kineto_results.events()
+             if e.name() in want}
+    assert kinds == {"cpu_op"}
+    PR.reset()
+
+
+@pytest.mark.parametrize("chain", CHAINS)
+def test_sub_step_counters_equal_the_plain_paths(chain, monkeypatch):
+    """kessler.subcycles and p3.sed_substeps hold the counts the plain
+    path reads on the host (Kessler's sub-cycles, P3's sedimentation
+    sub-steps), on a long micro step over rain that takes several."""
+    state, mods, _ = _chain(chain)
+    host = []
+    if chain == "kessler":
+        real = PK.kessler_step
+
+        def spy(*a):
+            host.append(int(a[5]))
+            return real(*a)
+        monkeypatch.setattr(PK, "kessler_step", spy)
+        name = "kessler.subcycles"
+    else:
+        real = PP.host_ints
+
+        def spy(t):
+            host.append(real(t))
+            return host[-1]
+        monkeypatch.setattr(PP, "host_ints", spy)
+        name = "p3.sed_substeps"
+    PR.reset()
+    with _profile():
+        for dt in (10.0, 400.0):
+            state = mods[1](state, dt)
+    counted = PR.read()["counters"][name]
+    assert len(host) == counted["calls"] == 2
+    assert counted["total"] == sum(host) and max(host) > 1
+    PR.reset()
+
+
+# -- the benchmark's metrics that read the registry ----------------------------------
+
+# metric -> (registry entries, per-step value); a stand-in trace of 4 steps
+# whose Kessler and P3 kernels ran 2 ms and 8 ms
+MS = {"dycore.step": 400.0, "dycore.to_dynamics": 20.0, "dycore.prim": 36.0,
+      "dycore.to_coupler": 28.0, "kessler.step": 10.0, "sponge.step": 12.0,
+      "nudge.step": 8.0}
+METRICS = {
+    "dycore_convert_ms_per_step": 12.0,
+    "dycore_prim_ms_per_step": 9.0,
+    "micro_glue_ms_per_step": 2.0,
+    "sponge_nudge_ms_per_step": 5.0,
+    "host_issue_ms_per_step": 2 * (400.0 + 10.0 + 12.0 + 8.0) / 4,
+    "kessler_subcycles_per_step": 1.5,
+    "p3_sed_substeps_per_step": 1.0,
+}
+
+
+def _stand_in_trace():
+    secs = {"kessler": 0.002, "p3": 0.008}
+    return SimpleNamespace(steps=4, family_seconds=lambda fam: secs[fam])
+
+
+@pytest.mark.parametrize("metric", sorted(METRICS))
+def test_metric_reads_none_from_an_empty_registry(metric):
+    PR.reset()
+    assert harness.load_metric(metric, ROOT).read(_stand_in_trace()) is None
+
+
+@pytest.mark.parametrize("metric", sorted(METRICS))
+def test_metric_reads_a_registry_filled_by_hand(metric):
+    """Device ms from each span's events, host ms twice the device's, the
+    micro span less its kernels' time, device counts over the steps."""
+    PR.reset()
+    for name, ms in MS.items():
+        parent = "dycore.step" if name.startswith("dycore.") and \
+            name != "dycore.step" else None
+        PR._spans[name] = [4, int(2e6 * ms), ms, parent]
+    PR.count("kessler.subcycles", 6)
+    PR.count("p3.sed_substeps", 4.0)
+    got = harness.load_metric(metric, ROOT).read(_stand_in_trace())
+    assert got == pytest.approx(METRICS[metric])
+    PR.reset()
+
+
+@pytest.mark.parametrize("metric", sorted(METRICS))
+def test_metric_reads_none_from_a_program_without_the_registry(metric,
+                                                                 monkeypatch):
+    """An older program, whose profiling module has no ``read``: None, and
+    no error."""
+    monkeypatch.delattr(PR, "read")
+    assert harness.load_metric(metric, ROOT).read(_stand_in_trace()) is None
