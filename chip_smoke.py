@@ -884,7 +884,7 @@ def _flux_instance(mangled: str):
     followed for the y/z kernel by its epilogue ("bare", "accumulating" or
     "stage update"); the algebra "ref", "opt", "fast" or "ref_fast"."""
     import re
-    m = re.search(r"(fluxes_x|fluxes_strided)ILi(\d+)E([fd])Li(\d+)ELb([01])E"
+    m = re.search(r"(fluxes_x|fluxes_tiled)ILi(\d+)E([fd])Li(\d+)ELb([01])E"
                   r"(?:Li(\d)E)?Li(\d)E", mangled)
     if not m:
         return None
@@ -1112,8 +1112,9 @@ def phase_direction_fluxes(fct_recs, chain="kessler"):
             pms = _time_ms(lambda: direction_fluxes_plain(*args), reps=3)
             nbytes, ops = _flux_work(prim, axis, dycore.mats.ord)
             bms, by = _bound(nbytes, ops, dtype)
+            kernel = "fluxes_x" if axis == -1 else "fluxes_tiled"
             print(f"[3] direction_fluxes {chain} nvar {prim.shape[0]} "
-                  f"{dtype} {name} (axis {axis}, bc {bc}): bitwise "
+                  f"{dtype} {name} (axis {axis}, bc {bc}, {kernel}): bitwise "
                   f"{'equal' if same else 'DIFFERENT'}, max abs err "
                   f"{max(e[0] for e in errs):.3e}, rel {rel:.3e}; kernel "
                   f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
@@ -1511,7 +1512,9 @@ def _launch_counters(*kernels):
 
 def _counters(chain):
     """The launch counters of the kernels on a chain's path."""
-    dycore = _launch_counters("direction_fluxes", "fct_mult", "fct_scale_div")
+    dycore = {**_launch_counters("direction_fluxes", "fct_mult",
+                                 "fct_scale_div"),
+              "fluxes_tiled": "direction_fluxes.tiled_launches"}
     if chain == "city":
         return dycore
     kessler = _launch_counters("min_step", "kessler_step")
@@ -1548,8 +1551,10 @@ def _check_state(tag, state):
     return maxw
 
 
-# launches per step of the dycore's kernels at one CFL cycle, in every cell
-DYCORE_PER_STEP = {"direction_fluxes": 9, "fct_mult": 3, "fct_scale_div": 9}
+# launches per step of the dycore's kernels at one CFL cycle, in every cell:
+# every y and z call of the 9 flux calls runs the tiled kernel
+DYCORE_PER_STEP = {"direction_fluxes": 9, "fluxes_tiled": 6, "fct_mult": 3,
+                   "fct_scale_div": 9}
 
 
 # the port's own kernels, by a part of their names
@@ -3827,11 +3832,11 @@ def _spmd_chain(build, cfg, mesh, device="cuda", seed=None):
 
 
 # launches per step and shard of the decomposed Kessler chain (one CFL
-# cycle): the dycore's, the strip forms among them (x and y of each
-# stage), and the Kessler kernel
-SPMD_PER_STEP = {"direction_fluxes": 9, "strips": 6, "fct_mult": 3,
-                 "fct_scale_div": 9, "edges": 6, "kessler_step": 1,
-                 "min_step": 1}
+# cycle): the dycore's, its y and z calls (the tiled kernel) and the strip
+# forms (x and y of each stage) among them, and the Kessler kernel
+SPMD_PER_STEP = {"direction_fluxes": 9, "fluxes_tiled": 6, "strips": 6,
+                 "fct_mult": 3, "fct_scale_div": 9, "edges": 6,
+                 "kessler_step": 1, "min_step": 1}
 
 
 def _spmd_counts():

@@ -21,8 +21,7 @@
 // port's XLA-path forms: Coriolis from the stage's state, not from the
 // prim block) and becomes c0*b0 [+ c1*b1] + cdt*tendency, in the order of
 // ops/direction_fluxes.py::stage_update.  Each output cell is read and
-// written by the one thread that marches over it, so `acc` is updated in
-// place with no race.
+// written by one thread, so `acc` is updated in place with no race.
 //
 // Math (the JAX XLA path, dycore/euler.py:475-613 plus div):
 //   halo fill (periodic wrap; wall/open edge copy, wall zeroes the normal
@@ -77,19 +76,23 @@
 //    guarded) and the form (whole axis or halo strips: a runtime branch on
 //    the strip pointer cost the whole-axis x kernel 6-8% through register
 //    spills, PERF.md) are template parameters; tile sizes are compile-time
-//    constants; the grid is (line tiles, planes, segments) for y/z and (x
+//    constants; the grid is (line tiles, planes, chunks) for y/z and (x
 //    tiles, rows, planes) for x, so the background profile's index is
 //    plane * hps + face * has and no index needs a runtime division.  The
 //    periodic wrap and edge copy run only for cells outside the axis.
-//  * y and z: a block is one warp; each thread owns one line (neighbouring
-//    threads own neighbouring x positions, so every load and store of a
-//    warp is one contiguous line) and marches along the direction through
-//    a segment of SEG cells.  It keeps an ord-wide register window per
-//    variable, the previous cell's right edges and the previous face's
-//    state fluxes in registers, loads each variable's next value one step
-//    ahead, and writes the divergence and the tracer faces directly: no
-//    shared memory, and only the ord - 1 cells before a segment and the one
-//    after it are read twice.
+//  * y and z (fluxes_tiled): a block of 8 warps stages a tile of 32 lines
+//    (consecutive x positions, so every load and store of a warp is
+//    contiguous) x 8 cells along the direction, plus the halos, of every
+//    variable in shared memory, and a warp takes four of its lines with 8
+//    lanes along the direction on each, as the x kernel's warp takes a
+//    row: a lane forms one variable's stencil at a time from shared memory,
+//    so its registers do not grow with the variable count (64 in f32, 32
+//    warps an SM, where a thread marching a line with a register window of
+//    every variable held 128 and 16, PERF.md).  Neighbours' edges and
+//    fluxes come by shuffle, and across a step's edge through shared
+//    memory, so the limiter runs n + 2 times a line per chunk; the
+//    divergences and tracer faces go back through shared memory and out
+//    coalesced, where the epilogue applies.
 //  * x (unit stride): a lane per line would make every store of a warp
 //    touch 32 rows (measured 2-3x slower than y/z), so instead a warp owns
 //    30 consecutive cells of one row: lane i forms the edges of cell
@@ -100,13 +103,13 @@
 //    synchronisation, and 32/30 of the limiter work.
 //  * No asynchronous copies or TMA: the loads are not where the time goes.
 //  * The epilogue form (none / accumulate / stage) is a template parameter
-//    of the y/z kernel, so the bare form compiles as before; the stage's
+//    of the y/z kernel, so the bare form compiles without it; the stage's
 //    options (b1, gravity, Coriolis, 2-D, immersed) are runtime flags, each
-//    tested once per cell after the limiter work.  The accumulator adds a
-//    read of the 5-variable state (0.34 GB at 512x512x64 f32), the stage
-//    update reads b0, b1 and the immersed proportion as well (up to 1.08
-//    GB in all, beside the bare call's 1.07 GB), against a kernel that is
-//    operation-bound; each cell's reads are coalesced across the warp.
+//    tested once per cell.  The accumulator adds a read of the 5-variable
+//    state (0.34 GB at 512x512x64 f32), the stage update reads b0, b1 and
+//    the immersed proportion as well (up to 1.08 GB in all, beside the bare
+//    call's 1.07 GB), against a kernel that is operation-bound; each cell's
+//    reads are coalesced across the warp.
 
 #pragma once
 
@@ -119,8 +122,8 @@ namespace {
 
 constexpr int IDR = 0, IDU = 1, IDV = 2, IDW = 3, IDT = 4, NS = 5;
 constexpr int BC_PERIODIC = 0, BC_WALL = 2;
-constexpr int WARP = 32;       // threads per block: one warp
-constexpr int SEG = 64;        // cells a thread marches per segment
+constexpr int WARP = 32;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int COEF_MAX = 104;  // longest limiter table (ord 9: 103 values)
 constexpr int NTR_MAX = 9;
 // epilogue forms of the y/z kernel, and the stage update's option flags
@@ -490,32 +493,29 @@ using GeomOf = typename std::conditional<STRIPS, StripGeom, Geom>::type;
 
 constexpr int XROWS = 4;  // rows (warps) per block of the x kernel
 
-// Offset of the thread's line in the halo strips, from its block and thread
-// indices: the x kernel's grid is (x tiles, row blocks, planes), the y/z
-// kernel's (line tiles, planes, segments).  Recomputed where a strip is
-// read, so that no register holds it through the kernel.
-template <bool XKIND>
-__device__ __forceinline__ int64_t strip_line(const StripGeom& g) {
-  if (XKIND)
-    return (int64_t)blockIdx.z * g.spstride +
-           (int64_t)(blockIdx.y * XROWS + threadIdx.y) * g.slstride;
-  return (int64_t)blockIdx.y * g.spstride +
-         (int64_t)(blockIdx.x * WARP + threadIdx.x) * g.slstride;
+// Offset of the x kernel thread's row in the halo strips, from its block
+// and thread indices (the grid is (x tiles, row blocks, planes)).
+// Recomputed where a strip is read, so that no register holds it through
+// the kernel.
+__device__ __forceinline__ int64_t strip_row(const StripGeom& g) {
+  return (int64_t)blockIdx.z * g.spstride +
+         (int64_t)(blockIdx.y * XROWS + threadIdx.y) * g.slstride;
 }
 
 // Value of variable v at cell a (any integer) of the line at `line`, with
 // the boundary rule for cells outside [0, n): in the halo-strip form
-// (STRIPS) the strips' cells (a cell further out than the strips feeds
-// only results that are not written, and reads the outermost one), else
-// the wrap or the edge copy.  STRIPS is a template parameter so that the
-// whole-axis instantiations carry none of the strip form's code.
-template <bool XKIND, bool STRIPS, typename T>
+// (STRIPS) the strips' cells at the line's offset strip(g) (a cell further
+// out than the strips feeds only results that are not written, and reads
+// the outermost one), else the wrap or the edge copy.  STRIPS is a
+// template parameter so that the whole-axis instantiations carry none of
+// the strip form's code; `strip` is called only there.
+template <bool STRIPS, typename T, typename StripLine>
 __device__ __forceinline__ T load_bc(const T* __restrict__ line,
-                                     const GeomOf<STRIPS>& g, int v, int a) {
+                                     const GeomOf<STRIPS>& g, StripLine strip,
+                                     int v, int a) {
   if (a < 0 || a >= g.n) {
     if constexpr (STRIPS) {
-      const T* s = static_cast<const T*>(a < 0 ? g.lo : g.hi) +
-                   strip_line<XKIND>(g);
+      const T* s = static_cast<const T*>(a < 0 ? g.lo : g.hi) + strip(g);
       int k = a < 0 ? a + g.hp : a - g.n;
       k = k < 0 ? 0 : (k >= g.hp ? g.hp - 1 : k);
       return s[v * g.svstride + k * g.sastride];
@@ -714,143 +714,229 @@ __device__ __forceinline__ void stage_update(T (&t)[NS],
 }
 
 // ---------------------------------------------------------------- y and z
-// Values come straight from device memory (coalesced across the warp's
-// neighbouring x positions).  Each variable's next value is loaded one
-// step ahead into a register, so a step's loads are in flight while the
-// previous step computes.
-template <int ORD, typename T, int NV, bool STRIPS>
-struct StridedSource {
+// A block of TW warps owns a tile of TL neighbouring lines (consecutive x
+// positions) and one chunk [a0, a1) of cells along the direction, which it
+// walks in steps of TG cells; step k covers cells c = a0 - 1 + k TG + i,
+// i < TG, of every line (cell a0 - 1 only for its right edges, cell a1 only
+// for face a1).  A step has three phases:
+//  * stage: the block copies rows c - HS .. c + TG - 1 + HS of every
+//    variable of its lines into shared memory, a row of a line per thread
+//    with neighbouring threads on neighbouring lines, so each load of a warp
+//    is contiguous (cells outside the axis by the boundary rule);
+//  * solve: a warp takes 32 / TG lines, TG lanes along the direction on each,
+//    as the x kernel's warp takes a row.  Lane i forms the edges of its cell
+//    from ORD shared-memory reads, one variable at a time, takes its left
+//    neighbour's right edges and face fluxes by shuffle (lane 0 takes those
+//    of the step before's last lane through shared memory), solves face c,
+//    and puts the divergence of cell c - 1 and the tracers' values on face
+//    c into an output tile;
+//  * store: the block writes the output tile back, a row of a line per
+//    thread (coalesced), applying the epilogue there: a cell's accumulator
+//    and stage bases are all read before any of its writes.
+// A lane holds one variable's stencil at a time, so its registers do not
+// grow with the variable count; each output cell is read and written by
+// one thread, so `acc` is updated in place with no race.
+constexpr int TW = 8;             // warps per block
+constexpr int TG = 8;             // cells of a line per warp step
+constexpr int TT = TW * WARP;     // threads per block
+constexpr int TL = TT / TG;       // lines per tile
+constexpr int TROWS = TT / TL;    // rows of the tile a pass of the block copies
+static_assert(TG >= 8 && TG <= WARP && WARP % TG == 0, "lanes per line");
+
+// The smallest row pitch >= w at which the lanes of a warp (TG cells on
+// each of its 32 / TG lines, which lie TW lines apart) and the threads of a
+// stage or store pass (TL neighbouring lines, 32 / TL rows) each fall on 32
+// different banks: TW * pitch = TG (mod 2 TG).
+__host__ __device__ constexpr int bank_pitch(int w) {
+  return (TW * w) % (2 * TG) == TG ? w : bank_pitch(w + 1);
+}
+
+// The tile's shared-memory layout: per variable and line, R staged rows at
+// a pitch RP, and TG output rows at a pitch OP.
+template <int ORD>
+struct Tile {
   static constexpr int HS = (ORD - 1) / 2;
-  const T* __restrict__ line;
-  const GeomOf<STRIPS>& g;
-  T pre[NV];
-  __device__ __forceinline__ T load(int v, int a) const {
-    return a < g.n ? line[v * g.vstride + a * g.astride]
-                   : load_bc<false, STRIPS>(line, g, v, a);
-  }
-  // variable v's stencil of cell c, at the segment's first step; the load
-  // of the next step's value goes out with it
-  __device__ __forceinline__ void prime(T (&s)[ORD], int v, int c) {
-#pragma unroll
-    for (int q = 0; q < ORD; ++q)
-      s[q] = load_bc<false, STRIPS>(line, g, v, c - HS + q);
-    pre[v] = load(v, c + 1 + HS);
-  }
-  // shift variable v's stencil on to cell c
-  __device__ __forceinline__ void slide(T (&s)[ORD], int v, int c) {
-#pragma unroll
-    for (int q = 0; q < ORD - 1; ++q) s[q] = s[q + 1];
-    s[ORD - 1] = pre[v];
-    pre[v] = load(v, c + 1 + HS);
-  }
+  static constexpr int R = TG + 2 * HS;
+  static constexpr int RP = bank_pitch(R);
+  static constexpr int OP = bank_pitch(TG);
+  static_assert(R <= 2 * TROWS, "a stage copies a line's rows in two passes");
 };
 
-// One line's segment: cells a0 .. a1 - 1 get their divergence (EPI_NONE),
-// have it added to their accumulator entry in sdiv (EPI_ACC) or get their
-// stage's state there (EPI_STAGE); faces a0 .. a1 - 1 (and face n in the
-// last segment) get their tracer values.  Step c forms the edges of cell
-// c; from c = a0 on it also solves face c.
-template <int ORD, typename T, int NTRB, bool STRIPS, int EPI, int ALG>
-__device__ __forceinline__ void march(
-    StridedSource<ORD, T, NS + NTRB, STRIPS>& src,
-                                      const GeomOf<STRIPS>& g,
-                                      const T* __restrict__ hyr,
-                                      const T* __restrict__ hyt,
-                                      T* __restrict__ sdiv,
-                                      T* __restrict__ tf, int p,
-                                      int64_t obase, int64_t tbase, int a0,
-                                      int a1, T C0, T gamma, T cutoff, T ds,
-                                      const Stage<T>& st) {
-  constexpr int NV = NS + NTRB;
-  const int ntr = g.ntr;
-  T w[NV][ORD];  // stencil of the current cell
-  T eR[NV];      // right edges of the previous cell
-  T Fp[NS];      // state fluxes of the previous face
+// Bytes of dynamic shared memory of a block: the staged rows and the output
+// rows of every variable, and two steps' carries (right edges of every
+// variable, state fluxes) per line.
+template <int ORD, typename T, int NTRB>
+size_t tiled_smem(int ntr) {
+  using TI = Tile<ORD>;
+  return sizeof(T) * ((size_t)(NS + ntr) * TL * (TI::RP + TI::OP) +
+                      2 * TL * (2 * NS + NTRB));
+}
 
-#pragma unroll 1
-  for (int c = a0 - 1; c <= a1; ++c) {
-    const bool first = c < a0;
-    // the state variables' edges of cell c
-    T eL[NS], eRc[NS];
+// Blocks per SM the registers must allow: in f32 4 (64 registers, 32
+// warps), 3 (80) in the reference algebras, whose limiter spills at 64; 2
+// (128 registers) in f64 (PERF.md).
+template <typename T, int ALG>
+constexpr int min_blocks_tiled() {
+  return sizeof(T) == 8 ? 2 : ref_table(ALG) ? 3 : 4;
+}
+
+template <int ORD, typename T, int NTRB, bool STRIPS, int EPI, int ALG>
+__global__ void __launch_bounds__(TT, min_blocks_tiled<T, ALG>())
+fluxes_tiled(const T* __restrict__ prim, const T* __restrict__ hyr,
+             const T* __restrict__ hyt, T* __restrict__ sdiv,
+             T* __restrict__ tf, const GeomOf<STRIPS> g, const T C0,
+             const T gamma, const T cutoff, const T ds, const Stage<T> st,
+             const int chunk) {
+  using TI = Tile<ORD>;
+  constexpr int HS = TI::HS, R = TI::R, RP = TI::RP, OP = TI::OP;
+  constexpr int CW = 2 * NS + NTRB;  // carry of a line: eR of each variable, F
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const int ntr = g.ntr;
+  T* const tin = reinterpret_cast<T*>(tile_smem);
+  T* const tout = tin + (NS + ntr) * TL * RP;
+  T* const carry = tout + (NS + ntr) * TL * OP;
+  const int p = blockIdx.y, a0 = blockIdx.z * chunk;
+  const int a1 = min(a0 + chunk, g.n);
+  const int steps = (a1 - a0 + 2 + TG - 1) / TG;
+  // stage and store: row tr of line tl
+  const int tl = threadIdx.x % TL, tr = threadIdx.x / TL;
+  const int l = blockIdx.x * TL + tl;
+  const bool in_tile = l < g.nlines;
+  const int64_t obase = p * g.pstride + (int64_t)l * g.lstride;
+  const int64_t tbase = p * g.tpstride + (int64_t)l * g.tlstride;
+  const T* const line = prim + obase;
+  // solve: lane sl of the line ll
+  const int lane = threadIdx.x % WARP;
+  const int sl = lane % TG, ll = lane / TG * TW + threadIdx.x / WARP;
+  const bool first = sl == 0, last = sl == TG - 1;
+
+  // line l's offset in the halo strips
+  const auto strip = [=](const auto& sg) {
+    return (int64_t)p * sg.spstride + (int64_t)l * sg.slstride;
+  };
+  // rows r0 .. r0 + R - 1 of every variable of line tl, into tin
+  auto stage = [&](int r0) {
+    T* const to = tin + tl * RP;
+    if (!in_tile) {
+      for (int v = 0; v < NS + ntr; ++v) {
+        to[v * TL * RP + tr] = T(0);
+        if (tr + TROWS < R) to[v * TL * RP + tr + TROWS] = T(0);
+      }
+    } else if (r0 >= 0 && r0 + R <= g.n) {
+      const T* from = line + (r0 + tr) * g.astride;
+      const int64_t far = TROWS * g.astride;
 #pragma unroll
-    for (int v = 0; v < NS; ++v) {
-      if (first)
-        src.prime(w[v], v, c);
-      else
-        src.slide(w[v], v, c);
-      edges<ORD, T, ALG>(w[v], cutoff, eL[v], eRc[v]);
-    }
-    Face<T> o;
-    if (!first) {
-      const int h = p * g.hps + c * g.has;
-      T eRs[NS];
-#pragma unroll
-      for (int v = 0; v < NS; ++v) eRs[v] = eR[v];
-      riemann<STRIPS>(eRs, eL, hyr[h], hyt[h], c, g, C0, gamma, o);
-      if (c > a0) {  // divergence of cell c-1
-        const int64_t at = obase + (int64_t)(c - 1) * g.astride;
-        if constexpr (EPI == EPI_NONE) {
-#pragma unroll
-          for (int v = 0; v < NS; ++v)
-            sdiv[at + v * g.vstride] = divergence(o.F[v], Fp[v], ds);
-        } else {
-          EpiIn<T, EPI> in;
-          epi_load(in, sdiv, st, at, g.vstride);
-          T t[NS];
-#pragma unroll
-          for (int v = 0; v < NS; ++v)
-            t[v] = add(in.acc[v], divergence(o.F[v], Fp[v], ds));
-          if constexpr (EPI == EPI_STAGE) stage_update(t, in, st, at, p, c - 1);
-#pragma unroll
-          for (int v = 0; v < NS; ++v) sdiv[at + v * g.vstride] = t[v];
-        }
+      for (int v = 0; v < NS; ++v) {
+        to[v * TL * RP + tr] = from[v * g.vstride];
+        if (tr + TROWS < R)
+          to[v * TL * RP + tr + TROWS] = from[v * g.vstride + far];
       }
 #pragma unroll
-      for (int v = 0; v < NS; ++v) Fp[v] = o.F[v];
+      for (int q = 0; q < NTRB; ++q) {
+        if (q < ntr) {
+          const int v = NS + q;
+          to[v * TL * RP + tr] = from[v * g.vstride];
+          if (tr + TROWS < R)
+            to[v * TL * RP + tr + TROWS] = from[v * g.vstride + far];
+        }
+      }
+    } else {
+      for (int v = 0; v < NS + ntr; ++v) {
+        to[v * TL * RP + tr] = load_bc<STRIPS>(line, g, strip, v, r0 + tr);
+        if (tr + TROWS < R)
+          to[v * TL * RP + tr + TROWS] =
+              load_bc<STRIPS>(line, g, strip, v, r0 + tr + TROWS);
+      }
     }
-    // tracers: edges of cell c, then face c (each segment writes its own
-    // faces; the last one also face n)
-    const bool wface = !first && (c < a1 || c == g.n);
-    const int64_t at = tbase + (int64_t)c * g.tastride;
+  };
+
+  // the edges, faces, divergences and tracer faces of step k's cells
+  auto solve = [&](int k) {
+    const int c = a0 - 1 + k * TG + sl;
+    const T* const s_in = tin + ll * RP + sl;
+    T* const s_out = tout + ll * OP + sl;
+    const T* const crd = carry + ((k + 1) & 1) * TL * CW + ll * CW;
+    T* const cwr = carry + (k & 1) * TL * CW + ll * CW;
+    T eL[NS], eRl[NS];
+#pragma unroll
+    for (int v = 0; v < NS; ++v) {
+      T s[ORD], eR;
+#pragma unroll
+      for (int q = 0; q < ORD; ++q) s[q] = s_in[v * TL * RP + q];
+      edges<ORD, T, ALG>(s, cutoff, eL[v], eR);
+      const T up = __shfl_up_sync(FULL, eR, 1, TG);
+      eRl[v] = first ? crd[v] : up;  // right edge of cell c - 1
+      if (last) cwr[v] = eR;
+    }
+    // face c (cell a0 - 1's result and the lanes past a1 are not stored;
+    // their profile index is clamped into the axis)
+    const int h = p * g.hps + (c < 0 ? 0 : (c > g.n ? g.n : c)) * g.has;
+    Face<T> o;
+    riemann<STRIPS>(eRl, eL, hyr[h], hyt[h], c, g, C0, gamma, o);
+#pragma unroll
+    for (int v = 0; v < NS; ++v) {
+      const T up = __shfl_up_sync(FULL, o.F[v], 1, TG);
+      if (last) cwr[NS + v] = o.F[v];
+      s_out[v * TL * OP] = divergence(o.F[v], first ? crd[NS + v] : up, ds);
+    }
 #pragma unroll
     for (int q = 0; q < NTRB; ++q) {
       if (q < ntr) {
-        if (first)
-          src.prime(w[NS + q], NS + q, c);
-        else
-          src.slide(w[NS + q], NS + q, c);
-        T left, right;
-        edges<ORD, T, ALG>(w[NS + q], cutoff, left, right);
-        if (wface) tf[at + q * g.tvstride] = tracer_face(o, eR[NS + q], left);
-        eR[NS + q] = right;
+        T s[ORD], left, right;
+#pragma unroll
+        for (int i = 0; i < ORD; ++i) s[i] = s_in[(NS + q) * TL * RP + i];
+        edges<ORD, T, ALG>(s, cutoff, left, right);
+        const T up = __shfl_up_sync(FULL, right, 1, TG);
+        const T rl = first ? crd[2 * NS + q] : up;
+        if (last) cwr[2 * NS + q] = right;
+        s_out[(NS + q) * TL * OP] = tracer_face(o, rl, left);
       }
     }
+  };
+
+  // step k's output rows of line tl: the divergence of cell d (the
+  // accumulator or the stage's state under the epilogue) and the tracer
+  // faces of face d + 1 (each chunk writes its own faces, the last also
+  // face n)
+  auto store = [&](int k) {
+    const int d = a0 - 2 + k * TG + tr;
+    const T* const from = tout + tl * OP + tr;
+    if (in_tile && d >= a0 && d < a1) {
+      const int64_t at = obase + d * g.astride;
+      if constexpr (EPI == EPI_NONE) {
 #pragma unroll
-    for (int v = 0; v < NS; ++v) eR[v] = eRc[v];
+        for (int v = 0; v < NS; ++v)
+          sdiv[at + v * g.vstride] = from[v * TL * OP];
+      } else {
+        EpiIn<T, EPI> in;
+        epi_load(in, sdiv, st, at, g.vstride);
+        T t[NS];
+#pragma unroll
+        for (int v = 0; v < NS; ++v) t[v] = add(in.acc[v], from[v * TL * OP]);
+        if constexpr (EPI == EPI_STAGE) stage_update(t, in, st, at, p, d);
+#pragma unroll
+        for (int v = 0; v < NS; ++v) sdiv[at + v * g.vstride] = t[v];
+      }
+    }
+    const int f = d + 1;
+    if (in_tile && f >= a0 && f <= a1 && (f < a1 || a1 == g.n)) {
+      const int64_t at = tbase + f * g.tastride;
+#pragma unroll
+      for (int q = 0; q < NTRB; ++q)
+        if (q < ntr) tf[at + q * g.tvstride] = from[(NS + q) * TL * OP];
+    }
+  };
+
+  stage(a0 - 1 - HS);
+  __syncthreads();
+#pragma unroll 1
+  for (int k = 0; k < steps; ++k) {
+    solve(k);
+    __syncthreads();
+    if (k + 1 < steps) stage(a0 - 1 + (k + 1) * TG - HS);
+    store(k);
+    __syncthreads();
   }
-}
-
-// Blocks (warps) per SM the registers must allow, y/z: 16 (128 registers)
-// in f32 (with 9 tracers some of the windows spill, which costs less than
-// fewer warps), 8 (255) in f64.
-template <typename T>
-constexpr int min_blocks_strided() { return sizeof(T) == 8 ? 8 : 16; }
-
-template <int ORD, typename T, int NTRB, bool STRIPS, int EPI, int ALG>
-__global__ void __launch_bounds__(WARP, min_blocks_strided<T>())
-fluxes_strided(const T* __restrict__ prim, const T* __restrict__ hyr,
-               const T* __restrict__ hyt, T* __restrict__ sdiv,
-               T* __restrict__ tf, const GeomOf<STRIPS> g, const T C0,
-               const T gamma, const T cutoff, const T ds, const Stage<T> st) {
-  const int l = blockIdx.x * WARP + threadIdx.x;
-  if (l >= g.nlines) return;
-  const int p = blockIdx.y, a0 = blockIdx.z * SEG;
-  const int a1 = min(a0 + SEG, g.n);
-  const int64_t obase = p * g.pstride + l * g.lstride;
-  StridedSource<ORD, T, NS + NTRB, STRIPS> src{prim + obase, g, {}};
-  march<ORD, T, NTRB, STRIPS, EPI, ALG>(src, g, hyr, hyt, sdiv, tf, p, obase,
-                                   p * g.tpstride + l * g.tlstride, a0, a1,
-                                   C0, gamma, cutoff, ds, st);
 }
 
 // ---------------------------------------------------------------------- x
@@ -861,7 +947,6 @@ fluxes_strided(const T* __restrict__ prim, const T* __restrict__ hyr,
 // face's fluxes by shuffle).  Loads and stores of a warp are contiguous
 // along the row, and no register or shared memory carries between steps.
 constexpr int XT = WARP - 2;
-constexpr unsigned FULL = 0xffffffffu;
 
 // x: blocks of 4 warps per SM, 8 in f32 (64 registers), 3 in f64 (170).
 template <typename T>
@@ -873,12 +958,13 @@ __device__ __forceinline__ void row_stencil(const T* __restrict__ row,
                                             int base, bool inside, int lane,
                                             T (&s)[ORD]) {
   constexpr int HS = (ORD - 1) / 2;
+  const auto strip = [](const auto& sg) { return strip_row(sg); };
   const T A = inside ? row[v * g.vstride + base + lane]
-                     : load_bc<true, STRIPS>(row, g, v, base + lane);
+                     : load_bc<STRIPS>(row, g, strip, v, base + lane);
   T B = T(0);
   if (lane < 2 * HS)
     B = inside ? row[v * g.vstride + base + WARP + lane]
-               : load_bc<true, STRIPS>(row, g, v, base + WARP + lane);
+               : load_bc<STRIPS>(row, g, strip, v, base + WARP + lane);
 #pragma unroll
   for (int q = 0; q < ORD; ++q) {
     const T fa = __shfl_sync(FULL, A, (lane + q) & (WARP - 1));
@@ -938,25 +1024,23 @@ fluxes_x(const T* __restrict__ prim, const T* __restrict__ hyr,
 
 // The y/z kernel in its epilogue form: the stage update when it has a
 // base b0, else the accumulator when `accumulate`, else the bare form.
-template <int ORD, typename T, int NTRB, bool STRIPS, int ALG>
-void launch_strided(const dim3& grid, cudaStream_t s, const T* prim,
-                    const T* hyr, const T* hyt, T* sdiv, T* tf,
-                    const GeomOf<STRIPS>& g, T C0, T gamma, T cutoff, T ds,
-                    bool accumulate, const Stage<T>& st) {
-  if (st.b0 != nullptr)
-    fluxes_strided<ORD, T, NTRB, STRIPS, EPI_STAGE, ALG><<<grid, WARP, 0, s>>>(
-        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds, st);
-  else if (accumulate)
-    fluxes_strided<ORD, T, NTRB, STRIPS, EPI_ACC, ALG><<<grid, WARP, 0, s>>>(
-        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds, st);
-  else
-    fluxes_strided<ORD, T, NTRB, STRIPS, EPI_NONE, ALG><<<grid, WARP, 0, s>>>(
-        prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds, st);
+template <int ORD, typename T, int NTRB, bool STRIPS, int EPI, int ALG>
+void launch_tiled_form(const dim3& grid, size_t smem, cudaStream_t s,
+                       const T* prim, const T* hyr, const T* hyt, T* sdiv,
+                       T* tf, const GeomOf<STRIPS>& g, T C0, T gamma,
+                       T cutoff, T ds, const Stage<T>& st, int chunk) {
+  auto kernel = fluxes_tiled<ORD, T, NTRB, STRIPS, EPI, ALG>;
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return;  // the error stays for cudaGetLastError
+  kernel<<<grid, TT, smem, s>>>(prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff,
+                                ds, st, chunk);
 }
 
 template <int ORD, typename T, int NTRB, bool STRIPS, int ALG>
-void launch_kind(int axis, int planes, cudaStream_t s, const T* prim,
-                 const T* hyr, const T* hyt, T* sdiv, T* tf,
+void launch_kind(int axis, int planes, int chunk, cudaStream_t s,
+                 const T* prim, const T* hyr, const T* hyt, T* sdiv, T* tf,
                  const GeomOf<STRIPS>& g, T C0, T gamma, T cutoff, T ds,
                  bool accumulate, const Stage<T>& st) {
   if (axis == 0) {
@@ -964,45 +1048,56 @@ void launch_kind(int axis, int planes, cudaStream_t s, const T* prim,
                     planes);
     fluxes_x<ORD, T, NTRB, STRIPS, ALG><<<grid, dim3(WARP, XROWS), 0, s>>>(
         prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds);
-  } else {
-    const dim3 grid((g.nlines + WARP - 1) / WARP, planes,
-                    (g.n + SEG - 1) / SEG);
-    launch_strided<ORD, T, NTRB, STRIPS, ALG>(grid, s, prim, hyr, hyt, sdiv, tf,
-                                         g, C0, gamma, cutoff, ds,
-                                         accumulate, st);
+    return;
   }
+  const dim3 grid((g.nlines + TL - 1) / TL, planes, (g.n + chunk - 1) / chunk);
+  const size_t smem = tiled_smem<ORD, T, NTRB>(g.ntr);
+  if (st.b0 != nullptr)
+    launch_tiled_form<ORD, T, NTRB, STRIPS, EPI_STAGE, ALG>(
+        grid, smem, s, prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds, st,
+        chunk);
+  else if (accumulate)
+    launch_tiled_form<ORD, T, NTRB, STRIPS, EPI_ACC, ALG>(
+        grid, smem, s, prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds, st,
+        chunk);
+  else
+    launch_tiled_form<ORD, T, NTRB, STRIPS, EPI_NONE, ALG>(
+        grid, smem, s, prim, hyr, hyt, sdiv, tf, g, C0, gamma, cutoff, ds, st,
+        chunk);
 }
 
 template <int ORD, typename T, int NTRB, int ALG>
-cudaError_t launch_ntr(int axis, int planes, cudaStream_t s, const T* prim,
-                       const T* hyr, const T* hyt, T* sdiv, T* tf,
-                       const StripGeom& g, T C0, T gamma, T cutoff, T ds,
-                       bool accumulate, const Stage<T>& st) {
+cudaError_t launch_ntr(int axis, int planes, int chunk, cudaStream_t s,
+                       const T* prim, const T* hyr, const T* hyt, T* sdiv,
+                       T* tf, const StripGeom& g, T C0, T gamma, T cutoff,
+                       T ds, bool accumulate, const Stage<T>& st) {
   if (g.lo != nullptr)
-    launch_kind<ORD, T, NTRB, true, ALG>(axis, planes, s, prim, hyr, hyt, sdiv,
-                                    tf, g, C0, gamma, cutoff, ds, accumulate,
-                                    st);
+    launch_kind<ORD, T, NTRB, true, ALG>(axis, planes, chunk, s, prim, hyr,
+                                         hyt, sdiv, tf, g, C0, gamma, cutoff,
+                                         ds, accumulate, st);
   else
-    launch_kind<ORD, T, NTRB, false, ALG>(axis, planes, s, prim, hyr, hyt, sdiv,
-                                     tf, static_cast<const Geom&>(g), C0,
-                                     gamma, cutoff, ds, accumulate, st);
+    launch_kind<ORD, T, NTRB, false, ALG>(
+        axis, planes, chunk, s, prim, hyr, hyt, sdiv, tf,
+        static_cast<const Geom&>(g), C0, gamma, cutoff, ds, accumulate, st);
   return cudaGetLastError();
 }
 
 template <int ORD, typename T, int ALG>
-cudaError_t launch_ord(int axis, int planes, cudaStream_t s, const T* prim,
-                       const T* hyr, const T* hyt, T* sdiv, T* tf,
-                       const StripGeom& g, T C0, T gamma, T cutoff, T ds,
-                       bool accumulate, const Stage<T>& st) {
+cudaError_t launch_ord(int axis, int planes, int chunk, cudaStream_t s,
+                       const T* prim, const T* hyr, const T* hyt, T* sdiv,
+                       T* tf, const StripGeom& g, T C0, T gamma, T cutoff,
+                       T ds, bool accumulate, const Stage<T>& st) {
   if (g.ntr <= 1)
-    return launch_ntr<ORD, T, 1, ALG>(axis, planes, s, prim, hyr, hyt, sdiv, tf,
-                                 g, C0, gamma, cutoff, ds, accumulate, st);
+    return launch_ntr<ORD, T, 1, ALG>(axis, planes, chunk, s, prim, hyr, hyt,
+                                      sdiv, tf, g, C0, gamma, cutoff, ds,
+                                      accumulate, st);
   if (g.ntr <= 3)
-    return launch_ntr<ORD, T, 3, ALG>(axis, planes, s, prim, hyr, hyt, sdiv, tf,
-                                 g, C0, gamma, cutoff, ds, accumulate, st);
-  return launch_ntr<ORD, T, NTR_MAX, ALG>(axis, planes, s, prim, hyr, hyt, sdiv,
-                                     tf, g, C0, gamma, cutoff, ds, accumulate,
-                                     st);
+    return launch_ntr<ORD, T, 3, ALG>(axis, planes, chunk, s, prim, hyr, hyt,
+                                      sdiv, tf, g, C0, gamma, cutoff, ds,
+                                      accumulate, st);
+  return launch_ntr<ORD, T, NTR_MAX, ALG>(axis, planes, chunk, s, prim, hyr,
+                                          hyt, sdiv, tf, g, C0, gamma, cutoff,
+                                          ds, accumulate, st);
 }
 
 // axis 0 = x, 1 = y, 2 = z on (nvar, nens, nz, ny, nx) arrays
@@ -1073,10 +1168,15 @@ int launch(const void* prim, const void* hyr, const void* hyt, void* sdiv,
   }
   g.tvstride = g.tpstride * planes;
   g.svstride = g.spstride * planes;
-  const int64_t ltiles = ((int64_t)g.nlines + WARP - 1) / WARP;
+  // y/z: the whole axis is one chunk, unless the grid would hold fewer
+  // than 512 blocks; then it halves the chunks while they stay >= 64 cells
+  const int64_t ltiles = ((int64_t)g.nlines + TL - 1) / TL;
+  int chunk = g.n;
+  while (ltiles * planes * ((g.n + chunk - 1) / chunk) < 512 && chunk >= 128)
+    chunk = (chunk + 1) / 2;
   const bool fits = axis == 0 ? (g.nlines + XROWS - 1) / XROWS <= 65535
                               : ltiles <= 2147483647LL &&
-                                    (g.n + SEG - 1) / SEG <= 65535;
+                                    (g.n + chunk - 1) / chunk <= 65535;
   if (!fits || planes > 65535) return cudaErrorInvalidConfiguration;
   auto s = static_cast<cudaStream_t>(stream);
   auto p = static_cast<const T*>(prim);
@@ -1087,10 +1187,10 @@ int launch(const void* prim, const void* hyr, const void* hyt, void* sdiv,
   const T pc0 = (T)C0, ga = (T)gamma, co = (T)cutoff, ds = (T)div_scale;
   const bool acc = accumulate != 0;
   switch (ord) {
-    case 3: return launch_ord<3, T, ALG>(axis, planes, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
-    case 5: return launch_ord<5, T, ALG>(axis, planes, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
-    case 7: return launch_ord<7, T, ALG>(axis, planes, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
-    case 9: return launch_ord<9, T, ALG>(axis, planes, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
+    case 3: return launch_ord<3, T, ALG>(axis, planes, chunk, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
+    case 5: return launch_ord<5, T, ALG>(axis, planes, chunk, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
+    case 7: return launch_ord<7, T, ALG>(axis, planes, chunk, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
+    case 9: return launch_ord<9, T, ALG>(axis, planes, chunk, s, p, hr, ht, sd, tfp, g, pc0, ga, co, ds, acc, st);
     default: return cudaErrorInvalidValue;
   }
 }

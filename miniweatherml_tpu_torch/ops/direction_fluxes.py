@@ -516,6 +516,8 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
         raise RuntimeError(f"{name} kernel launch failed: "
                            + _error(lib, name, rc))
     count("direction_fluxes.launches")
+    if axis != _AX_X:  # y and z run the tiled kernel (fluxes_tiled)
+        count("direction_fluxes.tiled_launches")
     if strips is not None:
         count("direction_fluxes.strip_launches")
     if algebra != "ref":

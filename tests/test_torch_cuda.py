@@ -57,8 +57,8 @@ def _prim(shape, dtype, device, rng, nvar=8):
 
 
 # (nens, nz, ny, nx): ragged tiles; a 2-D slab (ny = 1); and a box whose
-# axes are no multiple of the kernel's 32-line tiles, 64-cell segments or
-# 8-cell x chunks (z and x take two segments)
+# axes are no multiple of the y/z kernel's 16-line tiles and 16-cell steps
+# or of the x kernel's 30-cell rows
 FLUX_SHAPES = ((2, 7, 5, 70), (1, 100, 2, 18), (2, 12, 1, 40), (2, 67, 35, 70))
 
 
@@ -1491,6 +1491,138 @@ def test_direction_fluxes_epilogue_rejects_bad_input(cuda_device):
         direction_fluxes(*base, acc=acc, rk=rk._replace(immersed=acc))
     with pytest.raises(ValueError, match="b0 or b1"):
         direction_fluxes(*base, acc=acc, rk=rk._replace(b1=acc))
+
+
+# (nens, nz, ny, nx) at the edges of the y/z kernel's tiling
+# (csrc/direction_fluxes.cuh, fluxes_tiled: 16-line tiles, steps of 16
+# cells, n + 2 lanes a line in a chunk): axes of 1 and 2 cells; n + 2 one
+# below (13, 29), at (14, 30) and one above (15, 31) a multiple of the step;
+# the benchmark's z of 100 cells; line counts that leave partial tiles; and
+# axes of 300 cells on grids of few blocks, which the launch cuts into
+# chunks of 75 cells
+TILED_SHAPES = ((1, 1, 1, 17), (2, 2, 2, 16), (1, 13, 14, 9), (1, 15, 29, 5),
+                (1, 14, 30, 3), (1, 31, 15, 18), (1, 100, 2, 18),
+                (1, 300, 3, 16), (1, 2, 300, 17))
+# the limiter algebras of each type: in f32 the approximate-reciprocal
+# forms too, held to the plain version run on the card's reciprocal
+TILED_FORMS = {torch.float64: ({}, {"opt": True}),
+               torch.float32: ({}, {"opt": True},
+                               {"opt": True, "fast_weights": True},
+                               {"fast_weights": True})}
+
+
+def _tiled_want(plain, dtype, kw):
+    """The plain version's outputs the kernel must equal bit for bit: on
+    the card's approximate reciprocal for the f32 fast forms."""
+    if dtype == torch.float32 and kw.get("fast_weights"):
+        return cs._with_recip(cs._card_recip, plain)
+    return plain()
+
+
+@pytest.mark.parametrize("nvar", [5, 6, 8, 14])
+@pytest.mark.parametrize("ord_", [3, 5, 7, 9])
+def test_tiled_kernel_edges_match_plain(ord_, nvar, cuda_device):
+    """y and z on TILED_SHAPES, every BC, f32 and f64, every algebra (with
+    a cutoff in the reference ones): bit for bit with the plain version (the
+    fast forms on the card's reciprocal); each y/z call counts one tiled
+    launch, an x call none."""
+    rng = np.random.default_rng(ord_ * 100 + nvar + 11)
+    for dtype, forms in TILED_FORMS.items():
+        for shape in TILED_SHAPES:
+            prim = _prim(shape, dtype, cuda_device, rng, nvar)
+            for axis, nid in DIRS[1:]:
+                nl = shape[1] + (1 if axis == -3 else 0)
+                hr = torch.as_tensor(1 + 0.1 * rng.random((shape[0], nl)),
+                                     dtype=dtype, device=cuda_device)
+                for bc in (0, 1, 2):
+                    for i, kw in enumerate(forms):
+                        cutoff = 0.1 if not kw.get("opt") and bc == 1 else 0.0
+                        args = (prim, axis, prim.shape[axis], bc, nid, 27.56,
+                                1.4008, hr, 300 * hr, weno_matrices(ord_),
+                                cutoff, 2e-3)
+                        want = _tiled_want(
+                            lambda: direction_fluxes_plain(*args, **kw),
+                            dtype, kw)
+                        n0 = counter("direction_fluxes.tiled_launches")
+                        got = direction_fluxes(*args, **kw)
+                        assert counter("direction_fluxes.tiled_launches") \
+                            == n0 + 1
+                        where = (dtype, shape, axis, bc, kw, cutoff)
+                        for a, b in zip(want, got):
+                            assert a.shape == b.shape, where
+                            assert torch.equal(a, b), where
+    prim = _prim(TILED_SHAPES[2], torch.float32, cuda_device, rng, nvar)
+    hy = torch.ones((1, 13), device=cuda_device)
+    n0 = counter("direction_fluxes.tiled_launches")
+    direction_fluxes(prim, -1, 9, 0, 1, 27.56, 1.4008, hy, 300 * hy,
+                     weno_matrices(ord_), 0.0, 2e-3)
+    assert counter("direction_fluxes.tiled_launches") == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tiled_kernel_epilogues_at_edges_match_plain(dtype, cuda_device):
+    """The accumulator and stage-update forms (with and without b1,
+    gravity, Coriolis and the immersed blend; v = 0 on the 2-D slab, whose
+    last direction is z) on shapes at the tiling's edges, y and z, whole
+    axis and (y) the halo-strip form of each half: bit for bit with the
+    plain version in every algebra of the type (the fast forms on the
+    card's reciprocal), acc written in place, one tiled launch a call."""
+    from miniweatherml_tpu_torch.ops.direction_fluxes import StageUpdate
+    rng = np.random.default_rng(23)
+    for shape, nvar, ord_ in (((1, 13, 14, 9), 8, 5), ((1, 15, 30, 5), 14, 7),
+                              ((1, 300, 2, 16), 6, 9), ((1, 2, 300, 17), 8, 3),
+                              ((2, 31, 1, 18), 8, 5)):
+        prim = _prim(shape, dtype, cuda_device, rng, nvar)
+        acc0, b0, b1, hyc, imm = _stage_case(shape, dtype, cuda_device, rng)
+        sim2d = shape[2] == 1
+        forms = [None] + [
+            StageUpdate(c0, c1, 0.1, b0, bb, hyc, grav, fcor, im, 0.37,
+                        sim2d)
+            for (c0, c1, bb) in ((1.0, 0.0, None), (0.75, 0.25, b1))
+            for (grav, fcor, im) in ((9.81, 0.0, None), (None, 1e-4, imm),
+                                     (9.81, 1e-4, imm))]
+        for axis, nid in DIRS[1:]:
+            if sim2d and axis == -2:
+                continue
+            nl = shape[1] + (1 if axis == -3 else 0)
+            hr = torch.as_tensor(1 + 0.1 * rng.random((shape[0], nl)),
+                                 dtype=dtype, device=cuda_device)
+            variants = [(prim, None, 0 if axis == -2 else 2, slice(None))]
+            if axis == -2:
+                half = shape[2] // 2
+                for i in (0, 1):
+                    block, strips = _strips_of(prim, axis, 2, nid, i, 2,
+                                               (ord_ - 1) // 2 + 1)
+                    variants.append((block, strips, 2,
+                                     slice(i * half, (i + 1) * half)))
+            for p, strips, bc, cut in variants:
+                def part(x):
+                    return x[..., cut, :].contiguous()
+                args = (p, axis, p.shape[axis], bc, nid, 27.56, 1.4008,
+                        hr if axis == -3 else hyc, 300 * hr,
+                        weno_matrices(ord_), 0.0, 2e-3, strips)
+                for rk in forms:
+                    if rk is not None:
+                        rk = rk._replace(
+                            b0=part(rk.b0),
+                            b1=None if rk.b1 is None else part(rk.b1),
+                            immersed=None if rk.immersed is None
+                            else part(rk.immersed))
+                    for kw in TILED_FORMS[dtype][1:]:
+                        want = _tiled_want(
+                            lambda: direction_fluxes_plain(
+                                *args, acc=part(acc0), rk=rk, **kw),
+                            dtype, kw)
+                        a2 = part(acc0)
+                        n0 = counter("direction_fluxes.tiled_launches")
+                        got = direction_fluxes(*args, acc=a2, rk=rk, **kw)
+                        assert counter("direction_fluxes.tiled_launches") \
+                            == n0 + 1
+                        assert got[0] is a2
+                        where = (dtype, shape, axis, strips is not None, kw,
+                                 rk and (rk.b1 is not None, rk.grav, rk.fcor))
+                        assert torch.equal(want[0], got[0]), where
+                        assert torch.equal(want[1], got[1]), where
 
 
 def test_fct_scale_div_edges_match_plain(cuda_device):
