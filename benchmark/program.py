@@ -1,11 +1,15 @@
 """The system under test: the port's chain for a configuration, built
 through the port's public entries.
 
-The configuration names the experiment module whose ``build(config,
-device)`` makes the chain (``entry``) and the dycore form to run
-(``dycore``: its keyword arguments, as ``miniweatherml_tpu_torch.bench``
-swaps it in); the four step modules then run in the reference order.  This
-is the only module of the benchmark that imports the program.
+The configuration names the experiment module (``entry``) whose build
+function (``build``, default ``build``) makes the chain from ``(config,
+device)`` and returns ``(state, step_modules, dycore)``, and the dycore
+form to run (``dycore``: its keyword arguments, as
+``miniweatherml_tpu_torch.bench`` swaps it in).  That form's step takes
+the place of the entry's dycore step, found by identity wherever it sits
+in the chain; every other module runs as built, in the built order, under
+the names the configuration's ``modules`` gives.  This is the only module
+of the benchmark that imports the program.
 """
 
 from __future__ import annotations
@@ -23,10 +27,16 @@ class Program:
         from miniweatherml_tpu_torch.dycore.euler import Dycore
 
         self.config = config_from_dict(cfg)
-        build = importlib.import_module(cfg["entry"]).build
-        state, mods, _ = build(self.config, device)
+        build = getattr(importlib.import_module(cfg["entry"]),
+                        cfg.get("build", "build"))
+        state, mods, built = build(self.config, device)
+        at = [i for i, m in enumerate(mods) if m == built.time_step]
+        if len(at) != 1:
+            raise ValueError(f"the chain holds its dycore's step {len(at)} "
+                             "times, not once")
         self.dycore = Dycore(**cfg["dycore"])
-        self.mods = [self.dycore.time_step, *mods[1:]]
+        self.mods = list(mods)
+        self.mods[at[0]] = self.dycore.time_step
         self.names = list(cfg["modules"])
         if len(self.names) != len(self.mods):
             raise ValueError(f"modules {self.names} do not name the chain's "

@@ -1,4 +1,4 @@
-"""Plain PyTorch reference of the supercell dycore step.
+"""Plain PyTorch reference of the dycore step (the supercell and the city).
 
 Frozen from ``tests/oracle_dycore.py`` at commit b9c5862 (the NumPy oracle
 written from the reference ``Dynamics_Euler_Stratified_WenoFV``,
@@ -18,8 +18,11 @@ What changed from the oracle, and why:
   beside the state; the slabs need no halo.
 * The state divergence of a direction is added as soon as its fluxes are
   known; only the tracer fluxes are kept for FCT.
-* Only what the supercell needs: no immersed boundaries, Coriolis only if
-  nonzero.
+* Gravity where the constants enable it, Coriolis only if nonzero, and
+  the immersed blend where the constants carry ``immersed_proportion`` and
+  ``use_immersed_boundaries`` (frozen from the oracle's lines 335-342 at
+  commit a5ba73f: the state's tendencies blend toward -min(1, dt / tau)
+  state / dt with tau = 1000 dt, weighted per cell by the proportion).
 
 Tensor layout: (nvar, nens, nz, ny, nx); state order idR, idU, idV, idW,
 idT = rho', rho u, rho v, rho w, (rho theta)'.
@@ -316,10 +319,15 @@ class DycoreReference:
         del prim
         tt = _fct(tr, self.positive, TFx, TFy, TFz, dt, g.dx, g.dy, g.dz)
         del TFx, TFy, TFz
-        st[IDW] -= c["grav"] * full_r
+        if c.get("enable_gravity", True):
+            st[IDW] -= c["grav"] * full_r
         if c["fcor"] != 0.0:
             st[IDU] += c["fcor"] * s[IDV]
             st[IDV] -= c["fcor"] * s[IDU]
+        prop = c.get("immersed_proportion")
+        if prop is not None and c.get("use_immersed_boundaries", False):
+            fac = -min(1.0, dt / (1.0e3 * dt)) / dt
+            st = prop * (fac * s) + (1.0 - prop) * st
         return st, tt
 
     def step(self, s, tr, dt):

@@ -155,6 +155,13 @@ def thermal_bubble(grid, dtype, device):
                        0.0)
 
 
+def perturb(f, grid, dtype, device):
+    """The thermal bubble, added to the built state after the steps' own
+    set-up (the nudging column is taken before it, driver.cpp:60-61)."""
+    f["temp"] = f["temp"] + thermal_bubble(grid, dtype, device)[None]
+    return f
+
+
 def column(prof, grid, dtype, device):
     """A z profile as a (nens, nz, ny, nx) tensor."""
     t = torch.as_tensor(np.asarray(prof, np.float64), dtype=dtype,

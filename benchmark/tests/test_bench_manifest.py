@@ -7,8 +7,11 @@ import re
 import shutil
 
 import pytest
+import torch
 
 from benchmark import harness
+
+from conftest import CELLS
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -72,8 +75,7 @@ def test_manifest_keys_and_limits(manifest, root):
         assert all(NAME.match(n) for n in group)
 
 
-@pytest.mark.parametrize("cell", ["kessler_cb1024", "p3_cb1024_layers",
-                                  "p3_cb1024_clear"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_every_cell_found_by_name(manifest, root, cell):
     c, entry, cfg, traffic = harness.cell_files(manifest, cell, root)
     assert cfg["nx_glob"] * cfg["ny_glob"] * cfg["nz"] > 0
@@ -148,3 +150,78 @@ def test_a_new_cell_is_new_files_and_entries(manifest, root, tmp_path, tiny):
     assert res["correct"] is True, res["checks"]
     assert before == {p: open(os.path.join(root, "benchmark", p)).read()
                       for p in before}
+
+
+BUILDING = """\"\"\"The single box building (dynamics...h:1549-1652) in the
+city's gravity-off background.\"\"\"
+
+import numpy as np
+import torch
+
+from .init_city import TRACERS, constants, initial_dynamics  # noqa: F401
+
+
+def immersed_proportion(grid, cfg, root, dtype, device):
+    i, j = np.arange(grid.nx), np.arange(grid.ny)
+    k = np.arange(grid.nz)[:, None, None]
+    r = 0.05 * grid.ny
+    box = (np.abs(i[None, :] - 0.3 * grid.nx) <= r) & \\
+        (np.abs(j[:, None] - 0.5 * grid.ny) <= r)
+    inside = box[None] & (k <= 0.2 * grid.nz)
+    return torch.as_tensor(inside.astype(np.float64), dtype=dtype,
+                           device=device)
+"""
+
+
+def _tree(path):
+    out = {}
+    for dirpath, dirs, files in os.walk(path):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        for f in files:
+            p = os.path.join(dirpath, f)
+            out[os.path.relpath(p, path)] = open(p, "rb").read()
+    return out
+
+
+def test_a_new_chain_is_new_files_and_entries(manifest, root, tmp_path):
+    """A throwaway configuration of another chain (the single building,
+    ``init_data: building``, through the city's entry, with its reference
+    initial state a new file and the top sponge at other settings) runs
+    correct from new files and entries in a copy of the checkout; no file
+    the harness already has changes."""
+    before = _tree(os.path.join(root, "benchmark"))
+    m = json.loads(json.dumps(manifest))
+    m["configs"].append({"name": "building_small", "source": "a test",
+                         "file": "benchmark/configs/building_small.json",
+                         "reduced": [], "why": "a test"})
+    m["workloads"].append({"name": "building", "config": "building_small",
+                           "traffic": "city_turbulent_inflow", "chips": 1,
+                           "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(m))
+    shutil.copytree(os.path.join(root, "benchmark"), tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    b = tmp_path / "benchmark"
+    cfg = json.load(open(b / "configs" / "simple_city_400x400x60.json"))
+    cfg.update(init_data="building", nx_glob=48, ny_glob=32, nz=12, nens=1,
+               xlen=1500, ylen=1000, zlen=300)
+    cfg["reference"] = {"init": "building",
+                        "steps": ["hsponge", "dycore", "sponge", "averager"],
+                        "hsponge": {"cells": 10, "time_scale": 1.0,
+                                    "walls": ["x1", "x2"]},
+                        "sponge": {"time_scale": 1.0, "layers": 10}}
+    (b / "configs" / "building_small.json").write_text(json.dumps(cfg))
+    (b / "reference" / "init_building.py").write_text(BUILDING)
+    lim = json.load(open(b / "limits" / "city_400x400x60.json"))
+    lim["limits"] = {k: (0.0 if v == 0.0 else 0.05)
+                     for k, v in lim["limits"].items()}
+    (b / "limits" / "building.json").write_text(json.dumps(lim))
+    from benchmark.reference.chain import ReferenceChain
+    cell = harness.Cell("building", str(tmp_path))
+    chain = ReferenceChain(cell.cfg, cell.grid, cell.root, torch.float32,
+                           torch.device("cpu"))
+    assert chain.init.__file__ == str(b / "reference" / "init_building.py")
+    res = harness.run("building", 12, 0.1, False, 0.0, device="cpu",
+                      root=str(tmp_path))
+    assert res["correct"] is True, res["checks"]
+    assert 0.0 < res["checks"]["wvel"]["value"] < 0.05
+    assert before == _tree(os.path.join(root, "benchmark"))

@@ -12,15 +12,14 @@ import pytest
 
 from benchmark import harness
 
-from conftest import CELLS
+from conftest import CELLS, size
 
 
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("trace", [False, True])
-def test_a_cpu_run_reaches_its_line_without_card_metrics(tiny, root, cell,
-                                                         trace):
+def test_a_cpu_run_reaches_its_line_without_card_metrics(root, cell, trace):
     res = harness.run(cell, 4000000001, 0.2, trace, time.perf_counter(),
-                      device="cpu", grid_overrides=tiny, root=root)
+                      device="cpu", grid_overrides=size(cell), root=root)
     assert res["correct"] is True
     assert res["attempted"] >= 1 and res["failed"] == 0
     assert res["metrics"] == {}
