@@ -28,6 +28,7 @@ import torch
 from ..core.coupler import CouplerState
 from ..ml.mlp import MLP
 from ..parallel.collectives import pmean
+from ..utils.profiling import span
 from .kessler import MicrophysicsKessler
 from .kessler_surrogate_cuda import pack_mlp, surrogate_forward
 
@@ -107,17 +108,19 @@ class MicrophysicsKesslerSurrogate(MicrophysicsKessler):
                   spmd_axes: tuple = ()) -> CouplerState:
         """``spmd_axes``: in a shard of a mesh run, the mesh axes to reduce
         Kessler's sub-cycle count and to ``pmean`` the compare-mode diffs
-        over."""
-        nn_out = self._nn_forward(state)
-        if self.compare:
-            truth = super().time_step(state, dt, spmd_axes=spmd_axes)
-            sums = torch.stack([torch.sum(a - truth[n]) for a, n in
-                                zip(nn_out, _OUTPUTS)])
-            diffs = pmean(torch.div(sums, sums.new_full((), nn_out[0].numel())),
-                          spmd_axes)
-        else:
-            truth = None
-            diffs = state["surrogate_diffs"]
-        out = (state.replace_fields(**dict(zip(_OUTPUTS, nn_out)))
-               if self.online else truth)
-        return out.replace_fields(surrogate_diffs=diffs)
+        over.  The step runs in the span ``surrogate.step`` (compare
+        mode's Kessler step inside it, in ``kessler.step``)."""
+        with span("surrogate.step"):
+            nn_out = self._nn_forward(state)
+            if self.compare:
+                truth = super().time_step(state, dt, spmd_axes=spmd_axes)
+                sums = torch.stack([torch.sum(a - truth[n]) for a, n in
+                                    zip(nn_out, _OUTPUTS)])
+                diffs = pmean(torch.div(sums, sums.new_full(
+                    (), nn_out[0].numel())), spmd_axes)
+            else:
+                truth = None
+                diffs = state["surrogate_diffs"]
+            out = (state.replace_fields(**dict(zip(_OUTPUTS, nn_out)))
+                   if self.online else truth)
+            return out.replace_fields(surrogate_diffs=diffs)

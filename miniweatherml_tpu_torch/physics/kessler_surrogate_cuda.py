@@ -30,7 +30,7 @@ import ctypes
 import torch
 
 from ..cuda_build import load_library, on_cuda
-from ..utils.profiling import count
+from ..utils.profiling import count, count_traced
 from ..ml.mlp import leaky_relu
 
 __all__ = ["surrogate_forward", "surrogate_forward_plain", "pack_mlp",
@@ -161,7 +161,9 @@ def surrogate_forward(temp, rho_d, rho_v, rho_c, rho_r, params, widths):
 
 def _launch(form, temp, rho_d, rho_v, rho_c, rho_r, params, widths):
     """``surrogate_forward`` on CUDA tensors, in kernel form ``form``
-    ("fixed" or "general"); tests and measurements name the form."""
+    ("fixed" or "general"); tests and measurements name the form.  Counts
+    ``surrogate_forward.launches``, and under a profiler session
+    ``surrogate_forward.fixed_launches`` or ``.general_launches``."""
     fields = (temp, rho_d, rho_v, rho_c, rho_r)
     if temp.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dtype {temp.dtype} is not float32/float64")
@@ -202,4 +204,5 @@ def _launch(form, temp, rho_d, rho_v, rho_c, rho_r, params, widths):
         raise RuntimeError(f"surrogate kernel ({form} form) launch failed: "
                            + lib.surrogate_error_string(rc).decode())
     count("surrogate_forward.launches")
+    count_traced(f"surrogate_forward.{form}_launches")
     return tuple(outs)

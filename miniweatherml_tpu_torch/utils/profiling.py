@@ -19,6 +19,9 @@ The one registry of the program's spans and counters:
     operation.
   * ``count(name, n)``: a host counter (kernel launches, builds); always
     on, under a lock, since the shards of a mesh launch from threads.
+  * ``count_traced(name, n)``: a host counter that counts only while a
+    ``torch.profiler`` session is active (which kernel form ran); without
+    one it costs one flag check.
   * ``count_device(name, t)``: keeps a 0-d device tensor the program has
     already made (a sub-step count) while a session is active; no launch
     and no host read.
@@ -48,9 +51,9 @@ from typing import Iterator
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["span", "count", "counter", "count_device", "read", "reset",
-           "timer", "timer_report", "timer_totals", "reset_timers", "trace",
-           "sync"]
+__all__ = ["span", "count", "count_traced", "counter", "count_device",
+           "read", "reset", "timer", "timer_report", "timer_totals",
+           "reset_timers", "trace", "sync"]
 
 _TIMERS: dict[str, list] = {}  # name -> [total_seconds, calls]
 
@@ -128,6 +131,13 @@ def count(name: str, n: int = 1) -> None:
         entry = _counters.setdefault(name, [0, 0])
         entry[0] += n
         entry[1] += 1
+
+
+def count_traced(name: str, n: int = 1) -> None:
+    """Add ``n`` to the host counter ``name`` while a ``torch.profiler``
+    session is active; a no-op otherwise."""
+    if _active():
+        count(name, n)
 
 
 def counter(name: str):

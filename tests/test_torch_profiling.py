@@ -1,19 +1,25 @@
 """The port's spans, counters, section timers and traces
 (``utils/profiling.py``) on the CPU, beside the JAX package's; the spans
-and device counters of a chain step; and the benchmark's metrics that read
-them."""
+and device counters of a chain step; the surrogate's per-form launch
+counters; and the benchmark's metrics that read them."""
 
+import contextlib
+import ctypes
 import os
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
 from benchmark import harness
 from miniweatherml_tpu.utils import profiling as JPR
 from miniweatherml_tpu_torch.config import config_from_dict
-from miniweatherml_tpu_torch.experiments import supercell_example, supercell_p3
+from miniweatherml_tpu_torch.experiments import (inference_surrogate,
+                                                 supercell_example,
+                                                 supercell_p3)
 from miniweatherml_tpu_torch.physics import kessler as PK
+from miniweatherml_tpu_torch.physics import kessler_surrogate_cuda as KSC
 from miniweatherml_tpu_torch.physics import p3 as PP
 from miniweatherml_tpu_torch.utils import profiling as PR
 
@@ -23,7 +29,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # "modules"), which no program span may take
 HARNESS_SPANS = {"window", "dycore", "micro", "sponge", "nudge"}
 CHAINS = ("kessler", "p3")
-MICRO = {"kessler": "kessler.step", "p3": "p3.step"}
+# the chains whose micro module keeps a span: the online surrogate too
+SPAN_CHAINS = CHAINS + ("surrogate",)
+MICRO = {"kessler": "kessler.step", "p3": "p3.step",
+         "surrogate": "surrogate.step"}
+FORMS = ("surrogate_forward.fixed_launches",
+         "surrogate_forward.general_launches")
+EX = os.path.join(ROOT, "inputs", "examples")
 # span -> (calls in one step at one CFL cycle, parent)
 DYCORE_SPANS = {"dycore.step": (1, None),
                 "dycore.to_dynamics": (1, "dycore.step"),
@@ -123,8 +135,16 @@ def _chain(chain):
     cfg = config_from_dict(dict(
         sim_time=10.0, nx_glob=12, ny_glob=8, nz=16, xlen=40000.0,
         ylen=40000.0, zlen=16000.0, init_data="supercell",
-        dtype="float64"))
-    if chain == "kessler":
+        dtype="float64",
+        nn_weights=os.path.join(EX, "supercell_kessler_example_weights.npz"),
+        nn_input_scaling=os.path.join(EX,
+                                      "supercell_kessler_input_scaling.txt"),
+        nn_output_scaling=os.path.join(
+            EX, "supercell_kessler_output_scaling.txt"),
+        surrogate_online=True, surrogate_compare=False))
+    if chain == "surrogate":
+        state, mods, dycore = inference_surrogate.build(cfg, "cpu")
+    elif chain == "kessler":
         state, mods, dycore = supercell_example.build(cfg, "cpu")
         rain = 0.002 * state["density_dry"]
         rain[:, 8:] = 0.0
@@ -135,7 +155,7 @@ def _chain(chain):
     return state, mods, dycore.compute_time_step(state)
 
 
-@pytest.mark.parametrize("chain", CHAINS)
+@pytest.mark.parametrize("chain", SPAN_CHAINS)
 def test_chain_step_without_a_profiler_records_no_span(chain):
     state, mods, dt = _chain(chain)
     PR.reset()
@@ -143,11 +163,11 @@ def test_chain_step_without_a_profiler_records_no_span(chain):
         state = m(state, dt)
     got = PR.read()
     assert got["spans"] == {}
-    assert not {"kessler.subcycles", "p3.sed_substeps"} & set(
+    assert not {"kessler.subcycles", "p3.sed_substeps", *FORMS} & set(
         got["counters"])
 
 
-@pytest.mark.parametrize("chain", CHAINS)
+@pytest.mark.parametrize("chain", SPAN_CHAINS)
 def test_chain_step_spans_under_a_profiler(chain):
     """One step with each module in a span of the harness's name, as the
     benchmark steps it: every program span with its calls and parent, no
@@ -220,13 +240,106 @@ def test_sub_step_counters_equal_the_plain_paths(chain, monkeypatch):
     PR.reset()
 
 
+# -- the surrogate's launches by kernel form ------------------------------------------
+
+class _StandInLibrary:
+    """The surrogate's CUDA library as ``_launch`` calls it, on host memory:
+    each call writes the plain forward's outputs through the pointers it is
+    given, so the chain runs on and its result shows that ``_launch``
+    passed the fields and outputs in their order."""
+
+    def __init__(self):
+        self.forms = []
+
+    def surrogate_scratch(self, nlayers, wid, item):
+        return 0
+
+    def surrogate_forward_f64(self, ptrs, optrs, params, nparams, nlayers,
+                              wid, n, form, scratch, nscratch, stream):
+        def view(ptr, count):
+            return torch.from_numpy(np.ctypeslib.as_array(
+                (ctypes.c_double * count).from_address(ptr)))
+        self.forms.append(form)
+        widths = tuple(wid[i] for i in range(nlayers + 1))
+        outs = KSC.surrogate_forward_plain(
+            *(view(ptrs[i], n) for i in range(KSC.NIN)),
+            view(params, nparams), widths)
+        for i, o in enumerate(outs):
+            view(optrs[i], n).copy_(o)
+        return 0
+
+
+def _stand_in(monkeypatch):
+    lib = _StandInLibrary()
+    monkeypatch.setattr(KSC, "_library", lambda: lib)
+    monkeypatch.setattr(KSC, "on_cuda", lambda t: True)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    return lib
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_the_fixed_form_counts_once_a_step_on_the_online_chain(
+        profiled, monkeypatch):
+    """Two steps of the online chain through ``_launch``: the shipped
+    5-10-4 model takes the fixed form once a step.  Under a profiler
+    session ``surrogate_forward.fixed_launches`` counts each launch and
+    ``.general_launches`` stays absent; without one neither is kept (one
+    flag check), while ``surrogate_forward.launches`` counts either way.
+    The chain's state equals the plain path's."""
+    state, mods, dt = _chain("surrogate")
+    plain = state
+    for _ in range(2):
+        for m in mods:
+            plain = m(plain, dt)
+    lib = _stand_in(monkeypatch)
+    PR.reset()
+    with _profile() if profiled else contextlib.nullcontext():
+        for _ in range(2):
+            for m in mods:
+                state = m(state, dt)
+    counters = PR.read()["counters"]
+    assert lib.forms == [KSC._FORMS["fixed"]] * 2
+    assert counters["surrogate_forward.launches"]["total"] == 2
+    if profiled:
+        assert counters[FORMS[0]] == {"total": 2, "calls": 2}
+        assert FORMS[1] not in counters
+    else:
+        assert not set(FORMS) & set(counters)
+    for name in ("temp", "water_vapor", "cloud_liquid", "precip_liquid",
+                 "wvel"):
+        assert torch.equal(state[name], plain[name]), name
+    PR.reset()
+
+
+def test_a_model_of_other_widths_counts_the_general_form(monkeypatch):
+    """A 5-17-4 model takes the general form, and under a profiler session
+    counts under ``surrogate_forward.general_launches``."""
+    state, mods, dt = _chain("surrogate")
+    micro = mods[1].__self__
+    g = torch.Generator().manual_seed(3)
+    micro.model = type(micro.model)(
+        [(torch.rand(a, b, generator=g) * 0.2 - 0.1,
+          torch.rand(b, generator=g) * 0.2 - 0.1)
+         for a, b in ((5, 17), (17, 4))])
+    micro._cast = None
+    lib = _stand_in(monkeypatch)
+    PR.reset()
+    with _profile():
+        mods[1](state, dt)
+    counters = PR.read()["counters"]
+    assert lib.forms == [KSC._FORMS["general"]]
+    assert counters[FORMS[1]]["total"] == 1 and FORMS[0] not in counters
+    PR.reset()
+
+
 # -- the benchmark's metrics that read the registry ----------------------------------
 
 # metric -> (registry entries, per-step value); a stand-in trace of 4 steps
-# whose Kessler and P3 kernels ran 2 ms and 8 ms
+# whose Kessler, P3 and surrogate kernels ran 2 ms, 8 ms and 4 ms
 MS = {"dycore.step": 400.0, "dycore.to_dynamics": 20.0, "dycore.prim": 36.0,
       "dycore.to_coupler": 28.0, "kessler.step": 10.0, "sponge.step": 12.0,
-      "nudge.step": 8.0}
+      "nudge.step": 8.0, "surrogate.step": 6.0}
 METRICS = {
     "dycore_convert_ms_per_step": 12.0,
     "dycore_prim_ms_per_step": 9.0,
@@ -235,11 +348,13 @@ METRICS = {
     "host_issue_ms_per_step": 2 * (400.0 + 10.0 + 12.0 + 8.0) / 4,
     "kessler_subcycles_per_step": 1.5,
     "p3_sed_substeps_per_step": 1.0,
+    "surrogate_glue_ms_per_step": (6.0 - 4.0) / 4,
+    "surrogate_general_launches_per_step": 0.5,
 }
 
 
 def _stand_in_trace():
-    secs = {"kessler": 0.002, "p3": 0.008}
+    secs = {"kessler": 0.002, "p3": 0.008, "surrogate": 0.004}
     return SimpleNamespace(steps=4, family_seconds=lambda fam: secs[fam])
 
 
@@ -260,6 +375,8 @@ def test_metric_reads_a_registry_filled_by_hand(metric):
         PR._spans[name] = [4, int(2e6 * ms), ms, parent]
     PR.count("kessler.subcycles", 6)
     PR.count("p3.sed_substeps", 4.0)
+    PR.count(FORMS[0], 2)
+    PR.count(FORMS[1], 2)
     got = harness.load_metric(metric, ROOT).read(_stand_in_trace())
     assert got == pytest.approx(METRICS[metric])
     PR.reset()
