@@ -4,7 +4,7 @@ Usage (from the root of a checkout):  python3 chip_smoke.py
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. device: name, power limit, torch and CUDA versions;
-  2. build: the nine CUDA libraries from csrc/ with nvcc (sm_90a), one
+  2. build: the ten CUDA libraries from csrc/ with nvcc (sm_90a), one
      nvcc each, and the P3 native twin with g++, all started together; the
      registers, spills and shared memory of every kernel (from the ptxas
      reports: the flux kernel's ord-5
@@ -57,6 +57,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      after one step (its rainsplit printed; the kernel and the whole
      MicrophysicsKessler.time_step timed) and on heavy-rain columns at
      rainsplit 3, f32 and f64;
+  34. (run after 4) the dycore's state transforms (csrc/dycore_state.cu:
+     the de-densitization and the conversions coupler -> dynamics and
+     dynamics -> coupler) at 1024x1024x100 f32 with the Kessler chain's 3
+     tracers (8 fields) and the P3 chain's 9 (14 fields), each bit for bit
+     against its plain version, one launch a call, timed beside the plain
+     version and its bytes bound; every chain run below counts their 5
+     launches a step, and the 1 of Dycore.init in the chain's build;
   5. the Kessler slice: community_benchmark.run_benchmark on the 512x512x64
      f32 ord-5 supercell, with its kernels' launch counts, the PyTorch
      (glue) launches of one more step (torch.profiler), a clean
@@ -934,7 +941,7 @@ def phase_device():
 
 LIBRARIES = ("direction_fluxes", "direction_fluxes_opt",
              "direction_fluxes_ref_fast", "kessler", "p3_lookup",
-             "p3_cellwise", "fct", "p3_sed", "surrogate")
+             "p3_cellwise", "fct", "p3_sed", "surrogate", "dycore_state")
 # the flux kernel's libraries: the reference algebra, the
 # reduced-operation one with exact and approximate reciprocals, and the
 # reference one with approximate reciprocals
@@ -1505,6 +1512,92 @@ def phase_kessler():
     return rec
 
 
+# the dycore's state transforms at the benchmark's grid, with the tracer
+# registries of the Kessler chain (3 tracers: 8 fields) and the P3 chain
+# (9 tracers, 4 adding mass: 14 fields): (adds_mass, vapor index)
+STATE_REGISTRIES = {
+    "8 fields (Kessler)": ((True, True, True), 0),
+    "14 fields (P3)": ((True, False, True, False, True, False, False, False,
+                        True), 8),
+}
+
+
+def phase_dycore_state():
+    """The dycore's state transforms (ops/dycore_state.py) at 1024x1024x100
+    f32 with 8 and 14 fields: each kernel bit for bit against its plain
+    version on the same inputs, one launch a call, timed beside the plain
+    version and its bytes bound (every field it reads once, every field it
+    writes once; the conversion to the coupler reads only the tracers that
+    add mass and vapor).  Returns the kernels line's entry: one step's five
+    calls (three de-densitizations and both conversions) at 8 fields."""
+    from miniweatherml_tpu_torch.ops import dycore_state as ds
+
+    shape = (1, 100, 1024, 1024)
+    gen = torch.Generator(device="cuda").manual_seed(34)
+
+    def rand(lo, hi, size=shape):
+        return lo + (hi - lo) * torch.rand(size, generator=gen,
+                                           device="cuda")
+    gamma = 1003.0 / 716.0
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "bound_by": "bytes"}
+    for label, (adds, idwv) in STATE_REGISTRIES.items():
+        fields = (rand(1.0, 1.2), rand(-20.0, 20.0), rand(-20.0, 20.0),
+                  rand(-10.0, 10.0), rand(220.0, 300.0))
+        trs = [rand(0.0, 1e-2) if i == idwv else
+               rand(0.0, 1e-3) * (rand(0.0, 1.0) < 0.5)
+               for i in range(len(adds))]
+        hyc = rand(1.0, 1.2, shape[:2])
+        hyt = 300.0 * hyc
+        th = dict(idWV=idwv, adds_mass=list(adds), R_d=287.0, R_v=461.0,
+                  gamma=gamma, C0=(287.0 * 1e5 ** (-287.0 / 1003.0)) ** gamma)
+        s, tr = ds.coupler_to_dynamics(*fields, trs, hyc, hyt, **th)
+        read = [t for i, t in enumerate(tr) if adds[i] or i == idwv]
+        calls = (
+            ("coupler -> dynamics",
+             lambda: ds.coupler_to_dynamics(*fields, trs, hyc, hyt, **th),
+             lambda: ds.coupler_to_dynamics_plain(*fields, trs, hyc, hyt,
+                                                  **th),
+             (fields, trs, hyc, hyt)),
+            ("de-densitization", lambda: (ds.dedensitize(s, tr, hyc),),
+             lambda: (ds.dedensitize_plain(s, tr, hyc),), (s, tr, hyc)),
+            ("dynamics -> coupler",
+             lambda: ds.dynamics_to_coupler(s, tr, hyc, hyt, **th),
+             lambda: ds.dynamics_to_coupler_plain(s, tr, hyc, hyt, **th),
+             (s, read, hyc, hyt)))
+        for name, kern, plain, inputs in calls:
+            n0 = profiling.counter("dycore_state.launches")
+            got = kern()
+            launches = profiling.counter("dycore_state.launches") - n0
+            want = plain()
+            torch.cuda.synchronize()
+            diffs = [_ulps(w, g) for w, g in zip(want, got)]
+            if launches != 1 or any(n for n, _ in diffs):
+                raise AssertionError(f"[34] {name}, {label}: {launches} "
+                                     f"launches, (values apart, ulps) per "
+                                     f"output {diffs}")
+            nbytes = _nbytes(inputs, got)
+            del got, want
+            ms = _time_ms(kern, reps=10)
+            pms = _time_ms(plain, reps=3)
+            bms = 1e3 * nbytes / HBM_BYTES_S
+            print(f"[34] {name}, {label}: bit for bit; kernel {ms:.3f} ms, "
+                  f"plain {pms:.3f} ms, bound {bms:.3f} ms (bytes: "
+                  f"{nbytes / 1e9:.3f} GB), {bms / ms:.1%} of the bound  "
+                  f"[{_card()}]", flush=True)
+            if label.startswith("8"):
+                k = 3 if name == "de-densitization" else 1
+                rec["ms"] += k * ms
+                rec["plain_ms"] += k * pms
+                rec["bound_ms"] += k * bms
+        del fields, trs, s, tr, read, calls
+        torch.cuda.empty_cache()
+    print(f"[34] one step's five calls at 8 fields: kernels {rec['ms']:.3f} "
+          f"ms, plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} "
+          f"ms", flush=True)
+    return rec
+
+
 def _launch_counters(*kernels):
     """{kernel: the registry name of its launch counter}."""
     return {k: f"{k}.launches" for k in kernels}
@@ -1513,7 +1606,7 @@ def _launch_counters(*kernels):
 def _counters(chain):
     """The launch counters of the kernels on a chain's path."""
     dycore = {**_launch_counters("direction_fluxes", "fct_mult",
-                                 "fct_scale_div"),
+                                 "fct_scale_div", "dycore_state"),
               "fluxes_tiled": "direction_fluxes.tiled_launches"}
     if chain == "city":
         return dycore
@@ -1554,13 +1647,16 @@ def _check_state(tag, state):
 # launches per step of the dycore's kernels at one CFL cycle, in every cell:
 # every y and z call of the 9 flux calls runs the tiled kernel
 DYCORE_PER_STEP = {"direction_fluxes": 9, "fluxes_tiled": 6, "fct_mult": 3,
-                   "fct_scale_div": 9}
+                   "fct_scale_div": 9, "dycore_state": 5}
+# launches a chain's build makes before its first step: Dycore.init turns
+# its initial state into the coupler's fields
+BUILD_LAUNCHES = {"dycore_state": 1}
 
 
 # the port's own kernels, by a part of their names
 OWN_KERNELS = ("fluxes", "fct", "kessler", "cellwise", "ice_kernel",
                "collect_kernel", "rain_kernel", "sed_step", "sed_columns",
-               "surrogate")
+               "surrogate", "dyn_prim", "dyn_from_coupler", "dyn_to_coupler")
 
 
 def _glue_per_step(mods, state, dt):
@@ -1594,7 +1690,8 @@ def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None,
     """run_benchmark on the chain's path with its launch counters read
     just before and just after; ``finish(state)`` runs on the final
     state.  Every step (and the discarded warm-up step) launches each kernel
-    of ``per_step`` (default: the dycore's) that many times; every other
+    of ``per_step`` (default: the dycore's) that many times, besides the
+    build's ``BUILD_LAUNCHES``; every other
     kernel of the path at least once in the run.  ``glue``: then one more
     step under the profiler counts PyTorch's own launches (the glue)
     beside the kernels' per step."""
@@ -1619,10 +1716,11 @@ def _run_cell(tag, cfg, card, chain="kessler", build=None, finish=None,
     if any(n < 1 for k, n in launches.items() if per_step.get(k, 1) > 0):
         raise AssertionError(f"{tag}: a kernel of the path never launched: "
                              f"{launches}")
-    if any(launches[k] != v * (res["steps"] + 1) for k, v in per_step.items()):
+    if any(launches[k] != v * (res["steps"] + 1) + BUILD_LAUNCHES.get(k, 0)
+           for k, v in per_step.items()):
         raise AssertionError(f"{tag}: launches {launches} for "
                              f"{res['steps']} + 1 steps, expected {per_step} "
-                             "per step")
+                             f"per step and {BUILD_LAUNCHES} in the build")
     if glue:
         (gn, gms), (on, oms) = _glue_per_step(
             chain_of["mods"], state, chain_of["dycore"].compute_time_step(
@@ -3836,7 +3934,7 @@ def _spmd_chain(build, cfg, mesh, device="cuda", seed=None):
 # forms (x and y of each stage) among them, and the Kessler kernel
 SPMD_PER_STEP = {"direction_fluxes": 9, "fluxes_tiled": 6, "strips": 6,
                  "fct_mult": 3, "fct_scale_div": 9, "edges": 6,
-                 "kessler_step": 1, "min_step": 1}
+                 "kessler_step": 1, "min_step": 1, "dycore_state": 5}
 
 
 def _spmd_counts():
@@ -4543,6 +4641,7 @@ def main() -> int:
                                for r in (r_kessler, r_p3, r_city))
     del r_kessler, r_p3, r_city
     k_b = phase_kessler()
+    k_ds = phase_dycore_state()
     l_kessler = _run_cell("5", _bench_cfg(512, 512, 64, 10, "float32"),
                           card, glue=True)[0]
     l_opt = phase_opt_slice(card)
@@ -4728,6 +4827,14 @@ def main() -> int:
          "replaces": "miniweatherml_tpu/physics/p3.py:1726-1741 (an XLA "
                      "fusion, not a Pallas kernel)",
          "launches": l_p3["p3_wrapper_out"], **k_rs["p3_wrapper_out"]},
+        # the dycore's state transforms, which the JAX package leaves to
+        # XLA: one step's five calls
+        {"name": "dycore_state (de-densitization x 3, both conversions)",
+         "route": "cuda",
+         "source": "miniweatherml_tpu_torch/csrc/dycore_state.cu",
+         "replaces": "miniweatherml_tpu/dycore/euler.py:322-356, 1009-1017 "
+                     "(XLA fusions, not Pallas kernels)",
+         "launches": l_kessler["dycore_state"], **k_ds},
         {"name": "surrogate_forward", "route": "cuda",
          "source": "miniweatherml_tpu_torch/csrc/surrogate.cu",
          "replaces": "miniweatherml_tpu/physics/kessler_surrogate.py:60-76 "

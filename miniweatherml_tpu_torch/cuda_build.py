@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 FMAD_SOURCES = ("direction_fluxes", "direction_fluxes_opt",
-                "direction_fluxes_ref_fast", "kessler", "p3_lookup")
+                "direction_fluxes_ref_fast", "dycore_state", "kessler",
+                "p3_lookup")
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

@@ -25,6 +25,9 @@ Pallas kernels' reduced-operation algebra with, by default,
 approximate-reciprocal weights in f32 (``fast_weights``); "pallas" with
 ``opt_algebra=False`` or a cutoff the Pallas kernels' reference algebra,
 with the same weights.
+The de-densitization that each right-hand side's directions share and the
+conversions between the coupler's fields and the dycore's state go through
+``ops/dycore_state`` (one CUDA kernel each on the card).
 
 Under a mesh (``parallel/spmd.py``) each shard steps its local block with an
 ``SpmdCtx``: a split x or y direction takes its halo strips from the ring
@@ -45,12 +48,12 @@ import math
 from functools import partial
 from typing import Any
 
-import torch
-
 from ..core.coupler import CouplerState
 from ..ops.direction_fluxes import (IDR, IDT, IDU, IDV, IDW, StageUpdate,
                                     direction_fluxes)
-from ..ops.fct import fct_mult, fct_scale_div, per_tracer
+from ..ops.dycore_state import (coupler_to_dynamics, dedensitize,
+                                dynamics_to_coupler)
+from ..ops.fct import fct_mult, fct_scale_div
 from ..ops.stencil import BC_WALL
 from ..ops.weno import weno_matrices
 from ..parallel.collectives import axis_index
@@ -67,13 +70,13 @@ _MAXWAVE = 350.0 + 80.0
 _CFL = 0.6
 
 
-def _tracer_mass(state, tr):
-    """Sum of the tracers that add mass (the registry's ``adds_mass``)."""
-    adds = [t.adds_mass for t in state.meta.tracers]
-    if all(adds):
-        return torch.sum(tr, dim=0)
-    return torch.sum(per_tracer(tr, [not a for a in adds], torch.zeros_like),
-                     dim=0)
+def _thermo(state):
+    """The conversions' thermodynamic keywords of ``state``
+    (``ops/dycore_state.py``)."""
+    o = state.options
+    return dict(idWV=state.meta.idWV,
+                adds_mass=[t.adds_mass for t in state.meta.tracers],
+                R_d=o["R_d"], R_v=o["R_v"], gamma=o["gamma_d"], C0=o["C0"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,35 +245,17 @@ class Dycore:
     # conversions (reference dynamics...h:1891-2015)
     # ------------------------------------------------------------------
     def convert_coupler_to_dynamics(self, state: CouplerState):
-        o = state.options
-        R_d, R_v, gamma, C0 = o["R_d"], o["R_v"], o["gamma_d"], o["C0"]
-        hyc = state["hy_dens_cells"][:, :, None, None]
-        hyt = state["hy_dens_theta_cells"][:, :, None, None]
-
-        rho_d = state["density_dry"]
-        u, v, w = state["uvel"], state["vvel"], state["wvel"]
-        temp = state["temp"]
-        tr = state.tracer_stack()
-        rho_v = tr[state.meta.idWV]
-        press = rho_d * R_d * temp + rho_v * R_v * temp
-        rho = rho_d + _tracer_mass(state, tr)
-        theta = (press / C0) ** (1.0 / gamma) / rho
-        s = torch.stack([rho - hyc, rho * u, rho * v, rho * w,
-                         rho * theta - hyt])
-        return s, tr
+        return coupler_to_dynamics(
+            state["density_dry"], state["uvel"], state["vvel"],
+            state["wvel"], state["temp"],
+            [state[n] for n in state.meta.tracer_names],
+            state["hy_dens_cells"], state["hy_dens_theta_cells"],
+            **_thermo(state))
 
     def _dyn_to_coupler_fields(self, state: CouplerState, s, tr):
-        o = state.options
-        R_d, R_v, gamma, C0 = o["R_d"], o["R_v"], o["gamma_d"], o["C0"]
-        hyc = state["hy_dens_cells"][:, :, None, None]
-        hyt = state["hy_dens_theta_cells"][:, :, None, None]
-        rho = s[IDR] + hyc
-        u, v, w = s[IDU] / rho, s[IDV] / rho, s[IDW] / rho
-        theta = (s[IDT] + hyt) / rho
-        press = C0 * (rho * theta) ** gamma
-        rho_d = rho - _tracer_mass(state, tr)
-        rho_v = tr[state.meta.idWV]
-        temp = press / (rho_d * R_d + rho_v * R_v)
+        rho_d, u, v, w, temp = dynamics_to_coupler(
+            s, tr, state["hy_dens_cells"], state["hy_dens_theta_cells"],
+            **_thermo(state))
         out = dict(density_dry=rho_d, uvel=u, vvel=v, wvel=w, temp=temp)
         out.update({n: tr[i] for i, n in enumerate(state.meta.tracer_names)})
         return out
@@ -375,10 +360,7 @@ class Dycore:
         # De-densitized variables (dynamics...h:248-255): rho', u, v, w,
         # (rho theta)', tracer concentrations -- shared by all directions.
         with span("dycore.prim"):
-            full_r = s[IDR] + hy[0][:, :, None, None]
-            prim = torch.cat([s[IDR:IDU], s[IDU:IDT] / full_r,
-                              s[IDT:IDT + 1], tr / full_r])
-            del full_r
+            prim = dedensitize(s, tr, hy[0])
 
         # Gravity, Coriolis and the immersed-boundary blend
         # (dynamics...h:524-550) and the stage update ride the last

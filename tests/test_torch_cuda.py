@@ -9,8 +9,9 @@ neither JAX nor the JAX package, so it also runs on a machine without JAX:
 Tolerance: max|kernel - plain| over max|plain| of each output, 1e-12 in
 f64 and 1e-5 in f32 (an index set of the P3 rates by its lookup positions,
 index plus fraction); the flux kernel, fct_mult, the Kessler step and its
-sub-cycle step, the P3 lookups, the P3 output pass and the surrogate's
-forward equal their plain versions bit for bit.
+sub-cycle step, the P3 lookups, the P3 output pass, the surrogate's
+forward and the dycore's state transforms equal their plain versions bit
+for bit.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 
 from miniweatherml_tpu_torch.config import config_from_dict
 from miniweatherml_tpu_torch.experiments.supercell_example import build
+from miniweatherml_tpu_torch.ops import dycore_state as ds
 from miniweatherml_tpu_torch.ops.direction_fluxes import (
     direction_fluxes, direction_fluxes_plain)
 from miniweatherml_tpu_torch.ops.weno import weno_matrices
@@ -1763,3 +1765,180 @@ def test_native_chain_on_card_validates(cuda_device):
     assert torch.isfinite(state["wvel"]).all()
     assert state["ice"].device.type == torch.device(cuda_device).type
     assert float(state["ice"].max()) > 0.0 and float(state["precl"].max()) > 0.0
+
+
+# -- the dycore's state transforms -------------------------------------------
+
+# (nens, nz, ny, nx): a plane of no whole number of f32 vectors (one value
+# at a time), of whole vectors, an ensemble, and a 2-D slab
+STATE_SHAPES = ((2, 7, 5, 70), (1, 9, 3, 37), (2, 4, 16, 64), (1, 6, 1, 33))
+STATE_NTR = (1, 3, 9, ds.MAX_TRACERS)
+
+
+def _state_case(shape, ntr, dtype, device, rng, offset=0):
+    """A coupler's fields of ``ntr`` tracers (about half of each non-vapor
+    tracer zero) and hydrostatic profiles; each field starts ``offset``
+    values into its storage."""
+    nens, nz = shape[:2]
+
+    def field(a):
+        t = torch.as_tensor(np.concatenate([np.zeros(offset), a.ravel()]),
+                            dtype=dtype, device=device)
+        return t[offset:].view(shape)
+    rho_d = 1.0 + 0.1 * rng.random(shape)
+    fields = [field(rho_d)] + [field(10 * rng.standard_normal(shape))
+                               for _ in range(3)]
+    fields.append(field(280 + 20 * rng.random(shape)))
+    trs = [field(np.where(rng.random(shape) < 0.5, 0.0,
+                          1e-3 * rng.random(shape))) for _ in range(ntr)]
+    hyc = torch.as_tensor(1 + 0.1 * rng.random((nens, nz)), dtype=dtype,
+                          device=device)
+    return fields, trs, hyc, 300 * hyc
+
+
+def _state_thermo(ntr, rng, masks="mixed"):
+    adds = {"all": [True] * ntr, "none": [False] * ntr,
+            "mixed": list(rng.random(ntr) < 0.5)}[masks]
+    return dict(idWV=int(rng.integers(ntr)), adds_mass=adds, R_d=287.0,
+                R_v=461.0, gamma=1003.0 / 716.0,
+                C0=(287.0 * 1e5 ** (-287.0 / 1003.0)) ** (1003.0 / 716.0))
+
+
+def _equal_all(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.is_contiguous(), (what, i)
+        assert torch.equal(g, w), (
+            f"{what} output {i}: max diff {(g - w).abs().max().item()}")
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ntr", STATE_NTR)
+def test_dycore_state_kernels_match_plain(ntr, dtype, offset, cuda_device):
+    """The three transforms at every shape, with all, none and a mix of
+    the tracers adding mass, bit for bit against their plain versions on
+    the card; 16-byte vectors where the planes and pointers allow
+    (offset 0), one value at a time elsewhere (offset 1)."""
+    rng = np.random.default_rng(ntr * 10 + offset)
+    for shape in STATE_SHAPES:
+        fields, trs, hyc, hyt = _state_case(shape, ntr, dtype, cuda_device,
+                                            rng, offset)
+        for masks in ("all", "none", "mixed"):
+            th = _state_thermo(ntr, rng, masks)
+            n0 = counter("dycore_state.launches")
+            s, tr = ds.coupler_to_dynamics(*fields, trs, hyc, hyt, **th)
+            _equal_all((s, tr), ds.coupler_to_dynamics_plain(
+                *fields, trs, hyc, hyt, **th), (shape, masks, "to dyn"))
+            prim = ds.dedensitize(s, tr, hyc)
+            _equal_all((prim,), (ds.dedensitize_plain(s, tr, hyc),),
+                       (shape, masks, "prim"))
+            back = ds.dynamics_to_coupler(s, tr, hyc, hyt, **th)
+            _equal_all(back, ds.dynamics_to_coupler_plain(
+                s, tr, hyc, hyt, **th), (shape, masks, "to coupler"))
+            assert counter("dycore_state.launches") == n0 + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dedensitize_kernel_takes_any_tracer_count(dtype, cuda_device):
+    """No tracer, and more than a conversion takes."""
+    rng = np.random.default_rng(5)
+    for shape in STATE_SHAPES:
+        for ntr in (0, ds.MAX_TRACERS + 6):
+            s = torch.as_tensor(rng.standard_normal((5,) + shape),
+                                dtype=dtype, device=cuda_device)
+            tr = torch.as_tensor(rng.random((ntr,) + shape), dtype=dtype,
+                                 device=cuda_device)
+            hyc = torch.as_tensor(1 + rng.random(shape[:2]), dtype=dtype,
+                                  device=cuda_device)
+            _equal_all((ds.dedensitize(s, tr, hyc),),
+                       (ds.dedensitize_plain(s, tr, hyc),), (shape, ntr))
+
+
+def _chain_state(chain, dtype, device):
+    """A chain's state after one step of its modules on the card, and its
+    dycore."""
+    from miniweatherml_tpu_torch.experiments import simple_city, supercell_p3
+    if chain == "city":
+        cfg = config_from_dict(dict(
+            sim_time=1.0, nens=2, nx_glob=64, ny_glob=64, nz=12,
+            xlen=2000.0, ylen=2000.0, zlen=300.0, init_data="city",
+            enable_gravity=False, dtype=dtype))
+        state, mods, dycore = simple_city.build_chain(cfg, device)
+        state = state.replace_fields(
+            vvel=torch.full_like(state["vvel"], 2.0),
+            wvel=torch.full_like(state["wvel"], 0.5))
+    else:
+        cfg = config_from_dict(dict(
+            sim_time=100.0, nx_glob=16, ny_glob=8, nz=10, xlen=40000.0,
+            ylen=40000.0, zlen=10000.0, init_data="supercell", dtype=dtype))
+        if chain == "p3":
+            state, mods, dycore = supercell_p3.build(cfg, device)
+            state = supercell_p3.seed_mixed_regimes(state)
+        else:
+            state, mods, dycore = build(cfg, device)
+    dt = dycore.compute_time_step(state)
+    for m in mods:
+        state = m(state, dt)
+    return state, dycore, dt
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("chain", ["kessler", "p3", "city"])
+def test_dycore_step_through_state_kernels_is_the_plain_step(
+        chain, dtype, cuda_device, monkeypatch):
+    """A whole Dycore.time_step through the three kernels (5 launches at
+    one CFL cycle) equals the same step with the plain transforms, bit for
+    bit."""
+    from miniweatherml_tpu_torch.dycore import euler
+
+    state, dycore, dt = _chain_state(chain, dtype, cuda_device)
+    n0 = counter("dycore_state.launches")
+    got = dycore.time_step(state, dt)
+    assert counter("dycore_state.launches") == n0 + 5
+    for name in ("dedensitize", "coupler_to_dynamics",
+                 "dynamics_to_coupler"):
+        monkeypatch.setattr(euler, name, getattr(ds, name + "_plain"))
+    want = dycore.time_step(state, dt)
+    assert counter("dycore_state.launches") == n0 + 5
+    for name in want.fields:
+        assert torch.equal(got[name], want[name]), name
+
+
+def test_dycore_state_kernels_reject_bad_input(cuda_device):
+    rng = np.random.default_rng(3)
+    shape = (1, 4, 3, 8)
+    fields, trs, hyc, hyt = _state_case(shape, 3, torch.float32, cuda_device,
+                                        rng)
+    th = _state_thermo(3, rng)
+    s, tr = ds.coupler_to_dynamics(*fields, trs, hyc, hyt, **th)
+    with pytest.raises(TypeError):                       # dtype
+        ds.dedensitize(s.half(), tr.half(), hyc.half())
+    with pytest.raises(TypeError):
+        ds.dedensitize(s, tr.double(), hyc)
+    with pytest.raises(ValueError):                      # device
+        ds.dedensitize(s, tr.cpu(), hyc)
+    with pytest.raises(ValueError):
+        ds.dynamics_to_coupler(s, tr, hyc.cpu(), hyt, **th)
+    with pytest.raises(ValueError):                      # shape
+        ds.dedensitize(s[:4], tr, hyc)
+    with pytest.raises(ValueError):
+        ds.dedensitize(s, tr[..., :4], hyc)
+    with pytest.raises(ValueError):
+        ds.dynamics_to_coupler(s, tr, hyc[:, :2], hyt, **th)
+    def strided(x):
+        return x.transpose(-1, -2).contiguous().transpose(-1, -2)
+    with pytest.raises(ValueError):                      # contiguity
+        ds.coupler_to_dynamics(strided(fields[0]), *fields[1:], trs, hyc,
+                               hyt, **th)
+    with pytest.raises(ValueError):
+        ds.coupler_to_dynamics(*fields, [strided(trs[0])] + trs[1:], hyc,
+                               hyt, **th)
+    with pytest.raises(ValueError):                      # tracer count
+        ds.coupler_to_dynamics(*fields, trs * 22, hyc, hyt,
+                               **_state_thermo(66, rng))
+    with pytest.raises(ValueError):                      # vapor index
+        ds.dynamics_to_coupler(s, tr, hyc, hyt, **dict(th, idWV=3))
+    with pytest.raises(ValueError):                      # pow special case
+        ds.dynamics_to_coupler(s, tr, hyc, hyt, **dict(th, gamma=2.0))
+    with pytest.raises(ValueError):                      # other devices
+        ds.dedensitize(s.to("meta"), tr.to("meta"), hyc.to("meta"))
