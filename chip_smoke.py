@@ -2340,6 +2340,7 @@ def _newton_trips(args):
     neither condenses nor evaporates, or an evaporating cell whose boundary
     root holds), else the first trip that leaves x with the bits it had, or
     n_newton + 1 where none does."""
+    from miniweatherml_tpu_torch.ops.exact_div import exact_div
     from miniweatherml_tpu_torch.physics import p3 as P
     rho_d, temp, rho_c, _, rho_r, _, rho_i, _, _, _, rho_v = args[:11]
     rho = rho_d + rho_c + rho_r + rho_i + rho_v
@@ -2353,7 +2354,7 @@ def _newton_trips(args):
     hi = torch.where(condensing, rho_v, 0.0)
     rho_t = rho_d + rho_v + rho_c
     cp0 = (rho_d * P.CP_D + rho_v * P.CP_V + rho_c * P.CP_L) / rho_t
-    dcp = P._div(P.CP_L - P.CP_V, rho_t)
+    dcp = exact_div(P.CP_L - P.CP_V, rho_t)
     cp_lo = cp0 - rho_c * dcp
     t_lo = temp - rho_c * lv / (rho * cp_lo)
     f_lo = ((rho_v + rho_c) * P.R_V * t_lo

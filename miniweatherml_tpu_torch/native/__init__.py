@@ -16,14 +16,12 @@ and installs the P3 lookup tables when the table asset is there.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 
 import numpy as np
 
-from ..utils.profiling import count, span
+from ..cuda_build import cached_build
 
 __all__ = ["load_p3_library", "native_available", "p3_adjust_state_native",
            "p3_column_step_native", "GXX_FLAGS"]
@@ -37,32 +35,6 @@ GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-
-
-def _library_path() -> str:
-    """``_build/libp3_native_<hash>.so``, keyed on the source and flags."""
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
-    return os.path.join(_BUILD, f"libp3_native_{h.hexdigest()[:16]}.so")
-
-
-def _build(out: str) -> None:
-    os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = ["g++", *GXX_FLAGS, _SRC, "-o", tmp]
-    count("cuda_build.builds")
-    try:
-        with span("build.p3_native"):
-            res = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"native P3 build failed: {' '.join(cmd)}: {e}") \
-            from e
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"native P3 build failed (rc {res.returncode}):\n{' '.join(cmd)}"
-            f"\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -88,9 +60,8 @@ def load_p3_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = _library_path()
-            if not os.path.exists(path):
-                _build(path)
+            path = cached_build("p3_native", [_SRC], GXX_FLAGS, lambda: "g++",
+                                _BUILD, "native P3 build failed")
             lib = bind(ctypes.CDLL(path))
             install_tables(lib)
             _lib = lib

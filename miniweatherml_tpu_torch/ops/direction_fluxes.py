@@ -39,14 +39,16 @@ operations of the dycore's former eager composition, in its order.
 
 from __future__ import annotations
 
-import ctypes
 import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..cuda_build import (DOUBLE, INT, PTR, KernelLibrary, check_operand,
+                          data_ptr, on_cuda)
 from ..utils.profiling import count
+from .exact_div import exact_div
 from .stencil import BC_PERIODIC, BC_WALL, pad_bc
 from .weno import WenoMatrices
 from .weno_fused import (opt_coef_table, reconstruct_edges_opt,
@@ -144,8 +146,7 @@ def riemann(SL, SR, TRL, TRR, normal_id, C0, gamma):
     w1 = 0.5 * (pR - _CS * ruR)
     w2 = 0.5 * (pL + _CS * ruL)
     p_upw = w1 + w2
-    # a 0-d device denominator keeps the division exact on the GPU too
-    ru_upw = torch.div(w2 - w1, w1.new_full((), _CS))
+    ru_upw = exact_div(w2 - w1, _CS)
     useL = (ruL + ruR) > 0.0
     q = torch.where(useL, SL, SR)
     r_upw = q[IDR]
@@ -284,93 +285,64 @@ def in_tracer_groups(launch, prim, *args, strips=None, acc=None, rk=None,
     return sdiv, torch.cat(faces)
 
 
-# The library of each algebra's kernels (csrc/<name>.cu, whose table copy
-# and error functions are <name>_set_coef and <name>_error_string), its
-# table, and its entry function of each type (DIRECTION_FLUXES_ENTRY in
-# csrc/direction_fluxes.cuh).  The reduced-operation
-# library holds both of its forms; the reference algebra with approximate
+def _flux_library(name, stems, f32_only=()):
+    """The kernel library ``csrc/<name>.cu``: the flux kernel's entry
+    points, of the 35 parameters of csrc/direction_fluxes.cuh's
+    ``DIRECTION_FLUXES_ENTRY``, and ``<name>_set_coef``, which copies one
+    order's limiter table into the current device's constant memory."""
+    params = ([PTR] * 7 + [INT] * 11 + [DOUBLE] * 4 + [INT] + [PTR] * 4
+              + [INT] + [DOUBLE] * 6)
+    return KernelLibrary(name, dict.fromkeys(stems, params),
+                         {f"{name}_set_coef": ([INT, PTR, INT], INT)},
+                         f32_only)
+
+
+# The libraries of the limiter algebras.  The reduced-operation library
+# holds both of its forms; the reference algebra with approximate
 # reciprocals has a library of its own, so that it builds beside the other
 # two.
-_LIBRARIES = {
-    "ref": ("direction_fluxes", weno_coef_table,
-            {torch.float32: "direction_fluxes_f32",
-             torch.float64: "direction_fluxes_f64"}),
-    "opt": ("direction_fluxes_opt", opt_coef_table,
-            {torch.float32: "direction_fluxes_opt_f32",
-             torch.float64: "direction_fluxes_opt_f64"}),
-    "fast": ("direction_fluxes_opt", opt_coef_table,
-             {torch.float32: "direction_fluxes_fast_f32"}),
-    "ref_fast": ("direction_fluxes_ref_fast", weno_coef_table,
-                 {torch.float32: "direction_fluxes_ref_fast_f32"}),
+LIBRARIES = {lib.name: lib for lib in (
+    _flux_library("direction_fluxes", ["direction_fluxes"]),
+    _flux_library("direction_fluxes_opt",
+                  ["direction_fluxes_opt", "direction_fluxes_fast"],
+                  f32_only=["direction_fluxes_fast"]),
+    _flux_library("direction_fluxes_ref_fast", ["direction_fluxes_ref_fast"],
+                  f32_only=["direction_fluxes_ref_fast"]))}
+# algebra -> (its library, its limiter table, its kernel stem)
+_ALGEBRAS = {
+    "ref": (LIBRARIES["direction_fluxes"], weno_coef_table,
+            "direction_fluxes"),
+    "opt": (LIBRARIES["direction_fluxes_opt"], opt_coef_table,
+            "direction_fluxes_opt"),
+    "fast": (LIBRARIES["direction_fluxes_opt"], opt_coef_table,
+             "direction_fluxes_fast"),
+    "ref_fast": (LIBRARIES["direction_fluxes_ref_fast"], weno_coef_table,
+                 "direction_fluxes_ref_fast"),
 }
-
-
-def _bind(lib, name, entries):
-    """``lib`` with the argument and result types of its ``entries`` and of
-    ``<name>_set_coef`` / ``<name>_error_string`` declared."""
-    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for entry in entries:
-        fn = getattr(lib, entry)
-        fn.argtypes = ([P] * 7 + [I] * 11 + [D] * 4 + [I] + [P] * 4 + [I]
-                       + [D] * 6 + [P])
-        fn.restype = I
-    getattr(lib, name + "_set_coef").argtypes = [I, P, I]
-    getattr(lib, name + "_set_coef").restype = I
-    getattr(lib, name + "_error_string").argtypes = [I]
-    getattr(lib, name + "_error_string").restype = ctypes.c_char_p
-    return lib
-
-
-_libs: dict[str, ctypes.CDLL] = {}
+# (build, device index) pairs whose constant memory holds the tables
 _coef_devices: set[tuple[str, int]] = set()
 _coef_lock = threading.Lock()  # the shards of a mesh run launch from threads
 
 
-def _error(lib, name, rc) -> str:
-    return getattr(lib, name + "_error_string")(rc).decode()
-
-
-def _library(device: torch.device, algebra: str = "ref"):
-    """(library, its name) of the algebra's kernels, with the limiter
-    tables of every order copied into the device's constant memory on first
-    use.  A library that does not build raises: no algebra stands in for
-    another."""
-    name, table_of, _ = _LIBRARIES[algebra]
-    lib = _libs.get(name)
-    if lib is None:
-        from ..cuda_build import load_library
-        lib = _libs.setdefault(name, _bind(
-            load_library(name), name,
-            {e for a in _LIBRARIES.values() if a[0] == name
-             for e in a[2].values()}))
+def _algebra_library(device: torch.device, algebra: str):
+    """(library, kernel stem) of the algebra, with the limiter tables of
+    every order copied into the device's constant memory on the first
+    launch of each build there.  A library that does not build raises: no
+    algebra stands in for another."""
+    lib, table_of, stem = _ALGEBRAS[algebra]
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
+    key = (lib.path, index)
     with _coef_lock:
-        if (name, index) not in _coef_devices:
+        if key not in _coef_devices:
             with torch.cuda.device(index):
                 for ord_ in (3, 5, 7, 9):
                     table = np.ascontiguousarray(table_of(ord_),
                                                  dtype=np.float64)
-                    rc = getattr(lib, name + "_set_coef")(
-                        ord_, table.ctypes.data, table.size)
-                    if rc != 0:
-                        raise RuntimeError(
-                            f"{name} coefficient copy failed: "
-                            + _error(lib, name, rc))
-            _coef_devices.add((name, index))
-    return lib, name
-
-
-def _check_cuda(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+                    lib.call(f"{lib.name}_set_coef", ord_, table.ctypes.data,
+                             table.size)
+            _coef_devices.add(key)
+    return lib, stem
 
 
 # flags of the stage epilogue (csrc/direction_fluxes.cuh, EPI_STAGE)
@@ -384,18 +356,16 @@ def _stage_args(rk, prim, cells):
     if rk is None:
         return (None,) * 4 + (0,) + (0.0,) * 6
     nens, nz = cells[1], cells[2]
-    _check_cuda("b0", rk.b0, prim.dtype, cells, prim.device)
+    check_operand("b0", rk.b0, prim, cells)
     if rk.b1 is not None:
-        _check_cuda("b1", rk.b1, prim.dtype, cells, prim.device)
-    _check_cuda("hy_r", rk.hy_r, prim.dtype, (nens, nz), prim.device)
+        check_operand("b1", rk.b1, prim, cells)
+    check_operand("hy_r", rk.hy_r, prim, (nens, nz))
     if rk.immersed is not None:
-        _check_cuda("immersed", rk.immersed, prim.dtype, cells[1:],
-                    prim.device)
+        check_operand("immersed", rk.immersed, prim, cells[1:])
     flags = ((_GRAV if rk.grav is not None else 0)
              | (_FCOR if rk.fcor != 0.0 else 0) | (_SIM2D if rk.sim2d else 0))
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    return (rk.b0.data_ptr(), ptr(rk.b1), rk.hy_r.data_ptr(),
-            ptr(rk.immersed), flags, float(rk.c0), float(rk.c1),
+    return (rk.b0.data_ptr(), data_ptr(rk.b1), rk.hy_r.data_ptr(),
+            data_ptr(rk.immersed), flags, float(rk.c0), float(rk.c1),
             float(rk.cdt), float(rk.grav or 0.0), float(rk.fcor),
             _immersed_fac(rk.dt) if rk.immersed is not None else 0.0)
 
@@ -439,19 +409,14 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
     faces).  CPU tensors take the plain version; CUDA tensors launch the
     kernel.
     """
-    if prim.device.type == "cpu":
+    if not on_cuda(prim):
         return direction_fluxes_plain(prim, axis, n, bc, normal_id, C0, gamma,
                                       hy_r, hy_t, mats, cutoff, div_scale,
                                       strips, acc, rk, opt, fast_weights)
-    if prim.device.type != "cuda":
-        raise ValueError(f"unsupported device {prim.device}")
-    if prim.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"prim dtype {prim.dtype} is not float32/float64")
     if prim.dim() != 5 or prim.shape[0] < NUM_STATE:
         raise ValueError(f"prim must be (5+ntr, nens, nz, ny, nx), got "
                          f"{tuple(prim.shape)}")
-    if not prim.is_contiguous():
-        raise ValueError("prim must be contiguous")
+    check_operand("prim", prim, prim)
     nvar, nens, nz, ny, nx = prim.shape
     if axis not in (_AX_X, _AX_Y, _AX_Z) or prim.shape[axis] != n:
         raise ValueError(f"axis {axis} / n {n} do not match {tuple(prim.shape)}")
@@ -459,7 +424,7 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
         raise ValueError(f"bad bc {bc} or normal_id {normal_id}")
     nlev = nz + 1 if axis == _AX_Z else nz
     for name, t in (("hy_r", hy_r), ("hy_t", hy_t)):
-        _check_cuda(name, t, prim.dtype, (nens, nlev), prim.device)
+        check_operand(name, t, prim, (nens, nlev))
     ntr = nvar - NUM_STATE
     if mats.ord not in (3, 5, 7, 9):
         raise ValueError(f"WENO order {mats.ord} is not 3, 5, 7 or 9")
@@ -482,7 +447,7 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
         sshape = list(prim.shape)
         sshape[axis] = (mats.ord - 1) // 2 + 1
         for name, t in (("lo", lo), ("hi", hi)):
-            _check_cuda(name, t, prim.dtype, sshape, prim.device)
+            check_operand(name, t, prim, sshape)
     cells = (NUM_STATE, nens, nz, ny, nx)
     if rk is not None and acc is None:
         raise ValueError("the stage update needs the accumulator acc")
@@ -490,7 +455,7 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
         if axis == _AX_X:
             raise ValueError("the x kernel takes no accumulator: x is the "
                              "first direction")
-        _check_cuda("acc", acc, prim.dtype, cells, prim.device)
+        check_operand("acc", acc, prim, cells)
         sdiv = acc
     else:
         sdiv = torch.empty(cells, dtype=prim.dtype, device=prim.device)
@@ -502,20 +467,13 @@ def direction_fluxes(prim, axis, n, bc, normal_id, C0, gamma, hy_r, hy_t,
     tshape = [ntr, nens, nz, ny, nx]
     tshape[axis] += 1
     tf = torch.empty(tshape, dtype=prim.dtype, device=prim.device)
-    lib, name = _library(prim.device, algebra)
-    fn = getattr(lib, _LIBRARIES[algebra][2][prim.dtype])
-    stream = torch.cuda.current_stream(prim.device).cuda_stream
-    rc = fn(prim.data_ptr(), hy_r.data_ptr(), hy_t.data_ptr(),
-            sdiv.data_ptr(), tf.data_ptr(),
-            None if lo is None else lo.data_ptr(),
-            None if hi is None else hi.data_ptr(), -1 - axis, nvar, nens, nz,
-            ny, nx, bc, bc_lo, bc_hi, normal_id, mats.ord, float(C0),
-            float(gamma), float(cutoff), float(div_scale),
-            int(acc is not None), *stage, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + _error(lib, name, rc))
-    count("direction_fluxes.launches")
+    lib, stem = _algebra_library(prim.device, algebra)
+    lib.launch(stem, prim, prim.data_ptr(), hy_r.data_ptr(), hy_t.data_ptr(),
+               sdiv.data_ptr(), tf.data_ptr(), data_ptr(lo), data_ptr(hi),
+               -1 - axis, nvar, nens, nz, ny, nx, bc, bc_lo, bc_hi,
+               normal_id, mats.ord, float(C0), float(gamma), float(cutoff),
+               float(div_scale), int(acc is not None), *stage,
+               counter="direction_fluxes.launches")
     if axis != _AX_X:  # y and z run the tiled kernel (fluxes_tiled)
         count("direction_fluxes.tiled_launches")
     if strips is not None:

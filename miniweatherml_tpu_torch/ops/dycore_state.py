@@ -13,7 +13,7 @@ tracers are the stack's rows.  On a CUDA tensor each launches one kernel of
 output once; on a CPU tensor it runs its plain version.  The plain versions
 are the expressions the dycore ran as eager PyTorch, with two changes that
 let a kernel match them bit for bit: a division by a number goes through a
-0-d tensor (``fct._div``; on the GPU ``tensor / number`` multiplies by a
+0-d tensor (``exact_div``; on the GPU ``tensor / number`` multiplies by a
 rounded reciprocal), and the tracers that add mass are summed left to right
 in registry order (``_mass``), where a reduction over the whole stack with
 the others zeroed summed in PyTorch's order.
@@ -25,14 +25,14 @@ index), ``adds_mass`` (the registry's flags, one per tracer), ``R_d``,
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..cuda_build import load_library, on_cuda
-from ..utils.profiling import count
+from ..cuda_build import (DOUBLE, INT, LONG, PTR, PTRS, U64, KernelLibrary,
+                          check_operand, check_operands, on_cuda,
+                          pointers)
 from .direction_fluxes import IDR, IDT, IDU, IDV, IDW, NUM_STATE
-from .fct import MAX_TRACERS, _check, _div
+from .exact_div import exact_div
+from .fct import MAX_TRACERS
 
 __all__ = ["dedensitize", "dedensitize_plain", "coupler_to_dynamics",
            "coupler_to_dynamics_plain", "dynamics_to_coupler",
@@ -70,7 +70,7 @@ def coupler_to_dynamics_plain(rho_d, u, v, w, temp, tracers, hyc, hyt, *,
     press = rho_d * R_d * temp + rho_v * R_v * temp
     m = _mass(tracers, adds_mass)
     rho = rho_d if m is None else rho_d + m
-    theta = _div(press, C0) ** (1.0 / gamma) / rho
+    theta = exact_div(press, C0) ** (1.0 / gamma) / rho
     s = torch.stack([rho - hyc, rho * u, rho * v, rho * w,
                      rho * theta - hyt])
     return s, torch.stack(list(tracers))
@@ -89,55 +89,18 @@ def dynamics_to_coupler_plain(s, tr, hyc, hyt, *, idWV, adds_mass, R_d, R_v,
     return rho_d, u, v, w, temp
 
 
-def _bind(lib):
-    P, I, L, U, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                     ctypes.c_uint64, ctypes.c_double)
-    PP = ctypes.POINTER(ctypes.c_void_p)
-    for name in ("dyn_prim_f32", "dyn_prim_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [P, P, P, P, I, L, I, P]
-        fn.restype = I
-    for name in ("dyn_from_coupler_f32", "dyn_from_coupler_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [PP, PP, P, P, P, P, I, U, I, D, D, D, D, L, I, P]
-        fn.restype = I
-    for name in ("dyn_to_coupler_f32", "dyn_to_coupler_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [P, P, P, P, PP, I, U, I, D, D, D, D, L, I, P]
-        fn.restype = I
-    lib.dycore_state_error_string.argtypes = [I]
-    lib.dycore_state_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        _lib = _bind(load_library("dycore_state"))
-    return _lib
-
-
-def _launch(name, like, *args):
-    """Launch ``<name>_f32`` / ``_f64`` on ``like``'s stream and raise on a
-    refused launch."""
-    lib = _library()
-    suffix = "f32" if like.dtype == torch.float32 else "f64"
-    fn = getattr(lib, f"{name}_{suffix}")
-    rc = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + lib.dycore_state_error_string(rc).decode())
-    count("dycore_state.launches")
+LIBRARY = KernelLibrary("dycore_state", {
+    "dyn_prim": [PTR, PTR, PTR, PTR, INT, LONG, INT],
+    "dyn_from_coupler": [PTRS, PTRS, PTR, PTR, PTR, PTR, INT, U64, INT]
+    + [DOUBLE] * 4 + [LONG, INT],
+    "dyn_to_coupler": [PTR, PTR, PTR, PTR, PTRS, INT, U64, INT]
+    + [DOUBLE] * 4 + [LONG, INT]})
+_COUNTER = "dycore_state.launches"
 
 
 def _field_shape(x, ndim, what):
-    """The trailing (nens, nz, ny, nx) of ``x``, which must be an f32 / f64
-    tensor of ``ndim`` dimensions."""
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{what} has dtype {x.dtype}, not float32/float64")
+    """The trailing (nens, nz, ny, nx) of ``x``, which must have ``ndim``
+    dimensions."""
     if x.dim() != ndim:
         raise ValueError(f"{what} must have {ndim} dimensions, got shape "
                          f"{tuple(x.shape)}")
@@ -148,14 +111,14 @@ def _stack(name, x, like, shape):
     """The length of ``x``, which must be a contiguous (k, *shape) stack of
     ``like``'s dtype and device."""
     k = x.shape[0] if x.dim() == len(shape) + 1 else -1
-    _check(name, x, like, (k,) + shape)
+    check_operand(name, x, like, (k,) + shape)
     return k
 
 
 def _hydrostatic(hyc, hyt, like, shape):
     for name, h in (("hyc", hyc), ("hyt", hyt)):
         if h is not None:
-            _check(name, h, like, shape[:2])
+            check_operand(name, h, like, shape[:2])
 
 
 def _registry(ntr, idWV, adds_mass, *exponents, dtype):
@@ -195,15 +158,15 @@ def dedensitize(s, tr, hyc):
     if not on_cuda(s):
         return dedensitize_plain(s, tr, hyc)
     shape = _field_shape(s, 5, "s")
-    _check("s", s, s, (NUM_STATE,) + shape)
+    check_operand("s", s, s, (NUM_STATE,) + shape)
     ntr = _stack("tr", tr, s, shape)
     _hydrostatic(hyc, None, s, shape)
     prim = torch.empty((NUM_STATE + ntr,) + shape, dtype=s.dtype,
                        device=s.device)
     plane = shape[2] * shape[3]
-    _launch("dyn_prim", s, s.data_ptr(), tr.data_ptr() if ntr else None,
-            hyc.data_ptr(), prim.data_ptr(), ntr, plane,
-            shape[0] * shape[1])
+    LIBRARY.launch("dyn_prim", s, s.data_ptr(), tr.data_ptr() if ntr else None,
+                   hyc.data_ptr(), prim.data_ptr(), ntr, plane,
+                   shape[0] * shape[1], counter=_COUNTER)
     return prim
 
 
@@ -232,21 +195,20 @@ def coupler_to_dynamics(rho_d, u, v, w, temp, tracers, hyc, hyt, *, idWV,
     shape = _field_shape(rho_d, 4, "rho_d")
     fields = (rho_d, u, v, w, temp)
     for name, f in zip(("rho_d", "u", "v", "w", "temp"), fields):
-        _check(name, f, rho_d, shape)
-    for i, t in enumerate(tracers):
-        _check(f"tracer {i}", t, rho_d, shape)
+        check_operand(name, f, rho_d, shape)
+    check_operands("tracer", tracers, rho_d, shape)
     _hydrostatic(hyc, hyt, rho_d, shape)
     ntr = len(tracers)
     mass = _registry(ntr, idWV, adds_mass, 1.0 / gamma, dtype=rho_d.dtype)
     s = torch.empty((NUM_STATE,) + shape, dtype=rho_d.dtype,
                     device=rho_d.device)
     tr = torch.empty((ntr,) + shape, dtype=rho_d.dtype, device=rho_d.device)
-    fptrs = (ctypes.c_void_p * NUM_STATE)(*(f.data_ptr() for f in fields))
-    tptrs = (ctypes.c_void_p * ntr)(*(t.data_ptr() for t in tracers))
-    _launch("dyn_from_coupler", rho_d, fptrs, tptrs, hyc.data_ptr(),
-            hyt.data_ptr(), s.data_ptr(), tr.data_ptr(), ntr, mass, idWV,
-            float(R_d), float(R_v), float(1.0 / gamma), float(C0),
-            shape[2] * shape[3], shape[0] * shape[1])
+    LIBRARY.launch("dyn_from_coupler", rho_d, pointers(fields),
+                   pointers(tracers), hyc.data_ptr(), hyt.data_ptr(),
+                   s.data_ptr(), tr.data_ptr(), ntr, mass, idWV, float(R_d),
+                   float(R_v), float(1.0 / gamma), float(C0),
+                   shape[2] * shape[3], shape[0] * shape[1],
+                   counter=_COUNTER)
     return s, tr
 
 
@@ -272,15 +234,15 @@ def dynamics_to_coupler(s, tr, hyc, hyt, *, idWV, adds_mass, R_d, R_v,
             s, tr, hyc, hyt, idWV=idWV, adds_mass=adds_mass, R_d=R_d,
             R_v=R_v, gamma=gamma, C0=C0)
     shape = _field_shape(s, 5, "s")
-    _check("s", s, s, (NUM_STATE,) + shape)
+    check_operand("s", s, s, (NUM_STATE,) + shape)
     ntr = _stack("tr", tr, s, shape)
     _hydrostatic(hyc, hyt, s, shape)
     mass = _registry(ntr, idWV, adds_mass, gamma, dtype=s.dtype)
     outs = [torch.empty(shape, dtype=s.dtype, device=s.device)
             for _ in range(NUM_STATE)]
-    optrs = (ctypes.c_void_p * NUM_STATE)(*(o.data_ptr() for o in outs))
-    _launch("dyn_to_coupler", s, s.data_ptr(), tr.data_ptr(), hyc.data_ptr(),
-            hyt.data_ptr(), optrs, ntr, mass, idWV, float(R_d), float(R_v),
-            float(gamma), float(C0), shape[2] * shape[3],
-            shape[0] * shape[1])
+    LIBRARY.launch("dyn_to_coupler", s, s.data_ptr(), tr.data_ptr(),
+                   hyc.data_ptr(), hyt.data_ptr(), pointers(outs), ntr, mass,
+                   idWV, float(R_d), float(R_v), float(gamma), float(C0),
+                   shape[2] * shape[3], shape[0] * shape[1],
+                   counter=_COUNTER)
     return tuple(outs)

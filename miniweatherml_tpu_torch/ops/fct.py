@@ -16,11 +16,12 @@ IEEE operations in the same order (dynamics...h:498-516).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ..cuda_build import (DOUBLE, INT, LONG, PTR, U64, KernelLibrary,
+                          check_operand, data_ptr, on_cuda)
 from ..utils.profiling import count
+from .exact_div import exact_div
 
 __all__ = ["fct_mult", "fct_mult_plain", "fct_mult_groups", "fct_scale_div",
            "fct_scale_div_plain", "fct_scale_div_groups", "per_tracer",
@@ -42,17 +43,11 @@ def per_tracer(x, flags, fn):
     return torch.stack([fn(x[i]) if f else x[i] for i, f in enumerate(flags)])
 
 
-def _div(a, d: float):
-    """a / d through a 0-d tensor: on the GPU ``tensor / number`` would
-    multiply by a rounded reciprocal."""
-    return torch.div(a, a.new_full((), d))
-
-
 def _outflow(F, axis, n, d):
     """Outgoing flux density of each cell along one direction:
     (max(F[f+1], 0) - min(F[f], 0)) / d."""
-    return _div(torch.clamp(F.narrow(axis, 1, n), min=0.0)
-                - torch.clamp(F.narrow(axis, 0, n), max=0.0), d)
+    return exact_div(torch.clamp(F.narrow(axis, 1, n), min=0.0)
+                     - torch.clamp(F.narrow(axis, 0, n), max=0.0), d)
 
 
 def fct_mult_plain(tr, positive, Fx, Fy, Fz, dt, dx, dy, dz):
@@ -100,44 +95,9 @@ def fct_scale_div_plain(F, mult, t_prev, axis, n, dxi, rk=None, edges=None):
     return t_prev.copy_(acc)
 
 
-def _bind(lib):
-    P, I, L, U, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                     ctypes.c_uint64, ctypes.c_double)
-    for name in ("fct_scale_div_f32", "fct_scale_div_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [P] * 8 + [L, I, L, L, U, D, D, D, D, P]
-        fn.restype = I
-    for name in ("fct_mult_f32", "fct_mult_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [P] * 5 + [I, I, I, I, I, U] + [D] * 5 + [P]
-        fn.restype = I
-    lib.fct_error_string.argtypes = [I]
-    lib.fct_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from ..cuda_build import load_library
-        _lib = _bind(load_library("fct"))
-    return _lib
-
-
-def _check(name, t, like, shape):
-    if t.device != like.device:
-        raise ValueError(f"{name} is on device {t.device}, expected "
-                         f"{like.device}")
-    if t.dtype != like.dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {like.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+LIBRARY = KernelLibrary("fct", {
+    "fct_scale_div": [PTR] * 8 + [LONG, INT, LONG, LONG, U64] + [DOUBLE] * 4,
+    "fct_mult": [PTR] * 5 + [INT] * 5 + [U64] + [DOUBLE] * 5})
 
 
 # Tracers one launch takes: the positive flags travel as a 64-bit mask.
@@ -166,6 +126,14 @@ def _part(x, g):
     return None if x is None else x[g]
 
 
+def _cells(x):
+    """The (ntr, nens, nz, ny, nx) shape of a CUDA call's tracer field."""
+    if x.dim() != 5:
+        raise ValueError(f"expected (ntr, nens, nz, ny, nx), got "
+                         f"{tuple(x.shape)}")
+    return x.shape
+
+
 def fct_mult_groups(launch, tr, positive, Fx, Fy, Fz, dt, dx, dy, dz):
     """``fct_mult`` of any number of tracers from a ``launch`` that takes at
     most ``MAX_TRACERS``: one call per group of tracers, each with its own
@@ -191,16 +159,6 @@ def fct_scale_div_groups(launch, F, mult, t_prev, axis, n, dxi, rk=None,
     return t_prev if t_prev is not None else torch.cat(out)
 
 
-def _cuda_operand(x):
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dtype {x.dtype} is not float32/float64")
-    if x.dim() != 5:
-        raise ValueError(f"expected (ntr, nens, nz, ny, nx), got "
-                         f"{tuple(x.shape)}")
-
-
 def fct_mult(tr, positive, Fx, Fy, Fz, dt, dx, dy, dz):
     """Per-cell FCT multiplier (the ``mult`` of dynamics...h:498-509): 1
     where a cell's outgoing tracer mass over ``dt`` fits its available
@@ -217,31 +175,23 @@ def fct_mult(tr, positive, Fx, Fy, Fz, dt, dx, dy, dz):
     Returns the multiplier, shaped like ``tr``.  CPU tensors take the plain
     version; CUDA tensors launch the kernel.
     """
-    if tr.device.type == "cpu":
+    if not on_cuda(tr):
         return fct_mult_plain(tr, positive, Fx, Fy, Fz, dt, dx, dy, dz)
-    _cuda_operand(tr)
-    ntr, nens, nz, ny, nx = tr.shape
-    _check("tr", tr, tr, tr.shape)
-    _check("Fx", Fx, tr, (ntr, nens, nz, ny, nx + 1))
-    _check("Fz", Fz, tr, (ntr, nens, nz + 1, ny, nx))
+    ntr, nens, nz, ny, nx = _cells(tr)
+    check_operand("tr", tr, tr, tr.shape)
+    check_operand("Fx", Fx, tr, (ntr, nens, nz, ny, nx + 1))
+    check_operand("Fz", Fz, tr, (ntr, nens, nz + 1, ny, nx))
     if Fy is not None:
-        _check("Fy", Fy, tr, (ntr, nens, nz, ny + 1, nx))
+        check_operand("Fy", Fy, tr, (ntr, nens, nz, ny + 1, nx))
     if ntr > MAX_TRACERS:
         return fct_mult_groups(fct_mult, tr, positive, Fx, Fy, Fz, dt, dx,
                                dy, dz)
     mask = _mask(positive, ntr)
     mult = torch.empty_like(tr)
-    lib = _library()
-    fn = lib.fct_mult_f32 if tr.dtype == torch.float32 else lib.fct_mult_f64
-    stream = torch.cuda.current_stream(tr.device).cuda_stream
-    rc = fn(tr.data_ptr(), Fx.data_ptr(),
-            None if Fy is None else Fy.data_ptr(), Fz.data_ptr(),
-            mult.data_ptr(), ntr, nens, nz, ny, nx, mask, float(dt),
-            float(dx), float(dy), float(dz), float(dx * dy * dz), stream)
-    if rc != 0:
-        raise RuntimeError("fct_mult kernel launch failed: "
-                           + lib.fct_error_string(rc).decode())
-    count("fct_mult.launches")
+    LIBRARY.launch("fct_mult", tr, tr.data_ptr(), Fx.data_ptr(), data_ptr(Fy),
+                   Fz.data_ptr(), mult.data_ptr(), ntr, nens, nz, ny, nx, mask,
+                   float(dt), float(dx), float(dy), float(dz),
+                   float(dx * dy * dz), counter="fct_mult.launches")
     return mult
 
 
@@ -273,22 +223,21 @@ def fct_scale_div(F, mult, t_prev, axis, n, dxi, rk=None, edges=None):
     Returns the tendency (or the updated tracers with ``rk``).  CPU tensors
     take the plain version; CUDA tensors launch the kernel.
     """
-    if F.device.type == "cpu":
+    if not on_cuda(F):
         return fct_scale_div_plain(F, mult, t_prev, axis, n, dxi, rk, edges)
-    _cuda_operand(mult)
+    ntr, nens, nz, ny, nx = _cells(mult)
     if axis not in (_AX_X, _AX_Y, _AX_Z) or mult.shape[axis] != n or n < 1:
         raise ValueError(f"axis {axis} / n {n} do not match "
                          f"{tuple(mult.shape)}")
-    ntr, nens, nz, ny, nx = mult.shape
     if ntr > MAX_TRACERS:
         return fct_scale_div_groups(fct_scale_div, F, mult, t_prev, axis, n,
                                     dxi, rk, edges)
-    _check("mult", mult, mult, mult.shape)
+    check_operand("mult", mult, mult, mult.shape)
     fshape = list(mult.shape)
     fshape[axis] += 1
-    _check("F", F, mult, fshape)
+    check_operand("F", F, mult, fshape)
     if t_prev is not None:
-        _check("t_prev", t_prev, mult, mult.shape)
+        check_operand("t_prev", t_prev, mult, mult.shape)
         out = t_prev
     else:
         out = torch.empty_like(mult)
@@ -297,15 +246,17 @@ def fct_scale_div(F, mult, t_prev, axis, n, dxi, rk=None, edges=None):
     mask = 0
     if rk is not None:
         c0, c1, cdt, tr0, tr1, positive = rk
-        _check("tr0", tr0, mult, mult.shape)
+        check_operand("tr0", tr0, mult, mult.shape)
         if tr1 is not None:
-            _check("tr1", tr1, mult, mult.shape)
+            check_operand("tr1", tr1, mult, mult.shape)
         mask = _mask(positive, ntr)
+    m_lo = m_hi = None
     if edges is not None:
+        m_lo, m_hi = edges
         eshape = list(mult.shape)
         eshape[axis] = 1
-        _check("m_lo", edges[0], mult, eshape)
-        _check("m_hi", edges[1], mult, eshape)
+        check_operand("m_lo", m_lo, mult, eshape)
+        check_operand("m_hi", m_hi, mult, eshape)
     # (outer, n, inner) view of one direction, and outer indices per tracer
     if axis == _AX_X:
         outer, inner = ntr * nens * nz * ny, 1
@@ -313,22 +264,11 @@ def fct_scale_div(F, mult, t_prev, axis, n, dxi, rk=None, edges=None):
         outer, inner = ntr * nens * nz, nx
     else:
         outer, inner = ntr * nens, ny * nx
-    lib = _library()
-    fn = (lib.fct_scale_div_f32 if mult.dtype == torch.float32
-          else lib.fct_scale_div_f64)
-    stream = torch.cuda.current_stream(mult.device).cuda_stream
-    rc = fn(F.data_ptr(), mult.data_ptr(),
-            None if t_prev is None else t_prev.data_ptr(),
-            None if tr0 is None else tr0.data_ptr(),
-            None if tr1 is None else tr1.data_ptr(),
-            None if edges is None else edges[0].data_ptr(),
-            None if edges is None else edges[1].data_ptr(), out.data_ptr(),
-            outer, n, inner, outer // ntr, mask, float(c0), float(c1),
-            float(cdt), float(dxi), stream)
-    if rc != 0:
-        raise RuntimeError("fct_scale_div kernel launch failed: "
-                           + lib.fct_error_string(rc).decode())
-    count("fct_scale_div.launches")
+    LIBRARY.launch("fct_scale_div", mult, F.data_ptr(), mult.data_ptr(),
+                   data_ptr(t_prev), data_ptr(tr0), data_ptr(tr1),
+                   data_ptr(m_lo), data_ptr(m_hi), out.data_ptr(), outer, n,
+                   inner, outer // ntr, mask, float(c0), float(c1),
+                   float(cdt), float(dxi), counter="fct_scale_div.launches")
     if edges is not None:
         count("fct_scale_div.edge_launches")
     return out

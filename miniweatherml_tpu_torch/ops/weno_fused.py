@@ -34,6 +34,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .exact_div import exact_div
 from .weno import WenoMatrices, weno_matrices
 
 __all__ = ["reconstruct_edges_shifted", "reconstruct_edges_recip",
@@ -166,7 +167,7 @@ def reconstruct_edges_shifted(padded: torch.Tensor, axis: int, n_out: int,
     """
     return _reference_edges(
         padded, axis, n_out, mats, cutoff, lambda tot: 1.0 / tot,
-        lambda idl_k, d: torch.div(d.new_full((), idl_k), d))
+        exact_div)
 
 
 def reconstruct_edges_recip(padded: torch.Tensor, axis: int, n_out: int,
@@ -352,9 +353,8 @@ def opt_coef_table(ord_: int) -> np.ndarray:
 
 
 def _recip(v: torch.Tensor) -> torch.Tensor:
-    """1 / v as an IEEE division (through a 0-d tensor: torch computes
-    number / tensor as a reciprocal times the number)."""
-    return torch.div(v.new_full((), 1.0), v)
+    """1 / v as an IEEE division (``exact_div``)."""
+    return exact_div(1.0, v)
 
 
 def reconstruct_edges_opt(padded: torch.Tensor, axis: int, n_out: int,

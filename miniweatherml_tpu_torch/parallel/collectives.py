@@ -39,6 +39,8 @@ import threading
 
 import torch
 
+from ..ops.exact_div import exact_div
+
 __all__ = ["ShardGroup", "ShardComm", "current", "shard_comm", "axis_index",
            "pmean", "pmin", "pmax", "host_ints"]
 
@@ -129,7 +131,7 @@ class ShardComm:
     # ``names``: one mesh axis name or a tuple of them (one meeting)
     def pmean(self, x: torch.Tensor, names) -> torch.Tensor:
         acc, n = self._reduce(x, names, torch.add)
-        return torch.div(acc, acc.new_full((), float(n)))
+        return exact_div(acc, float(n))
 
     def pmin(self, x: torch.Tensor, names) -> torch.Tensor:
         return self._reduce(x, names, torch.minimum)[0]

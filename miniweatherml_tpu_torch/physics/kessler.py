@@ -17,10 +17,11 @@ from __future__ import annotations
 import torch
 
 from ..core.coupler import CouplerState
+from ..ops.exact_div import exact_div
 from ..parallel.collectives import pmin
 from ..utils.profiling import count_device, span
-from .kessler_cuda import (_div, column_constants, kessler_pass,
-                           kessler_step, min_step, step_plain)
+from .kessler_cuda import (column_constants, kessler_pass, kessler_step,
+                           min_step, step_plain)
 
 __all__ = ["MicrophysicsKessler", "kessler_column", "kessler_rainsplit"]
 
@@ -114,7 +115,7 @@ def kessler_column(theta, qv, qc, qr, rho, z, pk, dt, Rd, cp, p0,
     """
     nz = theta.shape[z_axis]
     rainsplit = kessler_rainsplit(qr, rho, z, dt, z_axis)
-    dt0 = _div(dt, rainsplit.to(theta.dtype))
+    dt0 = exact_div(dt, rainsplit.to(theta.dtype))
     r, rhalf, pc = column_constants(rho, pk, Rd, cp, p0, z_axis)
     dz_lev = z.narrow(z_axis, 1, nz - 1) - z.narrow(z_axis, 0, nz - 1)
     dz_top = z.narrow(z_axis, nz - 1, 1) - z.narrow(z_axis, nz - 2, 1)

@@ -10,8 +10,8 @@ with the prep and post that call fused into its reads) with ``rainsplit``
 read on the device; on a CPU tensor it runs ``kessler_step_plain``: the same
 prep, ``kessler_subcycle_plain`` (the loop of ``kessler_column`` with a
 uniform dz) and the same post.  ``kessler_pass`` is the one pass both plain
-loops share.  Every division by a number goes through ``_div``, so the plain
-version and the kernel divide alike on the card.
+loops share.  Every division by a number goes through ``exact_div``, so the
+plain version and the kernel divide alike on the card.
 
 ``min_step`` is the field work of the sub-cycle count: min(dt, the minimum
 over cells below the top of 0.8 dz_lev / v), a 0-d tensor.  On a CUDA tensor
@@ -23,12 +23,11 @@ atomic min, the port of the field work of the JAX package's
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..cuda_build import on_cuda
-from ..utils.profiling import count
+from ..cuda_build import (DOUBLE, INT, LONG, PTR, KernelLibrary,
+                          check_operand, on_cuda)
+from ..ops.exact_div import exact_div
 
 __all__ = ["kessler_step", "kessler_step_plain", "kessler_subcycle_plain",
            "kessler_pass", "kessler_staging", "terminal_velocity",
@@ -40,17 +39,6 @@ _LV = 2.5e6      # latent heat of vaporization
 
 def _ax(a, z_axis, start, length):
     return a.narrow(z_axis, start, length)
-
-
-def _div(a, b):
-    """a / b with exact division when a or b is a number (torch otherwise
-    multiplies by a reciprocal: scalar / tensor everywhere, tensor / scalar
-    on the GPU)."""
-    if not torch.is_tensor(a):
-        a = b.new_full((), a)
-    elif not torch.is_tensor(b):
-        b = a.new_full((), b)
-    return torch.div(a, b)
 
 
 def terminal_velocity(qr, r, rhalf):
@@ -91,14 +79,14 @@ def kessler_pass(theta, qv, qc, qr, precl, rho, r, rhalf, pk, pc, dz_lev,
     velqr = terminal_velocity(qr, r, rhalf)
 
     # Sedimentation, upstream differencing (reference :288-299).
-    precl = precl + _div(_ax(rho, z_axis, 0, 1) * _ax(qr, z_axis, 0, 1)
-                         * _ax(velqr, z_axis, 0, 1), _RHOQR)
+    precl = precl + exact_div(_ax(rho, z_axis, 0, 1) * _ax(qr, z_axis, 0, 1)
+                              * _ax(velqr, z_axis, 0, 1), _RHOQR)
     flux = r * qr * velqr
     sed_int = dt0 * (_ax(flux, z_axis, 1, nz - 1)
                      - _ax(flux, z_axis, 0, nz - 1)) / (
         _ax(r, z_axis, 0, nz - 1) * dz_lev)
-    sed_top = _div(-dt0 * _ax(qr, z_axis, nz - 1, 1)
-                   * _ax(velqr, z_axis, nz - 1, 1), 0.5 * dz_top)
+    sed_top = exact_div(-dt0 * _ax(qr, z_axis, nz - 1, 1)
+                        * _ax(velqr, z_axis, nz - 1, 1), 0.5 * dz_top)
     sed = torch.cat([sed_int, sed_top], dim=z_axis)
 
     # Autoconversion + accretion, KW eq. 2.13 (reference :303-307).
@@ -121,7 +109,7 @@ def kessler_pass(theta, qv, qc, qr, precl, rho, r, rhalf, pk, pc, dz_lev,
 
     # Saturation adjustment, KW eq. 3.10 (reference :324-328).
     cond = torch.maximum(prod, -qc)
-    theta = theta + _div(_LV, cp * pk) * (cond - ern)
+    theta = theta + exact_div(_LV, cp * pk) * (cond - ern)
     qv = torch.clamp(qv - cond + ern, min=0.0)
     qc = qc + cond
     qr = qr - ern
@@ -132,7 +120,7 @@ def column_constants(rho, pk, Rd, cp, p0, z_axis):
     """(r, rhalf, pc): the pass-invariant column quantities."""
     r = 0.001 * rho
     rhalf = torch.sqrt(_ax(rho, z_axis, 0, 1) / rho)
-    pc = _div(3.8, pk ** (cp / Rd) * (p0 / 100.0))
+    pc = exact_div(3.8, pk ** (cp / Rd) * (p0 / 100.0))
     return r, rhalf, pc
 
 
@@ -143,7 +131,7 @@ def kessler_subcycle_plain(theta, qv, qc, qr, rho, pk, rainsplit, dt, dz, Rd,
     Returns (theta, qv, qc, qr, precl) with precl shaped (nens, ny, nx).
     Reads ``rainsplit`` on the host."""
     nsub = int(rainsplit)
-    dt0 = _div(dt, rainsplit.to(theta.dtype))
+    dt0 = exact_div(dt, rainsplit.to(theta.dtype))
     r, rhalf, pc = column_constants(rho, pk, Rd, cp, p0, 1)
     precl = torch.zeros_like(theta[:, 0:1])
     for _ in range(nsub):
@@ -160,7 +148,7 @@ def _prep(rho_d, temp, rho_v, rho_c, rho_r, Rd, Rv, cp, p0):
     qc = rho_c / rho_d
     qr = rho_r / rho_d
     pressure = Rd * rho_d * temp + Rv * rho_v * temp
-    exner = _div(pressure, p0) ** (Rd / cp)
+    exner = exact_div(pressure, p0) ** (Rd / cp)
     return temp / exner, qv, qc, qr, exner
 
 
@@ -178,35 +166,11 @@ def kessler_step_plain(rho_d, temp, rho_v, rho_c, rho_r, rainsplit, dt, dz,
     return qv * rho_d, qc * rho_d, qr * rho_d, theta * exner, precl
 
 
-def _bind(lib):
-    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for name in ("kessler_step_f32", "kessler_step_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [P] * 11 + [I, I, ctypes.c_longlong] + [D] * 6 + [P]
-        fn.restype = I
-    for name in ("kessler_min_step_f32", "kessler_min_step_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [P, P, P, ctypes.c_longlong, I, ctypes.c_longlong, D,
-                       D, P]
-        fn.restype = I
-    lib.kessler_staged_levels.argtypes = [I, I]
-    lib.kessler_staged_levels.restype = I
-    lib.kessler_smem_bytes.argtypes = [I, I]
-    lib.kessler_smem_bytes.restype = ctypes.c_longlong
-    lib.kessler_error_string.argtypes = [I]
-    lib.kessler_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from ..cuda_build import load_library
-        _lib = _bind(load_library("kessler"))
-    return _lib
+LIBRARY = KernelLibrary("kessler", {
+    "kessler_step": [PTR] * 11 + [INT, INT, LONG] + [DOUBLE] * 6,
+    "kessler_min_step": [PTR, PTR, PTR, LONG, INT, LONG, DOUBLE, DOUBLE],
+}, {"kessler_staged_levels": ([INT, INT], INT),
+    "kessler_smem_bytes": ([INT, INT], LONG)})
 
 
 def kessler_staging(nz: int, dtype) -> tuple[int, int]:
@@ -214,26 +178,19 @@ def kessler_staging(nz: int, dtype) -> tuple[int, int]:
     kernel for columns of ``nz`` levels of ``dtype``: nz itself when a
     column is staged whole.  Builds the kernel's library."""
     item = torch.empty((), dtype=dtype).element_size()
-    lib = _library()
-    return lib.kessler_staged_levels(nz, item), lib.kessler_smem_bytes(nz,
-                                                                       item)
+    return (LIBRARY.query("kessler_staged_levels", nz, item),
+            LIBRARY.query("kessler_smem_bytes", nz, item))
 
 
-def _check(**fields):
-    """Raise unless every field is a contiguous f32 / f64 (nens, nz >= 2,
-    ny, nx) tensor of the dtype, shape and device of ``rho_d``."""
-    rho_d = fields["rho_d"]
-    if rho_d.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dtype {rho_d.dtype} is not float32/float64")
+def _check(rho_d, **others):
+    """Raise unless ``rho_d`` is an f32 / f64 (nens, nz >= 2, ny, nx)
+    tensor and it and every other field contiguous, of its dtype, shape and
+    device."""
     if rho_d.dim() != 4 or rho_d.shape[1] < 2:
         raise ValueError(f"fields must be (nens, nz>=2, ny, nx), got "
                          f"{tuple(rho_d.shape)}")
-    for name, t in fields.items():
-        if (t.device != rho_d.device or t.dtype != rho_d.dtype
-                or t.shape != rho_d.shape or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {rho_d.dtype} "
-                             f"tensor of shape {tuple(rho_d.shape)} on "
-                             f"{rho_d.device}")
+    for name, t in {"rho_d": rho_d, **others}.items():
+        check_operand(name, t, rho_d, rho_d.shape)
 
 
 def kessler_step(rho_d, temp, rho_v, rho_c, rho_r, rainsplit, dt, dz, Rd,
@@ -265,19 +222,12 @@ def kessler_step(rho_d, temp, rho_v, rho_c, rho_r, rainsplit, dt, dz, Rd,
     outs = [torch.empty_like(rho_d) for _ in range(4)]
     precl = torch.empty((nens, ny, nx), dtype=rho_d.dtype,
                         device=rho_d.device)
-    lib = _library()
-    fn = (lib.kessler_step_f32 if rho_d.dtype == torch.float32
-          else lib.kessler_step_f64)
-    stream = torch.cuda.current_stream(rho_d.device).cuda_stream
-    rc = fn(rho_d.data_ptr(), temp.data_ptr(), rho_v.data_ptr(),
-            rho_c.data_ptr(), rho_r.data_ptr(), rainsplit.data_ptr(),
-            *(o.data_ptr() for o in outs), precl.data_ptr(), nens, nz,
-            ny * nx, float(dt), float(dz), float(Rd), float(Rv), float(cp),
-            float(p0), stream)
-    if rc != 0:
-        raise RuntimeError("kessler kernel launch failed: "
-                           + lib.kessler_error_string(rc).decode())
-    count("kessler_step.launches")
+    LIBRARY.launch("kessler_step", rho_d, rho_d.data_ptr(), temp.data_ptr(),
+                   rho_v.data_ptr(), rho_c.data_ptr(), rho_r.data_ptr(),
+                   rainsplit.data_ptr(), *(o.data_ptr() for o in outs),
+                   precl.data_ptr(), nens, nz, ny * nx, float(dt), float(dz),
+                   float(Rd), float(Rv), float(cp), float(p0),
+                   counter="kessler_step.launches")
     return (*outs, precl)
 
 
@@ -298,14 +248,7 @@ def min_step(rho_r, rho_d, dt, dz):
     _check(rho_d=rho_d, rho_r=rho_r)
     nens, nz, ny, nx = rho_d.shape
     step = torch.empty((), dtype=rho_d.dtype, device=rho_d.device)
-    lib = _library()
-    fn = (lib.kessler_min_step_f32 if rho_d.dtype == torch.float32
-          else lib.kessler_min_step_f64)
-    rc = fn(rho_r.data_ptr(), rho_d.data_ptr(), step.data_ptr(),
-            rho_d.numel(), nz, ny * nx, float(dt), float(dz),
-            torch.cuda.current_stream(rho_d.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("kessler min_step kernel launch failed: "
-                           + lib.kessler_error_string(rc).decode())
-    count("min_step.launches")
+    LIBRARY.launch("kessler_min_step", rho_d, rho_r.data_ptr(),
+                   rho_d.data_ptr(), step.data_ptr(), rho_d.numel(), nz,
+                   ny * nx, float(dt), float(dz), counter="min_step.launches")
     return step

@@ -29,8 +29,9 @@ import ctypes
 
 import torch
 
-from ..cuda_build import load_library, on_cuda
-from ..utils.profiling import count, count_traced
+from ..cuda_build import (INT, LONG, PTR, PTRS, KernelLibrary, check_operand,
+                          check_operands, data_ptr, on_cuda, pointers)
+from ..utils.profiling import count_traced
 from ..ml.mlp import leaky_relu
 
 __all__ = ["surrogate_forward", "surrogate_forward_plain", "pack_mlp",
@@ -41,28 +42,12 @@ NIN, NOUT = 5, 4
 FIXED_WIDTHS = ((NIN, 10, NOUT),)
 _FORMS = {"fixed": 0, "general": 1}
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = load_library("surrogate")
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        PP = ctypes.POINTER(ctypes.c_void_p)
-        PI = ctypes.POINTER(I)
-        for name in ("surrogate_forward_f32", "surrogate_forward_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [PP, PP, P, I, I, PI, L, I, P, L, P]
-            fn.restype = I
-        lib.surrogate_scratch.argtypes = [I, PI, I]
-        lib.surrogate_scratch.restype = L
-        lib.surrogate_general_tile.argtypes = [I, PI, I, ctypes.POINTER(L)]
-        lib.surrogate_general_tile.restype = I
-        lib.surrogate_error_string.argtypes = [I]
-        lib.surrogate_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+_INTS = ctypes.POINTER(INT)
+LIBRARY = KernelLibrary("surrogate", {
+    "surrogate_forward": [PTRS, PTRS, PTR, INT, INT, _INTS, LONG, INT, PTR,
+                          LONG],
+}, {"surrogate_scratch": ([INT, _INTS, INT], LONG),
+    "surrogate_general_tile": ([INT, _INTS, INT, ctypes.POINTER(LONG)], INT)})
 
 
 def kernel_form(widths) -> str:
@@ -81,9 +66,8 @@ def _general_tile(widths, dtype) -> tuple[int, int, bool]:
     of these widths in ``dtype``.  Builds the kernel's library."""
     item = torch.empty((), dtype=dtype).element_size()
     smem = ctypes.c_longlong()
-    tile = _library().surrogate_general_tile(len(widths) - 1,
-                                             _c_widths(widths), item,
-                                             ctypes.byref(smem))
+    tile = LIBRARY.query("surrogate_general_tile", len(widths) - 1,
+                         _c_widths(widths), item, ctypes.byref(smem))
     return abs(tile), smem.value, tile < 0
 
 
@@ -165,44 +149,28 @@ def _launch(form, temp, rho_d, rho_v, rho_c, rho_r, params, widths):
     ``surrogate_forward.launches``, and under a profiler session
     ``surrogate_forward.fixed_launches`` or ``.general_launches``."""
     fields = (temp, rho_d, rho_v, rho_c, rho_r)
-    if temp.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dtype {temp.dtype} is not float32/float64")
-    for i, a in enumerate((*fields, params)):
-        if (a.device != temp.device or a.dtype != temp.dtype
-                or not a.is_contiguous()
-                or (i < NIN and a.shape != temp.shape)):
-            raise ValueError(f"surrogate: argument {i} must be a contiguous "
-                             f"{temp.dtype} tensor on {temp.device}"
-                             + (f" of shape {tuple(temp.shape)}"
-                                if i < NIN else ""))
+    check_operands("surrogate field", fields, temp, temp.shape)
+    check_operand("surrogate params", params, temp)
     if form not in _FORMS or (form == "fixed"
                               and tuple(widths) not in FIXED_WIDTHS):
         raise ValueError(f"surrogate: no {form!r} kernel form for widths "
                          f"{tuple(widths)} (the fixed form takes "
                          f"{FIXED_WIDTHS})")
     outs = [torch.empty_like(temp) for _ in range(NOUT)]
-    lib = _library()
     wid = _c_widths(widths)
     scratch, nscratch = None, 0
     if form == "general":
-        nscratch = lib.surrogate_scratch(len(widths) - 1, wid,
-                                         temp.element_size())
+        nscratch = LIBRARY.query("surrogate_scratch", len(widths) - 1, wid,
+                                 temp.element_size())
         if nscratch < 0:
             raise RuntimeError("surrogate: the scratch query failed")
         if nscratch:
             scratch = torch.empty(nscratch, dtype=temp.dtype,
                                   device=temp.device)
-    fn = (lib.surrogate_forward_f32 if temp.dtype == torch.float32
-          else lib.surrogate_forward_f64)
-    ptrs = (ctypes.c_void_p * NIN)(*(a.data_ptr() for a in fields))
-    optrs = (ctypes.c_void_p * NOUT)(*(a.data_ptr() for a in outs))
-    rc = fn(ptrs, optrs, params.data_ptr(), params.numel(), len(widths) - 1,
-            wid, temp.numel(), _FORMS[form],
-            None if scratch is None else scratch.data_ptr(), nscratch,
-            torch.cuda.current_stream(temp.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"surrogate kernel ({form} form) launch failed: "
-                           + lib.surrogate_error_string(rc).decode())
-    count("surrogate_forward.launches")
+    LIBRARY.launch("surrogate_forward", temp, pointers(fields),
+                   pointers(outs), params.data_ptr(), params.numel(),
+                   len(widths) - 1, wid, temp.numel(), _FORMS[form],
+                   data_ptr(scratch), nscratch,
+                   counter="surrogate_forward.launches")
     count_traced(f"surrogate_forward.{form}_launches")
     return tuple(outs)

@@ -24,7 +24,7 @@ over ``nsub`` read to the host.  The [approx] tier's rates, freezing and
 part3 are plain tensor code.
 
 Every division of a tensor by a number (or of a number by a tensor) in the
-per-cell phases goes through ``_div``: PyTorch would multiply by a
+per-cell phases goes through ``exact_div``: PyTorch would multiply by a
 reciprocal there, the CUDA kernels divide, and the two must do the same IEEE
 operations.  Integer powers are written as products (``lax.integer_pow``);
 the JAX package's ``_cbrt_pos`` sites use ``pow(x, 1/3)`` and its
@@ -39,9 +39,9 @@ import numpy as np
 import torch
 
 from ..core.coupler import CouplerState
+from ..ops.exact_div import exact_div
 from ..parallel.collectives import host_ints, pmax, pmin
 from ..utils.profiling import count_device, span
-from .kessler_cuda import _div
 from .p3_tables import (F1R, F2R, MU_R, P3Tables, cbrt,
                         default_table_path, ice_table_indices,
                         interp_collect_multi, interp_ice_multi,
@@ -120,10 +120,10 @@ def _murphy_koop_svp_liq(t):
     """Murphy & Koop (2005) liquid saturation vapor pressure [Pa]
     (wv_sat_scream.F90 MurphyKoop_svp)."""
     logt = torch.log(t)
-    return torch.exp(54.842763 - _div(6763.22, t) - 4.210 * logt
+    return torch.exp(54.842763 - exact_div(6763.22, t) - 4.210 * logt
                      + 0.000367 * t
                      + torch.tanh(0.0415 * (t - 218.8))
-                     * (53.878 - _div(1331.22, t) - 9.44523 * logt
+                     * (53.878 - exact_div(1331.22, t) - 9.44523 * logt
                         + 0.014025 * t))
 
 
@@ -131,7 +131,7 @@ def _murphy_koop_svp_ice(t):
     """Murphy & Koop (2005) ice svp below freezing, the liquid form at
     T >= 0 C (wv_sat_scream.F90:96-107)."""
     logt = torch.log(t)
-    e_ice = torch.exp(9.550426 - _div(5723.265, t) + 3.53068 * logt
+    e_ice = torch.exp(9.550426 - exact_div(5723.265, t) + 3.53068 * logt
                       - 0.00728332 * t)
     return torch.where(t < TMELT, e_ice, _murphy_koop_svp_liq(t))
 
@@ -202,7 +202,7 @@ def compute_adjusted_state(rho, rho_d, rho_v, rho_c, temp,
         hi = torch.where(condensing, rho_v, zero)
         rho_t = rho_d + rho_v + rho_c
         cp0 = (rho_d * CP_D + rho_v * CP_V + rho_c * CP_L) / rho_t
-        dcp = _div(CP_L - CP_V, rho_t)
+        dcp = exact_div(CP_L - CP_V, rho_t)
 
         # seed: one Newton step from x = 0 on the svp already computed
         f0 = pv - svp
@@ -293,14 +293,14 @@ def _rain_dsd2(qr_, nr_):
     lamr = _cbrt_pos(_CONS1 * nr1 * 24.0 / _max(qr_, QSMALL))
     lamr_cl = torch.clamp(lamr, 2.0 * 500.0, 2.0 * 1.0e5)
     nr_lim = torch.where(lamr != lamr_cl,
-                         _div(lamr_cl * lamr_cl * lamr_cl * qr_,
-                              24.0 * _CONS1), nr1)
+                         exact_div(lamr_cl * lamr_cl * lamr_cl * qr_,
+                                   24.0 * _CONS1), nr1)
     return torch.where(qr_ >= QSMALL, nr_lim, nr_), lamr_cl
 
 
 def _cloud_mu(nc_, rho):
     s_ = 0.0005714 * (nc_ * 1.0e-6 * rho) + 0.2714
-    return torch.clamp(_div(1.0, s_ * s_) - 1.0, 2.0, 15.0)
+    return torch.clamp(exact_div(1.0, s_ * s_) - 1.0, 2.0, 15.0)
 
 
 def _cloud_dsd2(qc_, nc_, rho):
@@ -326,7 +326,7 @@ def _p3_part1_cellwise(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, exner,
     Returns (qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, temp, skip_mask,
     qc_in, qr_in, qi_in, qm_in, bm_in, nc_in, nr_in, ni_in, mu_cd)."""
     Lv, Ls, Lf, cp = LATVAP, LATVAP + LATICE, LATICE, CP_D
-    inv_rho = _div(1.0, rho)
+    inv_rho = exact_div(1.0, rho)
     temp = theta * exner
     cpx = cp * exner
 
@@ -401,7 +401,7 @@ def _p3_update_cellwise(dt, au, ac, qc_frz, nc_frz, qr_frz, nr_frz, rim,
     one = 1.0
 
     # droplet-number tendencies (iparam=3 / KK2000)
-    inv_qc = _div(1.0, _max(qc_in, QSMALL))
+    inv_qc = exact_div(1.0, _max(qc_in, QSMALL))
     nc2nr_auto = au * nc_in * inv_qc
     nc_accret = ac * nc_in * inv_qc
     nc_collect = (rim + shed) * nc_in * inv_qc
@@ -467,10 +467,10 @@ def _p3_update_cellwise(dt, au, ac, qc_frz, nc_frz, qr_frz, nr_frz, rim,
     # prevent_liq_supersaturation (:2888-2955)
     qv_sources = sub + ev
     qv_sinks_plq = dep + qinuc
-    t_end = temp + (_div((qv_sinks_plq - sub) * Ls, cp)
-                    - _div(ev * Lv, cp)) * dt
+    t_end = temp + (exact_div((qv_sinks_plq - sub) * Ls, cp)
+                    - exact_div(ev * Lv, cp)) * dt
     qsl_end = p3_qv_sat_liq(t_end, pres)
-    A_plq = (_div(Lv * qsl_end * dt, cp) / (R_V * t_end * t_end)
+    A_plq = (exact_div(Lv * qsl_end * dt, cp) / (R_V * t_end * t_end)
              * (Ls * sub + Lv * ev))
     floor = 1e-300 if qv.dtype == torch.float64 else 1e-35
     frac_plq = ((qsl_end - qv + qv_sinks_plq * dt + A_plq)
@@ -492,14 +492,15 @@ def _p3_update_cellwise(dt, au, ac, qc_frz, nc_frz, qr_frz, nr_frz, rim,
                         - ni_sub_n)
     qm_new = qm + dt * (rim + qr_frz + qrcol + qc_frz
                         - (melt + sub) * qm / _max(qi, QSMALL))
-    bm_new = bm + dt * (rim / rho_rime + _div(qr_frz + qrcol + qc_frz, 900.0)
+    bm_new = bm + dt * (rim / rho_rime
+                        + exact_div(qr_frz + qrcol + qc_frz, 900.0)
                         - (melt + sub) * bm / _max(qi, QSMALL))
     # negative rime zeroes qm and bm; wet growth densifies (:3188-3200)
     neg_qm = qm_new < 0.0
     qm_new = _where0(~neg_qm, qm_new)
     bm_new = _where0(~neg_qm, bm_new)
     qm_new = torch.where(log_wg, qi_new, qm_new)
-    bm_new = torch.where(log_wg, _div(qi_new, 900.0), bm_new)
+    bm_new = torch.where(log_wg, exact_div(qi_new, 900.0), bm_new)
     if do_predict_nc:
         nc = _max(nc + dt * (-nc_accret - nc2nr_auto - nc_collect - nc_frz),
                   0.0)
@@ -509,7 +510,7 @@ def _p3_update_cellwise(dt, au, ac, qc_frz, nc_frz, qr_frz, nr_frz, rim,
     qc, qr, qi, qv = qc_new, qr_new, qi_new, qv_new
     nr, ni, qm, bm = nr_new, ni_new, qm_new, bm_new
     cpx = cp * exner
-    theta = theta + _div(dt, cpx) * (
+    theta = theta + exact_div(dt, cpx) * (
         Lv * (-ev) + Ls * (dep + qinuc - sub)
         + Lf * (qc_frz + qr_frz + qrcol + rim + berg - melt))
     qc, qr, qi, qv, nr, ni = (_max(a, 0.0) for a in (qc, qr, qi, qv, nr, ni))
@@ -543,14 +544,14 @@ def _p3_wrapper_inputs_cellwise(rho_d, temp, rho_c, rho_nc, rho_r, rho_nr,
     rho = rho_d + rho_c + rho_r + rho_i + rho_v
     rho_v, rho_c, temp = compute_adjusted_state(rho, rho_d, rho_v, rho_c,
                                                 temp)
-    inv_rd = _div(1.0, rho_d)
+    inv_rd = exact_div(1.0, rho_d)
     qc, nc = rho_c * inv_rd, rho_nc * inv_rd
     qr, nr = rho_r * inv_rd, rho_nr * inv_rd
     qi, ni = rho_i * inv_rd, rho_ni * inv_rd
     qm, bm = rho_m * inv_rd, rho_bm * inv_rd
     qv = rho_v * inv_rd
     pressure = R_D * rho_d * temp + R_V * rho_v * temp
-    exner = _div(pressure, P0) ** (R_D / CP_D)
+    exner = exact_div(pressure, P0) ** (R_D / CP_D)
     theta = temp / exner
     # t_prev starts at 0: the reference's first_step sentinel (:297-301)
     first = t_prev_f <= 0.0
@@ -620,7 +621,7 @@ def _p3_warm_ice_rates(dt, qc, nc, qr, ni, qv, temp, pres, rho, inv_rho,
     n_coop = torch.minimum(
         0.005 * torch.exp(0.304 * _max(-tc, 0.0)) * 1.0e3 * inv_rho,
         100.0e3 * inv_rho)
-    n_nuc = _div(_max(n_coop - ni, 0.0), dt)
+    n_nuc = exact_div(_max(n_coop - ni, 0.0), dt)
     nucleate = (tc < -15.0) & (sup_i >= 0.05) & (n_nuc >= 1.0e-20)
     qinuc = _where0(nucleate, n_nuc * mi0)
     ninuc = _where0(nucleate, n_nuc)
@@ -743,10 +744,10 @@ def _p3_rates_post_cellwise(dt, qc, nc, qr, qi, ni, qv, temp, pres, rho,
     dv_diff = 8.794e-5 * temp ** 1.81 / pres
     sc_n = mu_visc / (rho * dv_diff)
     kap = 1.414e3 * mu_visc
-    eii = torch.clamp(0.001 + _div((temp - 253.15) * (0.3 - 0.001), 20.0),
-                      0.001, 0.3)
+    eii = torch.clamp(
+        0.001 + exact_div((temp - 253.15) * (0.3 - 0.001), 20.0), 0.001, 0.3)
     fr = qm_reb / _max(qi_in, QSMALL)
-    eii_fact = torch.clamp(1.0 - _div(fr - 0.6, 0.3), 0.0, 1.0)
+    eii_fact = torch.clamp(1.0 - exact_div(fr - 0.6, 0.3), 0.0, 1.0)
     # aggregation (ice_self_collection, :2159-2207)
     ni_self = _where0(has_qi, tab3 * rho * eii * eii_fact * rhofaci
                       * ni_rate * ni_rate)
@@ -755,14 +756,14 @@ def _p3_rates_post_cellwise(dt, qc, nc, qr, qi, ni, qv, temp, pres, rho,
     # melting (ice_melting, :2211-2256)
     qsat0 = p3_qv_sat_liq(torch.full_like(temp, TMELT), pres)
     melt = _where0(has_qi & (tc > 0.0), _max(
-        _div(vent * (tc * kap - rho * Lv * dv_diff * (qsat0 - qv))
-             * 2.0 * pi, Lf) * ni_rate, 0.0))
+        exact_div(vent * (tc * kap - rho * Lv * dv_diff * (qsat0 - qv))
+                  * 2.0 * pi, Lf) * ni_rate, 0.0))
     # deposition/sublimation by relaxation (:2322-2355, :3269-3330);
     # epsi gated at T < 0 (:2346)
     epsi = _where0(has_qi & (tc < 0.0),
                    vent * 2.0 * pi * rho * dv_diff * ni_rate)
     dqsidt = (Lv + LATICE) * qv_si / (R_V * temp * temp)
-    abi = 1.0 + _div(dqsidt * (Lv + LATICE), CP_D)
+    abi = 1.0 + exact_div(dqsidt * (Lv + LATICE), CP_D)
     qi_tend = _min(epsi / abi, 1.0 / dt) * (qv - qv_si)
     dep = _where0(tc < 0.0, _max(qi_tend, 0.0))
     sub = _max(-qi_tend, 0.0)
@@ -797,14 +798,15 @@ def _p3_rates_post_cellwise(dt, qc, nc, qr, qi, ni, qv, temp, pres, rho,
     # rain evaporation, analytically integrated (evaporate_rain,
     # :3383-3537) with the qv_prev/t_prev history
     dqsldt = Lv * qsl / (R_V * temp * temp)
-    abl = 1.0 + _div(dqsldt * Lv, CP_D)
+    abl = 1.0 + exact_div(dqsldt * Lv, CP_D)
     ssat_r = qv - qsl
     below = tc < 0.0
     eps_eff = _max(torch.where(
         below, epsr + epsi * (1.0 + Ls / CP_D * dqsldt) / abi, epsr),
         1.0e-20)
     tau_eff = 1.0 / eps_eff
-    A_c = (_div(qv - qv_prev, dt) - _div(dqsldt * (temp - t_prev), dt)
+    A_c = (exact_div(qv - qv_prev, dt)
+           - exact_div(dqsldt * (temp - t_prev), dt)
            - _where0(below, (qsl - qv_si) * (1.0 + Ls / CP_D * dqsldt)
                      / abi * epsi))
     tau_r = 1.0 / _max(epsr, 1.0e-20)
@@ -815,9 +817,9 @@ def _p3_rates_post_cellwise(dt, qc, nc, qr, qi, ni, qv, temp, pres, rho,
     ev_big = instant * w_ts + equilib * (1.0 - w_ts)
     ev = torch.where((qr_in < 1.0e-12)
                      & (qv / _max(qsl, QSMALL) < 0.999),
-                     _div(qr_in, dt), ev_big)
-    ev = torch.minimum(ev, _div(-ssat_r, dt) / abl)
-    ev = torch.minimum(_max(ev, 0.0), _div(qr_in, dt))
+                     exact_div(qr_in, dt), ev_big)
+    ev = torch.minimum(ev, exact_div(-ssat_r, dt) / abl)
+    ev = torch.minimum(_max(ev, 0.0), exact_div(qr_in, dt))
     ev = _where0((qc_in + qi_in < 1.0e-6) & (ssat_r < 0.0)
                  & (qr >= QSMALL), ev)
     return (au, ac, qc_frz, nc_frz, qr_frz, nr_frz, rim, shed, ncshdc, berg,
@@ -847,7 +849,7 @@ def _p3_rates_approx(dt, qc, nc, qr, qi, ni, qv, temp, pres, rho, inv_rho,
     erim = 0.7
     rim = _where0((qi >= QSMALL) & (qc >= QSMALL) & (tc < 0.0),
                   erim * 2.0 * vi * qi * qc)
-    melt = _where0((qi >= QSMALL) & (tc > 0.0), _div(qi * tc, 60.0))
+    melt = _where0((qi >= QSMALL) & (tc > 0.0), exact_div(qi * tc, 60.0))
     zero = torch.zeros_like(qc)
     return (au, ac, qc_frz, nc_frz, qr_frz, nr_frz, rim, zero, zero, zero,
             dep, sub, ev, melt, qinuc, ninuc, zero, zero, nr_self, zero,
@@ -973,7 +975,7 @@ class _Fall:
                               - ax(flux, 0, nz - 1)) / self.mass_lo
             dq_top = -dts * ax(flux, nz - 1, 1) / self.mass_top
             q = q + torch.cat([dq_lower, dq_top], dim=self.z_axis)
-            return _max(q, 0.0), _div(dts * ax(flux, 0, 1), RHO_H2O)
+            return _max(q, 0.0), exact_div(dts * ax(flux, 0, 1), RHO_H2O)
 
         qc, out = fall(qc, vc_)
         pl = pl + out
@@ -1001,7 +1003,8 @@ class _Fall:
                 v, q = self.speeds(q)
             q, pl, pi_ = self.substep(q, v, dts, do_predict_nc, pl, pi_)
         z = self.z_axis
-        return (*q, _div(pl.squeeze(z), dt), _div(pi_.squeeze(z), dt))
+        return (*q, exact_div(pl.squeeze(z), dt),
+                exact_div(pi_.squeeze(z), dt))
 
 
 def _p3_sed_step(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt, dtab,
@@ -1168,7 +1171,7 @@ def _p3_part3_cellwise(qc, nc, qr, nr, qi, ni, qm, bm, qv, theta, temp,
         q_nuc = _where0(frz, q)
         qm = qm + q_nuc
         qi = qi + q_nuc
-        bm = bm + _div(q_nuc, RHO_RIMEMAX)
+        bm = bm + exact_div(q_nuc, RHO_RIMEMAX)
         ni = ni + _where0(frz, _max(n, NSMALL))
         theta = theta + q_nuc * Lf / (cp * exner)
         return _where0(~frz, q), _where0(~frz, n)

@@ -30,11 +30,10 @@ output pass (:1726-1741).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..cuda_build import load_library, on_cuda
+from ..cuda_build import (DOUBLE, INT, LONG, PTR, PTRS, KernelLibrary,
+                          check_operands, data_ptr, on_cuda, pointers)
 from ..utils.profiling import count
 from .p3 import (_p3_part1_cellwise as part1_plain,
                  _p3_part3_cellwise as part3_plain,
@@ -77,64 +76,25 @@ _RATES_PRE_ORDER = (("f", 0), ("f", 1), ("i", 0), ("f", 2), ("i", 1),
                     ("f", 3), ("i", 2), ("f", 4), ("i", 3), ("f", 5),
                     ("i", 4), ("f", 6))
 
-_lib = None
-
-
-def _bind(lib):
-    """``lib`` (a build of ``csrc/p3_cellwise.cu``) with its entry points'
-    argument and result types declared."""
-    P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                  ctypes.c_double)
-    PP = ctypes.POINTER(ctypes.c_void_p)
-    for name in ("p3_cellwise_f32", "p3_cellwise_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [I, PP, I, PP, I, PP, I, P, I, L, D, P, P]
-        fn.restype = I
-    lib.p3_cellwise_error_string.argtypes = [I]
-    lib.p3_cellwise_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        _lib = _bind(load_library("p3_cellwise"))
-    return _lib
+LIBRARY = KernelLibrary("p3_cellwise", {
+    "p3_cellwise": [INT, PTRS, INT, PTRS, INT, PTRS, INT, PTR, INT, LONG,
+                    DOUBLE, PTR]})
 
 
 def _launch(phase, predict_nc, arrays, dt=0.0, table=None):
     """Run one phase's kernel on same-shape contiguous CUDA tensors;
     ``table``: the packed ice table of the table tier's part3."""
     a0 = arrays[0]
-    if a0.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dtype {a0.dtype} is not float32/float64")
-    for i, a in enumerate(arrays):
-        if (a.device != a0.device or a.dtype != a0.dtype
-                or a.shape != a0.shape or not a.is_contiguous()):
-            raise ValueError(f"p3 {phase}: input {i} must be a contiguous "
-                             f"{a0.dtype} tensor of shape {tuple(a0.shape)} "
-                             f"on {a0.device}, got {a.dtype} "
-                             f"{tuple(a.shape)} on {a.device}")
+    check_operands(f"p3 {phase} input", arrays, a0, a0.shape)
     n_f, n_i, n_flag = _N_OUT[phase]
     outs = [torch.empty_like(a0) for _ in range(n_f)]
     iouts = [torch.empty_like(a0, dtype=torch.int32) for _ in range(n_i)]
     flags = (torch.zeros(n_flag, dtype=torch.bool, device=a0.device)
              if n_flag else None)
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * max(len(ts), 1))(*(t.data_ptr()
-                                                     for t in ts))
-    lib = _library()
-    fn = (lib.p3_cellwise_f32 if a0.dtype == torch.float32
-          else lib.p3_cellwise_f64)
-    stream = torch.cuda.current_stream(a0.device).cuda_stream
-    rc = fn(_PHASE_ID[(phase, predict_nc)], ptrs(arrays), len(arrays),
-            ptrs(outs), n_f, ptrs(iouts), n_i,
-            None if flags is None else flags.data_ptr(), n_flag, a0.numel(),
-            float(dt), None if table is None else table.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"p3 {phase} kernel launch failed: "
-                           + lib.p3_cellwise_error_string(rc).decode())
+    LIBRARY.launch("p3_cellwise", a0, _PHASE_ID[(phase, predict_nc)],
+                   pointers(arrays), len(arrays), pointers(outs), n_f,
+                   pointers(iouts), n_i, data_ptr(flags), n_flag, a0.numel(),
+                   float(dt), data_ptr(table))
     if phase == "rates_pre":
         got = {"f": outs, "i": iouts}
         return (*(got[k][i] for k, i in _RATES_PRE_ORDER), flags)

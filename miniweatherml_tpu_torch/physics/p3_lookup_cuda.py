@@ -27,8 +27,8 @@ import ctypes
 
 import torch
 
-from ..cuda_build import load_library, on_cuda
-from ..utils.profiling import count
+from ..cuda_build import (INT, LONG, PTR, KernelLibrary, check_operands,
+                          data_ptr, on_cuda)
 
 __all__ = ["interp_ice", "interp_collect", "interp_rain", "interp_ice_plain",
            "interp_collect_plain", "interp_rain_plain", "pack_ice",
@@ -179,6 +179,13 @@ def pack_collect(table: torch.Tensor) -> torch.Tensor:
     return _pack(table, collect_strides(table.shape[0], table.dtype))
 
 
+LIBRARY = KernelLibrary("p3_lookup", {
+    "p3_interp_ice": [PTR, INT] + [PTR] * 8 + [LONG],
+    "p3_interp_collect": [PTR, INT] + [PTR] * 10 + [LONG],
+    "p3_interp_rain": [PTR, INT, INT] + [PTR] * 4 + [LONG],
+}, {"p3_lookup_launch": ([INT, INT, INT, LONG, PTR, PTR, PTR], INT)})
+
+
 def launch_config(kind: str, K: int, dtype: torch.dtype,
                   n: int) -> tuple[int, int, int]:
     """(blocks, threads per block, shared memory per block in bytes) of the
@@ -188,42 +195,10 @@ def launch_config(kind: str, K: int, dtype: torch.dtype,
     as fit."""
     blocks, threads, smem = (ctypes.c_uint(), ctypes.c_int(),
                              ctypes.c_longlong())
-    lib = _library()
-    rc = lib.p3_lookup_launch(int(kind == "collect"), K,
-                              int(dtype == torch.float64), n,
-                              ctypes.byref(blocks), ctypes.byref(threads),
-                              ctypes.byref(smem))
-    if rc != 0:
-        raise RuntimeError(f"p3 {kind} lookup launch configuration failed: "
-                           + lib.p3_lookup_error_string(rc).decode())
+    LIBRARY.call("p3_lookup_launch", int(kind == "collect"), K,
+                 int(dtype == torch.float64), n, ctypes.byref(blocks),
+                 ctypes.byref(threads), ctypes.byref(smem))
     return blocks.value, threads.value, smem.value
-
-
-def _bind(lib):
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for t in ("f32", "f64"):
-        getattr(lib, f"p3_interp_ice_{t}").argtypes = [P, I] + [P] * 8 + [L, P]
-        getattr(lib, f"p3_interp_collect_{t}").argtypes = ([P, I] + [P] * 10
-                                                           + [L, P])
-        getattr(lib, f"p3_interp_rain_{t}").argtypes = [P, I, I] + [P] * 4 + [
-            L, P]
-        for k in ("ice", "collect", "rain"):
-            getattr(lib, f"p3_interp_{k}_{t}").restype = I
-    lib.p3_lookup_launch.argtypes = [I, I, I, L, P, P, P]
-    lib.p3_lookup_launch.restype = I
-    lib.p3_lookup_error_string.argtypes = [I]
-    lib.p3_lookup_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        _lib = _bind(load_library("p3_lookup"))
-    return _lib
 
 
 def _check(table, tshape, fracs, idxs, present, strides=None):
@@ -231,8 +206,8 @@ def _check(table, tshape, fracs, idxs, present, strides=None):
     ``strides``: the function giving the packed layout the table must have
     (None: the table must be contiguous)."""
     f0 = fracs[0]
-    if f0.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dtype {f0.dtype} is not float32/float64")
+    check_operands("fraction", fracs, f0, f0.shape)
+    check_operands("index", idxs, f0, f0.shape, torch.int32)
     if strides is None:
         layout, ok = "contiguous", table.is_contiguous()
     else:
@@ -249,16 +224,6 @@ def _check(table, tshape, fracs, idxs, present, strides=None):
                          f"shape (K, {', '.join(map(str, tshape))}) on "
                          f"{f0.device}, got {table.dtype} "
                          f"{tuple(table.shape)} on {table.device}")
-    for t in fracs:
-        if (t.device != f0.device or t.dtype != f0.dtype
-                or t.shape != f0.shape or not t.is_contiguous()):
-            raise ValueError("fractions must be contiguous tensors of one "
-                             "shape and dtype on one device")
-    for t in idxs:
-        if (t.device != f0.device or t.dtype != torch.int32
-                or t.shape != f0.shape or not t.is_contiguous()):
-            raise ValueError("indices must be contiguous int32 tensors of "
-                             "the fractions' shape on their device")
     if present is not None and (present.device != f0.device
                                 or present.dtype != torch.bool
                                 or present.numel() != 1):
@@ -269,16 +234,10 @@ def _check(table, tshape, fracs, idxs, present, strides=None):
 def _launch(kind, table, args, present, K, shape, dtype, device,
             extra_ints=()):
     out = torch.empty((K, *shape), dtype=dtype, device=device)
-    lib = _library()
-    fn = getattr(lib, f"p3_interp_{kind}_"
-                 + ("f32" if dtype == torch.float32 else "f64"))
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(table.data_ptr(), K, *extra_ints, *(a.data_ptr() for a in args),
-            present.data_ptr() if present is not None else None,
-            out.data_ptr(), out[0].numel(), stream)
-    if rc != 0:
-        raise RuntimeError(f"p3 {kind} lookup kernel launch failed: "
-                           + lib.p3_lookup_error_string(rc).decode())
+    LIBRARY.launch(f"p3_interp_{kind}", out, table.data_ptr(), K, *extra_ints,
+                   *(a.data_ptr() for a in args), data_ptr(present),
+                   out.data_ptr(), out[0].numel(),
+                   counter=f"interp_{kind}.launches")
     return out
 
 
@@ -290,10 +249,8 @@ def interp_ice(table, i0, fi, ii0, fii, jj0, fjj, present=None):
         return interp_ice_plain(table, i0, fi, ii0, fii, jj0, fjj, present)
     K, shape = _check(table, _ICE_SHAPE, (fi, fii, fjj), (i0, ii0, jj0),
                       present, ice_strides)
-    out = _launch("ice", table, (i0, fi, ii0, fii, jj0, fjj),
-                  present, K, shape, fi.dtype, fi.device)
-    count("interp_ice.launches")
-    return out
+    return _launch("ice", table, (i0, fi, ii0, fii, jj0, fjj), present, K,
+                   shape, fi.dtype, fi.device)
 
 
 def interp_collect(table, i0, fi, ii0, fii, jj0, fjj, j0, fj, present=None):
@@ -306,11 +263,8 @@ def interp_collect(table, i0, fi, ii0, fii, jj0, fjj, j0, fj, present=None):
                                     present)
     K, shape = _check(table, _COLLECT_SHAPE, (fi, fii, fjj, fj),
                       (i0, ii0, jj0, j0), present, collect_strides)
-    out = _launch("collect", table,
-                  (i0, fi, ii0, fii, jj0, fjj, j0, fj), present, K, shape,
-                  fi.dtype, fi.device)
-    count("interp_collect.launches")
-    return out
+    return _launch("collect", table, (i0, fi, ii0, fii, jj0, fjj, j0, fj),
+                   present, K, shape, fi.dtype, fi.device)
 
 
 def interp_rain(rows, i0, fi, present=None):
@@ -322,7 +276,5 @@ def interp_rain(rows, i0, fi, present=None):
         raise ValueError(f"rows must be (K, size >= 2), got "
                          f"{tuple(rows.shape)}")
     K, shape = _check(rows, (rows.shape[1],), (fi,), (i0,), present)
-    out = _launch("rain", rows, (i0, fi), present, K, shape, fi.dtype,
-                  fi.device, extra_ints=(rows.shape[1],))
-    count("interp_rain.launches")
-    return out
+    return _launch("rain", rows, (i0, fi), present, K, shape, fi.dtype,
+                   fi.device, extra_ints=(rows.shape[1],))

@@ -25,8 +25,8 @@ import ctypes
 
 import torch
 
-from ..cuda_build import load_library, on_cuda
-from ..utils.profiling import count
+from ..cuda_build import (DOUBLE, INT, LONG, PTR, PTRS, KernelLibrary,
+                          check_operands, on_cuda, pointers)
 from .p3 import _p3_sed_columns as columns_plain
 from .p3 import _p3_sed_step as step_plain
 from .p3 import _p3_sed_vmax as vmax_plain
@@ -39,34 +39,12 @@ __all__ = ["sed_step", "sed_columns", "step_plain", "vmax_plain",
 ICE_COLS = (2, 1, 7, 8)    # V_qit, V_nit and the ni limiters
 RAIN_ROWS = ("vm", "vn")   # V_qr, V_nr
 
-_lib = None
-
-
-def _bind(lib):
-    """``lib`` (a build of ``csrc/p3_sed.cu``) with its entry points'
-    argument and result types declared."""
-    P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                  ctypes.c_double)
-    PP = ctypes.POINTER(ctypes.c_void_p)
-    for t in ("f32", "f64"):
-        fn = getattr(lib, f"p3_sed_step_{t}")
-        fn.argtypes = [I, I, PP, PP, P, P, I, D, L, I, L, P, P]
-        fn.restype = I
-        fn = getattr(lib, f"p3_sed_columns_{t}")
-        fn.argtypes = [I, I, PP, PP, P, P, I, P, D, I, L, I, L, P]
-        fn.restype = I
-    lib.p3_sed_launch.argtypes = [I, I, I, I, L, I, P, P, P]
-    lib.p3_sed_launch.restype = I
-    lib.p3_sed_error_string.argtypes = [I]
-    lib.p3_sed_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        _lib = _bind(load_library("p3_sed"))
-    return _lib
+LIBRARY = KernelLibrary("p3_sed", {
+    "p3_sed_step": [INT, INT, PTRS, PTRS, PTR, PTR, INT, DOUBLE, LONG, INT,
+                    LONG, PTR],
+    "p3_sed_columns": [INT, INT, PTRS, PTRS, PTR, PTR, INT, PTR, DOUBLE, INT,
+                       LONG, INT, LONG],
+}, {"p3_sed_launch": ([INT, INT, INT, INT, LONG, INT, PTR, PTR, PTR], INT)})
 
 
 def launch_config(kernel: str, tables: bool, predict_nc: bool,
@@ -76,37 +54,21 @@ def launch_config(kernel: str, tables: bool, predict_nc: bool,
     current card."""
     blocks, threads, smem = (ctypes.c_uint(), ctypes.c_int(),
                              ctypes.c_longlong())
-    lib = _library()
-    rc = lib.p3_sed_launch(int(kernel == "columns"), int(tables),
-                           int(predict_nc), int(dtype == torch.float64), n,
-                           nz, ctypes.byref(blocks), ctypes.byref(threads),
-                           ctypes.byref(smem))
-    if rc != 0:
-        raise RuntimeError(f"p3 sed {kernel} launch configuration failed: "
-                           + lib.p3_sed_error_string(rc).decode())
+    LIBRARY.call("p3_sed_launch", int(kernel == "columns"), int(tables),
+                 int(predict_nc), int(dtype == torch.float64), n, nz,
+                 ctypes.byref(blocks), ctypes.byref(threads),
+                 ctypes.byref(smem))
     return blocks.value, threads.value, smem.value
-
-
-def _ptrs(ts):
-    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
 
 
 def _check(fields, z_axis):
     """Validate a CUDA call's fields; returns (n, nz, plane)."""
     f0 = fields[0]
-    if f0.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dtype {f0.dtype} is not float32/float64")
     if f0.dim() != 4 or z_axis not in (1, -3):
         raise ValueError("the sedimentation kernels take (nens, nz, ny, nx) "
                          f"fields with z on axis 1, got shape "
                          f"{tuple(f0.shape)} and z_axis {z_axis}")
-    for i, a in enumerate(fields):
-        if (a.device != f0.device or a.dtype != f0.dtype
-                or a.shape != f0.shape or not a.is_contiguous()):
-            raise ValueError(f"p3 sedimentation: field {i} must be a "
-                             f"contiguous {f0.dtype} tensor of shape "
-                             f"{tuple(f0.shape)} on {f0.device}, got "
-                             f"{a.dtype} {tuple(a.shape)} on {a.device}")
+    check_operands("p3 sedimentation field", fields, f0, f0.shape)
     nens, nz, ny, nx = f0.shape
     return f0.numel(), nz, ny * nx
 
@@ -138,22 +100,12 @@ def _tables(dtab, like):
     return ice.data_ptr(), rain.data_ptr(), rain.shape[1]
 
 
-def _raise(rc, what):
-    if rc != 0:
-        raise RuntimeError(f"p3 {what} kernel launch failed: "
-                           + _library().p3_sed_error_string(rc).decode())
-
-
 def _outputs(qc):
     """The 8 fields and the two surface rates a launch writes."""
     outs = [torch.empty_like(qc) for _ in range(8)]
     srf = torch.empty((2, qc.shape[0], *qc.shape[2:]), dtype=qc.dtype,
                       device=qc.device)
     return outs + list(srf.unbind(0))
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def sed_step(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt, dtab, *,
@@ -172,13 +124,10 @@ def sed_step(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt, dtab, *,
     ice, rain, rsize = _tables(dtab, qc)
     outs = _outputs(qc)
     vmax = torch.zeros((), dtype=qc.dtype, device=qc.device)
-    lib = _library()
-    fn = lib.p3_sed_step_f32 if qc.dtype == torch.float32 else \
-        lib.p3_sed_step_f64
-    _raise(fn(int(dtab is not None), int(bool(do_predict_nc)),
-              _ptrs(fields), _ptrs(outs), ice, rain, rsize, float(dt), n, nz,
-              plane, vmax.data_ptr(), _stream(qc)), "sed_step")
-    count("sed_step.launches")
+    LIBRARY.launch("p3_sed_step", qc, int(dtab is not None),
+                   int(bool(do_predict_nc)), pointers(fields), pointers(outs),
+                   ice, rain, rsize, float(dt), n, nz, plane, vmax.data_ptr(),
+                   counter="sed_step.launches")
     return vmax, tuple(outs)
 
 
@@ -213,12 +162,9 @@ def sed_columns(qc, nc, qr, nr, qi, ni, qm, bm, rho, temp, dz, dt, nsub_t,
                 for i, o in enumerate(outs)):
             raise ValueError("rerun must be sed_step's 10 outputs for these "
                              "fields")
-    lib = _library()
-    fn = lib.p3_sed_columns_f32 if qc.dtype == torch.float32 else \
-        lib.p3_sed_columns_f64
-    _raise(fn(int(dtab is not None), int(bool(do_predict_nc)),
-              _ptrs(fields), _ptrs(outs), ice, rain, rsize,
-              nsub_t.data_ptr(), float(dt), int(rerun is not None), n, nz,
-              plane, _stream(qc)), "sed_columns")
-    count("sed_columns.launches")
+    LIBRARY.launch("p3_sed_columns", qc, int(dtab is not None),
+                   int(bool(do_predict_nc)), pointers(fields), pointers(outs),
+                   ice, rain, rsize, nsub_t.data_ptr(), float(dt),
+                   int(rerun is not None), n, nz, plane,
+                   counter="sed_columns.launches")
     return tuple(outs)

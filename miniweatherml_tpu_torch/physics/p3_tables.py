@@ -29,8 +29,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..ops.exact_div import exact_div
 from . import p3_lookup_cuda as _lk
-from .kessler_cuda import _div
 
 __all__ = ["P3Tables", "DeviceTables", "load_p3_tables", "default_table_path",
            "ice_table_indices", "rain_collection_index", "rain_size_index",
@@ -286,7 +286,8 @@ def rain_size_index(dm):
     number-weighted mean size -> (i0, frac), 0-based into the 300-entry
     generated tables."""
     rd_small = torch.clamp((dm * 1e6 + 5.0) * 0.1, 1.0, 20.0)
-    rd_large = torch.clamp(_div(dm * 1e6 - 195.0, 30.0) + 20.0, 20.0, 300.0)
+    rd_large = torch.clamp(exact_div(dm * 1e6 - 195.0, 30.0) + 20.0, 20.0,
+                           300.0)
     small = dm <= 195.0e-6
     rdum = torch.where(small, rd_small, rd_large)
     idum = torch.where(small, torch.clamp(_floor_i32(rd_small), 1, 20),

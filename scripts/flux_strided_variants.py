@@ -51,7 +51,7 @@ name and power limit, the build seconds, the ptxas rows and the times.
 from __future__ import annotations
 
 import argparse
-import ctypes
+import contextlib
 import json
 import os
 import re
@@ -60,8 +60,9 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-# the libraries each design builds, by the algebras they serve
-LIBS = {"direction_fluxes": ("ref",), "direction_fluxes_opt": ("opt", "fast")}
+# the libraries each design builds: the reference algebra's, and the
+# reduced-operation one's with exact and approximate reciprocals
+LIBS = ("direction_fluxes", "direction_fluxes_opt")
 
 
 def _replace(src: str, old: str, new: str) -> str:
@@ -342,17 +343,15 @@ def main() -> int:
                   f"{' strips' if strips else ''} epilogue {epi} algebra "
                   f"{cs.FLUX_ALGEBRAS[alg]}: {regs} registers, {st} B spill "
                   f"stores, {ld} B spill loads", flush=True)
-    libs = {}
-    for name, lib in jobs:
-        entries = [e for alg in LIBS[lib]
-                   for e in df._LIBRARIES[alg][2].values()]
-        libs[name, lib] = df._bind(ctypes.CDLL(os.path.join(
-            out_dir, f"{name}_{lib}.so")), lib, entries)
 
     def use(name):
+        """The flux wrappers on design ``name``'s builds inside the block
+        (each build's first launch on the card copies the tables)."""
+        stack = contextlib.ExitStack()
         for lib in LIBS:
-            df._libs[lib] = libs[name, lib]
-        df._coef_devices.clear()  # the next launch copies the tables
+            stack.enter_context(df.LIBRARIES[lib].use(
+                os.path.join(out_dir, f"{name}_{lib}.so")))
+        return stack
 
     card = cs._card()
     cases = []  # (tag, args, acc, rk, kw)
@@ -427,11 +426,12 @@ def main() -> int:
     for tag, args, acc, rk, kw in cases:
         want = None
         for name in names:
-            use(name)
-            n0 = cs.profiling.counter("direction_fluxes.tiled_launches")
-            got = df.direction_fluxes(*args, acc=acc.clone(), rk=rk, **kw)
-            assert cs.profiling.counter(
-                "direction_fluxes.tiled_launches") == n0 + 1
+            with use(name):
+                n0 = cs.profiling.counter("direction_fluxes.tiled_launches")
+                got = df.direction_fluxes(*args, acc=acc.clone(), rk=rk,
+                                          **kw)
+                assert cs.profiling.counter(
+                    "direction_fluxes.tiled_launches") == n0 + 1
             if want is None:
                 want = got
                 if args[0].dtype == torch.float64:
@@ -451,14 +451,14 @@ def main() -> int:
 
     times = {}
     for name in names + names[::-1]:
-        use(name)
-        for tag, args, acc, rk, kw in cases:
-            buf = acc.clone()
-            ms = cs._time_ms(lambda: df.direction_fluxes(
-                *args, acc=buf, rk=rk, **kw), reps=a.reps)
-            del buf
-            times.setdefault(tag, {}).setdefault(name, []).append(ms)
-            print(f"{name} {tag}: {ms:.4f} ms  [{card}]", flush=True)
+        with use(name):
+            for tag, args, acc, rk, kw in cases:
+                buf = acc.clone()
+                ms = cs._time_ms(lambda: df.direction_fluxes(
+                    *args, acc=buf, rk=rk, **kw), reps=a.reps)
+                del buf
+                times.setdefault(tag, {}).setdefault(name, []).append(ms)
+                print(f"{name} {tag}: {ms:.4f} ms  [{card}]", flush=True)
     for tag, by in times.items():
         print(f"{tag}: " + ", ".join(
             f"{n} {min(v):.3f}/{max(v):.3f}" for n, v in by.items())

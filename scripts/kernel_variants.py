@@ -203,19 +203,18 @@ def main() -> int:
         raise RuntimeError("\n".join(errors))
     res = {}
     for i, flags in enumerate(a.flags):
-        kc._lib = kc._bind(libs[i][0])
-        fct._lib = fct._bind(libs[i][1])
         row = {}
-        for name, args in kcases.items():
-            same = all(torch.equal(x, y) for x, y in
-                       zip(kc.kessler_step(*args), kref[name]))
-            row[f"kessler_step {name}"] = {
-                "ms": _median_ms(lambda: kc.kessler_step(*args), a.reps),
-                "equal": same}
-        for name, args in fcases.items():
-            row[f"fct_mult {name}"] = {
-                "ms": _median_ms(lambda: fct.fct_mult(*args), a.reps),
-                "equal": torch.equal(fct.fct_mult(*args), fref[name])}
+        with kc.LIBRARY.use(libs[i][0]), fct.LIBRARY.use(libs[i][1]):
+            for name, args in kcases.items():
+                same = all(torch.equal(x, y) for x, y in
+                           zip(kc.kessler_step(*args), kref[name]))
+                row[f"kessler_step {name}"] = {
+                    "ms": _median_ms(lambda: kc.kessler_step(*args), a.reps),
+                    "equal": same}
+            for name, args in fcases.items():
+                row[f"fct_mult {name}"] = {
+                    "ms": _median_ms(lambda: fct.fct_mult(*args), a.reps),
+                    "equal": torch.equal(fct.fct_mult(*args), fref[name])}
         res[flags or "(package build)"] = row
         print(f"[{flags or 'package build'}] " + ", ".join(
             f"{k} {v['ms']:.4f} ms{'' if v['equal'] else ' (differs)'}"

@@ -186,7 +186,6 @@ def main() -> int:
     with ThreadPoolExecutor(len(srcs)) as pool:
         sos = dict(zip(srcs, pool.map(lambda kv: _build(kv[0], kv[1], flags),
                                       srcs.items())))
-    libs = {name: LK._bind(ctypes.CDLL(so)) for name, so in sos.items()}
     parent = _parent_lib(a.parent) if a.parent else None
     # the package's layout functions, and those of the variants that
     # change the ice layout
@@ -228,19 +227,18 @@ def main() -> int:
             line["parent"] = _timings(
                 lambda: parent_call(kind, canonical, args, present), a.reps)
         for name, (_, bitwise) in VARIANTS.items():
-            LK._lib = libs[name]
             for attr, fn in {**package_layout,
                              **layouts.get(name, {})}.items():
                 setattr(LK, attr, fn)
             packed = pack(canonical)  # in this variant's layout
-            got = kern(packed, *args, present=present)
-            torch.cuda.synchronize()
-            if bitwise and not torch.equal(got, ref):
-                raise AssertionError(f"{name} {tag}: differs from plain")
-            del got
-            line[name] = _timings(
-                lambda: kern(packed, *args, present=present), a.reps)
-        LK._lib = libs["package"]
+            with LK.LIBRARY.use(sos[name]):
+                got = kern(packed, *args, present=present)
+                torch.cuda.synchronize()
+                if bitwise and not torch.equal(got, ref):
+                    raise AssertionError(f"{name} {tag}: differs from plain")
+                del got
+                line[name] = _timings(
+                    lambda: kern(packed, *args, present=present), a.reps)
         for attr, fn in package_layout.items():
             setattr(LK, attr, fn)
         res[tag] = line
@@ -260,10 +258,10 @@ def main() -> int:
             dev.collect_cols((2, 1)), (*idx, *jr), present)
         del idx, jr
         torch.cuda.empty_cache()
-        LK._lib = libs["package"]
         for chain, build in cs._p3_step_chains():
-            for i, (kind, args, present) in enumerate(
-                    cs._p3_step_lookups(build, name)):
+            with LK.LIBRARY.use(sos["package"]):
+                lookups = cs._p3_step_lookups(build, name)
+            for i, (kind, args, present) in enumerate(lookups):
                 kind = kind[len("interp_"):]
                 gate = "" if present is None else f" present {bool(present)}"
                 run(f"{chain} call {i + 1} {kind} K={args[0].shape[0]} "

@@ -89,7 +89,6 @@ JSON line with the card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import glob
 import json
 import os
@@ -421,26 +420,26 @@ def main() -> int:
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(
             lambda kv: _build(a.phase, kv[0], *kv[1]), jobs.items())))
-    libs = {name: cw._bind(ctypes.CDLL(so)) for name, (so, _) in built.items()}
-    order = list(libs)
+    sos = {name: so for name, (so, _) in built.items()}
+    order = list(sos)
 
     res = {"registers": {n: rows for n, (_, rows) in built.items()},
            "timing_only": sorted(timing_only)}
     for chain, build in cs._p3_step_chains():
         for dtype in ("float32", "float64"):
-            cw._lib = libs["package"]
-            seen = cs._p3_step_rates_sed(build, dtype)
-            _, arrays, dt = seen[a.phase][0]
-            del seen
+            with cw.LIBRARY.use(sos["package"]):
+                seen = cs._p3_step_rates_sed(build, dtype)
+                _, arrays, dt = seen[a.phase][0]
+                del seen
 
-            def run():
-                return cw._launch(a.phase, False, arrays, dt)
-            want = run()
+                def run():
+                    return cw._launch(a.phase, False, arrays, dt)
+                want = run()
             line = {"equal": {}}
             for name in order:
-                cw._lib = libs[name]
-                got = run()
-                torch.cuda.synchronize()
+                with cw.LIBRARY.use(sos[name]):
+                    got = run()
+                    torch.cuda.synchronize()
                 line["equal"][name] = all(torch.equal(x, y)
                                           for x, y in zip(want, got))
                 if name not in timing_only and not line["equal"][name]:
@@ -449,9 +448,8 @@ def main() -> int:
                 del got
             times = {name: [] for name in order}
             for name in order + order[::-1]:
-                cw._lib = libs[name]
-                times[name].append(cs._time_ms(run, a.reps))
-            cw._lib = libs["package"]
+                with cw.LIBRARY.use(sos[name]):
+                    times[name].append(cs._time_ms(run, a.reps))
             line["ms"] = times
             res[f"{chain} {dtype}"] = line
             print(f"{chain} {dtype}", json.dumps(line), flush=True)

@@ -34,7 +34,6 @@ power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import re
@@ -135,7 +134,6 @@ def main() -> int:
     with ThreadPoolExecutor(len(srcs)) as pool:
         sos = dict(zip(srcs, pool.map(lambda kv: _build(kv[0], kv[1], flags),
                                       srcs.items())))
-    libs = {name: SED._bind(ctypes.CDLL(so)) for name, so in sos.items()}
 
     def count(dt, v, dz):
         return torch.clamp(torch.ceil(dt * v / (0.9 * dz.min())), min=1.0)
@@ -143,8 +141,8 @@ def main() -> int:
     res = {}
     for chain, build in cs._p3_step_chains():
         for dtype in ("float32", "float64"):
-            SED._lib = libs["package"]
-            seen = cs._p3_step_rates_sed(build, dtype)
+            with SED.LIBRARY.use(sos["package"]):
+                seen = cs._p3_step_rates_sed(build, dtype)
             args, kw = seen["sed_step"]
             fields, (rho, temp, dz, dt, dtab) = args[:8], args[8:13]
             del seen
@@ -157,20 +155,21 @@ def main() -> int:
                 return SED.sed_columns(*fields, rho, temp, dz, dt,
                                        count(dt, v, dz), dtab, rerun=one,
                                        **kw)
-            want = whole()
+            with SED.LIBRARY.use(sos["package"]):
+                want = whole()
             line = {}
-            for name, lib in libs.items():
-                SED._lib = lib
-                got = whole()
-                torch.cuda.synchronize()
-                if not all(torch.equal(x, y) for x, y in zip(want, got)):
-                    raise AssertionError(f"{name} {chain} {dtype}: differs "
-                                         "from the package's build")
-                del got
-                line[name] = {"sed_step": cs._time_ms(step, a.reps),
-                              "with_count_and_rerun": cs._time_ms(whole,
-                                                                  a.reps)}
-            SED._lib = libs["package"]
+            for name, so in sos.items():
+                with SED.LIBRARY.use(so):
+                    got = whole()
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y) for x, y in zip(want, got)):
+                        raise AssertionError(f"{name} {chain} {dtype}: "
+                                             "differs from the package's "
+                                             "build")
+                    del got
+                    line[name] = {"sed_step": cs._time_ms(step, a.reps),
+                                  "with_count_and_rerun": cs._time_ms(
+                                      whole, a.reps)}
             res[f"{chain} {dtype}"] = line
             print(f"{chain} {dtype}", json.dumps(line), flush=True)
             del args, kw, fields, rho, temp, dz, dtab, want

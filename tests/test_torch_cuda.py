@@ -327,7 +327,7 @@ def test_kessler_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         kessler_step(fields[0], fields[1].transpose(2, 3).contiguous()
                      .transpose(2, 3), *fields[2:], rs, *tail)
-    with pytest.raises(ValueError, match="temp"):
+    with pytest.raises(TypeError, match="temp"):
         kessler_step(fields[0], fields[1].double(), *fields[2:], rs, *tail)
     with pytest.raises(ValueError, match="rho_v"):
         kessler_step(*fields[:2], fields[2].cpu(), *fields[3:], rs, *tail)
@@ -515,7 +515,7 @@ def test_p3_lookup_rejects_bad_input(cuda_device):
     dev = load_p3_tables().to(cuda_device, torch.float32)
     idx, _, rs = _lookup_inputs(64, torch.float32, cuda_device, 1)
     table = dev.ice_cols((2,))
-    with pytest.raises(ValueError, match="int32"):
+    with pytest.raises(TypeError, match="int32"):
         LK.interp_ice(table, idx[0].long(), *idx[1:])
     with pytest.raises(ValueError, match="contiguous"):
         LK.interp_ice(table, idx[0], idx[1].reshape(8, 8).t(), *idx[2:])
@@ -804,11 +804,11 @@ def test_p3_cellwise_rejects_bad_input(cuda_device):
         CW.p3_rates_post(1.0, *[x] * 29)
     with pytest.raises(ValueError, match="contiguous"):
         CW.p3_rates_pre(*[x] * 9, x.transpose(2, 3))
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(TypeError, match="contiguous"):
         CW.p3_rates_post(1.0, *[x] * 29, x.double())
     with pytest.raises(ValueError, match="contiguous"):
         CW.p3_wrapper_out(*[x] * 11, x.transpose(2, 3))
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(TypeError, match="contiguous"):
         CW.p3_part3(*[x] * 13, x.double(), None)
 
 
@@ -1322,11 +1322,11 @@ def test_surrogate_kernel_rejects_bad_input(cuda_device):
         surrogate_forward(x, x, x, x, x.transpose(2, 3), params, widths)
     with pytest.raises(ValueError, match="of shape"):
         surrogate_forward(x, x, x, x, x[:1], params, widths)
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(TypeError, match="contiguous"):
         surrogate_forward(x, x, x, x.double(), x, params, widths)
     with pytest.raises(ValueError, match="contiguous"):
         surrogate_forward(x, x, x.cpu(), x, x, params, widths)
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(TypeError, match="contiguous"):
         surrogate_forward(x, x, x, x, x, params.double(), widths)
     with pytest.raises(TypeError):
         surrogate_forward(*(x.half(),) * 5, params.half(), widths)

@@ -32,6 +32,7 @@ from miniweatherml_tpu_torch.core.coupler import state_to_numpy
 from miniweatherml_tpu_torch.experiments import supercell_p3
 from miniweatherml_tpu_torch.experiments.community_benchmark import \
     run_benchmark
+from miniweatherml_tpu_torch.ops.exact_div import exact_div
 from miniweatherml_tpu_torch.physics import p3 as PP
 from miniweatherml_tpu_torch.physics import p3_cellwise_cuda as CW
 from miniweatherml_tpu_torch.physics.p3_tables import load_p3_tables
@@ -207,7 +208,7 @@ def _newton_model(rho, rho_d, rho_v, rho_c, temp):
     lv = PP.latent_heat_condensation(temp)
     rho_t = rho_d + rho_v + rho_c
     cp0 = (rho_d * PP.CP_D + rho_v * PP.CP_V + rho_c * PP.CP_L) / rho_t
-    dcp = PP._div(PP.CP_L - PP.CP_V, rho_t)
+    dcp = exact_div(PP.CP_L - PP.CP_V, rho_t)
     cp_lo = cp0 - rho_c * dcp
     t_lo = temp - rho_c * lv / (rho * cp_lo)
     boundary = evaporating & ((rho_v + rho_c) * PP.R_V * t_lo

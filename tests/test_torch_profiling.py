@@ -242,6 +242,18 @@ def test_sub_step_counters_equal_the_plain_paths(chain, monkeypatch):
 
 # -- the surrogate's launches by kernel form ------------------------------------------
 
+class _Entry:
+    """An entry point of a stand-in library: a Python callable that, like
+    a ctypes function, takes the argument and result types declared on
+    it."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
 class _StandInLibrary:
     """The surrogate's CUDA library as ``_launch`` calls it, on host memory:
     each call writes the plain forward's outputs through the pointers it is
@@ -250,12 +262,17 @@ class _StandInLibrary:
 
     def __init__(self):
         self.forms = []
+        self.surrogate_scratch = _Entry(lambda nlayers, wid, item: 0)
+        self.surrogate_forward_f64 = _Entry(self._forward)
 
-    def surrogate_scratch(self, nlayers, wid, item):
-        return 0
+    def __getattr__(self, name):
+        # the entries the chain never calls fail the test if it does
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return _Entry(lambda *args: pytest.fail(f"{name} called"))
 
-    def surrogate_forward_f64(self, ptrs, optrs, params, nparams, nlayers,
-                              wid, n, form, scratch, nscratch, stream):
+    def _forward(self, ptrs, optrs, params, nparams, nlayers, wid, n, form,
+                 scratch, nscratch, stream):
         def view(ptr, count):
             return torch.from_numpy(np.ctypeslib.as_array(
                 (ctypes.c_double * count).from_address(ptr)))
@@ -269,13 +286,16 @@ class _StandInLibrary:
         return 0
 
 
+@contextlib.contextmanager
 def _stand_in(monkeypatch):
+    """The surrogate's wrapper on a ``_StandInLibrary`` inside the block,
+    with CPU tensors taken for CUDA ones."""
     lib = _StandInLibrary()
-    monkeypatch.setattr(KSC, "_library", lambda: lib)
     monkeypatch.setattr(KSC, "on_cuda", lambda t: True)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: SimpleNamespace(cuda_stream=0))
-    return lib
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
+    with KSC.LIBRARY.use(lib):
+        yield lib
 
 
 @pytest.mark.parametrize("profiled", [False, True])
@@ -292,9 +312,9 @@ def test_the_fixed_form_counts_once_a_step_on_the_online_chain(
     for _ in range(2):
         for m in mods:
             plain = m(plain, dt)
-    lib = _stand_in(monkeypatch)
     PR.reset()
-    with _profile() if profiled else contextlib.nullcontext():
+    with _stand_in(monkeypatch) as lib, \
+            _profile() if profiled else contextlib.nullcontext():
         for _ in range(2):
             for m in mods:
                 state = m(state, dt)
@@ -323,9 +343,8 @@ def test_a_model_of_other_widths_counts_the_general_form(monkeypatch):
           torch.rand(b, generator=g) * 0.2 - 0.1)
          for a, b in ((5, 17), (17, 4))])
     micro._cast = None
-    lib = _stand_in(monkeypatch)
     PR.reset()
-    with _profile():
+    with _stand_in(monkeypatch) as lib, _profile():
         mods[1](state, dt)
     counters = PR.read()["counters"]
     assert lib.forms == [KSC._FORMS["general"]]

@@ -402,27 +402,6 @@ def test_fast_weights_changes_nothing_on_the_cpu_in_f64_or_under_xla(
     assert xla.limiter_form() == {"opt": False, "fast_weights": False}
 
 
-@pytest.mark.parametrize("algebra", ["ref", "opt", "fast"])
-def test_library_binding_declares_every_entry(algebra):
-    """The wrapper's ctypes binding (no card needed: a stand-in library)
-    declares each entry function of the algebra's library and the
-    library's table copy and error functions, by the library's name."""
-    import types
-
-    from miniweatherml_tpu_torch.ops import direction_fluxes as DF
-    name, _, entries = DF._LIBRARIES[algebra]
-    symbols = [*entries.values(), f"{name}_set_coef",
-               f"{name}_error_string"]
-    lib = types.SimpleNamespace(**{k: types.SimpleNamespace()
-                                   for k in symbols})
-    assert DF._bind(lib, name, entries.values()) is lib
-    for k in symbols:
-        fn = getattr(lib, k)
-        assert fn.restype is not None and fn.argtypes, k
-    # the 35 parameters of csrc/direction_fluxes.cuh's entry functions
-    assert len(getattr(lib, entries[torch.float32]).argtypes) == 35
-
-
 # chip_smoke.py's bar of the fast form (approximate reciprocals) against
 # its exact plain version, run here on the plain opt flux of the f32
 # supercell: a one-ulp change of the reciprocals that is not one of the
